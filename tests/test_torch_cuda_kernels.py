@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips (inside its fixture) where
+``torch.cuda.is_available()`` is False. Run them on a machine with a card:
+
+    python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
+
+(``--noconftest`` keeps the JAX-only ``tests/conftest.py`` out of a run on a
+machine without JAX.)
+
+Tolerances: both sides round the dequantized weights to bf16 at the same
+points with the same IEEE operations, so the matmuls differ only in the
+order of their f32 sums (bounded by 1e-4 of the output's scale). Flash
+attention's online softmax and the plain one-shot softmax differ in f32
+rounding before the final bf16 cast: at most two bf16 ulps of the output's
+scale (2 * 2^-8 relative).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from llama_gguf_inference_tpu_torch.gguf.constants import GGMLType
+from llama_gguf_inference_tpu_torch.ops import _build
+from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+from llama_gguf_inference_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_plain)
+from llama_gguf_inference_tpu_torch.quant.numpy_ref import quantize
+from llama_gguf_inference_tpu_torch.quant.repack import repack, to_quant_linear
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _weight(gtype, out_f, in_f, seed, device):
+    x = np.random.default_rng(seed).normal(size=(out_f, in_f)).astype(np.float32)
+    return to_quant_linear(repack(quantize(x, gtype), gtype, out_f, in_f), device)
+
+
+def _close(got, want, rel):
+    scale = want.abs().max().item() + 1e-6
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * scale, f"max abs err {err} > {rel} * {scale}"
+
+
+@pytest.mark.parametrize("B", [1, 4, 9, 40])
+@pytest.mark.parametrize("out_f,in_f", [(256, 512), (132, 1024)])
+def test_quant_matmul_4bit_kernel(dev, B, out_f, in_f):
+    w = _weight(GGMLType.Q4_K, out_f, in_f, B, dev)
+    x = torch.randn(B, in_f, generator=torch.Generator().manual_seed(B)).to(dev)
+    x2 = w.permute_activations(x).contiguous()
+    s, m = qm._hier_scales(w)
+    args = (x2.bfloat16(), qm._block_sums(x2, w.sub_size), w.codes, s, m)
+    before = _build.LAUNCHES.get(qm.NAME_4BIT, 0)
+    got = qm.quant_matmul_4bit(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[qm.NAME_4BIT] == before + 1
+    _close(got, qm.quant_matmul_4bit_plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 3, 17])
+@pytest.mark.parametrize("gtype", [GGMLType.Q6_K, GGMLType.Q8_0],
+                         ids=lambda t: t.name)
+def test_quant_matmul_8bit_kernel(dev, B, gtype):
+    w = _weight(gtype, 260, 512, B, dev)
+    x = torch.randn(B, 512, generator=torch.Generator().manual_seed(B)).to(dev)
+    x2 = w.permute_activations(x).contiguous().bfloat16()
+    args = (x2, w.codes, w.d, w.sc, w.sub_size, w.code_bias)
+    got = qm.quant_matmul_8bit(*args)
+    torch.cuda.synchronize()
+    _close(got, qm.quant_matmul_8bit_plain(*args), 1e-4)
+
+
+def test_quant_matmul_rejects_bad_input(dev):
+    w = _weight(GGMLType.Q4_K, 128, 256, 0, dev)
+    s, m = qm._hier_scales(w)
+    x = torch.zeros(2, 256, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        qm.quant_matmul_4bit(x, torch.zeros(2, 8, device=dev), w.codes, s, m)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("T,group", [(1, 4), (7, 1), (33, 4)])
+def test_flash_attention_kernel(dev, D, T, group):
+    g = torch.Generator().manual_seed(D + T)
+    B, KVH, S = 3, 2, 300
+    q = torch.randn(B, T, KVH * group, D, generator=g).bfloat16().to(dev)
+    k = torch.randn(B, KVH, S, D, generator=g).bfloat16().to(dev)
+    v = torch.randn(B, KVH, S, D, generator=g).bfloat16().to(dev)
+    offsets = torch.tensor([0, 150, S - T], dtype=torch.int32, device=dev)
+    got = flash_attention(q, k, v, offsets)
+    torch.cuda.synchronize()
+    _close(got, flash_attention_plain(q, k, v, offsets), 2 * 2 ** -8)
+
+
+def test_flash_attention_rejects_head_dim(dev):
+    q = torch.zeros(1, 1, 2, 96, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(1, 2, 128, 96, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, k, torch.zeros(1, dtype=torch.int32, device=dev))
