@@ -2,8 +2,9 @@
 
 One function handles prefill (T = chunk) and decode (T = 1). Weights are
 ``LinearWeight`` containers (dense or quantized-resident), norms are f32
-tensors, the KV cache is one preallocated (B, KVH, S, D) bf16 buffer per
-layer written in place at per-sequence offsets. RoPE follows the GGUF "norm"
+tensors, the KV cache is preallocated per layer and written in place at
+per-sequence offsets: (B, KVH, S, D) bf16 here, quantized in
+``runtime/kv_cache.py``, paged in ``runtime/paged_kv.py``. RoPE follows the GGUF "norm"
 convention (interleaved pairs), which llama files are converted for.
 
 Layouts, rounding points and masking follow the JAX package's
@@ -29,7 +30,13 @@ Params = dict[str, Any]  # layer i under params["layers"][i]
 @dataclasses.dataclass
 class KVCache:
     """Per-layer buffers: k, v are L-lists of (B, KVH, S_max, head_dim),
-    the flash kernel's layout. Written in place."""
+    the flash kernel's layout. Written in place.
+
+    Every cache kind (this one, ``runtime.kv_cache``'s quantized ones and
+    ``runtime.paged_kv``'s paged ones) offers the same four methods:
+    ``write_index`` (where a chunk's rows land), ``write`` (store a layer's
+    new K/V there), ``attend`` (its attention kernel) and ``slot`` (the view
+    of one sequence that prefill writes through)."""
 
     k: list
     v: list
@@ -52,6 +59,16 @@ class KVCache:
         """Views of sequence b's rows (writes land in this cache)."""
         return KVCache(k=[a[b:b + 1] for a in self.k],
                        v=[a[b:b + 1] for a in self.v])
+
+    def write_index(self, offsets: torch.Tensor, T: int):
+        return _write_index(offsets, T, self.max_seq)
+
+    def write(self, layer: int, k: torch.Tensor, v: torch.Tensor, idx) -> None:
+        _write_kv(self.k[layer], k, idx)
+        _write_kv(self.v[layer], v, idx)
+
+    def attend(self, layer: int, q: torch.Tensor, offsets: torch.Tensor):
+        return fa.flash_attention(q, self.k[layer], self.v[layer], offsets)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -105,7 +122,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _write_index(offsets: torch.Tensor, T: int, S: int):
-    """(b, t, s) index vectors of the chunk rows that land inside the cache.
+    """(b, t, row, s) index vectors of the chunk rows that land inside the
+    cache: chunk row (b, t) goes to cache row b, slot s.
 
     Rows at s >= S are dropped. They can only be padding: callers keep each
     sequence's real tokens within S. The JAX package's dynamic-update-slice
@@ -114,19 +132,22 @@ def _write_index(offsets: torch.Tensor, T: int, S: int):
     """
     pos = offsets.long()[:, None] + torch.arange(T, device=offsets.device)[None, :]
     bi, ti = torch.nonzero(pos < S, as_tuple=True)
-    return bi, ti, pos[bi, ti]
+    return bi, ti, bi, pos[bi, ti]
 
 
 def _write_kv(cache: torch.Tensor, new: torch.Tensor, idx) -> None:
-    """cache (B, H, S, D) <- new (B, T, H, D) in place at the rows of idx."""
-    bi, ti, si = idx
-    cache[bi, :, si] = new[bi, ti].to(cache.dtype)
+    """cache (rows, H, S, ...) <- new (B, T, H, ...) in place: chunk row
+    (b, t) of idx lands at (row, :, s)."""
+    bi, ti, row, si = idx
+    cache[row, :, si] = new[bi, ti].to(cache.dtype)
 
 
 def attention(layer: Params, cfg: ModelConfig, x: torch.Tensor,
-              cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
+              cos: torch.Tensor, sin: torch.Tensor, cache,
               layer_idx: int, offsets: torch.Tensor, write_idx) -> torch.Tensor:
-    """x: (B, T, D) -> (B, T, D); writes this chunk's K/V into the cache."""
+    """x: (B, T, D) -> (B, T, D); writes this chunk's K/V into the cache
+    (quantizing it for a quantized cache) and runs the cache's attention
+    kernel, as the JAX package dispatches on the cache type."""
     B, T, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if "attn_qkv" in layer:
@@ -139,10 +160,8 @@ def attention(layer: Params, cfg: ModelConfig, x: torch.Tensor,
     q = apply_rope(q.reshape(B, T, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, T, KVH, hd), cos, sin)
     v = v.reshape(B, T, KVH, hd)
-    _write_kv(cache.k[layer_idx], k, write_idx)
-    _write_kv(cache.v[layer_idx], v, write_idx)
-    ctx = fa.flash_attention(q.contiguous(), cache.k[layer_idx],
-                             cache.v[layer_idx], offsets)
+    cache.write(layer_idx, k, v, write_idx)
+    ctx = cache.attend(layer_idx, q.contiguous(), offsets)
     return matmul(layer["attn_output"], ctx.reshape(B, T, H * hd).to(x.dtype))
 
 
@@ -157,7 +176,7 @@ def ffn_swiglu(layer: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
-            offsets: torch.Tensor, cache: KVCache,
+            offsets: torch.Tensor, cache,
             logits_at: torch.Tensor | None = None,
             return_hidden: bool = False):
     """One model step over a (B, T) token chunk.
@@ -165,7 +184,8 @@ def forward(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
     Args:
       token_ids: (B, T) int — right-padded chunk
       offsets: (B,) int32 — tokens already in each sequence's cache
-      cache: KVCache, written in place
+      cache: any cache kind (:class:`KVCache`, ``runtime.kv_cache``,
+        ``runtime.paged_kv``), written in place
       logits_at: optional (B,) chunk row per sequence; the head then runs on
         that row only and logits are (B, 1, vocab) (the engine reads one row
         per prefill chunk, so the others are never computed)
@@ -180,7 +200,7 @@ def forward(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
     positions = offsets.long()[:, None] + torch.arange(
         T, device=token_ids.device)[None, :]
     cos, sin = rope_angles(positions, cfg.rope_dim, cfg.rope_base, cfg)
-    write_idx = _write_index(offsets, T, cache.max_seq)
+    write_idx = cache.write_index(offsets, T)
 
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)

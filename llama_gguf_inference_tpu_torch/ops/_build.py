@@ -109,9 +109,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                                               i, i, i, i, i, i, p]
         lib.lgt_quant_matmul_8bit.restype = i
     elif name == "flash_attention":
-        lib.lgt_flash_attention.argtypes = [p, p, p, p, p,
-                                            i, i, i, i, i, i, f, p]
-        lib.lgt_flash_attention.restype = i
+        # pointers: q, the cache tensors, offsets (and the page table), out;
+        # then B, T, H, KVH, S (or NP, page_s), D, the scale and the stream
+        contig = [i, i, i, i, i, i, f, p]
+        paged = [i, i, i, i, i, i, i, f, p]
+        for fn, n_ptr, ints in (("lgt_flash_attention", 5, contig),
+                                ("lgt_flash_attention_q8", 7, contig),
+                                ("lgt_flash_attention_q4", 7, contig),
+                                ("lgt_flash_attention_q41", 9, contig),
+                                ("lgt_flash_attention_paged", 6, paged),
+                                ("lgt_flash_attention_paged_q8", 8, paged)):
+            getattr(lib, fn).argtypes = [p] * n_ptr + ints
+            getattr(lib, fn).restype = i
     return lib
 
 

@@ -14,6 +14,12 @@ caller converted every array to numpy:
 - lists (``layers``) and other dicts recurse.
 
 bf16 arrays (numpy's ``bfloat16`` extension dtype) keep their bits exactly.
+
+``cache_from_numpy(fields, device)`` builds the port's KV cache from a
+cache's fields given as numpy arrays (an L-list per per-layer field, one
+array for ``page_table``), e.g. a JAX ``KVCache``, ``QuantKV``,
+``QuantKV4``, ``QuantKV41``, ``PagedKV`` or ``PagedQuantKV`` after
+``_asdict()`` and ``numpy.asarray`` of every array.
 """
 
 from __future__ import annotations
@@ -24,7 +30,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.llama import KVCache
 from ..ops.linear import DenseLinear, QuantEmbedding, QuantLinear
+from .kv_cache import QuantKV, QuantKV4, QuantKV41
+from .paged_kv import PagedKV, PagedQuantKV
 
 _STATIC = ("fmt", "bits", "sub_size", "d_size", "code_bias", "min_size",
            "out_features", "in_features")
@@ -62,3 +71,20 @@ def params_from_numpy(tree: Any, device: str | torch.device = "cuda") -> Any:
         return {k: conv(v) for k, v in node.items()}
 
     return conv(tree)
+
+
+def cache_from_numpy(fields: dict, device: str | torch.device = "cuda"):
+    """The cache kind follows the field names (and, for 4-bit against 8-bit
+    codes, the code dtype)."""
+    dev = resolve_device(device)
+    names = set(fields)
+    if "page_table" in names:
+        cls = PagedQuantKV if "k_q" in names else PagedKV
+    elif "k_m" in names:
+        cls = QuantKV41
+    elif "k_q" in names:
+        cls = QuantKV if np.asarray(fields["k_q"][0]).dtype == np.int8 else QuantKV4
+    else:
+        cls = KVCache
+    return cls(**{k: (_tensor(v, dev) if k == "page_table" else [_tensor(a, dev) for a in v])
+                  for k, v in fields.items()})

@@ -10,6 +10,11 @@
   detokenization run on the host
 - the engine is transport-agnostic: the server talks to it through
   ``submit()`` and per-request thread-safe event queues
+- the KV cache is bf16, q8_0, q4_0 or q4_1 (``kv_dtype``), contiguous
+  (each slot owns ``ctx`` tokens) or paged (``kv_layout="paged"``: slots
+  share a pool of ``max_slots * ctx`` tokens; a request reserves the pages
+  for its prompt and ``max_tokens`` at admission and waits at the head of
+  the line while the pool is short)
 
 Not yet here (the JAX engine has them): multi-step decode, pipelined
 dispatch, the slot prefix cache, speculation, slot save/restore, context
@@ -29,7 +34,9 @@ import torch
 
 from ..device import resolve_device
 from ..models.llama import KVCache, forward
+from .kv_cache import QuantKV, QuantKV4, QuantKV41
 from .loader import load_model
+from .paged_kv import PageAllocator, PagedKV, PagedQuantKV
 from .sampler import SamplingParams, sample, unsupported
 from .tokenizer import Tokenizer, from_gguf_metadata
 
@@ -37,12 +44,32 @@ from .tokenizer import Tokenizer, from_gguf_metadata
 # prefill chunk lengths: a prompt runs in chunks of at most the largest,
 # each padded to the smallest bucket that holds it
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512)
+CONTIG_CACHES = {"bf16": KVCache, "q8_0": QuantKV, "q4_0": QuantKV4, "q4_1": QuantKV41}
 
 
 @dataclasses.dataclass
 class EngineConfig:
     max_slots: int = 4
     ctx: int = 2048                    # per-slot KV capacity
+    kv_dtype: str = "bf16"             # "bf16" | "q8_0" | "q4_0" | "q4_1"
+    # "contig": each slot owns a fixed ctx-token region. "paged": slots
+    # share a pool of max_slots * ctx tokens through per-slot page tables,
+    # so one request can hold far more than ctx while others are idle
+    # (llama.cpp's unified KV)
+    kv_layout: str = "contig"
+    kv_page_size: int = 1024           # paged: tokens per physical page
+
+
+def make_kv_cache(cfg, ecfg: EngineConfig, device):
+    """The KV cache ``ecfg`` asks for, and its page allocator (None unless
+    paged). A paged pool holds ``max_slots * ctx`` tokens, contig's memory."""
+    B, S = ecfg.max_slots, ecfg.ctx
+    if ecfg.kv_layout != "paged":
+        return CONTIG_CACHES[ecfg.kv_dtype].zeros(cfg, B, S, device), None
+    pool_pages = max(1, (B * S) // ecfg.kv_page_size)
+    cls = PagedQuantKV if ecfg.kv_dtype == "q8_0" else PagedKV
+    return (cls.zeros(cfg, B, pool_pages, ecfg.kv_page_size, device),
+            PageAllocator(pool_pages, B))
 
 
 @dataclasses.dataclass
@@ -91,7 +118,16 @@ class InferenceEngine:
     def __init__(self, model_path: str, engine_cfg: EngineConfig | None = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        self.ecfg = engine_cfg or EngineConfig()
+        self.ecfg = ecfg = engine_cfg or EngineConfig()
+        if ecfg.kv_layout not in ("contig", "paged"):
+            raise ValueError(f"unknown kv_layout {ecfg.kv_layout!r} "
+                             "(expected 'contig' or 'paged')")
+        if ecfg.kv_dtype not in CONTIG_CACHES:
+            raise ValueError(f"unknown kv_dtype {ecfg.kv_dtype!r} "
+                             f"(expected one of {sorted(CONTIG_CACHES)})")
+        if ecfg.kv_layout == "paged" and ecfg.kv_dtype in ("q4_0", "q4_1"):
+            raise ValueError("kv_layout='paged' supports bf16 and q8_0 "
+                             "KV (4-bit paged pools are not built)")
         cfg, params, reader = load_model(model_path, self.device, fuse=True)
         self.cfg = cfg
         self.params = params
@@ -99,10 +135,10 @@ class InferenceEngine:
         self.tokenizer: Tokenizer = from_gguf_metadata(reader.metadata)
         self.model_name = str(self.metadata.get("general.name", "model"))
         reader.close()
-        B, S = self.ecfg.max_slots, self.ecfg.ctx
-        self.cache = KVCache.zeros(cfg, B, S, self.device)
-        self.slots = [_Slot() for _ in range(B)]
+        self.cache, self.alloc = make_kv_cache(cfg, ecfg, self.device)
+        self.slots = [_Slot() for _ in range(ecfg.max_slots)]
         self._queue: "queue.Queue[tuple[str, list[int], SamplingParams, queue.Queue]]" = queue.Queue()
+        self._waiting: list = []          # paged: the head of the line, short of pages
         self._cancelled: set[str] = set()
         self._stop_evt = threading.Event()
         self._wake = threading.Event()    # set by submit()
@@ -118,7 +154,7 @@ class InferenceEngine:
             raise ValueError(f"not supported yet: {', '.join(bad)}")
         rid = request_id or uuid.uuid4().hex[:16]
         ids = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
-        ids = ids[: self.ecfg.ctx - 1]
+        ids = ids[: self.cache.max_seq - 1]
         out: "queue.Queue[GenEvent]" = queue.Queue()
         self._queue.put((rid, ids, params, out))
         self._wake.set()
@@ -177,6 +213,9 @@ class InferenceEngine:
                                       n_prompt=len(slot.prompt_ids),
                                       n_generated=len(slot.generated)))
                 self._release(b)
+        for item in self._waiting:
+            item[3].put(GenEvent(finished=True, finish_reason="error"))
+        self._waiting = []
         while True:
             try:
                 _, _, _, out = self._queue.get_nowait()
@@ -201,6 +240,13 @@ class InferenceEngine:
                                       n_prompt=len(slot.prompt_ids),
                                       n_generated=len(slot.generated)))
                 self._release(b)
+        keep = []
+        for item in self._waiting:
+            if item[0] in cancelled:
+                item[3].put(GenEvent(finished=True, finish_reason="stop"))
+            else:
+                keep.append(item)
+        self._waiting = keep
         pending = []
         while True:
             try:
@@ -215,15 +261,44 @@ class InferenceEngine:
             self._queue.put(item)
 
     # -- admission + prefill -------------------------------------------------
+    def _slot_cap(self, b: int) -> int:
+        """Tokens slot b may hold: its page reservation (paged) or the
+        static per-slot region (contig)."""
+        if self.alloc is not None:
+            return len(self.alloc.owned[b]) * self.ecfg.kv_page_size
+        return self.ecfg.ctx
+
+    def _push_table(self) -> None:
+        """Mirror the host allocator's page table to the device cache."""
+        self.cache.page_table.copy_(torch.from_numpy(self.alloc.table))
+
+    def _next_request(self):
+        if self._waiting:
+            return self._waiting.pop(0)
+        try:
+            return self._queue.get_nowait()
+        except queue.Empty:
+            return None
+
     def _admit(self) -> bool:
         did = False
         for b, slot in enumerate(self.slots):
             if slot.state != "free":
                 continue
-            try:
-                rid, ids, params, out = self._queue.get_nowait()
-            except queue.Empty:
+            item = self._next_request()
+            if item is None:
                 break
+            rid, ids, params, out = item
+            if self.alloc is not None:
+                # reserve the whole lifetime up front (prompt + max_tokens),
+                # so decode never allocates mid-flight
+                need = -(-(len(ids) + params.max_tokens + 1) // self.ecfg.kv_page_size)
+                if not self.alloc.reserve(b, min(need, self.alloc.table.shape[1])):
+                    # pool short: hold at the head of the line until a
+                    # running request frees its pages
+                    self._waiting.insert(0, item)
+                    break
+                self._push_table()
             slot.state = "active"
             slot.request_id = rid
             slot.prompt_ids = ids
@@ -302,7 +377,7 @@ class InferenceEngine:
             finish = "stop"
         elif n_gen >= slot.params.max_tokens:
             finish = "length"
-        elif slot.offset + 1 >= self.ecfg.ctx:
+        elif slot.offset + 1 >= self._slot_cap(b):
             finish = "length"
 
         # UTF-8 boundary holdback: byte-fallback tokens can carry partial
@@ -364,3 +439,6 @@ class InferenceEngine:
         slot.request_id = ""
         slot.offset = 0
         slot.generator = None
+        if self.alloc is not None:
+            self.alloc.release(b)
+            self._push_table()

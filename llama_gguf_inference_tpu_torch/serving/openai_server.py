@@ -322,17 +322,29 @@ class OpenAIServer:
 
 def build_engine_from_env(device: str = "cuda"):
     """The engine the environment names: ``MODEL_PATH``, ``MAX_SLOTS``,
-    ``CTX`` (total, split over slots) or ``CTX_PER_SLOT``."""
+    ``CTX`` (total, split over slots) or ``CTX_PER_SLOT``, and the KV cache:
+    ``KV_CACHE_TYPE`` (bf16, q8_0, q4_0, q4_1; q5_0/q5_1 run as q8_0),
+    ``KV_LAYOUT`` (contig or paged) and ``KV_PAGE_SIZE`` (tokens per page)."""
     from ..runtime.engine import EngineConfig, InferenceEngine
 
     model_path = os.environ.get("MODEL_PATH", "")
     if not model_path:
         raise ValueError("MODEL_PATH is required")
+    kv = os.environ.get("KV_CACHE_TYPE", "bf16").lower()
+    if kv in ("q5_0", "q5_1"):
+        # llama-server accepts 5-bit cache types; honour them at the next
+        # precision up rather than failing the boot
+        print(f"[backend] KV_CACHE_TYPE={kv} has no 5-bit layout; "
+              "using q8_0 (use q4_1 for a smaller cache)", flush=True)
+        kv = "q8_0"
     max_slots = int(os.environ.get("MAX_SLOTS", 4))
     ctx = ctx_per_slot(int(os.environ.get("CTX", 16384)), max_slots,
                        int(os.environ.get("CTX_PER_SLOT", 0)))
-    return InferenceEngine(model_path, EngineConfig(max_slots=max_slots, ctx=ctx),
-                           device=device)
+    return InferenceEngine(model_path, EngineConfig(
+        max_slots=max_slots, ctx=ctx,
+        kv_dtype=kv if kv in ("q8_0", "q4_0", "q4_1") else "bf16",
+        kv_layout=os.environ.get("KV_LAYOUT", "contig").lower(),
+        kv_page_size=int(os.environ.get("KV_PAGE_SIZE", 1024))), device=device)
 
 
 def main() -> None:

@@ -13,7 +13,9 @@ points with the same IEEE operations, so the matmuls differ only in the
 order of their f32 sums (bounded by 1e-4 of the output's scale). Flash
 attention's online softmax and the plain one-shot softmax differ in f32
 rounding before the final bf16 cast: at most two bf16 ulps of the output's
-scale (2 * 2^-8 relative).
+scale (2 * 2^-8 relative). That holds for every cache kind: the kernels
+fold scales and minimums in after the dots, the plain versions before, and
+both in f32.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ import torch
 
 from llama_gguf_inference_tpu_torch.gguf.constants import GGMLType
 from llama_gguf_inference_tpu_torch.ops import _build
+from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
 from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
 from llama_gguf_inference_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_plain)
@@ -100,6 +103,73 @@ def test_flash_attention_kernel(dev, D, T, group):
     got = flash_attention(q, k, v, offsets)
     torch.cuda.synchronize()
     _close(got, flash_attention_plain(q, k, v, offsets), 2 * 2 ** -8)
+
+
+def _codes(kind, shape, g):
+    """Random cache codes of one kind: (codes, scales, minimums or None)."""
+    B, KVH, S, D = shape
+    s = torch.rand(B, KVH, S, generator=g) * 0.05 + 1e-3
+    if kind == "q8":
+        c = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        return c, s, None
+    c = torch.randint(0, 256, (B, KVH, S, D // 2), generator=g, dtype=torch.uint8)
+    m = -torch.rand(B, KVH, S, generator=g) * 0.4 if kind == "q41" else None
+    return c, s, m
+
+
+QUANT = {"q8": (fa.flash_attention_q8, fa.flash_attention_q8_plain),
+         "q4": (fa.flash_attention_q4, fa.flash_attention_q4_plain),
+         "q41": (fa.flash_attention_q41, fa.flash_attention_q41_plain)}
+
+
+@pytest.mark.parametrize("kind", sorted(QUANT))
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("T,group", [(1, 4), (7, 1), (33, 4)])
+def test_flash_attention_quant_kernel(dev, kind, D, T, group):
+    g = torch.Generator().manual_seed(D + T)
+    B, KVH, S = 3, 2, 300
+    q = torch.randn(B, T, KVH * group, D, generator=g).bfloat16()
+    kc, ks, km = _codes(kind, (B, KVH, S, D), g)
+    vc, vs, vm = _codes(kind, (B, KVH, S, D), g)
+    args = [q, kc, ks, vc, vs] if km is None else [q, kc, ks, km, vc, vs, vm]
+    args = [a.to(dev) for a in args] + [
+        torch.tensor([0, 150, S - T], dtype=torch.int32, device=dev)]
+    kernel, plain = QUANT[kind]
+    before = _build.LAUNCHES.get("flash_attention_" + kind, 0)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_" + kind] == before + 1
+    _close(got, plain(*args), 2 * 2 ** -8)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T,page_s", [(1, 64), (1, 100), (20, 48)])
+def test_flash_attention_paged_kernel(dev, quant, D, T, page_s):
+    """Shuffled pool pages, a tile straddling page boundaries, and an idle
+    slot whose table row is all -1 (it reads page 0, never out of bounds)."""
+    g = torch.Generator().manual_seed(D + T + page_s)
+    B, KVH, H, NP = 3, 2, 8, 6
+    P = B * NP
+    q = torch.randn(B, T, H, D, generator=g).bfloat16()
+    table = torch.randperm(P, generator=g).reshape(B, NP).int()
+    table[1, 4:] = -1                       # slot 1 reserved 4 pages
+    table[2] = -1                           # slot 2 idle
+    offsets = torch.tensor([NP * page_s - T, 4 * page_s - T - 3, 0], dtype=torch.int32)
+    if quant:
+        kc, ks, _ = _codes("q8", (P, KVH, page_s, D), g)
+        vc, vs, _ = _codes("q8", (P, KVH, page_s, D), g)
+        args = [q, kc, ks, vc, vs, offsets, table]
+        kernel, plain = fa.flash_attention_paged_q8, fa.flash_attention_paged_q8_plain
+    else:
+        k = torch.randn(P, KVH, page_s, D, generator=g).bfloat16()
+        v = torch.randn(P, KVH, page_s, D, generator=g).bfloat16()
+        args = [q, k, v, offsets, table]
+        kernel, plain = fa.flash_attention_paged, fa.flash_attention_paged_plain
+    args = [a.to(dev) for a in args]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    _close(got, plain(*args), 2 * 2 ** -8)
 
 
 def test_flash_attention_rejects_head_dim(dev):
