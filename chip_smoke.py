@@ -7,8 +7,13 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 1. device   — require a card; print its name and power limit (nvidia-smi)
 2. build    — compile the CUDA kernels from ``csrc/`` (one nvcc per source)
 3. kernels  — each kernel against its plain PyTorch version at the 8B
-              shapes: 4-bit matmul at the four projection shapes for 1, 4 and
-              512 rows; 8-bit matmul at the Q6_K head for 1 and 4 rows; flash
+              shapes: 4-bit matmul (flat Q4_K) at the four projection shapes
+              for 1, 4 and 512 rows, and with Q3_K's geometry (sub-blocks of
+              16, code bias 4) at o and down and Q4_K in the compact and
+              mixed scale layouts at gate_up; 2-bit matmul (Q2_K) at the four
+              projection shapes for 1, 4 and 512 rows in the flat and mixed
+              layouts and for 4 rows in compact; 8-bit matmul at the Q6_K
+              head for 1 and 4 rows; flash
               attention over each cache kind (bf16, q8_0, q4_0, q4_1, paged
               bf16, paged q8_0) at decode (T=1, B=4, offsets up to 1000) and
               prefill (T=512, B=1); the paged ones through shuffled pages of
@@ -36,13 +41,19 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               (``build_engine_from_env``: q8_0 paged KV, 4 pages of 1024): a
               1,500-token prompt, longer than a slot's contiguous share, with
               three short ones; the pool cannot hold all four, so one waits
-8. the ``{"kernels": [...]}`` line, the card line, and the final
+8. q2k      — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
+              projections, Q6_K head; ``cached_model(quant="q2_k")``) loaded
+              under ``LGT_SCALE_LAYOUT=mixed``, its resident weight bytes
+              printed; a prefill and 16 greedy steps through the kernels
+              held against the plain versions fed the same tokens, then the
+              port's OpenAI server over it as in the serve phase
+9. the ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
 (each kv-forward kernel run and engine run, the serve phase, the
-serve-paged phase) and read just after; comparison runs fall outside those
-windows.
+serve-paged phase, the q2k phase's kernel run and its serve) and read just
+after; comparison runs fall outside those windows.
 
 The breakdown of a decode step and a prefill chunk by kernel is
 ``python -m llama_gguf_inference_tpu_torch.tools.profile``.
@@ -70,6 +81,7 @@ FLASH_TOL = 2 * 2 ** -8        # two bf16 ulps of the output scale
 LOGITS_TOL = 0.05              # 8B forward: kernel vs plain, of max |logit|
 SHAPES_4BIT = {"qkv": (6144, 4096), "o": (4096, 4096),
                "gate_up": (28672, 4096), "down": (4096, 14336)}
+SHAPES_2BIT = SHAPES_4BIT      # the same projections, all Q2_K in the Q2_K model
 HEAD = (128256, 4096)
 PAGE_S = 256                   # kernels and kv-forward phases' paged caches
 KV_KINDS = {                   # cache kind: (kv_dtype, kv_layout, its attention kernel)
@@ -178,7 +190,7 @@ def phase_kernels(torch, timer):
         for B in (1, 4, 512):
             x = rand(B, in_f).bfloat16()
             xsum = qm._block_sums(x, 32)
-            args = (x, xsum, codes, d, m)
+            args = (x, xsum, codes, d, None, m, None, 0)
             got = qm.quant_matmul_4bit(*args)
             want = qm.quant_matmul_4bit_plain(*args)
             err, rel = _err(got, want, MATMUL_TOL)
@@ -222,7 +234,87 @@ def phase_kernels(torch, timer):
         emit({"phase": "kernels", **rows[-1]})
     del w_lib, codes, sc
 
+    rows += _lowbit_rows(torch, qm, g, timer)
     rows += _attention_rows(torch, F, fa, rand, g, timer)
+    return rows
+
+
+def _lowbit_weight(torch, g, bits, out_f, in_f, sub, bias, layout, has_min, signed_sc):
+    """A random 2- or 4-bit QuantLinear in one scale layout: flat (f32 per
+    sub-block), compact (f32 per 256 times an 8-bit factor per sub-block)
+    or mixed (the scale flat, the min side compact)."""
+    from llama_gguf_inference_tpu_torch.ops.linear import QuantLinear
+    nsub, nd = in_f // sub, in_f // 256
+
+    def f32(n, scale):
+        return torch.rand(out_f, n, generator=g, device="cuda") * scale + scale / 10
+
+    def u8(lo):
+        t = torch.randint(lo, lo + 16, (out_f, nsub), generator=g, device="cuda",
+                          dtype=torch.int32)
+        return t.to(torch.int8 if lo < 0 else torch.uint8)
+
+    codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    d = f32(nsub, 1e-2) if layout != "compact" else f32(nd, 1e-3)
+    sc = u8(-8 if signed_sc else 0) if layout == "compact" else None
+    dmin = mn = None
+    if has_min:
+        dmin = f32(nsub, 5e-2) if layout == "flat" else f32(nd, 5e-3)
+        mn = None if layout == "flat" else u8(0)
+    fmt = "q2_k" if bits == 2 else ("q3_k" if bias else "q4_k")
+    return QuantLinear(codes=codes, d=d, sc=sc, dmin=dmin, mn=mn, fmt=fmt,
+                       bits=bits, sub_size=sub, d_size=256 if layout == "compact" else sub,
+                       code_bias=bias, out_features=out_f, in_features=in_f,
+                       min_size=256 if layout == "mixed" else 0)
+
+
+def _lowbit_rows(torch, qm, g, timer):
+    """The 2-bit kernel at the Q2_K projections (flat and mixed at 1, 4 and
+    512 rows, compact at 4) and the 4-bit kernel at its new geometries (Q3_K
+    at o and down, Q4_K compact and mixed at gate_up, 4 rows). The bound's
+    bytes count the codes and each layout's scale and min arrays as stored;
+    the library call multiplies by the same weights dequantized to bf16
+    ahead of time."""
+    cases = []
+    for name, (out_f, in_f) in SHAPES_2BIT.items():
+        for layout, bs in (("flat", (1, 4, 512)), ("mixed", (1, 4, 512)), ("compact", (4,))):
+            cases.append((2, f"{layout} {name}", out_f, in_f, 16, 0, layout, True, False, bs))
+    for name in ("o", "down"):
+        out_f, in_f = SHAPES_4BIT[name]
+        cases.append((4, f"q3_k {name}", out_f, in_f, 16, 4, "flat", False, True, (1, 4)))
+    for layout in ("compact", "mixed"):
+        out_f, in_f = SHAPES_4BIT["gate_up"]
+        cases.append((4, f"q4_k {layout} gate_up", out_f, in_f, 32, 0, layout, True, False,
+                      (4,)))
+    rows = []
+    for bits, label, out_f, in_f, sub, bias, layout, has_min, signed, bs in cases:
+        w = _lowbit_weight(torch, g, bits, out_f, in_f, sub, bias, layout, has_min, signed)
+        kernel, plain, kname = ((qm.quant_matmul_2bit, qm.quant_matmul_2bit_plain, qm.NAME_2BIT)
+                                if bits == 2 else
+                                (qm.quant_matmul_4bit, qm.quant_matmul_4bit_plain, qm.NAME_4BIT))
+        w_lib = w.dequantize_bm()
+        arrays = [w.codes, w.d, w.sc, w.dmin, w.mn]
+        wbytes = sum(a.numel() * a.element_size() for a in arrays if a is not None)
+        nsub = in_f // sub
+        for B in bs:
+            x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
+            xsum = qm._block_sums(x, sub)
+            if layout == "mixed":
+                xsum = qm._mixed_xsum(xsum, w)
+            args = (x, xsum, *arrays, bias)
+            err, rel = _err(kernel(*args), plain(*args), MATMUL_TOL)
+            nbytes = wbytes + B * in_f * 2 + B * nsub * 4 + B * out_f * 4
+            b_ms, b_by = bound(nbytes, 2.0 * B * in_f * out_f)
+            rows.append({"kernel": kname, "shape": f"{label} {out_f}x{in_f} B={B}",
+                         "B": B, "max_abs_err": err, "max_rel_err": rel,
+                         "bits_per_weight": 8 * wbytes / (out_f * in_f),
+                         "ms": timer(lambda: kernel(*args)),
+                         "plain_ms": timer(lambda: plain(*args), 5),
+                         "library_ms": timer(lambda: torch.matmul(x, w_lib.t())),
+                         "bound_ms": b_ms, "bound_by": b_by})
+            emit({"phase": "kernels", **rows[-1]})
+        del w, w_lib, arrays
     return rows
 
 
@@ -308,14 +400,17 @@ def plain_versions():
     """Route the model through the plain PyTorch versions (on the card)."""
     from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
-    saved = (qm.quant_matmul_4bit, qm.quant_matmul_8bit, fa.flash_attention)
+    saved = (qm.quant_matmul_2bit, qm.quant_matmul_4bit, qm.quant_matmul_8bit,
+             fa.flash_attention)
+    qm.quant_matmul_2bit = qm.quant_matmul_2bit_plain
     qm.quant_matmul_4bit = qm.quant_matmul_4bit_plain
     qm.quant_matmul_8bit = qm.quant_matmul_8bit_plain
     fa.flash_attention = fa.flash_attention_plain
     try:
         yield
     finally:
-        qm.quant_matmul_4bit, qm.quant_matmul_8bit, fa.flash_attention = saved
+        (qm.quant_matmul_2bit, qm.quant_matmul_4bit, qm.quant_matmul_8bit,
+         fa.flash_attention) = saved
 
 
 def phase_engine(torch):
@@ -624,7 +719,7 @@ def _completions(port, key, bodies):
     return results
 
 
-def phase_serve(torch, engine):
+def phase_serve(torch, engine, label="serve"):
     launches: dict[str, int] = {}
     out = {}
     with serving(torch, engine, launches) as (port, key):
@@ -668,7 +763,7 @@ def phase_serve(torch, engine):
         if r.status != 401:
             raise AssertionError(f"no key: {r.status}")
         out["no_key_status"] = r.status
-    emit({"phase": "serve", "ok": True, **out, "launches": launches})
+    emit({"phase": label, "ok": True, **out, "launches": launches})
     return launches
 
 
@@ -752,12 +847,81 @@ def phase_serve_paged(torch, path):
     return launches
 
 
+def _resident_bytes(torch, node) -> int:
+    """Bytes of every tensor in a parameter tree (weights as stored)."""
+    if isinstance(node, torch.Tensor):
+        return node.numel() * node.element_size()
+    if isinstance(node, dict):
+        return sum(_resident_bytes(torch, v) for v in node.values())
+    if isinstance(node, list | tuple):
+        return sum(_resident_bytes(torch, v) for v in node)
+    if hasattr(node, "__dataclass_fields__"):
+        return sum(_resident_bytes(torch, getattr(node, f)) for f in node.__dataclass_fields__)
+    return 0
+
+
+def phase_q2k(torch):
+    """The 8B Q2_K model under the mixed scale layout: load, a prefill and
+    16 greedy steps through the kernels against the plain versions fed the
+    same tokens (launches counted over the kernel run), then served."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
+    from llama_gguf_inference_tpu_torch.tools.synth import cached_model
+    os.environ["LGT_SCALE_LAYOUT"] = "mixed"
+    t0 = time.time()
+    path = cached_model("8b", seed=0, quant="q2_k")
+    t1 = time.time()
+    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024), device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.time()
+    try:
+        p = engine.params
+        w = p["layers"][0]["ffn_gateup"]
+        if (w.fmt, w.bits, w.min_size) != ("q2_k", 2, 256):
+            raise AssertionError(f"gate+up loaded as {w.fmt}, {w.bits} bits, "
+                                 f"min_size {w.min_size}")
+        blocks = _resident_bytes(torch, p["layers"])
+        emit({"phase": "q2k-load", "ok": True, "synth_s": round(t1 - t0, 3),
+              "load_s": round(t2 - t1, 3), "gguf_gb": os.path.getsize(path) / 1e9,
+              "scale_layout": "mixed", "resident_weights_gb": _resident_bytes(torch, p) / 1e9,
+              "resident_block_weights_gb": blocks / 1e9,
+              "resident_head_gb": _resident_bytes(torch, p["output"]) / 1e9,
+              "resident_embedding_gb": _resident_bytes(torch, p["tok_embd"]) / 1e9,
+              "device_gb": torch.cuda.memory_allocated() / 1e9})
+        ids = engine.tokenizer.encode(PROMPT)
+        _build.reset_launches()
+        t0 = time.time()
+        k_logits, k_toks = _greedy_run(torch, engine, ids, 16)
+        t1 = time.time()
+        launches = dict(_build.LAUNCHES)
+        if launches.get(qm.NAME_2BIT, 0) <= 0 or any(n.endswith(".plain") for n in launches):
+            raise AssertionError(f"q2k kernel run: launches {launches}")
+        with plain_versions():
+            p_logits, _ = _greedy_run(torch, engine, ids, 16, feed=k_toks)
+        _check_logits(torch, engine, k_logits)
+        errs, agree = _compare(k_logits, p_logits)
+        emit({"phase": "q2k-forward", "ok": True, "prompt_tokens": len(ids),
+              "steps_compared": len(errs), "argmax_agree": agree,
+              "logits_rel_err_prefill": errs[0], "logits_rel_err_max": max(errs),
+              "kernel_path_s": round(t1 - t0, 3), "launches": launches})
+        served = phase_serve(torch, engine, "q2k-serve")
+    finally:
+        engine.stop()
+        os.environ.pop("LGT_SCALE_LAYOUT", None)
+    if served.get(qm.NAME_2BIT, 0) <= 0 or any(n.endswith(".plain") for n in served):
+        raise AssertionError(f"q2k serve: launches {served}")
+    return [launches, served]
+
+
 _FA_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention.cu"
 _FA_JAX = "llama_gguf_inference_tpu/ops/flash_attention.py"
 SOURCES = {
     # name: (source, TPU kernel it replaces); pallas_call sites are
-    # pallas_matmul.py:641 (fsplit), :247 (8-bit) and flash_attention.py:176,
-    # :289 (q8/q4/q4_1), :369 (paged) and :452 (paged q8_0)
+    # pallas_matmul.py:641 (qsplit, fsplit), :247 (8-bit) and
+    # flash_attention.py:176, :289 (q8/q4/q4_1), :369 (paged) and :452 (paged q8_0)
+    "quant_matmul_2bit": ("llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu",
+                          "llama_gguf_inference_tpu/ops/pallas_matmul.py:481"),
     "quant_matmul_4bit": ("llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu",
                           "llama_gguf_inference_tpu/ops/pallas_matmul.py:421"),
     "quant_matmul_8bit": ("llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu",
@@ -770,8 +934,10 @@ SOURCES = {
     "flash_attention_paged_q8": (_FA_CU, _FA_JAX + ":383"),
 }
 # the kernels line reports each kernel at its decode shape (4 slots; the
-# paged ones with their idle fifth)
-LINE_SHAPE = {"quant_matmul_4bit": "gate_up 28672x4096 B=4",
+# paged ones with their idle fifth; the 2-bit one in the layout the q2k
+# phase serves)
+LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
+              "quant_matmul_4bit": "gate_up 28672x4096 B=4",
               "quant_matmul_8bit": "head 128256x4096 B=4",
               **{name: "decode" for name in SOURCES if name.startswith("flash")}}
 
@@ -841,6 +1007,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "serve-paged"
         paths.append(phase_serve_paged(torch, path))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "q2k"
+        paths += phase_q2k(torch)
         emit({"phase": "memory", "max_allocated_gb":
               torch.cuda.max_memory_allocated() / 1e9})
         for counts in paths:

@@ -102,9 +102,11 @@ def library(name: str) -> ctypes.CDLL:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "quant_matmul":
-        lib.lgt_quant_matmul_4bit.argtypes = [p, p, p, p, p, p,
-                                              i, i, i, i, p]
-        lib.lgt_quant_matmul_4bit.restype = i
+        # pointers: x, xsum, codes, d, sc, dmin, mn, y; then B, in, out,
+        # nsub, nd, ndm, the code bias, the two sides' storage and the stream
+        for fn in ("lgt_quant_matmul_2bit", "lgt_quant_matmul_4bit"):
+            getattr(lib, fn).argtypes = [p] * 8 + [i] * 9 + [p]
+            getattr(lib, fn).restype = i
         lib.lgt_quant_matmul_8bit.argtypes = [p, p, p, p, p,
                                               i, i, i, i, i, i, p]
         lib.lgt_quant_matmul_8bit.restype = i

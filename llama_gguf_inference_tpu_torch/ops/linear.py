@@ -19,12 +19,15 @@ import torch
 
 from ..device import resolve_device
 
+MAPPED_FMTS = frozenset(("iq2_xxs", "iq2_xs", "iq2_s", "iq3_xxs", "iq3_s"))
+
+
 def code_values(fmt: str, q: torch.Tensor) -> torch.Tensor:
     """Unpacked integer codes -> integer element values: the identity for
-    every format this package repacks. (The JAX package's IQ2/IQ3 formats
-    store sign|magnitude codes into a value alphabet; they come with their
-    repack in a later slice.)"""
-    if fmt.startswith("iq"):
+    every format this package repacks, and for the IQ1 trit codes. (The JAX
+    package's IQ2/IQ3 formats store sign|magnitude codes into a value
+    alphabet; they come with their repack in a later slice.)"""
+    if fmt in MAPPED_FMTS:
         raise NotImplementedError(f"code alphabet of {fmt}")
     return q
 
@@ -65,13 +68,23 @@ class QuantLinear:
     tile(s_sub, sub_size)``; symmetric formats have ``dmin``/``mn`` None,
     flat layouts have ``sc``/``mn`` None and ``d_size == sub_size``.
 
-    ==========  ====  ========  ======================================
-    fmt         bits  sub_size  device scale layout
-    ==========  ====  ========  ======================================
-    q8_0        8     32        flat: d f32 per 32
-    q4_k        4     32        flat: d, dmin f32 per 32 (d*sc, dmin*mn)
-    q6_k        8     16        compact: d f32 per 256; sc int8 per 16
-    ==========  ====  ========  ======================================
+    ==========  ====  ========  ==========  ======================================
+    fmt         bits  sub_size  code_bias   device scale layout (``auto``)
+    ==========  ====  ========  ==========  ======================================
+    q8_0        8     32        0           flat: d f32 per 32
+    q2_k        2     16        0           flat: d, dmin f32 per 16 (d*sc, dmin*mn)
+    q3_k        4     16        4           flat: d f32 per 16 (d*sc), no min
+    q4_k        4     32        0           flat: d, dmin f32 per 32 (d*sc, dmin*mn)
+    q6_k        8     16        0           compact: d f32 per 256; sc int8 per 16
+    ==========  ====  ========  ==========  ======================================
+
+    ``LGT_SCALE_LAYOUT`` (``quant.repack.scale_layout``) picks the layout of
+    the hierarchical formats: ``compact`` keeps d/dmin f32 per 256 and sc/mn
+    8-bit per sub-block (sc int8 for q3_k/q6_k, uint8 otherwise); ``flat``
+    folds them into f32 per sub-block; ``mixed`` keeps the scale flat and
+    the min side compact, ``dmin`` per ``min_size`` elements and ``mn`` in
+    the compact (s, σ) order (q2_k and q4_k; the other formats as under
+    ``auto``).
     """
 
     codes: torch.Tensor               # (out, in*bits//8) uint8 or (out, in) int8
@@ -86,7 +99,7 @@ class QuantLinear:
     code_bias: int = 0
     out_features: int = 0
     in_features: int = 0
-    min_size: int = 0                 # mixed layout only; always 0 here
+    min_size: int = 0                 # mixed layout: elements per dmin entry
 
     @property
     def _geom(self) -> tuple[int, int, int]:
@@ -112,6 +125,9 @@ class QuantLinear:
         elif self.bits == 4:
             # planar split: low nibbles = stored [0, in/2), high = [in/2, in)
             q = code_values(self.fmt, torch.cat([b & 0x0F, b >> 4], dim=1))
+        elif self.bits == 2:
+            # planar quarters: bit pair i of stored byte j = element j + i*in/4
+            q = torch.cat([b & 3, (b >> 2) & 3, (b >> 4) & 3, (b >> 6) & 3], dim=1)
         else:
             raise NotImplementedError(f"bits={self.bits}")
         return q - self.code_bias
@@ -125,13 +141,25 @@ class QuantLinear:
             s = s * arr_sc.to(torch.int32).float()
         return s.repeat(1, sub)                       # (out, in)
 
+    def _min_sub_mixed(self) -> torch.Tensor:
+        """Mixed layout: per-sub-block min term (out, nsub) in the FLAT
+        σ' = σ*g + s column order (matching d and the stored codes)."""
+        o = self.out_features
+        g = self.min_size // self.sub_size
+        ndm = self.in_features // self.min_size
+        m = self.dmin.repeat_interleave(g, dim=1)         # σ-major expand
+        mn_p = (self.mn.reshape(o, g, ndm).transpose(1, 2)
+                .reshape(o, ndm * g))                     # (s,σ) -> σ' order
+        return m * mn_p.to(torch.int32).float()
+
     def dequantize_bm(self, dtype=torch.bfloat16) -> torch.Tensor:
         """Dequant to (out, in) in block-minor column order."""
-        if self.min_size:
-            raise NotImplementedError("mixed scale layout")
         w = self._unpack_codes_bm().float() * self._scale_full_bm(self.d, self.sc)
         if self.dmin is not None:
-            w = w - self._scale_full_bm(self.dmin, self.mn)
+            if self.min_size:
+                w = w - self._min_sub_mixed().repeat(1, self.sub_size)
+            else:
+                w = w - self._scale_full_bm(self.dmin, self.mn)
         return w.to(dtype)
 
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Golden numpy codecs for the GGML block formats this package loads.
 
-Bit-exact decoders and spec-conformant encoders for F32, F16, Q8_0, Q4_K and
-Q6_K, the formats of a Q4_K_M Llama GGUF (Q4_K projections and embedding, a
-Q6_K output head, F32 norms). Every other format raises
+Bit-exact decoders and spec-conformant encoders for F32, F16, Q8_0, Q2_K,
+Q3_K, Q4_K and Q6_K: the formats of a Q4_K_M Llama GGUF (Q4_K projections
+and embedding, a Q6_K output head, F32 norms) and of a Q2_K one (Q2_K
+projections and embedding, Q3_K ``attn_output``/``ffn_down`` and Q4_K
+``attn_v`` in llama.cpp's mix, a Q6_K head). Every other format raises
 ``NotImplementedError`` naming it.
 
 All functions are vectorized over blocks: ``dequantize(raw_bytes, ggml_type,
@@ -32,6 +34,63 @@ def _dequant_q8_0(blocks: np.ndarray) -> np.ndarray:
     d = _f16(blocks[:, 0:2])                      # (nb, 1)
     q = blocks[:, 2:34].view(np.int8).astype(np.float32)
     return q * d
+
+
+def _dequant_q2_k(blocks: np.ndarray) -> np.ndarray:
+    # block: [scales u8 x16][qs u8 x64][d f16][dmin f16]
+    # 16 sub-blocks of 16; scales[i]: low4 = scale, high4 = min.
+    # Elements 0..127 come from qs[0..31] at shifts 0/2/4/6; 128..255 from qs[32..63].
+    nb = blocks.shape[0]
+    sc = blocks[:, 0:16]
+    qs = blocks[:, 16:80]
+    d = _f16(blocks[:, 80:82])
+    dmin = _f16(blocks[:, 82:84])
+
+    q = np.empty((nb, 256), dtype=np.uint8)
+    for half in range(2):                      # element halves 0..127 / 128..255
+        src = qs[:, 32 * half:32 * (half + 1)]
+        for j in range(4):                     # shift index
+            grp = src >> (2 * j) & 3           # (nb, 32)
+            q[:, 128 * half + 32 * j: 128 * half + 32 * (j + 1)] = grp
+    sub_scale = (sc & 0x0F).astype(np.float32)     # (nb, 16)
+    sub_min = (sc >> 4).astype(np.float32)
+    dl = (d * sub_scale).repeat(16, axis=1)        # (nb, 256)
+    ml = (dmin * sub_min).repeat(16, axis=1)
+    return dl * q.astype(np.float32) - ml
+
+
+def _q3k_q6k_scales(scales12: np.ndarray) -> np.ndarray:
+    """Unpack Q3_K's 12-byte 16x6-bit scale field -> (nb, 16) int8 in [-32, 31]."""
+    nb = scales12.shape[0]
+    out = np.empty((nb, 16), dtype=np.int32)
+    for j in range(16):
+        # low 4 bits: scales12[j % 8], nibble chosen by j // 8
+        lo = (scales12[:, j % 8] >> (4 * (j // 8))) & 0x0F
+        hi = (scales12[:, 8 + j % 4] >> (2 * (j // 4))) & 0x03
+        out[:, j] = (lo | (hi << 4)).astype(np.int32) - 32
+    return out
+
+
+def _dequant_q3_k(blocks: np.ndarray) -> np.ndarray:
+    # block: [hmask u8 x32][qs u8 x64][scales u8 x12][d f16]
+    # q = 2-bit - (hmask bit set ? 0 : 4); v = d * sc[j] * q
+    nb = blocks.shape[0]
+    hmask = blocks[:, 0:32]
+    qs = blocks[:, 32:96]
+    scales = _q3k_q6k_scales(blocks[:, 96:108])     # (nb, 16)
+    d = _f16(blocks[:, 108:110])                    # (nb, 1)
+
+    q = np.empty((nb, 256), dtype=np.int32)
+    m = 1
+    for half in range(2):
+        src = qs[:, 32 * half:32 * (half + 1)]
+        for j in range(4):
+            lowq = (src >> (2 * j) & 3).astype(np.int32)
+            hbit = ((hmask & m) != 0).astype(np.int32)
+            q[:, 128 * half + 32 * j: 128 * half + 32 * (j + 1)] = lowq - 4 * (1 - hbit)
+            m <<= 1
+    dl = (d * scales.astype(np.float32)).repeat(16, axis=1)
+    return dl * q.astype(np.float32)
 
 
 def _k4_scale_min(scales12: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -97,6 +156,8 @@ def _dequant_q6_k(blocks: np.ndarray) -> np.ndarray:
 
 _DEQUANT = {
     GGMLType.Q8_0: _dequant_q8_0,
+    GGMLType.Q2_K: _dequant_q2_k,
+    GGMLType.Q3_K: _dequant_q3_k,
     GGMLType.Q4_K: _dequant_q4_k,
     GGMLType.Q6_K: _dequant_q6_k,
 }
@@ -137,6 +198,77 @@ def _quant_q8_0(x: np.ndarray) -> np.ndarray:
     out = np.empty((xb.shape[0], 34), dtype=np.uint8)
     out[:, 0:2] = _to_f16_bytes(d)
     out[:, 2:34] = q.view(np.uint8)
+    return out
+
+
+def _quant_q2_k(x: np.ndarray) -> np.ndarray:
+    # simple spec-conformant encoder: per sub-block affine [min, min + 3*step]
+    xb = x.reshape(-1, 256)
+    nb = xb.shape[0]
+    sub = xb.reshape(nb, 16, 16)
+    smin = np.minimum(sub.min(axis=2), 0.0)            # min <= 0 so -dmin*m works
+    srange = sub.max(axis=2) - smin
+    sstep = srange / 3.0                               # per-sub scale
+    dmax = sstep.max(axis=1, keepdims=True)            # (nb,1)
+    mmax = (-smin).max(axis=1, keepdims=True)
+    d = dmax / 15.0
+    dmin = mmax / 15.0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ls = np.where(d > 0, np.clip(np.round(sstep / d), 0, 15), 0).astype(np.uint8)
+        lm = np.where(dmin > 0, np.clip(np.round(-smin / dmin), 0, 15), 0).astype(np.uint8)
+        eff_d = d * ls                                  # (nb, 16)
+        eff_m = dmin * lm
+        q = np.where(eff_d[..., None] > 0,
+                     np.round((sub + eff_m[..., None]) / np.where(eff_d[..., None] == 0, 1.0,
+                                                                  eff_d[..., None])), 0)
+    q = np.clip(q, 0, 3).astype(np.uint8).reshape(nb, 256)
+    out = np.zeros((nb, 84), dtype=np.uint8)
+    out[:, 0:16] = ls | (lm << 4)
+    qs = np.zeros((nb, 64), dtype=np.uint8)
+    for half in range(2):
+        for j in range(4):
+            qs[:, 32 * half:32 * (half + 1)] |= (
+                q[:, 128 * half + 32 * j: 128 * half + 32 * (j + 1)] << (2 * j))
+    out[:, 16:80] = qs
+    out[:, 80:82] = _to_f16_bytes(d)
+    out[:, 82:84] = _to_f16_bytes(dmin)
+    return out
+
+
+def _quant_q3_k(x: np.ndarray) -> np.ndarray:
+    xb = x.reshape(-1, 256)
+    nb = xb.shape[0]
+    sub = xb.reshape(nb, 16, 16)
+    amax = np.abs(sub).max(axis=2)                     # (nb,16)
+    smax = amax.max(axis=1, keepdims=True)
+    d = smax / (31.0 * 4.0)                            # scale range [-32,31]; q in [-4,3]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ls = np.where(d > 0, np.clip(np.round(amax / (4.0 * np.where(d == 0, 1.0, d))),
+                                     -32, 31), 0).astype(np.int32)
+        eff = d * ls
+        q = np.where(eff[..., None] != 0,
+                     np.round(sub / np.where(eff[..., None] == 0, 1.0, eff[..., None])), 0)
+    q = np.clip(q, -4, 3).astype(np.int32).reshape(nb, 256) + 4   # store biased [0,7]
+    out = np.zeros((nb, 110), dtype=np.uint8)
+    hmask = np.zeros((nb, 32), dtype=np.uint8)
+    qs = np.zeros((nb, 64), dtype=np.uint8)
+    m = 1
+    for half in range(2):
+        for j in range(4):
+            grp = q[:, 128 * half + 32 * j: 128 * half + 32 * (j + 1)]
+            qs[:, 32 * half:32 * (half + 1)] |= (grp & 3).astype(np.uint8) << (2 * j)
+            hmask |= np.where(grp >= 4, m, 0).astype(np.uint8)
+            m <<= 1
+    out[:, 0:32] = hmask
+    out[:, 32:96] = qs
+    # pack 16 6-bit scales (biased by 32) into 12 bytes
+    s6 = (ls + 32).astype(np.uint8)                     # (nb,16) in [0,63]
+    sc12 = np.zeros((nb, 12), dtype=np.uint8)
+    for j in range(16):
+        sc12[:, j % 8] |= (s6[:, j] & 0x0F) << (4 * (j // 8))
+        sc12[:, 8 + j % 4] |= (s6[:, j] >> 4) << (2 * (j // 4))
+    out[:, 96:108] = sc12
+    out[:, 108:110] = _to_f16_bytes(d)
     return out
 
 
@@ -221,6 +353,8 @@ def _quant_q6_k(x: np.ndarray) -> np.ndarray:
 
 _QUANT = {
     GGMLType.Q8_0: _quant_q8_0,
+    GGMLType.Q2_K: _quant_q2_k,
+    GGMLType.Q3_K: _quant_q3_k,
     GGMLType.Q4_K: _quant_q4_k,
     GGMLType.Q6_K: _quant_q6_k,
 }

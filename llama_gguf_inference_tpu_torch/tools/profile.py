@@ -1,19 +1,21 @@
 """Where the time goes in the engine on one card.
 
-    python -m llama_gguf_inference_tpu_torch.tools.profile [--shape 8b] [--seed 0]
+    python -m llama_gguf_inference_tpu_torch.tools.profile [--shape 8b] [--seed 0] [--quant q2_k]
 
-Loads the synthesized Q4_K_M model of the shape (``tools.synth``, written
-under the temp dir on first use) into an engine with 4 slots of 1024
-tokens, and prints the card's name and power limit (``nvidia-smi``), then
-one JSON line per measurement:
+Loads the synthesized model of the shape (``tools.synth``: Q4_K_M, or Q2_K
+with ``--quant q2_k``; written under the temp dir on first use) into an
+engine with 4 slots of 1024 tokens, and prints the card's name and power
+limit (``nvidia-smi``) and the scale layout (``LGT_SCALE_LAYOUT``, read by
+the repack at load), then one JSON line per measurement:
 
 1. the engine's decode rate for one greedy request of 64 tokens, without
    the HTTP server in front;
 2. a decode step over all 4 slots at 512 live tokens each (forward, argmax,
    read back to the host, as the engine's decode does) and one 512-token
    prefill chunk: wall ms per step without the profiler, then, under
-   ``torch.profiler``, device ms per step by kernel (the port's three
-   kernels and all other PyTorch kernels) and the device's idle share.
+   ``torch.profiler``, device ms per step by kernel (the port's matmul and
+   attention kernels and all other PyTorch kernels) and the device's idle
+   share.
 """
 
 from __future__ import annotations
@@ -27,14 +29,19 @@ import torch
 
 from ..ops import flash_attention as fa
 from ..ops import quant_matmul as qm
-from .synth import SHAPES, cached_model
+from ..quant.repack import scale_layout
+from .synth import QUANTS, SHAPES, cached_model
 
-KERNELS = (qm.NAME_4BIT, qm.NAME_8BIT, fa.NAME)
+# matched against the CUDA kernels' names by substring: the 2- and 4-bit
+# kernels share one template, told apart by its first argument
+KERNELS = {qm.NAME_2BIT: "quant_matmul_lowbit_kernel<2",
+           qm.NAME_4BIT: "quant_matmul_lowbit_kernel<4",
+           qm.NAME_8BIT: "quant_matmul_8bit", fa.NAME: "flash_attention"}
 LIVE = 512
 
 
 def _kernel_group(name: str) -> str:
-    return next((k for k in KERNELS if k in name), "other")
+    return next((k for k, pat in KERNELS.items() if pat in name), "other")
 
 
 def profile(engine, steps: int = 8) -> list[dict]:
@@ -106,11 +113,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shape", default="8b", choices=sorted(SHAPES))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quant", default="q4_k", choices=QUANTS)
     a = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    engine = InferenceEngine(cached_model(a.shape, a.seed), EngineConfig(max_slots=4, ctx=1024),
-                             device="cuda")
+    print(json.dumps({"shape": a.shape, "quant": a.quant, "scale_layout": scale_layout()}),
+          flush=True)
+    engine = InferenceEngine(cached_model(a.shape, a.seed, quant=a.quant),
+                             EngineConfig(max_slots=4, ctx=1024), device="cuda")
     for row in profile(engine):
         print(json.dumps(row), flush=True)
 

@@ -1,6 +1,7 @@
-"""Synthesize a Q4_K_M llama GGUF with random weights from a seed.
+"""Synthesize a quantized llama GGUF with random weights from a seed.
 
-Q4_K projections and embedding, a Q6_K output head, F32 norms, and a small
+Q4_K (``quant="q4_k"``, the default) or Q2_K (``quant="q2_k"``) projections
+and embedding, a Q6_K output head, F32 norms, and a small
 SentencePiece-style vocab padded with filler pieces to the shape's vocab
 size. Decode cost depends on the weights' shapes, not their values, so the
 file stands in for a real checkpoint of the same shape. A small random pool
@@ -9,9 +10,10 @@ tensor; the pool length is a multiple of every block size, so this equals
 quantizing the tiled floats.
 
 The output is byte-identical to the JAX package's ``bench.py``
-``bench_model_path`` for the same shape.
+``bench_model_path`` for the same shape and quant (whose ``general.name``
+reads ``bench-llama3-<shape>-q4km`` whatever the quant).
 
-    python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b --out model.gguf
+    python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b [--quant q2_k] --out model.gguf
 """
 
 from __future__ import annotations
@@ -67,8 +69,15 @@ def make_tiny_vocab() -> tuple[list[str], list[float], list[int]]:
     return tokens, scores, [int(t) for t in types]
 
 
-def synth_model(path: str, shape: str = "8b", seed: int = 0) -> str:
-    """Write the ``shape`` model to ``path``; returns ``path``."""
+QUANTS = ("q4_k", "q2_k")
+
+
+def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k") -> str:
+    """Write the ``shape`` model with ``quant`` weights to ``path``; returns
+    ``path``."""
+    if quant not in QUANTS:
+        raise ValueError(f"quant {quant!r} is not one of {QUANTS}")
+    wq = GGMLType[quant.upper()]
     d = SHAPES[shape]
     rng = np.random.default_rng(seed)
     head_dim = d["dim"] // d["n_heads"]
@@ -111,37 +120,39 @@ def synth_model(path: str, shape: str = "8b", seed: int = 0) -> str:
         w.add_raw_tensor(name, (cols, rows), t, raw)
 
     ones = np.ones(d["dim"], np.float32)
-    add_q("token_embd.weight", vocab, d["dim"], GGMLType.Q4_K)
+    add_q("token_embd.weight", vocab, d["dim"], wq)
     for i in range(d["n_layers"]):
         p = f"blk.{i}."
         w.add_tensor(p + "attn_norm.weight", ones, GGMLType.F32)
-        add_q(p + "attn_q.weight", d["dim"], d["dim"], GGMLType.Q4_K)
-        add_q(p + "attn_k.weight", d["n_kv_heads"] * head_dim, d["dim"], GGMLType.Q4_K)
-        add_q(p + "attn_v.weight", d["n_kv_heads"] * head_dim, d["dim"], GGMLType.Q4_K)
-        add_q(p + "attn_output.weight", d["dim"], d["dim"], GGMLType.Q4_K)
+        add_q(p + "attn_q.weight", d["dim"], d["dim"], wq)
+        add_q(p + "attn_k.weight", d["n_kv_heads"] * head_dim, d["dim"], wq)
+        add_q(p + "attn_v.weight", d["n_kv_heads"] * head_dim, d["dim"], wq)
+        add_q(p + "attn_output.weight", d["dim"], d["dim"], wq)
         w.add_tensor(p + "ffn_norm.weight", ones, GGMLType.F32)
-        add_q(p + "ffn_gate.weight", d["ffn_dim"], d["dim"], GGMLType.Q4_K)
-        add_q(p + "ffn_up.weight", d["ffn_dim"], d["dim"], GGMLType.Q4_K)
-        add_q(p + "ffn_down.weight", d["dim"], d["ffn_dim"], GGMLType.Q4_K)
+        add_q(p + "ffn_gate.weight", d["ffn_dim"], d["dim"], wq)
+        add_q(p + "ffn_up.weight", d["ffn_dim"], d["dim"], wq)
+        add_q(p + "ffn_down.weight", d["dim"], d["ffn_dim"], wq)
     w.add_tensor("output_norm.weight", ones, GGMLType.F32)
     add_q("output.weight", vocab, d["dim"], GGMLType.Q6_K)
     w.write()
     return path
 
 
-def cached_model(shape: str = "8b", seed: int = 0, directory: str | None = None) -> str:
-    """The ``shape`` model from ``seed`` under ``directory`` (the temp dir by
-    default), written on first use and reused after. The file name holds a
-    hash of the code that writes it, the shape and the seed, so a file left
-    by another version of the synthesizer is never taken for this one's."""
-    h = hashlib.sha256(repr((SHAPES[shape], seed)).encode())
+def cached_model(shape: str = "8b", seed: int = 0, directory: str | None = None,
+                 quant: str = "q4_k") -> str:
+    """The ``shape`` model with ``quant`` weights from ``seed`` under
+    ``directory`` (the temp dir by default), written on first use and reused
+    after. The file name holds a hash of the code that writes it, the shape,
+    the seed and the quant, so a file left by another version of the
+    synthesizer is never taken for this one's."""
+    h = hashlib.sha256(repr((SHAPES[shape], seed, quant)).encode())
     for src in (__file__, inspect.getsourcefile(GGUFWriter), inspect.getsourcefile(quantize)):
         with open(src, "rb") as f:
             h.update(f.read())
     path = os.path.join(directory or tempfile.gettempdir(),
-                        f"llama_gguf_port_{shape}_q4km_{h.hexdigest()[:12]}.gguf")
+                        f"llama_gguf_port_{shape}_{quant}_{h.hexdigest()[:12]}.gguf")
     if not os.path.exists(path):
-        synth_model(path + ".part", shape, seed)
+        synth_model(path + ".part", shape, seed, quant=quant)
         os.replace(path + ".part", path)
     return path
 
@@ -151,9 +162,10 @@ def main() -> None:
     ap.add_argument("--shape", default="8b", choices=sorted(SHAPES))
     ap.add_argument("--out", required=True)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quant", default="q4_k", choices=QUANTS)
     a = ap.parse_args()
     t0 = time.time()
-    synth_model(a.out, a.shape, a.seed)
+    synth_model(a.out, a.shape, a.seed, quant=a.quant)
     print(f"wrote {a.out} ({os.path.getsize(a.out) / 1e9:.2f} GB) in "
           f"{time.time() - t0:.1f} s")
 

@@ -61,13 +61,87 @@ def test_quant_matmul_4bit_kernel(dev, B, out_f, in_f):
     w = _weight(GGMLType.Q4_K, out_f, in_f, B, dev)
     x = torch.randn(B, in_f, generator=torch.Generator().manual_seed(B)).to(dev)
     x2 = w.permute_activations(x).contiguous()
-    s, m = qm._hier_scales(w)
-    args = (x2.bfloat16(), qm._block_sums(x2, w.sub_size), w.codes, s, m)
+    args = (x2.bfloat16(), qm._block_sums(x2, w.sub_size), w.codes, w.d, w.sc,
+            w.dmin, w.mn, w.code_bias)
     before = _build.LAUNCHES.get(qm.NAME_4BIT, 0)
     got = qm.quant_matmul_4bit(*args)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[qm.NAME_4BIT] == before + 1
     _close(got, qm.quant_matmul_4bit_plain(*args), 1e-4)
+
+
+def _lowbit_arrays(bits, out_f, in_f, sub, bias, layout, signed, g):
+    """Random codes and scale/min arrays of one layout: flat (f32 per
+    sub-block), compact (f32 per 256 times 8-bit per sub-block) or mixed
+    (flat scale, compact min)."""
+    nsub, nd = in_f // sub, in_f // 256
+    codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, dtype=torch.uint8)
+
+    def f32(n):
+        return torch.rand(out_f, n, generator=g) * 0.02 + 1e-3
+
+    def u8():
+        lo = -32 if signed else 0
+        return torch.randint(lo, lo + 64, (out_f, nsub), generator=g,
+                             dtype=torch.int32).to(torch.int8 if signed else torch.uint8)
+
+    if layout == "flat":
+        return codes, f32(nsub), None, f32(nsub), None
+    if layout == "compact":
+        return codes, f32(nd), u8(), f32(nd), u8()
+    return codes, f32(nsub), None, f32(nd), u8()
+
+
+LOWBIT = {2: (qm.quant_matmul_2bit, qm.quant_matmul_2bit_plain, qm.NAME_2BIT),
+          4: (qm.quant_matmul_4bit, qm.quant_matmul_4bit_plain, qm.NAME_4BIT)}
+
+
+@pytest.mark.parametrize("B", [1, 5, 17])
+@pytest.mark.parametrize("bits,sub,bias,signed", [
+    (2, 16, 0, False), (2, 32, 1, False), (2, 8, 1, True),
+    (4, 32, 0, False), (4, 16, 4, True), (4, 16, 1, False)])
+@pytest.mark.parametrize("layout", ["flat", "compact", "mixed"])
+def test_quant_matmul_lowbit_kernel_layouts(dev, B, bits, sub, bias, signed, layout):
+    """Every scale/min layout at sub-block sizes 8, 16 and 32, code bias 0,
+    1 and 4, u8 and i8 sub-block factors, ragged row counts (the mixed
+    layout takes no bias)."""
+    if layout == "mixed" and bias:
+        bias = 0
+    g = torch.Generator().manual_seed(B + sub + bits)
+    out_f, in_f = 68, 1024
+    codes, d, sc, dmin, mn = _lowbit_arrays(bits, out_f, in_f, sub, bias, layout, signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xsum = torch.randn(B, in_f // sub, generator=g)
+    args = [t if t is None else t.to(dev) for t in (x, xsum, codes, d, sc, dmin, mn)]
+    kernel, plain, name = LOWBIT[bits]
+    before = _build.LAUNCHES.get(name, 0)
+    got = kernel(*args, bias)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    _close(got, plain(*args, bias), 1e-4)
+    # and without the min side
+    if layout != "mixed":
+        got = kernel(*args[:5], None, None, bias)
+        torch.cuda.synchronize()
+        _close(got, plain(*args[:5], None, None, bias), 1e-4)
+
+
+@pytest.mark.parametrize("gtype", [GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K],
+                         ids=lambda t: t.name)
+@pytest.mark.parametrize("layout", ["auto", "compact", "mixed"])
+def test_quant_matmul_repacked_layouts(dev, gtype, layout, monkeypatch):
+    """Repacked weights through the dispatcher on the card (the mixed
+    layout's block-sum permutation included) against the CPU's plain path
+    over the same arrays."""
+    monkeypatch.setenv("LGT_SCALE_LAYOUT", layout)
+    w = _weight(gtype, 200, 1024, 3, dev)
+    x = torch.randn(7, 1024, generator=torch.Generator().manual_seed(3))
+    got = w.matmul(x.to(dev).bfloat16(), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    w_cpu = type(w)(**{f: (getattr(w, f).cpu() if isinstance(getattr(w, f), torch.Tensor)
+                           else getattr(w, f)) for f in w.__dataclass_fields__})
+    want = w_cpu.matmul(x.bfloat16(), out_dtype=torch.float32)
+    _close(got.cpu(), want, 1e-4)
 
 
 @pytest.mark.parametrize("B", [1, 3, 17])
@@ -85,10 +159,10 @@ def test_quant_matmul_8bit_kernel(dev, B, gtype):
 
 def test_quant_matmul_rejects_bad_input(dev):
     w = _weight(GGMLType.Q4_K, 128, 256, 0, dev)
-    s, m = qm._hier_scales(w)
     x = torch.zeros(2, 256, device=dev)
     with pytest.raises(ValueError, match="dtype"):
-        qm.quant_matmul_4bit(x, torch.zeros(2, 8, device=dev), w.codes, s, m)
+        qm.quant_matmul_4bit(x, torch.zeros(2, 8, device=dev), w.codes, w.d, None,
+                             w.dmin, None)
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])

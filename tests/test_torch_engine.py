@@ -226,8 +226,8 @@ def test_cached_model_is_keyed_by_shape_and_seed(tmp_path, monkeypatch):
     from llama_gguf_inference_tpu_torch.tools import synth
     calls = []
 
-    def fake(path, shape, seed):
-        calls.append((shape, seed))
+    def fake(path, shape, seed, quant="q4_k"):
+        calls.append((shape, seed, quant))
         with open(path, "wb") as f:
             f.write(b"gguf")
         return path
@@ -237,8 +237,11 @@ def test_cached_model_is_keyed_by_shape_and_seed(tmp_path, monkeypatch):
     assert synth.cached_model("160m", 0, str(tmp_path)) == a      # reused, not rewritten
     b = synth.cached_model("160m", 1, str(tmp_path))
     c = synth.cached_model("8b", 0, str(tmp_path))
-    assert len({a, b, c}) == 3 and calls == [("160m", 0), ("160m", 1), ("8b", 0)]
-    assert sorted(os.listdir(tmp_path)) == sorted(os.path.basename(p) for p in (a, b, c))
+    d = synth.cached_model("160m", 0, str(tmp_path), quant="q2_k")
+    assert synth.cached_model("160m", 0, str(tmp_path), quant="q2_k") == d
+    assert len({a, b, c, d}) == 4 and calls == [
+        ("160m", 0, "q4_k"), ("160m", 1, "q4_k"), ("8b", 0, "q4_k"), ("160m", 0, "q2_k")]
+    assert sorted(os.listdir(tmp_path)) == sorted(os.path.basename(p) for p in (a, b, c, d))
 
 
 def test_cpu_path_counts_plain_launches(port_engine):

@@ -130,7 +130,9 @@ def test_unported_formats_raise():
     raw = _raw(GGMLType.Q8_0, 4, 256)
     with pytest.raises(NotImplementedError, match="Q5_K"):
         trepack.repack(raw, GGMLType.Q5_K, 4, 256)
-    with pytest.raises(NotImplementedError, match="Q2_K"):
-        tref.dequantize(raw, GGMLType.Q2_K, 256)
+    with pytest.raises(NotImplementedError, match="Q5_K"):
+        tref.dequantize(raw, GGMLType.Q5_K, 256)
+    with pytest.raises(NotImplementedError, match="IQ1_S"):
+        trepack.repack(raw, GGMLType.IQ1_S, 4, 256)
     with pytest.raises(NotImplementedError, match="IQ4_NL"):
         tref.quantize(np.zeros(256, np.float32), GGMLType.IQ4_NL)
