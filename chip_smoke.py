@@ -13,7 +13,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               mixed scale layouts at gate_up; 2-bit matmul (Q2_K) at the four
               projection shapes for 1, 4 and 512 rows in the flat and mixed
               layouts and for 4 rows in compact; 8-bit matmul at the Q6_K
-              head for 1 and 4 rows; flash
+              head for 1 and 4 rows, and with its min term at the Q5_K
+              projections (compact and flat, 1, 4 and 512 rows) and Q5_1's o;
+              the 4-bit base, xsum, split and int8 kernels at Q4_K gate_up and
+              down (1, 4, 512 rows) and at Q4_0, Q4_1 and Q3_K's o; the base
+              body's 2-bit kernel at Q2_K gate_up (flat, compact); the IQ2/IQ3
+              value maps through fsplit and base at o; flash
               attention over each cache kind (bf16, q8_0, q4_0, q4_1, paged
               bf16, paged q8_0) at decode (T=1, B=4, offsets up to 1000) and
               prefill (T=512, B=1); the paged ones through shuffled pages of
@@ -37,22 +42,34 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 6. serve    — the port's OpenAI server in-process on localhost (4 slots, 1024
               context each): a chat completion, a streamed one, four concurrent
               completions, and a request without the key (must get 401)
-7. serve-paged — that engine freed, a second one from the environment
+7. variants — the same engine under each ``LGT_MM_VARIANT`` (base, xsum,
+              split, int8): a prefill and 16 greedy steps held against the
+              plain versions, then three greedy requests through the server;
+              each run launches that variant's kernel and never fsplit's
+8. serve-paged — that engine freed, a second one from the environment
               (``build_engine_from_env``: q8_0 paged KV, 4 pages of 1024): a
               1,500-token prompt, longer than a slot's contiguous share, with
               three short ones; the pool cannot hold all four, so one waits
-8. q2k      — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
+9. q2k      — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
               projections, Q6_K head; ``cached_model(quant="q2_k")``) loaded
               under ``LGT_SCALE_LAYOUT=mixed``, its resident weight bytes
               printed; a prefill and 16 greedy steps through the kernels
               held against the plain versions fed the same tokens, then the
-              port's OpenAI server over it as in the serve phase
-9. the ``{"kernels": [...]}`` line, the card line, and the final
+              port's OpenAI server over it as in the serve phase; then
+              ``LGT_MM_VARIANT=base``: two steps on the mixed weights (the
+              dequantize path, as in the JAX package), and the 17 steps with
+              the weights relaid flat through the base body's 2-bit kernel
+10. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
+              projections, Q6_K head; ``cached_model(quant="q5_k")``) under
+              the default layout (compact), its resident bytes printed, the
+              17 steps against the plain versions, then served
+11. the ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
-(each kv-forward kernel run and engine run, the serve phase, the
-serve-paged phase, the q2k phase's kernel run and its serve) and read just
+(each kv-forward kernel run and engine run, the serve phase, each variant's
+kernel run and serve, the serve-paged phase, the q2k phase's kernel run,
+serve and flat base run, the q5k phase's kernel run and serve) and read just
 after; comparison runs fall outside those windows.
 
 The breakdown of a decode step and a prefill chunk by kernel is
@@ -76,9 +93,19 @@ import traceback
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense bf16
-MATMUL_TOL = 1e-4              # f32 sum order only (same bf16 weights)
+INT8_OPS = 1979e12             # H100 SXM data sheet, dense int8
+MATMUL_TOL = 1e-4              # f32 sum order only (same bf16 weights, exact int8 dots)
 FLASH_TOL = 2 * 2 ** -8        # two bf16 ulps of the output scale
 LOGITS_TOL = 0.05              # 8B forward: kernel vs plain, of max |logit|
+# LGT_MM_VARIANT=int8 forward, kernel vs plain. Its activations are quantized
+# to int8 per sub-block while the min term takes their exact block sums, so a
+# difference of one f32 rounding that flips one activation code moves the
+# output by a step the min term does not cancel, and the two runs drift apart
+# layer by layer (measured 2-12% of the logits' scale by 2 to 32 layers,
+# against 0.4-1.8% for fsplit; one 17-step run reached 23%). The strict check
+# is the shadow one: every call of the run, kernel against plain version on
+# the same inputs, within MATMUL_TOL.
+INT8_LOGITS_TOL = 0.5
 SHAPES_4BIT = {"qkv": (6144, 4096), "o": (4096, 4096),
                "gate_up": (28672, 4096), "down": (4096, 14336)}
 SHAPES_2BIT = SHAPES_4BIT      # the same projections, all Q2_K in the Q2_K model
@@ -96,8 +123,8 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, rate: float = BF16_FLOPS) -> tuple[float, str]:
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
@@ -235,15 +262,26 @@ def phase_kernels(torch, timer):
     del w_lib, codes, sc
 
     rows += _lowbit_rows(torch, qm, g, timer)
+    rows += _variant_rows(torch, qm, g, timer)
     rows += _attention_rows(torch, F, fa, rand, g, timer)
     return rows
 
 
-def _lowbit_weight(torch, g, bits, out_f, in_f, sub, bias, layout, has_min, signed_sc):
-    """A random 2- or 4-bit QuantLinear in one scale layout: flat (f32 per
-    sub-block), compact (f32 per 256 times an 8-bit factor per sub-block)
-    or mixed (the scale flat, the min side compact)."""
+# weight geometry of each format the kernel rows draw: (bits, sub-block size,
+# code bias, has a min side, sub-block scale signed)
+FORMATS = {"q2_k": (2, 16, 0, True, False), "q3_k": (4, 16, 4, False, True),
+           "q4_k": (4, 32, 0, True, False), "q4_0": (4, 32, 8, False, False),
+           "q4_1": (4, 32, 0, True, False), "iq2_xs": (4, 32, 0, False, False),
+           "iq3_s": (4, 32, 0, False, False), "q5_k": (8, 32, 0, True, False),
+           "q5_1": (8, 32, 0, True, False)}
+
+
+def _weight(torch, g, fmt, out_f, in_f, layout):
+    """A random QuantLinear of ``fmt``'s geometry in one scale layout: flat
+    (f32 per sub-block), compact (f32 per 256 times an 8-bit factor per
+    sub-block) or mixed (the scale flat, the min side compact)."""
     from llama_gguf_inference_tpu_torch.ops.linear import QuantLinear
+    bits, sub, bias, has_min, signed_sc = FORMATS[fmt]
     nsub, nd = in_f // sub, in_f // 256
 
     def f32(n, scale):
@@ -254,19 +292,27 @@ def _lowbit_weight(torch, g, bits, out_f, in_f, sub, bias, layout, has_min, sign
                           dtype=torch.int32)
         return t.to(torch.int8 if lo < 0 else torch.uint8)
 
-    codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, device="cuda",
-                          dtype=torch.uint8)
+    if bits == 8:   # 5-bit codes widened to int8, as Q5_K and Q5_1 repack
+        codes = torch.randint(0, 32, (out_f, in_f), generator=g, device="cuda",
+                              dtype=torch.int8)
+    else:
+        codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, device="cuda",
+                              dtype=torch.uint8)
     d = f32(nsub, 1e-2) if layout != "compact" else f32(nd, 1e-3)
     sc = u8(-8 if signed_sc else 0) if layout == "compact" else None
     dmin = mn = None
     if has_min:
         dmin = f32(nsub, 5e-2) if layout == "flat" else f32(nd, 5e-3)
         mn = None if layout == "flat" else u8(0)
-    fmt = "q2_k" if bits == 2 else ("q3_k" if bias else "q4_k")
     return QuantLinear(codes=codes, d=d, sc=sc, dmin=dmin, mn=mn, fmt=fmt,
                        bits=bits, sub_size=sub, d_size=256 if layout == "compact" else sub,
                        code_bias=bias, out_features=out_f, in_features=in_f,
                        min_size=256 if layout == "mixed" else 0)
+
+
+def _wbytes(w) -> int:
+    return sum(a.numel() * a.element_size() for a in (w.codes, w.d, w.sc, w.dmin, w.mn)
+               if a is not None)
 
 
 def _lowbit_rows(torch, qm, g, timer):
@@ -279,23 +325,23 @@ def _lowbit_rows(torch, qm, g, timer):
     cases = []
     for name, (out_f, in_f) in SHAPES_2BIT.items():
         for layout, bs in (("flat", (1, 4, 512)), ("mixed", (1, 4, 512)), ("compact", (4,))):
-            cases.append((2, f"{layout} {name}", out_f, in_f, 16, 0, layout, True, False, bs))
+            cases.append(("q2_k", f"{layout} {name}", out_f, in_f, layout, bs))
     for name in ("o", "down"):
         out_f, in_f = SHAPES_4BIT[name]
-        cases.append((4, f"q3_k {name}", out_f, in_f, 16, 4, "flat", False, True, (1, 4)))
+        cases.append(("q3_k", f"q3_k {name}", out_f, in_f, "flat", (1, 4)))
     for layout in ("compact", "mixed"):
         out_f, in_f = SHAPES_4BIT["gate_up"]
-        cases.append((4, f"q4_k {layout} gate_up", out_f, in_f, 32, 0, layout, True, False,
-                      (4,)))
+        cases.append(("q4_k", f"q4_k {layout} gate_up", out_f, in_f, layout, (4,)))
     rows = []
-    for bits, label, out_f, in_f, sub, bias, layout, has_min, signed, bs in cases:
-        w = _lowbit_weight(torch, g, bits, out_f, in_f, sub, bias, layout, has_min, signed)
+    for fmt, label, out_f, in_f, layout, bs in cases:
+        w = _weight(torch, g, fmt, out_f, in_f, layout)
+        bits, sub, bias = w.bits, w.sub_size, w.code_bias
         kernel, plain, kname = ((qm.quant_matmul_2bit, qm.quant_matmul_2bit_plain, qm.NAME_2BIT)
                                 if bits == 2 else
                                 (qm.quant_matmul_4bit, qm.quant_matmul_4bit_plain, qm.NAME_4BIT))
         w_lib = w.dequantize_bm()
         arrays = [w.codes, w.d, w.sc, w.dmin, w.mn]
-        wbytes = sum(a.numel() * a.element_size() for a in arrays if a is not None)
+        wbytes = _wbytes(w)
         nsub = in_f // sub
         for B in bs:
             x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
@@ -315,6 +361,89 @@ def _lowbit_rows(torch, qm, g, timer):
                          "bound_ms": b_ms, "bound_by": b_by})
             emit({"phase": "kernels", **rows[-1]})
         del w, w_lib, arrays
+    return rows
+
+
+VARIANTS = ("base", "xsum", "split", "int8")
+
+
+def _variant_call(qm, w, variant, x):
+    """(kernel name, kernel, its args, plain version, its args, activation
+    bytes read, int8 operations) of one body on weight ``w`` and bf16
+    activations ``x`` (B, in), the arguments built as the dispatcher builds
+    them."""
+    arrs = (w.codes, w.d, w.sc, w.dmin, w.mn)
+    B, in_f = x.shape
+    nsub = in_f // w.sub_size
+    xsum = qm._block_sums(x, w.sub_size)
+    x_bytes = B * in_f * 2 + B * nsub * 4
+    if variant == "8bit":
+        args = (x, w.codes, w.d, w.sc, w.sub_size, w.code_bias, w.dmin, w.mn)
+        name = qm.NAME_8BIT if w.dmin is None else qm.NAME_8BIT_MIN
+        return name, qm.quant_matmul_8bit, args, qm.quant_matmul_8bit_plain, args, \
+            B * in_f * 2, False
+    if variant == "int8":
+        xq, xs = qm.quantize_acts(x, w.sub_size)
+        args = (xq, xs, xsum, *arrs, w.code_bias)
+        return qm.NAME_4BIT_INT8, qm.quant_matmul_4bit_int8, args, \
+            qm.quant_matmul_4bit_int8_plain, args, B * in_f + 2 * B * nsub * 4, True
+    if variant == "base" and w.bits == 4 and w.fmt not in qm.MAPPED_FMTS:
+        args = (x, *arrs, w.code_bias)
+        return qm.NAME_4BIT_BASE, qm.quant_matmul_4bit_base, args, \
+            qm.quant_matmul_4bit_base_plain, args, B * in_f * 2, False
+    if variant == "base":
+        args = (x, *arrs, w.code_bias, w.bits, w.fmt)
+        return qm.NAME_LOWBIT_BASE, qm.quant_matmul_lowbit_base, args, \
+            qm.quant_matmul_lowbit_base_plain, args, B * in_f * 2, False
+    name, kernel, plain = {
+        "fsplit": (qm.NAME_4BIT, qm.quant_matmul_4bit, qm.quant_matmul_4bit_plain),
+        "xsum": (qm.NAME_4BIT_XSUM, qm.quant_matmul_4bit_xsum, qm.quant_matmul_4bit_xsum_plain),
+        "split": (qm.NAME_4BIT_SPLIT, qm.quant_matmul_4bit_split,
+                  qm.quant_matmul_4bit_split_plain)}[variant]
+    args = (x, xsum, *arrs, w.code_bias, w.fmt)
+    return name, kernel, args, plain, args, x_bytes, False
+
+
+def _variant_rows(torch, qm, g, timer):
+    """The 8-bit kernel's min term and the LGT_MM_VARIANT bodies, each at
+    the shapes of its path: the 8-bit kernel with its min term at the Q5_K projections (compact, the
+    ``auto`` layout, and flat; B = 1, 4, 512) and Q5_1's flat min at o; the
+    4-bit base, xsum, split and int8 kernels at Q4_K flat gate+up and down
+    (B = 1, 4, 512) and at Q4_0 (bias 8), Q4_1 (flat min) and Q3_K (sub 16,
+    bias 4) at o; the base body's f32 branch at Q2_K flat and compact
+    gate+up; the IQ2/IQ3 value maps through fsplit and base at o (codes
+    drawn at random, no IQ repack). The int8 kernel's operations bound is
+    taken at the int8 rate."""
+    cases = [("q5_k", layout, name, (1, 4, 512), ("8bit",))
+             for layout in ("compact", "flat") for name in SHAPES_4BIT]
+    cases.append(("q5_1", "flat", "o", (4,), ("8bit",)))
+    cases += [("q4_k", "flat", name, (1, 4, 512), VARIANTS) for name in ("gate_up", "down")]
+    cases += [(fmt, "flat", "o", (4,), VARIANTS) for fmt in ("q4_0", "q4_1", "q3_k")]
+    cases += [("q2_k", layout, "gate_up", (4,), ("base",)) for layout in ("flat", "compact")]
+    cases += [(fmt, "flat", "o", (4,), ("fsplit", "base")) for fmt in ("iq2_xs", "iq3_s")]
+    rows = []
+    for fmt, layout, name, bs, variants in cases:
+        out_f, in_f = SHAPES_4BIT[name]
+        w = _weight(torch, g, fmt, out_f, in_f, layout)
+        w_lib = w.dequantize_bm()
+        wbytes = _wbytes(w)
+        for B in bs:
+            x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
+            for var in variants:
+                kname, kernel, args, plain, pargs, x_bytes, int8 = _variant_call(qm, w, var, x)
+                err, rel = _err(kernel(*args), plain(*pargs), MATMUL_TOL)
+                b_ms, b_by = bound(wbytes + x_bytes + B * out_f * 4, 2.0 * B * in_f * out_f,
+                                   INT8_OPS if int8 else BF16_FLOPS)
+                rows.append({"kernel": kname,
+                             "shape": f"{fmt} {layout} {var} {name} {out_f}x{in_f} B={B}",
+                             "B": B, "max_abs_err": err, "max_rel_err": rel,
+                             "bits_per_weight": 8 * wbytes / (out_f * in_f),
+                             "ms": timer(lambda: kernel(*args)),
+                             "plain_ms": timer(lambda: plain(*pargs), 5),
+                             "library_ms": timer(lambda: torch.matmul(x, w_lib.t())),
+                             "bound_ms": b_ms, "bound_by": b_by})
+                emit({"phase": "kernels", **rows[-1]})
+        del w, w_lib
     return rows
 
 
@@ -395,22 +524,27 @@ def _attention_rows(torch, F, fa, rand, g, timer):
     return rows
 
 
+MATMUL_WRAPPERS = ("quant_matmul_2bit", "quant_matmul_4bit", "quant_matmul_4bit_xsum",
+                   "quant_matmul_4bit_split", "quant_matmul_4bit_int8",
+                   "quant_matmul_4bit_base", "quant_matmul_lowbit_base", "quant_matmul_8bit")
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the model through the plain PyTorch versions (on the card)."""
     from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
-    saved = (qm.quant_matmul_2bit, qm.quant_matmul_4bit, qm.quant_matmul_8bit,
-             fa.flash_attention)
-    qm.quant_matmul_2bit = qm.quant_matmul_2bit_plain
-    qm.quant_matmul_4bit = qm.quant_matmul_4bit_plain
-    qm.quant_matmul_8bit = qm.quant_matmul_8bit_plain
+    saved = {n: getattr(qm, n) for n in MATMUL_WRAPPERS}
+    saved_fa = fa.flash_attention
+    for n in MATMUL_WRAPPERS:
+        setattr(qm, n, getattr(qm, n + "_plain"))
     fa.flash_attention = fa.flash_attention_plain
     try:
         yield
     finally:
-        (qm.quant_matmul_2bit, qm.quant_matmul_4bit, qm.quant_matmul_8bit,
-         fa.flash_attention) = saved
+        for n, fn in saved.items():
+            setattr(qm, n, fn)
+        fa.flash_attention = saved_fa
 
 
 def phase_engine(torch):
@@ -459,14 +593,14 @@ def _greedy_run(torch, engine, ids, steps, cache=None, feed=None):
 PROMPT = "the quick brown fox jumps over the lazy dog"
 
 
-def _compare(k_logits, p_logits):
+def _compare(k_logits, p_logits, tol=LOGITS_TOL):
     """The plain run was fed the kernel run's tokens, so the logits of every
-    step compare: each within LOGITS_TOL of its scale. Returns the errors
+    step compare: each within ``tol`` of its scale. Returns the errors
     (prefill first) and the steps whose argmax agree."""
     errs = [((a - b).abs().max() / b.abs().max()).item()
             for a, b in zip(k_logits, p_logits)]
-    if not max(errs) <= LOGITS_TOL:
-        raise AssertionError(f"logits rel errs {errs} exceed {LOGITS_TOL}")
+    if not max(errs) <= tol:
+        raise AssertionError(f"logits rel errs {errs} exceed {tol}")
     agree = sum(int(a.argmax()) == int(b.argmax()) for a, b in zip(k_logits, p_logits))
     return errs, agree
 
@@ -767,6 +901,106 @@ def phase_serve(torch, engine, label="serve"):
     return launches
 
 
+def _check_launches(what, launches, want, absent=()):
+    """Every kernel of ``want`` launched, none of ``absent``, no plain
+    version."""
+    bad = [n for n in want if launches.get(n, 0) <= 0] + \
+        [n for n in absent if launches.get(n, 0)] + \
+        [n for n in launches if n.endswith(".plain")]
+    if bad:
+        raise AssertionError(f"{what}: launches {launches}")
+
+
+@contextlib.contextmanager
+def mm_variant(name):
+    os.environ["LGT_MM_VARIANT"] = name
+    try:
+        yield
+    finally:
+        os.environ.pop("LGT_MM_VARIANT", None)
+
+
+@contextlib.contextmanager
+def shadowed(torch, wrapper, errs):
+    """Each call of the matmul wrapper ``wrapper`` also runs its plain
+    version on the same arguments, and ``errs`` gets the error of the
+    kernel's output relative to the plain output's scale."""
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    real, plain = getattr(qm, wrapper), getattr(qm, wrapper + "_plain")
+
+    def both(*args):
+        y = real(*args)
+        want = plain(*args)
+        errs.append(((y - want).abs().max() / (want.abs().max() + 1e-12)).item())
+        return y
+    setattr(qm, wrapper, both)
+    try:
+        yield
+    finally:
+        setattr(qm, wrapper, real)
+
+
+def _variant_forward(torch, engine, label, want, absent=(), shadow=None, tol=LOGITS_TOL):
+    """A prefill and 16 greedy steps through the kernels (launches counted)
+    held against the plain versions fed the same tokens; with ``shadow`` (a
+    matmul wrapper's name) the same 17 steps again, every call of that
+    wrapper held to MATMUL_TOL of its plain version on the same inputs."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    ids = engine.tokenizer.encode(PROMPT)
+    _build.reset_launches()
+    t0 = time.time()
+    k_logits, k_toks = _greedy_run(torch, engine, ids, 16)
+    t1 = time.time()
+    launches = dict(_build.LAUNCHES)
+    _check_launches(label, launches, want, absent)
+    out = {}
+    if shadow:
+        errs: list[float] = []
+        with shadowed(torch, shadow, errs):
+            _greedy_run(torch, engine, ids, 16, feed=k_toks)
+        if not errs or max(errs) > MATMUL_TOL:
+            raise AssertionError(f"{label}: {shadow} against its plain version: {errs}")
+        out = {"shadow_calls": len(errs), "shadow_rel_err_max": max(errs)}
+    with plain_versions():
+        p_logits, _ = _greedy_run(torch, engine, ids, 16, feed=k_toks)
+    _check_logits(torch, engine, k_logits)
+    errs, agree = _compare(k_logits, p_logits, tol)
+    return launches, {"steps_compared": len(errs), "argmax_agree": agree,
+                      "logits_rel_err_prefill": errs[0], "logits_rel_err_max": max(errs),
+                      "logits_tol": tol, **out, "kernel_path_s": round(t1 - t0, 3)}
+
+
+def phase_variants(torch, engine):
+    """The Q4_K_M engine under each LGT_MM_VARIANT: its Q4_K projections
+    through that variant's kernel (never fsplit's), the Q6_K head through the
+    8-bit kernel, held against the plain versions over 17 steps; then three
+    greedy requests through the server. Each run is one launch window."""
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    kernel = {"base": qm.NAME_4BIT_BASE, "xsum": qm.NAME_4BIT_XSUM,
+              "split": qm.NAME_4BIT_SPLIT, "int8": qm.NAME_4BIT_INT8}
+    paths = []
+    for var in VARIANTS:
+        want, absent = (kernel[var], qm.NAME_8BIT), (qm.NAME_4BIT, qm.NAME_DEQUANT)
+        with mm_variant(var):
+            launches, out = _variant_forward(
+                torch, engine, f"variant {var}", want, absent, shadow=kernel[var],
+                tol=INT8_LOGITS_TOL if var == "int8" else LOGITS_TOL)
+            served: dict[str, int] = {}
+            with serving(torch, engine, served) as (port, key):
+                t0 = time.time()
+                results = _completions(port, key, [
+                    {"prompt": f"request {i}: the lazy dog", "max_tokens": 16,
+                     "temperature": 0} for i in range(3)])
+                wall = time.time() - t0
+        _check_launches(f"variant {var} serve", served, want, absent)
+        ntok = sum(r[1]["usage"]["completion_tokens"] for r in results)
+        emit({"phase": "variants", "ok": True, "variant": var, "kernel": kernel[var], **out,
+              "launches": launches, "served_tokens": ntok,
+              "served_tok_s": round(ntok / wall, 2), "served_launches": served})
+        paths += [launches, served]
+    return paths
+
+
 def phase_serve_paged(torch, path):
     """A q8_0 paged engine from the environment: 4 slots over 4 pages of
     1024 (a contiguous slot's share is 1024). One streamed request of about
@@ -906,26 +1140,108 @@ def phase_q2k(torch):
               "logits_rel_err_prefill": errs[0], "logits_rel_err_max": max(errs),
               "kernel_path_s": round(t1 - t0, 3), "launches": launches})
         served = phase_serve(torch, engine, "q2k-serve")
+        if served.get(qm.NAME_2BIT, 0) <= 0 or any(n.endswith(".plain") for n in served):
+            raise AssertionError(f"q2k serve: launches {served}")
+        base = _q2k_base(torch, engine)
     finally:
         engine.stop()
         os.environ.pop("LGT_SCALE_LAYOUT", None)
-    if served.get(qm.NAME_2BIT, 0) <= 0 or any(n.endswith(".plain") for n in served):
-        raise AssertionError(f"q2k serve: launches {served}")
+    return [launches, served, base]
+
+
+def _as_flat(w):
+    """A mixed-layout QuantLinear relaid flat on the card: the same codes and
+    scale, the min side expanded per sub-block in the scale's order (the
+    decode's own ``_min_sub_mixed``, the f32 products ``flatten_repacked``
+    forms)."""
+    import dataclasses
+    return dataclasses.replace(w, dmin=w._min_sub_mixed().contiguous(), mn=None,
+                               min_size=0)
+
+
+def _q2k_base(torch, engine):
+    """``LGT_MM_VARIANT=base`` on the Q2_K engine: the mixed layout takes the
+    dequantize path there (as ``matmul_xla`` in the JAX package), so two
+    greedy steps show that; then its 2-bit weights are relaid flat and the
+    17-step forward runs through the base body's 2-bit kernel against the
+    plain versions."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    with mm_variant("base"):
+        ids = engine.tokenizer.encode(PROMPT)
+        _build.reset_launches()
+        _greedy_run(torch, engine, ids, 2)
+        mixed = dict(_build.LAUNCHES)
+        _check_launches("q2k base, mixed", mixed, (qm.NAME_DEQUANT, qm.NAME_8BIT),
+                        (qm.NAME_2BIT, qm.NAME_LOWBIT_BASE))
+        for layer in engine.params["layers"]:
+            for n, w in layer.items():
+                if getattr(w, "min_size", 0):
+                    layer[n] = _as_flat(w)
+        launches, out = _variant_forward(torch, engine, "q2k base, flat",
+                                         (qm.NAME_LOWBIT_BASE, qm.NAME_8BIT),
+                                         (qm.NAME_2BIT, qm.NAME_DEQUANT),
+                                         shadow=qm.NAME_LOWBIT_BASE)
+    emit({"phase": "q2k-base", "ok": True, "mixed_launches": mixed, **out,
+          "launches": launches})
+    return launches
+
+
+def phase_q5k(torch):
+    """The 8B Q5_K model under the default layout (compact: u8 sc and mn per
+    32): load, resident bytes, a prefill and 16 greedy steps through the
+    kernels (the 8-bit one with its min term) against the plain versions fed
+    the same tokens, then served."""
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
+    from llama_gguf_inference_tpu_torch.tools.synth import cached_model
+    t0 = time.time()
+    path = cached_model("8b", seed=0, quant="q5_k")
+    t1 = time.time()
+    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024), device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.time()
+    try:
+        p = engine.params
+        w = p["layers"][0]["ffn_gateup"]
+        if (w.fmt, w.bits, w.sc is None, w.dmin is None) != ("q5_k", 8, False, False):
+            raise AssertionError(f"gate+up loaded as {w.fmt}, {w.bits} bits")
+        emit({"phase": "q5k-load", "ok": True, "synth_s": round(t1 - t0, 3),
+              "load_s": round(t2 - t1, 3), "gguf_gb": os.path.getsize(path) / 1e9,
+              "scale_layout": "auto (compact)",
+              "resident_weights_gb": _resident_bytes(torch, p) / 1e9,
+              "resident_block_weights_gb": _resident_bytes(torch, p["layers"]) / 1e9,
+              "resident_head_gb": _resident_bytes(torch, p["output"]) / 1e9,
+              "resident_embedding_gb": _resident_bytes(torch, p["tok_embd"]) / 1e9,
+              "device_gb": torch.cuda.memory_allocated() / 1e9})
+        launches, out = _variant_forward(torch, engine, "q5k", (qm.NAME_8BIT_MIN, qm.NAME_8BIT),
+                                         (qm.NAME_DEQUANT,), shadow=qm.NAME_8BIT)
+        emit({"phase": "q5k-forward", "ok": True, **out, "launches": launches})
+        served = phase_serve(torch, engine, "q5k-serve")
+        _check_launches("q5k serve", served, (qm.NAME_8BIT_MIN, qm.NAME_8BIT))
+    finally:
+        engine.stop()
     return [launches, served]
 
 
 _FA_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention.cu"
 _FA_JAX = "llama_gguf_inference_tpu/ops/flash_attention.py"
+_QM_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu"
+_QM_JAX = "llama_gguf_inference_tpu/ops/pallas_matmul.py"
 SOURCES = {
     # name: (source, TPU kernel it replaces); pallas_call sites are
-    # pallas_matmul.py:641 (qsplit, fsplit), :247 (8-bit) and
-    # flash_attention.py:176, :289 (q8/q4/q4_1), :369 (paged) and :452 (paged q8_0)
-    "quant_matmul_2bit": ("llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu",
-                          "llama_gguf_inference_tpu/ops/pallas_matmul.py:481"),
-    "quant_matmul_4bit": ("llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu",
-                          "llama_gguf_inference_tpu/ops/pallas_matmul.py:421"),
-    "quant_matmul_8bit": ("llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu",
-                          "llama_gguf_inference_tpu/ops/pallas_matmul.py:123"),
+    # pallas_matmul.py:641 (qsplit, fsplit, xsum, split), :247 (_make_kernel's
+    # branches), :698 (int8) and flash_attention.py:176, :289 (q8/q4/q4_1),
+    # :369 (paged) and :452 (paged q8_0)
+    "quant_matmul_2bit": (_QM_CU, _QM_JAX + ":481"),
+    "quant_matmul_4bit": (_QM_CU, _QM_JAX + ":421"),
+    "quant_matmul_4bit_xsum": (_QM_CU, _QM_JAX + ":309"),
+    "quant_matmul_4bit_split": (_QM_CU, _QM_JAX + ":362"),
+    "quant_matmul_4bit_int8": (_QM_CU, _QM_JAX + ":536"),
+    "quant_matmul_4bit_base": (_QM_CU, _QM_JAX + ":157"),      # _make_kernel, bf16-magic branch
+    "quant_matmul_lowbit_base": (_QM_CU, _QM_JAX + ":172"),    # _make_kernel, f32 low-bit branch
+    "quant_matmul_8bit": (_QM_CU, _QM_JAX + ":123"),           # _make_kernel, 8-bit branch
+    "quant_matmul_8bit_min": (_QM_CU, _QM_JAX + ":185"),       # the same, with its min term
     "flash_attention": (_FA_CU, _FA_JAX + ":129"),
     "flash_attention_q8": (_FA_CU, _FA_JAX + ":189"),
     "flash_attention_q4": (_FA_CU, _FA_JAX + ":189"),
@@ -938,7 +1254,11 @@ SOURCES = {
 # phase serves)
 LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_4bit": "gate_up 28672x4096 B=4",
+              **{f"quant_matmul_4bit_{v}": f"q4_k flat {v} gate_up 28672x4096 B=4"
+                 for v in VARIANTS},
+              "quant_matmul_lowbit_base": "q2_k flat base gate_up 28672x4096 B=4",
               "quant_matmul_8bit": "head 128256x4096 B=4",
+              "quant_matmul_8bit_min": "q5_k compact 8bit gate_up 28672x4096 B=4",
               **{name: "decode" for name in SOURCES if name.startswith("flash")}}
 
 
@@ -1001,6 +1321,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "serve"
         paths.append(phase_serve(torch, engine))
+        phase = "variants"
+        paths += phase_variants(torch, engine)
         engine.stop()
         engine = None
         gc.collect()
@@ -1011,6 +1333,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "q2k"
         paths += phase_q2k(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = "q5k"
+        paths += phase_q5k(torch)
         emit({"phase": "memory", "max_allocated_gb":
               torch.cuda.max_memory_allocated() / 1e9})
         for counts in paths:

@@ -1,47 +1,71 @@
 // Fused dequantize + matmul over repacked quantized weights, for Hopper.
 //
-// Replaces three Pallas TPU kernels of llama_gguf_inference_tpu/ops/pallas_matmul.py:
+// Replaces every Pallas TPU matmul body of
+// llama_gguf_inference_tpu/ops/pallas_matmul.py:
 //
-//   lgt_quant_matmul_2bit  <- _make_kernel_qsplit (via _quant_matmul_2d_xsum,
-//                             kern="qsplit"): 2-bit planar-quarter codes
-//                             (Q2_K; the IQ1 trit codes share the geometry).
-//   lgt_quant_matmul_4bit  <- _make_kernel_fsplit (via _quant_matmul_2d_xsum,
-//                             kern="fsplit"): 4-bit planar-nibble codes
-//                             (Q4_K, and Q3_K's 3-bit codes with bias 4).
-//   lgt_quant_matmul_8bit  <- _make_kernel (via _quant_matmul_2d): int8 codes
-//                             with compact hierarchical scales (Q6_K: f32 d per
-//                             256, int8 sc per 16) or flat ones (Q8_0). The
-//                             asymmetric 8-bit formats (dmin/mn) are not loaded
-//                             by this package, so their min term is left out.
+//   lgt_quant_matmul_lowbit, 2- and 4-bit codes, one template whose Var
+//   parameter follows the element rule of one TPU body:
+//     var fsplit, 2 bits  <- _make_kernel_qsplit (kern="qsplit"): planar
+//                            quarters (Q2_K; the IQ1 trit codes share it)
+//     var fsplit, 4 bits  <- _make_kernel_fsplit (kern="fsplit"): planar
+//                            nibbles (Q4_K, Q4_0, Q4_1, Q3_K's 3-bit codes
+//                            with bias 4; with the IQ2/IQ3 code->value map)
+//     var xsum            <- _make_kernel_xsum (LGT_MM_VARIANT=xsum)
+//     var split           <- _make_kernel_split (LGT_MM_VARIANT=split)
+//     var base            <- _make_kernel's bf16-magic 4-bit branch
+//                            (LGT_MM_VARIANT=base, or (in/sub) % 8 != 0)
+//     var base_f32        <- _make_kernel's f32 branch for 2-bit codes and
+//                            value-mapped 4-bit codes
+//   lgt_quant_matmul_int8   <- _make_kernel_int8 (via _quant_matmul_2d_int8,
+//                            LGT_MM_VARIANT=int8): Q8_1-style int8 activations
+//                            (_quantize_acts, done by the caller) and exact
+//                            int32 dots per sub-block with the 4-bit codes
+//   lgt_quant_matmul_8bit   <- _make_kernel's 8-bit branch (via
+//                            _quant_matmul_2d): int8 codes with compact
+//                            hierarchical scales (Q6_K, IQ4_XS: f32 d per 256,
+//                            i8 sc per sub-block; Q5_K: u8 sc and mn) or flat
+//                            ones (Q8_0, Q5_0, Q5_1, Q8_1, Q8_K, IQ4_NL), with
+//                            the min term of the asymmetric ones (Q5_K, Q5_1)
 //
 // All read the arrays the JAX kernels read, in the same block-minor element
 // order (quant/repack.py block_minor_perm): stored position j of a row holds
 // sub-block (j mod nsub), so a 16-byte code load meets a contiguous run of
 // per-sub-block scales, and the activations arrive pre-permuted by the caller.
 //
-// 2- and 4-bit (P = 4 or 2 code planes, q = in/P stored codes per plane):
-//   y[b,o] = sum_i sum_{j<q} x[b, i*q + j] * bf16(v_i(c[o,j]) * s[o, j mod nsub])
-//          - sum_k xsum[b,k] * m'[o,k]
-//   v_i(c) = (c >> (8/P)*i) & (2^(8/P) - 1)
-// with the scale and min sides each read in one of the repack's layouts
-// (_hier_scales in the JAX package), the side being a template parameter:
+// 2- and 4-bit (P = 4 or 2 code planes, q = in/P stored codes per plane,
+// v_i(c) = (c >> (8/P)*i) & (2^(8/P) - 1), mapped by code_value for IQ2/IQ3):
+//   fsplit  y = sum_i sum_j x[i*q + j] * bf16(v_i * s[k]) - sum_k xsum[k] * m'[k]
+//   xsum    as fsplit with bf16(v_i * bf16(s[k])), one sum over both planes
+//   split   as xsum, the two planes summed apart and added at the end
+//   base    w = bf16(bf16(v_i * bf16(s[k])) - bf16(m'[k])), no xsum term
+//           (XLA on the CPU rounds after the multiply and again after the
+//           subtract, like the TPU's bf16 arithmetic; checked by the tests)
+//   base_f32  w = bf16((v_i - bias) * s[k] - m[k]) in f32, no xsum term
+// with k = j mod nsub, the scale and min sides each read in one of the
+// repack's layouts (_hier_scales in the JAX package), the side being a
+// template parameter:
 //   flat    s[k] = d[k]                           (d per sub-block)
 //   hier    s[k] = d[k mod nd] * sc[k]            (d per super-block, sc u8/i8)
 //   m'[k] = bias*s[k] + m[k], m[k] the min side read the same way (none,
 //   flat, or hier with dmin per min super-block: nd for compact, in/min_size
-//   for mixed, where the caller permuted xsum into the mn order and bias is 0).
-// 8-bit:  y[b,o] = sum_j x[b,j] * bf16((c[o,j] - bias) * s_full[j])
+//   for mixed, where the caller permuted xsum into the mn order and bias is 0;
+//   the base variants take no mixed layout, as in the JAX dispatcher).
+// int8:   p[k] = sum_t xq[t*nsub + k] * c[t*nsub + k] (exact int32, c the
+//         unbiased 4-bit code), y = sum_k (p[k] * xs[k]) * s[k] - sum_k xsum[k] * m'[k]
+// 8-bit:  y[b,o] = sum_j x[b,j] * bf16((c[o,j] - bias) * s_full[j] - m_full[j])
 //         s_sub[k] = d[o, k mod nd] * sc[o,k] (k < nsub), s_full[j] = s_sub[j mod nsub]
-//         (tiles, not repeat-interleave: that is what pltpu.repeat does).
+//         (tiles, not repeat-interleave: that is what pltpu.repeat does), the
+//         min side alike; the subtract follows the product in f32.
 // Products are rounded to bf16 where the TPU kernel rounds them, sums run in
-// f32, and the scale arithmetic uses __fmul_rn/__fadd_rn so nvcc cannot fuse
-// it into an FMA the reference does not do.
+// f32, and the scale arithmetic uses __fmul_rn/__fadd_rn/__fsub_rn so nvcc
+// cannot fuse it into an FMA the reference does not do.
 //
 // What bounds them on the card: at decode (a handful of activation rows)
 // they stream their weight bytes once, so device-memory bandwidth bounds
 // them. Bytes per weight: Q2_K 0.75 flat (6.0 bits), 0.578 mixed (4.625),
 // 0.406 compact (3.25); Q4_K 0.75 flat, 0.672 mixed, 0.594 compact; Q3_K
-// 0.75 flat, 0.578 compact; Q6_K about 1.08 compact.
+// 0.75 flat, 0.578 compact; Q6_K about 1.08 compact; Q5_K 1.09 compact,
+// 1.25 flat. At prefill (512 rows) they are bound by operations.
 // Design: one warp per output row, lanes walking the row in 16-byte code
 // loads (coalesced, 512 bytes per warp step, the next step's load in flight
 // during this one's arithmetic; 64 weights a lane at 2 bits, 32 at 4), the
@@ -49,8 +73,11 @@
 // the byte's four planes, the dequantized run applied to up to 8
 // activation rows at once; a second grid axis tiles further activation rows,
 // so any row count works (prefill re-reads the weights from L2 once per 8
-// rows: right, not yet fast). Tensor cores, TMA, split-K and a shared-memory
-// weight ring are later work.
+// rows: right, not yet fast). The int8 kernel gives each lane four
+// neighbouring sub-blocks and walks their elements (stride nsub), so a warp
+// reads 128 neighbouring code bytes per step and keeps 4 exact int32 sums
+// per activation row. Tensor cores, TMA, split-K and a shared-memory weight
+// ring are later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -61,8 +88,12 @@ namespace {
 constexpr int kWarps = 4;   // output rows per block, one warp each
 constexpr int kRows = 8;    // activation rows per block
 
-// How one side (scale or min) of a 2/4-bit weight is stored.
+// How one side (scale or min) of a weight is stored.
 enum Side : int { kNone = 0, kFlat = 1, kHierU8 = 2, kHierI8 = 3 };
+// The element rule of a 2/4-bit instance: which TPU body it follows.
+enum Var : int { kFsplit = 0, kXsum = 1, kSplit = 2, kBase = 3, kBaseF32 = 4 };
+// The code -> value map of a 4-bit instance (ops/linear.py code_values).
+enum Map : int { kIdentity = 0, kIq2 = 1, kIq3 = 2 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -98,9 +129,26 @@ __device__ __forceinline__ float side_at(const float* base, const uint8_t* sub,
   return b;
 }
 
+// The sign|magnitude alphabets of the 4-bit IQ2/IQ3 codes, shifts and adds
+// only, as the JAX package computes them.
+template <int kMap>
+__device__ __forceinline__ int code_value(int q) {
+  if constexpr (kMap == kIq2) {
+    const int e = q & 14;
+    return ((e << 4) + e) - ((q & 1) << 1) - 118;
+  } else if constexpr (kMap == kIq3) {
+    const int c = q & 7;
+    const int m = (c << 3) + 4 + ((((c + 1) >> 3) & 1) << 1);
+    const int neg = -(q >> 3);
+    return (m ^ neg) - neg;
+  } else {
+    return q;
+  }
+}
+
 struct LowbitArgs {
   const __nv_bfloat16* x;  // (B, in) block-minor
-  const float* xsum;       // (B, nsub), in the min side's sub-block order
+  const float* xsum;       // (B, nsub), in the min side's sub-block order; null for base
   const uint8_t* codes;    // (out, in * kBits / 8)
   const float* d;          // (out, nd)
   const uint8_t* sc;       // (out, nsub) or null
@@ -111,26 +159,68 @@ struct LowbitArgs {
 };
 
 // Steps the sub-block index k of consecutive stored positions, and kd = k
-// mod nd for a hierarchical side (a flat side needs only k).
-template <int kS>
+// mod nd when a hierarchical side needs it.
+template <bool kTrackKd>
 __device__ __forceinline__ void next_sub(int& k, int& kd, int nsub, int nd) {
   if (++k == nsub) {
     k = 0;
     kd = 0;
-  } else if (kS != kFlat && ++kd == nd) {
+  } else if (kTrackKd && ++kd == nd) {
     kd = 0;
   }
 }
 
+// The per-sub-block factors (s, m) of the element rule of kVar, and the
+// element itself.
+template <int kVar, int kS, int kM>
+__device__ __forceinline__ void sub_factors(const float* drow, const uint8_t* scrow,
+                                            const float* dminrow, const uint8_t* mnrow,
+                                            int bias, int k, int kd, float& s, float& m) {
+  const float sv = side_at<kS>(drow, scrow, k, kd);
+  if constexpr (kVar == kFsplit) {
+    s = sv;
+  } else if constexpr (kVar == kXsum || kVar == kSplit) {
+    s = bf16_round(sv);
+  } else if constexpr (kVar == kBase) {
+    // m' = m + bias*s in f32, then both rounded to bf16 (:171, :194-195)
+    float mp = __fmul_rn((float)bias, sv);
+    if constexpr (kM != kNone) mp = __fadd_rn(side_at<kM>(dminrow, mnrow, k, kd), mp);
+    s = bf16_round(sv);
+    m = bf16_round(mp);
+  } else {
+    s = sv;
+    if constexpr (kM != kNone) m = side_at<kM>(dminrow, mnrow, k, kd);
+  }
+}
+
+template <int kVar, int kM, int kMap>
+__device__ __forceinline__ float element(int c, float s, float m, int bias) {
+  if constexpr (kVar == kFsplit) {
+    return bf16_round(__fmul_rn((float)code_value<kMap>(c), s));
+  } else if constexpr (kVar == kXsum || kVar == kSplit) {
+    return bf16_round(__fmul_rn((float)c, s));
+  } else if constexpr (kVar == kBase) {
+    return bf16_round(__fsub_rn(bf16_round(__fmul_rn((float)c, s)), m));
+  } else {
+    const float w = __fmul_rn((float)(code_value<kMap>(c) - bias), s);
+    if constexpr (kM != kNone) return bf16_round(__fsub_rn(w, m));
+    return bf16_round(w);
+  }
+}
+
 // Registers bound the occupancy of these latency-bound loops: the 2-bit
-// instance keeps 16 scales live across its four planes and is held to four
-// blocks an SM, the 4-bit one (no scale array) to six, as the flat Q4_K
-// kernel ran before the layouts were added.
-template <int kBits, int kS, int kM>
+// instances keep 16 scales live across their four planes and are held to
+// four blocks an SM, the 4-bit ones (no scale array) to six, as the flat
+// Q4_K kernel ran before the layouts were added.
+template <int kBits, int kVar, int kMap, int kS, int kM>
 __global__ void __launch_bounds__(kWarps * 32, kBits == 2 ? 4 : 6)
 quant_matmul_lowbit_kernel(const LowbitArgs a) {
   constexpr int kPlanes = 8 / kBits;
   constexpr int kMask = (1 << kBits) - 1;
+  constexpr bool kBaseVar = kVar == kBase || kVar == kBaseF32;
+  // the base variants read the min side at kd too (they take no mixed layout)
+  constexpr bool kTrackKd = kS != kFlat || (kBaseVar && (kM == kHierU8 || kM == kHierI8));
+  constexpr int kAcc = kVar == kSplit ? 2 : 1;  // split sums the planes apart
   const int lane = threadIdx.x & 31;
   const int o = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int b0 = blockIdx.y * kRows;
@@ -140,10 +230,15 @@ quant_matmul_lowbit_kernel(const LowbitArgs a) {
   const uint8_t* crow = a.codes + (size_t)o * qn;
   const float* drow = a.d + (size_t)o * a.nd;
   const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + (size_t)o * a.nsub;
+  const float* dminrow = kM == kNone ? nullptr : a.dmin + (size_t)o * a.ndm;
+  const uint8_t* mnrow = (kM == kHierU8 || kM == kHierI8) ? a.mn + (size_t)o * a.nsub
+                                                          : nullptr;
 
-  float acc[kRows];
+  float acc[kAcc][kRows];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  for (int h = 0; h < kAcc; ++h)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[h][r] = 0.f;
 
   // the next 16 code bytes are loaded while the current ones are applied
   int j0 = lane * 16;
@@ -155,17 +250,18 @@ quant_matmul_lowbit_kernel(const LowbitArgs a) {
     // stored byte j belongs to sub-block k = j mod nsub in every plane,
     // because q is a multiple of nsub
     int k = j0 % a.nsub;
-    int kd = kS == kFlat ? 0 : k % a.nd;
+    int kd = kTrackKd ? k % a.nd : 0;
     if constexpr (kBits == 4) {
       // two nibble planes, each product summed in the order of the flat
       // Q4_K kernel
       float wlo[16], whi[16];
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
-        const float sv = side_at<kS>(drow, scrow, k, kd);
-        wlo[e] = bf16_round(__fmul_rn((float)(c[e] & 0xF), sv));
-        whi[e] = bf16_round(__fmul_rn((float)(c[e] >> 4), sv));
-        next_sub<kS>(k, kd, a.nsub, a.nd);
+        float s, m = 0.f;
+        sub_factors<kVar, kS, kM>(drow, scrow, dminrow, mnrow, a.bias, k, kd, s, m);
+        wlo[e] = element<kVar, kM, kMap>(c[e] & 0xF, s, m, a.bias);
+        whi[e] = element<kVar, kM, kMap>(c[e] >> 4, s, m, a.bias);
+        next_sub<kTrackKd>(k, kd, a.nsub, a.nd);
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
@@ -174,55 +270,216 @@ quant_matmul_lowbit_kernel(const LowbitArgs a) {
           float xl[16], xh[16];
           load_bf16x16(xr + j0, xl);
           load_bf16x16(xr + qn + j0, xh);
-          float t = acc[r];
+          if constexpr (kVar == kSplit) {
+            float tl = acc[0][r], th = acc[kAcc - 1][r];
 #pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            t = fmaf(xl[e], wlo[e], t);
-            t = fmaf(xh[e], whi[e], t);
+            for (int e = 0; e < 16; ++e) {
+              tl = fmaf(xl[e], wlo[e], tl);
+              th = fmaf(xh[e], whi[e], th);
+            }
+            acc[0][r] = tl;
+            acc[kAcc - 1][r] = th;
+          } else {
+            float t = acc[0][r];
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              t = fmaf(xl[e], wlo[e], t);
+              t = fmaf(xh[e], whi[e], t);
+            }
+            acc[0][r] = t;
           }
-          acc[r] = t;
         }
       }
     } else {
-      // the 16 scales, formed once and shared by the four planes
-      float s[16];
+      // the 16 scales (and mins), formed once and shared by the four planes
+      float s[16], m[16];
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
-        s[e] = side_at<kS>(drow, scrow, k, kd);
-        next_sub<kS>(k, kd, a.nsub, a.nd);
+        m[e] = 0.f;
+        sub_factors<kVar, kS, kM>(drow, scrow, dminrow, mnrow, a.bias, k, kd, s[e], m[e]);
+        next_sub<kTrackKd>(k, kd, a.nsub, a.nd);
       }
 #pragma unroll
       for (int i = 0; i < kPlanes; ++i) {
         float w[16];
 #pragma unroll
         for (int e = 0; e < 16; ++e)
-          w[e] = bf16_round(__fmul_rn((float)((c[e] >> (kBits * i)) & kMask), s[e]));
+          w[e] = element<kVar, kM, kMap>((c[e] >> (kBits * i)) & kMask, s[e], m[e], a.bias);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           if (r < nb) {
             float xv[16];
             load_bf16x16(a.x + (size_t)(b0 + r) * a.in_f + i * qn + j0, xv);
-            float t = acc[r];
+            float t = acc[0][r];
 #pragma unroll
             for (int e = 0; e < 16; ++e) t = fmaf(xv[e], w[e], t);
-            acc[r] = t;
+            acc[0][r] = t;
           }
         }
       }
     }
   }
 
-  // min term: m'[k] formed once per sub-block, applied to every row
+  // min term: m'[k] formed once per sub-block, applied to every row (the
+  // base variants folded theirs into the weights)
+  float macc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) macc[r] = 0.f;
+  if (!kBaseVar && (kM != kNone || a.bias != 0)) {
+    for (int k = lane; k < a.nsub; k += 32) {
+      float mp = 0.f;
+      if constexpr (kM != kNone) mp = side_at<kM>(dminrow, mnrow, k, kM == kFlat ? k : k % a.ndm);
+      if (a.bias != 0) {
+        const float bs = __fmul_rn((float)a.bias, side_at<kS>(drow, scrow, k, kS == kFlat ? k : k % a.nd));
+        mp = kM == kNone ? bs : __fadd_rn(bs, mp);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < nb) macc[r] = fmaf(a.xsum[(size_t)(b0 + r) * a.nsub + k], mp, macc[r]);
+    }
+  }
+  for (int r = 0; r < nb; ++r) {
+    float dot = warp_sum(acc[0][r]);
+    if constexpr (kAcc == 2) dot = dot + warp_sum(acc[kAcc - 1][r]);
+    const float mdot = kBaseVar ? 0.f : warp_sum(macc[r]);
+    if (lane == 0) a.y[(size_t)(b0 + r) * a.out_f + o] = dot - mdot;
+  }
+}
+
+template <int kBits, int kVar, int kMap, int kS, int kM>
+int launch_one(const LowbitArgs& a, cudaStream_t st) {
+  const dim3 grid((a.out_f + kWarps - 1) / kWarps, (a.B + kRows - 1) / kRows);
+  quant_matmul_lowbit_kernel<kBits, kVar, kMap, kS, kM><<<grid, kWarps * 32, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The min sides a scale side pairs with: none or flat beside a flat scale,
+// none or hierarchical beside a hierarchical one, and the mixed layout (flat
+// scale, hierarchical min) for the variants with an xsum term. Value-mapped
+// codes come without a min.
+template <int kBits, int kVar, int kMap, int kS>
+int launch_m(const LowbitArgs& a, int m_side, cudaStream_t st) {
+  constexpr bool kBaseVar = kVar == kBase || kVar == kBaseF32;
+  if (m_side == kNone) return launch_one<kBits, kVar, kMap, kS, kNone>(a, st);
+  if constexpr (kMap == kIdentity) {
+    if constexpr (kS == kFlat) {
+      if (m_side == kFlat) return launch_one<kBits, kVar, kMap, kS, kFlat>(a, st);
+    }
+    if constexpr (kS != kFlat || !kBaseVar) {
+      if (m_side == kHierU8) return launch_one<kBits, kVar, kMap, kS, kHierU8>(a, st);
+      if (m_side == kHierI8) return launch_one<kBits, kVar, kMap, kS, kHierI8>(a, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int kBits, int kVar, int kMap>
+int launch_s(const LowbitArgs& a, int s_side, int m_side, cudaStream_t st) {
+  if (s_side == kFlat) return launch_m<kBits, kVar, kMap, kFlat>(a, m_side, st);
+  if (s_side == kHierU8) return launch_m<kBits, kVar, kMap, kHierU8>(a, m_side, st);
+  if (s_side == kHierI8) return launch_m<kBits, kVar, kMap, kHierI8>(a, m_side, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Which maps an instance takes: the fsplit rule and the 4-bit f32 base rule
+// take the IQ2/IQ3 alphabets, the 4-bit f32 base rule nothing else (plain
+// 4-bit codes take the bf16-magic base rule).
+template <int kBits, int kVar>
+int launch_map(const LowbitArgs& a, int vmap, int s_side, int m_side, cudaStream_t st) {
+  constexpr bool kMapped = kBits == 4 && (kVar == kFsplit || kVar == kBaseF32);
+  if constexpr (!(kBits == 4 && kVar == kBaseF32)) {
+    if (vmap == kIdentity) return launch_s<kBits, kVar, kIdentity>(a, s_side, m_side, st);
+  }
+  if constexpr (kMapped) {
+    if (vmap == kIq2) return launch_s<kBits, kVar, kIq2>(a, s_side, m_side, st);
+    if (vmap == kIq3) return launch_s<kBits, kVar, kIq3>(a, s_side, m_side, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+struct Int8Args {
+  const int8_t* xq;        // (B, in) block-minor, Q8_1-style codes
+  const float* xs;         // (B, nsub) activation scales
+  const float* xsum;       // (B, nsub) exact block sums
+  const uint8_t* codes;    // (out, in / 2) planar nibbles
+  const float* d;          // (out, nd)
+  const uint8_t* sc;       // (out, nsub) or null
+  const float* dmin;       // (out, nd) or null
+  const uint8_t* mn;       // (out, nsub) or null
+  float* y;                // (B, out)
+  int B, in_f, out_f, nsub, nd, bias;
+};
+
+// Byte q of a 32-bit word as a signed value.
+__device__ __forceinline__ int sbyte(uint32_t w, int q) {
+  return (int)(int8_t)(uint8_t)(w >> (8 * q));
+}
+
+template <int kS, int kM>
+__global__ void __launch_bounds__(kWarps * 32, 6)
+quant_matmul_int8_kernel(const Int8Args a) {
+  const int lane = threadIdx.x & 31;
+  const int o = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int b0 = blockIdx.y * kRows;
+  if (o >= a.out_f) return;  // warp-uniform; the kernel has no block barrier
+  const int nb = min(kRows, a.B - b0);
+  const int half = a.in_f / 2;      // stored bytes per row
+  const int hsub = half / a.nsub;   // elements of a sub-block in one plane
+  const uint8_t* crow = a.codes + (size_t)o * half;
+  const float* drow = a.d + (size_t)o * a.nd;
+  const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + (size_t)o * a.nsub;
+
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+
+  // a lane owns sub-blocks k0..k0+3: byte t*nsub + k holds element (t, k) in
+  // its low nibble and (t + hsub, k) in its high one
+  for (int k0 = lane * 4; k0 < a.nsub; k0 += 32 * 4) {
+    int p[kRows][4];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) p[r][q] = 0;
+    for (int t = 0; t < hsub; ++t) {
+      const uint32_t c = __ldg(reinterpret_cast<const uint32_t*>(crow + (size_t)t * a.nsub + k0));
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < nb) {
+          const int8_t* xr = a.xq + (size_t)(b0 + r) * a.in_f;
+          const uint32_t xl = __ldg(reinterpret_cast<const uint32_t*>(xr + (size_t)t * a.nsub + k0));
+          const uint32_t xh = __ldg(reinterpret_cast<const uint32_t*>(
+              xr + (size_t)(t + hsub) * a.nsub + k0));
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            p[r][q] += sbyte(xl, q) * (int)((c >> (8 * q)) & 0xF)
+                       + sbyte(xh, q) * (int)((c >> (8 * q + 4)) & 0xF);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + q;
+      const float s = side_at<kS>(drow, scrow, k, k % a.nd);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < nb)
+          acc[r] = __fadd_rn(acc[r], __fmul_rn(__fmul_rn((float)p[r][q],
+                                                         a.xs[(size_t)(b0 + r) * a.nsub + k]), s));
+    }
+  }
+
+  // min term as in the 2/4-bit kernel: m'[k] = bias*s[k] + m[k]
   float macc[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) macc[r] = 0.f;
   if (kM != kNone || a.bias != 0) {
-    const float* dminrow = kM == kNone ? nullptr : a.dmin + (size_t)o * a.ndm;
+    const float* dminrow = kM == kNone ? nullptr : a.dmin + (size_t)o * a.nd;
     const uint8_t* mnrow = (kM == kHierU8 || kM == kHierI8) ? a.mn + (size_t)o * a.nsub
                                                             : nullptr;
     for (int k = lane; k < a.nsub; k += 32) {
       float mp = 0.f;
-      if constexpr (kM != kNone) mp = side_at<kM>(dminrow, mnrow, k, kM == kFlat ? k : k % a.ndm);
+      if constexpr (kM != kNone) mp = side_at<kM>(dminrow, mnrow, k, kM == kFlat ? k : k % a.nd);
       if (a.bias != 0) {
         const float bs = __fmul_rn((float)a.bias, side_at<kS>(drow, scrow, k, kS == kFlat ? k : k % a.nd));
         mp = kM == kNone ? bs : __fadd_rn(bs, mp);
@@ -239,57 +496,57 @@ quant_matmul_lowbit_kernel(const LowbitArgs a) {
   }
 }
 
-template <int kBits>
-int launch_lowbit(const LowbitArgs& a, int s_side, int m_side, cudaStream_t st) {
+template <int kS, int kM>
+int launch_int8(const Int8Args& a, cudaStream_t st) {
   const dim3 grid((a.out_f + kWarps - 1) / kWarps, (a.B + kRows - 1) / kRows);
-#define LGT_CASE(S, M)                                                     \
-  if (s_side == S && m_side == M) {                                        \
-    quant_matmul_lowbit_kernel<kBits, S, M><<<grid, kWarps * 32, 0, st>>>(a); \
-    return (int)cudaGetLastError();                                        \
-  }
-#define LGT_CASES(S) LGT_CASE(S, kNone) LGT_CASE(S, kFlat) LGT_CASE(S, kHierU8) \
-  LGT_CASE(S, kHierI8)
-  LGT_CASES(kFlat)
-  LGT_CASES(kHierU8)
-  LGT_CASES(kHierI8)
-#undef LGT_CASES
-#undef LGT_CASE
-  return (int)cudaErrorInvalidValue;
+  quant_matmul_int8_kernel<kS, kM><<<grid, kWarps * 32, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
-__global__ void quant_matmul_8bit_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
-    const float* __restrict__ d, const int8_t* __restrict__ sc,
-    float* __restrict__ y, int B, int in_f, int out_f, int nd, int nsub,
-    int bias) {
+struct Args8 {
+  const __nv_bfloat16* x;  // (B, in) block-minor
+  const int8_t* codes;     // (out, in)
+  const float* d;          // (out, nd)
+  const uint8_t* sc;       // (out, nsub) or null
+  const float* dmin;       // (out, nd) or null
+  const uint8_t* mn;       // (out, nsub) or null
+  float* y;                // (B, out)
+  int B, in_f, out_f, nd, nsub, bias;
+};
+
+template <int kS, int kM>
+__global__ void __launch_bounds__(kWarps * 32, 6)
+quant_matmul_8bit_kernel(const Args8 a) {
   const int lane = threadIdx.x & 31;
   const int o = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int b0 = blockIdx.y * kRows;
-  if (o >= out_f) return;
-  const int nb = min(kRows, B - b0);
-  const int8_t* crow = codes + (size_t)o * in_f;
-  const float* drow = d + (size_t)o * nd;
-  const int8_t* scrow = sc ? sc + (size_t)o * nsub : nullptr;
+  if (o >= a.out_f) return;
+  const int nb = min(kRows, a.B - b0);
+  const int8_t* crow = a.codes + (size_t)o * a.in_f;
+  const float* drow = a.d + (size_t)o * a.nd;
+  const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + (size_t)o * a.nsub;
+  const float* dminrow = kM == kNone ? nullptr : a.dmin + (size_t)o * a.nd;
+  const uint8_t* mnrow = kM == kHierU8 ? a.mn + (size_t)o * a.nsub : nullptr;
 
   float acc[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
 
-  for (int j0 = lane * 16; j0 < in_f; j0 += 32 * 16) {
+  for (int j0 = lane * 16; j0 < a.in_f; j0 += 32 * 16) {
     const int4 c4 = __ldg(reinterpret_cast<const int4*>(crow + j0));
     const int8_t* c = reinterpret_cast<const int8_t*>(&c4);
     float w[16];
-    int k = j0 % nsub;  // sub-block of position j
-    int dd = k % nd;    // its super-block
+    int k = j0 % a.nsub;  // sub-block of position j
+    int dd = k % a.nd;    // its super-block
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
-      float s = __ldg(drow + dd);
-      if (scrow) s = __fmul_rn(s, (float)scrow[k]);
-      w[e] = bf16_round(__fmul_rn((float)((int)c[e] - bias), s));
-      if (++k == nsub) {
+      float v = __fmul_rn((float)((int)c[e] - a.bias), side_at<kS>(drow, scrow, k, dd));
+      if constexpr (kM != kNone) v = __fsub_rn(v, side_at<kM>(dminrow, mnrow, k, dd));
+      w[e] = bf16_round(v);
+      if (++k == a.nsub) {
         k = 0;
         dd = 0;
-      } else if (++dd == nd) {
+      } else if (++dd == a.nd) {
         dd = 0;
       }
     }
@@ -297,61 +554,102 @@ __global__ void quant_matmul_8bit_kernel(
     for (int r = 0; r < kRows; ++r) {
       if (r < nb) {
         float xv[16];
-        load_bf16x16(x + (size_t)(b0 + r) * in_f + j0, xv);
-        float a = acc[r];
+        load_bf16x16(a.x + (size_t)(b0 + r) * a.in_f + j0, xv);
+        float t = acc[r];
 #pragma unroll
-        for (int e = 0; e < 16; ++e) a = fmaf(xv[e], w[e], a);
-        acc[r] = a;
+        for (int e = 0; e < 16; ++e) t = fmaf(xv[e], w[e], t);
+        acc[r] = t;
       }
     }
   }
   for (int r = 0; r < nb; ++r) {
     const float dot = warp_sum(acc[r]);
-    if (lane == 0) y[(size_t)(b0 + r) * out_f + o] = dot;
+    if (lane == 0) a.y[(size_t)(b0 + r) * a.out_f + o] = dot;
   }
+}
+
+template <int kS, int kM>
+int launch_8bit(const Args8& a, cudaStream_t st) {
+  const dim3 grid((a.out_f + kWarps - 1) / kWarps, (a.B + kRows - 1) / kRows);
+  quant_matmul_8bit_kernel<kS, kM><<<grid, kWarps * 32, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, in) bf16 block-minor; xsum (B, nsub) f32; codes (out, in*bits/8) u8;
-// d (out, nd) f32; sc (out, nsub) u8/i8 or null; dmin (out, ndm) f32 or null;
-// mn (out, nsub) u8/i8 or null -> y (B, out) f32. s_side and m_side name each
-// side's storage (Side above). 4-bit: in % 32 == 0; 2-bit: in % 64 == 0; both
-// need (in * bits / 8) a multiple of nsub and 16-byte aligned rows.
-int lgt_quant_matmul_4bit(const void* x, const void* xsum, const void* codes,
-                          const void* d, const void* sc, const void* dmin,
-                          const void* mn, void* y, int B, int in_f, int out_f,
-                          int nsub, int nd, int ndm, int bias, int s_side,
-                          int m_side, void* stream) {
+// x (B, in) bf16 block-minor; xsum (B, nsub) f32 (null for the base
+// variants); codes (out, in*bits/8) u8; d (out, nd) f32; sc (out, nsub)
+// u8/i8 or null; dmin (out, ndm) f32 or null; mn (out, nsub) u8/i8 or null
+// -> y (B, out) f32. s_side and m_side name each side's storage (Side),
+// var the element rule (Var), vmap the code alphabet (Map). 4-bit: in % 32 ==
+// 0; 2-bit: in % 64 == 0; both need (in * bits / 8) a multiple of nsub and
+// 16-byte aligned rows.
+int lgt_quant_matmul_lowbit(const void* x, const void* xsum, const void* codes,
+                            const void* d, const void* sc, const void* dmin,
+                            const void* mn, void* y, int B, int in_f, int out_f,
+                            int nsub, int nd, int ndm, int bias, int s_side,
+                            int m_side, int bits, int var, int vmap, void* stream) {
   const LowbitArgs a{(const __nv_bfloat16*)x, (const float*)xsum, (const uint8_t*)codes,
                      (const float*)d, (const uint8_t*)sc, (const float*)dmin,
                      (const uint8_t*)mn, (float*)y, B, in_f, out_f, nsub, nd, ndm, bias};
-  return launch_lowbit<4>(a, s_side, m_side, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bits == 4) {
+    switch (var) {
+      case kFsplit: return launch_map<4, kFsplit>(a, vmap, s_side, m_side, st);
+      case kXsum: return launch_map<4, kXsum>(a, vmap, s_side, m_side, st);
+      case kSplit: return launch_map<4, kSplit>(a, vmap, s_side, m_side, st);
+      case kBase: return launch_map<4, kBase>(a, vmap, s_side, m_side, st);
+      case kBaseF32: return launch_map<4, kBaseF32>(a, vmap, s_side, m_side, st);
+    }
+  } else if (bits == 2) {
+    if (var == kFsplit) return launch_map<2, kFsplit>(a, vmap, s_side, m_side, st);
+    if (var == kBaseF32) return launch_map<2, kBaseF32>(a, vmap, s_side, m_side, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-int lgt_quant_matmul_2bit(const void* x, const void* xsum, const void* codes,
-                          const void* d, const void* sc, const void* dmin,
-                          const void* mn, void* y, int B, int in_f, int out_f,
-                          int nsub, int nd, int ndm, int bias, int s_side,
-                          int m_side, void* stream) {
-  const LowbitArgs a{(const __nv_bfloat16*)x, (const float*)xsum, (const uint8_t*)codes,
-                     (const float*)d, (const uint8_t*)sc, (const float*)dmin,
-                     (const uint8_t*)mn, (float*)y, B, in_f, out_f, nsub, nd, ndm, bias};
-  return launch_lowbit<2>(a, s_side, m_side, (cudaStream_t)stream);
+// xq (B, in) int8 block-minor; xs, xsum (B, nsub) f32; codes (out, in/2) u8;
+// d (out, nd) f32; sc (out, nsub) u8/i8 or null; dmin (out, nd) f32 or null;
+// mn (out, nsub) u8/i8 or null -> y (B, out) f32. nsub % 4 == 0, in % 8 == 0.
+int lgt_quant_matmul_int8(const void* xq, const void* xs, const void* xsum,
+                          const void* codes, const void* d, const void* sc,
+                          const void* dmin, const void* mn, void* y, int B, int in_f,
+                          int out_f, int nsub, int nd, int bias, int s_side, int m_side,
+                          void* stream) {
+  const Int8Args a{(const int8_t*)xq, (const float*)xs, (const float*)xsum,
+                   (const uint8_t*)codes, (const float*)d, (const uint8_t*)sc,
+                   (const float*)dmin, (const uint8_t*)mn, (float*)y,
+                   B, in_f, out_f, nsub, nd, bias};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define LGT_CASE(S, M) \
+  if (s_side == S && m_side == M) return launch_int8<S, M>(a, st);
+  LGT_CASE(kFlat, kNone) LGT_CASE(kFlat, kFlat)
+  LGT_CASE(kHierU8, kNone) LGT_CASE(kHierU8, kHierU8) LGT_CASE(kHierU8, kHierI8)
+  LGT_CASE(kHierI8, kNone) LGT_CASE(kHierI8, kHierU8) LGT_CASE(kHierI8, kHierI8)
+#undef LGT_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // x (B, in) bf16 block-minor; codes (out, in) int8; d (out, nd) f32;
-// sc (out, nsub) int8 or null -> y (B, out) f32. in % 16 == 0.
+// sc (out, nsub) u8/i8 or null; dmin (out, nd) f32 or null; mn (out, nsub)
+// u8 or null -> y (B, out) f32. in % 16 == 0.
 int lgt_quant_matmul_8bit(const void* x, const void* codes, const void* d,
-                          const void* sc, void* y, int B, int in_f, int out_f,
-                          int nd, int nsub, int bias, void* stream) {
-  const dim3 grid((out_f + kWarps - 1) / kWarps, (B + kRows - 1) / kRows);
-  quant_matmul_8bit_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)codes, (const float*)d,
-      (const int8_t*)sc, (float*)y, B, in_f, out_f, nd, nsub, bias);
-  return (int)cudaGetLastError();
+                          const void* sc, const void* dmin, const void* mn, void* y,
+                          int B, int in_f, int out_f, int nd, int nsub, int bias,
+                          int s_side, int m_side, void* stream) {
+  const Args8 a{(const __nv_bfloat16*)x, (const int8_t*)codes, (const float*)d,
+                (const uint8_t*)sc, (const float*)dmin, (const uint8_t*)mn, (float*)y,
+                B, in_f, out_f, nd, nsub, bias};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define LGT_CASE(S, M) \
+  if (s_side == S && m_side == M) return launch_8bit<S, M>(a, st);
+  LGT_CASE(kFlat, kNone) LGT_CASE(kFlat, kFlat)
+  LGT_CASE(kHierU8, kNone) LGT_CASE(kHierU8, kHierU8)
+  LGT_CASE(kHierI8, kNone) LGT_CASE(kHierI8, kHierU8)
+#undef LGT_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

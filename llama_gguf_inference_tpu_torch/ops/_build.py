@@ -102,14 +102,17 @@ def library(name: str) -> ctypes.CDLL:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "quant_matmul":
-        # pointers: x, xsum, codes, d, sc, dmin, mn, y; then B, in, out,
-        # nsub, nd, ndm, the code bias, the two sides' storage and the stream
-        for fn in ("lgt_quant_matmul_2bit", "lgt_quant_matmul_4bit"):
-            getattr(lib, fn).argtypes = [p] * 8 + [i] * 9 + [p]
+        # lowbit: pointers x, xsum, codes, d, sc, dmin, mn, y; then B, in,
+        # out, nsub, nd, ndm, the code bias, the two sides' storage, the
+        # bits, the element rule, the code map and the stream. int8: xq, xs,
+        # xsum, codes, d, sc, dmin, mn, y; B, in, out, nsub, nd, bias, the
+        # sides, the stream. 8-bit: x, codes, d, sc, dmin, mn, y; B, in, out,
+        # nd, nsub, bias, the sides, the stream.
+        for fn, n_ptr, n_int in (("lgt_quant_matmul_lowbit", 8, 12),
+                                 ("lgt_quant_matmul_int8", 9, 8),
+                                 ("lgt_quant_matmul_8bit", 7, 8)):
+            getattr(lib, fn).argtypes = [p] * n_ptr + [i] * n_int + [p]
             getattr(lib, fn).restype = i
-        lib.lgt_quant_matmul_8bit.argtypes = [p, p, p, p, p,
-                                              i, i, i, i, i, i, p]
-        lib.lgt_quant_matmul_8bit.restype = i
     elif name == "flash_attention":
         # pointers: q, the cache tensors, offsets (and the page table), out;
         # then B, T, H, KVH, S (or NP, page_s), D, the scale and the stream

@@ -24,12 +24,24 @@ MAPPED_FMTS = frozenset(("iq2_xxs", "iq2_xs", "iq2_s", "iq3_xxs", "iq3_s"))
 
 def code_values(fmt: str, q: torch.Tensor) -> torch.Tensor:
     """Unpacked integer codes -> integer element values: the identity for
-    every format this package repacks, and for the IQ1 trit codes. (The JAX
-    package's IQ2/IQ3 formats store sign|magnitude codes into a value
-    alphabet; they come with their repack in a later slice.)"""
-    if fmt in MAPPED_FMTS:
-        raise NotImplementedError(f"code alphabet of {fmt}")
-    return q
+    every format this package repacks and for the IQ1 trit codes.
+
+    The 4-bit IQ2/IQ3 codes (the JAX package's ``LGT_IQ_CODES=packed4``
+    layout) are sign|magnitude: IQ2 decodes ``17·(c & 14) − 2·(c & 1) −
+    118``, which for the codes its repack writes is twice a value of the
+    alphabet ±{8, 25, 43, 59} (the repack halves ``d``), IQ3 the magnitude ``8c + 4 + 2·(c == 7)`` of the low three
+    bits, negated when bit 3 is set. Shifts and adds only, as in the JAX
+    package, so every backend computes the same integers.
+    """
+    if fmt in ("iq2_xxs", "iq2_xs", "iq2_s"):
+        e = q & 14
+        return ((e << 4) + e) - ((q & 1) << 1) - 118
+    if fmt not in ("iq3_xxs", "iq3_s"):
+        return q
+    c = q & 7
+    m = (c << 3) + 4 + ((((c + 1) >> 3) & 1) << 1)
+    neg = -(q >> 3)
+    return (m ^ neg) - neg
 
 
 @dataclasses.dataclass
@@ -71,11 +83,21 @@ class QuantLinear:
     ==========  ====  ========  ==========  ======================================
     fmt         bits  sub_size  code_bias   device scale layout (``auto``)
     ==========  ====  ========  ==========  ======================================
-    q8_0        8     32        0           flat: d f32 per 32
+    q4_0        4     32        8           flat: d f32 per 32
+    q4_1        4     32        0           flat: d, dmin f32 per 32 (dmin = -m)
+    q5_0        8     32        0           flat: d f32 per 32 (codes q - 16)
+    q5_1        8     32        0           flat: d, dmin f32 per 32 (dmin = -m)
+    q8_0, q8_1  8     32        0           flat: d f32 per 32
     q2_k        2     16        0           flat: d, dmin f32 per 16 (d*sc, dmin*mn)
     q3_k        4     16        4           flat: d f32 per 16 (d*sc), no min
     q4_k        4     32        0           flat: d, dmin f32 per 32 (d*sc, dmin*mn)
+    q5_k        8     32        0           compact: d, dmin f32 per 256; sc, mn
+                                            uint8 per 32
     q6_k        8     16        0           compact: d f32 per 256; sc int8 per 16
+    q8_k        8     256       0           flat: d f32 per 256
+    iq4_nl      8     32        0           flat: d f32 per 32 (codebook values)
+    iq4_xs      8     32        0           compact: d f32 per 256; sc int8 per
+                                            32 (codebook values)
     ==========  ====  ========  ==========  ======================================
 
     ``LGT_SCALE_LAYOUT`` (``quant.repack.scale_layout``) picks the layout of

@@ -1,17 +1,36 @@
-"""Fused dequant+matmul dispatch and its three kernels.
+"""Fused dequant+matmul dispatch and its kernels.
 
-``quant_matmul(w, x)`` computes ``x @ dequant(w).T`` for a QuantLinear:
+``quant_matmul(w, x)`` computes ``x @ dequant(w).T`` for a QuantLinear,
+choosing the kernel as the JAX package's ``pallas_quant_matmul`` chooses its
+Pallas body (:func:`select_kernel`): ``LGT_MM_VARIANT`` (read per call,
+default ``fsplit``) picks among the 4-bit bodies, value-mapped formats force
+fsplit, 2-bit codes take qsplit unless the variant is ``base``, and a
+geometry with ``(in/sub) % 8 != 0`` takes the base body. The wrappers, each
+the counterpart of one TPU body and branch:
 
-- 2-bit codes (Q2_K) go to :func:`quant_matmul_2bit`, the counterpart of
-  the TPU kernel ``_make_kernel_qsplit``: ``y = Σ_i x_i·bf16(q_i·s)ᵀ −
-  xsum·m′ᵀ`` over the four quarter planes;
-- 4-bit codes (Q4_K, Q3_K) go to :func:`quant_matmul_4bit`, the
-  counterpart of ``_make_kernel_fsplit``: ``y = x_lo·bf16(q_lo·s)ᵀ +
-  x_hi·bf16(q_hi·s)ᵀ − xsum·m′ᵀ``;
-- 8-bit codes (Q6_K compact, Q8_0 flat) go to :func:`quant_matmul_8bit`,
-  the counterpart of ``_make_kernel``: ``y = x·bf16((q − bias)·s_full)ᵀ``
-  (the JAX kernel's min term serves asymmetric 8-bit formats, which this
-  package does not load).
+- :func:`quant_matmul_2bit` (``_make_kernel_qsplit``): ``y = Σ_i
+  x_i·bf16(q_i·s)ᵀ − xsum·m′ᵀ`` over the four quarter planes;
+- :func:`quant_matmul_4bit` (``_make_kernel_fsplit``): ``y =
+  x_lo·bf16(v(q_lo)·s)ᵀ + x_hi·bf16(v(q_hi)·s)ᵀ − xsum·m′ᵀ``, ``v`` the
+  IQ2/IQ3 code→value map or the identity;
+- :func:`quant_matmul_4bit_xsum` and :func:`quant_matmul_4bit_split`
+  (``_make_kernel_xsum``/``_split``): the weight ``bf16(q·bf16(s))``, one dot
+  over the row or one per nibble plane, then the same min term;
+- :func:`quant_matmul_4bit_int8` (``_make_kernel_int8``): activations
+  quantized per sub-block (:func:`quantize_acts`), exact integer dots per
+  sub-block, ``y = Σ_k (p_k·xs_k)·s_k − xsum·m′ᵀ``;
+- :func:`quant_matmul_4bit_base` (``_make_kernel``'s bf16-magic branch):
+  ``w = bf16(bf16(q·bf16 s) − bf16 m′)``, no xsum term;
+- :func:`quant_matmul_lowbit_base` (``_make_kernel``'s f32 branch, 2-bit
+  codes and value-mapped 4-bit codes): ``w = bf16((v(q) − bias)·s − m)``;
+- :func:`quant_matmul_8bit` (``_make_kernel``'s 8-bit branch): ``y =
+  x·bf16((q − bias)·s_full − m_full)ᵀ``, the min term for the asymmetric
+  formats (Q5_K, Q5_1) counted under its own launch name.
+
+A mixed-layout weight under ``base`` or ``int8`` takes :func:`dequant_matmul`
+(dequantize to bf16, then ``torch.matmul``), as the JAX package sends it to
+``matmul_xla`` outside any Pallas kernel; it is counted under
+:data:`NAME_DEQUANT`.
 
 For 2 and 4 bits, ``s`` and ``m′ = bias·s + m`` per sub-block follow the JAX
 package's ``_hier_scales``: the kernels read the scale side flat (``d`` per
@@ -20,34 +39,88 @@ side absent, flat, compact or mixed (``dmin`` per ``min_size`` times
 ``mn``), and fold the code bias in themselves.
 
 The activation permute into block-minor order, the per-sub-block sums
-``_block_sums`` and, for the mixed layout, their permutation into the
-``mn`` order stay plain tensor ops outside the kernels, as in the JAX
-package. Each kernel wrapper launches its CUDA kernel (``csrc/
-quant_matmul.cu``) for tensors on the card, or raises; it takes the plain
-PyTorch version beside it only for tensors on the CPU. Outputs are f32; the
-dispatcher casts to the activation dtype.
+``_block_sums``, the activation quantization and, for the mixed layout, the
+sums' permutation into the ``mn`` order stay plain tensor ops outside the
+kernels, as in the JAX package. Each kernel wrapper launches its CUDA kernel
+(``csrc/quant_matmul.cu``) for tensors on the card, or raises; it takes the
+plain PyTorch version beside it only for tensors on the CPU. Outputs are
+f32; the dispatcher casts to the activation dtype.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from . import _build
-from .linear import QuantLinear
+from .linear import MAPPED_FMTS, QuantLinear, code_values
 
 NAME_2BIT = "quant_matmul_2bit"
 NAME_4BIT = "quant_matmul_4bit"
+NAME_4BIT_XSUM = "quant_matmul_4bit_xsum"
+NAME_4BIT_SPLIT = "quant_matmul_4bit_split"
+NAME_4BIT_INT8 = "quant_matmul_4bit_int8"
+NAME_4BIT_BASE = "quant_matmul_4bit_base"
+NAME_LOWBIT_BASE = "quant_matmul_lowbit_base"
 NAME_8BIT = "quant_matmul_8bit"
+NAME_8BIT_MIN = "quant_matmul_8bit_min"
+NAME_DEQUANT = "quant_matmul_dequant"
 
-# how one side (scale or min) of a 2/4-bit weight is stored; the values
-# are the kernel's Side enum
+# how one side (scale or min) of a weight is stored; the values are the
+# kernel's Side enum
 SIDE_NONE, SIDE_FLAT, SIDE_HIER_U8, SIDE_HIER_I8 = 0, 1, 2, 3
+# the element rule of the 2/4-bit kernel (its Var enum) and the code->value
+# map (its Map enum)
+VAR_FSPLIT, VAR_XSUM, VAR_SPLIT, VAR_BASE, VAR_BASE_F32 = 0, 1, 2, 3, 4
+_MAP = {"iq2_xxs": 1, "iq2_xs": 1, "iq2_s": 1, "iq3_xxs": 2, "iq3_s": 2}
+
+
+def variant() -> str:
+    """The 4-bit kernel variant, ``LGT_MM_VARIANT`` (default ``fsplit``),
+    read on every call as the JAX package reads it."""
+    return os.environ.get("LGT_MM_VARIANT", "fsplit")
+
+
+def select_kernel(w: QuantLinear) -> str:
+    """The body the JAX package's ``pallas_quant_matmul`` runs for ``w``
+    under the current variant: ``fsplit``, ``xsum``, ``split``, ``int8``,
+    ``qsplit``, ``base``, or ``dequant`` (its ``matmul_xla``)."""
+    var = variant()
+    in_f, sub = w.in_features, w.sub_size
+    kern = None
+    if in_f % sub == 0 and w.d_size % sub == 0 and (in_f // sub) % 8 == 0:
+        if w.bits == 4 and var in ("xsum", "split", "fsplit", "int8"):
+            kern = "fsplit" if w.fmt in MAPPED_FMTS else var
+        elif w.bits == 2 and sub % 4 == 0 and in_f % 512 == 0 and var != "base":
+            kern = "qsplit"
+    if w.min_size and (kern is None or kern == "int8"):
+        return "dequant"
+    return kern or "base"
 
 
 def _block_sums(x2: torch.Tensor, sub: int) -> torch.Tensor:
     """(B, in) block-minor activations -> (B, nsub) per-sub-block sums, f32."""
     B, in_f = x2.shape
     return x2.float().reshape(B, sub, in_f // sub).sum(dim=1)
+
+
+def quantize_acts(x2: torch.Tensor, sub: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sub-block symmetric int8 activation quantization (Q8_1 style),
+    the JAX package's ``_quantize_acts`` operation for operation: (B, in)
+    block-minor -> (codes int8 (B, in), scales f32 (B, nsub)). Sub-block k's
+    elements sit at positions t·nsub + k."""
+    B, in_f = x2.shape
+    nd = in_f // sub
+    xb = x2.float().reshape(B, sub, nd)
+    amax = xb.abs().amax(dim=1)
+    # tensor by tensor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which rounds differently from the IEEE division JAX does
+    one = torch.ones_like(amax)
+    s = amax / (one * 127.0)
+    inv = torch.where(s > 0, one / torch.where(s == 0, one, s), torch.zeros_like(s))
+    q = torch.clamp(torch.round(xb * inv[:, None, :]), -127, 127).to(torch.int8)
+    return q.reshape(B, in_f), s
 
 
 def _mixed_xsum(xsum: torch.Tensor, w: QuantLinear) -> torch.Tensor:
@@ -80,15 +153,17 @@ def _side(base: torch.Tensor | None, sub: torch.Tensor | None) -> int:
     return SIDE_HIER_I8 if sub.dtype == torch.int8 else SIDE_HIER_U8
 
 
-def _lowbit(bits: int, name: str, x, xsum, codes, d, sc, dmin, mn,
-            code_bias: int) -> torch.Tensor:
-    """Checks and launch shared by the 2- and 4-bit wrappers."""
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _check_sides(x, codes, d, sc, dmin, mn, bits: int, code_bias: int, with_mixed: bool):
+    """Checks shared by the 2/4-bit and int8 wrappers; returns (out, nsub, nd,
+    ndm)."""
     B, in_f = x.shape
-    nsub = xsum.shape[1]
     out_f, nd = d.shape
+    nsub = sc.shape[1] if sc is not None else nd
     dev = x.device
-    _check(x, "x", torch.bfloat16, (B, in_f), dev)
-    _check(xsum, "xsum", torch.float32, (B, nsub), dev)
     _check(codes, "codes", torch.uint8, (out_f, in_f * bits // 8), dev)
     _check(d, "d", torch.float32, (out_f, nd), dev)
     ndm = nd if dmin is None else dmin.shape[1]
@@ -108,22 +183,36 @@ def _lowbit(bits: int, name: str, x, xsum, codes, d, sc, dmin, mn,
             or (dmin is not None and mn is None and ndm != nsub):
         raise ValueError(f"{bits}-bit matmul scale geometry: nsub={nsub}, nd={nd}, "
                          f"ndm={ndm}, sc={sc is not None}, mn={mn is not None}")
-    if code_bias and dmin is not None and ndm != nd:
+    if ndm != nd and not with_mixed:
+        raise ValueError("this kernel takes no mixed layout")
+    if code_bias and ndm != nd:
         raise ValueError("the mixed layout takes no code bias")
+    return out_f, nsub, nd, ndm
+
+
+def _lowbit(bits: int, var: int, name: str, plain, x, xsum, codes, d, sc, dmin, mn,
+            code_bias: int, fmt: str = "") -> torch.Tensor:
+    """Checks and launch shared by the 2- and 4-bit wrappers; ``plain`` runs
+    the wrapper's plain version on its own arguments."""
+    B, in_f = x.shape
+    base = var in (VAR_BASE, VAR_BASE_F32)
+    out_f, nsub, nd, ndm = _check_sides(x, codes, d, sc, dmin, mn, bits, code_bias,
+                                        with_mixed=not base)
+    dev = x.device
+    _check(x, "x", torch.bfloat16, (B, in_f), dev)
+    if not base:
+        _check(xsum, "xsum", torch.float32, (B, nsub), dev)
+    vmap = _MAP.get(fmt, 0)
+    if vmap and (dmin is not None or var not in (VAR_FSPLIT, VAR_BASE_F32) or bits != 4):
+        raise ValueError(f"the {fmt} code map takes 4-bit fsplit or base codes and no min")
     if dev.type != "cuda":
-        plain = quant_matmul_2bit_plain if bits == 2 else quant_matmul_4bit_plain
-        return plain(x, xsum, codes, d, sc, dmin, mn, code_bias)
+        return plain()
     y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
     lib = _build.library("quant_matmul")
-    fn = lib.lgt_quant_matmul_2bit if bits == 2 else lib.lgt_quant_matmul_4bit
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    _build.check(fn(
-        x.data_ptr(), xsum.data_ptr(), codes.data_ptr(), d.data_ptr(), ptr(sc),
-        ptr(dmin), ptr(mn), y.data_ptr(), B, in_f, out_f, nsub, nd, ndm,
-        code_bias, _side(d, sc), _side(dmin, mn),
+    _build.check(lib.lgt_quant_matmul_lowbit(
+        x.data_ptr(), _ptr(xsum), codes.data_ptr(), d.data_ptr(), _ptr(sc),
+        _ptr(dmin), _ptr(mn), y.data_ptr(), B, in_f, out_f, nsub, nd, ndm,
+        code_bias, _side(d, sc), _side(dmin, mn), bits, var, vmap,
         torch.cuda.current_stream(dev).cuda_stream), name)
     _build.count(name)
     return y
@@ -132,21 +221,89 @@ def _lowbit(bits: int, name: str, x, xsum, codes, d, sc, dmin, mn,
 def quant_matmul_2bit(x: torch.Tensor, xsum: torch.Tensor, codes: torch.Tensor,
                       d: torch.Tensor, sc: torch.Tensor | None,
                       dmin: torch.Tensor | None, mn: torch.Tensor | None,
-                      code_bias: int = 0) -> torch.Tensor:
+                      code_bias: int = 0, fmt: str = "") -> torch.Tensor:
     """x (B, in) bf16 block-minor, xsum (B, nsub) f32, codes (out, in/4)
     uint8 planar quarters, d (out, nd) f32 with sc (out, nsub) 8-bit or
     None, dmin (out, ndm) f32 or None with mn (out, nsub) 8-bit or None
     -> (B, out) f32."""
-    return _lowbit(2, NAME_2BIT, x, xsum, codes, d, sc, dmin, mn, code_bias)
+    return _lowbit(2, VAR_FSPLIT, NAME_2BIT, lambda: quant_matmul_2bit_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt)
 
 
 def quant_matmul_4bit(x: torch.Tensor, xsum: torch.Tensor, codes: torch.Tensor,
                       d: torch.Tensor, sc: torch.Tensor | None,
                       dmin: torch.Tensor | None, mn: torch.Tensor | None,
-                      code_bias: int = 0) -> torch.Tensor:
+                      code_bias: int = 0, fmt: str = "") -> torch.Tensor:
     """As :func:`quant_matmul_2bit`, with codes (out, in/2) uint8 planar
-    nibbles."""
-    return _lowbit(4, NAME_4BIT, x, xsum, codes, d, sc, dmin, mn, code_bias)
+    nibbles, decoded through ``fmt``'s code->value map (IQ2/IQ3)."""
+    return _lowbit(4, VAR_FSPLIT, NAME_4BIT, lambda: quant_matmul_4bit_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt)
+
+
+def quant_matmul_4bit_xsum(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                           fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_4bit` with the weight bf16(q·bf16(s)) and one
+    dot over the whole row (``LGT_MM_VARIANT=xsum``)."""
+    return _lowbit(4, VAR_XSUM, NAME_4BIT_XSUM, lambda: quant_matmul_4bit_xsum_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt)
+
+
+def quant_matmul_4bit_split(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                            fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_xsum`, the two nibble planes summed apart
+    and added at the end (``LGT_MM_VARIANT=split``)."""
+    return _lowbit(4, VAR_SPLIT, NAME_4BIT_SPLIT, lambda: quant_matmul_4bit_split_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt)
+
+
+def quant_matmul_4bit_base(x, codes, d, sc, dmin, mn, code_bias=0) -> torch.Tensor:
+    """x (B, in) bf16 block-minor, 4-bit planar codes and the scale/min
+    sides of :func:`quant_matmul_4bit` (no mixed layout) -> (B, out) f32,
+    the weight bf16(bf16(q·bf16 s) − bf16 m′) and no xsum term."""
+    return _lowbit(4, VAR_BASE, NAME_4BIT_BASE, lambda: quant_matmul_4bit_base_plain(
+        x, codes, d, sc, dmin, mn, code_bias), x, None, codes, d, sc, dmin, mn, code_bias)
+
+
+def quant_matmul_lowbit_base(x, codes, d, sc, dmin, mn, code_bias=0, bits=2,
+                             fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_base` for 2-bit planar quarters (or
+    value-mapped 4-bit nibbles), the weight bf16((v(q) − bias)·s − m)
+    formed in f32."""
+    return _lowbit(bits, VAR_BASE_F32, NAME_LOWBIT_BASE, lambda: quant_matmul_lowbit_base_plain(
+        x, codes, d, sc, dmin, mn, code_bias, bits, fmt), x, None, codes, d, sc, dmin, mn,
+        code_bias, fmt)
+
+
+def quant_matmul_4bit_int8(xq: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
+                           codes: torch.Tensor, d: torch.Tensor, sc, dmin, mn,
+                           code_bias: int = 0) -> torch.Tensor:
+    """xq (B, in) int8 and xs (B, nsub) f32 from :func:`quantize_acts`, xsum
+    (B, nsub) f32, 4-bit planar codes and the scale/min sides of
+    :func:`quant_matmul_4bit` (no mixed layout) -> (B, out) f32."""
+    B, in_f = xq.shape
+    out_f, nsub, nd, _ = _check_sides(xq, codes, d, sc, dmin, mn, 4, code_bias,
+                                      with_mixed=False)
+    dev = xq.device
+    _check(xq, "xq", torch.int8, (B, in_f), dev)
+    _check(xs, "xs", torch.float32, (B, nsub), dev)
+    _check(xsum, "xsum", torch.float32, (B, nsub), dev)
+    if nsub % 4 or in_f % 8:
+        raise ValueError(f"int8 matmul needs nsub % 4 == 0 (nsub={nsub})")
+    if dev.type != "cuda":
+        return quant_matmul_4bit_int8_plain(xq, xs, xsum, codes, d, sc, dmin, mn, code_bias)
+    y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
+    lib = _build.library("quant_matmul")
+    _build.check(lib.lgt_quant_matmul_int8(
+        xq.data_ptr(), xs.data_ptr(), xsum.data_ptr(), codes.data_ptr(), d.data_ptr(),
+        _ptr(sc), _ptr(dmin), _ptr(mn), y.data_ptr(), B, in_f, out_f, nsub, nd,
+        code_bias, _side(d, sc), _side(dmin, mn),
+        torch.cuda.current_stream(dev).cuda_stream), NAME_4BIT_INT8)
+    _build.count(NAME_4BIT_INT8)
+    return y
 
 
 def _sub_side(base: torch.Tensor, sub: torch.Tensor | None, nsub: int) -> torch.Tensor:
@@ -155,6 +312,10 @@ def _sub_side(base: torch.Tensor, sub: torch.Tensor | None, nsub: int) -> torch.
     if sub is not None:
         s = s * sub.to(torch.int32).float()
     return s
+
+
+def _nsub(d, sc) -> int:
+    return sc.shape[1] if sc is not None else d.shape[1]
 
 
 def _scales(d, sc, dmin, mn, nsub: int, code_bias: int):
@@ -168,99 +329,199 @@ def _scales(d, sc, dmin, mn, nsub: int, code_bias: int):
     return s, (torch.zeros_like(s) if m is None else m)
 
 
-def _plain_lowbit(bits, x, xsum, codes, d, sc, dmin, mn, code_bias):
-    planes = 8 // bits
-    qn = x.shape[1] // planes
-    s, m = _scales(d, sc, dmin, mn, xsum.shape[1], code_bias)
-    sq = s.repeat(1, qn // s.shape[1])                 # tile: scale of stored byte j
+def _planes(bits: int, codes: torch.Tensor) -> list[torch.Tensor]:
+    """The unpacked code planes, int32 (out, in/planes) each."""
     c = codes.to(torch.int32)
+    return [(c >> (bits * i)) & ((1 << bits) - 1) for i in range(8 // bits)]
+
+
+def _plain_lowbit(bits, x, xsum, codes, d, sc, dmin, mn, code_bias, fmt="", rule="fsplit"):
+    """The 2/4-bit plain versions: per-plane bf16 weights and dots, then the
+    min term. ``rule`` picks the weight: ``fsplit`` bf16(v(q)·s), ``xsum``
+    bf16(q·bf16(s)) in one dot, ``split`` the same in one dot per plane."""
+    planes = _planes(bits, codes)
+    qn = x.shape[1] // len(planes)
+    s, m = _scales(d, sc, dmin, mn, xsum.shape[1], code_bias)
+    if rule != "fsplit":
+        s = s.to(torch.bfloat16).float()
+    sq = s.repeat(1, qn // s.shape[1])                 # tile: scale of stored byte j
+    ws = [(code_values(fmt, p).float() * sq).to(torch.bfloat16).float() for p in planes]
     xf = x.float()
-    y = None
-    for i in range(planes):
-        w = (((c >> (bits * i)) & ((1 << bits) - 1)).float() * sq).to(torch.bfloat16)
-        part = xf[:, i * qn:(i + 1) * qn] @ w.float().t()
-        y = part if y is None else y + part
+    if rule == "xsum":
+        y = xf @ torch.cat(ws, dim=1).t()
+    else:
+        y = None
+        for i, w in enumerate(ws):
+            part = xf[:, i * qn:(i + 1) * qn] @ w.t()
+            y = part if y is None else y + part
     return y - xsum @ m.t()
 
 
-def quant_matmul_2bit_plain(x, xsum, codes, d, sc, dmin, mn, code_bias=0) -> torch.Tensor:
+def quant_matmul_2bit_plain(x, xsum, codes, d, sc, dmin, mn, code_bias=0, fmt="") -> torch.Tensor:
     """Plain PyTorch version of :func:`quant_matmul_2bit`, step by step in
     the kernel's dtypes: four quarter-plane dots, then the min term."""
     _build.count(NAME_2BIT + ".plain")
-    return _plain_lowbit(2, x, xsum, codes, d, sc, dmin, mn, code_bias)
+    return _plain_lowbit(2, x, xsum, codes, d, sc, dmin, mn, code_bias, fmt)
 
 
-def quant_matmul_4bit_plain(x, xsum, codes, d, sc, dmin, mn, code_bias=0) -> torch.Tensor:
+def quant_matmul_4bit_plain(x, xsum, codes, d, sc, dmin, mn, code_bias=0, fmt="") -> torch.Tensor:
     """Plain PyTorch version of :func:`quant_matmul_4bit`, step by step in
     the kernel's dtypes: two half-plane dots, then the min term."""
     _build.count(NAME_4BIT + ".plain")
-    return _plain_lowbit(4, x, xsum, codes, d, sc, dmin, mn, code_bias)
+    return _plain_lowbit(4, x, xsum, codes, d, sc, dmin, mn, code_bias, fmt)
+
+
+def quant_matmul_4bit_xsum_plain(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                                 fmt="") -> torch.Tensor:
+    """Plain PyTorch version of :func:`quant_matmul_4bit_xsum`."""
+    _build.count(NAME_4BIT_XSUM + ".plain")
+    return _plain_lowbit(4, x, xsum, codes, d, sc, dmin, mn, code_bias, rule="xsum")
+
+
+def quant_matmul_4bit_split_plain(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                                  fmt="") -> torch.Tensor:
+    """Plain PyTorch version of :func:`quant_matmul_4bit_split`."""
+    _build.count(NAME_4BIT_SPLIT + ".plain")
+    return _plain_lowbit(4, x, xsum, codes, d, sc, dmin, mn, code_bias, rule="split")
+
+
+def quant_matmul_4bit_base_plain(x, codes, d, sc, dmin, mn, code_bias=0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quant_matmul_4bit_base`: the bf16
+    weight of the magic-number branch, one dot."""
+    _build.count(NAME_4BIT_BASE + ".plain")
+    s, m = _scales(d, sc, dmin, mn, _nsub(d, sc), code_bias)
+    q = torch.cat(_planes(4, codes), dim=1).float()
+    reps = q.shape[1] // s.shape[1]
+    sb = s.to(torch.bfloat16).float().repeat(1, reps)
+    mb = m.to(torch.bfloat16).float().repeat(1, reps)
+    w = ((q * sb).to(torch.bfloat16).float() - mb).to(torch.bfloat16)
+    return x.float() @ w.float().t()
+
+
+def quant_matmul_lowbit_base_plain(x, codes, d, sc, dmin, mn, code_bias=0, bits=2,
+                                   fmt="") -> torch.Tensor:
+    """Plain PyTorch version of :func:`quant_matmul_lowbit_base`: the f32
+    decode of ``QuantLinear.dequantize_bm`` rounded once to bf16, one dot."""
+    _build.count(NAME_LOWBIT_BASE + ".plain")
+    nsub = _nsub(d, sc)
+    q = code_values(fmt, torch.cat(_planes(bits, codes), dim=1)) - code_bias
+    reps = q.shape[1] // nsub
+    w = q.float() * _sub_side(d, sc, nsub).repeat(1, reps)
+    if dmin is not None:
+        w = w - _sub_side(dmin, mn, nsub).repeat(1, reps)
+    return x.float() @ w.to(torch.bfloat16).float().t()
+
+
+def quant_matmul_4bit_int8_plain(xq, xs, xsum, codes, d, sc, dmin, mn,
+                                 code_bias=0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quant_matmul_4bit_int8`: per
+    sub-block dots of the int8 activations with the unbiased codes (f32
+    products of integers whose partial sums stay below 2^24, so exact in
+    any order), then (p·xs)·s summed over sub-blocks, minus the min term."""
+    _build.count(NAME_4BIT_INT8 + ".plain")
+    B, in_f = xq.shape
+    nsub = xs.shape[1]
+    sub = in_f // nsub
+    s, m = _scales(d, sc, dmin, mn, nsub, code_bias)
+    q = torch.cat(_planes(4, codes), dim=1).float()          # (out, in) unbiased
+    x3 = xq.float().reshape(B, sub, nsub).permute(2, 0, 1)   # (nsub, B, sub)
+    w3 = q.reshape(-1, sub, nsub).permute(2, 1, 0)           # (nsub, sub, out)
+    y = torch.zeros(B, q.shape[0], dtype=torch.float32, device=xq.device)
+    for k0 in range(0, nsub, 32):                             # bounds the (k, B, out) partials
+        p = torch.bmm(x3[k0:k0 + 32], w3[k0:k0 + 32])
+        y += (p * xs.t()[k0:k0 + 32, :, None] * s.t()[k0:k0 + 32, None, :]).sum(0)
+    return y - xsum @ m.t()
 
 
 def quant_matmul_8bit(x: torch.Tensor, codes: torch.Tensor, d: torch.Tensor,
-                      sc: torch.Tensor | None, sub_size: int,
-                      code_bias: int) -> torch.Tensor:
+                      sc: torch.Tensor | None, sub_size: int, code_bias: int,
+                      dmin: torch.Tensor | None = None,
+                      mn: torch.Tensor | None = None) -> torch.Tensor:
     """x (B, in) bf16 block-minor, codes (out, in) int8, d (out, nd) f32,
-    sc (out, nsub) int8 or None -> (B, out) f32."""
+    sc (out, nsub) int8/uint8 or None, dmin (out, nd) f32 or None with mn
+    (out, nsub) uint8 or None -> (B, out) f32. With a min side the launch
+    counts under :data:`NAME_8BIT_MIN`."""
     B, in_f = x.shape
     out_f, nd = d.shape
     nsub = in_f // sub_size
     dev = x.device
+    name = NAME_8BIT if dmin is None else NAME_8BIT_MIN
     _check(x, "x", torch.bfloat16, (B, in_f), dev)
     _check(codes, "codes", torch.int8, (out_f, in_f), dev)
     _check(d, "d", torch.float32, (out_f, nd), dev)
     if sc is not None:
-        _check(sc, "sc", torch.int8, (out_f, nsub), dev)
-    if in_f % 16 or in_f % sub_size or nsub % nd:
+        _check(sc, "sc", (torch.int8, torch.uint8), (out_f, nsub), dev)
+    if dmin is not None:
+        _check(dmin, "dmin", torch.float32, (out_f, nd), dev)
+    if mn is not None:
+        if dmin is None or sc is None:
+            raise ValueError("mn needs dmin and sc")
+        _check(mn, "mn", torch.uint8, (out_f, nsub), dev)
+    if in_f % 16 or in_f % sub_size or nsub % nd or (sc is None and nd != nsub) \
+            or (dmin is not None and (mn is None) != (sc is None)):
         raise ValueError(f"8-bit matmul geometry: in={in_f}, sub={sub_size}, "
-                         f"nd={nd}")
+                         f"nd={nd}, sc={sc is not None}, mn={mn is not None}")
     if dev.type != "cuda":
-        return quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias)
+        return quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias, dmin, mn)
     y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
     lib = _build.library("quant_matmul")
     _build.check(lib.lgt_quant_matmul_8bit(
-        x.data_ptr(), codes.data_ptr(), d.data_ptr(),
-        None if sc is None else sc.data_ptr(), y.data_ptr(), B, in_f, out_f,
-        nd, nsub, code_bias, torch.cuda.current_stream(dev).cuda_stream),
-        NAME_8BIT)
-    _build.count(NAME_8BIT)
+        x.data_ptr(), codes.data_ptr(), d.data_ptr(), _ptr(sc), _ptr(dmin), _ptr(mn),
+        y.data_ptr(), B, in_f, out_f, nd, nsub, code_bias, _side(d, sc), _side(dmin, mn),
+        torch.cuda.current_stream(dev).cuda_stream), name)
+    _build.count(name)
     return y
 
 
-def quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias) -> torch.Tensor:
+def quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias, dmin=None,
+                            mn=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`quant_matmul_8bit`: the tile scale
-    expansion of ``QuantLinear.dequantize_bm``, bf16 weights, f32 matmul."""
-    _build.count(NAME_8BIT + ".plain")
-    nd = d.shape[1]
-    g = codes.shape[1] // sub_size // nd
-    s = d.repeat(1, g)
-    if sc is not None:
-        s = s * sc.to(torch.int32).float()
-    w = (codes.to(torch.int32) - code_bias).float() * s.repeat(1, sub_size)
+    expansion of ``QuantLinear.dequantize_bm``, the f32 subtract of the min,
+    bf16 weights, f32 matmul."""
+    _build.count((NAME_8BIT if dmin is None else NAME_8BIT_MIN) + ".plain")
+    nsub = codes.shape[1] // sub_size
+    w = (codes.to(torch.int32) - code_bias).float() * _sub_side(d, sc, nsub).repeat(1, sub_size)
+    if dmin is not None:
+        w = w - _sub_side(dmin, mn, nsub).repeat(1, sub_size)
     return x.float() @ w.to(torch.bfloat16).float().t()
+
+
+def dequant_matmul(w: QuantLinear, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """The JAX package's ``matmul_xla``: the weight dequantized to x's dtype
+    in block-minor order, an f32 matmul against the permuted activations.
+    Not a kernel: counted under :data:`NAME_DEQUANT` so a run shows it."""
+    _build.count(NAME_DEQUANT)
+    wb = w.dequantize_bm(x.dtype)
+    xp = w.permute_activations(x)
+    return (xp.float() @ wb.float().t()).to(out_dtype or x.dtype)
 
 
 def quant_matmul(w: QuantLinear, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """x (..., in) -> (..., out) against a QuantLinear weight."""
+    kern = select_kernel(w)
+    if kern == "dequant":
+        return dequant_matmul(w, x, out_dtype)
     lead = x.shape[:-1]
     x2 = w.permute_activations(x).reshape(-1, w.in_features).contiguous()
-    if w.bits in (2, 4):
-        in_f, sub = w.in_features, w.sub_size
-        if w.bits == 2 and (sub % 4 or in_f % 512 or (in_f // sub) % 8):
-            raise NotImplementedError(
-                f"2-bit {w.fmt} at sub_size {sub}, in_features {in_f}: the kernel "
-                "takes sub_size % 4 == 0, in % 512 == 0 and (in / sub) % 8 == 0")
-        xsum = _block_sums(x2, sub)
+    args = (w.codes, w.d, w.sc, w.dmin, w.mn)
+    if kern == "int8":
+        xq, xs = quantize_acts(x2, w.sub_size)
+        out = quant_matmul_4bit_int8(xq, xs, _block_sums(x2, w.sub_size), *args, w.code_bias)
+    elif kern != "base":
+        xsum = _block_sums(x2, w.sub_size)
         if w.min_size:
             xsum = _mixed_xsum(xsum, w)
-        fn = quant_matmul_2bit if w.bits == 2 else quant_matmul_4bit
-        out = fn(x2.to(torch.bfloat16), xsum, w.codes, w.d, w.sc, w.dmin, w.mn,
-                 w.code_bias)
+        fn = {"qsplit": quant_matmul_2bit, "fsplit": quant_matmul_4bit,
+              "xsum": quant_matmul_4bit_xsum, "split": quant_matmul_4bit_split}[kern]
+        out = fn(x2.to(torch.bfloat16), xsum, *args, w.code_bias, w.fmt)
     elif w.bits == 8:
-        if w.dmin is not None:
-            raise NotImplementedError(f"8-bit {w.fmt} with a min term")
-        out = quant_matmul_8bit(x2.to(torch.bfloat16), w.codes, w.d, w.sc,
-                                w.sub_size, w.code_bias)
+        out = quant_matmul_8bit(x2.to(torch.bfloat16), w.codes, w.d, w.sc, w.sub_size,
+                                w.code_bias, w.dmin, w.mn)
+    elif w.bits == 4 and w.fmt not in MAPPED_FMTS:
+        out = quant_matmul_4bit_base(x2.to(torch.bfloat16), *args, w.code_bias)
+    elif w.bits in (2, 4):
+        out = quant_matmul_lowbit_base(x2.to(torch.bfloat16), *args, w.code_bias,
+                                       w.bits, w.fmt)
     else:
         raise NotImplementedError(f"{w.bits}-bit codes ({w.fmt})")
     return out.reshape(*lead, w.out_features).to(out_dtype or x.dtype)

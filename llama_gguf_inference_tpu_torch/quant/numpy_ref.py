@@ -1,17 +1,21 @@
 """Golden numpy codecs for the GGML block formats this package loads.
 
-Bit-exact decoders and spec-conformant encoders for F32, F16, Q8_0, Q2_K,
-Q3_K, Q4_K and Q6_K: the formats of a Q4_K_M Llama GGUF (Q4_K projections
-and embedding, a Q6_K output head, F32 norms) and of a Q2_K one (Q2_K
-projections and embedding, Q3_K ``attn_output``/``ffn_down`` and Q4_K
-``attn_v`` in llama.cpp's mix, a Q6_K head). Every other format raises
-``NotImplementedError`` naming it.
+Bit-exact decoders for F32, F16, the 32-element formats Q4_0, Q4_1, Q5_0,
+Q5_1, Q8_0 and Q8_1, the K-quants Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and Q8_K, and
+the non-linear IQ4_NL and IQ4_XS; spec-conformant encoders for all of them
+but Q8_1 (an activation format: nothing stores weights in it). These cover
+the Q4_K_M, Q5_K_M and Q2_K Llama GGUFs (llama.cpp's mixes of K-quant
+projections and embedding, Q6_K heads, F32 norms) and the legacy and IQ4
+files. The grid-codebook formats (IQ1/IQ2/IQ3) raise
+``NotImplementedError`` naming them.
 
 All functions are vectorized over blocks: ``dequantize(raw_bytes, ggml_type,
 n_elements) -> float32[n_elements]``.
 
 Layout notes (public GGML ABI):
 - all multi-byte fields little-endian; scales are IEEE f16 unless noted
+- "nibble" packing: byte j of a 32-element block holds element j in the low
+  nibble and element j+16 in the high nibble
 - K-quants use 256-element super-blocks with 6-bit sub-block scales
 """
 
@@ -33,6 +37,62 @@ def _dequant_q8_0(blocks: np.ndarray) -> np.ndarray:
     # block: [d f16][qs int8 x32]
     d = _f16(blocks[:, 0:2])                      # (nb, 1)
     q = blocks[:, 2:34].view(np.int8).astype(np.float32)
+    return q * d
+
+
+def _dequant_q4_0(blocks: np.ndarray) -> np.ndarray:
+    # block: [d f16][qs u8 x16] ; v = (q - 8) * d
+    d = _f16(blocks[:, 0:2])
+    qs = blocks[:, 2:18]
+    lo = (qs & 0x0F).astype(np.float32) - 8.0
+    hi = (qs >> 4).astype(np.float32) - 8.0
+    return np.concatenate([lo, hi], axis=1) * d
+
+
+def _dequant_q4_1(blocks: np.ndarray) -> np.ndarray:
+    # block: [d f16][m f16][qs u8 x16] ; v = q * d + m
+    d = _f16(blocks[:, 0:2])
+    m = _f16(blocks[:, 2:4])
+    qs = blocks[:, 4:20]
+    lo = (qs & 0x0F).astype(np.float32)
+    hi = (qs >> 4).astype(np.float32)
+    return np.concatenate([lo, hi], axis=1) * d + m
+
+
+def _q5_high_bits(qh_bytes: np.ndarray) -> np.ndarray:
+    """Expand the packed u32 of 5th bits into (nb, 32) {0,1}."""
+    qh = qh_bytes.copy().view("<u4")              # (nb, 1)
+    shifts = np.arange(32, dtype=np.uint32)
+    return ((qh >> shifts) & 1).astype(np.uint8)  # (nb, 32), bit j -> element j
+
+
+def _dequant_q5_0(blocks: np.ndarray) -> np.ndarray:
+    # block: [d f16][qh u32][qs u8 x16] ; q = low4 | (bit<<4); v = (q - 16) * d
+    d = _f16(blocks[:, 0:2])
+    hb = _q5_high_bits(blocks[:, 2:6])
+    qs = blocks[:, 6:22]
+    lo = (qs & 0x0F) | (hb[:, :16] << 4)
+    hi = (qs >> 4) | (hb[:, 16:] << 4)
+    q = np.concatenate([lo, hi], axis=1).astype(np.float32) - 16.0
+    return q * d
+
+
+def _dequant_q5_1(blocks: np.ndarray) -> np.ndarray:
+    # block: [d f16][m f16][qh u32][qs u8 x16] ; v = q * d + m
+    d = _f16(blocks[:, 0:2])
+    m = _f16(blocks[:, 2:4])
+    hb = _q5_high_bits(blocks[:, 4:8])
+    qs = blocks[:, 8:24]
+    lo = (qs & 0x0F) | (hb[:, :16] << 4)
+    hi = (qs >> 4) | (hb[:, 16:] << 4)
+    q = np.concatenate([lo, hi], axis=1).astype(np.float32)
+    return q * d + m
+
+
+def _dequant_q8_1(blocks: np.ndarray) -> np.ndarray:
+    # block: [d f16][s f16][qs int8 x32] ; v = q * d (s = sum*d, redundant)
+    d = _f16(blocks[:, 0:2])
+    q = blocks[:, 4:36].view(np.int8).astype(np.float32)
     return q * d
 
 
@@ -127,6 +187,27 @@ def _dequant_q4_k(blocks: np.ndarray) -> np.ndarray:
     return dl * q.astype(np.float32) - ml
 
 
+def _dequant_q5_k(blocks: np.ndarray) -> np.ndarray:
+    # block: [d f16][dmin f16][scales u8 x12][qh u8 x32][qs u8 x128]
+    nb = blocks.shape[0]
+    d = _f16(blocks[:, 0:2])
+    dmin = _f16(blocks[:, 2:4])
+    sc, mn = _k4_scale_min(blocks[:, 4:16])
+    qh = blocks[:, 16:48]
+    qs = blocks[:, 48:176]
+
+    q = np.empty((nb, 256), dtype=np.uint8)
+    for c in range(4):
+        src = qs[:, 32 * c:32 * (c + 1)]
+        b1 = ((qh >> (2 * c)) & 1) << 4       # u1 bit for first 32 of chunk
+        b2 = ((qh >> (2 * c + 1)) & 1) << 4   # u2 bit for second 32
+        q[:, 64 * c:64 * c + 32] = (src & 0x0F) | b1
+        q[:, 64 * c + 32:64 * c + 64] = (src >> 4) | b2
+    dl = (d * sc.astype(np.float32)).repeat(32, axis=1)
+    ml = (dmin * mn.astype(np.float32)).repeat(32, axis=1)
+    return dl * q.astype(np.float32) - ml
+
+
 def _dequant_q6_k(blocks: np.ndarray) -> np.ndarray:
     # block: [ql u8 x128][qh u8 x64][scales i8 x16][d f16]
     # per 128-element half (ql 64B, qh 32B):
@@ -154,12 +235,66 @@ def _dequant_q6_k(blocks: np.ndarray) -> np.ndarray:
     return dl * q.astype(np.float32)
 
 
+def _dequant_q8_k(blocks: np.ndarray) -> np.ndarray:
+    # block: [d f32][qs i8 x256][bsums i16 x16]
+    d = blocks[:, 0:4].copy().view("<f4").astype(np.float32)
+    q = blocks[:, 4:260].view(np.int8).astype(np.float32)
+    return q * d
+
+
+# public non-linear codebook for IQ4 formats (ggml kvalues_iq4nl)
+KVALUES_IQ4NL = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113],
+    dtype=np.float32,
+)
+
+
+def _dequant_iq4_nl(blocks: np.ndarray) -> np.ndarray:
+    # block (32 elems): [d f16][qs u8 x16]; v = d * kvalues[nibble]
+    d = _f16(blocks[:, 0:2])
+    qs = blocks[:, 2:18]
+    lo = KVALUES_IQ4NL[qs & 0x0F]
+    hi = KVALUES_IQ4NL[qs >> 4]
+    return np.concatenate([lo, hi], axis=1) * d
+
+
+def _dequant_iq4_xs(blocks: np.ndarray) -> np.ndarray:
+    # block (256): [d f16][scales_h u16][scales_l u8 x4][qs u8 x128]
+    # 8 sub-blocks of 32; ls = (low 4-bit | high 2-bit << 4) - 32
+    nb = blocks.shape[0]
+    d = _f16(blocks[:, 0:2])
+    scales_h = blocks[:, 2:4].copy().view("<u2").astype(np.uint32)   # (nb,1)
+    scales_l = blocks[:, 4:8]
+    qs = blocks[:, 8:136]
+    ls = np.empty((nb, 8), dtype=np.float32)
+    for ib in range(8):
+        lo = (scales_l[:, ib // 2] >> (4 * (ib % 2))) & 0x0F
+        hi = (scales_h[:, 0] >> (2 * ib)) & 0x03
+        ls[:, ib] = (lo.astype(np.int32) | (hi.astype(np.int32) << 4)) - 32
+    q = np.empty((nb, 256), dtype=np.float32)
+    for ib in range(8):
+        src = qs[:, 16 * ib:16 * (ib + 1)]
+        q[:, 32 * ib:32 * ib + 16] = KVALUES_IQ4NL[src & 0x0F]
+        q[:, 32 * ib + 16:32 * ib + 32] = KVALUES_IQ4NL[src >> 4]
+        q[:, 32 * ib:32 * (ib + 1)] *= ls[:, ib:ib + 1]
+    return q * d
+
+
 _DEQUANT = {
+    GGMLType.Q4_0: _dequant_q4_0,
+    GGMLType.Q4_1: _dequant_q4_1,
+    GGMLType.Q5_0: _dequant_q5_0,
+    GGMLType.Q5_1: _dequant_q5_1,
     GGMLType.Q8_0: _dequant_q8_0,
+    GGMLType.Q8_1: _dequant_q8_1,
     GGMLType.Q2_K: _dequant_q2_k,
     GGMLType.Q3_K: _dequant_q3_k,
     GGMLType.Q4_K: _dequant_q4_k,
+    GGMLType.Q5_K: _dequant_q5_k,
     GGMLType.Q6_K: _dequant_q6_k,
+    GGMLType.Q8_K: _dequant_q8_k,
+    GGMLType.IQ4_NL: _dequant_iq4_nl,
+    GGMLType.IQ4_XS: _dequant_iq4_xs,
 }
 
 SUPPORTED_TYPES = frozenset(_DEQUANT) | {GGMLType.F32, GGMLType.F16}
@@ -198,6 +333,71 @@ def _quant_q8_0(x: np.ndarray) -> np.ndarray:
     out = np.empty((xb.shape[0], 34), dtype=np.uint8)
     out[:, 0:2] = _to_f16_bytes(d)
     out[:, 2:34] = q.view(np.uint8)
+    return out
+
+
+def _signed_max(xb: np.ndarray) -> np.ndarray:
+    """Per-row value with the largest magnitude (keeping its sign)."""
+    idx = np.abs(xb).argmax(axis=1)
+    return xb[np.arange(xb.shape[0]), idx][:, None]
+
+
+def _quant_q4_0(x: np.ndarray) -> np.ndarray:
+    xb = x.reshape(-1, 32)
+    d = _signed_max(xb) / -8.0
+    inv = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 0.0)
+    q = np.clip(np.round(xb * inv) + 8, 0, 15).astype(np.uint8)
+    out = np.empty((xb.shape[0], 18), dtype=np.uint8)
+    out[:, 0:2] = _to_f16_bytes(d)
+    out[:, 2:18] = q[:, :16] | (q[:, 16:] << 4)
+    return out
+
+
+def _quant_q4_1(x: np.ndarray) -> np.ndarray:
+    xb = x.reshape(-1, 32)
+    mn = xb.min(axis=1, keepdims=True)
+    mx = xb.max(axis=1, keepdims=True)
+    d = (mx - mn) / 15.0
+    inv = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 0.0)
+    q = np.clip(np.round((xb - mn) * inv), 0, 15).astype(np.uint8)
+    out = np.empty((xb.shape[0], 20), dtype=np.uint8)
+    out[:, 0:2] = _to_f16_bytes(d)
+    out[:, 2:4] = _to_f16_bytes(mn)
+    out[:, 4:20] = q[:, :16] | (q[:, 16:] << 4)
+    return out
+
+
+def _pack_q5_high(q: np.ndarray) -> np.ndarray:
+    """Pack bit4 of 32 5-bit quants into a little-endian u32 -> 4 bytes."""
+    bits = (q >> 4) & 1                                   # (nb, 32)
+    word = (bits.astype(np.uint32) << np.arange(32, dtype=np.uint32)).sum(axis=1)
+    return np.ascontiguousarray(word.astype("<u4"))[:, None].view(np.uint8)
+
+
+def _quant_q5_0(x: np.ndarray) -> np.ndarray:
+    xb = x.reshape(-1, 32)
+    d = _signed_max(xb) / -16.0
+    inv = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 0.0)
+    q = np.clip(np.round(xb * inv) + 16, 0, 31).astype(np.uint8)
+    out = np.empty((xb.shape[0], 22), dtype=np.uint8)
+    out[:, 0:2] = _to_f16_bytes(d)
+    out[:, 2:6] = _pack_q5_high(q)
+    out[:, 6:22] = (q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)
+    return out
+
+
+def _quant_q5_1(x: np.ndarray) -> np.ndarray:
+    xb = x.reshape(-1, 32)
+    mn = xb.min(axis=1, keepdims=True)
+    mx = xb.max(axis=1, keepdims=True)
+    d = (mx - mn) / 31.0
+    inv = np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 0.0)
+    q = np.clip(np.round((xb - mn) * inv), 0, 31).astype(np.uint8)
+    out = np.empty((xb.shape[0], 24), dtype=np.uint8)
+    out[:, 0:2] = _to_f16_bytes(d)
+    out[:, 2:4] = _to_f16_bytes(mn)
+    out[:, 4:8] = _pack_q5_high(q)
+    out[:, 8:24] = (q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)
     return out
 
 
@@ -321,6 +521,22 @@ def _quant_q4_k(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def _quant_q5_k(x: np.ndarray) -> np.ndarray:
+    nb, d, dmin, ls, lm, q = _k4_affine(x, 8, 31)
+    out = np.zeros((nb, 176), dtype=np.uint8)
+    out[:, 0:2] = _to_f16_bytes(d)
+    out[:, 2:4] = _to_f16_bytes(dmin)
+    out[:, 4:16] = _pack_k4_scales(ls, lm)
+    qh = np.zeros((nb, 32), dtype=np.uint8)
+    for c in range(4):
+        q1 = q[:, 64 * c:64 * c + 32]
+        q2 = q[:, 64 * c + 32:64 * c + 64]
+        out[:, 48 + 32 * c:48 + 32 * (c + 1)] = (q1 & 0x0F) | ((q2 & 0x0F) << 4)
+        qh |= ((q1 >> 4) << (2 * c)) | ((q2 >> 4) << (2 * c + 1))
+    out[:, 16:48] = qh
+    return out
+
+
 def _quant_q6_k(x: np.ndarray) -> np.ndarray:
     xb = x.reshape(-1, 256)
     nb = xb.shape[0]
@@ -351,12 +567,76 @@ def _quant_q6_k(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def _quant_q8_k(x: np.ndarray) -> np.ndarray:
+    xb = x.reshape(-1, 256)
+    amax = np.abs(xb).max(axis=1, keepdims=True)
+    d = amax / 127.0
+    inv = np.where(d > 0, 1.0 / np.where(d == 0, 1, d), 0.0)
+    q = np.clip(np.round(xb * inv), -127, 127).astype(np.int8)
+    bsums = q.reshape(-1, 16, 16).sum(axis=2).astype("<i2")
+    out = np.empty((xb.shape[0], 292), dtype=np.uint8)
+    out[:, 0:4] = np.ascontiguousarray(d.astype("<f4")).view(np.uint8)
+    out[:, 4:260] = q.view(np.uint8)
+    out[:, 260:292] = np.ascontiguousarray(bsums).view(np.uint8).reshape(-1, 32)
+    return out
+
+
+def _quant_iq4_nl(x: np.ndarray) -> np.ndarray:
+    xb = x.reshape(-1, 32)
+    sm = _signed_max(xb)
+    d = sm / -127.0                                   # map signed max near kvalue -127
+    inv = np.where(d != 0, 1.0 / np.where(d == 0, 1, d), 0.0)
+    scaled = xb * inv                                  # in ~[-127, 127]
+    idx = np.abs(scaled[..., None] - KVALUES_IQ4NL[None, None, :]).argmin(axis=2).astype(np.uint8)
+    out = np.empty((xb.shape[0], 18), dtype=np.uint8)
+    out[:, 0:2] = _to_f16_bytes(d)
+    out[:, 2:18] = idx[:, :16] | (idx[:, 16:] << 4)
+    return out
+
+
+def _quant_iq4_xs(x: np.ndarray) -> np.ndarray:
+    xb = x.reshape(-1, 256)
+    nb = xb.shape[0]
+    sub = xb.reshape(nb, 8, 32)
+    sm = np.take_along_axis(sub, np.abs(sub).argmax(axis=2)[..., None], axis=2)[..., 0]
+    sub_d = sm / -127.0                                # per-sub-block ideal scale
+    dmax = np.abs(sub_d).max(axis=1, keepdims=True)
+    d = np.where(dmax > 0, dmax / 31.0, 0.0)           # ls in [-32,31]; use magnitude <=31
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ls = np.where(d > 0, np.clip(np.round(sub_d / np.where(d == 0, 1, d)), -32, 31),
+                      0).astype(np.int32)
+        eff = d * ls
+        scaled = np.where(eff[..., None] != 0,
+                          sub / np.where(eff[..., None] == 0, 1.0, eff[..., None]), 0.0)
+    idx = np.abs(scaled[..., None] - KVALUES_IQ4NL[None, None, None, :]).argmin(axis=3)
+    idx = idx.astype(np.uint8)                          # (nb, 8, 32)
+    out = np.zeros((nb, 136), dtype=np.uint8)
+    out[:, 0:2] = _to_f16_bytes(d)
+    l6 = (ls + 32).astype(np.uint32)
+    sh = np.zeros(nb, dtype=np.uint32)
+    for ib in range(8):
+        out[:, 4 + ib // 2] |= ((l6[:, ib] & 0x0F) << (4 * (ib % 2))).astype(np.uint8)
+        sh |= (l6[:, ib] >> 4) << (2 * ib)
+    out[:, 2:4] = np.ascontiguousarray(sh.astype("<u2"))[:, None].view(np.uint8)
+    for ib in range(8):
+        out[:, 8 + 16 * ib:8 + 16 * (ib + 1)] = idx[:, ib, :16] | (idx[:, ib, 16:] << 4)
+    return out
+
+
 _QUANT = {
+    GGMLType.Q4_0: _quant_q4_0,
+    GGMLType.Q4_1: _quant_q4_1,
+    GGMLType.Q5_0: _quant_q5_0,
+    GGMLType.Q5_1: _quant_q5_1,
     GGMLType.Q8_0: _quant_q8_0,
     GGMLType.Q2_K: _quant_q2_k,
     GGMLType.Q3_K: _quant_q3_k,
     GGMLType.Q4_K: _quant_q4_k,
+    GGMLType.Q5_K: _quant_q5_k,
     GGMLType.Q6_K: _quant_q6_k,
+    GGMLType.Q8_K: _quant_q8_k,
+    GGMLType.IQ4_NL: _quant_iq4_nl,
+    GGMLType.IQ4_XS: _quant_iq4_xs,
 }
 
 

@@ -11,8 +11,11 @@ quantized-matmul kernels read:
 
 Repacking is *value-exact*: ``QuantLinear.dequantize()`` over the repacked
 arrays equals ``quant.numpy_ref.dequantize()`` over the wire bytes
-bit-for-bit. Q6_K codes are widened to int8; Q3_K's 3-bit codes ride the
-4-bit planes with code bias 4. Formats: Q8_0, Q2_K, Q3_K, Q4_K, Q6_K.
+bit-for-bit. 5- and 6-bit codes (Q5_0, Q5_1, Q5_K, Q6_K) are widened to
+int8, and the IQ4 codebook is applied here (IQ4_NL, IQ4_XS store int8
+values); Q3_K's 3-bit codes ride the 4-bit planes with code bias 4, Q4_0's
+with bias 8. Formats: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K,
+Q5_K, Q6_K, Q8_K, IQ4_NL, IQ4_XS.
 
 Which device scale layout a hierarchical weight gets (``flat``, ``compact``
 or ``mixed``) is chosen per weight by :func:`device_scale_layout` from
@@ -29,7 +32,7 @@ import torch
 
 from ..device import resolve_device
 from ..gguf.constants import GGMLType, type_block_info
-from .numpy_ref import _f16, _k4_scale_min, _q3k_q6k_scales
+from .numpy_ref import KVALUES_IQ4NL, _f16, _k4_scale_min, _q3k_q6k_scales, _q5_high_bits
 
 
 def scale_layout() -> str:
@@ -149,8 +152,7 @@ def repack(raw: bytes | np.ndarray, ggml_type: GGMLType,
            out_features: int, in_features: int) -> RepackedWeight:
     """Repack a (out, in) weight whose rows are contiguous wire blocks."""
     t = GGMLType(ggml_type)
-    if t not in (GGMLType.Q8_0, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K,
-                 GGMLType.Q6_K):
+    if t not in _REPACKED:
         raise NotImplementedError(f"repack for {t!r}")
     buf = np.frombuffer(raw, dtype=np.uint8) if not isinstance(raw, np.ndarray) else raw
     blk, nbytes = type_block_info(t)
@@ -164,7 +166,9 @@ def repack(raw: bytes | np.ndarray, ggml_type: GGMLType,
         """Assemble a RepackedWeight from LOGICAL-order integer codes.
 
         Hierarchical formats (dsz > sub) are assembled compact; the device
-        layout is chosen downstream by :func:`to_quant_linear`.
+        layout is chosen downstream by :func:`to_quant_linear`. Flat ones
+        (dsz == sub) fold any per-sub-block sc/mn into f32 effective scales
+        and keep their min (Q4_1, Q5_1).
         """
         g = dsz // sub
         nd = I // dsz
@@ -178,8 +182,17 @@ def repack(raw: bytes | np.ndarray, ggml_type: GGMLType,
             codes = qbm.astype(np.int8)
         d32 = np.ascontiguousarray(d.reshape(O, nd).astype(np.float32))
         if not compact:
+            s_eff = d32
+            if sc is not None:
+                s_eff = s_eff * sc.reshape(O, nd).astype(np.float32)
+            m_eff = None
+            if dmin is not None:
+                m_eff = dmin.reshape(O, nd).astype(np.float32)
+                if mn is not None:
+                    m_eff = m_eff * mn.reshape(O, nd).astype(np.float32)
             return RepackedWeight(
-                codes=codes, d=d32, sc=None, dmin=None, mn=None,
+                codes=codes, d=np.ascontiguousarray(s_eff), sc=None,
+                dmin=None if m_eff is None else np.ascontiguousarray(m_eff), mn=None,
                 fmt=t.name.lower(), bits=bits, sub_size=sub, d_size=sub,
                 code_bias=bias, out_features=O, in_features=I)
         sc_bm = np.ascontiguousarray(
@@ -197,6 +210,42 @@ def repack(raw: bytes | np.ndarray, ggml_type: GGMLType,
     if t == GGMLType.Q8_0:
         d = _f16(blocks[:, 0:2])
         q = blocks[:, 2:34].view(np.int8)
+        return rw(q.reshape(O, I).copy(), d, bits=8, sub=32, dsz=32)
+
+    if t == GGMLType.Q4_0:
+        d = _f16(blocks[:, 0:2])
+        qs = blocks[:, 2:18]
+        q = np.concatenate([qs & 0x0F, qs >> 4], axis=1).reshape(O, I)
+        return rw(q, d, bits=4, sub=32, dsz=32, bias=8)
+
+    if t == GGMLType.Q4_1:
+        d = _f16(blocks[:, 0:2])
+        m = _f16(blocks[:, 2:4])
+        qs = blocks[:, 4:20]
+        q = np.concatenate([qs & 0x0F, qs >> 4], axis=1).reshape(O, I)
+        return rw(q, d, dmin=-m, bits=4, sub=32, dsz=32)
+
+    if t == GGMLType.Q5_0:
+        d = _f16(blocks[:, 0:2])
+        hb = _q5_high_bits(blocks[:, 2:6])
+        qs = blocks[:, 6:22]
+        q = np.concatenate([(qs & 0x0F) | (hb[:, :16] << 4),
+                            (qs >> 4) | (hb[:, 16:] << 4)], axis=1)
+        codes = (q.astype(np.int16) - 16).astype(np.int8).reshape(O, I)
+        return rw(codes, d, bits=8, sub=32, dsz=32)
+
+    if t == GGMLType.Q5_1:
+        d = _f16(blocks[:, 0:2])
+        m = _f16(blocks[:, 2:4])
+        hb = _q5_high_bits(blocks[:, 4:8])
+        qs = blocks[:, 8:24]
+        q = np.concatenate([(qs & 0x0F) | (hb[:, :16] << 4),
+                            (qs >> 4) | (hb[:, 16:] << 4)], axis=1)
+        return rw(q.astype(np.int8).reshape(O, I), d, dmin=-m, bits=8, sub=32, dsz=32)
+
+    if t == GGMLType.Q8_1:
+        d = _f16(blocks[:, 0:2])
+        q = blocks[:, 4:36].view(np.int8)
         return rw(q.reshape(O, I).copy(), d, bits=8, sub=32, dsz=32)
 
     if t == GGMLType.Q2_K:
@@ -245,24 +294,76 @@ def repack(raw: bytes | np.ndarray, ggml_type: GGMLType,
         return rw(q.reshape(O, I), d, sc=sc, dmin=dmin, mn=mn,
                   bits=4, sub=32, dsz=256)
 
-    # Q6_K
-    ql = blocks[:, 0:128]
-    qh = blocks[:, 128:192]
-    sc = blocks[:, 192:208].view(np.int8)
-    d = _f16(blocks[:, 208:210])
+    if t == GGMLType.Q5_K:
+        d = _f16(blocks[:, 0:2])
+        dmin = _f16(blocks[:, 2:4])
+        sc, mn = _k4_scale_min(blocks[:, 4:16])
+        qh = blocks[:, 16:48]
+        qs = blocks[:, 48:176]
+        nb = blocks.shape[0]
+        q = np.empty((nb, 256), dtype=np.uint8)
+        for c in range(4):
+            src = qs[:, 32 * c:32 * (c + 1)]
+            q[:, 64 * c:64 * c + 32] = (src & 0x0F) | (((qh >> (2 * c)) & 1) << 4)
+            q[:, 64 * c + 32:64 * c + 64] = (src >> 4) | (((qh >> (2 * c + 1)) & 1) << 4)
+        return rw(q.astype(np.int8).reshape(O, I), d, sc=sc, dmin=dmin, mn=mn,
+                  bits=8, sub=32, dsz=256)
+
+    if t == GGMLType.Q6_K:
+        ql = blocks[:, 0:128]
+        qh = blocks[:, 128:192]
+        sc = blocks[:, 192:208].view(np.int8)
+        d = _f16(blocks[:, 208:210])
+        nb = blocks.shape[0]
+        q = np.empty((nb, 256), dtype=np.int16)
+        for half in range(2):
+            l_ = ql[:, 64 * half:64 * half + 32]
+            l32 = ql[:, 64 * half + 32:64 * half + 64]
+            h = qh[:, 32 * half:32 * (half + 1)]
+            base = 128 * half
+            q[:, base + 0:base + 32] = ((l_ & 0x0F) | (((h >> 0) & 3) << 4)).astype(np.int16) - 32
+            q[:, base + 32:base + 64] = ((l32 & 0x0F) | (((h >> 2) & 3) << 4)).astype(np.int16) - 32
+            q[:, base + 64:base + 96] = ((l_ >> 4) | (((h >> 4) & 3) << 4)).astype(np.int16) - 32
+            q[:, base + 96:base + 128] = ((l32 >> 4) | (((h >> 6) & 3) << 4)).astype(np.int16) - 32
+        return rw(q.astype(np.int8).reshape(O, I), d, sc=sc.copy(),
+                  bits=8, sub=16, dsz=256)
+
+    if t == GGMLType.Q8_K:
+        d = blocks[:, 0:4].copy().view("<f4")
+        q = blocks[:, 4:260].view(np.int8)
+        return rw(q.reshape(O, I).copy(), d, bits=8, sub=256, dsz=256)
+
+    if t == GGMLType.IQ4_NL:
+        d = _f16(blocks[:, 0:2])
+        qs = blocks[:, 2:18]
+        idx = np.concatenate([qs & 0x0F, qs >> 4], axis=1)
+        codes = KVALUES_IQ4NL[idx].astype(np.int8).reshape(O, I)
+        return rw(codes, d, bits=8, sub=32, dsz=32)
+
+    # IQ4_XS
+    d = _f16(blocks[:, 0:2])
+    scales_h = blocks[:, 2:4].copy().view("<u2").astype(np.uint32)
+    scales_l = blocks[:, 4:8]
+    qs = blocks[:, 8:136]
     nb = blocks.shape[0]
-    q = np.empty((nb, 256), dtype=np.int16)
-    for half in range(2):
-        l_ = ql[:, 64 * half:64 * half + 32]
-        l32 = ql[:, 64 * half + 32:64 * half + 64]
-        h = qh[:, 32 * half:32 * (half + 1)]
-        base = 128 * half
-        q[:, base + 0:base + 32] = ((l_ & 0x0F) | (((h >> 0) & 3) << 4)).astype(np.int16) - 32
-        q[:, base + 32:base + 64] = ((l32 & 0x0F) | (((h >> 2) & 3) << 4)).astype(np.int16) - 32
-        q[:, base + 64:base + 96] = ((l_ >> 4) | (((h >> 4) & 3) << 4)).astype(np.int16) - 32
-        q[:, base + 96:base + 128] = ((l32 >> 4) | (((h >> 6) & 3) << 4)).astype(np.int16) - 32
-    return rw(q.astype(np.int8).reshape(O, I), d, sc=sc.copy(),
-              bits=8, sub=16, dsz=256)
+    ls = np.empty((nb, 8), dtype=np.int8)
+    for ib in range(8):
+        lo = (scales_l[:, ib // 2] >> (4 * (ib % 2))) & 0x0F
+        hi = (scales_h[:, 0] >> (2 * ib)) & 0x03
+        ls[:, ib] = ((lo.astype(np.int32) | (hi.astype(np.int32) << 4)) - 32).astype(np.int8)
+    idx = np.empty((nb, 256), dtype=np.uint8)
+    for ib in range(8):
+        src = qs[:, 16 * ib:16 * (ib + 1)]
+        idx[:, 32 * ib:32 * ib + 16] = src & 0x0F
+        idx[:, 32 * ib + 16:32 * (ib + 1)] = src >> 4
+    codes = KVALUES_IQ4NL[idx].astype(np.int8).reshape(O, I)
+    return rw(codes, d, sc=ls, bits=8, sub=32, dsz=256)
+
+
+_REPACKED = frozenset((
+    GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
+    GGMLType.Q8_1, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K,
+    GGMLType.Q6_K, GGMLType.Q8_K, GGMLType.IQ4_NL, GGMLType.IQ4_XS))
 
 
 def flatten_repacked(rp: RepackedWeight) -> RepackedWeight:

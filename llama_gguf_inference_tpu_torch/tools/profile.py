@@ -1,12 +1,13 @@
 """Where the time goes in the engine on one card.
 
-    python -m llama_gguf_inference_tpu_torch.tools.profile [--shape 8b] [--seed 0] [--quant q2_k]
+    python -m llama_gguf_inference_tpu_torch.tools.profile [--shape 8b] [--seed 0] [--quant q2_k|q5_k]
 
-Loads the synthesized model of the shape (``tools.synth``: Q4_K_M, or Q2_K
-with ``--quant q2_k``; written under the temp dir on first use) into an
-engine with 4 slots of 1024 tokens, and prints the card's name and power
-limit (``nvidia-smi``) and the scale layout (``LGT_SCALE_LAYOUT``, read by
-the repack at load), then one JSON line per measurement:
+Loads the synthesized model of the shape (``tools.synth``: Q4_K_M, Q2_K
+with ``--quant q2_k`` or Q5_K with ``--quant q5_k``; written under the temp
+dir on first use) into an engine with 4 slots of 1024 tokens, and prints the
+card's name and power limit (``nvidia-smi``), the scale layout
+(``LGT_SCALE_LAYOUT``, read by the repack at load) and the matmul variant
+(``LGT_MM_VARIANT``, read per call), then one JSON line per measurement:
 
 1. the engine's decode rate for one greedy request of 64 tokens, without
    the HTTP server in front;
@@ -15,13 +16,16 @@ the repack at load), then one JSON line per measurement:
    prefill chunk: wall ms per step without the profiler, then, under
    ``torch.profiler``, device ms per step by kernel (the port's matmul and
    attention kernels and all other PyTorch kernels) and the device's idle
-   share.
+   share. The breakdown names each matmul kernel that ran (2-bit, 4-bit
+   fsplit/xsum/split/base/int8, the base body's f32 branch, 8-bit with and
+   without the min term).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -32,16 +36,26 @@ from ..ops import quant_matmul as qm
 from ..quant.repack import scale_layout
 from .synth import QUANTS, SHAPES, cached_model
 
-# matched against the CUDA kernels' names by substring: the 2- and 4-bit
-# kernels share one template, told apart by its first argument
-KERNELS = {qm.NAME_2BIT: "quant_matmul_lowbit_kernel<2",
-           qm.NAME_4BIT: "quant_matmul_lowbit_kernel<4",
-           qm.NAME_8BIT: "quant_matmul_8bit", fa.NAME: "flash_attention"}
+# the CUDA kernels' names, told apart by their template arguments: the 2/4-bit
+# template by (bits, element rule), the 8-bit one by its min side
+LOWBIT = {(2, 0): qm.NAME_2BIT, (4, 0): qm.NAME_4BIT, (4, 1): qm.NAME_4BIT_XSUM,
+          (4, 2): qm.NAME_4BIT_SPLIT, (4, 3): qm.NAME_4BIT_BASE,
+          (2, 4): qm.NAME_LOWBIT_BASE, (4, 4): qm.NAME_LOWBIT_BASE}
+KERNELS = (*dict.fromkeys(LOWBIT.values()), qm.NAME_4BIT_INT8, qm.NAME_8BIT,
+           qm.NAME_8BIT_MIN, fa.NAME)
 LIVE = 512
 
 
 def _kernel_group(name: str) -> str:
-    return next((k for k, pat in KERNELS.items() if pat in name), "other")
+    m = re.search(r"quant_matmul_lowbit_kernel<(\d+), (\d+)", name)
+    if m:
+        return LOWBIT[int(m[1]), int(m[2])]
+    m = re.search(r"quant_matmul_8bit_kernel<\d+, (\d+)", name)
+    if m:
+        return qm.NAME_8BIT if m[1] == "0" else qm.NAME_8BIT_MIN
+    if "quant_matmul_int8_kernel" in name:
+        return qm.NAME_4BIT_INT8
+    return fa.NAME if "flash_attention" in name else "other"
 
 
 def profile(engine, steps: int = 8) -> list[dict]:
@@ -117,8 +131,8 @@ def main() -> None:
     a = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    print(json.dumps({"shape": a.shape, "quant": a.quant, "scale_layout": scale_layout()}),
-          flush=True)
+    print(json.dumps({"shape": a.shape, "quant": a.quant, "scale_layout": scale_layout(),
+                      "mm_variant": qm.variant()}), flush=True)
     engine = InferenceEngine(cached_model(a.shape, a.seed, quant=a.quant),
                              EngineConfig(max_slots=4, ctx=1024), device="cuda")
     for row in profile(engine):

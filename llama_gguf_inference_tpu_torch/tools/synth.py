@@ -1,7 +1,8 @@
 """Synthesize a quantized llama GGUF with random weights from a seed.
 
-Q4_K (``quant="q4_k"``, the default) or Q2_K (``quant="q2_k"``) projections
-and embedding, a Q6_K output head, F32 norms, and a small
+Q4_K (``quant="q4_k"``, the default), Q2_K (``quant="q2_k"``) or Q5_K
+(``quant="q5_k"``) projections and embedding, a Q6_K output head, F32 norms,
+and a small
 SentencePiece-style vocab padded with filler pieces to the shape's vocab
 size. Decode cost depends on the weights' shapes, not their values, so the
 file stands in for a real checkpoint of the same shape. A small random pool
@@ -13,7 +14,7 @@ The output is byte-identical to the JAX package's ``bench.py``
 ``bench_model_path`` for the same shape and quant (whose ``general.name``
 reads ``bench-llama3-<shape>-q4km`` whatever the quant).
 
-    python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b [--quant q2_k] --out model.gguf
+    python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b [--quant q2_k|q5_k] --out model.gguf
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def make_tiny_vocab() -> tuple[list[str], list[float], list[int]]:
     return tokens, scores, [int(t) for t in types]
 
 
-QUANTS = ("q4_k", "q2_k")
+QUANTS = ("q4_k", "q2_k", "q5_k")
 
 
 def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k") -> str:

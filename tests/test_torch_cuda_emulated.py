@@ -1,0 +1,175 @@
+"""The CUDA matmul source run on the CPU: ``csrc/quant_matmul.cu`` compiled
+by g++ against the stand-in headers of ``tests/cuda_emu`` (each warp of a
+launch as 32 threads, its shuffles through a barrier), driven through the
+port's own wrappers with their device check lifted, against the plain
+PyTorch versions.
+
+This holds the kernels' index arithmetic, element rules and rounding points
+to the plain versions where no card is present; what nvcc makes of the
+source is checked only on the card (``test_torch_cuda_kernels.py``).
+Tolerance: the same bf16 weights and exact integer dots on both sides, f32
+sums in another order: 1e-5 of the output's scale. Skips where there is no
+g++ with C++20.
+"""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import types
+
+import pytest
+import torch
+
+from llama_gguf_inference_tpu_torch.ops import _build
+from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(HERE), "llama_gguf_inference_tpu_torch", "csrc",
+                   "quant_matmul.cu")
+TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    """The wrappers of ``ops.quant_matmul`` over the g++ build of the CUDA
+    source, and the launches they count."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the emulated kernels")
+    d = tmp_path_factory.mktemp("cuda_emu")
+    with open(SRC) as f:
+        src = f.read()
+    src = re.sub(r"([A-Za-z_0-9]+<[^<>;]*>)<<<([^>]*)>>>\(([^)]*)\);",
+                 r"emu_launch(\2, [&]() { \1(\3); });", src)
+    src = src.replace("fmaf(", "std::fmaf(")
+    cpp, lib = d / "quant_matmul.cpp", d / "quant_matmul.so"
+    cpp.write_text(src)
+    r = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                        "-pthread", "-I", os.path.join(HERE, "cuda_emu"), str(cpp),
+                        "-o", str(lib)], capture_output=True, text=True, timeout=600)
+    if r.returncode != 0 and "barrier" in r.stderr and "No such file" in r.stderr:
+        pytest.skip("g++ lacks C++20's <barrier>")
+    assert r.returncode == 0, r.stderr[-3000:]
+    so = _build._bind("quant_matmul", ctypes.CDLL(str(lib)))
+    launches: dict[str, int] = {}
+    fake_build = types.SimpleNamespace(
+        library=lambda name: so, check=_build.check,
+        count=lambda name: launches.__setitem__(name, launches.get(name, 0) + 1))
+    with open(qm.__file__) as f:
+        wsrc = f.read()
+    wsrc = wsrc.replace('if dev.type != "cuda":', "if False:")
+    wsrc = wsrc.replace("torch.cuda.current_stream(dev).cuda_stream", "0")
+    wsrc = wsrc.replace("from . import _build\n", "")
+    wsrc = wsrc.replace("from .linear import", "from llama_gguf_inference_tpu_torch.ops.linear import")
+    mod = types.ModuleType("quant_matmul_emulated")
+    mod._build = fake_build
+    exec(compile(wsrc, "quant_matmul_emulated", "exec"), mod.__dict__)
+    mod._build = fake_build
+    return mod, launches
+
+
+def _arrays(bits, out_f, in_f, sub, layout, has_min, signed, g):
+    nsub, nd = in_f // sub, in_f // 256
+    if bits == 8:
+        codes = torch.randint(-128, 128, (out_f, in_f), generator=g, dtype=torch.int32).to(torch.int8)
+    else:
+        codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, dtype=torch.uint8)
+
+    def f32(n):
+        return torch.rand(out_f, n, generator=g) * 0.02 + 1e-3
+
+    def u8(s):
+        if s:
+            return torch.randint(-32, 32, (out_f, nsub), generator=g, dtype=torch.int32).to(torch.int8)
+        return torch.randint(0, 64, (out_f, nsub), generator=g, dtype=torch.int32).to(torch.uint8)
+    if layout == "flat":
+        return codes, f32(nsub), None, (f32(nsub) if has_min else None), None
+    if layout == "compact":
+        return codes, f32(nd), u8(signed), (f32(nd) if has_min else None), \
+            (u8(False) if has_min else None)
+    return codes, f32(nsub), None, f32(nd), u8(False)
+
+
+def _close(got, want):
+    assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+OUT, IN, B = 10, 512, 9     # 3 blocks of 4 warps (two idle), 2 blocks of rows (8 + 1)
+
+LOWBIT = [  # (bits, sub, bias, layout, has_min, signed sc)
+    (4, 32, 0, "flat", True, False), (4, 32, 0, "compact", True, False),
+    (4, 32, 0, "mixed", True, False), (4, 16, 4, "flat", False, True),
+    (4, 16, 4, "compact", False, True), (4, 32, 8, "flat", False, False),
+    (2, 16, 0, "flat", True, False), (2, 16, 0, "compact", True, False),
+    (2, 16, 0, "mixed", True, False), (2, 8, 1, "compact", True, True)]
+
+
+@pytest.mark.parametrize("bits,sub,bias,layout,has_min,signed", LOWBIT, ids=str)
+def test_lowbit_kernels(emu, bits, sub, bias, layout, has_min, signed):
+    """qsplit/fsplit, xsum, split and both base rules in each layout they
+    take."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(bits * 100 + sub + bias)
+    arrs = _arrays(bits, OUT, IN, sub, layout, has_min, signed, g)
+    x = torch.randn(B, IN, generator=g).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    names = ["quant_matmul_2bit"] if bits == 2 else [
+        "quant_matmul_4bit", "quant_matmul_4bit_xsum", "quant_matmul_4bit_split"]
+    for name in names:
+        _close(getattr(mod, name)(x, xsum, *arrs, bias),
+               getattr(qm, name + "_plain")(x, xsum, *arrs, bias))
+    if layout != "mixed":
+        if bits == 4:
+            _close(mod.quant_matmul_4bit_base(x, *arrs, bias),
+                   qm.quant_matmul_4bit_base_plain(x, *arrs, bias))
+        else:
+            _close(mod.quant_matmul_lowbit_base(x, *arrs, bias, 2),
+                   qm.quant_matmul_lowbit_base_plain(x, *arrs, bias, 2))
+    assert all(launches.get(n, 0) for n in names)
+
+
+@pytest.mark.parametrize("fmt", ["iq2_xs", "iq3_s"])
+@pytest.mark.parametrize("layout", ["flat", "compact"])
+def test_mapped_code_kernels(emu, fmt, layout):
+    mod, _ = emu
+    g = torch.Generator().manual_seed(len(fmt) + len(layout))
+    codes, d, sc, _, _ = _arrays(4, OUT, IN, 32, layout, False, False, g)
+    x = torch.randn(B, IN, generator=g).bfloat16()
+    xsum = qm._block_sums(x, 32)
+    _close(mod.quant_matmul_4bit(x, xsum, codes, d, sc, None, None, 0, fmt),
+           qm.quant_matmul_4bit_plain(x, xsum, codes, d, sc, None, None, 0, fmt))
+    _close(mod.quant_matmul_lowbit_base(x, codes, d, sc, None, None, 0, 4, fmt),
+           qm.quant_matmul_lowbit_base_plain(x, codes, d, sc, None, None, 0, 4, fmt))
+
+
+@pytest.mark.parametrize("layout,has_min,bias,signed", [
+    ("flat", True, 0, False), ("flat", False, 8, False), ("compact", True, 0, False),
+    ("compact", False, 4, True)], ids=str)
+def test_int8_kernel(emu, layout, has_min, bias, signed):
+    mod, launches = emu
+    g = torch.Generator().manual_seed(bias + len(layout))
+    arrs = _arrays(4, OUT, IN, 32, layout, has_min, signed, g)
+    x = torch.randn(B, IN, generator=g).bfloat16()
+    xq, xs = qm.quantize_acts(x, 32)
+    args = (xq, xs, qm._block_sums(x, 32), *arrs, bias)
+    _close(mod.quant_matmul_4bit_int8(*args), qm.quant_matmul_4bit_int8_plain(*args))
+    assert launches[qm.NAME_4BIT_INT8] > 0
+
+
+@pytest.mark.parametrize("layout,has_min,signed,sub,bias", [
+    ("flat", False, False, 32, 0), ("flat", True, False, 32, 0), ("compact", False, True, 16, 0),
+    ("compact", True, False, 32, 0), ("compact", False, False, 32, 16)], ids=str)
+def test_8bit_kernel(emu, layout, has_min, signed, sub, bias):
+    """Q8_0/Q5_1-like flat sides, Q6_K/IQ4_XS-like i8 sc, Q5_K-like u8 sc and
+    mn."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(sub + bias + has_min)
+    codes, d, sc, dmin, mn = _arrays(8, OUT, IN, sub, layout, has_min, signed, g)
+    x = torch.randn(B, IN, generator=g).bfloat16()
+    args = (x, codes, d, sc, sub, bias, dmin, mn)
+    _close(mod.quant_matmul_8bit(*args), qm.quant_matmul_8bit_plain(*args))
+    assert launches[qm.NAME_8BIT_MIN if has_min else qm.NAME_8BIT] > 0

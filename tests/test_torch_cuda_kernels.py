@@ -157,6 +157,122 @@ def test_quant_matmul_8bit_kernel(dev, B, gtype):
     _close(got, qm.quant_matmul_8bit_plain(*args), 1e-4)
 
 
+VARIANT_WRAPPERS = {
+    "xsum": (qm.quant_matmul_4bit_xsum, qm.quant_matmul_4bit_xsum_plain, qm.NAME_4BIT_XSUM),
+    "split": (qm.quant_matmul_4bit_split, qm.quant_matmul_4bit_split_plain,
+              qm.NAME_4BIT_SPLIT)}
+
+
+@pytest.mark.parametrize("B", [1, 5, 17])
+@pytest.mark.parametrize("sub,bias,signed", [(32, 0, False), (16, 4, True), (32, 8, False)])
+@pytest.mark.parametrize("var,layout", [
+    (v, lay) for v in ("xsum", "split", "base", "int8") for lay in ("flat", "compact", "mixed")
+    if lay != "mixed" or v in ("xsum", "split")])
+def test_quant_matmul_4bit_variant_kernels(dev, var, layout, sub, bias, signed, B):
+    """The xsum, split, base and int8 kernels in every layout each takes
+    (base and int8 take no mixed layout, which the JAX dispatcher sends to
+    its dequantize path; mixed takes no code bias), with and without the
+    min side."""
+    if layout == "mixed":
+        bias = 0
+    g = torch.Generator().manual_seed(B + sub + bias)
+    out_f, in_f = 68, 1024
+    codes, d, sc, dmin, mn = _lowbit_arrays(4, out_f, in_f, sub, bias, layout, signed, g)
+    x = torch.randn(B, in_f, generator=g)
+    xsum = qm._block_sums(x, sub)
+    xq, xs = qm.quantize_acts(x, sub)
+    mins = [(dmin, mn)] if layout == "mixed" else [(dmin, mn), (None, None)]
+    for dm, m in mins:
+        w = [t if t is None else t.to(dev) for t in (codes, d, sc, dm, m)]
+        if var == "base":
+            kernel, plain, name = qm.quant_matmul_4bit_base, qm.quant_matmul_4bit_base_plain, \
+                qm.NAME_4BIT_BASE
+            args = pargs = (x.bfloat16().to(dev), *w, bias)
+        elif var == "int8":
+            kernel, plain, name = qm.quant_matmul_4bit_int8, qm.quant_matmul_4bit_int8_plain, \
+                qm.NAME_4BIT_INT8
+            args = pargs = (xq.to(dev), xs.to(dev), xsum.to(dev), *w, bias)
+        else:
+            kernel, plain, name = VARIANT_WRAPPERS[var]
+            args = pargs = (x.bfloat16().to(dev), xsum.to(dev), *w, bias)
+        before = _build.LAUNCHES.get(name, 0)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == before + 1
+        _close(got, plain(*pargs), 1e-4)
+
+
+@pytest.mark.parametrize("fmt", ["iq2_xs", "iq3_s"])
+@pytest.mark.parametrize("layout", ["flat", "compact"])
+@pytest.mark.parametrize("B", [1, 7])
+def test_quant_matmul_mapped_code_kernels(dev, fmt, layout, B):
+    """IQ2/IQ3 4-bit codes through the fsplit kernel's value map and the
+    base body's f32 branch."""
+    g = torch.Generator().manual_seed(B)
+    codes, d, sc, _, _ = _lowbit_arrays(4, 40, 512, 32, 0, layout, False, g)
+    x = torch.randn(B, 512, generator=g).bfloat16()
+    w = [t if t is None else t.to(dev) for t in (codes, d, sc)]
+    xsum = qm._block_sums(x.float(), 32).to(dev)
+    x = x.to(dev)
+    got = qm.quant_matmul_4bit(x, xsum, *w, None, None, 0, fmt)
+    _close(got, qm.quant_matmul_4bit_plain(x, xsum, *w, None, None, 0, fmt), 1e-4)
+    got = qm.quant_matmul_lowbit_base(x, *w, None, None, 0, 4, fmt)
+    torch.cuda.synchronize()
+    _close(got, qm.quant_matmul_lowbit_base_plain(x, *w, None, None, 0, 4, fmt), 1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 5, 17])
+@pytest.mark.parametrize("sub,bias,signed", [(16, 0, False), (32, 1, False), (8, 1, True)])
+@pytest.mark.parametrize("layout", ["flat", "compact"])
+def test_quant_matmul_2bit_base_kernel(dev, layout, sub, bias, signed, B):
+    g = torch.Generator().manual_seed(B + sub)
+    codes, d, sc, dmin, mn = _lowbit_arrays(2, 68, 1024, sub, bias, layout, signed, g)
+    x = torch.randn(B, 1024, generator=g).bfloat16().to(dev)
+    for dm, m in ((dmin, mn), (None, None)):
+        w = [t if t is None else t.to(dev) for t in (codes, d, sc, dm, m)]
+        before = _build.LAUNCHES.get(qm.NAME_LOWBIT_BASE, 0)
+        got = qm.quant_matmul_lowbit_base(x, *w, bias, 2)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[qm.NAME_LOWBIT_BASE] == before + 1
+        _close(got, qm.quant_matmul_lowbit_base_plain(x, *w, bias, 2), 1e-4)
+
+
+@pytest.mark.parametrize("B", [1, 3, 17])
+@pytest.mark.parametrize("gtype,layout", [
+    (GGMLType.Q5_K, "auto"), (GGMLType.Q5_K, "flat"), (GGMLType.Q5_1, "auto"),
+    (GGMLType.IQ4_XS, "auto"), (GGMLType.Q5_0, "auto")], ids=str)
+def test_quant_matmul_8bit_min_kernel(dev, gtype, layout, B, monkeypatch):
+    """The 8-bit kernel over the new formats: Q5_K with u8 sc and mn
+    (compact) or flat f32 sides, Q5_1's flat min, IQ4_XS's i8 sc."""
+    monkeypatch.setenv("LGT_SCALE_LAYOUT", layout)
+    w = _weight(gtype, 260, 512, B, dev)
+    x = torch.randn(B, 512, generator=torch.Generator().manual_seed(B)).to(dev)
+    x2 = w.permute_activations(x).contiguous().bfloat16()
+    args = (x2, w.codes, w.d, w.sc, w.sub_size, w.code_bias, w.dmin, w.mn)
+    name = qm.NAME_8BIT if w.dmin is None else qm.NAME_8BIT_MIN
+    before = _build.LAUNCHES.get(name, 0)
+    got = qm.quant_matmul_8bit(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    _close(got, qm.quant_matmul_8bit_plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("variant", ["base", "xsum", "split", "int8", "fsplit"])
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K,
+                                   GGMLType.Q5_K], ids=lambda t: t.name)
+def test_quant_matmul_variants_on_the_card(dev, gtype, variant, monkeypatch):
+    """Each LGT_MM_VARIANT through the dispatcher on the card against the
+    CPU's plain path over the same arrays."""
+    monkeypatch.setenv("LGT_MM_VARIANT", variant)
+    w = _weight(gtype, 200, 1024, 5, dev)
+    x = torch.randn(7, 1024, generator=torch.Generator().manual_seed(5))
+    got = w.matmul(x.to(dev).bfloat16(), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    w_cpu = type(w)(**{f: (getattr(w, f).cpu() if isinstance(getattr(w, f), torch.Tensor)
+                           else getattr(w, f)) for f in w.__dataclass_fields__})
+    _close(got.cpu(), w_cpu.matmul(x.bfloat16(), out_dtype=torch.float32), 1e-4)
+
+
 def test_quant_matmul_rejects_bad_input(dev):
     w = _weight(GGMLType.Q4_K, 128, 256, 0, dev)
     x = torch.zeros(2, 256, device=dev)

@@ -50,10 +50,12 @@ MIXES = {
 IDS = np.array([1, 300, 311, 290, 305, 17, 400, 263], np.int32)
 
 
-def write_tiny_lowbit(path, mix, seed=0):
+def write_tiny_lowbit(path, mix, seed=0, tensor_types=None):
     """dim 512, 2 layers, 8 heads over 4 KV heads, ffn 1024, vocab 512, the
-    tensor types of ``MIXES[mix]``, a Q6_K head, random f32 norms."""
-    t = MIXES[mix]
+    tensor types of ``tensor_types`` (default ``MIXES[mix]``; a list gives
+    one type per layer), a Q6_K head, random f32 norms."""
+    mix_types = tensor_types or MIXES[mix]
+    t = mix_types
     rng = np.random.default_rng(seed)
     tokens, scores, types = make_tiny_vocab()
     tokens += [f"<extra_{i}>" for i in range(len(tokens), VOCAB)]
@@ -88,6 +90,7 @@ def write_tiny_lowbit(path, mix, seed=0):
     hd = DIM // HEADS
     w.add_tensor("token_embd.weight", rand(VOCAB, DIM, s=1.0), t["embd"])
     for i in range(LAYERS):
+        t = {k: v[i] if isinstance(v, list) else v for k, v in mix_types.items()}
         p = f"blk.{i}."
         w.add_tensor(p + "attn_norm.weight", norm(), GGMLType.F32)
         w.add_tensor(p + "attn_q.weight", rand(HEADS * hd, DIM), t["q"])
@@ -179,5 +182,5 @@ def test_synth_q2k_matches_bench(tmp_path, monkeypatch):
     got = synth_model(str(tmp_path / "synth.gguf"), "160m", quant="q2_k")
     with open(want, "rb") as a, open(got, "rb") as b:
         assert a.read() == b.read()
-    with pytest.raises(ValueError, match="q5_k"):
-        synth_model(str(tmp_path / "x.gguf"), "160m", quant="q5_k")
+    with pytest.raises(ValueError, match="q3_k"):
+        synth_model(str(tmp_path / "x.gguf"), "160m", quant="q3_k")

@@ -192,9 +192,16 @@ def test_2bit_iq1_geometry(B, sub, monkeypatch):
 
 
 def test_2bit_geometry_the_kernel_does_not_take(monkeypatch):
-    _, _, tq = _pair(GGMLType.Q2_K, 64, 256, 0, "flat", monkeypatch)
-    with pytest.raises(NotImplementedError, match="in_features 256"):
-        tq.matmul(torch.zeros(1, 256, dtype=torch.bfloat16))
+    """in_features 256 is no multiple of 512, so the qsplit kernel does not
+    take it: both packages send it to the base body's 2-bit branch."""
+    _, jq, tq = _pair(GGMLType.Q2_K, 64, 256, 0, "flat", monkeypatch)
+    assert qm.select_kernel(tq) == "base"
+    calls = []
+    real = jpm._quant_matmul_2d
+    monkeypatch.setattr(jpm, "_quant_matmul_2d",
+                        lambda *a, **k: calls.append("base") or real(*a, **k))
+    _compare(jq, tq, 3, 4, qm.NAME_LOWBIT_BASE)
+    assert calls == ["base"]
 
 
 def test_lowbit_wrapper_checks(monkeypatch):
