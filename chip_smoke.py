@@ -13,8 +13,14 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               mixed scale layouts at gate_up; 2-bit matmul (Q2_K) at the four
               projection shapes for 1, 4 and 512 rows in the flat and mixed
               layouts and for 4 rows in compact; 8-bit matmul at the Q6_K
-              head for 1 and 4 rows, and with its min term at the Q5_K
-              projections (compact and flat, 1, 4 and 512 rows) and Q5_1's o;
+              head for 1, 4 and 64 rows, and with its min term at the Q5_K
+              projections (compact and flat, 1, 4 and 512 rows; compact
+              gate_up and qkv also at 16, 64 and 300) and Q5_1's o; from
+              TC_MIN_ROWS rows up through its tensor-core kernel, which also
+              runs Q8_0's flat o at 16, 64, 300 and 512 rows; the decode and
+              tensor-core 8-bit kernels side by side at the four Q5_K compact
+              projections for 8, 16, 32 and 64 rows and at Q8_0's o for 8
+              and 16 (the crossover that sets TC_MIN_ROWS);
               the 4-bit base, xsum, split and int8 kernels at Q4_K gate_up and
               down (1, 4, 512 rows) and at Q4_0, Q4_1 and Q3_K's o; the base
               body's 2-bit kernel at Q2_K gate_up (flat, compact); the IQ2/IQ3
@@ -27,7 +33,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               library call's (a yardstick only: SDPA over the bf16, dequantized
               or gathered cache), and the least time the card could take
               (bytes over 3.35 TB/s or bf16 operations over 989 TFLOP/s,
-              whichever is larger)
+              whichever is larger) and its share of the kernel's time
 4. forward  — synthesize the 8B Q4_K_M GGUF (``tools.synth.cached_model``:
               under the temp dir, reused when present), load it on the card,
               run a prefill and 16 greedy decode steps through the kernels,
@@ -62,15 +68,24 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 10. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
               projections, Q6_K head; ``cached_model(quant="q5_k")``) under
               the default layout (compact), its resident bytes printed, the
-              17 steps against the plain versions, then served
+              17 steps of a longer prompt against the plain versions (its
+              prefill through the tensor-core kernel), then served; then one
+              512-token prefill
+              chunk whose launches show the dispatch (qkv, o and gate_up
+              through the tensor-core kernel, ffn_down through the
+              dequantize path, as the JAX package's gate sends it to
+              ``matmul_xla``) and whose logits are held against the plain
+              versions, and the served time to the first token of a prompt
+              of at most 512 tokens
 11. the ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
 (each kv-forward kernel run and engine run, the serve phase, each variant's
 kernel run and serve, the serve-paged phase, the q2k phase's kernel run,
-serve and flat base run, the q5k phase's kernel run and serve) and read just
-after; comparison runs fall outside those windows.
+serve and flat base run, the q5k phase's kernel run, serve, 512-token chunk
+and long-prompt serve) and read just after; comparison runs fall outside
+those windows.
 
 The breakdown of a decode step and a prefill chunk by kernel is
 ``python -m llama_gguf_inference_tpu_torch.tools.profile``.
@@ -244,7 +259,7 @@ def phase_kernels(torch, timer):
     s_sub = d.repeat(1, 16) * sc.float()
     w_lib = (codes.float() * s_sub.repeat(1, 16)).bfloat16()
     del s_sub
-    for B in (1, 4):
+    for B in (1, 4, 64):
         x = rand(B, in_f).bfloat16()
         args = (x, codes, d, sc, 16, 0)
         got = qm.quant_matmul_8bit(*args)
@@ -252,12 +267,13 @@ def phase_kernels(torch, timer):
         err, rel = _err(got, want, MATMUL_TOL)
         nbytes = codes.numel() + sc.numel() + d.numel() * 4 + B * in_f * 2 + B * out_f * 4
         b_ms, b_by = bound(nbytes, 2.0 * B * in_f * out_f)
-        rows.append({"kernel": qm.NAME_8BIT, "shape": f"head {out_f}x{in_f} B={B}",
-                     "B": B, "max_abs_err": err, "max_rel_err": rel,
-                     "ms": timer(lambda: qm.quant_matmul_8bit(*args)),
+        ms = timer(lambda: qm.quant_matmul_8bit(*args))
+        rows.append({"kernel": _8bit_name(qm, B, in_f, 16, False),
+                     "shape": f"head {out_f}x{in_f} B={B}",
+                     "B": B, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
                      "plain_ms": timer(lambda: qm.quant_matmul_8bit_plain(*args), 5),
                      "library_ms": timer(lambda: torch.matmul(x, w_lib.t())),
-                     "bound_ms": b_ms, "bound_by": b_by})
+                     "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
         emit({"phase": "kernels", **rows[-1]})
     del w_lib, codes, sc
 
@@ -267,13 +283,19 @@ def phase_kernels(torch, timer):
     return rows
 
 
+def _8bit_name(qm, B, in_f, sub, has_min):
+    """The launch name of the 8-bit kernel the dispatching wrapper runs."""
+    tc = B >= qm.TC_MIN_ROWS and qm.tc_takes(in_f, sub)
+    return [[qm.NAME_8BIT, qm.NAME_8BIT_MIN], [qm.NAME_8BIT_TC, qm.NAME_8BIT_MIN_TC]][tc][has_min]
+
+
 # weight geometry of each format the kernel rows draw: (bits, sub-block size,
 # code bias, has a min side, sub-block scale signed)
 FORMATS = {"q2_k": (2, 16, 0, True, False), "q3_k": (4, 16, 4, False, True),
            "q4_k": (4, 32, 0, True, False), "q4_0": (4, 32, 8, False, False),
            "q4_1": (4, 32, 0, True, False), "iq2_xs": (4, 32, 0, False, False),
            "iq3_s": (4, 32, 0, False, False), "q5_k": (8, 32, 0, True, False),
-           "q5_1": (8, 32, 0, True, False)}
+           "q5_1": (8, 32, 0, True, False), "q8_0": (8, 32, 0, False, False)}
 
 
 def _weight(torch, g, fmt, out_f, in_f, layout):
@@ -292,8 +314,9 @@ def _weight(torch, g, fmt, out_f, in_f, layout):
                           dtype=torch.int32)
         return t.to(torch.int8 if lo < 0 else torch.uint8)
 
-    if bits == 8:   # 5-bit codes widened to int8, as Q5_K and Q5_1 repack
-        codes = torch.randint(0, 32, (out_f, in_f), generator=g, device="cuda",
+    if bits == 8:   # 5-bit codes widened to int8, as Q5_K and Q5_1 repack; Q8_0's int8
+        lo, hi = (-128, 128) if fmt == "q8_0" else (0, 32)
+        codes = torch.randint(lo, hi, (out_f, in_f), generator=g, device="cuda",
                               dtype=torch.int8)
     else:
         codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, device="cuda",
@@ -377,11 +400,14 @@ def _variant_call(qm, w, variant, x):
     nsub = in_f // w.sub_size
     xsum = qm._block_sums(x, w.sub_size)
     x_bytes = B * in_f * 2 + B * nsub * 4
-    if variant == "8bit":
+    if variant.startswith("8bit"):
+        # 8bit: the dispatching wrapper; 8bit_decode, 8bit_tc: one kernel
         args = (x, w.codes, w.d, w.sc, w.sub_size, w.code_bias, w.dmin, w.mn)
-        name = qm.NAME_8BIT if w.dmin is None else qm.NAME_8BIT_MIN
-        return name, qm.quant_matmul_8bit, args, qm.quant_matmul_8bit_plain, args, \
-            B * in_f * 2, False
+        nrows = {"8bit": B, "8bit_decode": 0, "8bit_tc": qm.TC_MIN_ROWS}[variant]
+        fn = {"8bit": qm.quant_matmul_8bit, "8bit_decode": qm.quant_matmul_8bit_decode,
+              "8bit_tc": qm.quant_matmul_8bit_tc}[variant]
+        return _8bit_name(qm, nrows, in_f, w.sub_size, w.dmin is not None), fn, args, \
+            qm.quant_matmul_8bit_plain, args, B * in_f * 2, False
     if variant == "int8":
         xq, xs = qm.quantize_acts(x, w.sub_size)
         args = (xq, xs, xsum, *arrs, w.code_bias)
@@ -406,8 +432,13 @@ def _variant_call(qm, w, variant, x):
 
 def _variant_rows(torch, qm, g, timer):
     """The 8-bit kernel's min term and the LGT_MM_VARIANT bodies, each at
-    the shapes of its path: the 8-bit kernel with its min term at the Q5_K projections (compact, the
-    ``auto`` layout, and flat; B = 1, 4, 512) and Q5_1's flat min at o; the
+    the shapes of its path: the 8-bit kernel with its min term at the Q5_K
+    projections (compact, the ``auto`` layout, and flat; B = 1, 4, 512, the
+    512 rows through the tensor-core kernel; compact gate_up and qkv at 16,
+    64 and 300 too), the decode and tensor-core kernels side by side at the
+    compact projections for B = 8, 16, 32, 64 and at Q8_0's flat o for 8
+    and 16, Q8_0's flat o through the tensor-core kernel (B = 16, 64, 300,
+    512) and Q5_1's flat min at o; the
     4-bit base, xsum, split and int8 kernels at Q4_K flat gate+up and down
     (B = 1, 4, 512) and at Q4_0 (bias 8), Q4_1 (flat min) and Q3_K (sub 16,
     bias 4) at o; the base body's f32 branch at Q2_K flat and compact
@@ -416,6 +447,11 @@ def _variant_rows(torch, qm, g, timer):
     taken at the int8 rate."""
     cases = [("q5_k", layout, name, (1, 4, 512), ("8bit",))
              for layout in ("compact", "flat") for name in SHAPES_4BIT]
+    cases += [("q5_k", "compact", name, (16, 64, 300), ("8bit",)) for name in ("gate_up", "qkv")]
+    cases += [("q5_k", "compact", name, (8, 16, 32, 64), ("8bit_decode", "8bit_tc"))
+              for name in SHAPES_4BIT]
+    cases.append(("q8_0", "flat", "o", (16, 64, 300, 512), ("8bit",)))
+    cases.append(("q8_0", "flat", "o", (8, 16), ("8bit_decode", "8bit_tc")))
     cases.append(("q5_1", "flat", "o", (4,), ("8bit",)))
     cases += [("q4_k", "flat", name, (1, 4, 512), VARIANTS) for name in ("gate_up", "down")]
     cases += [(fmt, "flat", "o", (4,), VARIANTS) for fmt in ("q4_0", "q4_1", "q3_k")]
@@ -434,14 +470,14 @@ def _variant_rows(torch, qm, g, timer):
                 err, rel = _err(kernel(*args), plain(*pargs), MATMUL_TOL)
                 b_ms, b_by = bound(wbytes + x_bytes + B * out_f * 4, 2.0 * B * in_f * out_f,
                                    INT8_OPS if int8 else BF16_FLOPS)
+                ms = timer(lambda: kernel(*args))
                 rows.append({"kernel": kname,
                              "shape": f"{fmt} {layout} {var} {name} {out_f}x{in_f} B={B}",
                              "B": B, "max_abs_err": err, "max_rel_err": rel,
-                             "bits_per_weight": 8 * wbytes / (out_f * in_f),
-                             "ms": timer(lambda: kernel(*args)),
+                             "bits_per_weight": 8 * wbytes / (out_f * in_f), "ms": ms,
                              "plain_ms": timer(lambda: plain(*pargs), 5),
                              "library_ms": timer(lambda: torch.matmul(x, w_lib.t())),
-                             "bound_ms": b_ms, "bound_by": b_by})
+                             "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
                 emit({"phase": "kernels", **rows[-1]})
         del w, w_lib
     return rows
@@ -940,13 +976,15 @@ def shadowed(torch, wrapper, errs):
         setattr(qm, wrapper, real)
 
 
-def _variant_forward(torch, engine, label, want, absent=(), shadow=None, tol=LOGITS_TOL):
-    """A prefill and 16 greedy steps through the kernels (launches counted)
-    held against the plain versions fed the same tokens; with ``shadow`` (a
-    matmul wrapper's name) the same 17 steps again, every call of that
-    wrapper held to MATMUL_TOL of its plain version on the same inputs."""
+def _variant_forward(torch, engine, label, want, absent=(), shadow=None, tol=LOGITS_TOL,
+                     prompt=PROMPT):
+    """A prefill of ``prompt`` and 16 greedy steps through the kernels
+    (launches counted) held against the plain versions fed the same tokens;
+    with ``shadow`` (a matmul wrapper's name) the same 17 steps again, every
+    call of that wrapper held to MATMUL_TOL of its plain version on the same
+    inputs."""
     from llama_gguf_inference_tpu_torch.ops import _build
-    ids = engine.tokenizer.encode(PROMPT)
+    ids = engine.tokenizer.encode(prompt)
     _build.reset_launches()
     t0 = time.time()
     k_logits, k_toks = _greedy_run(torch, engine, ids, 16)
@@ -1214,19 +1252,118 @@ def phase_q5k(torch):
               "resident_head_gb": _resident_bytes(torch, p["output"]) / 1e9,
               "resident_embedding_gb": _resident_bytes(torch, p["tok_embd"]) / 1e9,
               "device_gb": torch.cuda.memory_allocated() / 1e9})
-        launches, out = _variant_forward(torch, engine, "q5k", (qm.NAME_8BIT_MIN, qm.NAME_8BIT),
-                                         (qm.NAME_DEQUANT,), shadow=qm.NAME_8BIT)
+        # a prompt of three times the others' length, so that its prefill rows
+        # reach TC_MIN_ROWS and run the tensor-core kernel, and the decode
+        # steps the decode kernel
+        want = (qm.NAME_8BIT_MIN, qm.NAME_8BIT, qm.NAME_8BIT_MIN_TC)
+        prompt = " ".join([PROMPT] * 3)
+        if len(engine.tokenizer.encode(prompt)) < qm.TC_MIN_ROWS:
+            raise AssertionError("the q5k prompt is shorter than TC_MIN_ROWS")
+        launches, out = _variant_forward(torch, engine, "q5k", want, (qm.NAME_DEQUANT,),
+                                         shadow=qm.NAME_8BIT, prompt=prompt)
         emit({"phase": "q5k-forward", "ok": True, **out, "launches": launches})
         served = phase_serve(torch, engine, "q5k-serve")
-        _check_launches("q5k serve", served, (qm.NAME_8BIT_MIN, qm.NAME_8BIT))
+        _check_launches("q5k serve", served, want)
+        chunk = _q5k_chunk(torch, engine)
+        long_served = _q5k_long_prompt(torch, engine)
     finally:
         engine.stop()
-    return [launches, served]
+    return [launches, served, chunk, long_served]
+
+
+def _words(engine, n_max):
+    """A prompt of the most repeated words whose encoding has at most
+    ``n_max`` tokens, and that encoding."""
+    words = "the quick brown fox jumps over the lazy dog and".split()
+    lo, hi = 1, 4 * n_max
+    while lo < hi:                      # the most words that fit
+        mid = (lo + hi + 1) // 2
+        text = " ".join(words[i % len(words)] for i in range(mid))
+        if len(engine.tokenizer.encode(text)) <= n_max:
+            lo = mid
+        else:
+            hi = mid - 1
+    text = " ".join(words[i % len(words)] for i in range(lo))
+    return text, engine.tokenizer.encode(text)
+
+
+def _q5k_chunk(torch, engine):
+    """One 512-token prefill chunk of the Q5_K engine, launches counted over
+    it: per layer, qkv, o and gate_up through the tensor-core kernel, and
+    ffn_down, whose 512 x 14336 activations pass the JAX package's gate
+    (``LGT_MM_MAX_B``, ``LGT_MM_X_VMEM``), through the dequantize path; the
+    head's one row through the decode kernel; no plain version. Its logits
+    are then held against the plain versions fed the same tokens."""
+    from llama_gguf_inference_tpu_torch.models.llama import KVCache, forward
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    dev = engine.device
+    _, ids = _words(engine, 600)
+    ids = ids[:512]
+    if len(ids) != 512:
+        raise AssertionError(f"the chunk's prompt has {len(ids)} tokens")
+
+    def chunk():
+        with torch.inference_mode():
+            lg = forward(engine.params, engine.cfg, torch.tensor([ids], dtype=torch.int32,
+                                                                 device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev),
+                         KVCache.zeros(engine.cfg, 1, 1024, dev),
+                         logits_at=torch.tensor([511], device=dev))[0, 0]
+        torch.cuda.synchronize()
+        return lg
+
+    _build.reset_launches()
+    t0 = time.time()
+    k_logits = chunk()
+    wall = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    layers = engine.cfg.n_layers
+    matmuls = {n: c for n, c in launches.items() if n.startswith("quant_matmul")}
+    want = {qm.NAME_8BIT_MIN_TC: 3 * layers, qm.NAME_DEQUANT: layers, qm.NAME_8BIT: 1}
+    if matmuls != want or any(n.endswith(".plain") for n in launches):
+        raise AssertionError(f"q5k 512-token chunk: launches {launches}, want {want}")
+    with plain_versions():
+        p_logits = chunk()
+    _check_logits(torch, engine, [k_logits])
+    errs, agree = _compare([k_logits], [p_logits])
+    emit({"phase": "q5k-chunk", "ok": True, "rows": 512, "logits_rel_err": errs[0],
+          "argmax_agree": agree, "first_chunk_wall_s": round(wall, 4), "launches": launches})
+    return launches
+
+
+def _q5k_long_prompt(torch, engine):
+    """Three streamed completions of a prompt of at most 512 tokens (one
+    prefill chunk) through the server, one after another: the time to the
+    first token of each, beside the 1152.69 ms that ``tools/profile.py``
+    measured for one 512-token chunk of this model when its prefill ran the
+    decode kernel (PERF.md §5, NVIDIA H100 80GB HBM3, 700 W). Launches
+    counted over the three."""
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    text, ids = _words(engine, 512)
+    launches: dict[str, int] = {}
+    ttft = []
+    with serving(torch, engine, launches) as (port, key):
+        for _ in range(3):
+            t0 = time.time()
+            t_first, _, usage, _ = _stream(port, "/v1/completions",
+                                           {"prompt": text, "max_tokens": 4,
+                                            "temperature": 0}, key)
+            ttft.append(round(t_first - t0, 4))
+            if usage["prompt_tokens"] != len(ids):
+                raise AssertionError(f"long prompt: {usage['prompt_tokens']} != {len(ids)}")
+    _check_launches("q5k long prompt", launches,
+                    (qm.NAME_8BIT_MIN_TC, qm.NAME_DEQUANT, qm.NAME_8BIT_MIN))
+    emit({"phase": "q5k-long-prompt", "ok": True, "prompt_tokens": len(ids),
+          "ttft_s": ttft, "decode_kernel_prefill_chunk_ms": 1152.69,
+          "launches": launches})
+    return launches
 
 
 _FA_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention.cu"
 _FA_JAX = "llama_gguf_inference_tpu/ops/flash_attention.py"
 _QM_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu"
+_QM_TC_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul_tc.cu"
 _QM_JAX = "llama_gguf_inference_tpu/ops/pallas_matmul.py"
 SOURCES = {
     # name: (source, TPU kernel it replaces); pallas_call sites are
@@ -1242,6 +1379,10 @@ SOURCES = {
     "quant_matmul_lowbit_base": (_QM_CU, _QM_JAX + ":172"),    # _make_kernel, f32 low-bit branch
     "quant_matmul_8bit": (_QM_CU, _QM_JAX + ":123"),           # _make_kernel, 8-bit branch
     "quant_matmul_8bit_min": (_QM_CU, _QM_JAX + ":185"),       # the same, with its min term
+    # the same with its min term, prefill rows, tensor cores (the instance
+    # without a min side runs on no main path here: no model of the smoke
+    # has such a weight at prefill; its rows are in the kernels phase)
+    "quant_matmul_8bit_min_tc": (_QM_TC_CU, _QM_JAX + ":185"),
     "flash_attention": (_FA_CU, _FA_JAX + ":129"),
     "flash_attention_q8": (_FA_CU, _FA_JAX + ":189"),
     "flash_attention_q4": (_FA_CU, _FA_JAX + ":189"),
@@ -1251,7 +1392,7 @@ SOURCES = {
 }
 # the kernels line reports each kernel at its decode shape (4 slots; the
 # paged ones with their idle fifth; the 2-bit one in the layout the q2k
-# phase serves)
+# phase serves), the tensor-core one at a 512-row prefill chunk
 LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_4bit": "gate_up 28672x4096 B=4",
               **{f"quant_matmul_4bit_{v}": f"q4_k flat {v} gate_up 28672x4096 B=4"
@@ -1259,6 +1400,7 @@ LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_lowbit_base": "q2_k flat base gate_up 28672x4096 B=4",
               "quant_matmul_8bit": "head 128256x4096 B=4",
               "quant_matmul_8bit_min": "q5_k compact 8bit gate_up 28672x4096 B=4",
+              "quant_matmul_8bit_min_tc": "q5_k compact 8bit gate_up 28672x4096 B=512",
               **{name: "decode" for name in SOURCES if name.startswith("flash")}}
 
 

@@ -73,11 +73,14 @@
 // the byte's four planes, the dequantized run applied to up to 8
 // activation rows at once; a second grid axis tiles further activation rows,
 // so any row count works (prefill re-reads the weights from L2 once per 8
-// rows: right, not yet fast). The int8 kernel gives each lane four
+// rows: right, not fast). The 8-bit kernel here serves fewer than
+// TC_MIN_ROWS rows (ops/quant_matmul.py); from there up the wrapper takes
+// the tensor-core kernel of quant_matmul_tc.cu, which decodes each weight
+// once per 128 rows into shared memory. The int8 kernel gives each lane four
 // neighbouring sub-blocks and walks their elements (stride nsub), so a warp
 // reads 128 neighbouring code bytes per step and keeps 4 exact int32 sums
-// per activation row. Tensor cores, TMA, split-K and a shared-memory weight
-// ring are later work.
+// per activation row. Tensor cores for the 2/4-bit and int8 kernels, TMA,
+// split-K and a shared-memory weight ring are later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

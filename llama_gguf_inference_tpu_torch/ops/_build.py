@@ -24,7 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("quant_matmul", "flash_attention")
+SOURCES = ("quant_matmul", "quant_matmul_tc", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -113,6 +113,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                                  ("lgt_quant_matmul_8bit", 7, 8)):
             getattr(lib, fn).argtypes = [p] * n_ptr + [i] * n_int + [p]
             getattr(lib, fn).restype = i
+    elif name == "quant_matmul_tc":
+        # the 8-bit entry point's arguments: x, codes, d, sc, dmin, mn, y;
+        # B, in, out, nd, nsub, bias, the sides, the stream
+        lib.lgt_quant_matmul_8bit_tc.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.lgt_quant_matmul_8bit_tc.restype = i
     elif name == "flash_attention":
         # pointers: q, the cache tensors, offsets (and the page table), out;
         # then B, T, H, KVH, S (or NP, page_s), D, the scale and the stream

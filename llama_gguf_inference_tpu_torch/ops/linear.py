@@ -152,16 +152,17 @@ class QuantLinear:
             q = torch.cat([b & 3, (b >> 2) & 3, (b >> 4) & 3, (b >> 6) & 3], dim=1)
         else:
             raise NotImplementedError(f"bits={self.bits}")
-        return q - self.code_bias
+        return q - self.code_bias if self.code_bias else q
 
-    def _scale_full_bm(self, arr_d: torch.Tensor,
-                       arr_sc: torch.Tensor | None) -> torch.Tensor:
-        """(out, in) per-element scale in block-minor order via tiles."""
+    def _scale_sub_bm(self, arr_d: torch.Tensor,
+                      arr_sc: torch.Tensor | None) -> torch.Tensor:
+        """(out, nsub) per-sub-block scale in block-minor order: the tile of
+        ``arr_d`` times ``arr_sc``; stored position j takes column j mod nsub."""
         nd, g, sub = self._geom
         s = arr_d.repeat(1, g)                        # (out, g*nd): d[σ]
         if arr_sc is not None:
             s = s * arr_sc.to(torch.int32).float()
-        return s.repeat(1, sub)                       # (out, in)
+        return s
 
     def _min_sub_mixed(self) -> torch.Tensor:
         """Mixed layout: per-sub-block min term (out, nsub) in the FLAT
@@ -175,14 +176,17 @@ class QuantLinear:
         return m * mn_p.to(torch.int32).float()
 
     def dequantize_bm(self, dtype=torch.bfloat16) -> torch.Tensor:
-        """Dequant to (out, in) in block-minor column order."""
-        w = self._unpack_codes_bm().float() * self._scale_full_bm(self.d, self.sc)
+        """Dequant to (out, in) in block-minor column order: the f32 codes
+        times their sub-block's scale, minus its min, each broadcast over the
+        sub_size stored positions j = t·nsub + k of sub-block k (the JAX
+        package's tiles, without materializing them)."""
+        o = self.out_features
+        w = self._unpack_codes_bm().float().view(o, self.sub_size, -1)
+        w.mul_(self._scale_sub_bm(self.d, self.sc)[:, None])
         if self.dmin is not None:
-            if self.min_size:
-                w = w - self._min_sub_mixed().repeat(1, self.sub_size)
-            else:
-                w = w - self._scale_full_bm(self.dmin, self.mn)
-        return w.to(dtype)
+            m = self._min_sub_mixed() if self.min_size else self._scale_sub_bm(self.dmin, self.mn)
+            w.sub_(m[:, None])
+        return w.view(o, self.in_features).to(dtype)
 
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
         """Full dequant to (out, in) in LOGICAL column order."""

@@ -2,11 +2,16 @@
 
 ``quant_matmul(w, x)`` computes ``x @ dequant(w).T`` for a QuantLinear,
 choosing the kernel as the JAX package's ``pallas_quant_matmul`` chooses its
-Pallas body (:func:`select_kernel`): ``LGT_MM_VARIANT`` (read per call,
+Pallas body (:func:`select_kernel`). First its gate: no out-tile fits
+(:func:`pick_tile`), ``in % 128 != 0``, or more than ``LGT_MM_MAX_B`` (64)
+activation rows whose ``B·in·2`` bytes pass ``LGT_MM_X_VMEM`` (6 MiB) take
+:func:`dequant_matmul`, the counterpart of its ``matmul_xla`` (on the 8B,
+ffn_down from 220 prefill rows up). Then ``LGT_MM_VARIANT`` (read per call,
 default ``fsplit``) picks among the 4-bit bodies, value-mapped formats force
 fsplit, 2-bit codes take qsplit unless the variant is ``base``, and a
-geometry with ``(in/sub) % 8 != 0`` takes the base body. The wrappers, each
-the counterpart of one TPU body and branch:
+geometry with ``(in/sub) % 8 != 0`` takes the base body. The knobs are read
+on every call, as the JAX package reads them. The wrappers, each the
+counterpart of one TPU body and branch:
 
 - :func:`quant_matmul_2bit` (``_make_kernel_qsplit``): ``y = Σ_i
   x_i·bf16(q_i·s)ᵀ − xsum·m′ᵀ`` over the four quarter planes;
@@ -25,12 +30,17 @@ the counterpart of one TPU body and branch:
   codes and value-mapped 4-bit codes): ``w = bf16((v(q) − bias)·s − m)``;
 - :func:`quant_matmul_8bit` (``_make_kernel``'s 8-bit branch): ``y =
   x·bf16((q − bias)·s_full − m_full)ᵀ``, the min term for the asymmetric
-  formats (Q5_K, Q5_1) counted under its own launch name.
+  formats (Q5_K, Q5_1) counted under its own launch name. From
+  :data:`TC_MIN_ROWS` activation rows up it takes the tensor-core kernel of
+  ``csrc/quant_matmul_tc.cu`` (:func:`quant_matmul_8bit_tc`, launches
+  counted as :data:`NAME_8BIT_TC` and :data:`NAME_8BIT_MIN_TC`) wherever
+  that kernel takes the geometry; fewer rows take the decode kernel.
 
 A mixed-layout weight under ``base`` or ``int8`` takes :func:`dequant_matmul`
-(dequantize to bf16, then ``torch.matmul``), as the JAX package sends it to
-``matmul_xla`` outside any Pallas kernel; it is counted under
-:data:`NAME_DEQUANT`.
+too, as the JAX package sends it to ``matmul_xla`` outside any Pallas
+kernel. That path dequantizes to bf16 and multiplies in PyTorch (a bf16
+product accumulated in f32 on the card); it is no kernel of this package and
+is counted under :data:`NAME_DEQUANT`.
 
 For 2 and 4 bits, ``s`` and ``m′ = bias·s + m`` per sub-block follow the JAX
 package's ``_hier_scales``: the kernels read the scale side flat (``d`` per
@@ -42,9 +52,10 @@ The activation permute into block-minor order, the per-sub-block sums
 ``_block_sums``, the activation quantization and, for the mixed layout, the
 sums' permutation into the ``mn`` order stay plain tensor ops outside the
 kernels, as in the JAX package. Each kernel wrapper launches its CUDA kernel
-(``csrc/quant_matmul.cu``) for tensors on the card, or raises; it takes the
-plain PyTorch version beside it only for tensors on the CPU. Outputs are
-f32; the dispatcher casts to the activation dtype.
+(``csrc/quant_matmul.cu``, ``csrc/quant_matmul_tc.cu``) for tensors on the
+card, or raises; it takes the plain PyTorch version beside it only for
+tensors on the CPU. Outputs are f32; the dispatcher casts to the activation
+dtype.
 """
 
 from __future__ import annotations
@@ -65,7 +76,15 @@ NAME_4BIT_BASE = "quant_matmul_4bit_base"
 NAME_LOWBIT_BASE = "quant_matmul_lowbit_base"
 NAME_8BIT = "quant_matmul_8bit"
 NAME_8BIT_MIN = "quant_matmul_8bit_min"
+NAME_8BIT_TC = "quant_matmul_8bit_tc"
+NAME_8BIT_MIN_TC = "quant_matmul_8bit_min_tc"
 NAME_DEQUANT = "quant_matmul_dequant"
+
+# activation rows from which quant_matmul_8bit takes the tensor-core kernel:
+# on an H100 it beats the decode kernel at every Q5_K projection from 8 rows,
+# the fewest measured, and at Q8_0's o from 16 (PERF.md §6)
+TC_MIN_ROWS = 8
+TC_STEP = 64      # the tensor-core kernel's step: it needs in and nsub multiples of it
 
 # how one side (scale or min) of a weight is stored; the values are the
 # kernel's Side enum
@@ -82,12 +101,37 @@ def variant() -> str:
     return os.environ.get("LGT_MM_VARIANT", "fsplit")
 
 
-def select_kernel(w: QuantLinear) -> str:
-    """The body the JAX package's ``pallas_quant_matmul`` runs for ``w``
-    under the current variant: ``fsplit``, ``xsum``, ``split``, ``int8``,
-    ``qsplit``, ``base``, or ``dequant`` (its ``matmul_xla``)."""
-    var = variant()
+def pick_tile(out_features: int, in_features: int, code_bytes_per_row: int) -> int:
+    """The JAX package's ``_pick_tile``: the largest out-tile (512, 256,
+    128) that divides ``out_features`` and fits the ``LGT_MM_VMEM_BUDGET``
+    (48 MiB) estimate, ``LGT_MM_TO`` when it divides; the whole axis when it
+    is under 128 or a multiple of 128 of at most 512; else 0 (no tile)."""
+    forced = int(os.environ.get("LGT_MM_TO", 0))
+    if forced and out_features % forced == 0:
+        return forced
+    budget = int(os.environ.get("LGT_MM_VMEM_BUDGET", 48 * 1024 * 1024))
+    for to in (512, 256, 128):
+        if out_features % to:
+            continue
+        if to * in_features * 10 + to * code_bytes_per_row * 2 <= budget:
+            return to
+    if out_features < 128 or out_features % 128 == 0:
+        return out_features if out_features <= 512 else 0
+    return 0
+
+
+def select_kernel(w: QuantLinear, B: int = 1) -> str:
+    """The body the JAX package's ``pallas_quant_matmul`` runs for ``w`` on
+    ``B`` activation rows under the current variant: ``fsplit``, ``xsum``,
+    ``split``, ``int8``, ``qsplit``, ``base``, or ``dequant`` (its
+    ``matmul_xla``)."""
     in_f, sub = w.in_features, w.sub_size
+    tile = pick_tile(w.out_features, in_f, in_f * w.bits // 8)
+    max_b = int(os.environ.get("LGT_MM_MAX_B", 64))
+    x_vmem = int(os.environ.get("LGT_MM_X_VMEM", 6 * 1024 * 1024))
+    if tile == 0 or in_f % 128 or (B > max_b and B * in_f * 2 > x_vmem):
+        return "dequant"
+    var = variant()
     kern = None
     if in_f % sub == 0 and w.d_size % sub == 0 and (in_f // sub) % 8 == 0:
         if w.bits == 4 and var in ("xsum", "split", "fsplit", "int8"):
@@ -433,19 +477,12 @@ def quant_matmul_4bit_int8_plain(xq, xs, xsum, codes, d, sc, dmin, mn,
     return y - xsum @ m.t()
 
 
-def quant_matmul_8bit(x: torch.Tensor, codes: torch.Tensor, d: torch.Tensor,
-                      sc: torch.Tensor | None, sub_size: int, code_bias: int,
-                      dmin: torch.Tensor | None = None,
-                      mn: torch.Tensor | None = None) -> torch.Tensor:
-    """x (B, in) bf16 block-minor, codes (out, in) int8, d (out, nd) f32,
-    sc (out, nsub) int8/uint8 or None, dmin (out, nd) f32 or None with mn
-    (out, nsub) uint8 or None -> (B, out) f32. With a min side the launch
-    counts under :data:`NAME_8BIT_MIN`."""
+def _check_8bit(x, codes, d, sc, sub_size, dmin, mn) -> tuple[int, int, int, int, int]:
+    """Checks shared by the 8-bit wrappers; returns (B, in, out, nd, nsub)."""
     B, in_f = x.shape
     out_f, nd = d.shape
     nsub = in_f // sub_size
     dev = x.device
-    name = NAME_8BIT if dmin is None else NAME_8BIT_MIN
     _check(x, "x", torch.bfloat16, (B, in_f), dev)
     _check(codes, "codes", torch.int8, (out_f, in_f), dev)
     _check(d, "d", torch.float32, (out_f, nd), dev)
@@ -461,8 +498,43 @@ def quant_matmul_8bit(x: torch.Tensor, codes: torch.Tensor, d: torch.Tensor,
             or (dmin is not None and (mn is None) != (sc is None)):
         raise ValueError(f"8-bit matmul geometry: in={in_f}, sub={sub_size}, "
                          f"nd={nd}, sc={sc is not None}, mn={mn is not None}")
+    return B, in_f, out_f, nd, nsub
+
+
+def tc_takes(in_f: int, sub_size: int) -> bool:
+    """Whether the tensor-core 8-bit kernel takes rows of ``in_f`` stored
+    positions in sub-blocks of ``sub_size``: it walks 64 consecutive
+    sub-blocks a step."""
+    return in_f % TC_STEP == 0 and in_f % sub_size == 0 and (in_f // sub_size) % TC_STEP == 0
+
+
+def quant_matmul_8bit(x: torch.Tensor, codes: torch.Tensor, d: torch.Tensor,
+                      sc: torch.Tensor | None, sub_size: int, code_bias: int,
+                      dmin: torch.Tensor | None = None,
+                      mn: torch.Tensor | None = None) -> torch.Tensor:
+    """x (B, in) bf16 block-minor, codes (out, in) int8, d (out, nd) f32,
+    sc (out, nsub) int8/uint8 or None, dmin (out, nd) f32 or None with mn
+    (out, nsub) uint8 or None -> (B, out) f32: from :data:`TC_MIN_ROWS` rows
+    up, where :func:`tc_takes` the geometry, :func:`quant_matmul_8bit_tc`;
+    else :func:`quant_matmul_8bit_decode`."""
+    B, in_f = x.shape
+    if x.device.type == "cuda" and B >= TC_MIN_ROWS and tc_takes(in_f, sub_size):
+        return quant_matmul_8bit_tc(x, codes, d, sc, sub_size, code_bias, dmin, mn)
+    return quant_matmul_8bit_decode(x, codes, d, sc, sub_size, code_bias, dmin, mn)
+
+
+def quant_matmul_8bit_decode(x: torch.Tensor, codes: torch.Tensor, d: torch.Tensor,
+                             sc: torch.Tensor | None, sub_size: int, code_bias: int,
+                             dmin: torch.Tensor | None = None,
+                             mn: torch.Tensor | None = None) -> torch.Tensor:
+    """As :func:`quant_matmul_8bit`, through the decode kernel (one warp an
+    output row, 8 activation rows a block) at any row count. Launches count
+    under :data:`NAME_8BIT`, or :data:`NAME_8BIT_MIN` with a min side."""
+    B, in_f, out_f, nd, nsub = _check_8bit(x, codes, d, sc, sub_size, dmin, mn)
+    dev = x.device
     if dev.type != "cuda":
         return quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias, dmin, mn)
+    name = NAME_8BIT if dmin is None else NAME_8BIT_MIN
     y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
     lib = _build.library("quant_matmul")
     _build.check(lib.lgt_quant_matmul_8bit(
@@ -473,11 +545,39 @@ def quant_matmul_8bit(x: torch.Tensor, codes: torch.Tensor, d: torch.Tensor,
     return y
 
 
+def quant_matmul_8bit_tc(x: torch.Tensor, codes: torch.Tensor, d: torch.Tensor,
+                         sc: torch.Tensor | None, sub_size: int, code_bias: int,
+                         dmin: torch.Tensor | None = None,
+                         mn: torch.Tensor | None = None) -> torch.Tensor:
+    """As :func:`quant_matmul_8bit`, through the tensor-core kernel for
+    prefill-sized row counts (any B); raises on a geometry it does not take
+    (:func:`tc_takes`). Launches count under :data:`NAME_8BIT_TC`, or
+    :data:`NAME_8BIT_MIN_TC` with a min side; the plain version is
+    :func:`quant_matmul_8bit_plain`."""
+    B, in_f, out_f, nd, nsub = _check_8bit(x, codes, d, sc, sub_size, dmin, mn)
+    if not tc_takes(in_f, sub_size):
+        raise ValueError(f"the tensor-core 8-bit kernel needs in and in/sub multiples of "
+                         f"{TC_STEP} (in={in_f}, sub={sub_size})")
+    dev = x.device
+    if dev.type != "cuda":
+        return quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias, dmin, mn)
+    name = NAME_8BIT_TC if dmin is None else NAME_8BIT_MIN_TC
+    y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
+    lib = _build.library("quant_matmul_tc")
+    _build.check(lib.lgt_quant_matmul_8bit_tc(
+        x.data_ptr(), codes.data_ptr(), d.data_ptr(), _ptr(sc), _ptr(dmin), _ptr(mn),
+        y.data_ptr(), B, in_f, out_f, nd, nsub, code_bias, _side(d, sc), _side(dmin, mn),
+        torch.cuda.current_stream(dev).cuda_stream), name)
+    _build.count(name)
+    return y
+
+
 def quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias, dmin=None,
                             mn=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`quant_matmul_8bit`: the tile scale
-    expansion of ``QuantLinear.dequantize_bm``, the f32 subtract of the min,
-    bf16 weights, f32 matmul."""
+    """Plain PyTorch version of :func:`quant_matmul_8bit`,
+    :func:`quant_matmul_8bit_decode` and :func:`quant_matmul_8bit_tc`: the
+    tile scale expansion of ``QuantLinear.dequantize_bm``, the f32 subtract
+    of the min, bf16 weights, f32 matmul."""
     _build.count((NAME_8BIT if dmin is None else NAME_8BIT_MIN) + ".plain")
     nsub = codes.shape[1] // sub_size
     w = (codes.to(torch.int32) - code_bias).float() * _sub_side(d, sc, nsub).repeat(1, sub_size)
@@ -488,17 +588,26 @@ def quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias, dmin=None,
 
 def dequant_matmul(w: QuantLinear, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """The JAX package's ``matmul_xla``: the weight dequantized to x's dtype
-    in block-minor order, an f32 matmul against the permuted activations.
-    Not a kernel: counted under :data:`NAME_DEQUANT` so a run shows it."""
+    in block-minor order, multiplied with the permuted activations, the sums
+    in f32 (its ``preferred_element_type``). On the card a bf16 product that
+    accumulates and returns f32 (``torch.mm``'s ``out_dtype``); on the CPU,
+    which has no such product, the f32 product of the same bf16 values,
+    which is what XLA computes there. Not a kernel: counted under
+    :data:`NAME_DEQUANT` so a run shows it."""
     _build.count(NAME_DEQUANT)
     wb = w.dequantize_bm(x.dtype)
     xp = w.permute_activations(x)
-    return (xp.float() @ wb.float().t()).to(out_dtype or x.dtype)
+    if xp.device.type == "cuda":
+        x2 = xp.reshape(-1, w.in_features)
+        y = torch.mm(x2, wb.t(), out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        y = xp.float() @ wb.float().t()
+    return y.to(out_dtype or x.dtype)
 
 
 def quant_matmul(w: QuantLinear, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """x (..., in) -> (..., out) against a QuantLinear weight."""
-    kern = select_kernel(w)
+    kern = select_kernel(w, x.numel() // w.in_features)
     if kern == "dequant":
         return dequant_matmul(w, x, out_dtype)
     lead = x.shape[:-1]

@@ -1,0 +1,136 @@
+// CPU stand-ins for the block-wide parts of CUDA that the tensor-core 8-bit
+// kernel uses (csrc/quant_matmul_tc.cu), beside cuda_runtime.h's: a whole
+// block runs at once, one thread per CUDA thread; __syncthreads meets at a
+// block barrier; dynamic shared memory is one buffer a block, filled with
+// 0xff bytes (a bf16 NaN) so that a read of a slot nothing wrote shows; a
+// cp.async copy lands only at the wait_group that covers it; ldmatrix and
+// mma.sync exchange their fragments through a warp barrier, laid out as the
+// PTX ISA lays them out. It checks the kernel's tiling, ring and index
+// arithmetic, not what nvcc makes of them.
+#pragma once
+#include <cstring>
+#include <deque>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#include "cuda_bf16.h"
+#include "cuda_runtime.h"
+
+struct float4 { float x, y, z, w; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+
+struct uint2 { unsigned x, y; };
+
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K> inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+// a card of 4 SMs: grids of fewer than 4 blocks of 128 output rows take the
+// 64-row tiles
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 4; return 0; }
+
+struct emu_block {
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+  std::vector<unsigned char> smem;
+  const unsigned char* addr[32][32];
+  uint32_t regs[32][32][6];
+};
+inline thread_local emu_block* emu_blk;
+inline thread_local int emu_tid;
+
+inline unsigned char* emu_smem() { return emu_blk->smem.data(); }
+inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
+
+struct emu_copy { void* dst; const void* src; bool ok; };
+inline thread_local std::vector<emu_copy> emu_open;
+inline thread_local std::deque<std::vector<emu_copy>> emu_groups;
+
+inline void cp_async16(void* dst, const void* src, bool pred) {
+  emu_open.push_back({dst, src, pred});
+}
+inline void cp_async_commit() {
+  emu_groups.push_back(std::move(emu_open));
+  emu_open.clear();
+}
+template <int kN> inline void cp_async_wait() {
+  while ((int)emu_groups.size() > kN) {
+    for (const emu_copy& c : emu_groups.front()) {
+      if (c.ok) std::memcpy(c.dst, c.src, 16);
+      else std::memset(c.dst, 0, 16);
+    }
+    emu_groups.pop_front();
+  }
+}
+
+// matrix q's row t/4 comes from the address lane 8q + t/4 gave; lane t takes
+// its bytes (t%4)*4 .. +3
+inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  emu_block* b = emu_blk;
+  const int w = emu_tid >> 5, l = emu_tid & 31;
+  b->addr[w][l] = static_cast<const unsigned char*>(p);
+  b->warp_bar[w]->arrive_and_wait();
+  for (int q = 0; q < 4; ++q) std::memcpy(&r[q], b->addr[w][8 * q + l / 4] + (l % 4) * 4, 4);
+  b->warp_bar[w]->arrive_and_wait();
+}
+
+inline float emu_half(uint32_t reg, int hi) {
+  const uint32_t u = (hi ? reg >> 16 : reg & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
+// m16n8k16, A row-major: a[r] holds rows g (+8 for r odd) and columns
+// 2*tg, 2*tg+1 (+8 for r >= 2); B col-major: b0 holds rows 2*tg, 2*tg+1
+// (b1 +8) of column g; d[e] is row g (+8 for e >= 2), column 2*tg + e%2.
+inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  emu_block* b = emu_blk;
+  const int w = emu_tid >> 5, l = emu_tid & 31;
+  uint32_t* mine = b->regs[w][l];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b0;
+  mine[5] = b1;
+  b->warp_bar[w]->arrive_and_wait();
+  const int g = l >> 2, tg = l & 3;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + (e >= 2 ? 8 : 0), col = 2 * tg + (e & 1);
+    float sum = d[e];
+    for (int k = 0; k < 16; ++k) {
+      const float av = emu_half(b->regs[w][(row % 8) * 4 + (k % 8) / 2][row / 8 + 2 * (k / 8)],
+                                k % 2);
+      const float bv = emu_half(b->regs[w][col * 4 + (k % 8) / 2][4 + k / 8], k % 2);
+      sum += av * bv;
+    }
+    d[e] = sum;
+  }
+  b->warp_bar[w]->arrive_and_wait();
+}
+
+// kernel<<<grid, block, smem, stream>>>(args) is rewritten to
+// emu_launch_block(grid, block, smem, stream, [&] { kernel(args); }).
+template <class F>
+void emu_launch_block(dim3 grid, int threads, int smem, cudaStream_t, F f) {
+  for (unsigned gy = 0; gy < grid.y; ++gy)
+    for (unsigned gx = 0; gx < grid.x; ++gx) {
+      emu_block blk;
+      blk.bar = std::make_unique<std::barrier<>>(threads);
+      for (int w = 0; w < threads / 32; ++w)
+        blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
+      blk.smem.assign(smem, 0xff);
+      std::vector<std::thread> ts;
+      for (int t = 0; t < threads; ++t)
+        ts.emplace_back([&, t] {
+          threadIdx = {(unsigned)t, 0, 0};
+          blockIdx = {gx, gy, 0};
+          emu_tid = t;
+          emu_blk = &blk;
+          f();
+        });
+      for (auto& t : ts) t.join();
+    }
+}

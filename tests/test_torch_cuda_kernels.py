@@ -257,6 +257,117 @@ def test_quant_matmul_8bit_min_kernel(dev, gtype, layout, B, monkeypatch):
     _close(got, qm.quant_matmul_8bit_plain(*args), 1e-4)
 
 
+def _8bit_arrays(out_f, in_f, sub, layout, has_min, signed, g):
+    """8-bit codes with flat sides (f32 per sub-block) or compact ones (f32
+    per 256 times an 8-bit factor per sub-block; the min side's factor u8)."""
+    nsub, nd = in_f // sub, in_f // 256
+    codes = torch.randint(-128, 128, (out_f, in_f), generator=g, dtype=torch.int32).to(torch.int8)
+
+    def f32(n):
+        return torch.rand(out_f, n, generator=g) * 0.02 + 1e-3
+
+    def u8(signed_):
+        lo = -32 if signed_ else 0
+        return torch.randint(lo, lo + 64, (out_f, nsub), generator=g,
+                             dtype=torch.int32).to(torch.int8 if signed_ else torch.uint8)
+    if layout == "flat":
+        return codes, f32(nsub), None, (f32(nsub) if has_min else None), None
+    return codes, f32(nd), u8(signed), (f32(nd) if has_min else None), \
+        (u8(False) if has_min else None)
+
+
+# every (scale side, min side) instance: (layout, has min, signed sc, sub, bias)
+TC_SIDES = [("flat", False, False, 32, 0), ("flat", True, False, 32, 16),
+            ("compact", False, False, 32, 4), ("compact", True, False, 32, 0),
+            ("compact", False, True, 16, 0), ("compact", True, True, 16, 0)]
+
+
+@pytest.mark.parametrize("B", [qm.TC_MIN_ROWS, 65, 129, 300, 512])
+@pytest.mark.parametrize("layout,has_min,signed,sub,bias", TC_SIDES, ids=str)
+def test_quant_matmul_8bit_tc_kernel(dev, layout, has_min, signed, sub, bias, B):
+    """The tensor-core 8-bit kernel against the plain version: every side
+    instance, ragged rows, an out (200) that is no multiple of the 128-row
+    tile; through the dispatching wrapper, which launches it from
+    TC_MIN_ROWS rows up."""
+    g = torch.Generator().manual_seed(B + sub + bias + has_min)
+    out_f, in_f = 200, 2048
+    arrs = [t if t is None else t.to(dev)
+            for t in _8bit_arrays(out_f, in_f, sub, layout, has_min, signed, g)]
+    x = torch.randn(B, in_f, generator=g).bfloat16().to(dev)
+    codes, d, sc, dmin, mn = arrs
+    args = (x, codes, d, sc, sub, bias, dmin, mn)
+    name = qm.NAME_8BIT_MIN_TC if has_min else qm.NAME_8BIT_TC
+    before = _build.LAUNCHES.get(name, 0)
+    got = qm.quant_matmul_8bit(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    _close(got, qm.quant_matmul_8bit_plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("B", [qm.TC_MIN_ROWS, 300])
+@pytest.mark.parametrize("layout", ["compact", "flat"])
+def test_quant_matmul_8bit_tc_kernel_down(dev, layout, B):
+    """in = 14336 (ffn_down of the 8B): 448 sub-blocks of 32, 56 super-blocks,
+    so a thread's 32 sub-blocks wrap the super-block index."""
+    g = torch.Generator().manual_seed(B)
+    out_f, in_f = 136, 14336
+    codes, d, sc, dmin, mn = [t if t is None else t.to(dev)
+                              for t in _8bit_arrays(out_f, in_f, 32, layout, True, False, g)]
+    x = torch.randn(B, in_f, generator=g).bfloat16().to(dev)
+    args = (x, codes, d, sc, 32, 0, dmin, mn)
+    before = _build.LAUNCHES.get(qm.NAME_8BIT_MIN_TC, 0)
+    got = qm.quant_matmul_8bit_tc(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[qm.NAME_8BIT_MIN_TC] == before + 1
+    _close(got, qm.quant_matmul_8bit_plain(*args), 1e-4)
+
+
+def test_quant_matmul_8bit_dispatch_by_rows(dev):
+    """Below TC_MIN_ROWS the decode kernel runs, from it up the tensor-core
+    one; a geometry the tensor-core kernel does not take (in/sub not a
+    multiple of 64) keeps the decode kernel at any row count."""
+    g = torch.Generator().manual_seed(7)
+    for in_f, B, want in ((2048, qm.TC_MIN_ROWS - 1, qm.NAME_8BIT_MIN),
+                          (2048, qm.TC_MIN_ROWS, qm.NAME_8BIT_MIN_TC),
+                          (1536, 300, qm.NAME_8BIT_MIN)):
+        codes, d, sc, dmin, mn = [t if t is None else t.to(dev)
+                                  for t in _8bit_arrays(72, in_f, 32, "compact", True, False, g)]
+        x = torch.randn(B, in_f, generator=g).bfloat16().to(dev)
+        args = (x, codes, d, sc, 32, 0, dmin, mn)
+        _build.reset_launches()
+        got = qm.quant_matmul_8bit(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {want: 1}
+        _close(got, qm.quant_matmul_8bit_plain(*args), 1e-4)
+
+
+def test_quant_matmul_8bit_tc_rejects_geometry(dev):
+    """The tensor-core wrapper raises on in % 64 != 0, and on in/sub not a
+    multiple of 64, before any launch."""
+    g = torch.Generator().manual_seed(3)
+    for in_f in (1040, 1536):
+        codes, d, sc, dmin, mn = [t if t is None else t.to(dev)
+                                  for t in _8bit_arrays(64, in_f, 16 if in_f == 1040 else 32,
+                                                        "flat", False, False, g)]
+        x = torch.zeros(64, in_f, device=dev).bfloat16()
+        with pytest.raises(ValueError, match="tensor-core"):
+            qm.quant_matmul_8bit_tc(x, codes, d, sc, 16 if in_f == 1040 else 32, 0)
+
+
+@pytest.mark.parametrize("B", [4, 512])
+def test_dequant_matmul_on_the_card(dev, B):
+    """The dequantize path (``matmul_xla``'s counterpart): a bf16 product
+    accumulated in f32 on the card, against the CPU's f32 product of the
+    same bf16 values."""
+    w = _weight(GGMLType.Q4_K, 256, 1024, B, dev)
+    x = torch.randn(B, 1024, generator=torch.Generator().manual_seed(B)).bfloat16()
+    got = qm.dequant_matmul(w, x.to(dev), torch.float32)
+    torch.cuda.synchronize()
+    w_cpu = type(w)(**{f: (getattr(w, f).cpu() if isinstance(getattr(w, f), torch.Tensor)
+                           else getattr(w, f)) for f in w.__dataclass_fields__})
+    _close(got.cpu(), qm.dequant_matmul(w_cpu, x, torch.float32), 1e-4)
+
+
 @pytest.mark.parametrize("variant", ["base", "xsum", "split", "int8", "fsplit"])
 @pytest.mark.parametrize("gtype", [GGMLType.Q4_K, GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q2_K,
                                    GGMLType.Q5_K], ids=lambda t: t.name)
