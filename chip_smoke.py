@@ -28,7 +28,13 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               attention over each cache kind (bf16, q8_0, q4_0, q4_1, paged
               bf16, paged q8_0) at decode (T=1, B=4, offsets up to 1000) and
               prefill (T=512, B=1); the paged ones through shuffled pages of
-              256 with one idle slot whose table row is all -1. Prints errors,
+              256 with one idle slot whose table row is all -1; the 2- and
+              4-bit tensor-core kernels at the four projections for 16, 64,
+              300 and 512 rows (4-bit: Q4_K flat, compact and mixed, Q3_K at
+              o and down, the IQ2/IQ3 maps at o; 2-bit: Q2_K flat, mixed and
+              compact), each beside the decode kernel on the same inputs,
+              and at 8 and 32 rows too in the served layouts (Q4_K flat, Q2_K
+              mixed: the crossover that sets LOWBIT_TC_MIN_ROWS). Prints errors,
               the kernel's median time, the plain version's, one PyTorch
               library call's (a yardstick only: SDPA over the bf16, dequantized
               or gathered cache), and the least time the card could take
@@ -38,7 +44,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               under the temp dir, reused when present), load it on the card,
               run a prefill and 16 greedy decode steps through the kernels,
               then again through the plain versions on the card, fed the
-              kernel run's tokens; compare the logits of every step
+              kernel run's tokens; compare the logits of every step; then one
+              512-token prefill chunk (qkv, o and gate_up through the 4-bit
+              tensor-core kernel, ffn_down through the dequantize path, the
+              head's row through the 8-bit decode kernel; logits held against
+              the plain versions) and the served time to the first token of
+              a prompt of at most 512 tokens
 5. kv-forward — the same prefill and 16 steps over each quantized or paged
               cache kind, through the kernels and then, fed the same tokens,
               with only that kind's attention wrapper swapped for its plain
@@ -52,6 +63,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               split, int8): a prefill and 16 greedy steps held against the
               plain versions, then three greedy requests through the server;
               each run launches that variant's kernel and never fsplit's
+              (decode or tensor-core)
 8. serve-paged — that engine freed, a second one from the environment
               (``build_engine_from_env``: q8_0 paged KV, 4 pages of 1024): a
               1,500-token prompt, longer than a slot's contiguous share, with
@@ -61,7 +73,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               under ``LGT_SCALE_LAYOUT=mixed``, its resident weight bytes
               printed; a prefill and 16 greedy steps through the kernels
               held against the plain versions fed the same tokens, then the
-              port's OpenAI server over it as in the serve phase; then
+              port's OpenAI server over it as in the serve phase, and one
+              512-token prefill chunk as in the forward phase, through the
+              2-bit tensor-core kernel; then
               ``LGT_MM_VARIANT=base``: two steps on the mixed weights (the
               dequantize path, as in the JAX package), and the 17 steps with
               the weights relaid flat through the base body's 2-bit kernel
@@ -81,9 +95,10 @@ Phases, each printing one JSON line; the first failure exits non-zero:
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
-(each kv-forward kernel run and engine run, the serve phase, each variant's
+(the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
+run and engine run, the serve phase, each variant's
 kernel run and serve, the serve-paged phase, the q2k phase's kernel run,
-serve and flat base run, the q5k phase's kernel run, serve, 512-token chunk
+serve, 512-token chunk and flat base run, the q5k phase's kernel run, serve, 512-token chunk
 and long-prompt serve) and read just after; comparison runs fall outside
 those windows.
 
@@ -239,7 +254,8 @@ def phase_kernels(torch, timer):
             nbytes = codes.numel() + 8 * out_f * nsub + B * in_f * 2 \
                 + B * nsub * 4 + B * out_f * 4
             b_ms, b_by = bound(nbytes, 2.0 * B * in_f * out_f)
-            rows.append({"kernel": qm.NAME_4BIT, "shape": f"{name} {out_f}x{in_f} B={B}",
+            rows.append({"kernel": _lowbit_name(qm, 4, B, in_f, nsub, nsub, nsub),
+                         "shape": f"{name} {out_f}x{in_f} B={B}",
                          "B": B, "max_abs_err": err, "max_rel_err": rel,
                          "ms": timer(lambda: qm.quant_matmul_4bit(*args)),
                          "plain_ms": timer(lambda: qm.quant_matmul_4bit_plain(*args), 5),
@@ -278,9 +294,16 @@ def phase_kernels(torch, timer):
     del w_lib, codes, sc
 
     rows += _lowbit_rows(torch, qm, g, timer)
+    rows += _lowbit_tc_rows(torch, qm, g, timer)
     rows += _variant_rows(torch, qm, g, timer)
     rows += _attention_rows(torch, F, fa, rand, g, timer)
     return rows
+
+
+def _lowbit_name(qm, bits, B, in_f, nsub, nd, ndm):
+    """The launch name of the 2/4-bit kernel the dispatching wrapper runs."""
+    tc = B >= qm.LOWBIT_TC_MIN_ROWS and qm.lowbit_tc_takes(bits, in_f, nsub, nd, ndm)
+    return [[qm.NAME_2BIT, qm.NAME_4BIT], [qm.NAME_2BIT_TC, qm.NAME_4BIT_TC]][tc][bits == 4]
 
 
 def _8bit_name(qm, B, in_f, sub, has_min):
@@ -359,9 +382,8 @@ def _lowbit_rows(torch, qm, g, timer):
     for fmt, label, out_f, in_f, layout, bs in cases:
         w = _weight(torch, g, fmt, out_f, in_f, layout)
         bits, sub, bias = w.bits, w.sub_size, w.code_bias
-        kernel, plain, kname = ((qm.quant_matmul_2bit, qm.quant_matmul_2bit_plain, qm.NAME_2BIT)
-                                if bits == 2 else
-                                (qm.quant_matmul_4bit, qm.quant_matmul_4bit_plain, qm.NAME_4BIT))
+        kernel, plain = ((qm.quant_matmul_2bit, qm.quant_matmul_2bit_plain) if bits == 2 else
+                         (qm.quant_matmul_4bit, qm.quant_matmul_4bit_plain))
         w_lib = w.dequantize_bm()
         arrays = [w.codes, w.d, w.sc, w.dmin, w.mn]
         wbytes = _wbytes(w)
@@ -375,7 +397,9 @@ def _lowbit_rows(torch, qm, g, timer):
             err, rel = _err(kernel(*args), plain(*args), MATMUL_TOL)
             nbytes = wbytes + B * in_f * 2 + B * nsub * 4 + B * out_f * 4
             b_ms, b_by = bound(nbytes, 2.0 * B * in_f * out_f)
-            rows.append({"kernel": kname, "shape": f"{label} {out_f}x{in_f} B={B}",
+            rows.append({"kernel": _lowbit_name(qm, bits, B, in_f, nsub, w.d.shape[1],
+                                                (w.d if w.dmin is None else w.dmin).shape[1]),
+                         "shape": f"{label} {out_f}x{in_f} B={B}",
                          "B": B, "max_abs_err": err, "max_rel_err": rel,
                          "bits_per_weight": 8 * wbytes / (out_f * in_f),
                          "ms": timer(lambda: kernel(*args)),
@@ -384,6 +408,58 @@ def _lowbit_rows(torch, qm, g, timer):
                          "bound_ms": b_ms, "bound_by": b_by})
             emit({"phase": "kernels", **rows[-1]})
         del w, w_lib, arrays
+    return rows
+
+
+def _lowbit_tc_rows(torch, qm, g, timer):
+    """The 2- and 4-bit tensor-core kernels through their own wrappers, each
+    beside the decode kernel on the same inputs (``decode_ms``): Q4_K flat,
+    compact and mixed and Q2_K flat, mixed and compact at the four
+    projections, Q3_K at o and down, the IQ2/IQ3 maps at o, for 16, 64, 300
+    and 512 rows; the served layouts (Q4_K flat, Q2_K mixed) also at 8 and
+    32, where the two kernels cross. Bound and library call as in
+    :func:`_lowbit_rows`."""
+    cases = []
+    for fmt, layouts in (("q4_k", ("flat", "compact", "mixed")),
+                         ("q2_k", ("mixed", "flat", "compact"))):
+        for layout in layouts:
+            for name in SHAPES_4BIT:
+                served = layout == ("flat" if fmt == "q4_k" else "mixed")
+                cases.append((fmt, layout, name, (8, 16, 32, 64, 300, 512) if served
+                              else (16, 64, 300, 512)))
+    cases += [("q3_k", "flat", name, (16, 64, 300, 512)) for name in ("o", "down")]
+    cases += [(fmt, "flat", "o", (16, 64, 300, 512)) for fmt in ("iq2_xs", "iq3_s")]
+    rows = []
+    for fmt, layout, name, bs in cases:
+        out_f, in_f = SHAPES_4BIT[name]
+        w = _weight(torch, g, fmt, out_f, in_f, layout)
+        bits, sub = w.bits, w.sub_size
+        kname = qm.NAME_4BIT_TC if bits == 4 else qm.NAME_2BIT_TC
+        kernel = getattr(qm, f"quant_matmul_{bits}bit_tc")
+        decode = getattr(qm, f"quant_matmul_{bits}bit_decode")
+        plain = getattr(qm, f"quant_matmul_{bits}bit_plain")
+        w_lib = w.dequantize_bm()
+        wbytes = _wbytes(w)
+        nsub = in_f // sub
+        for B in bs:
+            x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
+            xsum = qm._block_sums(x, sub)
+            if layout == "mixed":
+                xsum = qm._mixed_xsum(xsum, w)
+            args = (x, xsum, w.codes, w.d, w.sc, w.dmin, w.mn, w.code_bias, w.fmt)
+            err, rel = _err(kernel(*args), plain(*args), MATMUL_TOL)
+            b_ms, b_by = bound(wbytes + B * in_f * 2 + B * nsub * 4 + B * out_f * 4,
+                               2.0 * B * in_f * out_f)
+            ms = timer(lambda: kernel(*args))
+            rows.append({"kernel": kname, "shape": f"{fmt} {layout} tc {name} {out_f}x{in_f} B={B}",
+                         "B": B, "max_abs_err": err, "max_rel_err": rel,
+                         "bits_per_weight": 8 * wbytes / (out_f * in_f), "ms": ms,
+                         "decode_ms": timer(lambda: decode(*args), 5 if B > 64 else 20),
+                         "plain_ms": timer(lambda: plain(*args), 5),
+                         "library_ms": timer(lambda: torch.matmul(x, w_lib.t())),
+                         "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
+            emit({"phase": "kernels", **rows[-1]})
+        del w, w_lib
     return rows
 
 
@@ -1010,7 +1086,8 @@ def _variant_forward(torch, engine, label, want, absent=(), shadow=None, tol=LOG
 
 def phase_variants(torch, engine):
     """The Q4_K_M engine under each LGT_MM_VARIANT: its Q4_K projections
-    through that variant's kernel (never fsplit's), the Q6_K head through the
+    through that variant's kernel (never fsplit's, decode or tensor-core),
+    the Q6_K head through the
     8-bit kernel, held against the plain versions over 17 steps; then three
     greedy requests through the server. Each run is one launch window."""
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
@@ -1018,7 +1095,7 @@ def phase_variants(torch, engine):
               "split": qm.NAME_4BIT_SPLIT, "int8": qm.NAME_4BIT_INT8}
     paths = []
     for var in VARIANTS:
-        want, absent = (kernel[var], qm.NAME_8BIT), (qm.NAME_4BIT, qm.NAME_DEQUANT)
+        want, absent = (kernel[var], qm.NAME_8BIT), (qm.NAME_4BIT, qm.NAME_4BIT_TC, qm.NAME_DEQUANT)
         with mm_variant(var):
             launches, out = _variant_forward(
                 torch, engine, f"variant {var}", want, absent, shadow=kernel[var],
@@ -1135,7 +1212,8 @@ def _resident_bytes(torch, node) -> int:
 def phase_q2k(torch):
     """The 8B Q2_K model under the mixed scale layout: load, a prefill and
     16 greedy steps through the kernels against the plain versions fed the
-    same tokens (launches counted over the kernel run), then served."""
+    same tokens (launches counted over the kernel run), then served, then
+    one 512-token prefill chunk through the 2-bit tensor-core kernel."""
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
@@ -1180,11 +1258,12 @@ def phase_q2k(torch):
         served = phase_serve(torch, engine, "q2k-serve")
         if served.get(qm.NAME_2BIT, 0) <= 0 or any(n.endswith(".plain") for n in served):
             raise AssertionError(f"q2k serve: launches {served}")
+        chunk = _prefill_chunk(torch, engine, "q2k-chunk", qm.NAME_2BIT_TC)
         base = _q2k_base(torch, engine)
     finally:
         engine.stop()
         os.environ.pop("LGT_SCALE_LAYOUT", None)
-    return [launches, served, base]
+    return [launches, served, chunk, base]
 
 
 def _as_flat(w):
@@ -1211,14 +1290,14 @@ def _q2k_base(torch, engine):
         _greedy_run(torch, engine, ids, 2)
         mixed = dict(_build.LAUNCHES)
         _check_launches("q2k base, mixed", mixed, (qm.NAME_DEQUANT, qm.NAME_8BIT),
-                        (qm.NAME_2BIT, qm.NAME_LOWBIT_BASE))
+                        (qm.NAME_2BIT, qm.NAME_2BIT_TC, qm.NAME_LOWBIT_BASE))
         for layer in engine.params["layers"]:
             for n, w in layer.items():
                 if getattr(w, "min_size", 0):
                     layer[n] = _as_flat(w)
         launches, out = _variant_forward(torch, engine, "q2k base, flat",
                                          (qm.NAME_LOWBIT_BASE, qm.NAME_8BIT),
-                                         (qm.NAME_2BIT, qm.NAME_DEQUANT),
+                                         (qm.NAME_2BIT, qm.NAME_2BIT_TC, qm.NAME_DEQUANT),
                                          shadow=qm.NAME_LOWBIT_BASE)
     emit({"phase": "q2k-base", "ok": True, "mixed_launches": mixed, **out,
           "launches": launches})
@@ -1264,8 +1343,10 @@ def phase_q5k(torch):
         emit({"phase": "q5k-forward", "ok": True, **out, "launches": launches})
         served = phase_serve(torch, engine, "q5k-serve")
         _check_launches("q5k serve", served, want)
-        chunk = _q5k_chunk(torch, engine)
-        long_served = _q5k_long_prompt(torch, engine)
+        chunk = _prefill_chunk(torch, engine, "q5k-chunk", qm.NAME_8BIT_MIN_TC)
+        long_served = _long_prompt(torch, engine, "q5k-long-prompt",
+                                   (qm.NAME_8BIT_MIN_TC, qm.NAME_DEQUANT, qm.NAME_8BIT_MIN),
+                                   1152.69)
     finally:
         engine.stop()
     return [launches, served, chunk, long_served]
@@ -1287,13 +1368,13 @@ def _words(engine, n_max):
     return text, engine.tokenizer.encode(text)
 
 
-def _q5k_chunk(torch, engine):
-    """One 512-token prefill chunk of the Q5_K engine, launches counted over
-    it: per layer, qkv, o and gate_up through the tensor-core kernel, and
-    ffn_down, whose 512 x 14336 activations pass the JAX package's gate
+def _prefill_chunk(torch, engine, label, tc_name):
+    """One 512-token prefill chunk, launches counted over it: per layer, qkv,
+    o and gate_up through the tensor-core kernel ``tc_name``, and ffn_down,
+    whose 512 x 14336 activations pass the JAX package's gate
     (``LGT_MM_MAX_B``, ``LGT_MM_X_VMEM``), through the dequantize path; the
-    head's one row through the decode kernel; no plain version. Its logits
-    are then held against the plain versions fed the same tokens."""
+    head's one row through the 8-bit decode kernel; no plain version. Its
+    logits are then held against the plain versions fed the same tokens."""
     from llama_gguf_inference_tpu_torch.models.llama import KVCache, forward
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
@@ -1320,26 +1401,25 @@ def _q5k_chunk(torch, engine):
     launches = dict(_build.LAUNCHES)
     layers = engine.cfg.n_layers
     matmuls = {n: c for n, c in launches.items() if n.startswith("quant_matmul")}
-    want = {qm.NAME_8BIT_MIN_TC: 3 * layers, qm.NAME_DEQUANT: layers, qm.NAME_8BIT: 1}
+    want = {tc_name: 3 * layers, qm.NAME_DEQUANT: layers, qm.NAME_8BIT: 1}
     if matmuls != want or any(n.endswith(".plain") for n in launches):
-        raise AssertionError(f"q5k 512-token chunk: launches {launches}, want {want}")
+        raise AssertionError(f"{label} 512-token chunk: launches {launches}, want {want}")
     with plain_versions():
         p_logits = chunk()
     _check_logits(torch, engine, [k_logits])
     errs, agree = _compare([k_logits], [p_logits])
-    emit({"phase": "q5k-chunk", "ok": True, "rows": 512, "logits_rel_err": errs[0],
+    emit({"phase": label, "ok": True, "rows": 512, "logits_rel_err": errs[0],
           "argmax_agree": agree, "first_chunk_wall_s": round(wall, 4), "launches": launches})
     return launches
 
 
-def _q5k_long_prompt(torch, engine):
+def _long_prompt(torch, engine, label, want, chunk_ms_before):
     """Three streamed completions of a prompt of at most 512 tokens (one
     prefill chunk) through the server, one after another: the time to the
-    first token of each, beside the 1152.69 ms that ``tools/profile.py``
-    measured for one 512-token chunk of this model when its prefill ran the
-    decode kernel (PERF.md §5, NVIDIA H100 80GB HBM3, 700 W). Launches
-    counted over the three."""
-    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    first token of each, beside ``chunk_ms_before``, what ``tools/profile.py``
+    measured for one 512-token chunk of this model before its prefill ran a
+    tensor-core kernel (PERF.md §5, NVIDIA H100 80GB HBM3, 700 W). Launches
+    counted over the three; every kernel of ``want`` must run."""
     text, ids = _words(engine, 512)
     launches: dict[str, int] = {}
     ttft = []
@@ -1352,18 +1432,29 @@ def _q5k_long_prompt(torch, engine):
             ttft.append(round(t_first - t0, 4))
             if usage["prompt_tokens"] != len(ids):
                 raise AssertionError(f"long prompt: {usage['prompt_tokens']} != {len(ids)}")
-    _check_launches("q5k long prompt", launches,
-                    (qm.NAME_8BIT_MIN_TC, qm.NAME_DEQUANT, qm.NAME_8BIT_MIN))
-    emit({"phase": "q5k-long-prompt", "ok": True, "prompt_tokens": len(ids),
-          "ttft_s": ttft, "decode_kernel_prefill_chunk_ms": 1152.69,
-          "launches": launches})
+    _check_launches(label, launches, want)
+    emit({"phase": label, "ok": True, "prompt_tokens": len(ids), "ttft_s": ttft,
+          "prefill_chunk_ms_before": chunk_ms_before, "launches": launches})
     return launches
+
+
+def phase_q4k_prefill(torch, engine):
+    """The Q4_K_M engine's 512-token chunk through the 4-bit tensor-core
+    kernel, and the served time to the first token of a 512-token prompt
+    (beside the 521.71 ms that ``tools/profile.py`` measured for one chunk
+    of this model when its prefill ran the decode kernel, PERF.md §5)."""
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    chunk = _prefill_chunk(torch, engine, "q4k-chunk", qm.NAME_4BIT_TC)
+    served = _long_prompt(torch, engine, "q4k-long-prompt",
+                          (qm.NAME_4BIT_TC, qm.NAME_DEQUANT, qm.NAME_4BIT), 521.71)
+    return [chunk, served]
 
 
 _FA_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention.cu"
 _FA_JAX = "llama_gguf_inference_tpu/ops/flash_attention.py"
 _QM_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu"
 _QM_TC_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul_tc.cu"
+_QM_LTC_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul_lowbit_tc.cu"
 _QM_JAX = "llama_gguf_inference_tpu/ops/pallas_matmul.py"
 SOURCES = {
     # name: (source, TPU kernel it replaces); pallas_call sites are
@@ -1372,6 +1463,9 @@ SOURCES = {
     # :369 (paged) and :452 (paged q8_0)
     "quant_matmul_2bit": (_QM_CU, _QM_JAX + ":481"),
     "quant_matmul_4bit": (_QM_CU, _QM_JAX + ":421"),
+    # the same two bodies at prefill rows, on tensor cores
+    "quant_matmul_2bit_tc": (_QM_LTC_CU, _QM_JAX + ":481"),
+    "quant_matmul_4bit_tc": (_QM_LTC_CU, _QM_JAX + ":421"),
     "quant_matmul_4bit_xsum": (_QM_CU, _QM_JAX + ":309"),
     "quant_matmul_4bit_split": (_QM_CU, _QM_JAX + ":362"),
     "quant_matmul_4bit_int8": (_QM_CU, _QM_JAX + ":536"),
@@ -1392,9 +1486,11 @@ SOURCES = {
 }
 # the kernels line reports each kernel at its decode shape (4 slots; the
 # paged ones with their idle fifth; the 2-bit one in the layout the q2k
-# phase serves), the tensor-core one at a 512-row prefill chunk
+# phase serves), the tensor-core ones at a 512-row prefill chunk
 LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_4bit": "gate_up 28672x4096 B=4",
+              "quant_matmul_2bit_tc": "q2_k mixed tc gate_up 28672x4096 B=512",
+              "quant_matmul_4bit_tc": "q4_k flat tc gate_up 28672x4096 B=512",
               **{f"quant_matmul_4bit_{v}": f"q4_k flat {v} gate_up 28672x4096 B=4"
                  for v in VARIANTS},
               "quant_matmul_lowbit_base": "q2_k flat base gate_up 28672x4096 B=4",
@@ -1457,9 +1553,11 @@ def main() -> int:
         engine, path = phase_engine(torch)
         phase = "forward"
         bf16_prefill = phase_forward(torch, engine)
+        phase = "q4k-prefill"
+        paths = phase_q4k_prefill(torch, engine)
         torch.cuda.empty_cache()
         phase = "kv-forward"
-        paths = [phase_kv_forward(torch, engine, bf16_prefill)]
+        paths.append(phase_kv_forward(torch, engine, bf16_prefill))
         torch.cuda.empty_cache()
         phase = "serve"
         paths.append(phase_serve(torch, engine))

@@ -74,17 +74,21 @@
 // activation rows at once; a second grid axis tiles further activation rows,
 // so any row count works (prefill re-reads the weights from L2 once per 8
 // rows: right, not fast). The 8-bit kernel here serves fewer than
-// TC_MIN_ROWS rows (ops/quant_matmul.py); from there up the wrapper takes
-// the tensor-core kernel of quant_matmul_tc.cu, which decodes each weight
-// once per 128 rows into shared memory. The int8 kernel gives each lane four
-// neighbouring sub-blocks and walks their elements (stride nsub), so a warp
-// reads 128 neighbouring code bytes per step and keeps 4 exact int32 sums
-// per activation row. Tensor cores for the 2/4-bit and int8 kernels, TMA,
-// split-K and a shared-memory weight ring are later work.
+// TC_MIN_ROWS rows (ops/quant_matmul.py), the fsplit rule of the 2/4-bit
+// kernel fewer than LOWBIT_TC_MIN_ROWS; from there up the wrappers take the
+// tensor-core kernels of quant_matmul_tc.cu and quant_matmul_lowbit_tc.cu,
+// which decode each weight once per 128 rows into shared memory. The int8
+// kernel gives each lane four neighbouring sub-blocks and walks their
+// elements (stride nsub), so a warp reads 128 neighbouring code bytes per
+// step and keeps 4 exact int32 sums per activation row. Tensor cores for
+// the int8 kernel and the other 2/4-bit rules, TMA and split-K are later
+// work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "code_value.cuh"
 
 namespace {
 
@@ -95,8 +99,6 @@ constexpr int kRows = 8;    // activation rows per block
 enum Side : int { kNone = 0, kFlat = 1, kHierU8 = 2, kHierI8 = 3 };
 // The element rule of a 2/4-bit instance: which TPU body it follows.
 enum Var : int { kFsplit = 0, kXsum = 1, kSplit = 2, kBase = 3, kBaseF32 = 4 };
-// The code -> value map of a 4-bit instance (ops/linear.py code_values).
-enum Map : int { kIdentity = 0, kIq2 = 1, kIq3 = 2 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -130,23 +132,6 @@ __device__ __forceinline__ float side_at(const float* base, const uint8_t* sub,
   if constexpr (kSide == kHierU8) return __fmul_rn(b, (float)__ldg(sub + k));
   if constexpr (kSide == kHierI8) return __fmul_rn(b, (float)(int8_t)__ldg(sub + k));
   return b;
-}
-
-// The sign|magnitude alphabets of the 4-bit IQ2/IQ3 codes, shifts and adds
-// only, as the JAX package computes them.
-template <int kMap>
-__device__ __forceinline__ int code_value(int q) {
-  if constexpr (kMap == kIq2) {
-    const int e = q & 14;
-    return ((e << 4) + e) - ((q & 1) << 1) - 118;
-  } else if constexpr (kMap == kIq3) {
-    const int c = q & 7;
-    const int m = (c << 3) + 4 + ((((c + 1) >> 3) & 1) << 1);
-    const int neg = -(q >> 3);
-    return (m ^ neg) - neg;
-  } else {
-    return q;
-  }
 }
 
 struct LowbitArgs {

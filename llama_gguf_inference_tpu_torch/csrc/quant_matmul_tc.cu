@@ -63,103 +63,12 @@
 // (the weight tile written in wgmma's swizzled layout, x fetched by TMA) is
 // the next step (ROADMAP B.1).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "tc_common.cuh"
 
 namespace {
 
-enum Side : int { kNone = 0, kFlat = 1, kHierU8 = 2, kHierI8 = 3 };
-
-constexpr int kBM = 128;        // activation rows a block
-constexpr int kBK = 64;         // stored positions a step
-constexpr int kStages = 4;      // cp.async ring
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kPitch = kBK + 8;         // bf16 a row of the x and weight tiles (144 bytes)
-constexpr int kCPitch = kBK + 16;       // bytes a row of the code tile (80)
-constexpr int kXTile = kBM * kPitch * 2;
-
-// The tile geometry of kBN output rows a block (128, or 64 where 128 would
-// leave SMs idle): the warps split 2 x 4 (64 x 32 outputs each) or 4 x 2
-// (32 x 32); a thread decodes kPer weights of one output row a step.
 template <int kBN>
-struct Tile {
-  static constexpr int kCTile = kBN * kCPitch;
-  static constexpr int kWTile = kBN * kPitch * 2;
-  static constexpr int kSmem = kStages * (kXTile + kCTile) + 2 * kWTile;  // 151,552 or 112,640 bytes
-  static constexpr int kPer = kBN * kBK / kThreads;                       // 32 or 16
-  static constexpr int kWarpsN = kBN / 32;
-  static constexpr int kWarpM = kBM / (kThreads / 32 / kWarpsN);           // 64 or 32 rows a warp
-  static constexpr int kMT = kWarpM / 16;                                  // m16 tiles a warp
-};
-
-// PTX: the only inline assembly of this file.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kN>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kN));
-}
-
-// Four 8x8 bf16 matrices; lanes 8q..8q+7 give the row addresses of matrix q.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// end PTX
-
-// Sub-blocks k0..k0+kPer-1 of one side of a row, as quant_matmul.cu's
-// side_at reads them, into v. The 8-bit factors and the f32 values come in
-// 16-byte loads, all issued before any is used; the f32 ones 4 at a time,
-// which never wrap the super-blocks (nd % 4 == 0 and k0 % 4 == 0). Zeros for
-// a row past out.
-template <int kSide, int kPer>
-__device__ __forceinline__ void chunk_side(const float* base, const uint8_t* sub, int k0, int nd,
-                                           bool ok, float (&v)[kPer]) {
-  float4 f[kPer / 4];
-  uint4 b[kPer / 16];
-#pragma unroll
-  for (int q = 0; q < kPer / 4; ++q) {
-    const int kb = kSide == kFlat ? k0 + 4 * q : (k0 + 4 * q) % nd;
-    f[q] = ok ? __ldg(reinterpret_cast<const float4*>(base + kb)) : float4{0.f, 0.f, 0.f, 0.f};
-  }
-  if constexpr (kSide != kFlat) {
-#pragma unroll
-    for (int h = 0; h < kPer / 16; ++h)
-      b[h] = ok ? __ldg(reinterpret_cast<const uint4*>(sub + k0) + h) : uint4{0, 0, 0, 0};
-  }
-  const float* fv = reinterpret_cast<const float*>(f);
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) {
-    if constexpr (kSide == kHierU8)
-      v[e] = __fmul_rn(fv[e], (float)reinterpret_cast<const uint8_t*>(b)[e]);
-    else if constexpr (kSide == kHierI8)
-      v[e] = __fmul_rn(fv[e], (float)reinterpret_cast<const int8_t*>(b)[e]);
-    else
-      v[e] = fv[e];
-  }
-}
+constexpr int kSmem8 = kStages * (kXTile + Tile<kBN>::kCTile) + 2 * Tile<kBN>::kWTile;  // 151,552 or 112,640 bytes
 
 // This thread's run of kPer weights: code c[e] to bf16((c - bias) * s[e] -
 // m[e]), stored at wd.
@@ -283,30 +192,8 @@ quant_matmul_8bit_tc_kernel(const ArgsTC a) {
     }
 
     if (i >= 0 && warp_live) {
-      const unsigned char* xt = xs + (i % kStages) * kXTile;
-      const unsigned char* wt = ws + (i & 1) * T::kWTile;
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        uint32_t b[4][2];
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          const int row = wn + np * 16 + (lane & 7) + ((lane >> 4) << 3);
-          const int col = kk + ((lane >> 3) & 1) * 8;
-          uint32_t r[4];
-          ldmatrix_x4(r, wt + (row * kPitch + col) * 2);
-          b[2 * np][0] = r[0];
-          b[2 * np][1] = r[1];
-          b[2 * np + 1][0] = r[2];
-          b[2 * np + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mt = 0; mt < T::kMT; ++mt) {
-          uint32_t af[4];
-          ldmatrix_x4(af, xt + ((wm + mt * 16 + (lane & 15)) * kPitch + kk + (lane >> 4) * 8) * 2);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af, b[nt][0], b[nt][1]);
-        }
-      }
+      step_products<T::kMT>(acc, xs + (i % kStages) * kXTile, ws + (i & 1) * T::kWTile, wm, wn,
+                            lane);
     }
   }
 
@@ -332,7 +219,7 @@ quant_matmul_8bit_tc_kernel(const ArgsTC a) {
 
 template <int kS, int kM, int kBN>
 int launch_tc(const ArgsTC& a, cudaStream_t st) {
-  constexpr int smem = Tile<kBN>::kSmem;
+  constexpr int smem = kSmem8<kBN>;
   static bool sized = false;   // the shared-memory limit is set once an instance
   if (!sized) {
     const int rc = (int)cudaFuncSetAttribute(quant_matmul_8bit_tc_kernel<kS, kM, kBN>,

@@ -1,7 +1,8 @@
 """Build the CUDA kernels under ``csrc/`` with nvcc and bind them by ctypes.
 
 Each source compiles to its own shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds). The first use of any kernel
+(no PyTorch headers, so a build takes seconds); the ``*.cuh`` headers
+beside them are shared, and hashed into every library's name. The first use of any kernel
 builds every source at once, one ``nvcc`` process per source, all started
 together. Libraries land in ``_build/`` beside the package, named by a hash
 of the source and the flags, so an edited source rebuilds and an unchanged
@@ -24,7 +25,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("quant_matmul", "quant_matmul_tc", "flash_attention")
+SOURCES = ("quant_matmul", "quant_matmul_tc", "quant_matmul_lowbit_tc", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,8 +52,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [name + ".cu", *sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))]:
+        with open(os.path.join(_CSRC, src), "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -67,7 +70,7 @@ def build_all() -> dict[str, str]:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, os.path.join(_CSRC, name + ".cu"), "-o", tmp]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", _CSRC, os.path.join(_CSRC, name + ".cu"), "-o", tmp]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -118,6 +121,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # B, in, out, nd, nsub, bias, the sides, the stream
         lib.lgt_quant_matmul_8bit_tc.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.lgt_quant_matmul_8bit_tc.restype = i
+    elif name == "quant_matmul_lowbit_tc":
+        # the lowbit entry point's arguments without the bits and the element
+        # rule: x, xsum, codes, d, sc, dmin, mn, y; B, in, out, nsub, nd, ndm,
+        # bias, the sides, the code map; the stream
+        for fn in ("lgt_quant_matmul_4bit_tc", "lgt_quant_matmul_2bit_tc"):
+            getattr(lib, fn).argtypes = [p] * 8 + [i] * 10 + [p]
+            getattr(lib, fn).restype = i
     elif name == "flash_attention":
         # pointers: q, the cache tensors, offsets (and the page table), out;
         # then B, T, H, KVH, S (or NP, page_s), D, the scale and the stream

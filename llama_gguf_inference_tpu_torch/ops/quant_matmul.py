@@ -17,7 +17,13 @@ counterpart of one TPU body and branch:
   x_i·bf16(q_i·s)ᵀ − xsum·m′ᵀ`` over the four quarter planes;
 - :func:`quant_matmul_4bit` (``_make_kernel_fsplit``): ``y =
   x_lo·bf16(v(q_lo)·s)ᵀ + x_hi·bf16(v(q_hi)·s)ᵀ − xsum·m′ᵀ``, ``v`` the
-  IQ2/IQ3 code→value map or the identity;
+  IQ2/IQ3 code→value map or the identity. Both dispatch by rows: from
+  :data:`LOWBIT_TC_MIN_ROWS` activation rows up, where
+  :func:`lowbit_tc_takes` the geometry, the tensor-core kernel of
+  ``csrc/quant_matmul_lowbit_tc.cu`` (:func:`quant_matmul_2bit_tc`,
+  :func:`quant_matmul_4bit_tc`, launches counted as :data:`NAME_2BIT_TC` and
+  :data:`NAME_4BIT_TC`); else the decode kernel
+  (:func:`quant_matmul_2bit_decode`, :func:`quant_matmul_4bit_decode`);
 - :func:`quant_matmul_4bit_xsum` and :func:`quant_matmul_4bit_split`
   (``_make_kernel_xsum``/``_split``): the weight ``bf16(q·bf16(s))``, one dot
   over the row or one per nibble plane, then the same min term;
@@ -52,7 +58,8 @@ The activation permute into block-minor order, the per-sub-block sums
 ``_block_sums``, the activation quantization and, for the mixed layout, the
 sums' permutation into the ``mn`` order stay plain tensor ops outside the
 kernels, as in the JAX package. Each kernel wrapper launches its CUDA kernel
-(``csrc/quant_matmul.cu``, ``csrc/quant_matmul_tc.cu``) for tensors on the
+(``csrc/quant_matmul.cu``, ``csrc/quant_matmul_tc.cu``,
+``csrc/quant_matmul_lowbit_tc.cu``) for tensors on the
 card, or raises; it takes the plain PyTorch version beside it only for
 tensors on the CPU. Outputs are f32; the dispatcher casts to the activation
 dtype.
@@ -69,6 +76,8 @@ from .linear import MAPPED_FMTS, QuantLinear, code_values
 
 NAME_2BIT = "quant_matmul_2bit"
 NAME_4BIT = "quant_matmul_4bit"
+NAME_2BIT_TC = "quant_matmul_2bit_tc"
+NAME_4BIT_TC = "quant_matmul_4bit_tc"
 NAME_4BIT_XSUM = "quant_matmul_4bit_xsum"
 NAME_4BIT_SPLIT = "quant_matmul_4bit_split"
 NAME_4BIT_INT8 = "quant_matmul_4bit_int8"
@@ -84,7 +93,12 @@ NAME_DEQUANT = "quant_matmul_dequant"
 # on an H100 it beats the decode kernel at every Q5_K projection from 8 rows,
 # the fewest measured, and at Q8_0's o from 16 (PERF.md §6)
 TC_MIN_ROWS = 8
-TC_STEP = 64      # the tensor-core kernel's step: it needs in and nsub multiples of it
+TC_STEP = 64      # the tensor-core kernels' step: they need in and nsub multiples of it
+# activation rows from which quant_matmul_2bit and quant_matmul_4bit take the
+# tensor-core kernel: on an H100 the decode kernels win at every 8B
+# projection at 8 rows, the tensor-core one at every projection from 32, and
+# at 16 it wins or ties at each but the 4-bit o (PERF.md §6)
+LOWBIT_TC_MIN_ROWS = 16
 
 # how one side (scale or min) of a weight is stored; the values are the
 # kernel's Side enum
@@ -235,9 +249,11 @@ def _check_sides(x, codes, d, sc, dmin, mn, bits: int, code_bias: int, with_mixe
 
 
 def _lowbit(bits: int, var: int, name: str, plain, x, xsum, codes, d, sc, dmin, mn,
-            code_bias: int, fmt: str = "") -> torch.Tensor:
+            code_bias: int, fmt: str = "", tc: bool = False) -> torch.Tensor:
     """Checks and launch shared by the 2- and 4-bit wrappers; ``plain`` runs
-    the wrapper's plain version on its own arguments."""
+    the wrapper's plain version on its own arguments. ``tc`` launches the
+    tensor-core kernel (the fsplit rule only), which raises on a geometry it
+    does not take."""
     B, in_f = x.shape
     base = var in (VAR_BASE, VAR_BASE_F32)
     out_f, nsub, nd, ndm = _check_sides(x, codes, d, sc, dmin, mn, bits, code_bias,
@@ -249,17 +265,51 @@ def _lowbit(bits: int, var: int, name: str, plain, x, xsum, codes, d, sc, dmin, 
     vmap = _MAP.get(fmt, 0)
     if vmap and (dmin is not None or var not in (VAR_FSPLIT, VAR_BASE_F32) or bits != 4):
         raise ValueError(f"the {fmt} code map takes 4-bit fsplit or base codes and no min")
+    if tc and not lowbit_tc_takes(bits, in_f, nsub, nd, ndm):
+        raise ValueError(f"the tensor-core {bits}-bit kernel does not take in={in_f}, "
+                         f"nsub={nsub}, nd={nd}, ndm={ndm}")
     if dev.type != "cuda":
         return plain()
     y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
-    lib = _build.library("quant_matmul")
-    _build.check(lib.lgt_quant_matmul_lowbit(
-        x.data_ptr(), _ptr(xsum), codes.data_ptr(), d.data_ptr(), _ptr(sc),
-        _ptr(dmin), _ptr(mn), y.data_ptr(), B, in_f, out_f, nsub, nd, ndm,
-        code_bias, _side(d, sc), _side(dmin, mn), bits, var, vmap,
-        torch.cuda.current_stream(dev).cuda_stream), name)
+    args = [x.data_ptr(), _ptr(xsum), codes.data_ptr(), d.data_ptr(), _ptr(sc), _ptr(dmin),
+            _ptr(mn), y.data_ptr(), B, in_f, out_f, nsub, nd, ndm, code_bias, _side(d, sc),
+            _side(dmin, mn)]
+    if tc:
+        fn = getattr(_build.library("quant_matmul_lowbit_tc"), f"lgt_quant_matmul_{bits}bit_tc")
+        rc = fn(*args, vmap, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        rc = _build.library("quant_matmul").lgt_quant_matmul_lowbit(
+            *args, bits, var, vmap, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, name)
     _build.count(name)
     return y
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def lowbit_tc_takes(bits: int, in_f: int, nsub: int, nd: int, ndm: int) -> bool:
+    """Whether the tensor-core 2/4-bit kernel takes rows of ``in_f``
+    positions in ``nsub`` sub-blocks, the scale side ``nd`` wide and the min
+    side ``ndm``: it walks 64 consecutive sub-blocks a step, a chunk's steps
+    are whole groups of the ``8 // bits`` planes, and its scale loads take
+    ``nd`` a multiple of 4 dividing ``nsub``."""
+    planes = 8 // bits
+    return (nsub > 0 and in_f % TC_STEP == 0 and nsub % TC_STEP == 0 and in_f % nsub == 0
+            and (in_f // planes) % nsub == 0 and (in_f // nsub) % planes == 0
+            and nd > 0 and nd % 4 == 0 and nsub % nd == 0 and ndm > 0 and nsub % ndm == 0)
+
+
+def _takes_tc(bits: int, x, d, sc, dmin) -> bool:
+    """Whether a 2/4-bit call goes to the tensor-core kernel: on the card,
+    from :data:`LOWBIT_TC_MIN_ROWS` rows, where :func:`lowbit_tc_takes` its
+    geometry (read from its arrays)."""
+    if not _on_card(x) or x.shape[0] < LOWBIT_TC_MIN_ROWS:
+        return False
+    nd = d.shape[1]
+    nsub = sc.shape[1] if sc is not None else nd
+    return lowbit_tc_takes(bits, x.shape[1], nsub, nd, nd if dmin is None else dmin.shape[1])
 
 
 def quant_matmul_2bit(x: torch.Tensor, xsum: torch.Tensor, codes: torch.Tensor,
@@ -269,10 +319,13 @@ def quant_matmul_2bit(x: torch.Tensor, xsum: torch.Tensor, codes: torch.Tensor,
     """x (B, in) bf16 block-minor, xsum (B, nsub) f32, codes (out, in/4)
     uint8 planar quarters, d (out, nd) f32 with sc (out, nsub) 8-bit or
     None, dmin (out, ndm) f32 or None with mn (out, nsub) 8-bit or None
-    -> (B, out) f32."""
-    return _lowbit(2, VAR_FSPLIT, NAME_2BIT, lambda: quant_matmul_2bit_plain(
-        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
-        code_bias, fmt)
+    -> (B, out) f32: on the card from :data:`LOWBIT_TC_MIN_ROWS` rows,
+    where :func:`lowbit_tc_takes` the geometry, :func:`quant_matmul_2bit_tc`;
+    else :func:`quant_matmul_2bit_decode`."""
+    fn = quant_matmul_2bit_decode
+    if _takes_tc(2, x, d, sc, dmin):
+        fn = quant_matmul_2bit_tc
+    return fn(x, xsum, codes, d, sc, dmin, mn, code_bias, fmt)
 
 
 def quant_matmul_4bit(x: torch.Tensor, xsum: torch.Tensor, codes: torch.Tensor,
@@ -280,10 +333,49 @@ def quant_matmul_4bit(x: torch.Tensor, xsum: torch.Tensor, codes: torch.Tensor,
                       dmin: torch.Tensor | None, mn: torch.Tensor | None,
                       code_bias: int = 0, fmt: str = "") -> torch.Tensor:
     """As :func:`quant_matmul_2bit`, with codes (out, in/2) uint8 planar
-    nibbles, decoded through ``fmt``'s code->value map (IQ2/IQ3)."""
+    nibbles, decoded through ``fmt``'s code->value map (IQ2/IQ3):
+    :func:`quant_matmul_4bit_tc` or :func:`quant_matmul_4bit_decode`."""
+    fn = quant_matmul_4bit_decode
+    if _takes_tc(4, x, d, sc, dmin):
+        fn = quant_matmul_4bit_tc
+    return fn(x, xsum, codes, d, sc, dmin, mn, code_bias, fmt)
+
+
+def quant_matmul_2bit_decode(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                             fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_2bit`, through the decode kernel (one warp an
+    output row, 8 activation rows a block) at any row count; launches count
+    under :data:`NAME_2BIT`."""
+    return _lowbit(2, VAR_FSPLIT, NAME_2BIT, lambda: quant_matmul_2bit_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt)
+
+
+def quant_matmul_4bit_decode(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                             fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_4bit`, through the decode kernel at any row
+    count; launches count under :data:`NAME_4BIT`."""
     return _lowbit(4, VAR_FSPLIT, NAME_4BIT, lambda: quant_matmul_4bit_plain(
         x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
         code_bias, fmt)
+
+
+def quant_matmul_2bit_tc(x, xsum, codes, d, sc, dmin, mn, code_bias=0, fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_2bit`, through the tensor-core kernel for
+    prefill-sized row counts (any B); raises on a geometry it does not take.
+    Launches count under :data:`NAME_2BIT_TC`; the plain version is
+    :func:`quant_matmul_2bit_plain`."""
+    return _lowbit(2, VAR_FSPLIT, NAME_2BIT_TC, lambda: quant_matmul_2bit_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt, tc=True)
+
+
+def quant_matmul_4bit_tc(x, xsum, codes, d, sc, dmin, mn, code_bias=0, fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_2bit_tc` for 4-bit planar nibbles (with
+    ``fmt``'s code map); launches count under :data:`NAME_4BIT_TC`."""
+    return _lowbit(4, VAR_FSPLIT, NAME_4BIT_TC, lambda: quant_matmul_4bit_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt, tc=True)
 
 
 def quant_matmul_4bit_xsum(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
@@ -402,15 +494,17 @@ def _plain_lowbit(bits, x, xsum, codes, d, sc, dmin, mn, code_bias, fmt="", rule
 
 
 def quant_matmul_2bit_plain(x, xsum, codes, d, sc, dmin, mn, code_bias=0, fmt="") -> torch.Tensor:
-    """Plain PyTorch version of :func:`quant_matmul_2bit`, step by step in
-    the kernel's dtypes: four quarter-plane dots, then the min term."""
+    """Plain PyTorch version of :func:`quant_matmul_2bit` (both its
+    kernels), step by step in the kernel's dtypes: four quarter-plane dots,
+    then the min term."""
     _build.count(NAME_2BIT + ".plain")
     return _plain_lowbit(2, x, xsum, codes, d, sc, dmin, mn, code_bias, fmt)
 
 
 def quant_matmul_4bit_plain(x, xsum, codes, d, sc, dmin, mn, code_bias=0, fmt="") -> torch.Tensor:
-    """Plain PyTorch version of :func:`quant_matmul_4bit`, step by step in
-    the kernel's dtypes: two half-plane dots, then the min term."""
+    """Plain PyTorch version of :func:`quant_matmul_4bit` (both its
+    kernels), step by step in the kernel's dtypes: two half-plane dots,
+    then the min term."""
     _build.count(NAME_4BIT + ".plain")
     return _plain_lowbit(4, x, xsum, codes, d, sc, dmin, mn, code_bias, fmt)
 
@@ -518,7 +612,7 @@ def quant_matmul_8bit(x: torch.Tensor, codes: torch.Tensor, d: torch.Tensor,
     up, where :func:`tc_takes` the geometry, :func:`quant_matmul_8bit_tc`;
     else :func:`quant_matmul_8bit_decode`."""
     B, in_f = x.shape
-    if x.device.type == "cuda" and B >= TC_MIN_ROWS and tc_takes(in_f, sub_size):
+    if _on_card(x) and B >= TC_MIN_ROWS and tc_takes(in_f, sub_size):
         return quant_matmul_8bit_tc(x, codes, d, sc, sub_size, code_bias, dmin, mn)
     return quant_matmul_8bit_decode(x, codes, d, sc, sub_size, code_bias, dmin, mn)
 

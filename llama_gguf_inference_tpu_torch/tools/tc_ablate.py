@@ -1,16 +1,21 @@
-"""Where the tensor-core 8-bit kernel's time goes, on one card.
+"""Where the tensor-core matmul kernels' time goes, on one card.
 
     python -m llama_gguf_inference_tpu_torch.tools.tc_ablate [--seed 0]
 
-Builds ``csrc/quant_matmul_tc.cu`` three ways into the build directory: as
-it is, without its decode stage (each step's weight tile left as an earlier
-step wrote it), and without its products (``ldmatrix`` and ``mma.sync``).
-Times each, and the decode kernel and ``torch.matmul`` on a bf16 copy, at
-the 8B's Q5_K compact projections (codes and scales drawn from ``--seed``)
-for 16, 64 and 512 activation rows: CUDA events, the L2 flushed before each
-launch, the median of 20. Prints the card's name and power limit first, then
-one JSON line per shape. The two cut builds compute wrong outputs and are
-only timed; the full build is held to the plain version first.
+Builds each tensor-core source into the build directory as it is and cut:
+``csrc/quant_matmul_tc.cu`` (8-bit codes) and
+``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes) without their decode
+stage (each step's weight tile left as an earlier step wrote it) and without
+their products (``ldmatrix`` and ``mma.sync``); the 2/4-bit one also
+without its min-term epilogue. Times each build, and the decode kernel and
+``torch.matmul`` on a bf16 weight of the same shape, at the 8B's
+projections for 8, 16, 32, 64 and 512 activation rows, in the layout each kernel
+serves: Q5_K compact (8-bit, with its min), Q4_K flat (4-bit) and Q2_K mixed
+(2-bit); codes and scales drawn from ``--seed``. CUDA events, the L2
+flushed before each launch, the median of 20. Prints the card's name and
+power limit first, then one JSON line per shape. The cut builds compute
+wrong outputs and are only timed; the full build is held to the plain
+version first.
 """
 
 from __future__ import annotations
@@ -29,33 +34,41 @@ from ..ops import quant_matmul as qm
 
 SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
           "down": (4096, 14336)}
-ROWS = (16, 64, 512)
-# the source text each cut build replaces
-CUTS = {"no_decode": ("      decode_run<kM, kPer>(", "      if (false) decode_run<kM, kPer>("),
-        "no_products": ("    if (i >= 0 && warp_live) {", "    if (false) {")}
+ROWS = (8, 16, 32, 64, 512)
+_PRODUCTS = ("    if (i >= 0 && warp_live) {", "    if (false) {")
+# each source's cut builds: the text each replaces
+CUTS = {
+    "quant_matmul_tc": {
+        "no_decode": ("      decode_run<kM, kPer>(", "      if (false) decode_run<kM, kPer>("),
+        "no_products": _PRODUCTS},
+    "quant_matmul_lowbit_tc": {
+        "no_decode": ("      decode_plane<kBits, kMap, kPer>(",
+                      "      if (false) decode_plane<kBits, kMap, kPer>("),
+        "no_products": _PRODUCTS,
+        "no_min": ("  if (kM != kNone || a.bias != 0) {", "  if (false) {")}}
 
 
-def _builds() -> dict[str, ctypes.CDLL]:
-    with open(os.path.join(_build._CSRC, "quant_matmul_tc.cu")) as f:
+def _builds(source: str) -> dict[str, ctypes.CDLL]:
+    with open(os.path.join(_build._CSRC, source + ".cu")) as f:
         src = f.read()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     procs = {}
-    for name, (old, new) in CUTS.items():
+    for name, (old, new) in CUTS[source].items():
         if src.count(old) != 1:
-            raise RuntimeError(f"{name}: the source no longer holds {old!r} once")
-        cu = os.path.join(_build.BUILD_DIR, f"tc_ablate_{name}.cu")
+            raise RuntimeError(f"{source} {name}: the source no longer holds {old!r} once")
+        cu = os.path.join(_build.BUILD_DIR, f"tc_ablate_{source}_{name}.cu")
         with open(cu, "w") as f:
             f.write(src.replace(old, new))
-        procs[name] = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, cu, "-o",
-                                        cu[:-3] + ".so"], stdout=subprocess.PIPE,
+        procs[name] = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build._CSRC,
+                                        cu, "-o", cu[:-3] + ".so"], stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
-    libs = {"full": _build.library("quant_matmul_tc")}
+    libs = {"full": _build.library(source)}
     for name, proc in procs.items():
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        path = os.path.join(_build.BUILD_DIR, f"tc_ablate_{name}.so")
-        libs[name] = _build._bind("quant_matmul_tc", ctypes.CDLL(path))
+            raise RuntimeError(f"nvcc failed for {source} {name}:\n{log}")
+        path = os.path.join(_build.BUILD_DIR, f"tc_ablate_{source}_{name}.so")
+        libs[name] = _build._bind(source, ctypes.CDLL(path))
     return libs
 
 
@@ -75,17 +88,43 @@ def _timer(flush: torch.Tensor, fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def _q5k(out_f: int, in_f: int, g: torch.Generator):
-    """Random Q5_K compact arrays: 5-bit codes, f32 d and dmin per 256, u8
-    sc and mn per 32."""
-    def u8(n):
-        return torch.randint(0, 16, (out_f, n), generator=g, device="cuda").to(torch.uint8)
+def _u8(out_f: int, n: int, g: torch.Generator) -> torch.Tensor:
+    return torch.randint(0, 16, (out_f, n), generator=g, device="cuda").to(torch.uint8)
 
-    def f32(n, scale):
-        return torch.rand(out_f, n, generator=g, device="cuda") * scale + scale / 10
-    codes = torch.randint(0, 32, (out_f, in_f), generator=g, device="cuda").to(torch.int8)
-    nsub, nd = in_f // 32, in_f // 256
-    return codes, f32(nd, 1e-3), u8(nsub), f32(nd, 5e-3), u8(nsub)
+
+def _f32(out_f: int, n: int, scale: float, g: torch.Generator) -> torch.Tensor:
+    return torch.rand(out_f, n, generator=g, device="cuda") * scale + scale / 10
+
+
+def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator):
+    """(source, tensor-core wrapper, decode wrapper, plain version, args) of
+    one kernel's call on random arrays: Q5_K
+    compact (5-bit codes, f32 d and dmin per 256, u8 sc and mn per 32), Q4_K
+    flat (f32 d and dmin per 32) or Q2_K mixed (f32 d per 16, f32 dmin per
+    256 with u8 mn per 16)."""
+    x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
+    if kind == "q5_k":
+        nsub, nd = in_f // 32, in_f // 256
+        codes = torch.randint(0, 32, (out_f, in_f), generator=g, device="cuda").to(torch.int8)
+        arrs = (codes, _f32(out_f, nd, 1e-3, g), _u8(out_f, nsub, g), 32, 0,
+                _f32(out_f, nd, 5e-3, g), _u8(out_f, nsub, g))
+        return ("quant_matmul_tc", qm.quant_matmul_8bit_tc, qm.quant_matmul_8bit_decode,
+                qm.quant_matmul_8bit_plain, (x, *arrs))
+    bits, sub = (4, 32) if kind == "q4_k" else (2, 16)
+    nsub = in_f // sub
+    codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    xsum = qm._block_sums(x, sub)
+    if kind == "q4_k":
+        arrs = (codes, _f32(out_f, nsub, 1e-2, g), None, _f32(out_f, nsub, 5e-2, g), None)
+    else:
+        arrs = (codes, _f32(out_f, nsub, 1e-2, g), None, _f32(out_f, in_f // 256, 5e-3, g),
+                _u8(out_f, nsub, g))
+        xsum = xsum.reshape(B, in_f // 256, 256 // sub).transpose(1, 2).reshape(B, nsub)
+        xsum = xsum.contiguous()
+    return ("quant_matmul_lowbit_tc", getattr(qm, f"quant_matmul_{bits}bit_tc"),
+            getattr(qm, f"quant_matmul_{bits}bit_decode"),
+            getattr(qm, f"quant_matmul_{bits}bit_plain"), (x, xsum, *arrs, 0))
 
 
 def main() -> None:
@@ -95,34 +134,31 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = _builds()
+    libs = {src: _builds(src) for src in CUTS}
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(a.seed)
-    for name, (out_f, in_f) in SHAPES.items():
-        codes, d, sc, dmin, mn = _q5k(out_f, in_f, g)
-        nsub = in_f // 32
-        w_lib = (codes.float() * qm._sub_side(d, sc, nsub).repeat(1, 32)
-                 - qm._sub_side(dmin, mn, nsub).repeat(1, 32)).bfloat16()
-        for B in ROWS:
-            x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
-            args = (x, codes, d, sc, 32, 0, dmin, mn)
-            row = {"shape": f"q5_k compact {name} {out_f}x{in_f}", "B": B}
-            for build, lib in libs.items():
-                _build._LIBS["quant_matmul_tc"] = lib
-                if build == "full":
-                    want = qm.quant_matmul_8bit_plain(*args)
-                    err = (qm.quant_matmul_8bit_tc(*args) - want).abs().max() / want.abs().max()
-                    row["rel_err"] = err.item()
-                row[f"{build}_ms"] = _timer(flush, lambda: qm.quant_matmul_8bit_tc(*args))
-            _build._LIBS["quant_matmul_tc"] = libs["full"]
-            row["decode_kernel_ms"] = _timer(flush, lambda: qm.quant_matmul_8bit_decode(*args),
-                                             5 if B > 64 else 20)
-            row["torch_matmul_ms"] = _timer(flush, lambda: torch.matmul(x, w_lib.t()))
-            row["bound_ms"] = max(2.0 * B * in_f * out_f / 989e12,
-                                  (codes.numel() + 2 * sc.numel() + 8 * d.numel()
-                                   + B * in_f * 2 + B * out_f * 4) / 3.35e12) * 1e3
-            print(json.dumps(row), flush=True)
-        del codes, d, sc, dmin, mn, w_lib
+    for kind in ("q5_k", "q4_k", "q2_k"):
+        for name, (out_f, in_f) in SHAPES.items():
+            w_lib = torch.randn(out_f, in_f, generator=g, device="cuda").bfloat16()
+            for B in ROWS:
+                src, tc, decode, plain, args = _case(kind, out_f, in_f, B, g)
+                row = {"shape": f"{kind} {name} {out_f}x{in_f}", "B": B}
+                for build, lib in libs[src].items():
+                    _build._LIBS[src] = lib
+                    if build == "full":
+                        want = plain(*args)
+                        row["rel_err"] = ((tc(*args) - want).abs().max()
+                                          / want.abs().max()).item()
+                    row[f"{build}_ms"] = _timer(flush, lambda: tc(*args))
+                _build._LIBS[src] = libs[src]["full"]
+                row["decode_kernel_ms"] = _timer(flush, lambda: decode(*args), 5 if B > 64 else 20)
+                row["torch_matmul_ms"] = _timer(flush, lambda: torch.matmul(args[0], w_lib.t()))
+                nbytes = sum(t.numel() * t.element_size() for t in args
+                             if isinstance(t, torch.Tensor)) + B * out_f * 4
+                row["bound_ms"] = max(2.0 * B * in_f * out_f / 989e12, nbytes / 3.35e12) * 1e3
+                print(json.dumps(row), flush=True)
+                del args
+            del w_lib
 
 
 if __name__ == "__main__":

@@ -49,7 +49,8 @@ def emu(tmp_path_factory):
     cpp, lib = d / "quant_matmul.cpp", d / "quant_matmul.so"
     cpp.write_text(src)
     r = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                        "-pthread", "-I", os.path.join(HERE, "cuda_emu"), str(cpp),
+                        "-pthread", "-I", os.path.join(HERE, "cuda_emu"), "-I", os.path.dirname(SRC),
+                        str(cpp),
                         "-o", str(lib)], capture_output=True, text=True, timeout=600)
     if r.returncode != 0 and "barrier" in r.stderr and "No such file" in r.stderr:
         pytest.skip("g++ lacks C++20's <barrier>")

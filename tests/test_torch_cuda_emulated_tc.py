@@ -1,15 +1,17 @@
-"""The tensor-core 8-bit matmul source run on the CPU:
-``csrc/quant_matmul_tc.cu`` compiled by g++ against the stand-in headers of
-``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads, ``cp.async``
-copies that land at their wait, ``ldmatrix`` and ``mma.sync`` through a warp
-barrier in the PTX ISA's fragment layout), with its inline-PTX helpers
-swapped for those stand-ins, driven through the port's own wrapper with its
-device check lifted, against the plain PyTorch version.
+"""The tensor-core matmul sources run on the CPU: ``csrc/quant_matmul_tc.cu``
+(8-bit codes) and ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes)
+compiled by g++ against the stand-in headers of ``tests/cuda_emu``
+(``tc_emu.h``: whole blocks of threads, ``cp.async`` copies that land at
+their wait, ``ldmatrix`` and ``mma.sync`` through a warp barrier in the PTX
+ISA's fragment layout), with the inline-PTX helpers of ``csrc/tc_common.cuh``
+swapped for those stand-ins, driven through the port's own wrappers with
+their device check lifted, against the plain PyTorch versions.
 
-This holds the kernel's tiling, its ring of stages, its chunked walk over
-the sub-blocks and its ragged edges to the plain version where no card is
-present; what nvcc makes of the source, and the PTX itself, are checked only
-on the card (``test_torch_cuda_kernels.py``). Tolerance: the same bf16
+This holds the kernels' tiling, their rings of stages, their chunked walk
+over the sub-blocks, the 2/4-bit kernel's plane groups and min-term
+epilogue, and their ragged edges to the plain versions where no card is
+present; what nvcc makes of the sources, and the PTX itself, are checked
+only on the card (``test_torch_cuda_kernels.py``). Tolerance: the same bf16
 weights and exact bf16 products on both sides, f32 sums in another order:
 1e-5 of the output's scale. Skips where there is no g++ with C++20.
 """
@@ -30,49 +32,73 @@ from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(os.path.dirname(HERE), "llama_gguf_inference_tpu_torch", "csrc",
-                   "quant_matmul_tc.cu")
+CSRC = os.path.join(os.path.dirname(HERE), "llama_gguf_inference_tpu_torch", "csrc")
+SOURCES = ("quant_matmul_tc", "quant_matmul_lowbit_tc")
 TOL = 1e-5
+
+
+def _emulated_source(name: str) -> str:
+    """``csrc/<name>.cu`` for g++: the shared header inlined with its PTX
+    section cut (``tc_emu.h`` stands in for it), the dynamic shared memory
+    and the launches routed through the stand-ins."""
+    with open(os.path.join(CSRC, "tc_common.cuh")) as f:
+        hdr = f.read()
+    start, end = hdr.index("// PTX: "), hdr.index("// end PTX")
+    with open(os.path.join(CSRC, name + ".cu")) as f:
+        src = f.read()
+    src = src.replace('#include "tc_common.cuh"', '#include "tc_emu.h"\n' + hdr[:start] + hdr[end:])
+    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
+                      "unsigned char* smem = emu_smem();")
+    return re.sub(r"([A-Za-z_0-9]+<[^<>;]*>)<<<([^>]*)>>>\(([^)]*)\);",
+                  r"emu_launch_block(\2, [&]() { \1(\3); });", src)
 
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    """``ops.quant_matmul.quant_matmul_8bit_tc`` over the g++ build of the
-    CUDA source, and the launches it counts."""
+    """``ops.quant_matmul``'s wrappers over the g++ builds of the CUDA
+    sources (the dispatching 2/4-bit wrappers see every tensor as on the
+    card, and the decode kernel as a stand-in that counts its launch and
+    returns the plain version), and the launches they count."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernel")
     d = tmp_path_factory.mktemp("cuda_emu_tc")
-    with open(SRC) as f:
-        src = f.read()
-    start, end = src.index("// PTX: "), src.index("// end PTX")
-    src = '#include "tc_emu.h"\n' + src[:start] + src[end:]
-    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
-                      "unsigned char* smem = emu_smem();")
-    src = re.sub(r"([A-Za-z_0-9]+<[^<>;]*>)<<<([^>]*)>>>\(([^)]*)\);",
-                 r"emu_launch_block(\2, [&]() { \1(\3); });", src)
-    cpp, lib = d / "quant_matmul_tc.cpp", d / "quant_matmul_tc.so"
-    cpp.write_text(src)
-    r = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                        "-pthread", "-I", os.path.join(HERE, "cuda_emu"), str(cpp),
-                        "-o", str(lib)], capture_output=True, text=True, timeout=600)
-    if r.returncode != 0 and "barrier" in r.stderr and "No such file" in r.stderr:
-        pytest.skip("g++ lacks C++20's <barrier>")
-    assert r.returncode == 0, r.stderr[-3000:]
-    so = _build._bind("quant_matmul_tc", ctypes.CDLL(str(lib)))
+    procs = {}
+    for name in SOURCES:
+        cpp, lib = d / f"{name}.cpp", d / f"{name}.so"
+        cpp.write_text(_emulated_source(name))
+        procs[name] = (subprocess.Popen(
+            [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
+             "-I", os.path.join(HERE, "cuda_emu"), "-I", CSRC, str(cpp), "-o", str(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0 and "barrier" in err and "No such file" in err:
+            pytest.skip("g++ lacks C++20's <barrier>")
+        assert proc.returncode == 0, err[-3000:]
+        libs[name] = _build._bind(name, ctypes.CDLL(str(lib)))
     launches: dict[str, int] = {}
     fake_build = types.SimpleNamespace(
-        library=lambda name: so, check=_build.check,
+        library=lambda name: libs[name], check=_build.check,
         count=lambda name: launches.__setitem__(name, launches.get(name, 0) + 1))
     with open(qm.__file__) as f:
         wsrc = f.read()
     wsrc = wsrc.replace('if dev.type != "cuda":', "if False:")
+    wsrc = wsrc.replace('return t.device.type == "cuda"', "return True")
     wsrc = wsrc.replace("torch.cuda.current_stream(dev).cuda_stream", "0")
     wsrc = wsrc.replace("from . import _build\n", "")
     wsrc = wsrc.replace("from .linear import", "from llama_gguf_inference_tpu_torch.ops.linear import")
     mod = types.ModuleType("quant_matmul_tc_emulated")
     exec(compile(wsrc, "quant_matmul_tc_emulated", "exec"), mod.__dict__)
     mod._build = fake_build
+    for bits in (2, 4):
+        name, plain = getattr(qm, f"NAME_{bits}BIT"), getattr(qm, f"quant_matmul_{bits}bit_plain")
+
+        def decode(*args, _name=name, _plain=plain):
+            fake_build.count(_name)
+            return _plain(*args)
+        setattr(mod, f"quant_matmul_{bits}bit_decode", decode)
     return mod, launches
 
 
@@ -126,3 +152,94 @@ def test_8bit_tc_kernel(emu, B, out_f, in_f, sub, layout, has_min, signed, bias)
     want = qm.quant_matmul_8bit_plain(*args)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+def _lowbit_arrays(bits, out_f, in_f, sub, layout, has_min, signed, g):
+    """2/4-bit planar codes with flat sides (f32 per sub-block), compact ones
+    (f32 per 256 times an 8-bit factor per sub-block) or the mixed layout
+    (flat scale, compact min)."""
+    nsub, nd = in_f // sub, in_f // 256
+    codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, dtype=torch.uint8)
+
+    def f32(n):
+        return torch.rand(out_f, n, generator=g) * 0.02 + 1e-3
+
+    def u8(s):
+        if s:
+            return torch.randint(-32, 32, (out_f, nsub), generator=g, dtype=torch.int32).to(torch.int8)
+        return torch.randint(0, 64, (out_f, nsub), generator=g, dtype=torch.int32).to(torch.uint8)
+    if layout == "flat":
+        return codes, f32(nsub), None, (f32(nsub) if has_min else None), None
+    if layout == "compact":
+        return codes, f32(nd), u8(signed), (f32(nd) if has_min else None), \
+            (u8(False) if has_min else None)
+    return codes, f32(nsub), None, f32(nd), u8(False)
+
+
+# (bits, B, out, in, sub, bias, layout, has min, signed sc, code map): Q4_K
+# (flat, compact, mixed), Q3_K's sub-blocks of 16 with bias 4 (i8 sc), Q4_0's
+# bias 8, the IQ2/IQ3 maps, Q2_K (flat, compact, mixed; bias 1 beside a
+# compact min); nsub 64 and 128; B of 1, 7, 8 and 130; out 72 and 136 (64-row
+# tiles where the stand-in's 4 SMs would be left without a block, 128-row
+# tiles over 2 x 2 blocks at 130 rows)
+LOWBIT_CASES = [(4, 130, 136, 2048, 32, 0, "flat", True, False, ""),
+                (4, 7, 136, 2048, 32, 0, "compact", True, False, ""),
+                (4, 8, 72, 2048, 32, 0, "mixed", True, False, ""),
+                (4, 1, 136, 1024, 16, 4, "compact", False, True, ""),
+                (4, 130, 72, 2048, 16, 4, "flat", False, False, ""),
+                (4, 8, 72, 2048, 32, 8, "flat", False, False, ""),
+                (4, 8, 72, 2048, 32, 0, "flat", False, False, "iq2_xs"),
+                (4, 7, 72, 2048, 32, 0, "compact", False, False, "iq3_s"),
+                (2, 130, 136, 1024, 16, 0, "mixed", True, False, ""),
+                (2, 7, 136, 2048, 16, 0, "flat", True, False, ""),
+                (2, 1, 72, 1024, 16, 0, "compact", True, False, ""),
+                (2, 8, 72, 1024, 16, 1, "compact", True, True, "")]
+
+
+@pytest.mark.parametrize("bits,B,out_f,in_f,sub,bias,layout,has_min,signed,fmt", LOWBIT_CASES,
+                         ids=str)
+def test_lowbit_tc_kernel(emu, bits, B, out_f, in_f, sub, bias, layout, has_min, signed, fmt):
+    """The tensor-core 2/4-bit kernel against the plain version of the
+    fsplit rule, through its own wrapper at any B; a compact case with a min
+    side once more without it."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(bits * 1000 + B + in_f + sub + bias)
+    codes, d, sc, dmin, mn = _lowbit_arrays(bits, out_f, in_f, sub, layout, has_min, signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    name = qm.NAME_4BIT_TC if bits == 4 else qm.NAME_2BIT_TC
+    kernel, plain = getattr(mod, name), getattr(qm, f"quant_matmul_{bits}bit_plain")
+    if layout == "mixed":
+        w = types.SimpleNamespace(min_size=256, sub_size=sub, in_features=in_f)
+        xsum = qm._mixed_xsum(xsum, w)
+    mins = [(dmin, mn)] + ([(None, None)] if has_min and layout == "compact" else [])
+    for dm, m in mins:
+        args = (x, xsum, codes, d, sc, dm, m, bias, fmt)
+        before = launches.get(name, 0)
+        got = kernel(*args)
+        assert launches[name] == before + 1
+        want = plain(*args)
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_lowbit_dispatch_by_rows(emu, bits):
+    """The dispatching wrapper on the card: below LOWBIT_TC_MIN_ROWS rows the
+    decode kernel, from it up the tensor-core kernel; a geometry the
+    tensor-core kernel does not take (nsub 48) keeps the decode kernel."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(bits)
+    sub = 32 if bits == 4 else 16
+    tc, dec = (qm.NAME_4BIT_TC, qm.NAME_4BIT) if bits == 4 else (qm.NAME_2BIT_TC, qm.NAME_2BIT)
+    wrapper, plain = getattr(mod, f"quant_matmul_{bits}bit"), getattr(qm, f"quant_matmul_{bits}bit_plain")
+    for in_f, B, want in ((64 * sub, qm.LOWBIT_TC_MIN_ROWS - 1, dec),
+                          (64 * sub, qm.LOWBIT_TC_MIN_ROWS, tc), (48 * sub, 20, dec)):
+        codes, d, sc, dmin, mn = _lowbit_arrays(bits, 8, in_f, sub, "flat", True, False, g)
+        x = torch.randn(B, in_f, generator=g).bfloat16()
+        args = (x, qm._block_sums(x, sub), codes, d, sc, dmin, mn)
+        launches.clear()
+        got = wrapper(*args)
+        assert launches == {want: 1}
+        want_y = plain(*args)
+        assert (got - want_y).abs().max().item() <= TOL * want_y.abs().max().item()

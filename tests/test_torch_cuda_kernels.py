@@ -104,7 +104,9 @@ LOWBIT = {2: (qm.quant_matmul_2bit, qm.quant_matmul_2bit_plain, qm.NAME_2BIT),
 def test_quant_matmul_lowbit_kernel_layouts(dev, B, bits, sub, bias, signed, layout):
     """Every scale/min layout at sub-block sizes 8, 16 and 32, code bias 0,
     1 and 4, u8 and i8 sub-block factors, ragged row counts (the mixed
-    layout takes no bias)."""
+    layout takes no bias), through the decode kernel (from
+    LOWBIT_TC_MIN_ROWS rows the dispatching wrapper would take the
+    tensor-core one for some of these geometries)."""
     if layout == "mixed" and bias:
         bias = 0
     g = torch.Generator().manual_seed(B + sub + bits)
@@ -113,7 +115,8 @@ def test_quant_matmul_lowbit_kernel_layouts(dev, B, bits, sub, bias, signed, lay
     x = torch.randn(B, in_f, generator=g).bfloat16()
     xsum = torch.randn(B, in_f // sub, generator=g)
     args = [t if t is None else t.to(dev) for t in (x, xsum, codes, d, sc, dmin, mn)]
-    kernel, plain, name = LOWBIT[bits]
+    _, plain, name = LOWBIT[bits]
+    kernel = getattr(qm, f"quant_matmul_{bits}bit_decode")
     before = _build.LAUNCHES.get(name, 0)
     got = kernel(*args, bias)
     torch.cuda.synchronize()
@@ -352,6 +355,99 @@ def test_quant_matmul_8bit_tc_rejects_geometry(dev):
         x = torch.zeros(64, in_f, device=dev).bfloat16()
         with pytest.raises(ValueError, match="tensor-core"):
             qm.quant_matmul_8bit_tc(x, codes, d, sc, 16 if in_f == 1040 else 32, 0)
+
+
+# (bits, sub, bias, layout, signed sc, code map) of the 2/4-bit tensor-core
+# kernel: Q4_K flat/compact/mixed, Q3_K's sub-blocks of 16 and bias 4
+# (compact with i8 sc, flat), the IQ2/IQ3 maps, Q2_K flat/compact/mixed and a
+# bias beside an i8 compact scale
+LOWBIT_TC = [(4, 32, 0, "flat", False, ""), (4, 32, 0, "compact", False, ""),
+             (4, 32, 0, "mixed", False, ""), (4, 16, 4, "compact", True, ""),
+             (4, 16, 4, "flat", False, ""), (4, 32, 0, "flat", False, "iq2_xs"),
+             (4, 32, 0, "compact", False, "iq3_s"), (2, 16, 0, "flat", False, ""),
+             (2, 16, 0, "compact", False, ""), (2, 16, 0, "mixed", False, ""),
+             (2, 16, 1, "compact", True, "")]
+
+
+def _lowbit_tc_call(dev, bits, B, out_f, in_f, sub, bias, layout, signed, fmt, g):
+    """Arguments of one 2/4-bit call on the card (no min side for the code
+    maps; xsum in the mixed layout's min order)."""
+    codes, d, sc, dmin, mn = _lowbit_arrays(bits, out_f, in_f, sub, bias, layout, signed, g)
+    if fmt:
+        dmin = mn = None
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    if layout == "mixed":
+        xsum = xsum.reshape(B, in_f // 256, 256 // sub).transpose(1, 2).reshape(B, -1)
+    return [t if t is None else t.contiguous().to(dev)
+            for t in (x, xsum, codes, d, sc, dmin, mn)] + [bias, fmt]
+
+
+@pytest.mark.parametrize("B", [qm.LOWBIT_TC_MIN_ROWS, 65, 129, 300, 512])
+@pytest.mark.parametrize("bits,sub,bias,layout,signed,fmt", LOWBIT_TC, ids=str)
+def test_quant_matmul_lowbit_tc_kernel(dev, bits, sub, bias, layout, signed, fmt, B):
+    """The tensor-core 2/4-bit kernel against the plain version: every layout,
+    bias and map of the served formats, ragged rows, an out (200) that is no
+    multiple of the 128-row tile, nsub 64 and 128; through the dispatching
+    wrapper, which launches it from LOWBIT_TC_MIN_ROWS rows up; a compact
+    case once more without its min side."""
+    g = torch.Generator().manual_seed(B + sub + bias + bits)
+    args = _lowbit_tc_call(dev, bits, B, 200, 2048, sub, bias, layout, signed, fmt, g)
+    kernel, plain, _ = LOWBIT[bits]
+    name = qm.NAME_4BIT_TC if bits == 4 else qm.NAME_2BIT_TC
+    runs = [args] + ([args[:5] + [None, None] + args[7:]]
+                     if layout == "compact" and not fmt else [])
+    for a in runs:
+        before = _build.LAUNCHES.get(name, 0)
+        got = kernel(*a)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == before + 1
+        _close(got, plain(*a), 1e-4)
+
+
+@pytest.mark.parametrize("B", [qm.LOWBIT_TC_MIN_ROWS, 300])
+@pytest.mark.parametrize("bits,layout", [(4, "compact"), (4, "mixed"), (2, "mixed")])
+def test_quant_matmul_lowbit_tc_kernel_down(dev, bits, layout, B):
+    """in = 14336 (ffn_down of the 8B): 448 (or 896) sub-blocks, 56
+    super-blocks, so a thread's run of scales wraps the super-block index."""
+    g = torch.Generator().manual_seed(B + bits)
+    sub = 32 if bits == 4 else 16
+    args = _lowbit_tc_call(dev, bits, B, 136, 14336, sub, 0, layout, False, "", g)
+    name = qm.NAME_4BIT_TC if bits == 4 else qm.NAME_2BIT_TC
+    before = _build.LAUNCHES.get(name, 0)
+    got = getattr(qm, f"quant_matmul_{bits}bit_tc")(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    _close(got, LOWBIT[bits][1](*args), 1e-4)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_quant_matmul_lowbit_dispatch_by_rows(dev, bits):
+    """Below LOWBIT_TC_MIN_ROWS the decode kernel runs, from it up the
+    tensor-core one and no decode kernel; a geometry the tensor-core kernel
+    does not take (nsub 48) keeps the decode kernel at any row count."""
+    g = torch.Generator().manual_seed(bits)
+    sub = 32 if bits == 4 else 16
+    tc, dec = (qm.NAME_4BIT_TC, qm.NAME_4BIT) if bits == 4 else (qm.NAME_2BIT_TC, qm.NAME_2BIT)
+    for in_f, B, want in ((64 * sub, qm.LOWBIT_TC_MIN_ROWS - 1, dec),
+                          (64 * sub, qm.LOWBIT_TC_MIN_ROWS, tc), (64 * sub, 512, tc),
+                          (48 * sub, 300, dec)):
+        args = _lowbit_tc_call(dev, bits, B, 72, in_f, sub, 0, "flat", False, "", g)
+        _build.reset_launches()
+        got = LOWBIT[bits][0](*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {want: 1}
+        _close(got, LOWBIT[bits][1](*args), 1e-4)
+
+
+def test_quant_matmul_lowbit_tc_rejects_geometry(dev):
+    """The tensor-core 2/4-bit wrappers raise on a geometry they do not take
+    (nsub 48), before any launch."""
+    g = torch.Generator().manual_seed(5)
+    for bits, sub in ((4, 32), (2, 16)):
+        args = _lowbit_tc_call(dev, bits, 64, 64, 48 * sub, sub, 0, "flat", False, "", g)
+        with pytest.raises(ValueError, match="tensor-core"):
+            getattr(qm, f"quant_matmul_{bits}bit_tc")(*args)
 
 
 @pytest.mark.parametrize("B", [4, 512])

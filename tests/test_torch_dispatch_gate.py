@@ -219,3 +219,106 @@ def test_profile_names_the_tensor_core_kernel():
     assert profile._kernel_group(
         "void quant_matmul_8bit_tc_kernel<1, 0, 64>(ArgsTC)") == qm.NAME_8BIT_TC
     assert profile._kernel_group("quant_matmul_8bit_kernel<2, 2>(Args8)") == qm.NAME_8BIT_MIN
+
+
+# the 2/4-bit tensor-core kernel's geometries: (bits, in, nsub, nd, ndm)
+LOWBIT_TC_GEOMETRIES = {
+    "q4_k flat 4096": (4, 4096, 128, 128, 128), "q4_k compact 4096": (4, 4096, 128, 16, 16),
+    "q4_k mixed 14336": (4, 14336, 448, 448, 56), "q3_k flat 4096": (4, 4096, 256, 256, 256),
+    "q3_k compact 14336": (4, 14336, 896, 56, 56), "q2_k mixed 4096": (2, 4096, 256, 256, 16),
+    "q2_k compact 14336": (2, 14336, 896, 56, 56), "q2_k flat 4096": (2, 4096, 256, 256, 256)}
+LOWBIT_TC_REFUSED = {
+    "nsub 48": (4, 1536, 48, 48, 48), "in % 64": (4, 2080, 65, 65, 65),
+    "2-bit sub 2": (2, 128, 64, 64, 64), "nd % 4": (4, 2048, 64, 2, 2),
+    "nd not dividing nsub": (4, 4096, 128, 12, 12), "ndm not dividing nsub": (2, 4096, 256, 256, 24)}
+
+
+@pytest.mark.parametrize("name", LOWBIT_TC_GEOMETRIES)
+def test_lowbit_tc_takes_the_served_geometries(name):
+    """Every 2/4-bit layout the served 8B models and the smoke's kernels
+    phase use, at in 4096 and 14336, fits the tensor-core kernel."""
+    assert qm.lowbit_tc_takes(*LOWBIT_TC_GEOMETRIES[name])
+
+
+@pytest.mark.parametrize("name", LOWBIT_TC_REFUSED)
+def test_lowbit_tc_refuses_geometry(name):
+    """A geometry the tensor-core kernel does not take stays on the decode
+    kernel at any row count, and its wrapper raises before any launch."""
+    bits, in_f, nsub, nd, ndm = LOWBIT_TC_REFUSED[name]
+    assert not qm.lowbit_tc_takes(bits, in_f, nsub, nd, ndm)
+    if in_f % nsub or nsub % nd or nsub % ndm or in_f % (16 * 8 // bits) \
+            or (in_f * bits // 8) % nsub:
+        return                                   # the arrays cannot be formed
+    g = torch.Generator().manual_seed(in_f)
+    codes = torch.randint(0, 256, (8, in_f * bits // 8), generator=g, dtype=torch.uint8)
+    sc = torch.randint(0, 64, (8, nsub), generator=g, dtype=torch.int32).to(torch.uint8) \
+        if nd != nsub else None
+    d, dmin = torch.rand(8, nd, generator=g), torch.rand(8, ndm, generator=g)
+    mn = torch.randint(0, 64, (8, nsub), generator=g, dtype=torch.int32).to(torch.uint8) \
+        if ndm != nsub else None
+    x = torch.randn(64, in_f, generator=g).bfloat16()
+    args = (x, qm._block_sums(x, in_f // nsub), codes, d, sc, dmin, mn)
+    with pytest.raises(ValueError, match="tensor-core"):
+        getattr(qm, f"quant_matmul_{bits}bit_tc")(*args)
+
+
+@pytest.fixture
+def on_card_spies(monkeypatch):
+    """The 2/4-bit dispatch as on the card: ``_on_card`` answers True, the
+    tensor-core and decode wrappers record their calls and return the plain
+    versions."""
+    calls = []
+    monkeypatch.setattr(qm, "_on_card", lambda t: True)
+    for bits in (2, 4):
+        plain = getattr(qm, f"quant_matmul_{bits}bit_plain")
+        for kind in ("tc", "decode"):
+            def fn(*a, _tag=f"{bits}bit_{kind}", _plain=plain):
+                calls.append(_tag)
+                return _plain(*a)
+            monkeypatch.setattr(qm, f"quant_matmul_{bits}bit_{kind}", fn)
+    return calls
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_lowbit_rows_threshold(bits, on_card_spies):
+    """Below LOWBIT_TC_MIN_ROWS rows the decode kernel, from it up (512
+    included) the tensor-core kernel; on the CPU the wrapper takes neither."""
+    sub = 16 if bits == 2 else 32
+    g = torch.Generator().manual_seed(bits)
+    codes = torch.randint(0, 256, (8, 128 * sub * bits // 8), generator=g, dtype=torch.uint8)
+    d = torch.rand(8, 128, generator=g)
+    for B, want in ((1, "decode"), (qm.LOWBIT_TC_MIN_ROWS - 1, "decode"),
+                    (qm.LOWBIT_TC_MIN_ROWS, "tc"), (512, "tc")):
+        x = torch.randn(B, 128 * sub, generator=g).bfloat16()
+        on_card_spies.clear()
+        getattr(qm, f"quant_matmul_{bits}bit")(x, qm._block_sums(x, sub), codes, d, None, d,
+                                                None)
+        assert on_card_spies == [f"{bits}bit_{want}"]
+
+
+@pytest.mark.parametrize("variant", ["fsplit", "xsum", "split", "base", "int8"])
+@pytest.mark.parametrize("gtype", [GGMLType.Q4_K, GGMLType.Q2_K], ids=lambda t: t.name)
+def test_variants_never_reach_the_lowbit_tc_kernel(gtype, variant, on_card_spies, monkeypatch):
+    """512 prefill rows through the dispatcher under each LGT_MM_VARIANT: only
+    the fsplit/qsplit body reaches the tensor-core kernel; xsum, split, base
+    and int8 keep their CUDA-core kernels at every row count (Q2_K takes
+    qsplit under every variant but base, as in the JAX package)."""
+    monkeypatch.setenv("LGT_MM_VARIANT", variant)
+    _, tq = _pair(gtype, 64, 2048)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(512, 2048)).astype(np.float32))
+    body = qm.select_kernel(tq, 512)
+    tq.matmul(x.bfloat16(), out_dtype=torch.float32)
+    bits = tq.bits
+    want = [f"{bits}bit_tc"] if body in ("fsplit", "qsplit") else []
+    assert on_card_spies == want
+    assert (body in ("fsplit", "qsplit")) == (variant != "base" if bits == 2 else variant == "fsplit")
+
+
+def test_profile_names_the_lowbit_tensor_core_kernels():
+    """tools/profile.py books the 2/4-bit tensor-core instances by their bit
+    width (the first template argument)."""
+    from llama_gguf_inference_tpu_torch.tools import profile
+    assert profile._kernel_group(
+        "void quant_matmul_lowbit_tc_kernel<4, 0, 1, 1>(ArgsLowTC)") == qm.NAME_4BIT_TC
+    assert profile._kernel_group(
+        "void quant_matmul_lowbit_tc_kernel<2, 0, 1, 2>(ArgsLowTC)") == qm.NAME_2BIT_TC
