@@ -34,7 +34,13 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               o and down, the IQ2/IQ3 maps at o; 2-bit: Q2_K flat, mixed and
               compact), each beside the decode kernel on the same inputs,
               and at 8 and 32 rows too in the served layouts (Q4_K flat, Q2_K
-              mixed: the crossover that sets LOWBIT_TC_MIN_ROWS). Prints errors,
+              mixed: the crossover that sets LOWBIT_TC_MIN_ROWS); the int8 body's
+              and the base rule's tensor-core kernels at the four Q4_K flat
+              projections for 8, 16, 32, 64, 300 and 512 rows and at Q4_0,
+              Q4_1 and Q3_K's o for 16, 64, 300 and 512, the base_f32 rule
+              at Q2_K flat and compact gate_up for 512, each beside its
+              decode kernel (the crossover that sets INT8_TC_MIN_ROWS; the
+              base rules' against LOWBIT_TC_MIN_ROWS). Prints errors,
               the kernel's median time, the plain version's, one PyTorch
               library call's (a yardstick only: SDPA over the bf16, dequantized
               or gathered cache), and the least time the card could take
@@ -63,7 +69,11 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               split, int8): a prefill and 16 greedy steps held against the
               plain versions, then three greedy requests through the server;
               each run launches that variant's kernel and never fsplit's
-              (decode or tensor-core)
+              (decode or tensor-core); under int8 and base then one
+              512-token chunk through that body's tensor-core kernel (qkv, o
+              and gate_up; ffn_down through the dequantize path, the head
+              through the 8-bit decode kernel), held against the plain
+              versions (int8: to INT8_LOGITS_TOL, every call shadowed)
 8. serve-paged — that engine freed, a second one from the environment
               (``build_engine_from_env``: q8_0 paged KV, 4 pages of 1024): a
               1,500-token prompt, longer than a slot's contiguous share, with
@@ -78,7 +88,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               2-bit tensor-core kernel; then
               ``LGT_MM_VARIANT=base``: two steps on the mixed weights (the
               dequantize path, as in the JAX package), and the 17 steps with
-              the weights relaid flat through the base body's 2-bit kernel
+              the weights relaid flat through the base body's 2-bit kernel,
+              then one 512-token chunk through its tensor-core kernel
 10. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
               projections, Q6_K head; ``cached_model(quant="q5_k")``) under
               the default layout (compact), its resident bytes printed, the
@@ -98,8 +109,9 @@ Launch counters are set to 0 just before each path that drives the kernels
 (the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
 run and engine run, the serve phase, each variant's
 kernel run and serve, the serve-paged phase, the q2k phase's kernel run,
-serve, 512-token chunk and flat base run, the q5k phase's kernel run, serve, 512-token chunk
-and long-prompt serve) and read just after; comparison runs fall outside
+serve, 512-token chunk, flat base run and base chunk, the int8 and base
+variants' chunks, the q5k phase's kernel run, serve, 512-token chunk and
+long-prompt serve) and read just after; comparison runs fall outside
 those windows.
 
 The breakdown of a decode step and a prefill chunk by kernel is
@@ -296,6 +308,7 @@ def phase_kernels(torch, timer):
     rows += _lowbit_rows(torch, qm, g, timer)
     rows += _lowbit_tc_rows(torch, qm, g, timer)
     rows += _variant_rows(torch, qm, g, timer)
+    rows += _variant_tc_rows(torch, qm, g, timer)
     rows += _attention_rows(torch, F, fa, rand, g, timer)
     return rows
 
@@ -484,18 +497,29 @@ def _variant_call(qm, w, variant, x):
               "8bit_tc": qm.quant_matmul_8bit_tc}[variant]
         return _8bit_name(qm, nrows, in_f, w.sub_size, w.dmin is not None), fn, args, \
             qm.quant_matmul_8bit_plain, args, B * in_f * 2, False
-    if variant == "int8":
+    nd = w.d.shape[1]
+    # int8, base: the dispatching wrapper; int8_decode, base_decode: the
+    # decode kernel; int8_tc, base_tc: the tensor-core kernel
+    kind = variant.split("_")[1] if "_" in variant else ""
+    if variant.startswith("int8"):
         xq, xs = qm.quantize_acts(x, w.sub_size)
         args = (xq, xs, xsum, *arrs, w.code_bias)
-        return qm.NAME_4BIT_INT8, qm.quant_matmul_4bit_int8, args, \
+        tc = kind == "tc" or (not kind and B >= qm.INT8_TC_MIN_ROWS
+                              and qm.int8_tc_takes(in_f, nsub, nd, w.sub_size))
+        fn = getattr(qm, "quant_matmul_4bit_int8" + (f"_{kind}" if kind else ""))
+        return qm.NAME_4BIT_INT8_TC if tc else qm.NAME_4BIT_INT8, fn, args, \
             qm.quant_matmul_4bit_int8_plain, args, B * in_f + 2 * B * nsub * 4, True
-    if variant == "base" and w.bits == 4 and w.fmt not in qm.MAPPED_FMTS:
+    tc = kind == "tc" or (not kind and B >= qm.LOWBIT_TC_MIN_ROWS
+                          and qm.lowbit_tc_takes(w.bits, in_f, nsub, nd, nd))
+    if variant.startswith("base") and w.bits == 4 and w.fmt not in qm.MAPPED_FMTS:
         args = (x, *arrs, w.code_bias)
-        return qm.NAME_4BIT_BASE, qm.quant_matmul_4bit_base, args, \
+        fn = getattr(qm, "quant_matmul_4bit_base" + (f"_{kind}" if kind else ""))
+        return qm.NAME_4BIT_BASE_TC if tc else qm.NAME_4BIT_BASE, fn, args, \
             qm.quant_matmul_4bit_base_plain, args, B * in_f * 2, False
-    if variant == "base":
+    if variant.startswith("base"):
         args = (x, *arrs, w.code_bias, w.bits, w.fmt)
-        return qm.NAME_LOWBIT_BASE, qm.quant_matmul_lowbit_base, args, \
+        fn = getattr(qm, "quant_matmul_lowbit_base" + (f"_{kind}" if kind else ""))
+        return qm.NAME_LOWBIT_BASE_TC if tc else qm.NAME_LOWBIT_BASE, fn, args, \
             qm.quant_matmul_lowbit_base_plain, args, B * in_f * 2, False
     name, kernel, plain = {
         "fsplit": (qm.NAME_4BIT, qm.quant_matmul_4bit, qm.quant_matmul_4bit_plain),
@@ -552,6 +576,48 @@ def _variant_rows(torch, qm, g, timer):
                              "B": B, "max_abs_err": err, "max_rel_err": rel,
                              "bits_per_weight": 8 * wbytes / (out_f * in_f), "ms": ms,
                              "plain_ms": timer(lambda: plain(*pargs), 5),
+                             "library_ms": timer(lambda: torch.matmul(x, w_lib.t())),
+                             "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
+                emit({"phase": "kernels", **rows[-1]})
+        del w, w_lib
+    return rows
+
+
+def _variant_tc_rows(torch, qm, g, timer):
+    """The tensor-core kernels of the int8 body and of the base rules
+    through their own wrappers, each beside its decode kernel on the same
+    inputs (``decode_ms``): Q4_K flat at the four projections for 8, 16,
+    32, 64, 300 and 512 rows (int8 and base; 8 to 64 rows are where the two
+    kernels cross), Q4_0, Q4_1 and Q3_K at o for 16, 64, 300 and 512, and
+    the base_f32 rule at Q2_K flat and compact gate+up for 512 rows. Bound
+    as in :func:`_variant_rows` (the int8 kernel's operations at the int8
+    rate)."""
+    cases = [("q4_k", "flat", name, (8, 16, 32, 64, 300, 512), ("int8", "base"))
+             for name in SHAPES_4BIT]
+    cases += [(fmt, "flat", "o", (16, 64, 300, 512), ("int8", "base"))
+              for fmt in ("q4_0", "q4_1", "q3_k")]
+    cases += [("q2_k", layout, "gate_up", (512,), ("base",)) for layout in ("flat", "compact")]
+    rows = []
+    for fmt, layout, name, bs, variants in cases:
+        out_f, in_f = SHAPES_4BIT[name]
+        w = _weight(torch, g, fmt, out_f, in_f, layout)
+        w_lib = w.dequantize_bm()
+        wbytes = _wbytes(w)
+        for B in bs:
+            x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
+            for var in variants:
+                kname, kernel, args, plain, _, x_bytes, int8 = _variant_call(qm, w, var + "_tc", x)
+                decode = _variant_call(qm, w, var + "_decode", x)[1]
+                err, rel = _err(kernel(*args), plain(*args), MATMUL_TOL)
+                b_ms, b_by = bound(wbytes + x_bytes + B * out_f * 4, 2.0 * B * in_f * out_f,
+                                   INT8_OPS if int8 else BF16_FLOPS)
+                ms = timer(lambda: kernel(*args))
+                rows.append({"kernel": kname,
+                             "shape": f"{fmt} {layout} {var} tc {name} {out_f}x{in_f} B={B}",
+                             "B": B, "max_abs_err": err, "max_rel_err": rel,
+                             "bits_per_weight": 8 * wbytes / (out_f * in_f), "ms": ms,
+                             "decode_ms": timer(lambda: decode(*args), 5 if B > 64 else 20),
+                             "plain_ms": timer(lambda: plain(*args), 5),
                              "library_ms": timer(lambda: torch.matmul(x, w_lib.t())),
                              "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
                 emit({"phase": "kernels", **rows[-1]})
@@ -1086,16 +1152,29 @@ def _variant_forward(torch, engine, label, want, absent=(), shadow=None, tol=LOG
 
 def phase_variants(torch, engine):
     """The Q4_K_M engine under each LGT_MM_VARIANT: its Q4_K projections
-    through that variant's kernel (never fsplit's, decode or tensor-core),
-    the Q6_K head through the
-    8-bit kernel, held against the plain versions over 17 steps; then three
-    greedy requests through the server. Each run is one launch window."""
+    through that variant's decode kernel (never fsplit's, decode or
+    tensor-core; the body's own tensor-core kernel only for a prompt of at
+    least its threshold's rows: int8's 10-row prefill), the Q6_K head
+    through the 8-bit kernel, held against the plain versions over 17
+    steps; then three greedy requests through the server. Under int8 and
+    base, then one 512-token chunk through that body's tensor-core kernel
+    (int8: its logits held to INT8_LOGITS_TOL and every call shadowed by its
+    plain version). Each run is one launch window."""
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     kernel = {"base": qm.NAME_4BIT_BASE, "xsum": qm.NAME_4BIT_XSUM,
               "split": qm.NAME_4BIT_SPLIT, "int8": qm.NAME_4BIT_INT8}
+    chunk_kernel = {"base": qm.NAME_4BIT_BASE_TC, "int8": qm.NAME_4BIT_INT8_TC}
+    tc_rows = {"base": qm.LOWBIT_TC_MIN_ROWS, "int8": qm.INT8_TC_MIN_ROWS}
+    n_prompt = len(engine.tokenizer.encode(PROMPT))
     paths = []
     for var in VARIANTS:
-        want, absent = (kernel[var], qm.NAME_8BIT), (qm.NAME_4BIT, qm.NAME_4BIT_TC, qm.NAME_DEQUANT)
+        # the prompt's prefill takes the body's tensor-core kernel from its
+        # threshold (the decode steps never do); the served prompts' prefill,
+        # padded to the engine's 16-row bucket, may take it too
+        tc = [chunk_kernel[var]] if var in chunk_kernel and n_prompt >= tc_rows[var] else []
+        want = (kernel[var], qm.NAME_8BIT, *tc)
+        served_absent = (qm.NAME_4BIT, qm.NAME_4BIT_TC, qm.NAME_DEQUANT)
+        absent = (*served_absent, *(k for k in chunk_kernel.values() if k not in tc))
         with mm_variant(var):
             launches, out = _variant_forward(
                 torch, engine, f"variant {var}", want, absent, shadow=kernel[var],
@@ -1107,12 +1186,18 @@ def phase_variants(torch, engine):
                     {"prompt": f"request {i}: the lazy dog", "max_tokens": 16,
                      "temperature": 0} for i in range(3)])
                 wall = time.time() - t0
-        _check_launches(f"variant {var} serve", served, want, absent)
+        _check_launches(f"variant {var} serve", served, want, served_absent)
         ntok = sum(r[1]["usage"]["completion_tokens"] for r in results)
         emit({"phase": "variants", "ok": True, "variant": var, "kernel": kernel[var], **out,
               "launches": launches, "served_tokens": ntok,
               "served_tok_s": round(ntok / wall, 2), "served_launches": served})
         paths += [launches, served]
+        if var in chunk_kernel:
+            with mm_variant(var):
+                paths.append(_prefill_chunk(
+                    torch, engine, f"variant {var} chunk", chunk_kernel[var],
+                    tol=INT8_LOGITS_TOL if var == "int8" else LOGITS_TOL,
+                    shadow=kernel[var] if var == "int8" else None))
     return paths
 
 
@@ -1263,7 +1348,7 @@ def phase_q2k(torch):
     finally:
         engine.stop()
         os.environ.pop("LGT_SCALE_LAYOUT", None)
-    return [launches, served, chunk, base]
+    return [launches, served, chunk, *base]
 
 
 def _as_flat(w):
@@ -1280,8 +1365,9 @@ def _q2k_base(torch, engine):
     """``LGT_MM_VARIANT=base`` on the Q2_K engine: the mixed layout takes the
     dequantize path there (as ``matmul_xla`` in the JAX package), so two
     greedy steps show that; then its 2-bit weights are relaid flat and the
-    17-step forward runs through the base body's 2-bit kernel against the
-    plain versions."""
+    17-step forward runs through the base body's 2-bit decode kernel against
+    the plain versions, and one 512-token chunk through its tensor-core
+    kernel."""
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     with mm_variant("base"):
@@ -1297,11 +1383,13 @@ def _q2k_base(torch, engine):
                     layer[n] = _as_flat(w)
         launches, out = _variant_forward(torch, engine, "q2k base, flat",
                                          (qm.NAME_LOWBIT_BASE, qm.NAME_8BIT),
-                                         (qm.NAME_2BIT, qm.NAME_2BIT_TC, qm.NAME_DEQUANT),
+                                         (qm.NAME_2BIT, qm.NAME_2BIT_TC, qm.NAME_DEQUANT,
+                                          qm.NAME_LOWBIT_BASE_TC),
                                          shadow=qm.NAME_LOWBIT_BASE)
-    emit({"phase": "q2k-base", "ok": True, "mixed_launches": mixed, **out,
-          "launches": launches})
-    return launches
+        emit({"phase": "q2k-base", "ok": True, "mixed_launches": mixed, **out,
+              "launches": launches})
+        chunk = _prefill_chunk(torch, engine, "q2k-base-chunk", qm.NAME_LOWBIT_BASE_TC)
+    return [launches, chunk]
 
 
 def phase_q5k(torch):
@@ -1368,13 +1456,16 @@ def _words(engine, n_max):
     return text, engine.tokenizer.encode(text)
 
 
-def _prefill_chunk(torch, engine, label, tc_name):
+def _prefill_chunk(torch, engine, label, tc_name, tol=LOGITS_TOL, shadow=None):
     """One 512-token prefill chunk, launches counted over it: per layer, qkv,
     o and gate_up through the tensor-core kernel ``tc_name``, and ffn_down,
     whose 512 x 14336 activations pass the JAX package's gate
     (``LGT_MM_MAX_B``, ``LGT_MM_X_VMEM``), through the dequantize path; the
-    head's one row through the 8-bit decode kernel; no plain version. Its
-    logits are then held against the plain versions fed the same tokens."""
+    head's one row through the 8-bit decode kernel; no other matmul body and
+    no plain version. With ``shadow`` (a matmul wrapper's name) the chunk
+    runs again, every call of that wrapper held to MATMUL_TOL of its plain
+    version on the same inputs. Its logits are then held to ``tol`` of the
+    plain versions' fed the same tokens."""
     from llama_gguf_inference_tpu_torch.models.llama import KVCache, forward
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
@@ -1404,12 +1495,21 @@ def _prefill_chunk(torch, engine, label, tc_name):
     want = {tc_name: 3 * layers, qm.NAME_DEQUANT: layers, qm.NAME_8BIT: 1}
     if matmuls != want or any(n.endswith(".plain") for n in launches):
         raise AssertionError(f"{label} 512-token chunk: launches {launches}, want {want}")
+    out = {}
+    if shadow:
+        shadow_errs: list[float] = []
+        with shadowed(torch, shadow, shadow_errs):
+            chunk()
+        if len(shadow_errs) != 3 * layers or max(shadow_errs) > MATMUL_TOL:
+            raise AssertionError(f"{label}: {shadow} against its plain version: {shadow_errs}")
+        out = {"shadow_calls": len(shadow_errs), "shadow_rel_err_max": max(shadow_errs)}
     with plain_versions():
         p_logits = chunk()
     _check_logits(torch, engine, [k_logits])
-    errs, agree = _compare([k_logits], [p_logits])
+    errs, agree = _compare([k_logits], [p_logits], tol)
     emit({"phase": label, "ok": True, "rows": 512, "logits_rel_err": errs[0],
-          "argmax_agree": agree, "first_chunk_wall_s": round(wall, 4), "launches": launches})
+          "logits_tol": tol, "argmax_agree": agree, **out,
+          "first_chunk_wall_s": round(wall, 4), "launches": launches})
     return launches
 
 
@@ -1455,6 +1555,7 @@ _FA_JAX = "llama_gguf_inference_tpu/ops/flash_attention.py"
 _QM_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu"
 _QM_TC_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul_tc.cu"
 _QM_LTC_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul_lowbit_tc.cu"
+_QM_ITC_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul_int8_tc.cu"
 _QM_JAX = "llama_gguf_inference_tpu/ops/pallas_matmul.py"
 SOURCES = {
     # name: (source, TPU kernel it replaces); pallas_call sites are
@@ -1471,6 +1572,10 @@ SOURCES = {
     "quant_matmul_4bit_int8": (_QM_CU, _QM_JAX + ":536"),
     "quant_matmul_4bit_base": (_QM_CU, _QM_JAX + ":157"),      # _make_kernel, bf16-magic branch
     "quant_matmul_lowbit_base": (_QM_CU, _QM_JAX + ":172"),    # _make_kernel, f32 low-bit branch
+    # the same three at prefill rows, on tensor cores
+    "quant_matmul_4bit_int8_tc": (_QM_ITC_CU, _QM_JAX + ":536"),
+    "quant_matmul_4bit_base_tc": (_QM_LTC_CU, _QM_JAX + ":157"),
+    "quant_matmul_lowbit_base_tc": (_QM_LTC_CU, _QM_JAX + ":172"),
     "quant_matmul_8bit": (_QM_CU, _QM_JAX + ":123"),           # _make_kernel, 8-bit branch
     "quant_matmul_8bit_min": (_QM_CU, _QM_JAX + ":185"),       # the same, with its min term
     # the same with its min term, prefill rows, tensor cores (the instance
@@ -1486,7 +1591,7 @@ SOURCES = {
 }
 # the kernels line reports each kernel at its decode shape (4 slots; the
 # paged ones with their idle fifth; the 2-bit one in the layout the q2k
-# phase serves), the tensor-core ones at a 512-row prefill chunk
+# phase serves), the tensor-core ones at a 512-row prefill chunk's gate_up
 LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_4bit": "gate_up 28672x4096 B=4",
               "quant_matmul_2bit_tc": "q2_k mixed tc gate_up 28672x4096 B=512",
@@ -1494,6 +1599,9 @@ LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               **{f"quant_matmul_4bit_{v}": f"q4_k flat {v} gate_up 28672x4096 B=4"
                  for v in VARIANTS},
               "quant_matmul_lowbit_base": "q2_k flat base gate_up 28672x4096 B=4",
+              "quant_matmul_4bit_int8_tc": "q4_k flat int8 tc gate_up 28672x4096 B=512",
+              "quant_matmul_4bit_base_tc": "q4_k flat base tc gate_up 28672x4096 B=512",
+              "quant_matmul_lowbit_base_tc": "q2_k flat base tc gate_up 28672x4096 B=512",
               "quant_matmul_8bit": "head 128256x4096 B=4",
               "quant_matmul_8bit_min": "q5_k compact 8bit gate_up 28672x4096 B=4",
               "quant_matmul_8bit_min_tc": "q5_k compact 8bit gate_up 28672x4096 B=512",

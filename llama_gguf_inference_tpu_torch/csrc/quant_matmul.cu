@@ -74,35 +74,28 @@
 // activation rows at once; a second grid axis tiles further activation rows,
 // so any row count works (prefill re-reads the weights from L2 once per 8
 // rows: right, not fast). The 8-bit kernel here serves fewer than
-// TC_MIN_ROWS rows (ops/quant_matmul.py), the fsplit rule of the 2/4-bit
-// kernel fewer than LOWBIT_TC_MIN_ROWS; from there up the wrappers take the
-// tensor-core kernels of quant_matmul_tc.cu and quant_matmul_lowbit_tc.cu,
-// which decode each weight once per 128 rows into shared memory. The int8
-// kernel gives each lane four neighbouring sub-blocks and walks their
-// elements (stride nsub), so a warp reads 128 neighbouring code bytes per
-// step and keeps 4 exact int32 sums per activation row. Tensor cores for
-// the int8 kernel and the other 2/4-bit rules, TMA and split-K are later
-// work.
+// TC_MIN_ROWS rows (ops/quant_matmul.py), the fsplit, base and base_f32
+// rules of the 2/4-bit kernel fewer than LOWBIT_TC_MIN_ROWS, the int8 kernel
+// fewer than INT8_TC_MIN_ROWS; from there up the wrappers take the
+// tensor-core kernels of quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu and
+// quant_matmul_int8_tc.cu, which decode each weight once per 128 rows. The
+// int8 kernel here gives each lane four neighbouring sub-blocks and walks
+// their elements (stride nsub), so a warp reads 128 neighbouring code bytes
+// per step and keeps 4 exact int32 sums per activation row. The element
+// rules live in lowbit_rule.cuh, shared with the tensor-core 2/4-bit
+// kernel. Tensor cores for the xsum and split rules, TMA and split-K are
+// later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "code_value.cuh"
+#include "lowbit_rule.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;   // output rows per block, one warp each
 constexpr int kRows = 8;    // activation rows per block
-
-// How one side (scale or min) of a weight is stored.
-enum Side : int { kNone = 0, kFlat = 1, kHierU8 = 2, kHierI8 = 3 };
-// The element rule of a 2/4-bit instance: which TPU body it follows.
-enum Var : int { kFsplit = 0, kXsum = 1, kSplit = 2, kBase = 3, kBaseF32 = 4 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // 16 consecutive bf16 at a 16-byte aligned address -> f32.
 __device__ __forceinline__ void load_bf16x16(const __nv_bfloat16* p, float* out) {
@@ -120,18 +113,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Value of sub-block k on one side: a flat side's f32 array at k; a
-// hierarchical side's f32 array at kb = k mod (its width) times the 8-bit
-// sub-block factor sub[k].
-template <int kSide>
-__device__ __forceinline__ float side_at(const float* base, const uint8_t* sub,
-                                         int k, int kb) {
-  const float b = __ldg(base + (kSide == kFlat ? k : kb));
-  if constexpr (kSide == kHierU8) return __fmul_rn(b, (float)__ldg(sub + k));
-  if constexpr (kSide == kHierI8) return __fmul_rn(b, (float)(int8_t)__ldg(sub + k));
-  return b;
 }
 
 struct LowbitArgs {
@@ -155,44 +136,6 @@ __device__ __forceinline__ void next_sub(int& k, int& kd, int nsub, int nd) {
     kd = 0;
   } else if (kTrackKd && ++kd == nd) {
     kd = 0;
-  }
-}
-
-// The per-sub-block factors (s, m) of the element rule of kVar, and the
-// element itself.
-template <int kVar, int kS, int kM>
-__device__ __forceinline__ void sub_factors(const float* drow, const uint8_t* scrow,
-                                            const float* dminrow, const uint8_t* mnrow,
-                                            int bias, int k, int kd, float& s, float& m) {
-  const float sv = side_at<kS>(drow, scrow, k, kd);
-  if constexpr (kVar == kFsplit) {
-    s = sv;
-  } else if constexpr (kVar == kXsum || kVar == kSplit) {
-    s = bf16_round(sv);
-  } else if constexpr (kVar == kBase) {
-    // m' = m + bias*s in f32, then both rounded to bf16 (:171, :194-195)
-    float mp = __fmul_rn((float)bias, sv);
-    if constexpr (kM != kNone) mp = __fadd_rn(side_at<kM>(dminrow, mnrow, k, kd), mp);
-    s = bf16_round(sv);
-    m = bf16_round(mp);
-  } else {
-    s = sv;
-    if constexpr (kM != kNone) m = side_at<kM>(dminrow, mnrow, k, kd);
-  }
-}
-
-template <int kVar, int kM, int kMap>
-__device__ __forceinline__ float element(int c, float s, float m, int bias) {
-  if constexpr (kVar == kFsplit) {
-    return bf16_round(__fmul_rn((float)code_value<kMap>(c), s));
-  } else if constexpr (kVar == kXsum || kVar == kSplit) {
-    return bf16_round(__fmul_rn((float)c, s));
-  } else if constexpr (kVar == kBase) {
-    return bf16_round(__fsub_rn(bf16_round(__fmul_rn((float)c, s)), m));
-  } else {
-    const float w = __fmul_rn((float)(code_value<kMap>(c) - bias), s);
-    if constexpr (kM != kNone) return bf16_round(__fsub_rn(w, m));
-    return bf16_round(w);
   }
 }
 

@@ -1,19 +1,31 @@
 // Tensor-core path of the 2- and 4-bit dequantize + matmul, for prefill-sized
 // row counts, for Hopper (sm_90a).
 //
-// Replaces, from ops/quant_matmul.py's LOWBIT_TC_MIN_ROWS activation rows up,
-// the TPU bodies of the fsplit rule
-// (llama_gguf_inference_tpu/ops/pallas_matmul.py, launched by the
-// pallas_call at :641):
-//   lgt_quant_matmul_4bit_tc <- _make_kernel_fsplit (:421): planar nibbles
-//                              (Q4_K, Q4_0, Q4_1; Q3_K's 3-bit codes with
-//                              bias 4; the IQ2/IQ3 code->value maps)
-//   lgt_quant_matmul_2bit_tc <- _make_kernel_qsplit (:481): planar quarters
-//                              (Q2_K)
+// Replaces, from ops/quant_matmul.py's LOWBIT_TC_MIN_ROWS activation rows
+// up, these TPU bodies of llama_gguf_inference_tpu/ops/pallas_matmul.py:
+//   fsplit rule, pallas_call at :641:
+//     lgt_quant_matmul_4bit_tc <- _make_kernel_fsplit (:421): planar nibbles
+//                                (Q4_K, Q4_0, Q4_1; Q3_K's 3-bit codes with
+//                                bias 4; the IQ2/IQ3 code->value maps)
+//     lgt_quant_matmul_2bit_tc <- _make_kernel_qsplit (:481): planar quarters
+//                                (Q2_K)
+//   base rules, pallas_call at :247 (_make_kernel, LGT_MM_VARIANT=base):
+//     lgt_quant_matmul_4bit_tc, var base <- the bf16-magic 4-bit branch
+//                                (:157-171; Q4_K, Q4_0, Q4_1, Q3_K)
+//     lgt_quant_matmul_{2,4}bit_tc, var base_f32 <- the f32 branch (:172-192;
+//                                Q2_K, and the IQ2/IQ3-mapped 4-bit codes)
 // Fewer rows, or a geometry this kernel does not take, run
-// lgt_quant_matmul_lowbit in quant_matmul.cu, the decode kernel.
+// lgt_quant_matmul_lowbit in quant_matmul.cu, the decode kernel. Both take
+// each rule's arithmetic from lowbit_rule.cuh.
 //
-// It computes what lgt_quant_matmul_lowbit's fsplit rule computes: with P =
+// The base rules fold the min into the weight (w = bf16(bf16(q*bf16 s) -
+// bf16 m') and w = bf16((v(q) - bias)*s - m) in f32), so their instances
+// have no xsum term and skip the min-term prologue below; the decode stage
+// keeps a second register array, the chunk's m' (or m), beside its scales.
+// The base rules take no mixed layout, as the JAX dispatcher sends it to
+// matmul_xla.
+//
+// The fsplit rule computes what the decode kernel's fsplit rule computes: with P =
 // 8/bits code planes, q = in/P stored bytes a row, plane i's code of stored
 // byte j c_i = (byte >> bits*i) & (2^bits - 1) and k = j mod nsub,
 //   y[b,o] = sum_i sum_j x[b, i*q + j] * bf16(v(c_i) * s[k])
@@ -77,7 +89,7 @@
 //   scales zero, and the epilogue writes only rows < B and columns < out.
 
 #include "tc_common.cuh"
-#include "code_value.cuh"
+#include "lowbit_rule.cuh"
 
 namespace {
 
@@ -100,18 +112,28 @@ struct ArgsLowTC {
   int B, in_f, out_f, nsub, nd, ndm, bias;
 };
 
-// This thread's run of kPer stored bytes c: plane p's codes to bf16(v(code)
-// * s[e]), stored at wd.
-template <int kBits, int kMap, int kPer>
+// This thread's run of kPer stored bytes c: plane p's codes to the weights
+// of the element rule kVar (lowbit_rule.cuh) with the sub-block factors s[e]
+// and m[e], stored at wd as bf16. The fsplit rule, bf16(v(code) * s[e]),
+// rounds once, in the pack.
+template <int kVar, int kBits, int kMap, int kM, int kPer>
 __device__ __forceinline__ void decode_plane(const uint8_t* c, int p, const float (&s)[kPer],
+                                             const float (&m)[kPer], int bias,
                                              unsigned char* wd) {
   constexpr int kMask = (1 << kBits) - 1;
   const int sh = kBits * p;
   uint32_t w[kPer / 2];
 #pragma unroll
   for (int e = 0; e < kPer; e += 2) {
-    const float v0 = __fmul_rn((float)code_value<kMap>((c[e] >> sh) & kMask), s[e]);
-    const float v1 = __fmul_rn((float)code_value<kMap>((c[e + 1] >> sh) & kMask), s[e + 1]);
+    const int q0 = (c[e] >> sh) & kMask, q1 = (c[e + 1] >> sh) & kMask;
+    float v0, v1;
+    if constexpr (kVar == kFsplit) {
+      v0 = __fmul_rn((float)code_value<kMap>(q0), s[e]);
+      v1 = __fmul_rn((float)code_value<kMap>(q1), s[e + 1]);
+    } else {
+      v0 = element<kVar, kM, kMap>(q0, s[e], m[e], bias);
+      v1 = element<kVar, kM, kMap>(q1, s[e + 1], m[e + 1], bias);
+    }
     const __nv_bfloat162 pr = __floats2bfloat162_rn(v0, v1);
     w[e / 2] = *reinterpret_cast<const uint32_t*>(&pr);
   }
@@ -138,7 +160,7 @@ __device__ __forceinline__ float min_prime(const ArgsLowTC& a, int o, int k) {
   return mp;
 }
 
-template <int kBits, int kMap, int kS, int kM>
+template <int kBits, int kVar, int kMap, int kS, int kM>
 __global__ void __launch_bounds__(kThreads, 2)
 quant_matmul_lowbit_tc_kernel(const ArgsLowTC a) {
   using T = Tile<kBN>;
@@ -189,7 +211,10 @@ quant_matmul_lowbit_tc_kernel(const ArgsLowTC a) {
   const size_t orow = (size_t)(o_ok ? o : 0);
   const float* drow = a.d + orow * a.nd;
   const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + orow * a.nsub;
-  float s[kPer];
+  // the base rules' min side, as wide as the scale side (no mixed layout)
+  const float* dminrow = kM == kNone ? nullptr : a.dmin + orow * a.ndm;
+  const uint8_t* mnrow = (kM == kHierU8 || kM == kHierI8) ? a.mn + orow * a.nsub : nullptr;
+  float s[kPer], m[kPer];
 
   // this warp's outputs: rows wm.., columns wn..; a warp whose rows all lie
   // past B skips its products
@@ -216,7 +241,7 @@ quant_matmul_lowbit_tc_kernel(const ArgsLowTC a) {
   // banks. A thread issues all its loads of a chunk before it uses any, and
   // before the barrier that waits for the other warps' sums of the chunk
   // before.
-  if (kM != kNone || a.bias != 0) {
+  if (kVar == kFsplit && (kM != kNone || a.bias != 0)) {
     constexpr int kXE = kEK * kBM / kThreads, kME = kEK * kBN / kThreads;
     float* const xsm = reinterpret_cast<float*>(xs + (kStages - 2) * kXTile);
     float* const msm = xsm + kEK * (kBM + 1);
@@ -283,14 +308,28 @@ quant_matmul_lowbit_tc_kernel(const ArgsLowTC a) {
 
     const int nx = i + 1;
     if (nx < steps) {
-      if (nx % sub == 0)   // a new chunk: its scales
-        chunk_side<kS>(drow, scrow, (nx / sub) * kBK + kk0, a.nd, o_ok, s);
+      if (nx % sub == 0) {   // a new chunk: its scales (and the base rules' mins)
+        const int k0 = (nx / sub) * kBK + kk0;
+        chunk_side<kS>(drow, scrow, k0, a.nd, o_ok, s);
+        if constexpr (kVar != kFsplit) {
+          float mv[kPer];
+          if constexpr (kM != kNone) {
+            chunk_side<kM>(dminrow, mnrow, k0, a.nd, o_ok, mv);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kPer; ++e) mv[e] = 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) rule_factors<kVar, kM>(s[e], mv[e], a.bias, s[e], m[e]);
+        }
+      }
       const unsigned char* cp = cs + ((nx / kP) % kCodeStages) * T::kCTile + n * kCPitch + kk0;
       uint4 cq[kPer / 16];
 #pragma unroll
       for (int h = 0; h < kPer / 16; ++h) cq[h] = *reinterpret_cast<const uint4*>(cp + 16 * h);
-      decode_plane<kBits, kMap, kPer>(reinterpret_cast<const uint8_t*>(cq), (nx % sub) % kP, s,
-                                      ws + (nx & 1) * T::kWTile + (n * kPitch + kk0) * 2);
+      decode_plane<kVar, kBits, kMap, kM, kPer>(reinterpret_cast<const uint8_t*>(cq),
+                                                (nx % sub) % kP, s, m, a.bias,
+                                                ws + (nx & 1) * T::kWTile + (n * kPitch + kk0) * 2);
     }
 
     if (i >= 0 && warp_live) {
@@ -319,43 +358,73 @@ quant_matmul_lowbit_tc_kernel(const ArgsLowTC a) {
   }
 }
 
-template <int kBits, int kMap, int kS, int kM>
+template <int kBits, int kVar, int kMap, int kS, int kM>
 int launch_low(const ArgsLowTC& a, cudaStream_t st) {
   constexpr int smem = kSmemLow;
   static bool sized = false;   // the shared-memory limit is set once an instance
   if (!sized) {
-    const int rc = (int)cudaFuncSetAttribute(quant_matmul_lowbit_tc_kernel<kBits, kMap, kS, kM>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const int rc = (int)cudaFuncSetAttribute(
+        quant_matmul_lowbit_tc_kernel<kBits, kVar, kMap, kS, kM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc != 0) return rc;
     sized = true;
   }
   const dim3 grid((a.B + kBM - 1) / kBM, (a.out_f + kBN - 1) / kBN);
-  quant_matmul_lowbit_tc_kernel<kBits, kMap, kS, kM><<<grid, kThreads, smem, st>>>(a);
+  quant_matmul_lowbit_tc_kernel<kBits, kVar, kMap, kS, kM><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The min sides a scale side pairs with, as lgt_quant_matmul_lowbit's fsplit
-// rule takes them: none, or flat beside a flat scale, or hierarchical
-// (compact beside a hierarchical scale, mixed beside a flat one). Mapped
-// codes come without a min.
-template <int kBits, int kMap, int kS>
+// The min sides a scale side pairs with, as lgt_quant_matmul_lowbit takes
+// them: none, or flat beside a flat scale, or hierarchical (compact beside
+// a hierarchical scale; mixed beside a flat one, the fsplit rule only).
+// Mapped codes come without a min.
+template <int kBits, int kVar, int kMap, int kS>
 int launch_low_m(const ArgsLowTC& a, int m_side, cudaStream_t st) {
-  if (m_side == kNone) return launch_low<kBits, kMap, kS, kNone>(a, st);
+  if (m_side == kNone) return launch_low<kBits, kVar, kMap, kS, kNone>(a, st);
   if constexpr (kMap == kIdentity) {
     if constexpr (kS == kFlat) {
-      if (m_side == kFlat) return launch_low<kBits, kMap, kS, kFlat>(a, st);
+      if (m_side == kFlat) return launch_low<kBits, kVar, kMap, kS, kFlat>(a, st);
     }
-    if (m_side == kHierU8) return launch_low<kBits, kMap, kS, kHierU8>(a, st);
-    if (m_side == kHierI8) return launch_low<kBits, kMap, kS, kHierI8>(a, st);
+    if constexpr (kS != kFlat || kVar == kFsplit) {
+      if (m_side == kHierU8) return launch_low<kBits, kVar, kMap, kS, kHierU8>(a, st);
+      if (m_side == kHierI8) return launch_low<kBits, kVar, kMap, kS, kHierI8>(a, st);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <int kBits, int kMap>
+template <int kBits, int kVar, int kMap>
 int launch_low_s(const ArgsLowTC& a, int s_side, int m_side, cudaStream_t st) {
-  if (s_side == kFlat) return launch_low_m<kBits, kMap, kFlat>(a, m_side, st);
-  if (s_side == kHierU8) return launch_low_m<kBits, kMap, kHierU8>(a, m_side, st);
-  if (s_side == kHierI8) return launch_low_m<kBits, kMap, kHierI8>(a, m_side, st);
+  if (s_side == kFlat) return launch_low_m<kBits, kVar, kMap, kFlat>(a, m_side, st);
+  if (s_side == kHierU8) return launch_low_m<kBits, kVar, kMap, kHierU8>(a, m_side, st);
+  if (s_side == kHierI8) return launch_low_m<kBits, kVar, kMap, kHierI8>(a, m_side, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The rules and maps an instance takes, as lgt_quant_matmul_lowbit's
+// launch_map: fsplit with any map at 4 bits, the identity at 2; base (4-bit
+// identity codes only); base_f32 at 2 bits, and at 4 bits for the IQ2/IQ3
+// maps only.
+template <int kBits>
+int launch_low_var(const ArgsLowTC& a, int var, int vmap, int s_side, int m_side,
+                   cudaStream_t st) {
+  if (var == kFsplit && vmap == kIdentity)
+    return launch_low_s<kBits, kFsplit, kIdentity>(a, s_side, m_side, st);
+  if constexpr (kBits == 2) {
+    if (var == kBaseF32 && vmap == kIdentity)
+      return launch_low_s<2, kBaseF32, kIdentity>(a, s_side, m_side, st);
+  } else {
+    if (var == kBase && vmap == kIdentity)
+      return launch_low_s<4, kBase, kIdentity>(a, s_side, m_side, st);
+    if (var == kFsplit && vmap == kIq2)
+      return launch_low_s<4, kFsplit, kIq2>(a, s_side, m_side, st);
+    if (var == kFsplit && vmap == kIq3)
+      return launch_low_s<4, kFsplit, kIq3>(a, s_side, m_side, st);
+    if (var == kBaseF32 && vmap == kIq2)
+      return launch_low_s<4, kBaseF32, kIq2>(a, s_side, m_side, st);
+    if (var == kBaseF32 && vmap == kIq3)
+      return launch_low_s<4, kBaseF32, kIq3>(a, s_side, m_side, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -372,41 +441,38 @@ inline bool takes(int bits, int in_f, int nsub, int nd, int ndm) {
 
 extern "C" {
 
-// Arguments as lgt_quant_matmul_lowbit's fsplit rule: x (B, in) bf16
-// block-minor; xsum (B, nsub) f32 in the min side's order; codes (out,
-// in*bits/8) u8 planar; d (out, nd) f32; sc (out, nsub) u8/i8 or null; dmin
-// (out, ndm) f32 or null; mn (out, nsub) u8/i8 or null -> y (B, out) f32.
-// s_side and m_side name each side's storage (Side), vmap the code alphabet
-// (Map, 4 bits only). Needs in % 64 == 0, nsub % 64 == 0, in/nsub a multiple
-// of the planes, nd % 4 == 0; 16-byte aligned arrays.
+// Arguments as lgt_quant_matmul_lowbit's: x (B, in) bf16 block-minor; xsum
+// (B, nsub) f32 in the min side's order (fsplit; null for the base rules);
+// codes (out, in*bits/8) u8 planar; d (out, nd) f32; sc (out, nsub) u8/i8 or
+// null; dmin (out, ndm) f32 or null; mn (out, nsub) u8/i8 or null -> y (B,
+// out) f32. s_side and m_side name each side's storage (Side), var the
+// element rule (Var: fsplit, base, base_f32), vmap the code alphabet (Map,
+// 4 bits only). Needs in % 64 == 0, nsub % 64 == 0, in/nsub a multiple of
+// the planes, nd % 4 == 0; 16-byte aligned arrays.
 int lgt_quant_matmul_4bit_tc(const void* x, const void* xsum, const void* codes,
                              const void* d, const void* sc, const void* dmin, const void* mn,
                              void* y, int B, int in_f, int out_f, int nsub, int nd, int ndm,
-                             int bias, int s_side, int m_side, int vmap, void* stream) {
+                             int bias, int s_side, int m_side, int var, int vmap, void* stream) {
   if (!takes(4, in_f, nsub, nd, ndm)) return (int)cudaErrorInvalidValue;
   if (B == 0 || out_f == 0) return 0;
   const ArgsLowTC a{(const __nv_bfloat16*)x, (const float*)xsum, (const uint8_t*)codes,
                     (const float*)d, (const uint8_t*)sc, (const float*)dmin,
                     (const uint8_t*)mn, (float*)y, B, in_f, out_f, nsub, nd, ndm, bias};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (vmap == kIdentity) return launch_low_s<4, kIdentity>(a, s_side, m_side, st);
-  if (vmap == kIq2) return launch_low_s<4, kIq2>(a, s_side, m_side, st);
-  if (vmap == kIq3) return launch_low_s<4, kIq3>(a, s_side, m_side, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_low_var<4>(a, var, vmap, s_side, m_side, (cudaStream_t)stream);
 }
 
-// As lgt_quant_matmul_4bit_tc, with codes (out, in/4) planar quarters and
-// no code map (vmap 0).
+// As lgt_quant_matmul_4bit_tc, with codes (out, in/4) planar quarters, the
+// fsplit or base_f32 rule and no code map (vmap 0).
 int lgt_quant_matmul_2bit_tc(const void* x, const void* xsum, const void* codes,
                              const void* d, const void* sc, const void* dmin, const void* mn,
                              void* y, int B, int in_f, int out_f, int nsub, int nd, int ndm,
-                             int bias, int s_side, int m_side, int vmap, void* stream) {
-  if (!takes(2, in_f, nsub, nd, ndm) || vmap != kIdentity) return (int)cudaErrorInvalidValue;
+                             int bias, int s_side, int m_side, int var, int vmap, void* stream) {
+  if (!takes(2, in_f, nsub, nd, ndm)) return (int)cudaErrorInvalidValue;
   if (B == 0 || out_f == 0) return 0;
   const ArgsLowTC a{(const __nv_bfloat16*)x, (const float*)xsum, (const uint8_t*)codes,
                     (const float*)d, (const uint8_t*)sc, (const float*)dmin,
                     (const uint8_t*)mn, (float*)y, B, in_f, out_f, nsub, nd, ndm, bias};
-  return launch_low_s<2, kIdentity>(a, s_side, m_side, (cudaStream_t)stream);
+  return launch_low_var<2>(a, var, vmap, s_side, m_side, (cudaStream_t)stream);
 }
 
 }  // extern "C"

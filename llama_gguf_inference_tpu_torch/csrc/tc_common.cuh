@@ -1,5 +1,6 @@
 // What the tensor-core matmul kernels share (quant_matmul_tc.cu, 8-bit
-// codes; quant_matmul_lowbit_tc.cu, 2- and 4-bit codes): the block tile,
+// codes; quant_matmul_lowbit_tc.cu, 2- and 4-bit codes;
+// quant_matmul_int8_tc.cu, int8 activations): the block tile,
 // the inline PTX (cp.async, ldmatrix, mma.sync), the scale side's loads and
 // the products of one step. Each kernel keeps its own loads, decode stage
 // and epilogue.
@@ -14,10 +15,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-namespace {
+#include "side.cuh"
 
-// How one side (scale or min) of a weight is stored.
-enum Side : int { kNone = 0, kFlat = 1, kHierU8 = 2, kHierI8 = 3 };
+namespace {
 
 constexpr int kBM = 128;        // activation rows a block
 constexpr int kBK = 64;         // positions of x a step
@@ -74,17 +74,26 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
                : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-// end PTX
-
-// Value of sub-block k on one side: a flat side's f32 array at k; a
-// hierarchical side's f32 array at kb times the 8-bit factor sub[k].
-template <int kSide>
-__device__ __forceinline__ float side_at(const float* base, const uint8_t* sub, int k, int kb) {
-  const float b = __ldg(base + (kSide == kFlat ? k : kb));
-  if constexpr (kSide == kHierU8) return __fmul_rn(b, (float)__ldg(sub + k));
-  if constexpr (kSide == kHierI8) return __fmul_rn(b, (float)(int8_t)__ldg(sub + k));
-  return b;
+// d = a (16x32 s8, row) * b (32x8 s8, col) + c, exact int32 sums; the
+// fragments hold the same bytes as mma_bf16's at m16n8k16.
+__device__ __forceinline__ void mma_s8_k32(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1, int c) {
+  asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(c));
 }
+
+// d = a (16x16 s8, row) * b (16x8 s8, col) + c: the first half of the k32
+// fragments (a0, a1 and b0), or the second (a2, a3 and b1).
+__device__ __forceinline__ void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0,
+                                           int c) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+               "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(a0), "r"(a1), "r"(b0), "r"(c));
+}
+// end PTX
 
 // Sub-blocks k0..k0+kPer-1 of one side of a row, as side_at reads them,
 // into v. The 8-bit factors and the f32 values come in 16-byte loads, all

@@ -25,7 +25,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("quant_matmul", "quant_matmul_tc", "quant_matmul_lowbit_tc", "flash_attention")
+SOURCES = ("quant_matmul", "quant_matmul_tc", "quant_matmul_lowbit_tc", "quant_matmul_int8_tc",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -122,12 +123,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.lgt_quant_matmul_8bit_tc.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.lgt_quant_matmul_8bit_tc.restype = i
     elif name == "quant_matmul_lowbit_tc":
-        # the lowbit entry point's arguments without the bits and the element
-        # rule: x, xsum, codes, d, sc, dmin, mn, y; B, in, out, nsub, nd, ndm,
-        # bias, the sides, the code map; the stream
+        # the lowbit entry point's arguments without the bits: x, xsum, codes,
+        # d, sc, dmin, mn, y; B, in, out, nsub, nd, ndm, bias, the sides, the
+        # element rule, the code map; the stream
         for fn in ("lgt_quant_matmul_4bit_tc", "lgt_quant_matmul_2bit_tc"):
-            getattr(lib, fn).argtypes = [p] * 8 + [i] * 10 + [p]
+            getattr(lib, fn).argtypes = [p] * 8 + [i] * 11 + [p]
             getattr(lib, fn).restype = i
+    elif name == "quant_matmul_int8_tc":
+        # xq (sub-block-major), xs and xsum interleaved, codes, d, sc, dmin,
+        # mn, y; B, in, out, nsub, nd, bias, the sides; the stream
+        lib.lgt_quant_matmul_int8_tc.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.lgt_quant_matmul_int8_tc.restype = i
     elif name == "flash_attention":
         # pointers: q, the cache tensors, offsets (and the page table), out;
         # then B, T, H, KVH, S (or NP, page_s), D, the scale and the stream

@@ -29,11 +29,21 @@ counterpart of one TPU body and branch:
   over the row or one per nibble plane, then the same min term;
 - :func:`quant_matmul_4bit_int8` (``_make_kernel_int8``): activations
   quantized per sub-block (:func:`quantize_acts`), exact integer dots per
-  sub-block, ``y = Σ_k (p_k·xs_k)·s_k − xsum·m′ᵀ``;
+  sub-block, ``y = Σ_k (p_k·xs_k)·s_k − xsum·m′ᵀ``; from
+  :data:`INT8_TC_MIN_ROWS` rows, where :func:`int8_tc_takes` the geometry,
+  the s8 tensor-core kernel of ``csrc/quant_matmul_int8_tc.cu``
+  (:func:`quant_matmul_4bit_int8_tc`, launches :data:`NAME_4BIT_INT8_TC`),
+  else the decode kernel (:func:`quant_matmul_4bit_int8_decode`);
 - :func:`quant_matmul_4bit_base` (``_make_kernel``'s bf16-magic branch):
   ``w = bf16(bf16(q·bf16 s) − bf16 m′)``, no xsum term;
 - :func:`quant_matmul_lowbit_base` (``_make_kernel``'s f32 branch, 2-bit
-  codes and value-mapped 4-bit codes): ``w = bf16((v(q) − bias)·s − m)``;
+  codes and value-mapped 4-bit codes): ``w = bf16((v(q) − bias)·s − m)``.
+  Both dispatch as :func:`quant_matmul_4bit` does, to the base rules of the
+  2/4-bit tensor-core kernel (:func:`quant_matmul_4bit_base_tc`,
+  :func:`quant_matmul_lowbit_base_tc`, launches :data:`NAME_4BIT_BASE_TC`
+  and :data:`NAME_LOWBIT_BASE_TC`) or to the decode kernel
+  (:func:`quant_matmul_4bit_base_decode`,
+  :func:`quant_matmul_lowbit_base_decode`);
 - :func:`quant_matmul_8bit` (``_make_kernel``'s 8-bit branch): ``y =
   x·bf16((q − bias)·s_full − m_full)ᵀ``, the min term for the asymmetric
   formats (Q5_K, Q5_1) counted under its own launch name. From
@@ -59,10 +69,10 @@ The activation permute into block-minor order, the per-sub-block sums
 sums' permutation into the ``mn`` order stay plain tensor ops outside the
 kernels, as in the JAX package. Each kernel wrapper launches its CUDA kernel
 (``csrc/quant_matmul.cu``, ``csrc/quant_matmul_tc.cu``,
-``csrc/quant_matmul_lowbit_tc.cu``) for tensors on the
-card, or raises; it takes the plain PyTorch version beside it only for
-tensors on the CPU. Outputs are f32; the dispatcher casts to the activation
-dtype.
+``csrc/quant_matmul_lowbit_tc.cu``, ``csrc/quant_matmul_int8_tc.cu``) for
+tensors on the card, or raises; it takes the plain PyTorch version beside it
+only for tensors on the CPU. Outputs are f32; the dispatcher casts to the
+activation dtype.
 """
 
 from __future__ import annotations
@@ -81,8 +91,11 @@ NAME_4BIT_TC = "quant_matmul_4bit_tc"
 NAME_4BIT_XSUM = "quant_matmul_4bit_xsum"
 NAME_4BIT_SPLIT = "quant_matmul_4bit_split"
 NAME_4BIT_INT8 = "quant_matmul_4bit_int8"
+NAME_4BIT_INT8_TC = "quant_matmul_4bit_int8_tc"
 NAME_4BIT_BASE = "quant_matmul_4bit_base"
+NAME_4BIT_BASE_TC = "quant_matmul_4bit_base_tc"
 NAME_LOWBIT_BASE = "quant_matmul_lowbit_base"
+NAME_LOWBIT_BASE_TC = "quant_matmul_lowbit_base_tc"
 NAME_8BIT = "quant_matmul_8bit"
 NAME_8BIT_MIN = "quant_matmul_8bit_min"
 NAME_8BIT_TC = "quant_matmul_8bit_tc"
@@ -97,8 +110,16 @@ TC_STEP = 64      # the tensor-core kernels' step: they need in and nsub multipl
 # activation rows from which quant_matmul_2bit and quant_matmul_4bit take the
 # tensor-core kernel: on an H100 the decode kernels win at every 8B
 # projection at 8 rows, the tensor-core one at every projection from 32, and
-# at 16 it wins or ties at each but the 4-bit o (PERF.md §6)
+# at 16 it wins or ties at each but the 4-bit o (PERF.md §6). The base rules
+# (quant_matmul_4bit_base, quant_matmul_lowbit_base) cross at the same rows:
+# at 8 the decode kernel wins at every projection but Q2_K's gate+up, from 16
+# the tensor-core one at each but Q4_K's o (PERF.md §6)
 LOWBIT_TC_MIN_ROWS = 16
+# activation rows from which quant_matmul_4bit_int8 takes the tensor-core
+# kernel of csrc/quant_matmul_int8_tc.cu: on an H100 it beats the decode
+# kernel at every 8B projection from 8 rows, the fewest measured (PERF.md §6)
+INT8_TC_MIN_ROWS = 8
+INT8_TC_GROUP = 16   # the int8 tensor-core kernel walks groups of 16 sub-blocks
 
 # how one side (scale or min) of a weight is stored; the values are the
 # kernel's Side enum
@@ -252,8 +273,8 @@ def _lowbit(bits: int, var: int, name: str, plain, x, xsum, codes, d, sc, dmin, 
             code_bias: int, fmt: str = "", tc: bool = False) -> torch.Tensor:
     """Checks and launch shared by the 2- and 4-bit wrappers; ``plain`` runs
     the wrapper's plain version on its own arguments. ``tc`` launches the
-    tensor-core kernel (the fsplit rule only), which raises on a geometry it
-    does not take."""
+    tensor-core kernel (the fsplit, base and base_f32 rules), which raises on
+    a geometry it does not take."""
     B, in_f = x.shape
     base = var in (VAR_BASE, VAR_BASE_F32)
     out_f, nsub, nd, ndm = _check_sides(x, codes, d, sc, dmin, mn, bits, code_bias,
@@ -276,7 +297,7 @@ def _lowbit(bits: int, var: int, name: str, plain, x, xsum, codes, d, sc, dmin, 
             _side(dmin, mn)]
     if tc:
         fn = getattr(_build.library("quant_matmul_lowbit_tc"), f"lgt_quant_matmul_{bits}bit_tc")
-        rc = fn(*args, vmap, torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(*args, var, vmap, torch.cuda.current_stream(dev).cuda_stream)
     else:
         rc = _build.library("quant_matmul").lgt_quant_matmul_lowbit(
             *args, bits, var, vmap, torch.cuda.current_stream(dev).cuda_stream)
@@ -399,27 +420,78 @@ def quant_matmul_4bit_split(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
 def quant_matmul_4bit_base(x, codes, d, sc, dmin, mn, code_bias=0) -> torch.Tensor:
     """x (B, in) bf16 block-minor, 4-bit planar codes and the scale/min
     sides of :func:`quant_matmul_4bit` (no mixed layout) -> (B, out) f32,
-    the weight bf16(bf16(q·bf16 s) − bf16 m′) and no xsum term."""
+    the weight bf16(bf16(q·bf16 s) − bf16 m′) and no xsum term: on the card
+    from :data:`LOWBIT_TC_MIN_ROWS` rows, where :func:`lowbit_tc_takes` the
+    geometry, :func:`quant_matmul_4bit_base_tc`; else
+    :func:`quant_matmul_4bit_base_decode`."""
+    fn = quant_matmul_4bit_base_decode
+    if _takes_tc(4, x, d, sc, dmin):
+        fn = quant_matmul_4bit_base_tc
+    return fn(x, codes, d, sc, dmin, mn, code_bias)
+
+
+def quant_matmul_4bit_base_decode(x, codes, d, sc, dmin, mn, code_bias=0) -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_base`, through the decode kernel at any
+    row count; launches count under :data:`NAME_4BIT_BASE`."""
     return _lowbit(4, VAR_BASE, NAME_4BIT_BASE, lambda: quant_matmul_4bit_base_plain(
         x, codes, d, sc, dmin, mn, code_bias), x, None, codes, d, sc, dmin, mn, code_bias)
+
+
+def quant_matmul_4bit_base_tc(x, codes, d, sc, dmin, mn, code_bias=0) -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_base`, through the tensor-core kernel for
+    prefill-sized row counts (any B); raises on a geometry it does not take.
+    Launches count under :data:`NAME_4BIT_BASE_TC`; the plain version is
+    :func:`quant_matmul_4bit_base_plain`."""
+    return _lowbit(4, VAR_BASE, NAME_4BIT_BASE_TC, lambda: quant_matmul_4bit_base_plain(
+        x, codes, d, sc, dmin, mn, code_bias), x, None, codes, d, sc, dmin, mn, code_bias,
+        tc=True)
 
 
 def quant_matmul_lowbit_base(x, codes, d, sc, dmin, mn, code_bias=0, bits=2,
                              fmt="") -> torch.Tensor:
     """As :func:`quant_matmul_4bit_base` for 2-bit planar quarters (or
     value-mapped 4-bit nibbles), the weight bf16((v(q) − bias)·s − m)
-    formed in f32."""
+    formed in f32: :func:`quant_matmul_lowbit_base_tc` from
+    :data:`LOWBIT_TC_MIN_ROWS` rows where the tensor-core kernel takes the
+    geometry, else :func:`quant_matmul_lowbit_base_decode`."""
+    fn = quant_matmul_lowbit_base_decode
+    if _takes_tc(bits, x, d, sc, dmin):
+        fn = quant_matmul_lowbit_base_tc
+    return fn(x, codes, d, sc, dmin, mn, code_bias, bits, fmt)
+
+
+def quant_matmul_lowbit_base_decode(x, codes, d, sc, dmin, mn, code_bias=0, bits=2,
+                                    fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_lowbit_base`, through the decode kernel at any
+    row count; launches count under :data:`NAME_LOWBIT_BASE`."""
     return _lowbit(bits, VAR_BASE_F32, NAME_LOWBIT_BASE, lambda: quant_matmul_lowbit_base_plain(
         x, codes, d, sc, dmin, mn, code_bias, bits, fmt), x, None, codes, d, sc, dmin, mn,
         code_bias, fmt)
 
 
-def quant_matmul_4bit_int8(xq: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
-                           codes: torch.Tensor, d: torch.Tensor, sc, dmin, mn,
-                           code_bias: int = 0) -> torch.Tensor:
-    """xq (B, in) int8 and xs (B, nsub) f32 from :func:`quantize_acts`, xsum
-    (B, nsub) f32, 4-bit planar codes and the scale/min sides of
-    :func:`quant_matmul_4bit` (no mixed layout) -> (B, out) f32."""
+def quant_matmul_lowbit_base_tc(x, codes, d, sc, dmin, mn, code_bias=0, bits=2,
+                                fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_lowbit_base`, through the tensor-core kernel
+    (any B); raises on a geometry it does not take. Launches count under
+    :data:`NAME_LOWBIT_BASE_TC`; the plain version is
+    :func:`quant_matmul_lowbit_base_plain`."""
+    return _lowbit(bits, VAR_BASE_F32, NAME_LOWBIT_BASE_TC, lambda: quant_matmul_lowbit_base_plain(
+        x, codes, d, sc, dmin, mn, code_bias, bits, fmt), x, None, codes, d, sc, dmin, mn,
+        code_bias, fmt, tc=True)
+
+
+def int8_tc_takes(in_f: int, nsub: int, nd: int, sub: int) -> bool:
+    """Whether the tensor-core int8 kernel takes rows of ``in_f`` positions
+    in ``nsub`` sub-blocks of ``sub`` (16 or 32: one s8 ``mma`` k-step), the
+    scale side ``nd`` wide: it walks groups of :data:`INT8_TC_GROUP`
+    sub-blocks, and its scale loads take ``nd`` a multiple of 4 dividing
+    ``nsub``."""
+    return (sub in (16, 32) and nsub * sub == in_f and nsub % INT8_TC_GROUP == 0
+            and nd > 0 and nd % 4 == 0 and nsub % nd == 0)
+
+
+def _check_int8(xq, xs, xsum, codes, d, sc, dmin, mn, code_bias):
+    """Checks shared by the int8 wrappers; returns (B, in, out, nsub, nd)."""
     B, in_f = xq.shape
     out_f, nsub, nd, _ = _check_sides(xq, codes, d, sc, dmin, mn, 4, code_bias,
                                       with_mixed=False)
@@ -429,6 +501,34 @@ def quant_matmul_4bit_int8(xq: torch.Tensor, xs: torch.Tensor, xsum: torch.Tenso
     _check(xsum, "xsum", torch.float32, (B, nsub), dev)
     if nsub % 4 or in_f % 8:
         raise ValueError(f"int8 matmul needs nsub % 4 == 0 (nsub={nsub})")
+    return B, in_f, out_f, nsub, nd
+
+
+def quant_matmul_4bit_int8(xq: torch.Tensor, xs: torch.Tensor, xsum: torch.Tensor,
+                           codes: torch.Tensor, d: torch.Tensor, sc, dmin, mn,
+                           code_bias: int = 0) -> torch.Tensor:
+    """xq (B, in) int8 and xs (B, nsub) f32 from :func:`quantize_acts`, xsum
+    (B, nsub) f32, 4-bit planar codes and the scale/min sides of
+    :func:`quant_matmul_4bit` (no mixed layout) -> (B, out) f32: on the card
+    from :data:`INT8_TC_MIN_ROWS` rows, where :func:`int8_tc_takes` the
+    geometry, :func:`quant_matmul_4bit_int8_tc`; else
+    :func:`quant_matmul_4bit_int8_decode`."""
+    B, in_f = xq.shape
+    nsub = _nsub(d, sc)
+    fn = quant_matmul_4bit_int8_decode
+    if _on_card(xq) and B >= INT8_TC_MIN_ROWS and int8_tc_takes(in_f, nsub, d.shape[1],
+                                                                in_f // nsub):
+        fn = quant_matmul_4bit_int8_tc
+    return fn(xq, xs, xsum, codes, d, sc, dmin, mn, code_bias)
+
+
+def quant_matmul_4bit_int8_decode(xq, xs, xsum, codes, d, sc, dmin, mn,
+                                  code_bias=0) -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_int8`, through the decode kernel (one warp
+    an output row, 8 activation rows a block) at any row count; launches
+    count under :data:`NAME_4BIT_INT8`."""
+    B, in_f, out_f, nsub, nd = _check_int8(xq, xs, xsum, codes, d, sc, dmin, mn, code_bias)
+    dev = xq.device
     if dev.type != "cuda":
         return quant_matmul_4bit_int8_plain(xq, xs, xsum, codes, d, sc, dmin, mn, code_bias)
     y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
@@ -439,6 +539,34 @@ def quant_matmul_4bit_int8(xq: torch.Tensor, xs: torch.Tensor, xsum: torch.Tenso
         code_bias, _side(d, sc), _side(dmin, mn),
         torch.cuda.current_stream(dev).cuda_stream), NAME_4BIT_INT8)
     _build.count(NAME_4BIT_INT8)
+    return y
+
+
+def quant_matmul_4bit_int8_tc(xq, xs, xsum, codes, d, sc, dmin, mn,
+                              code_bias=0) -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_int8`, through the tensor-core kernel for
+    prefill-sized row counts (any B); raises on a geometry it does not take
+    (:func:`int8_tc_takes`). The kernel reads the activation codes
+    sub-block-major, (B, nsub, sub), and each sub-block's scale beside its
+    block sum, (B, nsub, 2): both are formed here, one PyTorch op each.
+    Launches count under :data:`NAME_4BIT_INT8_TC`; the plain version is
+    :func:`quant_matmul_4bit_int8_plain`."""
+    B, in_f, out_f, nsub, nd = _check_int8(xq, xs, xsum, codes, d, sc, dmin, mn, code_bias)
+    if not int8_tc_takes(in_f, nsub, nd, in_f // nsub):
+        raise ValueError(f"the tensor-core int8 kernel does not take in={in_f}, nsub={nsub}, "
+                         f"nd={nd}")
+    dev = xq.device
+    if dev.type != "cuda":
+        return quant_matmul_4bit_int8_plain(xq, xs, xsum, codes, d, sc, dmin, mn, code_bias)
+    xp = xq.reshape(B, in_f // nsub, nsub).transpose(1, 2).contiguous()
+    xsx = torch.stack((xs, xsum), dim=-1)
+    y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
+    lib = _build.library("quant_matmul_int8_tc")
+    _build.check(lib.lgt_quant_matmul_int8_tc(
+        xp.data_ptr(), xsx.data_ptr(), codes.data_ptr(), d.data_ptr(), _ptr(sc), _ptr(dmin),
+        _ptr(mn), y.data_ptr(), B, in_f, out_f, nsub, nd, code_bias, _side(d, sc),
+        _side(dmin, mn), torch.cuda.current_stream(dev).cuda_stream), NAME_4BIT_INT8_TC)
+    _build.count(NAME_4BIT_INT8_TC)
     return y
 
 

@@ -19,7 +19,8 @@ card's name and power limit (``nvidia-smi``), the scale layout
    share. The breakdown names each matmul kernel that ran (2-bit, 4-bit
    fsplit/xsum/split/base/int8, the base body's f32 branch, 8-bit with and
    without the min term, decode and tensor-core kernels, the 2- and 4-bit
-   tensor-core kernels); the dequantize
+   tensor-core kernels of the fsplit, base and base_f32 rules, the int8
+   body's tensor-core kernel); the dequantize
    path's cuBLAS product and its elementwise decode are among the other
    kernels.
 """
@@ -44,15 +45,19 @@ from .synth import QUANTS, SHAPES, cached_model
 LOWBIT = {(2, 0): qm.NAME_2BIT, (4, 0): qm.NAME_4BIT, (4, 1): qm.NAME_4BIT_XSUM,
           (4, 2): qm.NAME_4BIT_SPLIT, (4, 3): qm.NAME_4BIT_BASE,
           (2, 4): qm.NAME_LOWBIT_BASE, (4, 4): qm.NAME_LOWBIT_BASE}
-KERNELS = (*dict.fromkeys(LOWBIT.values()), qm.NAME_2BIT_TC, qm.NAME_4BIT_TC, qm.NAME_4BIT_INT8,
-           qm.NAME_8BIT, qm.NAME_8BIT_MIN, qm.NAME_8BIT_TC, qm.NAME_8BIT_MIN_TC, fa.NAME)
+# the 2/4-bit tensor-core template by (bits, element rule)
+LOWBIT_TC = {(2, 0): qm.NAME_2BIT_TC, (4, 0): qm.NAME_4BIT_TC, (4, 3): qm.NAME_4BIT_BASE_TC,
+             (2, 4): qm.NAME_LOWBIT_BASE_TC, (4, 4): qm.NAME_LOWBIT_BASE_TC}
+KERNELS = (*dict.fromkeys(LOWBIT.values()), *dict.fromkeys(LOWBIT_TC.values()),
+           qm.NAME_4BIT_INT8, qm.NAME_4BIT_INT8_TC, qm.NAME_8BIT, qm.NAME_8BIT_MIN,
+           qm.NAME_8BIT_TC, qm.NAME_8BIT_MIN_TC, fa.NAME)
 LIVE = 512
 
 
 def _kernel_group(name: str) -> str:
-    m = re.search(r"quant_matmul_lowbit_tc_kernel<(\d+)", name)
+    m = re.search(r"quant_matmul_lowbit_tc_kernel<(\d+), (\d+)", name)
     if m:
-        return qm.NAME_2BIT_TC if m[1] == "2" else qm.NAME_4BIT_TC
+        return LOWBIT_TC[int(m[1]), int(m[2])]
     m = re.search(r"quant_matmul_lowbit_kernel<(\d+), (\d+)", name)
     if m:
         return LOWBIT[int(m[1]), int(m[2])]
@@ -62,6 +67,8 @@ def _kernel_group(name: str) -> str:
     m = re.search(r"quant_matmul_8bit_tc_kernel<\d+, (\d+)", name)
     if m:
         return qm.NAME_8BIT_TC if m[1] == "0" else qm.NAME_8BIT_MIN_TC
+    if "quant_matmul_int8_tc_kernel" in name:
+        return qm.NAME_4BIT_INT8_TC
     if "quant_matmul_int8_kernel" in name:
         return qm.NAME_4BIT_INT8
     return fa.NAME if "flash_attention" in name else "other"

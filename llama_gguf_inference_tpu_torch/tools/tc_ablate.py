@@ -1,17 +1,24 @@
 """Where the tensor-core matmul kernels' time goes, on one card.
 
-    python -m llama_gguf_inference_tpu_torch.tools.tc_ablate [--seed 0]
+    python -m llama_gguf_inference_tpu_torch.tools.tc_ablate [--seed 0] [--kinds q4_k,q4_k_int8]
 
 Builds each tensor-core source into the build directory as it is and cut:
 ``csrc/quant_matmul_tc.cu`` (8-bit codes) and
 ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes) without their decode
 stage (each step's weight tile left as an earlier step wrote it) and without
 their products (``ldmatrix`` and ``mma.sync``); the 2/4-bit one also
-without its min-term epilogue. Times each build, and the decode kernel and
-``torch.matmul`` on a bf16 weight of the same shape, at the 8B's
-projections for 8, 16, 32, 64 and 512 activation rows, in the layout each kernel
-serves: Q5_K compact (8-bit, with its min), Q4_K flat (4-bit) and Q2_K mixed
-(2-bit); codes and scales drawn from ``--seed``. CUDA events, the L2
+without its min-term epilogue; ``csrc/quant_matmul_int8_tc.cu`` (int8
+activations) without its decode (the weight fragments' shared-memory reads
+and byte transposes: constant fragments), without its s8 ``mma.sync``
+(sums made from the fragments by one integer op) and without its scaling
+epilogue (one f32 add a sum in place of the conversion, the two scales and
+the min term, and their shared-memory loads). Times each build, and the
+decode kernel and ``torch.matmul`` on a bf16 weight of the same shape, at
+the 8B's projections for 8, 16, 32, 64 and 512 activation rows, in the
+layout each kernel serves: Q5_K compact (8-bit, with its min), Q4_K flat
+(4-bit fsplit, the base rule, and the int8 body) and Q2_K mixed (2-bit) or
+flat (the base_f32 rule); codes and scales drawn from ``--seed``. The int8
+kernel's bound takes its operations at the int8 rate. CUDA events, the L2
 flushed before each launch, the median of 20. Prints the card's name and
 power limit first, then one JSON line per shape. The cut builds compute
 wrong outputs and are only timed; the full build is held to the plain
@@ -35,6 +42,9 @@ from ..ops import quant_matmul as qm
 SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
           "down": (4096, 14336)}
 ROWS = (8, 16, 32, 64, 512)
+KINDS = ("q5_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base", "q2_k_base")
+SOURCE = {"q5_k": "quant_matmul_tc", "q4_k_int8": "quant_matmul_int8_tc",
+          **{k: "quant_matmul_lowbit_tc" for k in ("q4_k", "q2_k", "q4_k_base", "q2_k_base")}}
 _PRODUCTS = ("    if (i >= 0 && warp_live) {", "    if (false) {")
 # each source's cut builds: the text each replaces
 CUTS = {
@@ -42,10 +52,25 @@ CUTS = {
         "no_decode": ("      decode_run<kM, kPer>(", "      if (false) decode_run<kM, kPer>("),
         "no_products": _PRODUCTS},
     "quant_matmul_lowbit_tc": {
-        "no_decode": ("      decode_plane<kBits, kMap, kPer>(",
-                      "      if (false) decode_plane<kBits, kMap, kPer>("),
+        "no_decode": ("      decode_plane<kVar, kBits, kMap, kM, kPer>(",
+                      "      if (false) decode_plane<kVar, kBits, kMap, kM, kPer>("),
         "no_products": _PRODUCTS,
-        "no_min": ("  if (kM != kNone || a.bias != 0) {", "  if (false) {")}}
+        "no_min": ("  if (kVar == kFsplit && (kM != kNone || a.bias != 0)) {",
+                   "  if (false) {")},
+    "quant_matmul_int8_tc": {
+        "no_decode": ("            w[j] = *reinterpret_cast<const uint32_t*>(cr + (tr + j) * 16 + kb + 4 * q);",
+                      "            w[j] = 0x01020304u * (j + 1);"),
+        "no_products": ("""              if constexpr (kSub == 32)
+                mma_s8_k32(p[nt], af, bf[nt][sb][0], bf[nt][sb][1], kMagic);
+              else
+                mma_s8_k16(p[nt], af[2 * h], af[2 * h + 1], bf[nt][sb][0], kMagic);""",
+                        """#pragma unroll
+              for (int e = 0; e < 4; ++e) p[nt][e] = kMagic + (int)(af[e] ^ bf[nt][sb][0]);"""),
+        "no_epilogue": ("""                const float pf = __int_as_float(p[nt][e]) - kMagicF;
+                const float t = __fmul_rn(pf, xv.x);
+                acc[mt][nt][e] = fmaf(t, s2[e & 1], acc[mt][nt][e]);
+                acc[mt][nt][e] = fmaf(-xv.y, m2[e & 1], acc[mt][nt][e]);""",
+                        "                acc[mt][nt][e] += __int_as_float(p[nt][e]);")}}
 
 
 def _builds(source: str) -> dict[str, ctypes.CDLL]:
@@ -100,8 +125,10 @@ def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator):
     """(source, tensor-core wrapper, decode wrapper, plain version, args) of
     one kernel's call on random arrays: Q5_K
     compact (5-bit codes, f32 d and dmin per 256, u8 sc and mn per 32), Q4_K
-    flat (f32 d and dmin per 32) or Q2_K mixed (f32 d per 16, f32 dmin per
-    256 with u8 mn per 16)."""
+    flat (f32 d and dmin per 32; fsplit, ``q4_k_base`` the base rule,
+    ``q4_k_int8`` the int8 body on quantize_acts' codes), Q2_K mixed (f32 d
+    per 16, f32 dmin per 256 with u8 mn per 16) or ``q2_k_base`` flat (the
+    base_f32 rule, f32 d and dmin per 16)."""
     x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
     if kind == "q5_k":
         nsub, nd = in_f // 32, in_f // 256
@@ -110,11 +137,25 @@ def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator):
                 _f32(out_f, nd, 5e-3, g), _u8(out_f, nsub, g))
         return ("quant_matmul_tc", qm.quant_matmul_8bit_tc, qm.quant_matmul_8bit_decode,
                 qm.quant_matmul_8bit_plain, (x, *arrs))
-    bits, sub = (4, 32) if kind == "q4_k" else (2, 16)
+    bits, sub = (4, 32) if kind.startswith("q4_k") else (2, 16)
     nsub = in_f // sub
     codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, device="cuda",
                           dtype=torch.uint8)
     xsum = qm._block_sums(x, sub)
+    if kind in ("q4_k_base", "q2_k_base", "q4_k_int8"):
+        arrs = (codes, _f32(out_f, nsub, 1e-2, g), None, _f32(out_f, nsub, 5e-2, g), None)
+        if kind == "q4_k_int8":
+            xq, xs = qm.quantize_acts(x, sub)
+            return ("quant_matmul_int8_tc", qm.quant_matmul_4bit_int8_tc,
+                    qm.quant_matmul_4bit_int8_decode, qm.quant_matmul_4bit_int8_plain,
+                    (xq, xs, xsum, *arrs, 0))
+        if kind == "q4_k_base":
+            return ("quant_matmul_lowbit_tc", qm.quant_matmul_4bit_base_tc,
+                    qm.quant_matmul_4bit_base_decode, qm.quant_matmul_4bit_base_plain,
+                    (x, *arrs, 0))
+        return ("quant_matmul_lowbit_tc", qm.quant_matmul_lowbit_base_tc,
+                qm.quant_matmul_lowbit_base_decode, qm.quant_matmul_lowbit_base_plain,
+                (x, *arrs, 0, 2))
     if kind == "q4_k":
         arrs = (codes, _f32(out_f, nsub, 1e-2, g), None, _f32(out_f, nsub, 5e-2, g), None)
     else:
@@ -130,14 +171,17 @@ def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kinds", default=",".join(KINDS),
+                    help="comma-separated kernels and layouts to time (default: all)")
     a = ap.parse_args()
+    kinds = a.kinds.split(",")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {src: _builds(src) for src in CUTS}
+    libs = {src: _builds(src) for src in {SOURCE[k] for k in kinds}}
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(a.seed)
-    for kind in ("q5_k", "q4_k", "q2_k"):
+    for kind in kinds:
         for name, (out_f, in_f) in SHAPES.items():
             w_lib = torch.randn(out_f, in_f, generator=g, device="cuda").bfloat16()
             for B in ROWS:
@@ -152,10 +196,12 @@ def main() -> None:
                     row[f"{build}_ms"] = _timer(flush, lambda: tc(*args))
                 _build._LIBS[src] = libs[src]["full"]
                 row["decode_kernel_ms"] = _timer(flush, lambda: decode(*args), 5 if B > 64 else 20)
-                row["torch_matmul_ms"] = _timer(flush, lambda: torch.matmul(args[0], w_lib.t()))
+                xb = args[0].bfloat16()   # the int8 body's codes, as bf16, for the yardstick
+                row["torch_matmul_ms"] = _timer(flush, lambda: torch.matmul(xb, w_lib.t()))
                 nbytes = sum(t.numel() * t.element_size() for t in args
                              if isinstance(t, torch.Tensor)) + B * out_f * 4
-                row["bound_ms"] = max(2.0 * B * in_f * out_f / 989e12, nbytes / 3.35e12) * 1e3
+                rate = 1979e12 if kind == "q4_k_int8" else 989e12
+                row["bound_ms"] = max(2.0 * B * in_f * out_f / rate, nbytes / 3.35e12) * 1e3
                 print(json.dumps(row), flush=True)
                 del args
             del w_lib

@@ -1,12 +1,13 @@
-// CPU stand-ins for the block-wide parts of CUDA that the tensor-core 8-bit
-// kernel uses (csrc/quant_matmul_tc.cu), beside cuda_runtime.h's: a whole
-// block runs at once, one thread per CUDA thread; __syncthreads meets at a
-// block barrier; dynamic shared memory is one buffer a block, filled with
-// 0xff bytes (a bf16 NaN) so that a read of a slot nothing wrote shows; a
-// cp.async copy lands only at the wait_group that covers it; ldmatrix and
-// mma.sync exchange their fragments through a warp barrier, laid out as the
-// PTX ISA lays them out. It checks the kernel's tiling, ring and index
-// arithmetic, not what nvcc makes of them.
+// CPU stand-ins for the block-wide parts of CUDA that the tensor-core
+// kernels use (csrc/quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu,
+// quant_matmul_int8_tc.cu), beside cuda_runtime.h's: a whole block runs at
+// once, one thread per CUDA thread; __syncthreads meets at a block barrier;
+// dynamic shared memory is one buffer a block, filled with 0xff bytes (a
+// bf16 NaN) so that a read of a slot nothing wrote shows; a cp.async copy
+// lands only at the wait_group that covers it; ldmatrix and mma.sync (bf16,
+// and s8 at k32 and k16) exchange their fragments through a warp barrier,
+// laid out as the PTX ISA lays them out. It checks the kernels' tiling,
+// ring and index arithmetic, not what nvcc makes of them.
 #pragma once
 #include <cstring>
 #include <deque>
@@ -24,6 +25,16 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 }
 
 struct uint2 { unsigned x, y; };
+struct float2 { float x, y; };
+
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+// byte i of the result is byte (s >> 4*i) & 7 of the pair {y, x}
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
 
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class K> inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
@@ -106,6 +117,53 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
       const float bv = emu_half(b->regs[w][col * 4 + (k % 8) / 2][4 + k / 8], k % 2);
       sum += av * bv;
     }
+    d[e] = sum;
+  }
+  b->warp_bar[w]->arrive_and_wait();
+}
+
+inline int emu_s8(uint32_t reg, int byte) { return (int)(int8_t)(uint8_t)(reg >> (8 * byte)); }
+
+// m16n8k32 s8: a[r] holds row g (+8 for r odd), bytes 4*tg..+3 (+16 for
+// r >= 2); b0 bytes 4*tg..+3 of column g (b1 +16); d as mma_bf16's, each
+// the exact int32 sum plus c.
+inline void mma_s8_k32(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1, int c) {
+  emu_block* b = emu_blk;
+  const int w = emu_tid >> 5, l = emu_tid & 31;
+  uint32_t* mine = b->regs[w][l];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b0;
+  mine[5] = b1;
+  b->warp_bar[w]->arrive_and_wait();
+  const int g = l >> 2, tg = l & 3;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + (e >= 2 ? 8 : 0), col = 2 * tg + (e & 1);
+    int sum = c;
+    for (int k = 0; k < 32; ++k)
+      sum += emu_s8(b->regs[w][(row % 8) * 4 + (k % 16) / 4][row / 8 + 2 * (k / 16)], k % 4)
+             * emu_s8(b->regs[w][col * 4 + (k % 16) / 4][4 + k / 16], k % 4);
+    d[e] = sum;
+  }
+  b->warp_bar[w]->arrive_and_wait();
+}
+
+// m16n8k16 s8: a0 row g, a1 row g+8, bytes 4*tg..+3; b0 bytes 4*tg..+3 of
+// column g.
+inline void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0, int c) {
+  emu_block* b = emu_blk;
+  const int w = emu_tid >> 5, l = emu_tid & 31;
+  uint32_t* mine = b->regs[w][l];
+  mine[0] = a0;
+  mine[1] = a1;
+  mine[4] = b0;
+  b->warp_bar[w]->arrive_and_wait();
+  const int g = l >> 2, tg = l & 3;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + (e >= 2 ? 8 : 0), col = 2 * tg + (e & 1);
+    int sum = c;
+    for (int k = 0; k < 16; ++k)
+      sum += emu_s8(b->regs[w][(row % 8) * 4 + k / 4][row / 8], k % 4)
+             * emu_s8(b->regs[w][col * 4 + k / 4][4], k % 4);
     d[e] = sum;
   }
   b->warp_bar[w]->arrive_and_wait();

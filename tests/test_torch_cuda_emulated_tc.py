@@ -1,19 +1,22 @@
 """The tensor-core matmul sources run on the CPU: ``csrc/quant_matmul_tc.cu``
-(8-bit codes) and ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes)
-compiled by g++ against the stand-in headers of ``tests/cuda_emu``
-(``tc_emu.h``: whole blocks of threads, ``cp.async`` copies that land at
-their wait, ``ldmatrix`` and ``mma.sync`` through a warp barrier in the PTX
-ISA's fragment layout), with the inline-PTX helpers of ``csrc/tc_common.cuh``
-swapped for those stand-ins, driven through the port's own wrappers with
-their device check lifted, against the plain PyTorch versions.
+(8-bit codes), ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes, the
+fsplit, base and base_f32 rules) and ``csrc/quant_matmul_int8_tc.cu`` (int8
+activations, s8 ``mma.sync``) compiled by g++ against the stand-in headers
+of ``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads, ``cp.async``
+copies that land at their wait, ``ldmatrix`` and ``mma.sync`` (bf16; s8 at
+k32 and k16) through a warp barrier in the PTX ISA's fragment layout), with
+the inline-PTX helpers of ``csrc/tc_common.cuh`` swapped for those
+stand-ins, driven through the port's own wrappers with their device check
+lifted, against the plain PyTorch versions.
 
 This holds the kernels' tiling, their rings of stages, their chunked walk
 over the sub-blocks, the 2/4-bit kernel's plane groups and min-term
 epilogue, and their ragged edges to the plain versions where no card is
 present; what nvcc makes of the sources, and the PTX itself, are checked
 only on the card (``test_torch_cuda_kernels.py``). Tolerance: the same bf16
-weights and exact bf16 products on both sides, f32 sums in another order:
-1e-5 of the output's scale. Skips where there is no g++ with C++20.
+weights and exact bf16 products on both sides (the int8 kernel: the same
+exact int32 sums per sub-block), f32 sums in another order: 1e-5 of the
+output's scale. Skips where there is no g++ with C++20.
 """
 
 import ctypes
@@ -33,7 +36,7 @@ torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "llama_gguf_inference_tpu_torch", "csrc")
-SOURCES = ("quant_matmul_tc", "quant_matmul_lowbit_tc")
+SOURCES = ("quant_matmul_tc", "quant_matmul_lowbit_tc", "quant_matmul_int8_tc")
 TOL = 1e-5
 
 
@@ -56,9 +59,10 @@ def _emulated_source(name: str) -> str:
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
     """``ops.quant_matmul``'s wrappers over the g++ builds of the CUDA
-    sources (the dispatching 2/4-bit wrappers see every tensor as on the
-    card, and the decode kernel as a stand-in that counts its launch and
-    returns the plain version), and the launches they count."""
+    sources (the dispatching 2/4-bit, base and int8 wrappers see every
+    tensor as on the card, and each decode kernel as a stand-in that counts
+    its launch and returns the plain version), and the launches they
+    count."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernel")
@@ -92,13 +96,17 @@ def emu(tmp_path_factory):
     mod = types.ModuleType("quant_matmul_tc_emulated")
     exec(compile(wsrc, "quant_matmul_tc_emulated", "exec"), mod.__dict__)
     mod._build = fake_build
-    for bits in (2, 4):
-        name, plain = getattr(qm, f"NAME_{bits}BIT"), getattr(qm, f"quant_matmul_{bits}bit_plain")
+    for wrapper, name, plain in (
+            ("quant_matmul_2bit", qm.NAME_2BIT, qm.quant_matmul_2bit_plain),
+            ("quant_matmul_4bit", qm.NAME_4BIT, qm.quant_matmul_4bit_plain),
+            ("quant_matmul_4bit_base", qm.NAME_4BIT_BASE, qm.quant_matmul_4bit_base_plain),
+            ("quant_matmul_lowbit_base", qm.NAME_LOWBIT_BASE, qm.quant_matmul_lowbit_base_plain),
+            ("quant_matmul_4bit_int8", qm.NAME_4BIT_INT8, qm.quant_matmul_4bit_int8_plain)):
 
         def decode(*args, _name=name, _plain=plain):
             fake_build.count(_name)
             return _plain(*args)
-        setattr(mod, f"quant_matmul_{bits}bit_decode", decode)
+        setattr(mod, f"{wrapper}_decode", decode)
     return mod, launches
 
 
@@ -243,3 +251,116 @@ def test_lowbit_dispatch_by_rows(emu, bits):
         assert launches == {want: 1}
         want_y = plain(*args)
         assert (got - want_y).abs().max().item() <= TOL * want_y.abs().max().item()
+
+
+def _rel_err(got, want):
+    assert torch.isfinite(got).all()
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+# (bits, rule, B, out, in, sub, bias, layout, has min, signed sc, code map):
+# the base rule at Q4_K (flat, compact), Q4_0's bias 8 and Q3_K's
+# sub-blocks of 16 with bias 4 (i8 sc); base_f32 at Q2_K (flat, compact)
+# and the IQ2/IQ3 maps; nsub 64 and 128; B of 1, 7, 16 and 130; out 72 and
+# 136 (64-row tiles, 2 x 2 blocks at 130 rows)
+BASE_CASES = [(4, "base", 130, 136, 2048, 32, 0, "flat", True, False, ""),
+              (4, "base", 7, 72, 4096, 32, 0, "compact", True, False, ""),
+              (4, "base", 16, 72, 2048, 32, 8, "flat", False, False, ""),
+              (4, "base", 1, 136, 1024, 16, 4, "compact", False, True, ""),
+              (2, "base_f32", 130, 136, 1024, 16, 0, "flat", True, False, ""),
+              (2, "base_f32", 7, 72, 2048, 16, 0, "compact", True, True, ""),
+              (4, "base_f32", 16, 72, 2048, 32, 0, "flat", False, False, "iq2_xs"),
+              (4, "base_f32", 7, 136, 2048, 32, 0, "compact", False, False, "iq3_s")]
+
+
+@pytest.mark.parametrize("bits,rule,B,out_f,in_f,sub,bias,layout,has_min,signed,fmt", BASE_CASES,
+                         ids=str)
+def test_base_tc_kernel(emu, bits, rule, B, out_f, in_f, sub, bias, layout, has_min, signed, fmt):
+    """The base and base_f32 rules of the tensor-core 2/4-bit kernel against
+    the plain versions of _make_kernel's bf16-magic and f32 branches, through
+    their own wrappers at any B; a case with a min side once more without
+    it."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(bits * 1000 + B + in_f + sub + bias + len(fmt))
+    codes, d, sc, dmin, mn = _lowbit_arrays(bits, out_f, in_f, sub, layout, has_min, signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    if rule == "base":
+        name, kernel, plain = qm.NAME_4BIT_BASE_TC, mod.quant_matmul_4bit_base_tc, \
+            qm.quant_matmul_4bit_base_plain
+        tail = ()
+    else:
+        name, kernel, plain = qm.NAME_LOWBIT_BASE_TC, mod.quant_matmul_lowbit_base_tc, \
+            qm.quant_matmul_lowbit_base_plain
+        tail = (bits, fmt)
+    for dm, m in [(dmin, mn)] + ([(None, None)] if has_min else []):
+        args = (x, codes, d, sc, dm, m, bias, *tail)
+        before = launches.get(name, 0)
+        got = kernel(*args)
+        assert launches[name] == before + 1
+        assert _rel_err(got, plain(*args)) <= TOL
+
+
+# (B, out, in, sub, bias, layout, has min, signed sc): Q4_K flat and compact
+# (u8 or i8 sc beside a u8 min), Q4_1's flat min, Q4_0's bias 8, Q3_K's
+# sub-blocks of 16 with bias 4 (flat and compact i8 sc; one m16n8k16 a
+# sub-block); nsub 64 and 128 (4 and 8 groups of 16); B of 1, 7, 16 and
+# 130; out 72 and 136 (ragged 128-row tiles)
+INT8_CASES = [(130, 136, 2048, 32, 0, "flat", True, False),
+              (7, 72, 4096, 32, 0, "compact", True, False),
+              (16, 136, 2048, 32, 8, "flat", False, False),
+              (1, 72, 2048, 32, 0, "compact", True, True),
+              (16, 72, 2048, 16, 4, "compact", False, True),
+              (130, 72, 1024, 16, 4, "flat", False, False)]
+
+
+@pytest.mark.parametrize("B,out_f,in_f,sub,bias,layout,has_min,signed", INT8_CASES, ids=str)
+def test_int8_tc_kernel(emu, B, out_f, in_f, sub, bias, layout, has_min, signed):
+    """The tensor-core int8 kernel against the plain version of
+    _make_kernel_int8 on quantize_acts' codes, through its own wrapper at any
+    B; a case with a min side once more without it."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(B + in_f + sub + bias + 7 * has_min)
+    codes, d, sc, dmin, mn = _lowbit_arrays(4, out_f, in_f, sub, layout, has_min, signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xq, xs = qm.quantize_acts(x, sub)
+    xsum = qm._block_sums(x, sub)
+    for dm, m in [(dmin, mn)] + ([(None, None)] if has_min else []):
+        args = (xq, xs, xsum, codes, d, sc, dm, m, bias)
+        before = launches.get(qm.NAME_4BIT_INT8_TC, 0)
+        got = mod.quant_matmul_4bit_int8_tc(*args)
+        assert launches[qm.NAME_4BIT_INT8_TC] == before + 1
+        assert _rel_err(got, qm.quant_matmul_4bit_int8_plain(*args)) <= TOL
+
+
+@pytest.mark.parametrize("body", ["base", "base_f32", "int8"])
+def test_base_int8_dispatch_by_rows(emu, body):
+    """The dispatching base and int8 wrappers on the card: below their row
+    threshold the decode kernel, from it the tensor-core kernel; a geometry
+    the tensor-core kernel does not take (nsub 48 for base, whose steps
+    take 64 sub-blocks; nsub 40 for int8, whose groups take 16) keeps the
+    decode kernel."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(len(body))
+    bits, sub = (2, 16) if body == "base_f32" else (4, 32)
+    rows = qm.INT8_TC_MIN_ROWS if body == "int8" else qm.LOWBIT_TC_MIN_ROWS
+    tc, dec = {"base": (qm.NAME_4BIT_BASE_TC, qm.NAME_4BIT_BASE),
+               "base_f32": (qm.NAME_LOWBIT_BASE_TC, qm.NAME_LOWBIT_BASE),
+               "int8": (qm.NAME_4BIT_INT8_TC, qm.NAME_4BIT_INT8)}[body]
+    odd = 40 if body == "int8" else 48
+    for in_f, B, want in ((64 * sub, rows - 1, dec), (64 * sub, rows, tc), (odd * sub, 20, dec)):
+        codes, d, sc, dmin, mn = _lowbit_arrays(bits, 8, in_f, sub, "flat", True, False, g)
+        x = torch.randn(B, in_f, generator=g).bfloat16()
+        if body == "int8":
+            xq, xs = qm.quantize_acts(x, sub)
+            args = (xq, xs, qm._block_sums(x, sub), codes, d, sc, dmin, mn)
+            wrapper, plain = mod.quant_matmul_4bit_int8, qm.quant_matmul_4bit_int8_plain
+        elif body == "base":
+            args = (x, codes, d, sc, dmin, mn)
+            wrapper, plain = mod.quant_matmul_4bit_base, qm.quant_matmul_4bit_base_plain
+        else:
+            args = (x, codes, d, sc, dmin, mn, 0, bits)
+            wrapper, plain = mod.quant_matmul_lowbit_base, qm.quant_matmul_lowbit_base_plain
+        launches.clear()
+        got = wrapper(*args)
+        assert launches == {want: 1}
+        assert _rel_err(got, plain(*args)) <= TOL

@@ -175,7 +175,9 @@ def test_quant_matmul_4bit_variant_kernels(dev, var, layout, sub, bias, signed, 
     """The xsum, split, base and int8 kernels in every layout each takes
     (base and int8 take no mixed layout, which the JAX dispatcher sends to
     its dequantize path; mixed takes no code bias), with and without the
-    min side."""
+    min side. Base and int8 through their decode wrappers: from 16 rows the
+    dispatching ones take the tensor-core kernels for some of these
+    geometries."""
     if layout == "mixed":
         bias = 0
     g = torch.Generator().manual_seed(B + sub + bias)
@@ -188,12 +190,12 @@ def test_quant_matmul_4bit_variant_kernels(dev, var, layout, sub, bias, signed, 
     for dm, m in mins:
         w = [t if t is None else t.to(dev) for t in (codes, d, sc, dm, m)]
         if var == "base":
-            kernel, plain, name = qm.quant_matmul_4bit_base, qm.quant_matmul_4bit_base_plain, \
-                qm.NAME_4BIT_BASE
+            kernel, plain, name = qm.quant_matmul_4bit_base_decode, \
+                qm.quant_matmul_4bit_base_plain, qm.NAME_4BIT_BASE
             args = pargs = (x.bfloat16().to(dev), *w, bias)
         elif var == "int8":
-            kernel, plain, name = qm.quant_matmul_4bit_int8, qm.quant_matmul_4bit_int8_plain, \
-                qm.NAME_4BIT_INT8
+            kernel, plain, name = qm.quant_matmul_4bit_int8_decode, \
+                qm.quant_matmul_4bit_int8_plain, qm.NAME_4BIT_INT8
             args = pargs = (xq.to(dev), xs.to(dev), xsum.to(dev), *w, bias)
         else:
             kernel, plain, name = VARIANT_WRAPPERS[var]
@@ -228,13 +230,15 @@ def test_quant_matmul_mapped_code_kernels(dev, fmt, layout, B):
 @pytest.mark.parametrize("sub,bias,signed", [(16, 0, False), (32, 1, False), (8, 1, True)])
 @pytest.mark.parametrize("layout", ["flat", "compact"])
 def test_quant_matmul_2bit_base_kernel(dev, layout, sub, bias, signed, B):
+    """The base body's 2-bit decode kernel (from 16 rows the dispatching
+    wrapper takes the tensor-core kernel for some of these geometries)."""
     g = torch.Generator().manual_seed(B + sub)
     codes, d, sc, dmin, mn = _lowbit_arrays(2, 68, 1024, sub, bias, layout, signed, g)
     x = torch.randn(B, 1024, generator=g).bfloat16().to(dev)
     for dm, m in ((dmin, mn), (None, None)):
         w = [t if t is None else t.to(dev) for t in (codes, d, sc, dm, m)]
         before = _build.LAUNCHES.get(qm.NAME_LOWBIT_BASE, 0)
-        got = qm.quant_matmul_lowbit_base(x, *w, bias, 2)
+        got = qm.quant_matmul_lowbit_base_decode(x, *w, bias, 2)
         torch.cuda.synchronize()
         assert _build.LAUNCHES[qm.NAME_LOWBIT_BASE] == before + 1
         _close(got, qm.quant_matmul_lowbit_base_plain(x, *w, bias, 2), 1e-4)
@@ -448,6 +452,150 @@ def test_quant_matmul_lowbit_tc_rejects_geometry(dev):
         args = _lowbit_tc_call(dev, bits, 64, 64, 48 * sub, sub, 0, "flat", False, "", g)
         with pytest.raises(ValueError, match="tensor-core"):
             getattr(qm, f"quant_matmul_{bits}bit_tc")(*args)
+
+
+# (rule, bits, sub, bias, layout, signed sc, code map) of the base rules on
+# the tensor-core kernel: base at Q4_K (flat, compact), Q4_0's bias 8, Q4_1
+# (flat min), Q3_K (sub 16, bias 4, compact i8 sc and flat); base_f32 at Q2_K
+# (flat, compact) and the IQ2/IQ3 maps
+BASE_TC = [("base", 4, 32, 0, "flat", False, ""), ("base", 4, 32, 0, "compact", False, ""),
+           ("base", 4, 32, 8, "flat", False, ""), ("base", 4, 16, 4, "compact", True, ""),
+           ("base", 4, 16, 4, "flat", False, ""), ("base_f32", 2, 16, 0, "flat", False, ""),
+           ("base_f32", 2, 16, 0, "compact", False, ""),
+           ("base_f32", 4, 32, 0, "flat", False, "iq2_xs"),
+           ("base_f32", 4, 32, 0, "compact", False, "iq3_s")]
+
+
+def _base_call(dev, rule, bits, B, out_f, in_f, sub, bias, layout, signed, fmt, g, has_min):
+    """(tc wrapper, dispatching wrapper, plain version, launch names, args)
+    of one base-rule call on the card."""
+    codes, d, sc, dmin, mn = _lowbit_arrays(bits, out_f, in_f, sub, bias, layout, signed, g)
+    if fmt or not has_min:
+        dmin = mn = None
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    args = [t if t is None else t.contiguous().to(dev) for t in (x, codes, d, sc, dmin, mn)]
+    if rule == "base":
+        return (qm.quant_matmul_4bit_base_tc, qm.quant_matmul_4bit_base,
+                qm.quant_matmul_4bit_base_plain, (qm.NAME_4BIT_BASE_TC, qm.NAME_4BIT_BASE),
+                args + [bias])
+    return (qm.quant_matmul_lowbit_base_tc, qm.quant_matmul_lowbit_base,
+            qm.quant_matmul_lowbit_base_plain, (qm.NAME_LOWBIT_BASE_TC, qm.NAME_LOWBIT_BASE),
+            args + [bias, bits, fmt])
+
+
+@pytest.mark.parametrize("B", [16, 64, 512])
+@pytest.mark.parametrize("rule,bits,sub,bias,layout,signed,fmt", BASE_TC, ids=str)
+def test_quant_matmul_base_tc_kernel(dev, rule, bits, sub, bias, layout, signed, fmt, B):
+    """The base and base_f32 rules of the tensor-core 2/4-bit kernel against
+    their plain versions, in = 4096 (the 8B's width), out 200 (no multiple
+    of the 64-row tile), with and without the min side."""
+    g = torch.Generator().manual_seed(B + sub + bias + bits + len(fmt))
+    for has_min in ((True, False) if not fmt and bias in (0, 1) else (False,)):
+        tc, _, plain, (name, _), args = _base_call(dev, rule, bits, B, 200, 4096, sub, bias,
+                                                   layout, signed, fmt, g, has_min)
+        before = _build.LAUNCHES.get(name, 0)
+        got = tc(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == before + 1
+        _close(got, plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("B", [16, 512])
+@pytest.mark.parametrize("rule,bits,sub", [("base", 4, 32), ("base_f32", 2, 16)])
+def test_quant_matmul_base_tc_kernel_down(dev, rule, bits, sub, B):
+    """in = 14336 (ffn_down of the 8B), compact: the scale runs wrap the 56
+    super-blocks."""
+    g = torch.Generator().manual_seed(B + bits)
+    tc, _, plain, (name, _), args = _base_call(dev, rule, bits, B, 136, 14336, sub, 0,
+                                               "compact", False, "", g, True)
+    got = tc(*args)
+    torch.cuda.synchronize()
+    _close(got, plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("rule", ["base", "base_f32"])
+def test_quant_matmul_base_dispatch_by_rows(dev, rule):
+    """Below LOWBIT_TC_MIN_ROWS the decode kernel, from it the tensor-core one;
+    nsub 48 keeps the decode kernel at any row count; the tensor-core wrapper
+    raises on it."""
+    g = torch.Generator().manual_seed(len(rule))
+    bits, sub = (4, 32) if rule == "base" else (2, 16)
+    for in_f, B, tc_runs in ((64 * sub, qm.LOWBIT_TC_MIN_ROWS - 1, False),
+                             (64 * sub, qm.LOWBIT_TC_MIN_ROWS, True), (64 * sub, 512, True),
+                             (48 * sub, 300, False)):
+        tc, wrapper, plain, names, args = _base_call(dev, rule, bits, B, 72, in_f, sub, 0,
+                                                     "flat", False, "", g, True)
+        _build.reset_launches()
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {names[0] if tc_runs else names[1]: 1}
+        _close(got, plain(*args), 1e-4)
+    with pytest.raises(ValueError, match="tensor-core"):
+        tc(*args)
+
+
+# (sub, bias, layout, signed sc, has min) of the int8 tensor-core kernel:
+# Q4_K flat and compact (u8 and i8 sc), Q4_0's bias 8, Q4_1's flat min, Q3_K
+# (sub 16, bias 4; compact i8 sc and flat)
+INT8_TC = [(32, 0, "flat", False, True), (32, 0, "compact", False, True),
+           (32, 0, "compact", True, True), (32, 8, "flat", False, False),
+           (32, 0, "flat", False, False), (16, 4, "compact", True, False),
+           (16, 4, "flat", False, False)]
+
+
+def _int8_call(dev, B, out_f, in_f, sub, bias, layout, signed, has_min, g):
+    codes, d, sc, dmin, mn = _lowbit_arrays(4, out_f, in_f, sub, bias, layout, signed, g)
+    if not has_min:
+        dmin = mn = None
+    x = torch.randn(B, in_f, generator=g)
+    xq, xs = qm.quantize_acts(x, sub)
+    return [t if t is None else t.contiguous().to(dev)
+            for t in (xq, xs, qm._block_sums(x, sub), codes, d, sc, dmin, mn)] + [bias]
+
+
+@pytest.mark.parametrize("B", [16, 64, 512])
+@pytest.mark.parametrize("sub,bias,layout,signed,has_min", INT8_TC, ids=str)
+def test_quant_matmul_int8_tc_kernel(dev, sub, bias, layout, signed, has_min, B):
+    """The tensor-core int8 kernel against the plain version of
+    _make_kernel_int8, in = 4096, out 200 (no multiple of the 128-row
+    tile)."""
+    g = torch.Generator().manual_seed(B + sub + bias + has_min)
+    args = _int8_call(dev, B, 200, 4096, sub, bias, layout, signed, has_min, g)
+    before = _build.LAUNCHES.get(qm.NAME_4BIT_INT8_TC, 0)
+    got = qm.quant_matmul_4bit_int8_tc(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[qm.NAME_4BIT_INT8_TC] == before + 1
+    _close(got, qm.quant_matmul_4bit_int8_plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("B", [16, 512])
+@pytest.mark.parametrize("layout", ["flat", "compact"])
+def test_quant_matmul_int8_tc_kernel_down(dev, layout, B):
+    """in = 14336 (ffn_down of the 8B): 448 sub-blocks, 28 groups, 56
+    super-blocks, so the scale runs wrap the super-block index."""
+    g = torch.Generator().manual_seed(B)
+    args = _int8_call(dev, B, 136, 14336, 32, 0, layout, False, True, g)
+    got = qm.quant_matmul_4bit_int8_tc(*args)
+    torch.cuda.synchronize()
+    _close(got, qm.quant_matmul_4bit_int8_plain(*args), 1e-4)
+
+
+def test_quant_matmul_int8_dispatch_by_rows(dev):
+    """Below INT8_TC_MIN_ROWS the decode kernel, from it the tensor-core
+    one; nsub 40 (no whole group of 16) keeps the decode kernel at any row
+    count, and the tensor-core wrapper raises on it."""
+    g = torch.Generator().manual_seed(8)
+    for nsub, B, want in ((64, qm.INT8_TC_MIN_ROWS - 1, qm.NAME_4BIT_INT8),
+                          (64, qm.INT8_TC_MIN_ROWS, qm.NAME_4BIT_INT8_TC),
+                          (64, 512, qm.NAME_4BIT_INT8_TC), (40, 300, qm.NAME_4BIT_INT8)):
+        args = _int8_call(dev, B, 72, 32 * nsub, 32, 0, "flat", False, True, g)
+        _build.reset_launches()
+        got = qm.quant_matmul_4bit_int8(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {want: 1}
+        _close(got, qm.quant_matmul_4bit_int8_plain(*args), 1e-4)
+    with pytest.raises(ValueError, match="tensor-core"):
+        qm.quant_matmul_4bit_int8_tc(*args)
 
 
 @pytest.mark.parametrize("B", [4, 512])

@@ -300,9 +300,11 @@ def test_lowbit_rows_threshold(bits, on_card_spies):
 @pytest.mark.parametrize("gtype", [GGMLType.Q4_K, GGMLType.Q2_K], ids=lambda t: t.name)
 def test_variants_never_reach_the_lowbit_tc_kernel(gtype, variant, on_card_spies, monkeypatch):
     """512 prefill rows through the dispatcher under each LGT_MM_VARIANT: only
-    the fsplit/qsplit body reaches the tensor-core kernel; xsum, split, base
-    and int8 keep their CUDA-core kernels at every row count (Q2_K takes
-    qsplit under every variant but base, as in the JAX package)."""
+    the fsplit/qsplit body reaches the fsplit rule's tensor-core kernel;
+    xsum and split keep their CUDA-core kernels at every row count, base and
+    int8 take their own tensor-core kernels (``test_torch_prefill_tc.py``)
+    (Q2_K takes qsplit under every variant but base, as in the JAX
+    package)."""
     monkeypatch.setenv("LGT_MM_VARIANT", variant)
     _, tq = _pair(gtype, 64, 2048)
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(512, 2048)).astype(np.float32))
@@ -322,3 +324,20 @@ def test_profile_names_the_lowbit_tensor_core_kernels():
         "void quant_matmul_lowbit_tc_kernel<4, 0, 1, 1>(ArgsLowTC)") == qm.NAME_4BIT_TC
     assert profile._kernel_group(
         "void quant_matmul_lowbit_tc_kernel<2, 0, 1, 2>(ArgsLowTC)") == qm.NAME_2BIT_TC
+
+
+def test_profile_names_the_prefill_kernels_of_the_variants():
+    """tools/profile.py books the base rules' tensor-core instances by (bits,
+    element rule) and the int8 body's tensor-core kernel apart from its
+    decode kernel."""
+    from llama_gguf_inference_tpu_torch.tools import profile
+    assert profile._kernel_group(
+        "void quant_matmul_lowbit_tc_kernel<4, 3, 0, 1, 1>(ArgsLowTC)") == qm.NAME_4BIT_BASE_TC
+    assert profile._kernel_group(
+        "void quant_matmul_lowbit_tc_kernel<2, 4, 0, 1, 1>(ArgsLowTC)") == qm.NAME_LOWBIT_BASE_TC
+    assert profile._kernel_group(
+        "void quant_matmul_lowbit_tc_kernel<4, 4, 1, 2, 0>(ArgsLowTC)") == qm.NAME_LOWBIT_BASE_TC
+    assert profile._kernel_group(
+        "void quant_matmul_int8_tc_kernel<32, 1, 1>(ArgsInt8TC)") == qm.NAME_4BIT_INT8_TC
+    assert profile._kernel_group(
+        "void quant_matmul_int8_kernel<1, 1>(Int8Args)") == qm.NAME_4BIT_INT8
