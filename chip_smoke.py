@@ -27,8 +27,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               value maps through fsplit and base at o; flash
               attention over each cache kind (bf16, q8_0, q4_0, q4_1, paged
               bf16, paged q8_0) at decode (T=1, B=4, offsets up to 1000) and
-              prefill (T=512, B=1); the paged ones through shuffled pages of
-              256 with one idle slot whose table row is all -1; the 2- and
+              prefill (T=512, B=1, offsets 0 and 1024), the bf16, q8_0 and
+              paged kinds at prefill through their tensor-core kernel beside
+              the CUDA-core one, and at T=16, 32 and 64 (offset 1000: the
+              crossover that sets FLASH_TC_MIN_ROWS); the paged ones through
+              shuffled pages of 256 with one idle slot whose table row is all
+              -1; the 2- and
               4-bit tensor-core kernels at the four projections for 16, 64,
               300 and 512 rows (4-bit: Q4_K flat, compact and mixed, Q3_K at
               o and down, the IQ2/IQ3 maps at o; 2-bit: Q2_K flat, mixed and
@@ -38,9 +42,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               and the base rule's tensor-core kernels at the four Q4_K flat
               projections for 8, 16, 32, 64, 300 and 512 rows and at Q4_0,
               Q4_1 and Q3_K's o for 16, 64, 300 and 512, the base_f32 rule
-              at Q2_K flat and compact gate_up for 512, each beside its
+              at Q2_K flat and compact gate_up for 512, the xsum and split
+              rules at the four Q4_K flat projections for 16, 64, 300 and
+              512 rows and at gate_up for 8 and 32, each beside its
               decode kernel (the crossover that sets INT8_TC_MIN_ROWS; the
-              base rules' against LOWBIT_TC_MIN_ROWS). Prints errors,
+              base, xsum and split rules' against LOWBIT_TC_MIN_ROWS).
+              Prints errors,
               the kernel's median time, the plain version's, one PyTorch
               library call's (a yardstick only: SDPA over the bf16, dequantized
               or gathered cache), and the least time the card could take
@@ -53,15 +60,18 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               kernel run's tokens; compare the logits of every step; then one
               512-token prefill chunk (qkv, o and gate_up through the 4-bit
               tensor-core kernel, ffn_down through the dequantize path, the
-              head's row through the 8-bit decode kernel; logits held against
-              the plain versions) and the served time to the first token of
-              a prompt of at most 512 tokens
+              attention through the tensor-core flash kernel, the head's row
+              through the 8-bit decode kernel; logits held against the plain
+              versions) and the served time to the first token of a prompt
+              of at most 512 tokens
 5. kv-forward — the same prefill and 16 steps over each quantized or paged
               cache kind, through the kernels and then, fed the same tokens,
               with only that kind's attention wrapper swapped for its plain
               version; then three greedy requests through the engine's
               scheduler over four slots of that kind (one idle), each token
-              checked against a replay on a one-sequence cache
+              checked against a replay on a one-sequence cache (their
+              prefill, padded to 16 rows, through the kind's tensor-core
+              flash kernel where it has one)
 6. serve    — the port's OpenAI server in-process on localhost (4 slots, 1024
               context each): a chat completion, a streamed one, four concurrent
               completions, and a request without the key (must get 401)
@@ -69,15 +79,17 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               split, int8): a prefill and 16 greedy steps held against the
               plain versions, then three greedy requests through the server;
               each run launches that variant's kernel and never fsplit's
-              (decode or tensor-core); under int8 and base then one
-              512-token chunk through that body's tensor-core kernel (qkv, o
-              and gate_up; ffn_down through the dequantize path, the head
-              through the 8-bit decode kernel), held against the plain
-              versions (int8: to INT8_LOGITS_TOL, every call shadowed)
+              (decode or tensor-core); under each then one 512-token chunk
+              through that body's tensor-core kernel (qkv, o and gate_up;
+              ffn_down through the dequantize path, the head through the
+              8-bit decode kernel), held against the plain versions (int8:
+              to INT8_LOGITS_TOL, every call shadowed)
 8. serve-paged — that engine freed, a second one from the environment
               (``build_engine_from_env``: q8_0 paged KV, 4 pages of 1024): a
               1,500-token prompt, longer than a slot's contiguous share, with
-              three short ones; the pool cannot hold all four, so one waits
+              three short ones; the pool cannot hold all four, so one waits;
+              the prompts' chunks through the paged q8_0 tensor-core flash
+              kernel (the long prompt's time to its first token printed)
 9. q2k      — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
               projections, Q6_K head; ``cached_model(quant="q2_k")``) loaded
               under ``LGT_SCALE_LAYOUT=mixed``, its resident weight bytes
@@ -109,10 +121,10 @@ Launch counters are set to 0 just before each path that drives the kernels
 (the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
 run and engine run, the serve phase, each variant's
 kernel run and serve, the serve-paged phase, the q2k phase's kernel run,
-serve, 512-token chunk, flat base run and base chunk, the int8 and base
-variants' chunks, the q5k phase's kernel run, serve, 512-token chunk and
-long-prompt serve) and read just after; comparison runs fall outside
-those windows.
+serve, 512-token chunk, flat base run and base chunk, the base, xsum, split
+and int8 variants' chunks, the q5k phase's kernel run, serve, 512-token
+chunk and long-prompt serve) and read just after; comparison runs fall
+outside those windows.
 
 The breakdown of a decode step and a prefill chunk by kernel is
 ``python -m llama_gguf_inference_tpu_torch.tools.profile``.
@@ -521,11 +533,16 @@ def _variant_call(qm, w, variant, x):
         fn = getattr(qm, "quant_matmul_lowbit_base" + (f"_{kind}" if kind else ""))
         return qm.NAME_LOWBIT_BASE_TC if tc else qm.NAME_LOWBIT_BASE, fn, args, \
             qm.quant_matmul_lowbit_base_plain, args, B * in_f * 2, False
-    name, kernel, plain = {
-        "fsplit": (qm.NAME_4BIT, qm.quant_matmul_4bit, qm.quant_matmul_4bit_plain),
-        "xsum": (qm.NAME_4BIT_XSUM, qm.quant_matmul_4bit_xsum, qm.quant_matmul_4bit_xsum_plain),
-        "split": (qm.NAME_4BIT_SPLIT, qm.quant_matmul_4bit_split,
-                  qm.quant_matmul_4bit_split_plain)}[variant]
+    # fsplit, xsum, split: the dispatching wrapper; xsum_decode, xsum_tc,
+    # split_decode, split_tc: one kernel
+    body = variant.split("_")[0]
+    name = {"fsplit": (qm.NAME_4BIT, qm.NAME_4BIT_TC),
+            "xsum": (qm.NAME_4BIT_XSUM, qm.NAME_4BIT_XSUM_TC),
+            "split": (qm.NAME_4BIT_SPLIT, qm.NAME_4BIT_SPLIT_TC)}[body][tc]
+    kernel = getattr(qm, "quant_matmul_4bit" + ("" if body == "fsplit" else f"_{body}")
+                     + (f"_{kind}" if kind else ""))
+    plain = getattr(qm, "quant_matmul_4bit" + ("" if body == "fsplit" else f"_{body}")
+                    + "_plain")
     args = (x, xsum, *arrs, w.code_bias, w.fmt)
     return name, kernel, args, plain, args, x_bytes, False
 
@@ -584,16 +601,19 @@ def _variant_rows(torch, qm, g, timer):
 
 
 def _variant_tc_rows(torch, qm, g, timer):
-    """The tensor-core kernels of the int8 body and of the base rules
-    through their own wrappers, each beside its decode kernel on the same
-    inputs (``decode_ms``): Q4_K flat at the four projections for 8, 16,
-    32, 64, 300 and 512 rows (int8 and base; 8 to 64 rows are where the two
-    kernels cross), Q4_0, Q4_1 and Q3_K at o for 16, 64, 300 and 512, and
-    the base_f32 rule at Q2_K flat and compact gate+up for 512 rows. Bound
-    as in :func:`_variant_rows` (the int8 kernel's operations at the int8
-    rate)."""
+    """The tensor-core kernels of the int8 body, of the base rules and of
+    the xsum and split bodies through their own wrappers, each beside its
+    decode kernel on the same inputs (``decode_ms``): Q4_K flat at the four
+    projections for 8, 16, 32, 64, 300 and 512 rows (int8 and base; 8 to 64
+    rows are where the two kernels cross) and for 16, 64, 300 and 512 (xsum
+    and split; at gate+up also 8 and 32, their crossover), Q4_0, Q4_1 and
+    Q3_K at o for 16, 64, 300 and 512, and the base_f32 rule at Q2_K flat
+    and compact gate+up for 512 rows. Bound as in :func:`_variant_rows`
+    (the int8 kernel's operations at the int8 rate)."""
     cases = [("q4_k", "flat", name, (8, 16, 32, 64, 300, 512), ("int8", "base"))
              for name in SHAPES_4BIT]
+    cases += [("q4_k", "flat", name, (8, 16, 32, 64, 300, 512) if name == "gate_up"
+               else (16, 64, 300, 512), ("xsum", "split")) for name in SHAPES_4BIT]
     cases += [(fmt, "flat", "o", (16, 64, 300, 512), ("int8", "base"))
               for fmt in ("q4_0", "q4_1", "q3_k")]
     cases += [("q2_k", layout, "gate_up", (512,), ("base",)) for layout in ("flat", "compact")]
@@ -626,22 +646,31 @@ def _variant_tc_rows(torch, qm, g, timer):
 
 
 def _attention_rows(torch, F, fa, rand, g, timer):
-    """Every flash kernel at decode and prefill: H 32 over KVH 8, D 128,
-    1024 slots per sequence (contiguous) or 4 pages of 256 (paged)."""
+    """Every flash kernel at decode (T=1, B=4, offsets up to 1000) and at
+    prefill (T=512, B=1, offsets 0 and 1024), and the four entry points with
+    a tensor-core kernel at T=16, 32 and 64 (B=1, offset 1000: the crossover
+    that sets FLASH_TC_MIN_ROWS): H 32 over KVH 8, D 128, 1024 slots a
+    sequence (2048 where a chunk reaches past 1024), contiguous or in pages
+    of 256. Above T=1 those four run their tensor-core kernel, each row
+    beside the CUDA-core kernel on the same inputs (``cuda_core_ms``, its
+    error ``cuda_core_max_abs_err``)."""
     from llama_gguf_inference_tpu_torch.runtime.kv_cache import QuantKV, QuantKV4, QuantKV41
-    H, KVH, D, S = 32, 8, 128, 1024
-    NP = S // PAGE_S
+    H, KVH, D = 32, 8, 128
+    tc_of = {fa.NAME: fa.NAME_TC, fa.NAME_Q8: fa.NAME_Q8_TC, fa.NAME_PAGED: fa.NAME_PAGED_TC,
+             fa.NAME_PAGED_Q8: fa.NAME_PAGED_Q8_TC}
     rows = []
 
     def measure(name, label, args, lib_k, lib_v, key_bytes, off, table=None):
         """One row: args[0] is q; lib_k/lib_v the (B, KVH, S, D) bf16 view
         SDPA reads; key_bytes what the kernel's function reads per live key
         and kv head (K and V codes, scales, minimums)."""
-        kernel, plain = getattr(fa, name), getattr(fa, name + "_plain")
         q = args[0]
         B, T = q.shape[:2]
-        got, want = kernel(*args), plain(*args)
-        err, rel = _err(got, want, FLASH_TOL)
+        tc = name in tc_of and T > 1
+        kernel = getattr(fa, name + "_tc" if tc else name)
+        plain = getattr(fa, name + "_plain")
+        want = plain(*args)
+        err, rel = _err(kernel(*args), want, FLASH_TOL)
         offs = off.tolist()
         live = sum(o + T for o in offs)                       # keys read per kv head
         pairs = sum(o * T + T * (T + 1) // 2 for o in offs)    # (query, key) pairs
@@ -656,24 +685,35 @@ def _attention_rows(torch, F, fa, rand, g, timer):
         def lib():
             return F.scaled_dot_product_attention(qt, lib_k, lib_v, attn_mask=mask,
                                                   enable_gqa=True)
-        rows.append({"kernel": name, "shape": f"{label} B={B} T={T} H={H} KVH={KVH} "
-                     f"D={D} S={Sl} offsets={offs}", "B": B,
-                     "max_abs_err": err, "max_rel_err": rel,
-                     "ms": timer(lambda: kernel(*args)),
-                     "plain_ms": timer(lambda: plain(*args), 5),
-                     "library_ms": timer(lib), "bound_ms": b_ms, "bound_by": b_by})
-        emit({"phase": "kernels", **rows[-1]})
+        ms = timer(lambda: kernel(*args))
+        row = {"kernel": tc_of[name] if tc else name,
+               "shape": f"{label} B={B} T={T} H={H} KVH={KVH} D={D} S={Sl} offsets={offs}",
+               "B": B, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+               "plain_ms": timer(lambda: plain(*args), 5), "library_ms": timer(lib),
+               "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms}
+        if tc:
+            dec = getattr(fa, name + "_decode")
+            row["cuda_core_max_abs_err"] = _err(dec(*args), want, FLASH_TOL)[0]
+            row["cuda_core_ms"] = timer(lambda: dec(*args))
+        rows.append(row)
+        emit({"phase": "kernels", **row})
 
     for label, B, T, offs in (("decode", 4, 1, [1000, 700, 300, 37]),
-                              ("prefill", 1, 512, [0])):
+                              ("prefill", 1, 512, [0]), ("prefill", 1, 512, [1024]),
+                              ("crossover", 1, 16, [1000]), ("crossover", 1, 32, [1000]),
+                              ("crossover", 1, 64, [1000])):
+        S = 1024 if max(offs) + T <= 1024 else 2048
+        NP = S // PAGE_S
         q = rand(B, T, H, D).bfloat16()
         k = rand(B, KVH, S, D).bfloat16()
         v = rand(B, KVH, S, D).bfloat16()
         off = torch.tensor(offs, dtype=torch.int32, device="cuda")
         measure(fa.NAME, label, (q, k, v, off), k, v, 2 * D * 2, off)
-        for name, codec, key_bytes in ((fa.NAME_Q8, QuantKV, 2 * (D + 4)),
-                                       (fa.NAME_Q4, QuantKV4, 2 * (D // 2 + 4)),
-                                       (fa.NAME_Q41, QuantKV41, 2 * (D // 2 + 8))):
+        codecs = ((fa.NAME_Q8, QuantKV, 2 * (D + 4)),)
+        if label != "crossover":
+            codecs += ((fa.NAME_Q4, QuantKV4, 2 * (D // 2 + 4)),
+                       (fa.NAME_Q41, QuantKV41, 2 * (D // 2 + 8)))
+        for name, codec, key_bytes in codecs:
             kc, vc = codec.quantize(k), codec.quantize(v)
             measure(name, label, (q, *kc, *vc, off), codec.dequantize(*kc),
                     codec.dequantize(*vc), key_bytes, off)
@@ -853,10 +893,17 @@ def _engine_run(torch, engine, kind, steps):
     over this run only. Each request is then replayed, fed the engine's
     tokens, through a one-sequence cache of the same kind: every token the
     engine chose must lie within LOGITS_TOL (of the logits' scale) of the
-    replay's largest logit."""
+    replay's largest logit. The prompts' prefill, padded to the engine's
+    smallest bucket, runs the kind's tensor-core flash kernel where it has
+    one and the bucket reaches FLASH_TC_MIN_ROWS."""
     from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.runtime.engine import PREFILL_BUCKETS
     from llama_gguf_inference_tpu_torch.runtime.sampler import SamplingParams
     name = KV_KINDS[kind][2]
+    tc = {"q8_0": fa.NAME_Q8_TC, "paged": fa.NAME_PAGED_TC,
+          "paged_q8_0": fa.NAME_PAGED_Q8_TC}.get(kind)
+    want = (name, tc) if tc and PREFILL_BUCKETS[0] >= fa.FLASH_TC_MIN_ROWS else (name,)
     with kv_engine(torch, engine, _kv_config(kind, 4)):
         _build.reset_launches()
         outs = [engine.submit(p, SamplingParams(temperature=0.0, max_tokens=steps))[1]
@@ -867,8 +914,7 @@ def _engine_run(torch, engine, kind, steps):
         launches = dict(_build.LAUNCHES)
         alloc = engine.alloc
         pages = None if alloc is None else (alloc.free_pages, alloc.table.shape[1])
-    if launches.get(name, 0) <= 0 or launches.get(name + ".plain", 0):
-        raise AssertionError(f"{kind} engine: launches {launches}")
+    _check_launches(f"{kind} engine", launches, want)
     if pages is not None and pages[0] != pages[1]:
         raise AssertionError(f"{kind} engine: {pages[0]} of {pages[1]} pages free")
     gaps, agree, n_tok = [], 0, []
@@ -1156,15 +1202,17 @@ def phase_variants(torch, engine):
     tensor-core; the body's own tensor-core kernel only for a prompt of at
     least its threshold's rows: int8's 10-row prefill), the Q6_K head
     through the 8-bit kernel, held against the plain versions over 17
-    steps; then three greedy requests through the server. Under int8 and
-    base, then one 512-token chunk through that body's tensor-core kernel
-    (int8: its logits held to INT8_LOGITS_TOL and every call shadowed by its
-    plain version). Each run is one launch window."""
+    steps; then three greedy requests through the server. Under each, then
+    one 512-token chunk through that body's tensor-core kernel (int8: its
+    logits held to INT8_LOGITS_TOL and every call shadowed by its plain
+    version). Each run is one launch window."""
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     kernel = {"base": qm.NAME_4BIT_BASE, "xsum": qm.NAME_4BIT_XSUM,
               "split": qm.NAME_4BIT_SPLIT, "int8": qm.NAME_4BIT_INT8}
-    chunk_kernel = {"base": qm.NAME_4BIT_BASE_TC, "int8": qm.NAME_4BIT_INT8_TC}
-    tc_rows = {"base": qm.LOWBIT_TC_MIN_ROWS, "int8": qm.INT8_TC_MIN_ROWS}
+    chunk_kernel = {"base": qm.NAME_4BIT_BASE_TC, "int8": qm.NAME_4BIT_INT8_TC,
+                    "xsum": qm.NAME_4BIT_XSUM_TC, "split": qm.NAME_4BIT_SPLIT_TC}
+    tc_rows = {var: qm.INT8_TC_MIN_ROWS if var == "int8" else qm.LOWBIT_TC_MIN_ROWS
+               for var in chunk_kernel}
     n_prompt = len(engine.tokenizer.encode(PROMPT))
     paths = []
     for var in VARIANTS:
@@ -1205,7 +1253,9 @@ def phase_serve_paged(torch, path):
     """A q8_0 paged engine from the environment: 4 slots over 4 pages of
     1024 (a contiguous slot's share is 1024). One streamed request of about
     1,500 prompt tokens and three short ones at once need 5 pages, so one
-    of them waits at the head of the line until pages come back."""
+    of them waits at the head of the line until pages come back. The
+    prompts' chunks run the paged q8_0 tensor-core flash kernel, the decode
+    steps its CUDA-core kernel."""
     from llama_gguf_inference_tpu_torch.serving.openai_server import build_engine_from_env
     os.environ.update({"MODEL_PATH": path, "MAX_SLOTS": "4", "CTX": "4096",
                        "KV_CACHE_TYPE": "q8_0", "KV_LAYOUT": "paged",
@@ -1266,9 +1316,9 @@ def phase_serve_paged(torch, path):
         raise AssertionError("no request waited for pages")
     if alloc.free_pages != 4:
         raise AssertionError(f"{alloc.free_pages} of 4 pages free after the run")
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
     name = KV_KINDS["paged_q8_0"][2]
-    if launches.get(name, 0) <= 0 or launches.get(name + ".plain", 0):
-        raise AssertionError(f"serve-paged launches {launches}")
+    _check_launches("serve-paged", launches, (name, fa.NAME_PAGED_Q8_TC))
     n_gen = usage["completion_tokens"]
     ntok = n_gen + sum(r[1]["usage"]["completion_tokens"] for r in short)
     out.update({"long_prompt_usage_tokens": usage["prompt_tokens"],
@@ -1460,14 +1510,16 @@ def _prefill_chunk(torch, engine, label, tc_name, tol=LOGITS_TOL, shadow=None):
     """One 512-token prefill chunk, launches counted over it: per layer, qkv,
     o and gate_up through the tensor-core kernel ``tc_name``, and ffn_down,
     whose 512 x 14336 activations pass the JAX package's gate
-    (``LGT_MM_MAX_B``, ``LGT_MM_X_VMEM``), through the dequantize path; the
-    head's one row through the 8-bit decode kernel; no other matmul body and
-    no plain version. With ``shadow`` (a matmul wrapper's name) the chunk
+    (``LGT_MM_MAX_B``, ``LGT_MM_X_VMEM``), through the dequantize path, and
+    the attention through the tensor-core flash kernel; the head's one row
+    through the 8-bit decode kernel; no other matmul or flash body and no
+    plain version. With ``shadow`` (a matmul wrapper's name) the chunk
     runs again, every call of that wrapper held to MATMUL_TOL of its plain
     version on the same inputs. Its logits are then held to ``tol`` of the
     plain versions' fed the same tokens."""
     from llama_gguf_inference_tpu_torch.models.llama import KVCache, forward
     from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     dev = engine.device
     _, ids = _words(engine, 600)
@@ -1492,9 +1544,12 @@ def _prefill_chunk(torch, engine, label, tc_name, tol=LOGITS_TOL, shadow=None):
     launches = dict(_build.LAUNCHES)
     layers = engine.cfg.n_layers
     matmuls = {n: c for n, c in launches.items() if n.startswith("quant_matmul")}
+    flash = {n: c for n, c in launches.items() if n.startswith("flash")}
     want = {tc_name: 3 * layers, qm.NAME_DEQUANT: layers, qm.NAME_8BIT: 1}
-    if matmuls != want or any(n.endswith(".plain") for n in launches):
-        raise AssertionError(f"{label} 512-token chunk: launches {launches}, want {want}")
+    want_flash = {fa.NAME_TC: layers}
+    if matmuls != want or flash != want_flash or any(n.endswith(".plain") for n in launches):
+        raise AssertionError(f"{label} 512-token chunk: launches {launches}, want {want} "
+                             f"and {want_flash}")
     out = {}
     if shadow:
         shadow_errs: list[float] = []
@@ -1551,6 +1606,7 @@ def phase_q4k_prefill(torch, engine):
 
 
 _FA_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention.cu"
+_FA_TC_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention_tc.cu"
 _FA_JAX = "llama_gguf_inference_tpu/ops/flash_attention.py"
 _QM_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul.cu"
 _QM_TC_CU = "llama_gguf_inference_tpu_torch/csrc/quant_matmul_tc.cu"
@@ -1572,7 +1628,10 @@ SOURCES = {
     "quant_matmul_4bit_int8": (_QM_CU, _QM_JAX + ":536"),
     "quant_matmul_4bit_base": (_QM_CU, _QM_JAX + ":157"),      # _make_kernel, bf16-magic branch
     "quant_matmul_lowbit_base": (_QM_CU, _QM_JAX + ":172"),    # _make_kernel, f32 low-bit branch
-    # the same three at prefill rows, on tensor cores
+    # the same five at prefill rows, on tensor cores (split through the xsum
+    # rule's instances)
+    "quant_matmul_4bit_xsum_tc": (_QM_LTC_CU, _QM_JAX + ":309"),
+    "quant_matmul_4bit_split_tc": (_QM_LTC_CU, _QM_JAX + ":362"),
     "quant_matmul_4bit_int8_tc": (_QM_ITC_CU, _QM_JAX + ":536"),
     "quant_matmul_4bit_base_tc": (_QM_LTC_CU, _QM_JAX + ":157"),
     "quant_matmul_lowbit_base_tc": (_QM_LTC_CU, _QM_JAX + ":172"),
@@ -1588,10 +1647,16 @@ SOURCES = {
     "flash_attention_q41": (_FA_CU, _FA_JAX + ":189"),
     "flash_attention_paged": (_FA_CU, _FA_JAX + ":302"),
     "flash_attention_paged_q8": (_FA_CU, _FA_JAX + ":383"),
+    # the bf16, q8_0 and paged ones at prefill, on tensor cores
+    "flash_attention_tc": (_FA_TC_CU, _FA_JAX + ":129"),
+    "flash_attention_q8_tc": (_FA_TC_CU, _FA_JAX + ":189"),
+    "flash_attention_paged_tc": (_FA_TC_CU, _FA_JAX + ":302"),
+    "flash_attention_paged_q8_tc": (_FA_TC_CU, _FA_JAX + ":383"),
 }
 # the kernels line reports each kernel at its decode shape (4 slots; the
 # paged ones with their idle fifth; the 2-bit one in the layout the q2k
-# phase serves), the tensor-core ones at a 512-row prefill chunk's gate_up
+# phase serves), the tensor-core matmuls at a 512-row prefill chunk's
+# gate_up, the tensor-core flash kernels at a 512-token chunk at offset 0
 LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_4bit": "gate_up 28672x4096 B=4",
               "quant_matmul_2bit_tc": "q2_k mixed tc gate_up 28672x4096 B=512",
@@ -1599,13 +1664,16 @@ LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               **{f"quant_matmul_4bit_{v}": f"q4_k flat {v} gate_up 28672x4096 B=4"
                  for v in VARIANTS},
               "quant_matmul_lowbit_base": "q2_k flat base gate_up 28672x4096 B=4",
+              **{f"quant_matmul_4bit_{v}_tc": f"q4_k flat {v} tc gate_up 28672x4096 B=512"
+                 for v in ("xsum", "split")},
               "quant_matmul_4bit_int8_tc": "q4_k flat int8 tc gate_up 28672x4096 B=512",
               "quant_matmul_4bit_base_tc": "q4_k flat base tc gate_up 28672x4096 B=512",
               "quant_matmul_lowbit_base_tc": "q2_k flat base tc gate_up 28672x4096 B=512",
               "quant_matmul_8bit": "head 128256x4096 B=4",
               "quant_matmul_8bit_min": "q5_k compact 8bit gate_up 28672x4096 B=4",
               "quant_matmul_8bit_min_tc": "q5_k compact 8bit gate_up 28672x4096 B=512",
-              **{name: "decode" for name in SOURCES if name.startswith("flash")}}
+              **{name: "prefill" if name.endswith("_tc") else "decode"
+                 for name in SOURCES if name.startswith("flash")}}
 
 
 def kernels_line(rows, launches):

@@ -9,6 +9,10 @@
 //                                bias 4; the IQ2/IQ3 code->value maps)
 //     lgt_quant_matmul_2bit_tc <- _make_kernel_qsplit (:481): planar quarters
 //                                (Q2_K)
+//   xsum rule, pallas_call at :641 (LGT_MM_VARIANT=xsum or split):
+//     lgt_quant_matmul_4bit_tc, var xsum <- _make_kernel_xsum (:309) and
+//                                _make_kernel_split (:362); 4-bit identity
+//                                codes (Q4_K, Q4_0, Q4_1, Q3_K)
 //   base rules, pallas_call at :247 (_make_kernel, LGT_MM_VARIANT=base):
 //     lgt_quant_matmul_4bit_tc, var base <- the bf16-magic 4-bit branch
 //                                (:157-171; Q4_K, Q4_0, Q4_1, Q3_K)
@@ -17,6 +21,15 @@
 // Fewer rows, or a geometry this kernel does not take, run
 // lgt_quant_matmul_lowbit in quant_matmul.cu, the decode kernel. Both take
 // each rule's arithmetic from lowbit_rule.cuh.
+//
+// The xsum rule's weight is bf16(q * bf16(s)), the raw code times the scale
+// rounded to bf16 first (rule_factors keeps that rounded scale in the decode
+// stage's registers); its min term is fsplit's, xsum.m' with m' = bias*s + m
+// in f32 (pallas_matmul.py:296-305). The split body differs from xsum only in
+// summing the two nibble planes' dots apart and adding them at the end: an
+// order of f32 sums. This kernel walks every plane as steps of its own into
+// one accumulator under any rule, so split runs xsum's instances (its
+// wrapper counts its launches under its own name).
 //
 // The base rules fold the min into the weight (w = bf16(bf16(q*bf16 s) -
 // bf16 m') and w = bf16((v(q) - bias)*s - m) in f32), so their instances
@@ -96,6 +109,11 @@ namespace {
 constexpr int kBN = 64;         // output rows a block, two blocks an SM
 constexpr int kCodeStages = 2;  // code slots, one per plane group
 constexpr int kEK = 32;         // sub-blocks of the min term staged at a time
+
+// Whether rule kVar subtracts the min term xsum.m' after the products (fsplit
+// and xsum) rather than folding the min into the weight (base, base_f32).
+template <int kVar>
+constexpr bool kMinTerm = kVar == kFsplit || kVar == kXsum;
 
 constexpr int kSmemLow = kStages * kXTile + kCodeStages * Tile<kBN>::kCTile
                          + 2 * Tile<kBN>::kWTile;   // 102,400 bytes
@@ -241,7 +259,7 @@ quant_matmul_lowbit_tc_kernel(const ArgsLowTC a) {
   // banks. A thread issues all its loads of a chunk before it uses any, and
   // before the barrier that waits for the other warps' sums of the chunk
   // before.
-  if (kVar == kFsplit && (kM != kNone || a.bias != 0)) {
+  if (kMinTerm<kVar> && (kM != kNone || a.bias != 0)) {
     constexpr int kXE = kEK * kBM / kThreads, kME = kEK * kBN / kThreads;
     float* const xsm = reinterpret_cast<float*>(xs + (kStages - 2) * kXTile);
     float* const msm = xsm + kEK * (kBM + 1);
@@ -312,8 +330,10 @@ quant_matmul_lowbit_tc_kernel(const ArgsLowTC a) {
         const int k0 = (nx / sub) * kBK + kk0;
         chunk_side<kS>(drow, scrow, k0, a.nd, o_ok, s);
         if constexpr (kVar != kFsplit) {
+          // the xsum rule's min side feeds only the min term (and may be the
+          // mixed layout's, narrower than the scale side)
           float mv[kPer];
-          if constexpr (kM != kNone) {
+          if constexpr (!kMinTerm<kVar> && kM != kNone) {
             chunk_side<kM>(dminrow, mnrow, k0, a.nd, o_ok, mv);
           } else {
 #pragma unroll
@@ -376,8 +396,8 @@ int launch_low(const ArgsLowTC& a, cudaStream_t st) {
 
 // The min sides a scale side pairs with, as lgt_quant_matmul_lowbit takes
 // them: none, or flat beside a flat scale, or hierarchical (compact beside
-// a hierarchical scale; mixed beside a flat one, the fsplit rule only).
-// Mapped codes come without a min.
+// a hierarchical scale; mixed beside a flat one, the fsplit and xsum rules
+// only). Mapped codes come without a min.
 template <int kBits, int kVar, int kMap, int kS>
 int launch_low_m(const ArgsLowTC& a, int m_side, cudaStream_t st) {
   if (m_side == kNone) return launch_low<kBits, kVar, kMap, kS, kNone>(a, st);
@@ -385,7 +405,7 @@ int launch_low_m(const ArgsLowTC& a, int m_side, cudaStream_t st) {
     if constexpr (kS == kFlat) {
       if (m_side == kFlat) return launch_low<kBits, kVar, kMap, kS, kFlat>(a, st);
     }
-    if constexpr (kS != kFlat || kVar == kFsplit) {
+    if constexpr (kS != kFlat || kMinTerm<kVar>) {
       if (m_side == kHierU8) return launch_low<kBits, kVar, kMap, kS, kHierU8>(a, st);
       if (m_side == kHierI8) return launch_low<kBits, kVar, kMap, kS, kHierI8>(a, st);
     }
@@ -402,9 +422,9 @@ int launch_low_s(const ArgsLowTC& a, int s_side, int m_side, cudaStream_t st) {
 }
 
 // The rules and maps an instance takes, as lgt_quant_matmul_lowbit's
-// launch_map: fsplit with any map at 4 bits, the identity at 2; base (4-bit
-// identity codes only); base_f32 at 2 bits, and at 4 bits for the IQ2/IQ3
-// maps only.
+// launch_map: fsplit with any map at 4 bits, the identity at 2; xsum and
+// split (one instance) and base, 4-bit identity codes only; base_f32 at 2
+// bits, and at 4 bits for the IQ2/IQ3 maps only.
 template <int kBits>
 int launch_low_var(const ArgsLowTC& a, int var, int vmap, int s_side, int m_side,
                    cudaStream_t st) {
@@ -414,6 +434,8 @@ int launch_low_var(const ArgsLowTC& a, int var, int vmap, int s_side, int m_side
     if (var == kBaseF32 && vmap == kIdentity)
       return launch_low_s<2, kBaseF32, kIdentity>(a, s_side, m_side, st);
   } else {
+    if ((var == kXsum || var == kSplit) && vmap == kIdentity)
+      return launch_low_s<4, kXsum, kIdentity>(a, s_side, m_side, st);
     if (var == kBase && vmap == kIdentity)
       return launch_low_s<4, kBase, kIdentity>(a, s_side, m_side, st);
     if (var == kFsplit && vmap == kIq2)
@@ -442,11 +464,12 @@ inline bool takes(int bits, int in_f, int nsub, int nd, int ndm) {
 extern "C" {
 
 // Arguments as lgt_quant_matmul_lowbit's: x (B, in) bf16 block-minor; xsum
-// (B, nsub) f32 in the min side's order (fsplit; null for the base rules);
+// (B, nsub) f32 in the min side's order (fsplit, xsum; null for the base rules);
 // codes (out, in*bits/8) u8 planar; d (out, nd) f32; sc (out, nsub) u8/i8 or
 // null; dmin (out, ndm) f32 or null; mn (out, nsub) u8/i8 or null -> y (B,
 // out) f32. s_side and m_side name each side's storage (Side), var the
-// element rule (Var: fsplit, base, base_f32), vmap the code alphabet (Map,
+// element rule (Var: fsplit, xsum, split, base, base_f32), vmap the code
+// alphabet (Map,
 // 4 bits only). Needs in % 64 == 0, nsub % 64 == 0, in/nsub a multiple of
 // the planes, nd % 4 == 0; 16-byte aligned arrays.
 int lgt_quant_matmul_4bit_tc(const void* x, const void* xsum, const void* codes,

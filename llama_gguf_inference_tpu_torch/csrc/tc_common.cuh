@@ -1,9 +1,9 @@
-// What the tensor-core matmul kernels share (quant_matmul_tc.cu, 8-bit
-// codes; quant_matmul_lowbit_tc.cu, 2- and 4-bit codes;
-// quant_matmul_int8_tc.cu, int8 activations): the block tile,
-// the inline PTX (cp.async, ldmatrix, mma.sync), the scale side's loads and
-// the products of one step. Each kernel keeps its own loads, decode stage
-// and epilogue.
+// What the tensor-core kernels share (quant_matmul_tc.cu, 8-bit codes;
+// quant_matmul_lowbit_tc.cu, 2- and 4-bit codes; quant_matmul_int8_tc.cu,
+// int8 activations; flash_attention_tc.cu, prefill attention): the matmuls'
+// block tile, the inline PTX (cp.async, ldmatrix, mma.sync), the scale
+// side's loads and the products of one step. Each kernel keeps its own
+// loads, decode stage and epilogue.
 //
 // A block of 8 warps owns kBM = 128 activation rows by kBN = 128 or 64
 // output rows and walks 64 positions of x a step; x and the decoded bf16
@@ -51,6 +51,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
                :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0));
 }
 
+// 4 bytes from global to shared memory, asynchronously; zeros when !pred.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -63,6 +69,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // Four 8x8 bf16 matrices; lanes 8q..8q+7 give the row addresses of matrix q.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// The same, each matrix transposed: lane t takes elements (2*(t%4), t/4)
+// and (2*(t%4)+1, t/4) of each, so a row-major [k][n] tile gives mma's B
+// fragments.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
 

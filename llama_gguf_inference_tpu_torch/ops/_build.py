@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("quant_matmul", "quant_matmul_tc", "quant_matmul_lowbit_tc", "quant_matmul_int8_tc",
-           "flash_attention")
+           "flash_attention", "flash_attention_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -134,17 +134,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # mn, y; B, in, out, nsub, nd, bias, the sides; the stream
         lib.lgt_quant_matmul_int8_tc.argtypes = [p] * 8 + [i] * 8 + [p]
         lib.lgt_quant_matmul_int8_tc.restype = i
-    elif name == "flash_attention":
+    elif name in ("flash_attention", "flash_attention_tc"):
         # pointers: q, the cache tensors, offsets (and the page table), out;
         # then B, T, H, KVH, S (or NP, page_s), D, the scale and the stream
         contig = [i, i, i, i, i, i, f, p]
         paged = [i, i, i, i, i, i, i, f, p]
-        for fn, n_ptr, ints in (("lgt_flash_attention", 5, contig),
-                                ("lgt_flash_attention_q8", 7, contig),
-                                ("lgt_flash_attention_q4", 7, contig),
-                                ("lgt_flash_attention_q41", 9, contig),
-                                ("lgt_flash_attention_paged", 6, paged),
-                                ("lgt_flash_attention_paged_q8", 8, paged)):
+        entries = (("lgt_flash_attention", 5, contig), ("lgt_flash_attention_q8", 7, contig),
+                   ("lgt_flash_attention_paged", 6, paged),
+                   ("lgt_flash_attention_paged_q8", 8, paged))
+        if name == "flash_attention":
+            entries += (("lgt_flash_attention_q4", 7, contig),
+                        ("lgt_flash_attention_q41", 9, contig))
+        for fn, n_ptr, ints in entries:
+            fn += "_tc" if name == "flash_attention_tc" else ""
             getattr(lib, fn).argtypes = [p] * n_ptr + ints
             getattr(lib, fn).restype = i
     return lib

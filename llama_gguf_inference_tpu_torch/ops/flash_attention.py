@@ -19,12 +19,20 @@ prefill chunk get outputs nobody reads.
 - :func:`flash_attention_paged_q8`: int8 pools and (P, KVH, page_s) f32
   scale pools through the same table
 
-On tensors on the card each wrapper launches its CUDA kernel of
-``csrc/flash_attention.cu`` (the counterparts of the TPU kernels
-``_flash_jit``, ``_flash_q8_jit``, ``_flash_paged_jit`` and
-``_flash_paged_q8_jit``) or raises; on CPU tensors it takes its ``*_plain``
-version: the cache dequantized in f32 (codes × scales, + minimums; no bf16
-rounding) and gathered through the table, then one masked f32 softmax.
+On tensors on the card each wrapper launches a CUDA kernel (the
+counterparts of the TPU kernels ``_flash_jit``, ``_flash_q8_jit``,
+``_flash_paged_jit`` and ``_flash_paged_q8_jit``) or raises. The bf16, q8_0
+and paged wrappers dispatch by query positions: from
+:data:`FLASH_TC_MIN_ROWS` (prefill chunks) at a head_dim of
+:data:`TC_HEAD_DIMS`, the tensor-core kernel of
+``csrc/flash_attention_tc.cu`` (``*_tc`` wrappers, launches counted as
+:data:`NAME_TC`, :data:`NAME_Q8_TC`, :data:`NAME_PAGED_TC`,
+:data:`NAME_PAGED_Q8_TC`); else the kernel of ``csrc/flash_attention.cu``
+(``*_decode`` wrappers, launches counted under the wrapper's own name),
+which the q4_0 and q4_1 wrappers take at every T. On CPU tensors every
+wrapper takes its ``*_plain`` version, the plain version of both kernels:
+the cache dequantized in f32 (codes × scales, + minimums; no bf16 rounding)
+and gathered through the table, then one masked f32 softmax.
 """
 
 from __future__ import annotations
@@ -39,15 +47,27 @@ NAME_Q4 = "flash_attention_q4"
 NAME_Q41 = "flash_attention_q41"
 NAME_PAGED = "flash_attention_paged"
 NAME_PAGED_Q8 = "flash_attention_paged_q8"
+NAME_TC = "flash_attention_tc"
+NAME_Q8_TC = "flash_attention_q8_tc"
+NAME_PAGED_TC = "flash_attention_paged_tc"
+NAME_PAGED_Q8_TC = "flash_attention_paged_q8_tc"
 HEAD_DIMS = (64, 128, 256)
+TC_HEAD_DIMS = (64, 128)   # the tensor-core kernel's register tiles
+# query positions T from which the bf16, q8_0 and paged wrappers take the
+# tensor-core kernel: on an H100 it beats the CUDA-core kernel at each of the
+# four from 16 positions, the fewest measured and the engine's smallest
+# prefill bucket (offset 1000, B = 1: bf16 0.0450 against 0.1177 ms, q8_0
+# 0.0712 against 0.0983; PERF.md §6); decode (T = 1) keeps the CUDA-core one
+FLASH_TC_MIN_ROWS = 16
 
 
 def _on_card(name: str, q: torch.Tensor, offsets: torch.Tensor,
              codes: dict[str, torch.Tensor], code_shape: tuple,
              code_dtype: torch.dtype, scales: dict[str, torch.Tensor] | None = None,
-             page_table: torch.Tensor | None = None) -> bool:
+             page_table: torch.Tensor | None = None, tc: bool = False) -> bool:
     """Validate a call; True when it runs on the card. Every code tensor
-    must have ``code_shape``, every scale tensor its first three dims."""
+    must have ``code_shape``, every scale tensor its first three dims; the
+    tensor-core kernel (``tc``) takes the head dims of :data:`TC_HEAD_DIMS`."""
     scales = scales or {}
     B, _, H, D = q.shape
     KVH = code_shape[1]
@@ -75,8 +95,9 @@ def _on_card(name: str, q: torch.Tensor, offsets: torch.Tensor,
             raise ValueError(f"{name}: {n} is on {t.device}, expected {dev}")
     if dev.type != "cuda":
         return False
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    dims = TC_HEAD_DIMS if tc else HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"{name}: head_dim {D} not in {dims}")
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous bf16")
     for n, t in codes.items():
@@ -89,14 +110,16 @@ def _on_card(name: str, q: torch.Tensor, offsets: torch.Tensor,
     return True
 
 
-def _launch(name: str, tensors: list, ints: list) -> torch.Tensor:
-    """Call C entry point ``lgt_<name>`` with the pointers of ``tensors``
-    (q first, offsets and table in their places), out, ``ints``, the
-    softmax scale and the stream; count the launch."""
+def _launch(name: str, tensors: list, ints: list, tc: bool = False) -> torch.Tensor:
+    """Call C entry point ``lgt_<name>`` of ``csrc/flash_attention.cu`` (of
+    ``csrc/flash_attention_tc.cu`` with ``tc``) with the pointers of
+    ``tensors`` (q first, offsets and table in their places), out, ``ints``,
+    the softmax scale and the stream; count the launch."""
     tensors = [t.contiguous() for t in tensors]   # copies only offsets or a table
     q = tensors[0]
     out = torch.empty_like(q)
-    fn = getattr(_build.library("flash_attention"), "lgt_" + name)
+    lib = _build.library("flash_attention_tc" if tc else "flash_attention")
+    fn = getattr(lib, "lgt_" + name)
     _build.check(fn(*[t.data_ptr() for t in tensors], out.data_ptr(), *ints,
                     1.0 / q.shape[-1] ** 0.5,
                     torch.cuda.current_stream(q.device).cuda_stream), name)
@@ -106,28 +129,78 @@ def _launch(name: str, tensors: list, ints: list) -> torch.Tensor:
 
 # -- kernels ------------------------------------------------------------------
 
+def _card(q: torch.Tensor) -> bool:
+    return q.device.type == "cuda"
+
+
+def _takes_tc(q: torch.Tensor) -> bool:
+    """Whether a bf16, q8_0 or paged call goes to the tensor-core kernel: on
+    the card, from :data:`FLASH_TC_MIN_ROWS` query positions, at a head_dim
+    of :data:`TC_HEAD_DIMS`."""
+    return _card(q) and q.shape[1] >= FLASH_TC_MIN_ROWS and q.shape[-1] in TC_HEAD_DIMS
+
+
 def flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """q (B, T, H, D) bf16; k/v (B, KVH, S, D) bf16; offsets (B,) int32
-    -> (B, T, H, D) in q's dtype."""
+    -> (B, T, H, D) in q's dtype: :func:`flash_attention_tc` where
+    :func:`_takes_tc`, else :func:`flash_attention_decode`."""
+    fn = flash_attention_tc if _takes_tc(q) else flash_attention_decode
+    return fn(q, k_cache, v_cache, offsets)
+
+
+def _contig(name, q, k_cache, v_cache, offsets, tc=False):
     B, T, H, D = q.shape
     shape = (B, k_cache.shape[1], k_cache.shape[2], D)
-    if not _on_card(NAME, q, offsets, {"k_cache": k_cache, "v_cache": v_cache},
-                    shape, torch.bfloat16):
+    if not _on_card(name, q, offsets, {"k_cache": k_cache, "v_cache": v_cache},
+                    shape, torch.bfloat16, tc=tc):
         return flash_attention_plain(q, k_cache, v_cache, offsets)
-    return _launch(NAME, [q, k_cache, v_cache, offsets],
-                   [B, T, H, shape[1], shape[2], D])
+    return _launch(name, [q, k_cache, v_cache, offsets],
+                   [B, T, H, shape[1], shape[2], D], tc)
+
+
+def flash_attention_decode(q, k_cache, v_cache, offsets) -> torch.Tensor:
+    """As :func:`flash_attention`, through the CUDA-core kernel at any T;
+    launches count under :data:`NAME`."""
+    return _contig(NAME, q, k_cache, v_cache, offsets)
+
+
+def flash_attention_tc(q, k_cache, v_cache, offsets) -> torch.Tensor:
+    """As :func:`flash_attention`, through the tensor-core kernel at any T
+    (head_dim 64 or 128; raises on another); launches count under
+    :data:`NAME_TC`; the plain version is :func:`flash_attention_plain`."""
+    return _contig(NAME_TC, q, k_cache, v_cache, offsets, tc=True)
 
 
 def flash_attention_q8(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
-    """kq/vq (B, KVH, S, D) int8; ks/vs (B, KVH, S) f32."""
+    """kq/vq (B, KVH, S, D) int8; ks/vs (B, KVH, S) f32:
+    :func:`flash_attention_q8_tc` where :func:`_takes_tc`, else
+    :func:`flash_attention_q8_decode`."""
+    fn = flash_attention_q8_tc if _takes_tc(q) else flash_attention_q8_decode
+    return fn(q, kq, ks, vq, vs, offsets)
+
+
+def _q8(name, q, kq, ks, vq, vs, offsets, tc=False):
     B, T, H, D = q.shape
     shape = (B, kq.shape[1], kq.shape[2], D)
-    if not _on_card(NAME_Q8, q, offsets, {"kq": kq, "vq": vq}, shape, torch.int8,
-                    {"ks": ks, "vs": vs}):
+    if not _on_card(name, q, offsets, {"kq": kq, "vq": vq}, shape, torch.int8,
+                    {"ks": ks, "vs": vs}, tc=tc):
         return flash_attention_q8_plain(q, kq, ks, vq, vs, offsets)
-    return _launch(NAME_Q8, [q, kq, ks, vq, vs, offsets],
-                   [B, T, H, shape[1], shape[2], D])
+    return _launch(name, [q, kq, ks, vq, vs, offsets],
+                   [B, T, H, shape[1], shape[2], D], tc)
+
+
+def flash_attention_q8_decode(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
+    """As :func:`flash_attention_q8`, through the CUDA-core kernel at any T;
+    launches count under :data:`NAME_Q8`."""
+    return _q8(NAME_Q8, q, kq, ks, vq, vs, offsets)
+
+
+def flash_attention_q8_tc(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
+    """As :func:`flash_attention_q8`, through the tensor-core kernel at any
+    T (the codes converted to bf16 in shared memory, the scales applied
+    after the dots); launches count under :data:`NAME_Q8_TC`."""
+    return _q8(NAME_Q8_TC, q, kq, ks, vq, vs, offsets, tc=True)
 
 
 def flash_attention_q4(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
@@ -156,27 +229,65 @@ def flash_attention_q41(q, kq, ks, km, vq, vs, vm, offsets) -> torch.Tensor:
 
 def flash_attention_paged(q, k_pool, v_pool, offsets, page_table) -> torch.Tensor:
     """Pools (P, KVH, page_s, D) bf16; page_table (B, NP) int32 maps slot
-    b's logical page j to a pool page (-1: none, read as page 0)."""
+    b's logical page j to a pool page (-1: none, read as page 0):
+    :func:`flash_attention_paged_tc` where :func:`_takes_tc`, else
+    :func:`flash_attention_paged_decode`."""
+    fn = flash_attention_paged_tc if _takes_tc(q) else flash_attention_paged_decode
+    return fn(q, k_pool, v_pool, offsets, page_table)
+
+
+def _paged(name, q, k_pool, v_pool, offsets, page_table, tc=False):
     B, T, H, D = q.shape
     P, KVH, page_s = k_pool.shape[:3]
-    if not _on_card(NAME_PAGED, q, offsets, {"k_pool": k_pool, "v_pool": v_pool},
-                    (P, KVH, page_s, D), torch.bfloat16, page_table=page_table):
+    if not _on_card(name, q, offsets, {"k_pool": k_pool, "v_pool": v_pool},
+                    (P, KVH, page_s, D), torch.bfloat16, page_table=page_table, tc=tc):
         return flash_attention_paged_plain(q, k_pool, v_pool, offsets, page_table)
-    return _launch(NAME_PAGED, [q, k_pool, v_pool, offsets, page_table],
-                   [B, T, H, KVH, page_table.shape[1], page_s, D])
+    return _launch(name, [q, k_pool, v_pool, offsets, page_table],
+                   [B, T, H, KVH, page_table.shape[1], page_s, D], tc)
+
+
+def flash_attention_paged_decode(q, k_pool, v_pool, offsets, page_table) -> torch.Tensor:
+    """As :func:`flash_attention_paged`, through the CUDA-core kernel at any
+    T; launches count under :data:`NAME_PAGED`."""
+    return _paged(NAME_PAGED, q, k_pool, v_pool, offsets, page_table)
+
+
+def flash_attention_paged_tc(q, k_pool, v_pool, offsets, page_table) -> torch.Tensor:
+    """As :func:`flash_attention_paged`, through the tensor-core kernel at
+    any T; launches count under :data:`NAME_PAGED_TC`."""
+    return _paged(NAME_PAGED_TC, q, k_pool, v_pool, offsets, page_table, tc=True)
 
 
 def flash_attention_paged_q8(q, kq, ks, vq, vs, offsets, page_table) -> torch.Tensor:
     """Pools kq/vq (P, KVH, page_s, D) int8 and ks/vs (P, KVH, page_s)
-    f32, through page_table as :func:`flash_attention_paged`."""
+    f32, through page_table as :func:`flash_attention_paged`:
+    :func:`flash_attention_paged_q8_tc` where :func:`_takes_tc`, else
+    :func:`flash_attention_paged_q8_decode`."""
+    fn = flash_attention_paged_q8_tc if _takes_tc(q) else flash_attention_paged_q8_decode
+    return fn(q, kq, ks, vq, vs, offsets, page_table)
+
+
+def _paged_q8(name, q, kq, ks, vq, vs, offsets, page_table, tc=False):
     B, T, H, D = q.shape
     P, KVH, page_s = kq.shape[:3]
-    if not _on_card(NAME_PAGED_Q8, q, offsets, {"kq": kq, "vq": vq},
+    if not _on_card(name, q, offsets, {"kq": kq, "vq": vq},
                     (P, KVH, page_s, D), torch.int8, {"ks": ks, "vs": vs},
-                    page_table=page_table):
+                    page_table=page_table, tc=tc):
         return flash_attention_paged_q8_plain(q, kq, ks, vq, vs, offsets, page_table)
-    return _launch(NAME_PAGED_Q8, [q, kq, ks, vq, vs, offsets, page_table],
-                   [B, T, H, KVH, page_table.shape[1], page_s, D])
+    return _launch(name, [q, kq, ks, vq, vs, offsets, page_table],
+                   [B, T, H, KVH, page_table.shape[1], page_s, D], tc)
+
+
+def flash_attention_paged_q8_decode(q, kq, ks, vq, vs, offsets, page_table) -> torch.Tensor:
+    """As :func:`flash_attention_paged_q8`, through the CUDA-core kernel at
+    any T; launches count under :data:`NAME_PAGED_Q8`."""
+    return _paged_q8(NAME_PAGED_Q8, q, kq, ks, vq, vs, offsets, page_table)
+
+
+def flash_attention_paged_q8_tc(q, kq, ks, vq, vs, offsets, page_table) -> torch.Tensor:
+    """As :func:`flash_attention_paged_q8`, through the tensor-core kernel at
+    any T; launches count under :data:`NAME_PAGED_Q8_TC`."""
+    return _paged_q8(NAME_PAGED_Q8_TC, q, kq, ks, vq, vs, offsets, page_table, tc=True)
 
 
 # -- plain versions -----------------------------------------------------------

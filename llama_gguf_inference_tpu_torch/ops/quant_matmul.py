@@ -26,7 +26,13 @@ counterpart of one TPU body and branch:
   (:func:`quant_matmul_2bit_decode`, :func:`quant_matmul_4bit_decode`);
 - :func:`quant_matmul_4bit_xsum` and :func:`quant_matmul_4bit_split`
   (``_make_kernel_xsum``/``_split``): the weight ``bf16(q·bf16(s))``, one dot
-  over the row or one per nibble plane, then the same min term;
+  over the row or one per nibble plane, then the same min term. Both
+  dispatch as :func:`quant_matmul_4bit` does, to the xsum rule of the 2/4-bit
+  tensor-core kernel (:func:`quant_matmul_4bit_xsum_tc`,
+  :func:`quant_matmul_4bit_split_tc`, launches :data:`NAME_4BIT_XSUM_TC` and
+  :data:`NAME_4BIT_SPLIT_TC`; split's planes summed apart are only an order
+  of f32 sums there) or to the decode kernel
+  (:func:`quant_matmul_4bit_xsum_decode`, :func:`quant_matmul_4bit_split_decode`);
 - :func:`quant_matmul_4bit_int8` (``_make_kernel_int8``): activations
   quantized per sub-block (:func:`quantize_acts`), exact integer dots per
   sub-block, ``y = Σ_k (p_k·xs_k)·s_k − xsum·m′ᵀ``; from
@@ -90,6 +96,8 @@ NAME_2BIT_TC = "quant_matmul_2bit_tc"
 NAME_4BIT_TC = "quant_matmul_4bit_tc"
 NAME_4BIT_XSUM = "quant_matmul_4bit_xsum"
 NAME_4BIT_SPLIT = "quant_matmul_4bit_split"
+NAME_4BIT_XSUM_TC = "quant_matmul_4bit_xsum_tc"
+NAME_4BIT_SPLIT_TC = "quant_matmul_4bit_split_tc"
 NAME_4BIT_INT8 = "quant_matmul_4bit_int8"
 NAME_4BIT_INT8_TC = "quant_matmul_4bit_int8_tc"
 NAME_4BIT_BASE = "quant_matmul_4bit_base"
@@ -113,7 +121,11 @@ TC_STEP = 64      # the tensor-core kernels' step: they need in and nsub multipl
 # at 16 it wins or ties at each but the 4-bit o (PERF.md §6). The base rules
 # (quant_matmul_4bit_base, quant_matmul_lowbit_base) cross at the same rows:
 # at 8 the decode kernel wins at every projection but Q2_K's gate+up, from 16
-# the tensor-core one at each but Q4_K's o (PERF.md §6)
+# the tensor-core one at each but Q4_K's o (PERF.md §6). The xsum and split
+# wrappers cross as fsplit does: at 8 rows the decode kernel wins at gate+up,
+# at 16 the tensor-core one at qkv and gate+up and the decode one at o and
+# (by 3%) down, which over a layer's four projections still saves about
+# 0.1 ms at 16 rows (PERF.md §6)
 LOWBIT_TC_MIN_ROWS = 16
 # activation rows from which quant_matmul_4bit_int8 takes the tensor-core
 # kernel of csrc/quant_matmul_int8_tc.cu: on an H100 it beats the decode
@@ -273,8 +285,8 @@ def _lowbit(bits: int, var: int, name: str, plain, x, xsum, codes, d, sc, dmin, 
             code_bias: int, fmt: str = "", tc: bool = False) -> torch.Tensor:
     """Checks and launch shared by the 2- and 4-bit wrappers; ``plain`` runs
     the wrapper's plain version on its own arguments. ``tc`` launches the
-    tensor-core kernel (the fsplit, base and base_f32 rules), which raises on
-    a geometry it does not take."""
+    tensor-core kernel (every rule), which raises on a geometry it does not
+    take."""
     B, in_f = x.shape
     base = var in (VAR_BASE, VAR_BASE_F32)
     out_f, nsub, nd, ndm = _check_sides(x, codes, d, sc, dmin, mn, bits, code_bias,
@@ -402,19 +414,67 @@ def quant_matmul_4bit_tc(x, xsum, codes, d, sc, dmin, mn, code_bias=0, fmt="") -
 def quant_matmul_4bit_xsum(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
                            fmt="") -> torch.Tensor:
     """As :func:`quant_matmul_4bit` with the weight bf16(q·bf16(s)) and one
-    dot over the whole row (``LGT_MM_VARIANT=xsum``)."""
+    dot over the whole row (``LGT_MM_VARIANT=xsum``):
+    :func:`quant_matmul_4bit_xsum_tc` from :data:`LOWBIT_TC_MIN_ROWS` rows
+    where the tensor-core kernel takes the geometry, else
+    :func:`quant_matmul_4bit_xsum_decode`."""
+    fn = quant_matmul_4bit_xsum_decode
+    if _takes_tc(4, x, d, sc, dmin):
+        fn = quant_matmul_4bit_xsum_tc
+    return fn(x, xsum, codes, d, sc, dmin, mn, code_bias, fmt)
+
+
+def quant_matmul_4bit_xsum_decode(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                                  fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_xsum`, through the decode kernel at any
+    row count; launches count under :data:`NAME_4BIT_XSUM`."""
     return _lowbit(4, VAR_XSUM, NAME_4BIT_XSUM, lambda: quant_matmul_4bit_xsum_plain(
         x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
         code_bias, fmt)
 
 
+def quant_matmul_4bit_xsum_tc(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                              fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_xsum`, through the tensor-core kernel
+    (any B); raises on a geometry it does not take. Launches count under
+    :data:`NAME_4BIT_XSUM_TC`; the plain version is
+    :func:`quant_matmul_4bit_xsum_plain`."""
+    return _lowbit(4, VAR_XSUM, NAME_4BIT_XSUM_TC, lambda: quant_matmul_4bit_xsum_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt, tc=True)
+
+
 def quant_matmul_4bit_split(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
                             fmt="") -> torch.Tensor:
     """As :func:`quant_matmul_4bit_xsum`, the two nibble planes summed apart
-    and added at the end (``LGT_MM_VARIANT=split``)."""
+    and added at the end (``LGT_MM_VARIANT=split``):
+    :func:`quant_matmul_4bit_split_tc` or
+    :func:`quant_matmul_4bit_split_decode`."""
+    fn = quant_matmul_4bit_split_decode
+    if _takes_tc(4, x, d, sc, dmin):
+        fn = quant_matmul_4bit_split_tc
+    return fn(x, xsum, codes, d, sc, dmin, mn, code_bias, fmt)
+
+
+def quant_matmul_4bit_split_decode(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                                   fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_split`, through the decode kernel at any
+    row count; launches count under :data:`NAME_4BIT_SPLIT`."""
     return _lowbit(4, VAR_SPLIT, NAME_4BIT_SPLIT, lambda: quant_matmul_4bit_split_plain(
         x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
         code_bias, fmt)
+
+
+def quant_matmul_4bit_split_tc(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
+                               fmt="") -> torch.Tensor:
+    """As :func:`quant_matmul_4bit_split`, through the tensor-core kernel
+    (any B; the xsum rule's instances, whose plane steps share one
+    accumulator); raises on a geometry it does not take. Launches count
+    under :data:`NAME_4BIT_SPLIT_TC`; the plain version is
+    :func:`quant_matmul_4bit_split_plain`."""
+    return _lowbit(4, VAR_SPLIT, NAME_4BIT_SPLIT_TC, lambda: quant_matmul_4bit_split_plain(
+        x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
+        code_bias, fmt, tc=True)
 
 
 def quant_matmul_4bit_base(x, codes, d, sc, dmin, mn, code_bias=0) -> torch.Tensor:

@@ -55,7 +55,7 @@ CUTS = {
         "no_decode": ("      decode_plane<kVar, kBits, kMap, kM, kPer>(",
                       "      if (false) decode_plane<kVar, kBits, kMap, kM, kPer>("),
         "no_products": _PRODUCTS,
-        "no_min": ("  if (kVar == kFsplit && (kM != kNone || a.bias != 0)) {",
+        "no_min": ("  if (kMinTerm<kVar> && (kM != kNone || a.bias != 0)) {",
                    "  if (false) {")},
     "quant_matmul_int8_tc": {
         "no_decode": ("            w[j] = *reinterpret_cast<const uint32_t*>(cr + (tr + j) * 16 + kb + 4 * q);",

@@ -1,13 +1,15 @@
 // CPU stand-ins for the block-wide parts of CUDA that the tensor-core
 // kernels use (csrc/quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu,
-// quant_matmul_int8_tc.cu), beside cuda_runtime.h's: a whole block runs at
-// once, one thread per CUDA thread; __syncthreads meets at a block barrier;
-// dynamic shared memory is one buffer a block, filled with 0xff bytes (a
-// bf16 NaN) so that a read of a slot nothing wrote shows; a cp.async copy
-// lands only at the wait_group that covers it; ldmatrix and mma.sync (bf16,
-// and s8 at k32 and k16) exchange their fragments through a warp barrier,
-// laid out as the PTX ISA lays them out. It checks the kernels' tiling,
-// ring and index arithmetic, not what nvcc makes of them.
+// quant_matmul_int8_tc.cu, flash_attention_tc.cu), beside cuda_runtime.h's:
+// a whole block runs at once, one thread per CUDA thread; __syncthreads
+// meets at a block barrier, __shfl_xor_sync at its warp's; dynamic shared
+// memory is one buffer a block, filled with 0xff bytes (a bf16 NaN) so that
+// a read of a slot nothing wrote shows; a cp.async copy (16 or 4 bytes)
+// lands only at the wait_group that covers it; ldmatrix (plain and .trans)
+// and mma.sync (bf16, and s8 at k32 and k16) exchange their fragments
+// through a warp barrier, laid out as the PTX ISA lays them out. It checks
+// the kernels' tiling, ring and index arithmetic, not what nvcc makes of
+// them.
 #pragma once
 #include <cstring>
 #include <deque>
@@ -57,12 +59,15 @@ inline thread_local int emu_tid;
 inline unsigned char* emu_smem() { return emu_blk->smem.data(); }
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 
-struct emu_copy { void* dst; const void* src; bool ok; };
+struct emu_copy { void* dst; const void* src; bool ok; int n; };
 inline thread_local std::vector<emu_copy> emu_open;
 inline thread_local std::deque<std::vector<emu_copy>> emu_groups;
 
 inline void cp_async16(void* dst, const void* src, bool pred) {
-  emu_open.push_back({dst, src, pred});
+  emu_open.push_back({dst, src, pred, 16});
+}
+inline void cp_async4(void* dst, const void* src, bool pred) {
+  emu_open.push_back({dst, src, pred, 4});
 }
 inline void cp_async_commit() {
   emu_groups.push_back(std::move(emu_open));
@@ -71,8 +76,8 @@ inline void cp_async_commit() {
 template <int kN> inline void cp_async_wait() {
   while ((int)emu_groups.size() > kN) {
     for (const emu_copy& c : emu_groups.front()) {
-      if (c.ok) std::memcpy(c.dst, c.src, 16);
-      else std::memset(c.dst, 0, 16);
+      if (c.ok) std::memcpy(c.dst, c.src, c.n);
+      else std::memset(c.dst, 0, c.n);
     }
     emu_groups.pop_front();
   }
@@ -86,6 +91,23 @@ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   b->addr[w][l] = static_cast<const unsigned char*>(p);
   b->warp_bar[w]->arrive_and_wait();
   for (int q = 0; q < 4; ++q) std::memcpy(&r[q], b->addr[w][8 * q + l / 4] + (l % 4) * 4, 4);
+  b->warp_bar[w]->arrive_and_wait();
+}
+
+// matrix q's rows 2*(t%4) and 2*(t%4)+1 come from the addresses lanes
+// 8q + 2*(t%4) (+1) gave; lane t takes their b16 element t/4, the first in
+// its low half
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  emu_block* b = emu_blk;
+  const int w = emu_tid >> 5, l = emu_tid & 31;
+  b->addr[w][l] = static_cast<const unsigned char*>(p);
+  b->warp_bar[w]->arrive_and_wait();
+  for (int q = 0; q < 4; ++q) {
+    uint16_t lo, hi;
+    std::memcpy(&lo, b->addr[w][8 * q + 2 * (l % 4)] + 2 * (l / 4), 2);
+    std::memcpy(&hi, b->addr[w][8 * q + 2 * (l % 4) + 1] + 2 * (l / 4), 2);
+    r[q] = (uint32_t)lo | ((uint32_t)hi << 16);
+  }
   b->warp_bar[w]->arrive_and_wait();
 }
 
@@ -173,22 +195,28 @@ inline void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0, int c
 // emu_launch_block(grid, block, smem, stream, [&] { kernel(args); }).
 template <class F>
 void emu_launch_block(dim3 grid, int threads, int smem, cudaStream_t, F f) {
-  for (unsigned gy = 0; gy < grid.y; ++gy)
-    for (unsigned gx = 0; gx < grid.x; ++gx) {
-      emu_block blk;
-      blk.bar = std::make_unique<std::barrier<>>(threads);
-      for (int w = 0; w < threads / 32; ++w)
-        blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
-      blk.smem.assign(smem, 0xff);
-      std::vector<std::thread> ts;
-      for (int t = 0; t < threads; ++t)
-        ts.emplace_back([&, t] {
-          threadIdx = {(unsigned)t, 0, 0};
-          blockIdx = {gx, gy, 0};
-          emu_tid = t;
-          emu_blk = &blk;
-          f();
-        });
-      for (auto& t : ts) t.join();
-    }
+  for (unsigned gz = 0; gz < grid.z; ++gz)
+    for (unsigned gy = 0; gy < grid.y; ++gy)
+      for (unsigned gx = 0; gx < grid.x; ++gx) {
+        emu_block blk;
+        blk.bar = std::make_unique<std::barrier<>>(threads);
+        std::vector<emu_warp> warps(threads / 32);
+        for (int w = 0; w < threads / 32; ++w) {
+          blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
+          warps[w].bar = blk.warp_bar[w].get();
+        }
+        blk.smem.assign(smem, 0xff);
+        std::vector<std::thread> ts;
+        for (int t = 0; t < threads; ++t)
+          ts.emplace_back([&, t] {
+            threadIdx = {(unsigned)t, 0, 0};
+            blockIdx = {gx, gy, gz};
+            emu_tid = t;
+            emu_blk = &blk;
+            emu_lane = t & 31;
+            emu_this_warp = &warps[t >> 5];
+            f();
+          });
+        for (auto& t : ts) t.join();
+      }
 }

@@ -1,0 +1,181 @@
+"""The tensor-core flash attention source runs on the CPU:
+``csrc/flash_attention_tc.cu`` compiled by g++ against the stand-in headers
+of ``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads, ``cp.async``
+copies of 16 and 4 bytes that land at their wait, ``ldmatrix`` plain and
+``.trans`` and the bf16 ``mma.sync`` through a warp barrier in the PTX
+ISA's fragment layout, quad shuffles through the same barrier), with the
+inline-PTX helpers of ``csrc/tc_common.cuh`` swapped for those stand-ins,
+driven through the port's own ``*_tc`` wrappers with their device check
+lifted, against the plain PyTorch versions.
+
+This holds the kernel's row tiles in the (g, t) order, its ring of K/V
+tiles, the q8_0 codes' conversion and their scales, the page lookups, the
+masks, the online softmax and its early exits to the plain versions where
+no card is present; what nvcc makes of the source, and the PTX itself, are
+checked only on the card (``test_torch_cuda_kernels.py``). Tolerance: two
+bf16 ulps of the output's scale (2 * 2^-8), as for the CUDA-core kernel:
+both round once to bf16 at the end, and this kernel also rounds P (times
+the q8_0 V scale) to bf16 for the second product. Skips where there is no
+g++ with C++20.
+"""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import types
+
+import pytest
+import torch
+
+from llama_gguf_inference_tpu_torch.ops import _build
+from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(HERE), "llama_gguf_inference_tpu_torch", "csrc")
+FLASH_TOL = 2 * 2 ** -8
+
+
+def _emulated_source() -> str:
+    """``csrc/flash_attention_tc.cu`` for g++: the shared header inlined
+    with its PTX section cut (``tc_emu.h`` stands in for it), the dynamic
+    shared memory and the launch routed through the stand-ins."""
+    with open(os.path.join(CSRC, "tc_common.cuh")) as f:
+        hdr = f.read()
+    start, end = hdr.index("// PTX: "), hdr.index("// end PTX")
+    with open(os.path.join(CSRC, "flash_attention_tc.cu")) as f:
+        src = f.read()
+    src = src.replace('#include "tc_common.cuh"', '#include "tc_emu.h"\n' + hdr[:start] + hdr[end:])
+    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
+                      "unsigned char* smem = emu_smem();")
+    return re.sub(r"([A-Za-z_0-9]+<[^<>;]*>)<<<([^>]*)>>>\(([^)]*)\);",
+                  r"emu_launch_block(\2, [&]() { \1(\3); });", src)
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    """``ops.flash_attention``'s wrappers over the g++ build (every tensor
+    seen as on the card), and the launches they count."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the emulated kernel")
+    d = tmp_path_factory.mktemp("cuda_emu_flash")
+    cpp, lib = d / "flash_attention_tc.cpp", d / "flash_attention_tc.so"
+    cpp.write_text(_emulated_source())
+    r = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                        "-pthread", "-I", os.path.join(HERE, "cuda_emu"), "-I", CSRC, str(cpp),
+                        "-o", str(lib)], capture_output=True, text=True, timeout=600)
+    if r.returncode != 0 and "barrier" in r.stderr and "No such file" in r.stderr:
+        pytest.skip("g++ lacks C++20's <barrier>")
+    assert r.returncode == 0, r.stderr[-3000:]
+    so = _build._bind("flash_attention_tc", ctypes.CDLL(str(lib)))
+    launches: dict[str, int] = {}
+    fake_build = types.SimpleNamespace(
+        library=lambda name: so, check=_build.check,
+        count=lambda name: launches.__setitem__(name, launches.get(name, 0) + 1))
+    with open(fa.__file__) as f:
+        wsrc = f.read()
+    wsrc = wsrc.replace('if dev.type != "cuda":', "if False:")
+    wsrc = wsrc.replace("torch.cuda.current_stream(q.device).cuda_stream", "0")
+    wsrc = wsrc.replace("from . import _build\n", "")
+    mod = types.ModuleType("flash_attention_tc_emulated")
+    exec(compile(wsrc, "flash_attention_tc_emulated", "exec"), mod.__dict__)
+    mod._build = fake_build
+    return mod, launches
+
+
+def _close(got, want):
+    assert torch.isfinite(got.float()).all()
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= FLASH_TOL * scale, f"max abs err {err} > {FLASH_TOL} * {scale}"
+
+
+def _codes(shape, g):
+    return (torch.randint(-127, 128, shape, generator=g, dtype=torch.int8),
+            torch.rand(shape[:3], generator=g) * 0.05 + 1e-3)
+
+
+# (D, T, offsets): H 8 over KVH 2; T 16 to 128 (ragged against the 64-row
+# tiles at 20 and 40); offsets 0 and past a 64-key tile, S 256
+CONTIG = [(64, 16, (0, 100)), (128, 20, (70, 3)), (64, 40, (0, 200)), (128, 64, (130, 0)),
+          (64, 128, (65, 128))]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("D,T,offsets", CONTIG, ids=str)
+def test_flash_tc_contiguous(emu, quant, D, T, offsets):
+    """``lgt_flash_attention_tc`` and ``lgt_flash_attention_q8_tc`` against
+    the plain versions over contiguous caches."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(D + T + sum(offsets) + quant)
+    B, KVH, H, S = 2, 2, 8, 256
+    q = torch.randn(B, T, H, D, generator=g).bfloat16()
+    off = torch.tensor(offsets, dtype=torch.int32)
+    if quant:
+        kc, ks = _codes((B, KVH, S, D), g)
+        vc, vs = _codes((B, KVH, S, D), g)
+        args, name = (q, kc, ks, vc, vs, off), fa.NAME_Q8_TC
+        kernel, plain = mod.flash_attention_q8_tc, fa.flash_attention_q8_plain
+    else:
+        k = torch.randn(B, KVH, S, D, generator=g).bfloat16()
+        v = torch.randn(B, KVH, S, D, generator=g).bfloat16()
+        args, name = (q, k, v, off), fa.NAME_TC
+        kernel, plain = mod.flash_attention_tc, fa.flash_attention_plain
+    before = launches.get(name, 0)
+    got = kernel(*args)
+    assert launches[name] == before + 1
+    _close(got, plain(*args))
+
+
+# (D, T, page_s): pools of shuffled pages; slot 0 at its last position,
+# slot 1 over 3 mapped pages (the rest -1), slot 2 idle (its row all -1,
+# offset 0); page sizes that a 64-key tile straddles (48) or spans (16)
+PAGED = [(64, 16, 48), (128, 33, 48), (64, 64, 16), (128, 100, 64)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("D,T,page_s", PAGED, ids=str)
+def test_flash_tc_paged(emu, quant, D, T, page_s):
+    """``lgt_flash_attention_paged_tc`` and ``lgt_flash_attention_paged_q8_tc``
+    against the plain versions: shuffled pages, an idle slot whose table row
+    is all -1 (it reads page 0, never out of bounds)."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(D + T + page_s + quant)
+    B, KVH, H = 3, 2, 8
+    NP = -(-(T + 130) // page_s)
+    P = B * NP
+    q = torch.randn(B, T, H, D, generator=g).bfloat16()
+    table = torch.randperm(P, generator=g).reshape(B, NP).int()
+    used = -(-(T + 40) // page_s)
+    table[1, used:] = -1
+    table[2] = -1
+    off = torch.tensor([NP * page_s - T, used * page_s - T - 3, 0], dtype=torch.int32)
+    if quant:
+        kc, ks = _codes((P, KVH, page_s, D), g)
+        vc, vs = _codes((P, KVH, page_s, D), g)
+        args, name = (q, kc, ks, vc, vs, off, table), fa.NAME_PAGED_Q8_TC
+        kernel, plain = mod.flash_attention_paged_q8_tc, fa.flash_attention_paged_q8_plain
+    else:
+        k = torch.randn(P, KVH, page_s, D, generator=g).bfloat16()
+        v = torch.randn(P, KVH, page_s, D, generator=g).bfloat16()
+        args, name = (q, k, v, off, table), fa.NAME_PAGED_TC
+        kernel, plain = mod.flash_attention_paged_tc, fa.flash_attention_paged_plain
+    before = launches.get(name, 0)
+    got = kernel(*args)
+    assert launches[name] == before + 1
+    _close(got, plain(*args))
+
+
+def test_flash_tc_group_of_one(emu):
+    """No GQA (H = KVH): a row tile spans 64 positions of one head."""
+    mod, _ = emu
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(1, 80, 2, 64, generator=g).bfloat16()
+    k = torch.randn(1, 2, 200, 64, generator=g).bfloat16()
+    v = torch.randn(1, 2, 200, 64, generator=g).bfloat16()
+    off = torch.tensor([90], dtype=torch.int32)
+    _close(mod.flash_attention_tc(q, k, v, off), fa.flash_attention_plain(q, k, v, off))

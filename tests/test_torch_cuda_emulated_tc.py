@@ -1,6 +1,6 @@
 """The tensor-core matmul sources run on the CPU: ``csrc/quant_matmul_tc.cu``
 (8-bit codes), ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes, the
-fsplit, base and base_f32 rules) and ``csrc/quant_matmul_int8_tc.cu`` (int8
+fsplit, xsum, base and base_f32 rules; split through xsum's instances) and ``csrc/quant_matmul_int8_tc.cu`` (int8
 activations, s8 ``mma.sync``) compiled by g++ against the stand-in headers
 of ``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads, ``cp.async``
 copies that land at their wait, ``ldmatrix`` and ``mma.sync`` (bf16; s8 at
@@ -101,7 +101,9 @@ def emu(tmp_path_factory):
             ("quant_matmul_4bit", qm.NAME_4BIT, qm.quant_matmul_4bit_plain),
             ("quant_matmul_4bit_base", qm.NAME_4BIT_BASE, qm.quant_matmul_4bit_base_plain),
             ("quant_matmul_lowbit_base", qm.NAME_LOWBIT_BASE, qm.quant_matmul_lowbit_base_plain),
-            ("quant_matmul_4bit_int8", qm.NAME_4BIT_INT8, qm.quant_matmul_4bit_int8_plain)):
+            ("quant_matmul_4bit_int8", qm.NAME_4BIT_INT8, qm.quant_matmul_4bit_int8_plain),
+            ("quant_matmul_4bit_xsum", qm.NAME_4BIT_XSUM, qm.quant_matmul_4bit_xsum_plain),
+            ("quant_matmul_4bit_split", qm.NAME_4BIT_SPLIT, qm.quant_matmul_4bit_split_plain)):
 
         def decode(*args, _name=name, _plain=plain):
             fake_build.count(_name)
@@ -300,6 +302,46 @@ def test_base_tc_kernel(emu, bits, rule, B, out_f, in_f, sub, bias, layout, has_
         assert _rel_err(got, plain(*args)) <= TOL
 
 
+# (rule, B, out, in, sub, bias, layout, has min, signed sc): the xsum and
+# split rules at Q4_K (flat, compact, mixed), Q4_0's bias 8 and Q3_K's
+# sub-blocks of 16 with bias 4 (i8 sc); nsub 64 and 128; B of 1, 7, 16 and
+# 130; out 72 and 136
+XSUM_CASES = [("xsum", 130, 136, 2048, 32, 0, "flat", True, False),
+              ("xsum", 7, 72, 4096, 32, 0, "compact", True, False),
+              ("xsum", 16, 72, 2048, 32, 0, "mixed", True, False),
+              ("xsum", 1, 136, 1024, 16, 4, "compact", False, True),
+              ("split", 130, 72, 2048, 32, 8, "flat", False, False),
+              ("split", 7, 136, 2048, 32, 0, "compact", True, True),
+              ("split", 16, 136, 2048, 32, 0, "mixed", True, False),
+              ("split", 1, 72, 2048, 16, 4, "flat", False, False)]
+
+
+@pytest.mark.parametrize("rule,B,out_f,in_f,sub,bias,layout,has_min,signed", XSUM_CASES,
+                         ids=str)
+def test_xsum_split_tc_kernel(emu, rule, B, out_f, in_f, sub, bias, layout, has_min, signed):
+    """The xsum rule of the tensor-core 2/4-bit kernel (the split body runs
+    its instances) against the plain versions of _make_kernel_xsum and
+    _make_kernel_split, through their own wrappers at any B; a compact case
+    with a min side once more without it."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(B + in_f + sub + bias + len(rule))
+    codes, d, sc, dmin, mn = _lowbit_arrays(4, out_f, in_f, sub, layout, has_min, signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    if layout == "mixed":
+        w = types.SimpleNamespace(min_size=256, sub_size=sub, in_features=in_f)
+        xsum = qm._mixed_xsum(xsum, w)
+    name = qm.NAME_4BIT_XSUM_TC if rule == "xsum" else qm.NAME_4BIT_SPLIT_TC
+    kernel, plain = getattr(mod, f"quant_matmul_4bit_{rule}_tc"), \
+        getattr(qm, f"quant_matmul_4bit_{rule}_plain")
+    for dm, m in [(dmin, mn)] + ([(None, None)] if has_min and layout == "compact" else []):
+        args = (x, xsum, codes, d, sc, dm, m, bias)
+        before = launches.get(name, 0)
+        got = kernel(*args)
+        assert launches[name] == before + 1
+        assert _rel_err(got, plain(*args)) <= TOL
+
+
 # (B, out, in, sub, bias, layout, has min, signed sc): Q4_K flat and compact
 # (u8 or i8 sc beside a u8 min), Q4_1's flat min, Q4_0's bias 8, Q3_K's
 # sub-blocks of 16 with bias 4 (flat and compact i8 sc; one m16n8k16 a
@@ -332,20 +374,22 @@ def test_int8_tc_kernel(emu, B, out_f, in_f, sub, bias, layout, has_min, signed)
         assert _rel_err(got, qm.quant_matmul_4bit_int8_plain(*args)) <= TOL
 
 
-@pytest.mark.parametrize("body", ["base", "base_f32", "int8"])
+@pytest.mark.parametrize("body", ["base", "base_f32", "int8", "xsum", "split"])
 def test_base_int8_dispatch_by_rows(emu, body):
-    """The dispatching base and int8 wrappers on the card: below their row
-    threshold the decode kernel, from it the tensor-core kernel; a geometry
-    the tensor-core kernel does not take (nsub 48 for base, whose steps
-    take 64 sub-blocks; nsub 40 for int8, whose groups take 16) keeps the
-    decode kernel."""
+    """The dispatching base, int8, xsum and split wrappers on the card:
+    below their row threshold the decode kernel, from it the tensor-core
+    kernel; a geometry the tensor-core kernel does not take (nsub 48 for
+    base, xsum and split, whose steps take 64 sub-blocks; nsub 40 for int8,
+    whose groups take 16) keeps the decode kernel."""
     mod, launches = emu
     g = torch.Generator().manual_seed(len(body))
     bits, sub = (2, 16) if body == "base_f32" else (4, 32)
     rows = qm.INT8_TC_MIN_ROWS if body == "int8" else qm.LOWBIT_TC_MIN_ROWS
     tc, dec = {"base": (qm.NAME_4BIT_BASE_TC, qm.NAME_4BIT_BASE),
                "base_f32": (qm.NAME_LOWBIT_BASE_TC, qm.NAME_LOWBIT_BASE),
-               "int8": (qm.NAME_4BIT_INT8_TC, qm.NAME_4BIT_INT8)}[body]
+               "int8": (qm.NAME_4BIT_INT8_TC, qm.NAME_4BIT_INT8),
+               "xsum": (qm.NAME_4BIT_XSUM_TC, qm.NAME_4BIT_XSUM),
+               "split": (qm.NAME_4BIT_SPLIT_TC, qm.NAME_4BIT_SPLIT)}[body]
     odd = 40 if body == "int8" else 48
     for in_f, B, want in ((64 * sub, rows - 1, dec), (64 * sub, rows, tc), (odd * sub, 20, dec)):
         codes, d, sc, dmin, mn = _lowbit_arrays(bits, 8, in_f, sub, "flat", True, False, g)
@@ -357,6 +401,10 @@ def test_base_int8_dispatch_by_rows(emu, body):
         elif body == "base":
             args = (x, codes, d, sc, dmin, mn)
             wrapper, plain = mod.quant_matmul_4bit_base, qm.quant_matmul_4bit_base_plain
+        elif body in ("xsum", "split"):
+            args = (x, qm._block_sums(x, sub), codes, d, sc, dmin, mn)
+            wrapper = getattr(mod, f"quant_matmul_4bit_{body}")
+            plain = getattr(qm, f"quant_matmul_4bit_{body}_plain")
         else:
             args = (x, codes, d, sc, dmin, mn, 0, bits)
             wrapper, plain = mod.quant_matmul_lowbit_base, qm.quant_matmul_lowbit_base_plain

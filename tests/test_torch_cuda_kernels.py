@@ -161,8 +161,9 @@ def test_quant_matmul_8bit_kernel(dev, B, gtype):
 
 
 VARIANT_WRAPPERS = {
-    "xsum": (qm.quant_matmul_4bit_xsum, qm.quant_matmul_4bit_xsum_plain, qm.NAME_4BIT_XSUM),
-    "split": (qm.quant_matmul_4bit_split, qm.quant_matmul_4bit_split_plain,
+    "xsum": (qm.quant_matmul_4bit_xsum_decode, qm.quant_matmul_4bit_xsum_plain,
+             qm.NAME_4BIT_XSUM),
+    "split": (qm.quant_matmul_4bit_split_decode, qm.quant_matmul_4bit_split_plain,
               qm.NAME_4BIT_SPLIT)}
 
 
@@ -175,7 +176,7 @@ def test_quant_matmul_4bit_variant_kernels(dev, var, layout, sub, bias, signed, 
     """The xsum, split, base and int8 kernels in every layout each takes
     (base and int8 take no mixed layout, which the JAX dispatcher sends to
     its dequantize path; mixed takes no code bias), with and without the
-    min side. Base and int8 through their decode wrappers: from 16 rows the
+    min side. Every body through its decode wrapper: from 8 or 16 rows the
     dispatching ones take the tensor-core kernels for some of these
     geometries."""
     if layout == "mixed":
@@ -680,10 +681,13 @@ def test_flash_attention_quant_kernel(dev, kind, D, T, group):
     args = [a.to(dev) for a in args] + [
         torch.tensor([0, 150, S - T], dtype=torch.int32, device=dev)]
     kernel, plain = QUANT[kind]
-    before = _build.LAUNCHES.get("flash_attention_" + kind, 0)
+    # q8_0 takes the tensor-core kernel from FLASH_TC_MIN_ROWS positions
+    tc = kind == "q8" and T >= fa.FLASH_TC_MIN_ROWS and D in fa.TC_HEAD_DIMS
+    name = "flash_attention_" + kind + ("_tc" if tc else "")
+    before = _build.LAUNCHES.get(name, 0)
     got = kernel(*args)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["flash_attention_" + kind] == before + 1
+    assert _build.LAUNCHES[name] == before + 1
     _close(got, plain(*args), 2 * 2 ** -8)
 
 
@@ -722,3 +726,136 @@ def test_flash_attention_rejects_head_dim(dev):
     k = torch.zeros(1, 2, 128, 96, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, k, k, torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def _tc_args(kind, B, T, H, KVH, D, offsets, g, page_s=64):
+    """Card inputs of a tensor-core flash wrapper: contiguous caches of
+    offsets + T slots rounded up to 64 (plus 64), or pools of shuffled pages
+    of ``page_s`` with a last, idle slot whose table row is all -1."""
+    q = torch.randn(B, T, H, D, generator=g).bfloat16()
+    off = torch.tensor(offsets, dtype=torch.int32)
+    if kind.startswith("paged"):
+        NP = -(-(max(offsets) + T) // page_s)
+        P = B * NP
+        rows = (P, KVH, page_s)
+        table = torch.randperm(P, generator=g).reshape(B, NP).int()
+        for b, o in enumerate(offsets):
+            table[b, -(-(o + T) // page_s):] = -1
+        table[-1] = -1
+    else:
+        rows = (B, KVH, (max(offsets) + T + 127) // 64 * 64)
+    if kind.endswith("q8"):
+        kc, ks, _ = _codes("q8", (*rows, D), g)
+        vc, vs, _ = _codes("q8", (*rows, D), g)
+        kv = [kc, ks, vc, vs]
+    else:
+        kv = [torch.randn(*rows, D, generator=g).bfloat16() for _ in range(2)]
+    return [q, *kv, off] + ([table] if kind.startswith("paged") else [])
+
+
+TC_KINDS = {"bf16": (fa.flash_attention_tc, fa.flash_attention_plain, fa.NAME_TC),
+            "q8": (fa.flash_attention_q8_tc, fa.flash_attention_q8_plain, fa.NAME_Q8_TC),
+            "paged": (fa.flash_attention_paged_tc, fa.flash_attention_paged_plain,
+                      fa.NAME_PAGED_TC),
+            "paged_q8": (fa.flash_attention_paged_q8_tc, fa.flash_attention_paged_q8_plain,
+                         fa.NAME_PAGED_Q8_TC)}
+
+
+@pytest.mark.parametrize("kind", sorted(TC_KINDS))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T,group,offsets", [(16, 4, (0, 1000)), (33, 1, (70, 0)),
+                                             (64, 4, (1024, 5)), (512, 4, (0, 1024))], ids=str)
+def test_flash_attention_tc_kernel(dev, kind, D, T, group, offsets):
+    """Each tensor-core flash kernel against its plain version: T 16 to 512,
+    offsets 0 to 1024, GQA groups of 4 and 1, the paged ones over shuffled
+    pages of 64 beside an idle slot."""
+    g = torch.Generator().manual_seed(D + T + group)
+    offsets = (*offsets, 0) if kind.startswith("paged") else offsets
+    B, KVH = len(offsets), 2
+    args = [a.to(dev) for a in _tc_args(kind, B, T, KVH * group, KVH, D, offsets, g)]
+    kernel, plain, name = TC_KINDS[kind]
+    before = _build.LAUNCHES.get(name, 0)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    _close(got, plain(*args), 2 * 2 ** -8)
+
+
+@pytest.mark.parametrize("kind", sorted(TC_KINDS))
+def test_flash_attention_dispatch_by_rows(dev, kind):
+    """The dispatching wrappers on the card: the tensor-core kernel from
+    FLASH_TC_MIN_ROWS query positions, the CUDA-core kernel below it and at
+    head_dim 256."""
+    g = torch.Generator().manual_seed(len(kind))
+    wrapper = getattr(fa, "flash_attention" + ("" if kind == "bf16" else "_" + kind))
+    tc = TC_KINDS[kind][2]
+    dec = tc[:-3]
+    n = fa.FLASH_TC_MIN_ROWS
+    for T, D, want in ((n - 1, 128, dec), (n, 128, tc), (n, 64, tc)) + (
+            ((n, 256, dec),) if not kind.startswith("paged") else ()):
+        offsets = (0, 300)
+        offsets = (*offsets, 0) if kind.startswith("paged") else offsets
+        args = [a.to(dev) for a in _tc_args(kind, len(offsets), T, 8, 2, D, offsets, g)]
+        _build.reset_launches()
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {want: 1}, (T, D, _build.LAUNCHES)
+        _close(got, TC_KINDS[kind][1](*args), 2 * 2 ** -8)
+
+
+def test_flash_attention_tc_rejects_head_dim(dev):
+    q = torch.zeros(1, 16, 2, 256, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(1, 2, 128, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_tc(q, k, k, torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+XSUM_TC = [(32, 0, "flat", False), (32, 0, "compact", False), (32, 0, "mixed", False),
+           (16, 4, "compact", True), (32, 8, "flat", False)]
+
+
+@pytest.mark.parametrize("B", [16, 64, 512])
+@pytest.mark.parametrize("rule", ["xsum", "split"])
+@pytest.mark.parametrize("sub,bias,layout,signed", XSUM_TC, ids=str)
+def test_quant_matmul_xsum_split_tc_kernel(dev, rule, sub, bias, layout, signed, B):
+    """The xsum rule of the 2/4-bit tensor-core kernel (split through the
+    same instances) against the plain versions of _make_kernel_xsum and
+    _make_kernel_split, with and without the min side."""
+    g = torch.Generator().manual_seed(B + sub + bias + len(rule))
+    out_f, in_f = 200, 4096
+    codes, d, sc, dmin, mn = _lowbit_arrays(4, out_f, in_f, sub, bias, layout, signed, g)
+    x = torch.randn(B, in_f, generator=g)
+    xsum = qm._block_sums(x, sub)
+    kernel = getattr(qm, f"quant_matmul_4bit_{rule}_tc")
+    plain = getattr(qm, f"quant_matmul_4bit_{rule}_plain")
+    name = qm.NAME_4BIT_XSUM_TC if rule == "xsum" else qm.NAME_4BIT_SPLIT_TC
+    mins = [(dmin, mn)] if layout == "mixed" else [(dmin, mn), (None, None)]
+    for dm, m in mins:
+        w = [t if t is None else t.to(dev) for t in (codes, d, sc, dm, m)]
+        args = (x.bfloat16().to(dev), xsum.to(dev), *w, bias)
+        before = _build.LAUNCHES.get(name, 0)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == before + 1
+        _close(got, plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("rule", ["xsum", "split"])
+def test_quant_matmul_xsum_split_dispatch_by_rows(dev, rule):
+    """The xsum and split wrappers on the card: the decode kernel below
+    LOWBIT_TC_MIN_ROWS rows, the tensor-core kernel from it."""
+    g = torch.Generator().manual_seed(len(rule))
+    codes, d, sc, dmin, mn = _lowbit_arrays(4, 128, 2048, 32, 0, "flat", False, g)
+    wrapper = getattr(qm, f"quant_matmul_4bit_{rule}")
+    plain = getattr(qm, f"quant_matmul_4bit_{rule}_plain")
+    names = {"xsum": (qm.NAME_4BIT_XSUM, qm.NAME_4BIT_XSUM_TC),
+             "split": (qm.NAME_4BIT_SPLIT, qm.NAME_4BIT_SPLIT_TC)}[rule]
+    for B, want in ((qm.LOWBIT_TC_MIN_ROWS - 1, names[0]), (qm.LOWBIT_TC_MIN_ROWS, names[1])):
+        x = torch.randn(B, 2048, generator=g)
+        args = (x.bfloat16().to(dev), qm._block_sums(x, 32).to(dev),
+                *[t if t is None else t.to(dev) for t in (codes, d, sc, dmin, mn)])
+        _build.reset_launches()
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {want: 1}
+        _close(got, plain(*args), 1e-4)

@@ -301,10 +301,9 @@ def test_lowbit_rows_threshold(bits, on_card_spies):
 def test_variants_never_reach_the_lowbit_tc_kernel(gtype, variant, on_card_spies, monkeypatch):
     """512 prefill rows through the dispatcher under each LGT_MM_VARIANT: only
     the fsplit/qsplit body reaches the fsplit rule's tensor-core kernel;
-    xsum and split keep their CUDA-core kernels at every row count, base and
-    int8 take their own tensor-core kernels (``test_torch_prefill_tc.py``)
-    (Q2_K takes qsplit under every variant but base, as in the JAX
-    package)."""
+    xsum, split, base and int8 take their own tensor-core kernels
+    (``test_torch_prefill_tc.py``) (Q2_K takes qsplit under every variant
+    but base, as in the JAX package)."""
     monkeypatch.setenv("LGT_MM_VARIANT", variant)
     _, tq = _pair(gtype, 64, 2048)
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(512, 2048)).astype(np.float32))
@@ -324,6 +323,23 @@ def test_profile_names_the_lowbit_tensor_core_kernels():
         "void quant_matmul_lowbit_tc_kernel<4, 0, 1, 1>(ArgsLowTC)") == qm.NAME_4BIT_TC
     assert profile._kernel_group(
         "void quant_matmul_lowbit_tc_kernel<2, 0, 1, 2>(ArgsLowTC)") == qm.NAME_2BIT_TC
+
+
+def test_profile_names_the_xsum_split_and_flash_tensor_core_kernels(monkeypatch):
+    """tools/profile.py books the xsum rule's tensor-core instances under the
+    body that ran them (split runs xsum's instances), and the tensor-core
+    flash kernel apart from the CUDA-core one."""
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.tools import profile
+    name = "void quant_matmul_lowbit_tc_kernel<4, 1, 0, 1, 1>(ArgsLowTC)"
+    monkeypatch.setenv("LGT_MM_VARIANT", "xsum")
+    assert profile._kernel_group(name) == qm.NAME_4BIT_XSUM_TC
+    monkeypatch.setenv("LGT_MM_VARIANT", "split")
+    assert profile._kernel_group(name) == qm.NAME_4BIT_SPLIT_TC
+    assert profile._kernel_group(
+        "void flash_attention_tc_kernel<128, 0, false>(FArgs)") == fa.NAME_TC
+    assert profile._kernel_group(
+        "void flash_attention_kernel<128, 1, true>(Args)") == fa.NAME
 
 
 def test_profile_names_the_prefill_kernels_of_the_variants():

@@ -90,6 +90,31 @@ def test_plain_matches_pallas(kind, T, group, D, monkeypatch):
     assert np.abs(got - want).max() <= 2 * 2 ** -8 * scale
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("kind", ["q8", "paged", "paged_q8"])
+def test_plain_matches_pallas_prefill_chunk(kind, D, monkeypatch):
+    """A chunk of at least FLASH_TC_MIN_ROWS positions (the tensor-core
+    kernel's shape on the card) past nonzero offsets, GQA group 4."""
+    jfn, pallas, tfn = KINDS[kind]
+    calls = []
+    real = getattr(jfa, pallas)
+    monkeypatch.setattr(jfa, pallas, lambda *a, **k: calls.append(1) or real(*a, **k))
+    rng = np.random.default_rng(D + len(kind))
+    T = max(64, tfa.FLASH_TC_MIN_ROWS)
+    B, KVH = 3, 2
+    args = _inputs(kind, rng, B, T, KVH * 4, KVH, D)
+    if not kind.startswith("paged"):
+        args[-1] = np.array([256 - T, 70, 1], np.int32)
+    assert args[-1 - kind.startswith("paged")].any()
+    jargs = [jnp.asarray(args[0], jnp.bfloat16)] + [jnp.asarray(a) for a in args[1:]]
+    want = np.asarray(jfn(*jargs).astype(jnp.float32))
+    assert calls, f"JAX did not take the Pallas kernel {pallas}"
+    targs = [torch.from_numpy(np.asarray(jargs[0]).view(np.int16).copy()).view(
+        torch.bfloat16)] + [torch.from_numpy(a) for a in args[1:]]
+    got = tfn(*targs).float().numpy()
+    assert np.abs(got - want).max() <= 2 * 2 ** -8 * np.abs(want).max()
+
+
 def test_paged_plain_reads_page_zero_for_unmapped_entries():
     """An idle slot (table row all -1) at offset 0 attends to page 0's first
     key, without indexing past the pool."""

@@ -1,4 +1,5 @@
-"""The int8 body's and the base rules' tensor-core prefill paths, on the CPU.
+"""The int8 body's, the base rules' and the xsum and split bodies'
+tensor-core prefill paths, on the CPU.
 
 - ``int8_tc_takes``: the geometries the tensor-core int8 kernel takes
   (sub-blocks of 16 or 32, whole groups of 16 sub-blocks, a scale side whose
@@ -6,15 +7,18 @@
   wrapper raises before any launch.
 - The dispatchers as on the card (``_on_card`` answering True, spies on the
   wrappers): ``quant_matmul_4bit_int8`` takes the tensor-core kernel from
-  ``INT8_TC_MIN_ROWS`` rows, ``quant_matmul_4bit_base`` and
-  ``quant_matmul_lowbit_base`` from ``LOWBIT_TC_MIN_ROWS``, each where its
+  ``INT8_TC_MIN_ROWS`` rows, ``quant_matmul_4bit_base``,
+  ``quant_matmul_lowbit_base``, ``quant_matmul_4bit_xsum`` and
+  ``quant_matmul_4bit_split`` from ``LOWBIT_TC_MIN_ROWS``, each where its
   kernel takes the geometry, and the decode kernel otherwise.
-- The port's ``quant_matmul`` under ``LGT_MM_VARIANT=int8`` and ``base`` at
+- The port's ``quant_matmul`` under ``LGT_MM_VARIANT=int8``, ``base``,
+  ``xsum`` and ``split`` at
   and above those row counts, dispatching as on the card (on CPU tensors the
   tensor-core wrappers compute their plain versions), against the JAX
   package's ``pallas_quant_matmul`` in interpret mode, a spy showing the
   JAX body that ran. Tolerance 2e-5 of the output's scale: the same bf16
-  weights (base) or the same exact integer dots (int8) on both sides, the
+  weights (base, xsum, split) or the same exact integer dots (int8) on both
+  sides, the
   f32 sums in another order (as ``test_torch_quant_matmul_variants.py``).
 - A tiny model's 64-token prefill under each of the two variants against
   the JAX forward on its Pallas kernels. Under base, held to 2⁻⁷ of the
@@ -86,12 +90,12 @@ def test_int8_tc_refuses_geometry(name):
 
 @pytest.fixture
 def spies(monkeypatch):
-    """The dispatch as on the card: ``_on_card`` answers True, and the base
-    and int8 wrappers, tensor-core and decode, record their calls before
-    running (their CPU path is the plain version)."""
+    """The dispatch as on the card: ``_on_card`` answers True, and the base,
+    int8, xsum and split wrappers, tensor-core and decode, record their
+    calls before running (their CPU path is the plain version)."""
     calls = []
     monkeypatch.setattr(qm, "_on_card", lambda t: True)
-    for body in ("4bit_base", "lowbit_base", "4bit_int8"):
+    for body in ("4bit_base", "lowbit_base", "4bit_int8", "4bit_xsum", "4bit_split"):
         for kind in ("tc", "decode"):
             real = getattr(qm, f"quant_matmul_{body}_{kind}")
 
@@ -108,11 +112,13 @@ def _flat_arrays(bits, in_f, sub, g):
     return codes, torch.rand(8, nsub, generator=g), None, torch.rand(8, nsub, generator=g), None
 
 
-@pytest.mark.parametrize("body", ["4bit_int8", "4bit_base", "lowbit_base"])
+@pytest.mark.parametrize("body", ["4bit_int8", "4bit_base", "lowbit_base", "4bit_xsum",
+                                  "4bit_split"])
 def test_rows_threshold(body, spies):
     """Below the body's threshold the decode kernel, from it up (512
     included) the tensor-core kernel; a geometry the tensor-core kernel does
-    not take (int8: nsub 40; base: nsub 48) the decode kernel at 512 rows."""
+    not take (int8: nsub 40; base, xsum, split: nsub 48) the decode kernel
+    at 512 rows."""
     bits, sub = (2, 16) if body == "lowbit_base" else (4, 32)
     rows = qm.INT8_TC_MIN_ROWS if body == "4bit_int8" else qm.LOWBIT_TC_MIN_ROWS
     odd = 40 if body == "4bit_int8" else 48
@@ -124,6 +130,8 @@ def test_rows_threshold(body, spies):
         if body == "4bit_int8":
             xq, xs = qm.quantize_acts(x, sub)
             args = (xq, xs, qm._block_sums(x, sub), *arrs)
+        elif body in ("4bit_xsum", "4bit_split"):
+            args = (x.bfloat16(), qm._block_sums(x, sub), *arrs)
         else:
             args = (x.bfloat16(), *arrs) + ((0, bits) if body == "lowbit_base" else ())
         spies.clear()
@@ -142,7 +150,12 @@ PARITY = [("int8", GGMLType.Q4_K, 512, "flat", "4bit_int8"),
           ("base", GGMLType.Q4_K, 2048, "flat", "4bit_base"),
           ("base", GGMLType.Q4_0, 2048, "flat", "4bit_base"),
           ("base", GGMLType.Q3_K, 1024, "compact", "4bit_base"),
-          ("base", GGMLType.Q2_K, 1024, "flat", "lowbit_base")]
+          ("base", GGMLType.Q2_K, 1024, "flat", "lowbit_base"),
+          ("xsum", GGMLType.Q4_K, 2048, "flat", "4bit_xsum"),
+          ("xsum", GGMLType.Q4_K, 2048, "mixed", "4bit_xsum"),
+          ("xsum", GGMLType.Q3_K, 1024, "compact", "4bit_xsum"),
+          ("split", GGMLType.Q4_K, 2048, "compact", "4bit_split"),
+          ("split", GGMLType.Q4_0, 2048, "flat", "4bit_split")]
 
 
 @pytest.mark.parametrize("B", [8, 16, 64])
