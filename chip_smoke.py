@@ -26,13 +26,14 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               body's 2-bit kernel at Q2_K gate_up (flat, compact); the IQ2/IQ3
               value maps through fsplit and base at o; flash
               attention over each cache kind (bf16, q8_0, q4_0, q4_1, paged
-              bf16, paged q8_0) at decode (T=1, B=4, offsets up to 1000) and
-              prefill (T=512, B=1, offsets 0 and 1024), the bf16, q8_0 and
-              paged kinds at prefill through their tensor-core kernel beside
-              the CUDA-core one, and at T=16, 32 and 64 (offset 1000: the
-              crossover that sets FLASH_TC_MIN_ROWS); the paged ones through
-              shuffled pages of 256 with one idle slot whose table row is all
-              -1; the 2- and
+              bf16, paged q8_0) at decode through the split kernel (T=1, B=4,
+              offsets up to 1000, beside the unsplit kernel's time as
+              PERF.md recorded it; B=1 at offset 1000 over 1024 slots and at 8191
+              over 8192) and prefill (T=512, B=1, offsets 0 and 1024)
+              through its tensor-core kernel beside the CUDA-core one, and
+              at T=16, 32 and 64 (offset 1000: the crossover that sets
+              FLASH_TC_MIN_ROWS); the paged ones through shuffled pages of
+              256 with one idle slot whose table row is all -1; the 2- and
               4-bit tensor-core kernels at the four projections for 16, 64,
               300 and 512 rows (4-bit: Q4_K flat, compact and mixed, Q3_K at
               o and down, the IQ2/IQ3 maps at o; 2-bit: Q2_K flat, mixed and
@@ -70,8 +71,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               version; then three greedy requests through the engine's
               scheduler over four slots of that kind (one idle), each token
               checked against a replay on a one-sequence cache (their
-              prefill, padded to 16 rows, through the kind's tensor-core
-              flash kernel where it has one)
+              prefill, padded to the engine's bucket of 16 or 32 rows,
+              through the kind's decode flash kernel or, from
+              FLASH_TC_MIN_ROWS, its tensor-core one)
 6. serve    — the port's OpenAI server in-process on localhost (4 slots, 1024
               context each): a chat completion, a streamed one, four concurrent
               completions, and a request without the key (must get 401)
@@ -645,19 +647,26 @@ def _variant_tc_rows(torch, qm, g, timer):
     return rows
 
 
+# the unsplit decode kernel at the B=4 decode row (PERF.md §6, measured on an
+# NVIDIA H100 80GB HBM3 at 700.00 W before the kernel was split), shown
+# beside the split kernel's time; that kernel is no longer in the tree
+UNSPLIT_DECODE_MS = {"flash_attention": 0.1199, "flash_attention_q8": 0.0970,
+                 "flash_attention_q4": 0.0714, "flash_attention_q41": 0.0759,
+                 "flash_attention_paged": 0.1282, "flash_attention_paged_q8": 0.1058}
+
+
 def _attention_rows(torch, F, fa, rand, g, timer):
-    """Every flash kernel at decode (T=1, B=4, offsets up to 1000) and at
-    prefill (T=512, B=1, offsets 0 and 1024), and the four entry points with
-    a tensor-core kernel at T=16, 32 and 64 (B=1, offset 1000: the crossover
-    that sets FLASH_TC_MIN_ROWS): H 32 over KVH 8, D 128, 1024 slots a
-    sequence (2048 where a chunk reaches past 1024), contiguous or in pages
-    of 256. Above T=1 those four run their tensor-core kernel, each row
-    beside the CUDA-core kernel on the same inputs (``cuda_core_ms``, its
-    error ``cuda_core_max_abs_err``)."""
+    """Every flash kernel at decode (T=1: B=4, offsets up to 1000; B=1 at
+    offset 1000 over 1024 slots and at 8191 over 8192), at prefill (T=512,
+    B=1, offsets 0 and 1024) and at T=16, 32 and 64 (B=1, offset 1000: the
+    crossover that sets FLASH_TC_MIN_ROWS): H 32 over KVH 8, D 128, 1024
+    slots a sequence (more where its keys reach past 1024), contiguous or in
+    pages of 256. Above T=1 every entry point runs its tensor-core kernel,
+    each row beside the CUDA-core kernel on the same inputs
+    (``cuda_core_ms``, its error ``cuda_core_max_abs_err``); the B=4 decode
+    rows carry the unsplit kernel's time (``unsplit_ms``)."""
     from llama_gguf_inference_tpu_torch.runtime.kv_cache import QuantKV, QuantKV4, QuantKV41
     H, KVH, D = 32, 8, 128
-    tc_of = {fa.NAME: fa.NAME_TC, fa.NAME_Q8: fa.NAME_Q8_TC, fa.NAME_PAGED: fa.NAME_PAGED_TC,
-             fa.NAME_PAGED_Q8: fa.NAME_PAGED_Q8_TC}
     rows = []
 
     def measure(name, label, args, lib_k, lib_v, key_bytes, off, table=None):
@@ -666,7 +675,7 @@ def _attention_rows(torch, F, fa, rand, g, timer):
         and kv head (K and V codes, scales, minimums)."""
         q = args[0]
         B, T = q.shape[:2]
-        tc = name in tc_of and T > 1
+        tc = T > 1
         kernel = getattr(fa, name + "_tc" if tc else name)
         plain = getattr(fa, name + "_plain")
         want = plain(*args)
@@ -686,7 +695,7 @@ def _attention_rows(torch, F, fa, rand, g, timer):
             return F.scaled_dot_product_attention(qt, lib_k, lib_v, attn_mask=mask,
                                                   enable_gqa=True)
         ms = timer(lambda: kernel(*args))
-        row = {"kernel": tc_of[name] if tc else name,
+        row = {"kernel": name + "_tc" if tc else name,
                "shape": f"{label} B={B} T={T} H={H} KVH={KVH} D={D} S={Sl} offsets={offs}",
                "B": B, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
                "plain_ms": timer(lambda: plain(*args), 5), "library_ms": timer(lib),
@@ -695,25 +704,26 @@ def _attention_rows(torch, F, fa, rand, g, timer):
             dec = getattr(fa, name + "_decode")
             row["cuda_core_max_abs_err"] = _err(dec(*args), want, FLASH_TOL)[0]
             row["cuda_core_ms"] = timer(lambda: dec(*args))
+        elif len(offs) >= 4:   # the B=4 decode row (paged: with its idle fifth)
+            row["unsplit_ms"] = UNSPLIT_DECODE_MS[name]
         rows.append(row)
         emit({"phase": "kernels", **row})
 
     for label, B, T, offs in (("decode", 4, 1, [1000, 700, 300, 37]),
+                              ("decode", 1, 1, [1000]), ("decode", 1, 1, [8191]),
                               ("prefill", 1, 512, [0]), ("prefill", 1, 512, [1024]),
                               ("crossover", 1, 16, [1000]), ("crossover", 1, 32, [1000]),
                               ("crossover", 1, 64, [1000])):
-        S = 1024 if max(offs) + T <= 1024 else 2048
+        S = max(1024, -(-(max(offs) + T) // 1024) * 1024)
         NP = S // PAGE_S
         q = rand(B, T, H, D).bfloat16()
         k = rand(B, KVH, S, D).bfloat16()
         v = rand(B, KVH, S, D).bfloat16()
         off = torch.tensor(offs, dtype=torch.int32, device="cuda")
         measure(fa.NAME, label, (q, k, v, off), k, v, 2 * D * 2, off)
-        codecs = ((fa.NAME_Q8, QuantKV, 2 * (D + 4)),)
-        if label != "crossover":
-            codecs += ((fa.NAME_Q4, QuantKV4, 2 * (D // 2 + 4)),
-                       (fa.NAME_Q41, QuantKV41, 2 * (D // 2 + 8)))
-        for name, codec, key_bytes in codecs:
+        for name, codec, key_bytes in ((fa.NAME_Q8, QuantKV, 2 * (D + 4)),
+                                       (fa.NAME_Q4, QuantKV4, 2 * (D // 2 + 4)),
+                                       (fa.NAME_Q41, QuantKV41, 2 * (D // 2 + 8))):
             kc, vc = codec.quantize(k), codec.quantize(v)
             measure(name, label, (q, *kc, *vc, off), codec.dequantize(*kc),
                     codec.dequantize(*vc), key_bytes, off)
@@ -884,7 +894,9 @@ def kv_engine(torch, engine, ecfg):
         swap(saved)
 
 
-ENGINE_PROMPTS = (PROMPT, "hello world, the quick brown fox", "request 2: the lazy dog")
+# the third prompt's prefill bucket reaches FLASH_TC_MIN_ROWS, the others' not
+ENGINE_PROMPTS = (PROMPT, "hello world, the quick brown fox",
+                  "request 2: " + PROMPT + ", and then " + PROMPT)
 
 
 def _engine_run(torch, engine, kind, steps):
@@ -894,16 +906,12 @@ def _engine_run(torch, engine, kind, steps):
     tokens, through a one-sequence cache of the same kind: every token the
     engine chose must lie within LOGITS_TOL (of the logits' scale) of the
     replay's largest logit. The prompts' prefill, padded to the engine's
-    smallest bucket, runs the kind's tensor-core flash kernel where it has
-    one and the bucket reaches FLASH_TC_MIN_ROWS."""
+    buckets, runs the kind's decode flash kernel below FLASH_TC_MIN_ROWS and
+    its tensor-core one from there (the third prompt's)."""
     from llama_gguf_inference_tpu_torch.ops import _build
-    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
-    from llama_gguf_inference_tpu_torch.runtime.engine import PREFILL_BUCKETS
     from llama_gguf_inference_tpu_torch.runtime.sampler import SamplingParams
     name = KV_KINDS[kind][2]
-    tc = {"q8_0": fa.NAME_Q8_TC, "paged": fa.NAME_PAGED_TC,
-          "paged_q8_0": fa.NAME_PAGED_Q8_TC}.get(kind)
-    want = (name, tc) if tc and PREFILL_BUCKETS[0] >= fa.FLASH_TC_MIN_ROWS else (name,)
+    want = (name, name + "_tc")
     with kv_engine(torch, engine, _kv_config(kind, 4)):
         _build.reset_launches()
         outs = [engine.submit(p, SamplingParams(temperature=0.0, max_tokens=steps))[1]
@@ -1647,14 +1655,16 @@ SOURCES = {
     "flash_attention_q41": (_FA_CU, _FA_JAX + ":189"),
     "flash_attention_paged": (_FA_CU, _FA_JAX + ":302"),
     "flash_attention_paged_q8": (_FA_CU, _FA_JAX + ":383"),
-    # the bf16, q8_0 and paged ones at prefill, on tensor cores
+    # the same six at prefill, on tensor cores
     "flash_attention_tc": (_FA_TC_CU, _FA_JAX + ":129"),
     "flash_attention_q8_tc": (_FA_TC_CU, _FA_JAX + ":189"),
+    "flash_attention_q4_tc": (_FA_TC_CU, _FA_JAX + ":189"),
+    "flash_attention_q41_tc": (_FA_TC_CU, _FA_JAX + ":189"),
     "flash_attention_paged_tc": (_FA_TC_CU, _FA_JAX + ":302"),
     "flash_attention_paged_q8_tc": (_FA_TC_CU, _FA_JAX + ":383"),
 }
 # the kernels line reports each kernel at its decode shape (4 slots; the
-# paged ones with their idle fifth; the 2-bit one in the layout the q2k
+# paged ones with their idle fifth, B=5; the 2-bit one in the layout the q2k
 # phase serves), the tensor-core matmuls at a 512-row prefill chunk's
 # gate_up, the tensor-core flash kernels at a 512-token chunk at offset 0
 LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
@@ -1672,7 +1682,8 @@ LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_8bit": "head 128256x4096 B=4",
               "quant_matmul_8bit_min": "q5_k compact 8bit gate_up 28672x4096 B=4",
               "quant_matmul_8bit_min_tc": "q5_k compact 8bit gate_up 28672x4096 B=512",
-              **{name: "prefill" if name.endswith("_tc") else "decode"
+              **{name: "prefill" if name.endswith("_tc") else
+                 "decode B=5" if "paged" in name else "decode B=4"
                  for name in SOURCES if name.startswith("flash")}}
 
 

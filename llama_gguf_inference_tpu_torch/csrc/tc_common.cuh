@@ -3,7 +3,8 @@
 // int8 activations; flash_attention_tc.cu, prefill attention): the matmuls'
 // block tile, the inline PTX (cp.async, ldmatrix, mma.sync), the scale
 // side's loads and the products of one step. Each kernel keeps its own
-// loads, decode stage and epilogue.
+// loads, decode stage and epilogue. The decode flash kernel
+// (flash_attention.cu) takes only its cp.async helpers.
 //
 // A block of 8 warps owns kBM = 128 activation rows by kBN = 128 or 64
 // output rows and walks 64 positions of x a step; x and the decoded bf16

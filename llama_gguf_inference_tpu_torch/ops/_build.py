@@ -135,19 +135,21 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.lgt_quant_matmul_int8_tc.argtypes = [p] * 8 + [i] * 8 + [p]
         lib.lgt_quant_matmul_int8_tc.restype = i
     elif name in ("flash_attention", "flash_attention_tc"):
-        # pointers: q, the cache tensors, offsets (and the page table), out;
-        # then B, T, H, KVH, S (or NP, page_s), D, the scale and the stream
-        contig = [i, i, i, i, i, i, f, p]
-        paged = [i, i, i, i, i, i, i, f, p]
-        entries = (("lgt_flash_attention", 5, contig), ("lgt_flash_attention_q8", 7, contig),
-                   ("lgt_flash_attention_paged", 6, paged),
-                   ("lgt_flash_attention_paged_q8", 8, paged))
-        if name == "flash_attention":
-            entries += (("lgt_flash_attention_q4", 7, contig),
-                        ("lgt_flash_attention_q41", 9, contig))
-        for fn, n_ptr, ints in entries:
-            fn += "_tc" if name == "flash_attention_tc" else ""
-            getattr(lib, fn).argtypes = [p] * n_ptr + ints
+        # pointers: q, the cache tensors, offsets (and the page table), out
+        # (the decode kernel then its partials' scratch and arrival counters);
+        # then B, T, H, KVH, S (or NP, page_s), D (the decode kernel then its
+        # split length), the scale and the stream
+        dec = int(name == "flash_attention")
+        contig = [i] * (6 + dec) + [f, p]
+        paged = [i] * (7 + dec) + [f, p]
+        for fn, n_ptr, ints in (("lgt_flash_attention", 5, contig),
+                                ("lgt_flash_attention_q8", 7, contig),
+                                ("lgt_flash_attention_q4", 7, contig),
+                                ("lgt_flash_attention_q41", 9, contig),
+                                ("lgt_flash_attention_paged", 6, paged),
+                                ("lgt_flash_attention_paged_q8", 8, paged)):
+            fn += "" if dec else "_tc"
+            getattr(lib, fn).argtypes = [p] * (n_ptr + 2 * dec) + ints
             getattr(lib, fn).restype = i
     return lib
 

@@ -21,18 +21,21 @@ prefill chunk get outputs nobody reads.
 
 On tensors on the card each wrapper launches a CUDA kernel (the
 counterparts of the TPU kernels ``_flash_jit``, ``_flash_q8_jit``,
-``_flash_paged_jit`` and ``_flash_paged_q8_jit``) or raises. The bf16, q8_0
-and paged wrappers dispatch by query positions: from
-:data:`FLASH_TC_MIN_ROWS` (prefill chunks) at a head_dim of
-:data:`TC_HEAD_DIMS`, the tensor-core kernel of
+``_flash_paged_jit`` and ``_flash_paged_q8_jit``) or raises. Every wrapper
+dispatches by query positions: from :data:`FLASH_TC_MIN_ROWS` (prefill
+chunks) at a head_dim of :data:`TC_HEAD_DIMS`, the tensor-core kernel of
 ``csrc/flash_attention_tc.cu`` (``*_tc`` wrappers, launches counted as
-:data:`NAME_TC`, :data:`NAME_Q8_TC`, :data:`NAME_PAGED_TC`,
-:data:`NAME_PAGED_Q8_TC`); else the kernel of ``csrc/flash_attention.cu``
-(``*_decode`` wrappers, launches counted under the wrapper's own name),
-which the q4_0 and q4_1 wrappers take at every T. On CPU tensors every
-wrapper takes its ``*_plain`` version, the plain version of both kernels:
-the cache dequantized in f32 (codes × scales, + minimums; no bf16 rounding)
-and gathered through the table, then one masked f32 softmax.
+:data:`NAME_TC`, :data:`NAME_Q8_TC`, :data:`NAME_Q4_TC`,
+:data:`NAME_Q41_TC`, :data:`NAME_PAGED_TC`, :data:`NAME_PAGED_Q8_TC`); else
+the decode kernel of ``csrc/flash_attention.cu`` (``*_decode`` wrappers,
+launches counted under the wrapper's own name), which splits each
+sequence's keys across blocks of :data:`FLASH_SPLIT_KEYS` and merges the
+splits in the same launch, through a scratch of partials allocated per call
+and arrival counters kept per device (:func:`_arrivals`); the host never
+reads ``offsets``, so a launch's grid follows from shapes alone. On CPU
+tensors every wrapper takes its ``*_plain`` version, the plain version of
+both kernels: the cache dequantized in f32 (codes × scales, + minimums; no
+bf16 rounding) and gathered through the table, then one masked f32 softmax.
 """
 
 from __future__ import annotations
@@ -49,16 +52,24 @@ NAME_PAGED = "flash_attention_paged"
 NAME_PAGED_Q8 = "flash_attention_paged_q8"
 NAME_TC = "flash_attention_tc"
 NAME_Q8_TC = "flash_attention_q8_tc"
+NAME_Q4_TC = "flash_attention_q4_tc"
+NAME_Q41_TC = "flash_attention_q41_tc"
 NAME_PAGED_TC = "flash_attention_paged_tc"
 NAME_PAGED_Q8_TC = "flash_attention_paged_q8_tc"
 HEAD_DIMS = (64, 128, 256)
 TC_HEAD_DIMS = (64, 128)   # the tensor-core kernel's register tiles
-# query positions T from which the bf16, q8_0 and paged wrappers take the
-# tensor-core kernel: on an H100 it beats the CUDA-core kernel at each of the
-# four from 16 positions, the fewest measured and the engine's smallest
-# prefill bucket (offset 1000, B = 1: bf16 0.0450 against 0.1177 ms, q8_0
-# 0.0712 against 0.0983; PERF.md §6); decode (T = 1) keeps the CUDA-core one
-FLASH_TC_MIN_ROWS = 16
+# query positions T from which every wrapper takes the tensor-core kernel. On
+# an H100 at offset 1000, B = 1 (PERF.md §6) the split CUDA-core kernel wins
+# at T = 16 for every kind (bf16 0.0372 against 0.0449 ms, q4_0 0.0505
+# against 0.0632) and the tensor-core one from T = 32 for bf16, q4_0, q4_1
+# and paged bf16 (0.0475 against 0.0597 ms for bf16), paged q8_0 even there,
+# q8_0 from 64; one threshold for all, at the engine's second prefill bucket
+FLASH_TC_MIN_ROWS = 32
+# keys a split of the decode kernel (kChunk of csrc/flash_attention.cu, which
+# refuses a launch sized for another)
+FLASH_SPLIT_KEYS = 256
+_ROW_GROUP = 4                 # query rows a decode block (kWarps)
+_ARRIVALS: dict[torch.device, torch.Tensor] = {}
 
 
 def _on_card(name: str, q: torch.Tensor, offsets: torch.Tensor,
@@ -110,17 +121,44 @@ def _on_card(name: str, q: torch.Tensor, offsets: torch.Tensor,
     return True
 
 
+def _arrivals(dev: torch.device, n: int) -> torch.Tensor:
+    """The decode kernel's arrival counters on ``dev``: zeroed once, grown
+    (anew, zeroed) to the largest ``n`` seen; each launch leaves every
+    counter it used at 0."""
+    buf = _ARRIVALS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[dev] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return buf
+
+
+def _split_work(q: torch.Tensor, KVH: int, S: int) -> list[torch.Tensor]:
+    """The decode kernel's partials' scratch (per (b, kv head, row group,
+    split) and row: acc over D, then m and l; f32) and arrival counters (per
+    (b, kv head, row group)), sized from shapes alone."""
+    B, T, H, D = q.shape
+    groups = B * KVH * -(-(H // KVH * T) // _ROW_GROUP)
+    part = torch.empty(groups * -(-S // FLASH_SPLIT_KEYS) * _ROW_GROUP * (D + 2),
+                       dtype=torch.float32, device=q.device)
+    return [part, _arrivals(q.device, groups)]
+
+
 def _launch(name: str, tensors: list, ints: list, tc: bool = False) -> torch.Tensor:
     """Call C entry point ``lgt_<name>`` of ``csrc/flash_attention.cu`` (of
     ``csrc/flash_attention_tc.cu`` with ``tc``) with the pointers of
-    ``tensors`` (q first, offsets and table in their places), out, ``ints``,
+    ``tensors`` (q first, offsets and table in their places), out (the
+    decode kernel then its scratch and counters), ``ints`` (B, T, H, KVH, S
+    or NP and page_s, D; the decode kernel then :data:`FLASH_SPLIT_KEYS`),
     the softmax scale and the stream; count the launch."""
     tensors = [t.contiguous() for t in tensors]   # copies only offsets or a table
     q = tensors[0]
     out = torch.empty_like(q)
+    work = []
+    if not tc:
+        work = _split_work(q, ints[3], ints[4] if len(ints) == 6 else ints[4] * ints[5])
+        ints = [*ints, FLASH_SPLIT_KEYS]
     lib = _build.library("flash_attention_tc" if tc else "flash_attention")
     fn = getattr(lib, "lgt_" + name)
-    _build.check(fn(*[t.data_ptr() for t in tensors], out.data_ptr(), *ints,
+    _build.check(fn(*[t.data_ptr() for t in [*tensors, out, *work]], *ints,
                     1.0 / q.shape[-1] ** 0.5,
                     torch.cuda.current_stream(q.device).cuda_stream), name)
     _build.count(name)
@@ -134,9 +172,9 @@ def _card(q: torch.Tensor) -> bool:
 
 
 def _takes_tc(q: torch.Tensor) -> bool:
-    """Whether a bf16, q8_0 or paged call goes to the tensor-core kernel: on
-    the card, from :data:`FLASH_TC_MIN_ROWS` query positions, at a head_dim
-    of :data:`TC_HEAD_DIMS`."""
+    """Whether a call goes to the tensor-core kernel: on the card, from
+    :data:`FLASH_TC_MIN_ROWS` query positions, at a head_dim of
+    :data:`TC_HEAD_DIMS`."""
     return _card(q) and q.shape[1] >= FLASH_TC_MIN_ROWS and q.shape[-1] in TC_HEAD_DIMS
 
 
@@ -160,8 +198,8 @@ def _contig(name, q, k_cache, v_cache, offsets, tc=False):
 
 
 def flash_attention_decode(q, k_cache, v_cache, offsets) -> torch.Tensor:
-    """As :func:`flash_attention`, through the CUDA-core kernel at any T;
-    launches count under :data:`NAME`."""
+    """As :func:`flash_attention`, through the CUDA-core split kernel at any
+    T; launches count under :data:`NAME`."""
     return _contig(NAME, q, k_cache, v_cache, offsets)
 
 
@@ -191,8 +229,8 @@ def _q8(name, q, kq, ks, vq, vs, offsets, tc=False):
 
 
 def flash_attention_q8_decode(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
-    """As :func:`flash_attention_q8`, through the CUDA-core kernel at any T;
-    launches count under :data:`NAME_Q8`."""
+    """As :func:`flash_attention_q8`, through the CUDA-core split kernel at
+    any T; launches count under :data:`NAME_Q8`."""
     return _q8(NAME_Q8, q, kq, ks, vq, vs, offsets)
 
 
@@ -205,26 +243,63 @@ def flash_attention_q8_tc(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
 
 def flash_attention_q4(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
     """kq/vq (B, KVH, S, D/2) uint8 planar nibbles biased by 8; ks/vs
-    (B, KVH, S) f32."""
+    (B, KVH, S) f32: :func:`flash_attention_q4_tc` where :func:`_takes_tc`,
+    else :func:`flash_attention_q4_decode`."""
+    fn = flash_attention_q4_tc if _takes_tc(q) else flash_attention_q4_decode
+    return fn(q, kq, ks, vq, vs, offsets)
+
+
+def _q4(name, q, kq, ks, vq, vs, offsets, tc=False):
     B, T, H, D = q.shape
     shape = (B, kq.shape[1], kq.shape[2], D // 2)
-    if not _on_card(NAME_Q4, q, offsets, {"kq": kq, "vq": vq}, shape, torch.uint8,
-                    {"ks": ks, "vs": vs}):
+    if not _on_card(name, q, offsets, {"kq": kq, "vq": vq}, shape, torch.uint8,
+                    {"ks": ks, "vs": vs}, tc=tc):
         return flash_attention_q4_plain(q, kq, ks, vq, vs, offsets)
-    return _launch(NAME_Q4, [q, kq, ks, vq, vs, offsets],
-                   [B, T, H, shape[1], shape[2], D])
+    return _launch(name, [q, kq, ks, vq, vs, offsets], [B, T, H, shape[1], shape[2], D], tc)
+
+
+def flash_attention_q4_decode(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
+    """As :func:`flash_attention_q4`, through the CUDA-core split kernel at
+    any T; launches count under :data:`NAME_Q4`."""
+    return _q4(NAME_Q4, q, kq, ks, vq, vs, offsets)
+
+
+def flash_attention_q4_tc(q, kq, ks, vq, vs, offsets) -> torch.Tensor:
+    """As :func:`flash_attention_q4`, through the tensor-core kernel at any
+    T (the nibbles converted to bf16 in shared memory, the scales applied
+    after the dots); launches count under :data:`NAME_Q4_TC`."""
+    return _q4(NAME_Q4_TC, q, kq, ks, vq, vs, offsets, tc=True)
 
 
 def flash_attention_q41(q, kq, ks, km, vq, vs, vm, offsets) -> torch.Tensor:
     """kq/vq (B, KVH, S, D/2) uint8 unsigned planar nibbles; ks/vs scales
-    and km/vm minimums (B, KVH, S) f32."""
+    and km/vm minimums (B, KVH, S) f32: :func:`flash_attention_q41_tc` where
+    :func:`_takes_tc`, else :func:`flash_attention_q41_decode`."""
+    fn = flash_attention_q41_tc if _takes_tc(q) else flash_attention_q41_decode
+    return fn(q, kq, ks, km, vq, vs, vm, offsets)
+
+
+def _q41(name, q, kq, ks, km, vq, vs, vm, offsets, tc=False):
     B, T, H, D = q.shape
     shape = (B, kq.shape[1], kq.shape[2], D // 2)
-    if not _on_card(NAME_Q41, q, offsets, {"kq": kq, "vq": vq}, shape, torch.uint8,
-                    {"ks": ks, "km": km, "vs": vs, "vm": vm}):
+    if not _on_card(name, q, offsets, {"kq": kq, "vq": vq}, shape, torch.uint8,
+                    {"ks": ks, "km": km, "vs": vs, "vm": vm}, tc=tc):
         return flash_attention_q41_plain(q, kq, ks, km, vq, vs, vm, offsets)
-    return _launch(NAME_Q41, [q, kq, ks, km, vq, vs, vm, offsets],
-                   [B, T, H, shape[1], shape[2], D])
+    return _launch(name, [q, kq, ks, km, vq, vs, vm, offsets],
+                   [B, T, H, shape[1], shape[2], D], tc)
+
+
+def flash_attention_q41_decode(q, kq, ks, km, vq, vs, vm, offsets) -> torch.Tensor:
+    """As :func:`flash_attention_q41`, through the CUDA-core split kernel at
+    any T; launches count under :data:`NAME_Q41`."""
+    return _q41(NAME_Q41, q, kq, ks, km, vq, vs, vm, offsets)
+
+
+def flash_attention_q41_tc(q, kq, ks, km, vq, vs, vm, offsets) -> torch.Tensor:
+    """As :func:`flash_attention_q41`, through the tensor-core kernel at any
+    T (the minimums folded in after the dots, as the scales); launches count
+    under :data:`NAME_Q41_TC`."""
+    return _q41(NAME_Q41_TC, q, kq, ks, km, vq, vs, vm, offsets, tc=True)
 
 
 def flash_attention_paged(q, k_pool, v_pool, offsets, page_table) -> torch.Tensor:
@@ -247,8 +322,8 @@ def _paged(name, q, k_pool, v_pool, offsets, page_table, tc=False):
 
 
 def flash_attention_paged_decode(q, k_pool, v_pool, offsets, page_table) -> torch.Tensor:
-    """As :func:`flash_attention_paged`, through the CUDA-core kernel at any
-    T; launches count under :data:`NAME_PAGED`."""
+    """As :func:`flash_attention_paged`, through the CUDA-core split kernel
+    at any T; launches count under :data:`NAME_PAGED`."""
     return _paged(NAME_PAGED, q, k_pool, v_pool, offsets, page_table)
 
 
@@ -279,8 +354,8 @@ def _paged_q8(name, q, kq, ks, vq, vs, offsets, page_table, tc=False):
 
 
 def flash_attention_paged_q8_decode(q, kq, ks, vq, vs, offsets, page_table) -> torch.Tensor:
-    """As :func:`flash_attention_paged_q8`, through the CUDA-core kernel at
-    any T; launches count under :data:`NAME_PAGED_Q8`."""
+    """As :func:`flash_attention_paged_q8`, through the CUDA-core split
+    kernel at any T; launches count under :data:`NAME_PAGED_Q8`."""
     return _paged_q8(NAME_PAGED_Q8, q, kq, ks, vq, vs, offsets, page_table)
 
 

@@ -1,12 +1,12 @@
 """Where the time goes in the engine on one card.
 
     python -m llama_gguf_inference_tpu_torch.tools.profile [--shape 8b] [--seed 0] [--quant q2_k|q5_k]
-        [--offsets 0,1024]
+        [--offsets 0,1024] [--kv-dtype bf16|q8_0|q4_0|q4_1]
 
 Loads the synthesized model of the shape (``tools.synth``: Q4_K_M, Q2_K
 with ``--quant q2_k`` or Q5_K with ``--quant q5_k``; written under the temp
 dir on first use) into an engine with 4 slots of 1024 tokens (more where an
-offset needs them), and prints the
+offset needs them) over a contiguous cache of ``--kv-dtype``, and prints the
 card's name and power limit (``nvidia-smi``), the scale layout
 (``LGT_SCALE_LAYOUT``, read by the repack at load) and the matmul variant
 (``LGT_MM_VARIANT``, read per call), then one JSON line per measurement:
@@ -25,9 +25,10 @@ card's name and power limit (``nvidia-smi``), the scale layout
    without the min term, decode and tensor-core kernels, the 2- and 4-bit
    tensor-core kernels of the fsplit, base and base_f32 rules, the int8
    body's tensor-core kernel, the xsum rule's, which the split body runs
-   too) and each flash kernel (CUDA-core, tensor-core); the dequantize
-   path's cuBLAS product and its elementwise decode are among the other
-   kernels.
+   too) and each flash kernel (the CUDA-core split kernel, its merge in
+   the same launch, and the tensor-core one, every cache kind's instances
+   under one name each); the dequantize path's cuBLAS product and its
+   elementwise decode are among the other kernels.
 """
 
 from __future__ import annotations
@@ -80,9 +81,11 @@ def _kernel_group(name: str) -> str:
         return qm.NAME_4BIT_INT8_TC
     if "quant_matmul_int8_kernel" in name:
         return qm.NAME_4BIT_INT8
-    if "flash_attention_tc_kernel" in name:
+    if "flash_attention_tc_kernel" in name:     # prefill, every cache kind
         return fa.NAME_TC
-    return fa.NAME if "flash_attention" in name else "other"
+    if "flash_attention_kernel" in name:        # decode (the split kernel and its merge)
+        return fa.NAME
+    return "other"
 
 
 def profile(engine, steps: int = 8, offsets=(0,)) -> list[dict]:
@@ -161,15 +164,17 @@ def main() -> None:
     ap.add_argument("--quant", default="q4_k", choices=QUANTS)
     ap.add_argument("--offsets", default="0",
                     help="comma-separated cache offsets of the prefill chunks profiled")
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "q8_0", "q4_0", "q4_1"))
     a = ap.parse_args()
     offsets = tuple(int(o) for o in a.offsets.split(","))
     ctx = max(1024, -(-(max(offsets) + LIVE) // 1024) * 1024)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(json.dumps({"shape": a.shape, "quant": a.quant, "scale_layout": scale_layout(),
-                      "mm_variant": qm.variant()}), flush=True)
+                      "mm_variant": qm.variant(), "kv_dtype": a.kv_dtype}), flush=True)
     engine = InferenceEngine(cached_model(a.shape, a.seed, quant=a.quant),
-                             EngineConfig(max_slots=4, ctx=ctx), device="cuda")
+                             EngineConfig(max_slots=4, ctx=ctx, kv_dtype=a.kv_dtype),
+                             device="cuda")
     for row in profile(engine, offsets=offsets):
         print(json.dumps(row), flush=True)
 

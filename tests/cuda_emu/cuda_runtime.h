@@ -28,7 +28,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct emu_index { unsigned x, y, z; };
-inline thread_local emu_index threadIdx, blockIdx;
+inline thread_local emu_index threadIdx, blockIdx, gridDim;
 
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -68,6 +68,7 @@ void emu_launch(dim3 grid, int block, int, cudaStream_t, F f) {
           lanes.emplace_back([&, l] {
             threadIdx = {(unsigned)(w * 32 + l), 0, 0};
             blockIdx = {gx, gy, 0};
+            gridDim = {grid.x, grid.y, grid.z};
             emu_lane = l;
             emu_this_warp = &warp;
             f();

@@ -1,6 +1,7 @@
 // CPU stand-ins for the block-wide parts of CUDA that the tensor-core
-// kernels use (csrc/quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu,
-// quant_matmul_int8_tc.cu, flash_attention_tc.cu), beside cuda_runtime.h's:
+// kernels and the decode flash kernel use (csrc/quant_matmul_tc.cu,
+// quant_matmul_lowbit_tc.cu, quant_matmul_int8_tc.cu, flash_attention_tc.cu,
+// flash_attention.cu), beside cuda_runtime.h's:
 // a whole block runs at once, one thread per CUDA thread; __syncthreads
 // meets at a block barrier, __shfl_xor_sync at its warp's; dynamic shared
 // memory is one buffer a block, filled with 0xff bytes (a bf16 NaN) so that
@@ -9,7 +10,10 @@
 // and mma.sync (bf16, and s8 at k32 and k16) exchange their fragments
 // through a warp barrier, laid out as the PTX ISA lays them out. It checks
 // the kernels' tiling, ring and index arithmetic, not what nvcc makes of
-// them.
+// them. Blocks run one after another, so an atomicAdd is a plain add, a
+// __threadfence does nothing and an __ldcg is a plain load: that holds the
+// decode flash kernel's split partials, merge and counter reset, not their
+// ordering between blocks running at once.
 #pragma once
 #include <cstring>
 #include <deque>
@@ -58,6 +62,13 @@ inline thread_local int emu_tid;
 
 inline unsigned char* emu_smem() { return emu_blk->smem.data(); }
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_blk->warp_bar[emu_tid >> 5]->arrive_and_wait();
+}
+
+inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
+inline void __threadfence() {}
+template <class T> inline T __ldcg(const T* p) { return *p; }
 
 struct emu_copy { void* dst; const void* src; bool ok; int n; };
 inline thread_local std::vector<emu_copy> emu_open;
@@ -211,6 +222,7 @@ void emu_launch_block(dim3 grid, int threads, int smem, cudaStream_t, F f) {
           ts.emplace_back([&, t] {
             threadIdx = {(unsigned)t, 0, 0};
             blockIdx = {gx, gy, gz};
+            gridDim = {grid.x, grid.y, grid.z};
             emu_tid = t;
             emu_blk = &blk;
             emu_lane = t & 31;

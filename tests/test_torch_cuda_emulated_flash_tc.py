@@ -9,14 +9,15 @@ driven through the port's own ``*_tc`` wrappers with their device check
 lifted, against the plain PyTorch versions.
 
 This holds the kernel's row tiles in the (g, t) order, its ring of K/V
-tiles, the q8_0 codes' conversion and their scales, the page lookups, the
-masks, the online softmax and its early exits to the plain versions where
+tiles, the q8_0, q4_0 and q4_1 codes' conversion and their scales (q4_1's
+minimums, folded in after the dots), the page lookups, the masks, the online
+softmax and its early exits to the plain versions where
 no card is present; what nvcc makes of the source, and the PTX itself, are
 checked only on the card (``test_torch_cuda_kernels.py``). Tolerance: two
 bf16 ulps of the output's scale (2 * 2^-8), as for the CUDA-core kernel:
 both round once to bf16 at the end, and this kernel also rounds P (times
-the q8_0 V scale) to bf16 for the second product. Skips where there is no
-g++ with C++20.
+the V scale) to bf16 for the second product. Skips where there is no g++
+with C++20.
 """
 
 import ctypes
@@ -105,21 +106,40 @@ CONTIG = [(64, 16, (0, 100)), (128, 20, (70, 3)), (64, 40, (0, 200)), (128, 64, 
           (64, 128, (65, 128))]
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+def _nibbles(shape, g, asym):
+    """q4_0 / q4_1 codes of a (B, KVH, S, D) cache: planar nibble bytes
+    (B, KVH, S, D/2), scales, and for q4_1 minimums."""
+    c = torch.randint(0, 256, (*shape[:3], shape[3] // 2), generator=g, dtype=torch.uint8)
+    s = torch.rand(shape[:3], generator=g) * 0.05 + 1e-3
+    return (c, s, -torch.rand(shape[:3], generator=g) * 0.4) if asym else (c, s)
+
+
+QUANT_SEED = {"bf16": 0, "q8": 1, "q4": 2, "q41": 3}
+
+
+@pytest.mark.parametrize("quant", ["bf16", "q8", "q4", "q41"])
 @pytest.mark.parametrize("D,T,offsets", CONTIG, ids=str)
 def test_flash_tc_contiguous(emu, quant, D, T, offsets):
-    """``lgt_flash_attention_tc`` and ``lgt_flash_attention_q8_tc`` against
-    the plain versions over contiguous caches."""
+    """``lgt_flash_attention_tc``, ``_q8_tc``, ``_q4_tc`` and ``_q41_tc``
+    against the plain versions over contiguous caches."""
     mod, launches = emu
-    g = torch.Generator().manual_seed(D + T + sum(offsets) + quant)
+    g = torch.Generator().manual_seed(D + T + sum(offsets) + QUANT_SEED[quant])
     B, KVH, H, S = 2, 2, 8, 256
     q = torch.randn(B, T, H, D, generator=g).bfloat16()
     off = torch.tensor(offsets, dtype=torch.int32)
-    if quant:
+    if quant == "q8":
         kc, ks = _codes((B, KVH, S, D), g)
         vc, vs = _codes((B, KVH, S, D), g)
         args, name = (q, kc, ks, vc, vs, off), fa.NAME_Q8_TC
         kernel, plain = mod.flash_attention_q8_tc, fa.flash_attention_q8_plain
+    elif quant == "q4":
+        args, name = (q, *_nibbles((B, KVH, S, D), g, False),
+                      *_nibbles((B, KVH, S, D), g, False), off), fa.NAME_Q4_TC
+        kernel, plain = mod.flash_attention_q4_tc, fa.flash_attention_q4_plain
+    elif quant == "q41":
+        args, name = (q, *_nibbles((B, KVH, S, D), g, True),
+                      *_nibbles((B, KVH, S, D), g, True), off), fa.NAME_Q41_TC
+        kernel, plain = mod.flash_attention_q41_tc, fa.flash_attention_q41_plain
     else:
         k = torch.randn(B, KVH, S, D, generator=g).bfloat16()
         v = torch.randn(B, KVH, S, D, generator=g).bfloat16()

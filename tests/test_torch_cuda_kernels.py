@@ -681,8 +681,8 @@ def test_flash_attention_quant_kernel(dev, kind, D, T, group):
     args = [a.to(dev) for a in args] + [
         torch.tensor([0, 150, S - T], dtype=torch.int32, device=dev)]
     kernel, plain = QUANT[kind]
-    # q8_0 takes the tensor-core kernel from FLASH_TC_MIN_ROWS positions
-    tc = kind == "q8" and T >= fa.FLASH_TC_MIN_ROWS and D in fa.TC_HEAD_DIMS
+    # each kind takes the tensor-core kernel from FLASH_TC_MIN_ROWS positions
+    tc = T >= fa.FLASH_TC_MIN_ROWS and D in fa.TC_HEAD_DIMS
     name = "flash_attention_" + kind + ("_tc" if tc else "")
     before = _build.LAUNCHES.get(name, 0)
     got = kernel(*args)
@@ -728,10 +728,10 @@ def test_flash_attention_rejects_head_dim(dev):
         flash_attention(q, k, k, torch.zeros(1, dtype=torch.int32, device=dev))
 
 
-def _tc_args(kind, B, T, H, KVH, D, offsets, g, page_s=64):
-    """Card inputs of a tensor-core flash wrapper: contiguous caches of
-    offsets + T slots rounded up to 64 (plus 64), or pools of shuffled pages
-    of ``page_s`` with a last, idle slot whose table row is all -1."""
+def _tc_args(kind, B, T, H, KVH, D, offsets, g, page_s=64, S=None):
+    """Card inputs of a flash wrapper: contiguous caches of ``S`` slots
+    (default offsets + T rounded up to 64, plus 64), or pools of shuffled
+    pages of ``page_s`` with a last, idle slot whose table row is all -1."""
     q = torch.randn(B, T, H, D, generator=g).bfloat16()
     off = torch.tensor(offsets, dtype=torch.int32)
     if kind.startswith("paged"):
@@ -743,11 +743,15 @@ def _tc_args(kind, B, T, H, KVH, D, offsets, g, page_s=64):
             table[b, -(-(o + T) // page_s):] = -1
         table[-1] = -1
     else:
-        rows = (B, KVH, (max(offsets) + T + 127) // 64 * 64)
+        rows = (B, KVH, S or (max(offsets) + T + 127) // 64 * 64)
     if kind.endswith("q8"):
         kc, ks, _ = _codes("q8", (*rows, D), g)
         vc, vs, _ = _codes("q8", (*rows, D), g)
         kv = [kc, ks, vc, vs]
+    elif kind in ("q4", "q41"):
+        kc, ks, km = _codes(kind, (*rows, D), g)
+        vc, vs, vm = _codes(kind, (*rows, D), g)
+        kv = [kc, ks, vc, vs] if kind == "q4" else [kc, ks, km, vc, vs, vm]
     else:
         kv = [torch.randn(*rows, D, generator=g).bfloat16() for _ in range(2)]
     return [q, *kv, off] + ([table] if kind.startswith("paged") else [])
@@ -755,6 +759,8 @@ def _tc_args(kind, B, T, H, KVH, D, offsets, g, page_s=64):
 
 TC_KINDS = {"bf16": (fa.flash_attention_tc, fa.flash_attention_plain, fa.NAME_TC),
             "q8": (fa.flash_attention_q8_tc, fa.flash_attention_q8_plain, fa.NAME_Q8_TC),
+            "q4": (fa.flash_attention_q4_tc, fa.flash_attention_q4_plain, fa.NAME_Q4_TC),
+            "q41": (fa.flash_attention_q41_tc, fa.flash_attention_q41_plain, fa.NAME_Q41_TC),
             "paged": (fa.flash_attention_paged_tc, fa.flash_attention_paged_plain,
                       fa.NAME_PAGED_TC),
             "paged_q8": (fa.flash_attention_paged_q8_tc, fa.flash_attention_paged_q8_plain,
@@ -808,6 +814,69 @@ def test_flash_attention_tc_rejects_head_dim(dev):
     k = torch.zeros(1, 2, 128, 256, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_tc(q, k, k, torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("kind", sorted(k for k in TC_KINDS if k != "bf16"))
+def test_flash_attention_quant_tc_rejects_head_dim(dev, kind):
+    """Every other tensor-core wrapper refuses head_dim 256 (its register
+    tiles take 64 and 128), where the dispatchers take the decode kernel."""
+    g = torch.Generator().manual_seed(3)
+    offsets = (0, 0) if kind.startswith("paged") else (0,)
+    args = [a.to(dev) for a in _tc_args(kind, len(offsets), 16, 2, 2, 256, offsets, g)]
+    with pytest.raises(ValueError, match="head_dim"):
+        TC_KINDS[kind][0](*args)
+
+
+DECODE = {"bf16": (fa.flash_attention_decode, fa.flash_attention_plain, fa.NAME),
+          **{k: (getattr(fa, f"flash_attention_{k}_decode"),
+                 getattr(fa, f"flash_attention_{k}_plain"), f"flash_attention_{k}")
+             for k in ("q8", "q4", "q41", "paged", "paged_q8")}}
+
+
+@pytest.mark.parametrize("kind", sorted(DECODE))
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("B", [1, 4])
+def test_flash_attention_split_decode_long(dev, kind, B, T):
+    """The split decode kernel over 8192 slots a sequence (32 splits): the
+    last sequence's rows reach slot 8191, the others end inside one split,
+    at a split boundary (255, 256) and across many; the paged ones over
+    shuffled pages of 256 beside an idle slot; H 32 over KVH 8, D 128."""
+    g = torch.Generator().manual_seed(B * 10 + T)
+    offsets = (100, 256 - T, 257 - T, 8192 - T)[-B:]
+    offsets = (*offsets, 0) if kind.startswith("paged") else offsets
+    args = [a.to(dev) for a in _tc_args(kind, len(offsets), T, 32, 8, 128, offsets, g,
+                                        page_s=256, S=8192)]
+    kernel, plain, name = DECODE[kind]
+    _build.reset_launches()
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {name: 1}
+    _close(got, plain(*args), 2 * 2 ** -8)
+    assert not fa._ARRIVALS[got.device].any()
+
+
+@pytest.mark.parametrize("kind", sorted(DECODE))
+def test_flash_attention_split_decode_repeats_and_grows(dev, kind):
+    """The same call three times gives the same output (each launch leaves
+    its arrival counters at 0); then a cache of another S and more rows
+    (the counter buffer grows), then the first again."""
+    g = torch.Generator().manual_seed(len(kind))
+    kernel, plain, _ = DECODE[kind]
+    small = (700, 37, 0) if kind.startswith("paged") else (700, 37)
+    args = [a.to(dev) for a in _tc_args(kind, len(small), 1, 8, 2, 128, small, g, page_s=256,
+                                        S=1024)]
+    outs = [kernel(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    _close(outs[0], plain(*args), 2 * 2 ** -8)
+    big = (3000, 4095, 5, 0) if kind.startswith("paged") else (3000, 4095, 5)
+    wide = [a.to(dev) for a in _tc_args(kind, len(big), 7, 32, 8, 128, big, g, page_s=256,
+                                        S=4096 + 256)]
+    got = kernel(*wide)
+    torch.cuda.synchronize()
+    _close(got, plain(*wide), 2 * 2 ** -8)
+    assert torch.equal(kernel(*args), outs[0])
+    assert not fa._ARRIVALS[got.device].any()
 
 
 XSUM_TC = [(32, 0, "flat", False), (32, 0, "compact", False), (32, 0, "mixed", False),

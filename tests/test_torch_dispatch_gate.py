@@ -342,6 +342,23 @@ def test_profile_names_the_xsum_split_and_flash_tensor_core_kernels(monkeypatch)
         "void flash_attention_kernel<128, 1, true>(Args)") == fa.NAME
 
 
+def test_profile_names_the_flash_kernels_of_every_cache():
+    """tools/profile.py books the split decode kernel's instances (every
+    cache kind, D 256 too, the merge in the same launch) as the CUDA-core
+    flash kernel and the tensor-core instances of q4_0 and q4_1 as the
+    tensor-core one, so decode and prefill flash time stay in their
+    columns."""
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.tools import profile
+    for kind in range(4):
+        assert profile._kernel_group(
+            f"void (anonymous namespace)::flash_attention_kernel<256, {kind}, false>(Args)"
+        ) == fa.NAME
+        assert profile._kernel_group(
+            f"void flash_attention_tc_kernel<128, {kind}, false>(FArgs)") == fa.NAME_TC
+    assert profile._kernel_group("void flash_attention_kernel<64, 1, true>(Args)") == fa.NAME
+
+
 def test_profile_names_the_prefill_kernels_of_the_variants():
     """tools/profile.py books the base rules' tensor-core instances by (bits,
     element rule) and the int8 body's tensor-core kernel apart from its

@@ -73,14 +73,15 @@ def test_flash_prefill_chunk_matches_pallas(D, monkeypatch):
     assert np.abs(got - want).max() <= 2 * 2 ** -8 * np.abs(want).max()
 
 
-# wrapper: (its tensor-core wrapper or None, its CUDA-core wrapper)
+# wrapper: (its tensor-core wrapper, its CUDA-core wrapper)
 DISPATCH = {"flash_attention": ("flash_attention_tc", "flash_attention_decode"),
             "flash_attention_q8": ("flash_attention_q8_tc", "flash_attention_q8_decode"),
             "flash_attention_paged": ("flash_attention_paged_tc",
                                       "flash_attention_paged_decode"),
             "flash_attention_paged_q8": ("flash_attention_paged_q8_tc",
                                          "flash_attention_paged_q8_decode"),
-            "flash_attention_q4": (None, None), "flash_attention_q41": (None, None)}
+            "flash_attention_q4": ("flash_attention_q4_tc", "flash_attention_q4_decode"),
+            "flash_attention_q41": ("flash_attention_q41_tc", "flash_attention_q41_decode")}
 
 
 def _dispatch_args(wrapper, T, D):
@@ -105,15 +106,14 @@ def _dispatch_args(wrapper, T, D):
 
 @pytest.mark.parametrize("wrapper", sorted(DISPATCH))
 def test_flash_dispatch_by_rows(wrapper, monkeypatch):
-    """With the device check answering True: the bf16, q8_0 and paged
-    wrappers take their tensor-core wrapper from FLASH_TC_MIN_ROWS query
-    positions at head_dim 64 and 128, and the CUDA-core one below it and at
-    head_dim 256; q4_0 and q4_1 take neither at any T (their own kernel).
-    Each spy calls the wrapper it stands for, which takes the plain version
-    on these CPU tensors."""
+    """With the device check answering True: every wrapper takes its
+    tensor-core wrapper from FLASH_TC_MIN_ROWS query positions at head_dim
+    64 and 128, and the CUDA-core one below it and at head_dim 256. Each spy
+    calls the wrapper it stands for, which takes the plain version on these
+    CPU tensors."""
     monkeypatch.setattr(tfa, "_card", lambda q: True)
     calls = []
-    for name in [n for pair in DISPATCH.values() for n in pair if n]:
+    for name in [n for pair in DISPATCH.values() for n in pair]:
         real = getattr(tfa, name)
         monkeypatch.setattr(tfa, name, lambda *a, _n=name, _r=real: calls.append(_n) or _r(*a))
     tc, dec = DISPATCH[wrapper]
@@ -123,7 +123,7 @@ def test_flash_dispatch_by_rows(wrapper, monkeypatch):
         args = _dispatch_args(wrapper, T, D)
         out = getattr(tfa, wrapper)(*args)
         assert out.shape == args[0].shape
-        assert calls == ([want] if want else []), (T, D, calls)
+        assert calls == [want], (T, D, calls)
 
 
 def test_flash_offset_zero_sees_one_key():

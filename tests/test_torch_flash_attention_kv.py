@@ -91,7 +91,7 @@ def test_plain_matches_pallas(kind, T, group, D, monkeypatch):
 
 
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("kind", ["q8", "paged", "paged_q8"])
+@pytest.mark.parametrize("kind", ["q8", "paged", "paged_q8", "q4", "q41"])
 def test_plain_matches_pallas_prefill_chunk(kind, D, monkeypatch):
     """A chunk of at least FLASH_TC_MIN_ROWS positions (the tensor-core
     kernel's shape on the card) past nonzero offsets, GQA group 4."""
