@@ -139,6 +139,7 @@ import gc
 import http.client
 import json
 import os
+import re
 import secrets
 import statistics
 import subprocess
@@ -236,6 +237,61 @@ def phase_build():
         _build.library(name)
     emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 3),
           "ptxas": regs})
+    return reports["quant_matmul"]
+
+
+# the 8-bit decode kernel's launch at each 8B shape it serves, B=4: (label,
+# projection, sub-block size, scale side, min side), the sides as the
+# kernel's Side codes (0 none, 1 flat, 2 compact u8, 3 compact i8)
+PLANS_8BIT = [(f"q5_k {lay} {name}", name, 32, side, side)
+              for lay, side in (("compact", 2), ("flat", 1)) for name in SHAPES_4BIT]
+PLANS_8BIT += [(f"q8_0 flat {name}", name, 32, 1, 0) for name in SHAPES_4BIT]
+PLANS_8BIT += [("q6_k head", "head", 16, 3, 0), ("q6_k down", "down", 16, 3, 0)]
+
+
+def _ptxas_8bit(report: str) -> dict:
+    """(scale side, min side) -> registers and spill bytes of each
+    ``quant_matmul_8bit_kernel`` instance, from ptxas's -v report."""
+    out = {}
+    for entry in report.split("Compiling entry function")[1:]:
+        head = entry.split("'")[1] if "'" in entry else ""
+        if "quant_matmul_8bit_kernel" not in head:
+            continue
+        sides = tuple(int(v) for v in head.split("quant_matmul_8bit_kernelILi")[1]
+                      .split("EE")[0].split("ELi"))
+        def num(pattern):
+            return int(re.search(pattern, entry).group(1))
+        out[sides] = {"ptxas_registers": num(r"Used (\d+) registers"),
+                      "spill_stores": num(r"(\d+) bytes spill stores"),
+                      "spill_loads": num(r"(\d+) bytes spill loads")}
+    return out
+
+
+def phase_plans(torch, report: str) -> None:
+    """One line: the 8-bit decode kernel's grid, block, registers, spills
+    and resident blocks at each 8B shape (B=4), from the kernel's own
+    launch plan (cudaFuncGetAttributes, the occupancy calculator) and
+    ptxas's report. A spill fails the run."""
+    import ctypes
+
+    from llama_gguf_inference_tpu_torch.ops import _build
+    lib = _build.library("quant_matmul")
+    ptxas = _ptxas_8bit(report)
+    plans = []
+    for label, name, sub, s_side, m_side in PLANS_8BIT:
+        out_f, in_f = HEAD if name == "head" else SHAPES_4BIT[name]
+        info = (ctypes.c_int * 7)()
+        _build.check(lib.lgt_quant_matmul_8bit_plan(4, in_f, out_f, in_f // sub, s_side,
+                                                    m_side, info), "8-bit plan")
+        gx, gy, threads, smem, regs, local, per_sm = list(info)
+        plans.append({"shape": f"{label} {out_f}x{in_f} B=4", "grid": [gx, gy],
+                      "threads": threads, "smem_bytes": smem, "registers": regs,
+                      "local_bytes": local, "blocks_per_sm": per_sm,
+                      "warps_per_sm": per_sm * threads // 32,
+                      **ptxas.get((s_side, m_side), {})})
+        if local or plans[-1].get("spill_stores", 0):
+            raise AssertionError(f"8-bit decode kernel spills: {plans[-1]}")
+    emit({"phase": "plans", "quant_matmul_8bit": plans})
 
 
 def _err(got, want, tol):
@@ -1731,7 +1787,9 @@ def main() -> int:
     try:
         card = phase_device(torch)
         phase = "build"
-        phase_build()
+        report = phase_build()
+        phase = "plans"
+        phase_plans(torch, report)
         phase = "kernels"
         with torch.inference_mode():
             rows = phase_kernels(torch, Timer(torch))

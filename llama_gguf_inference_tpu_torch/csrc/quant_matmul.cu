@@ -66,31 +66,67 @@
 // 0.406 compact (3.25); Q4_K 0.75 flat, 0.672 mixed, 0.594 compact; Q3_K
 // 0.75 flat, 0.578 compact; Q6_K about 1.08 compact; Q5_K 1.09 compact,
 // 1.25 flat. At prefill (512 rows) they are bound by operations.
-// Design: one warp per output row, lanes walking the row in 16-byte code
-// loads (coalesced, 512 bytes per warp step, the next step's load in flight
-// during this one's arithmetic; 64 weights a lane at 2 bits, 32 at 4), the
-// 2-bit lane's 16 sub-block scales formed once in registers and shared by
-// the byte's four planes, the dequantized run applied to up to 8
-// activation rows at once; a second grid axis tiles further activation rows,
-// so any row count works (prefill re-reads the weights from L2 once per 8
-// rows: right, not fast). The 8-bit kernel here serves fewer than
-// TC_MIN_ROWS rows (ops/quant_matmul.py), the fsplit, base and base_f32
-// rules of the 2/4-bit kernel fewer than LOWBIT_TC_MIN_ROWS, the int8 kernel
-// fewer than INT8_TC_MIN_ROWS; from there up the wrappers take the
-// tensor-core kernels of quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu and
-// quant_matmul_int8_tc.cu, which decode each weight once per 128 rows. The
-// int8 kernel here gives each lane four neighbouring sub-blocks and walks
-// their elements (stride nsub), so a warp reads 128 neighbouring code bytes
-// per step and keeps 4 exact int32 sums per activation row. The element
-// rules live in lowbit_rule.cuh, shared with the tensor-core 2/4-bit
-// kernel. Tensor cores for the xsum and split rules, TMA and split-K are
-// later work.
+// Design of the 2/4-bit and int8 kernels: one warp per output row, lanes
+// walking the row in 16-byte code loads (coalesced, 512 bytes per warp
+// step, the next step's load in flight during this one's arithmetic; 64
+// weights a lane at 2 bits, 32 at 4), the 2-bit lane's 16 sub-block scales
+// formed once in registers and shared by the byte's four planes, the
+// dequantized run applied to up to 8 activation rows at once; a second grid
+// axis tiles further activation rows, so any row count works (prefill
+// re-reads the weights from L2 once per 8 rows: right, not fast). The 8-bit
+// kernel here serves fewer than TC_MIN_ROWS rows (ops/quant_matmul.py), the
+// fsplit, base and base_f32 rules of the 2/4-bit kernel fewer than
+// LOWBIT_TC_MIN_ROWS, the int8 kernel fewer than INT8_TC_MIN_ROWS; from
+// there up the wrappers take the tensor-core kernels of quant_matmul_tc.cu,
+// quant_matmul_lowbit_tc.cu and quant_matmul_int8_tc.cu, which decode each
+// weight once per 128 rows. The int8 kernel here gives each lane four
+// neighbouring sub-blocks and walks their elements (stride nsub), so a warp
+// reads 128 neighbouring code bytes per step and keeps 4 exact int32 sums
+// per activation row. The element rules live in lowbit_rule.cuh, shared
+// with the tensor-core 2/4-bit kernel. Tensor cores for the xsum and split
+// rules, TMA and split-K are later work.
+//
+// Design of the 8-bit decode kernel (quant_matmul_8bit_kernel), where the
+// bytes a weight and the instructions a weight both sit near the card's
+// limits (about 1.1 bytes and 4.5 instructions a weight at B = 4):
+// - A block owns 8 output rows and 8 activation rows. Its warps split the
+//   row into cells of 64 stored positions; cells q and q + C meet the same
+//   sub-blocks (64*C = lcm(64, nsub)), so a warp that walks one chunk (the
+//   cells c, c + C, ...) finds the same 16 sub-blocks in every cell.
+// - Scales once a chunk: each lane forms the 16 scales (and mins) of its
+//   row and positions once, in registers, with 16-byte loads where nsub %
+//   16 == 0 and nd % 4 == 0 (every 8B weight: nsub 128, 256, 448, 896) and
+//   one at a time otherwise; the 8-bit factors are read as exact floats by
+//   byte_perm and a subtract, no int-to-float conversion. The element loop
+//   reads no d, sc, dmin or mn and steps no sub-block index. ffn_down (nsub
+//   448, C = 7) takes the same path as the rest.
+// - Activations shared across rows: mma.sync.m16n8k16 with the activation
+//   rows as A (rows 8-15 zero) and the 8 output rows as B, so one 32-byte x
+//   fragment a lane feeds 8 output rows: 2*B/8 bytes of x (L1 and L2) a code
+//   byte, 1.0 at B = 4.
+// - Bytes in flight: each warp keeps a ring of 8 cells (4 KB) of codes in
+//   flight through cp.async (L1 bypassed), 4 with a min side, requested before
+//   the item's scales are formed; 95 registers with a min side, 71 without,
+//   no spills, 14-28 warps an SM.
+// - Lean element: byte_perm puts c + 128 into 2^23's mantissa, one subtract
+//   of 2^23 + 128 + bias gives c - bias exactly, then __fmul_rn, __fsub_rn
+//   with a min, and one cvt.rn.bf16x2 for two weights.
+// - Filling the card: a chunk's run of cells is split across warps of the
+//   block only as far as needed for two warps a resident slot (plan8); the
+//   block merges its warps' partial sums in shared memory and writes y, so
+//   nothing outlives a launch.
+// Measured (PERF.md §6, tools/tc_ablate.py --kinds q5_k_decode,q6_k_decode):
+// at Q5_K gate+up, B = 4, removing the activation loads, the decode or the
+// products each takes 15-25% off the time; none alone bounds it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <numeric>
+
 #include "lowbit_rule.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -445,65 +481,275 @@ struct Args8 {
   int B, in_f, out_f, nd, nsub, bias;
 };
 
+constexpr int k8Rows = 8;       // output rows a block: mma's n
+constexpr int k8Acts = 8;       // activation rows a block (of mma's m = 16)
+constexpr int k8Cell = 64;      // stored positions of a row a warp takes a step
+constexpr int k8MaxWarps = 16;
+// cp.async ring of code cells a warp (512 bytes a cell), which then holds
+// the warp's partial sums: 8 cells without a min side, 4 with one (those
+// instances keep 95 registers, so 20 warps an SM, and a deeper ring costs
+// the activations' L1 more than it gains in flight: PERF.md §6)
+template <int kM>
+constexpr int k8Ring = kM == kNone ? 8 : 4;
+template <int kM>
+constexpr int k8WarpSmem = k8Ring<kM> * 32 * 16;
+
+// How a block of 8 output rows splits its row. Cell q holds stored positions
+// 64q..64q+63; cells q and q + C meet the same sub-blocks (64*C is the least
+// multiple of 64 and of nsub), so chunk c is the cells c, c + C, c + 2C, ...
+// A warp's item is one chunk and a run of up to `steps` of its cells; the
+// block's warps take the items in turn, one each where items <= 16.
+struct Plan8 {
+  int cells, C, chunks, steps, items, warps;
+};
+
+// Items as long as the card allows: a chunk's run is split only until the
+// grid holds two warps for each of the 16 an SM keeps resident (o and qkv
+// split in 5 and 3, gate+up and the head not at all), at most 16 warps a
+// block; more items than that are dealt evenly, two or more a warp.
+inline Plan8 plan8(int B, int in_f, int out_f, int nsub, int sms) {
+  Plan8 p;
+  p.cells = (in_f + k8Cell - 1) / k8Cell;
+  p.C = nsub / std::gcd(nsub, k8Cell);
+  p.chunks = p.C < p.cells ? p.C : p.cells;
+  const int run = (p.cells + p.C - 1) / p.C;   // cells of chunk 0
+  const long blocks = (long)((out_f + k8Rows - 1) / k8Rows) * ((B + k8Acts - 1) / k8Acts);
+  const long want = (32L * sms + blocks - 1) / blocks;   // items a block
+  long split = (want + p.chunks - 1) / p.chunks;
+  if (split > k8MaxWarps / p.chunks) split = k8MaxWarps / p.chunks;
+  if (split > run) split = run;
+  if (split < 1) split = 1;
+  p.steps = (run + (int)split - 1) / (int)split;
+  p.items = p.chunks * (int)split;
+  const int per = (p.items + k8MaxWarps - 1) / k8MaxWarps;   // items a warp
+  p.warps = (p.items + per - 1) / per;
+  return p;
+}
+
+// Byte q of u, minus magic, as an exact f32: 0x4B0000zz is 2^23 + zz. With
+// magic 2^23 an unsigned byte; with 2^23 + 128 (+ bias) a signed one whose
+// sign bit was flipped first (minus the bias).
+__device__ __forceinline__ float byte_f32(uint32_t u, int q, float magic) {
+  return __fsub_rn(__int_as_float((int)__byte_perm(u, 0x4B000000u, 0x7440u | q)), magic);
+}
+
+// One side's values at this lane's 16 sub-blocks k0, k0+1, ... (mod nsub),
+// as side_at forms them: 16-byte loads where nsub % 16 == 0 and nd % 4 == 0
+// (a run then neither wraps nsub nor splits a 4-aligned run of nd), else
+// one element at a time.
+template <int kSide>
+__device__ __forceinline__ void lane_side(const float* base, const uint8_t* sub, int k0, int nsub,
+                                          int nd, bool vec, float (&v)[16]) {
+  if (vec) {
+    float4 f[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      f[q] = __ldg(reinterpret_cast<const float4*>(base + (kSide == kFlat ? k0 + 4 * q
+                                                                          : (k0 + 4 * q) % nd)));
+    const float* fv = reinterpret_cast<const float*>(f);
+    if constexpr (kSide == kFlat) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) v[e] = fv[e];
+    } else {
+      constexpr uint32_t kFlip = kSide == kHierI8 ? 0x80808080u : 0u;
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(sub + k0));
+      const uint32_t bw[4] = {b.x ^ kFlip, b.y ^ kFlip, b.z ^ kFlip, b.w ^ kFlip};
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        v[e] = __fmul_rn(fv[e], byte_f32(bw[e / 4], e % 4, kFlip ? 8388736.f : 8388608.f));
+    }
+    return;
+  }
+  int k = k0, kd = k0 % nd;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    v[e] = side_at<kSide>(base, sub, k, kd);
+    if (++k == nsub) {
+      k = 0;
+      kd = 0;
+    } else if (++kd == nd) {
+      kd = 0;
+    }
+  }
+}
+
+// 16 codes to 8 words of bf16 pairs: bf16((c - bias) * s - m), the lower
+// position in the lower half; magic is 2^23 + 128 + bias.
+template <int kM>
+__device__ __forceinline__ void decode16(const uint4& c4, const float (&s)[16],
+                                         const float (&m)[16], float magic, uint32_t (&w)[8]) {
+  const uint32_t u[4] = {c4.x ^ 0x80808080u, c4.y ^ 0x80808080u, c4.z ^ 0x80808080u,
+                         c4.w ^ 0x80808080u};
+#pragma unroll
+  for (int e = 0; e < 16; e += 2) {
+    float v0 = __fmul_rn(byte_f32(u[e / 4], e % 4, magic), s[e]);
+    float v1 = __fmul_rn(byte_f32(u[e / 4], e % 4 + 1, magic), s[e + 1]);
+    if constexpr (kM != kNone) {
+      v0 = __fsub_rn(v0, m[e]);
+      v1 = __fsub_rn(v1, m[e + 1]);
+    }
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
+    w[e / 2] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+}
+
+// Block (blockIdx.x, blockIdx.y): output rows 8*bx..+7, activation rows
+// 8*by..+7. Lane (g, t) = (lane / 4, lane % 4) of a warp decodes output row
+// g at positions 16t..16t+15 of each of its cells and brings activation row
+// g at the same positions; mma.m16n8k16 q (q < 4) of a cell takes the
+// lane's positions 4q..4q+3 as its k slots 2t, 2t+1, 2t+8, 2t+9, with the
+// activations as A (rows 8-15 zero) and the weights as B (n = output row).
 template <int kS, int kM>
-__global__ void __launch_bounds__(kWarps * 32, 6)
-quant_matmul_8bit_kernel(const Args8 a) {
-  const int lane = threadIdx.x & 31;
-  const int o = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int b0 = blockIdx.y * kRows;
-  if (o >= a.out_f) return;
-  const int nb = min(kRows, a.B - b0);
-  const int8_t* crow = a.codes + (size_t)o * a.in_f;
-  const float* drow = a.d + (size_t)o * a.nd;
-  const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + (size_t)o * a.nsub;
-  const float* dminrow = kM == kNone ? nullptr : a.dmin + (size_t)o * a.nd;
-  const uint8_t* mnrow = kM == kHierU8 ? a.mn + (size_t)o * a.nsub : nullptr;
+__global__ void __launch_bounds__(k8MaxWarps * 32, 1)
+quant_matmul_8bit_kernel(const Args8 a, const Plan8 p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = p.warps;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * k8Rows, b0 = blockIdx.y * k8Acts;
+  const int nb = min(k8Acts, a.B - b0);
+  // a row past out repeats the last row's loads; its sums are not stored
+  const size_t o = (size_t)min(r0 + g, a.out_f - 1);
+  const int8_t* crow = a.codes + o * a.in_f;
+  const float* drow = a.d + o * a.nd;
+  const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + o * a.nsub;
+  const float* dminrow = kM == kNone ? nullptr : a.dmin + o * a.nd;
+  const uint8_t* mnrow = kM == kHierU8 ? a.mn + o * a.nsub : nullptr;
+  const bool x_live = g < nb;
+  const __nv_bfloat16* xrow = a.x + (size_t)(b0 + (x_live ? g : 0)) * a.in_f;
+  const bool vec = a.nsub % 16 == 0 && a.nd % 4 == 0;
+  const float magic = __fadd_rn(8388736.f, (float)a.bias);
+  constexpr int kRing = k8Ring<kM>;
+  unsigned char* const ring = smem + warp * k8WarpSmem<kM> + lane * 16;
 
-  float acc[kRows];
+  float acc[2][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[h][e] = 0.f;
 
-  for (int j0 = lane * 16; j0 < a.in_f; j0 += 32 * 16) {
-    const int4 c4 = __ldg(reinterpret_cast<const int4*>(crow + j0));
-    const int8_t* c = reinterpret_cast<const int8_t*>(&c4);
-    float w[16];
-    int k = j0 % a.nsub;  // sub-block of position j
-    int dd = k % a.nd;    // its super-block
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      float v = __fmul_rn((float)((int)c[e] - a.bias), side_at<kS>(drow, scrow, k, dd));
-      if constexpr (kM != kNone) v = __fsub_rn(v, side_at<kM>(dminrow, mnrow, k, dd));
-      w[e] = bf16_round(v);
-      if (++k == a.nsub) {
-        k = 0;
-        dd = 0;
-      } else if (++dd == a.nd) {
-        dd = 0;
+  for (int item = warp; item < p.items; item += nwarps) {
+    const int c = item % p.chunks, m0 = (item / p.chunks) * p.steps;
+    const int n = min(p.steps, (p.cells - c + p.C - 1) / p.C - m0);   // cells of the item
+    if (n <= 0) continue;
+    // this lane's position in cell i of the item; past in only in a ragged
+    // last cell, loaded as zeros
+    auto pos = [&](int i) { return ((m0 + i) * p.C + c) * k8Cell + 16 * t; };
+    auto load_codes = [&](int i) {
+      const int j = pos(i);
+      cp_async16(ring + (i % kRing) * 512, crow + (j < a.in_f ? j : 0), j < a.in_f);
+    };
+    auto load_x = [&](int i, uint4 (&xv)[2]) {
+      const int j = pos(i);
+      if (x_live && j < a.in_f) {
+        xv[0] = __ldg(reinterpret_cast<const uint4*>(xrow + j));
+        xv[1] = __ldg(reinterpret_cast<const uint4*>(xrow + j) + 1);
+      } else {
+        xv[0] = xv[1] = uint4{0, 0, 0, 0};
       }
+    };
+    // the item's first cells are in flight while its scales are formed
+#pragma unroll
+    for (int i = 0; i < kRing; ++i) {
+      if (i < n) load_codes(i);
+      cp_async_commit();
     }
+    float s[16], m[16];
+    const int k0 = (c * k8Cell + 16 * t) % a.nsub;
+    lane_side<kS>(drow, scrow, k0, a.nsub, a.nd, vec, s);
+    if constexpr (kM != kNone) lane_side<kM>(dminrow, mnrow, k0, a.nsub, a.nd, vec, m);
+    uint4 xn[2];
+    load_x(0, xn);
+    for (int i = 0; i < n; ++i) {
+      // the slot of cell i-1, read and used, takes cell i-1+kRing: group j
+      // of the item holds cell j
+      if (i > 0) {
+        if (i - 1 + kRing < n) load_codes(i - 1 + kRing);
+        cp_async_commit();
+      }
+      const uint4 xv[2] = {xn[0], xn[1]};
+      if (i + 1 < n) load_x(i + 1, xn);
+      cp_async_wait<kRing - 1>();
+      __syncwarp();
+      const uint4 c4 = *reinterpret_cast<const uint4*>(ring + (i % kRing) * 512);
+      uint32_t w[8];
+      decode16<kM>(c4, s, m, magic, w);
+      const uint32_t xw[8] = {xv[0].x, xv[0].y, xv[0].z, xv[0].w,
+                              xv[1].x, xv[1].y, xv[1].z, xv[1].w};
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < nb) {
-        float xv[16];
-        load_bf16x16(a.x + (size_t)(b0 + r) * a.in_f + j0, xv);
-        float t = acc[r];
-#pragma unroll
-        for (int e = 0; e < 16; ++e) t = fmaf(xv[e], w[e], t);
-        acc[r] = t;
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t af[4] = {xw[2 * q], 0u, xw[2 * q + 1], 0u};
+        mma_bf16(acc[q & 1], af, w[2 * q], w[2 * q + 1]);
       }
     }
   }
-  for (int r = 0; r < nb; ++r) {
-    const float dot = warp_sum(acc[r]);
-    if (lane == 0) a.y[(size_t)(b0 + r) * a.out_f + o] = dot;
+
+  // partial sums through the warp's own ring (its copies have all landed):
+  // accumulator e < 2 is activation row g, output row 2t + e
+  cp_async_wait<0>();
+  __syncwarp();
+  float* part = reinterpret_cast<float*>(smem + warp * k8WarpSmem<kM>);
+  part[g * 8 + 2 * t] = acc[0][0] + acc[1][0];
+  part[g * 8 + 2 * t + 1] = acc[0][1] + acc[1][1];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < k8Acts * k8Rows; idx += nwarps * 32) {
+    const int b = idx >> 3, r = idx & 7;
+    float sum = 0.f;
+    for (int v = 0; v < nwarps; ++v)
+      sum += reinterpret_cast<const float*>(smem + v * k8WarpSmem<kM>)[idx];
+    if (b < nb && r0 + r < a.out_f) a.y[(size_t)(b0 + b) * a.out_f + r0 + r] = sum;
   }
+}
+
+// The plan of a launch, the shared-memory limit of the instance set on its
+// first use and the card's SM count read once.
+template <int kS, int kM>
+int prepare_8bit(int B, int in_f, int out_f, int nsub, Plan8& p) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == 0)
+      rc = (int)cudaFuncSetAttribute(quant_matmul_8bit_kernel<kS, kM>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     k8MaxWarps * k8WarpSmem<kM>);
+    if (rc != 0) {
+      sms = 0;
+      return rc;
+    }
+  }
+  p = plan8(B, in_f, out_f, nsub, sms);
+  return 0;
 }
 
 template <int kS, int kM>
 int launch_8bit(const Args8& a, cudaStream_t st) {
-  const dim3 grid((a.out_f + kWarps - 1) / kWarps, (a.B + kRows - 1) / kRows);
-  quant_matmul_8bit_kernel<kS, kM><<<grid, kWarps * 32, 0, st>>>(a);
+  Plan8 p;
+  const int rc = prepare_8bit<kS, kM>(a.B, a.in_f, a.out_f, a.nsub, p);
+  if (rc != 0) return rc;
+  const dim3 grid((a.out_f + k8Rows - 1) / k8Rows, (a.B + k8Acts - 1) / k8Acts);
+  const int smem = p.warps * k8WarpSmem<kM>;
+  quant_matmul_8bit_kernel<kS, kM><<<grid, p.warps * 32, smem, st>>>(a, p);
   return (int)cudaGetLastError();
+}
+
+// What a launch of one instance would be: grid x and y, threads, shared
+// bytes, registers a thread, local bytes a thread (spills), blocks an SM.
+template <int kS, int kM>
+int plan_8bit(int B, int in_f, int out_f, int nsub, int* info) {
+  Plan8 p;
+  int rc = prepare_8bit<kS, kM>(B, in_f, out_f, nsub, p);
+  cudaFuncAttributes fa;
+  if (rc == 0) rc = (int)cudaFuncGetAttributes(&fa, quant_matmul_8bit_kernel<kS, kM>);
+  int per_sm = 0;
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, quant_matmul_8bit_kernel<kS, kM>, p.warps * 32, p.warps * k8WarpSmem<kM>);
+  if (rc != 0) return rc;
+  const int v[7] = {(out_f + k8Rows - 1) / k8Rows, (B + k8Acts - 1) / k8Acts, p.warps * 32,
+                    p.warps * k8WarpSmem<kM>, fa.numRegs, (int)fa.localSizeBytes, per_sm};
+  for (int i = 0; i < 7; ++i) info[i] = v[i];
+  return 0;
 }
 
 }  // namespace
@@ -565,17 +811,37 @@ int lgt_quant_matmul_int8(const void* xq, const void* xs, const void* xsum,
 
 // x (B, in) bf16 block-minor; codes (out, in) int8; d (out, nd) f32;
 // sc (out, nsub) u8/i8 or null; dmin (out, nd) f32 or null; mn (out, nsub)
-// u8 or null -> y (B, out) f32. in % 16 == 0.
+// u8 or null -> y (B, out) f32. in % 16 == 0, nsub % nd == 0; 16-byte
+// aligned rows.
 int lgt_quant_matmul_8bit(const void* x, const void* codes, const void* d,
                           const void* sc, const void* dmin, const void* mn, void* y,
                           int B, int in_f, int out_f, int nd, int nsub, int bias,
                           int s_side, int m_side, void* stream) {
+  if (in_f % 16 || nsub <= 0 || nd <= 0 || in_f % nsub || nsub % nd)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || out_f == 0) return 0;
   const Args8 a{(const __nv_bfloat16*)x, (const int8_t*)codes, (const float*)d,
                 (const uint8_t*)sc, (const float*)dmin, (const uint8_t*)mn, (float*)y,
                 B, in_f, out_f, nd, nsub, bias};
   const cudaStream_t st = (cudaStream_t)stream;
 #define LGT_CASE(S, M) \
   if (s_side == S && m_side == M) return launch_8bit<S, M>(a, st);
+  LGT_CASE(kFlat, kNone) LGT_CASE(kFlat, kFlat)
+  LGT_CASE(kHierU8, kNone) LGT_CASE(kHierU8, kHierU8)
+  LGT_CASE(kHierI8, kNone) LGT_CASE(kHierI8, kHierU8)
+#undef LGT_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch lgt_quant_matmul_8bit makes for these arguments, into info[7]:
+// grid x, grid y, threads a block, dynamic shared bytes, registers a thread,
+// local (spill) bytes a thread, resident blocks an SM.
+int lgt_quant_matmul_8bit_plan(int B, int in_f, int out_f, int nsub, int s_side, int m_side,
+                               void* info) {
+  if (nsub <= 0) return (int)cudaErrorInvalidValue;
+  int* const v = (int*)info;
+#define LGT_CASE(S, M) \
+  if (s_side == S && m_side == M) return plan_8bit<S, M>(B, in_f, out_f, nsub, v);
   LGT_CASE(kFlat, kNone) LGT_CASE(kFlat, kFlat)
   LGT_CASE(kHierU8, kNone) LGT_CASE(kHierU8, kHierU8)
   LGT_CASE(kHierI8, kNone) LGT_CASE(kHierI8, kHierU8)

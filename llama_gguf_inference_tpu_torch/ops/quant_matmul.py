@@ -809,9 +809,10 @@ def quant_matmul_8bit_decode(x: torch.Tensor, codes: torch.Tensor, d: torch.Tens
                              sc: torch.Tensor | None, sub_size: int, code_bias: int,
                              dmin: torch.Tensor | None = None,
                              mn: torch.Tensor | None = None) -> torch.Tensor:
-    """As :func:`quant_matmul_8bit`, through the decode kernel (one warp an
-    output row, 8 activation rows a block) at any row count. Launches count
-    under :data:`NAME_8BIT`, or :data:`NAME_8BIT_MIN` with a min side."""
+    """As :func:`quant_matmul_8bit`, through the decode kernel (8 output
+    rows and 8 activation rows a block, the row split across its warps) at
+    any row count. Launches count under :data:`NAME_8BIT`, or
+    :data:`NAME_8BIT_MIN` with a min side."""
     B, in_f, out_f, nd, nsub = _check_8bit(x, codes, d, sc, sub_size, dmin, mn)
     dev = x.device
     if dev.type != "cuda":

@@ -23,6 +23,14 @@ flushed before each launch, the median of 20. Prints the card's name and
 power limit first, then one JSON line per shape. The cut builds compute
 wrong outputs and are only timed; the full build is held to the plain
 version first.
+
+The kinds ``q5_k_decode`` and ``q6_k_decode`` cut the 8-bit decode kernel
+of ``csrc/quant_matmul.cu`` instead (Q5_K compact at the four projections,
+the Q6_K head; 1 and 4 rows): without its dequantization (the code words
+passed to ``mma.sync`` as they are, so no scales are formed either), without
+its products (one integer op a fragment in place of ``mma.sync``), without
+its activation loads (zero fragments), and with rings of 8 and of 16 code
+cells a warp in place of 8 without a min side and 4 with one.
 """
 
 from __future__ import annotations
@@ -42,12 +50,25 @@ from ..ops import quant_matmul as qm
 SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
           "down": (4096, 14336)}
 ROWS = (8, 16, 32, 64, 512)
-KINDS = ("q5_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base", "q2_k_base")
+DECODE_ROWS = (1, 4)
+KINDS = ("q5_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base", "q2_k_base", "q5_k_decode",
+         "q6_k_decode")
 SOURCE = {"q5_k": "quant_matmul_tc", "q4_k_int8": "quant_matmul_int8_tc",
-          **{k: "quant_matmul_lowbit_tc" for k in ("q4_k", "q2_k", "q4_k_base", "q2_k_base")}}
+          **{k: "quant_matmul_lowbit_tc" for k in ("q4_k", "q2_k", "q4_k_base", "q2_k_base")},
+          "q5_k_decode": "quant_matmul", "q6_k_decode": "quant_matmul"}
 _PRODUCTS = ("    if (i >= 0 && warp_live) {", "    if (false) {")
 # each source's cut builds: the text each replaces
 CUTS = {
+    "quant_matmul": {
+        "no_decode": ("      decode16<kM>(c4, s, m, magic, w);",
+                      """#pragma unroll
+      for (int h = 0; h < 8; ++h) w[h] = (&c4.x)[h / 2] ^ (h & 1);"""),
+        "no_products": ("        mma_bf16(acc[q & 1], af, w[2 * q], w[2 * q + 1]);",
+                        "        acc[q & 1][q] += __int_as_float(af[0] ^ w[2 * q] ^ w[2 * q + 1]);"),
+        "no_x": ("      if (x_live && j < a.in_f) {", "      if (false) {"),
+        "ring8": ("constexpr int k8Ring = kM == kNone ? 8 : 4;", "constexpr int k8Ring = 8;"),
+        "ring16": ("constexpr int k8Ring = kM == kNone ? 8 : 4;",
+                   "constexpr int k8Ring = 16;")},
     "quant_matmul_tc": {
         "no_decode": ("      decode_run<kM, kPer>(", "      if (false) decode_run<kM, kPer>("),
         "no_products": _PRODUCTS},
@@ -130,6 +151,17 @@ def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator):
     per 16, f32 dmin per 256 with u8 mn per 16) or ``q2_k_base`` flat (the
     base_f32 rule, f32 d and dmin per 16)."""
     x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
+    if kind.endswith("_decode"):
+        sub, signed, has_min = (32, False, True) if kind == "q5_k_decode" else (16, True, False)
+        nsub, nd = in_f // sub, in_f // 256
+        codes = torch.randint(-32 if signed else 0, 32, (out_f, in_f), generator=g,
+                              device="cuda").to(torch.int8)
+        sc = torch.randint(-32 if signed else 0, 32, (out_f, nsub), generator=g, device="cuda")
+        arrs = (codes, _f32(out_f, nd, 1e-3, g), sc.to(torch.int8 if signed else torch.uint8),
+                sub, 0, _f32(out_f, nd, 5e-3, g) if has_min else None,
+                _u8(out_f, nsub, g) if has_min else None)
+        return ("quant_matmul", qm.quant_matmul_8bit_decode, None, qm.quant_matmul_8bit_plain,
+                (x, *arrs))
     if kind == "q5_k":
         nsub, nd = in_f // 32, in_f // 256
         codes = torch.randint(0, 32, (out_f, in_f), generator=g, device="cuda").to(torch.int8)
@@ -182,9 +214,11 @@ def main() -> None:
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(a.seed)
     for kind in kinds:
-        for name, (out_f, in_f) in SHAPES.items():
+        decode_kind = kind.endswith("_decode")
+        shapes = {"head": (128256, 4096)} if kind == "q6_k_decode" else SHAPES
+        for name, (out_f, in_f) in shapes.items():
             w_lib = torch.randn(out_f, in_f, generator=g, device="cuda").bfloat16()
-            for B in ROWS:
+            for B in DECODE_ROWS if decode_kind else ROWS:
                 src, tc, decode, plain, args = _case(kind, out_f, in_f, B, g)
                 row = {"shape": f"{kind} {name} {out_f}x{in_f}", "B": B}
                 for build, lib in libs[src].items():
@@ -195,7 +229,9 @@ def main() -> None:
                                           / want.abs().max()).item()
                     row[f"{build}_ms"] = _timer(flush, lambda: tc(*args))
                 _build._LIBS[src] = libs[src]["full"]
-                row["decode_kernel_ms"] = _timer(flush, lambda: decode(*args), 5 if B > 64 else 20)
+                if not decode_kind:
+                    row["decode_kernel_ms"] = _timer(flush, lambda: decode(*args),
+                                                     5 if B > 64 else 20)
                 xb = args[0].bfloat16()   # the int8 body's codes, as bf16, for the yardstick
                 row["torch_matmul_ms"] = _timer(flush, lambda: torch.matmul(xb, w_lib.t()))
                 nbytes = sum(t.numel() * t.element_size() for t in args

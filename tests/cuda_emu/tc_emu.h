@@ -1,7 +1,8 @@
 // CPU stand-ins for the block-wide parts of CUDA that the tensor-core
-// kernels and the decode flash kernel use (csrc/quant_matmul_tc.cu,
-// quant_matmul_lowbit_tc.cu, quant_matmul_int8_tc.cu, flash_attention_tc.cu,
-// flash_attention.cu), beside cuda_runtime.h's:
+// kernels and the decode flash and 8-bit matmul kernels use
+// (csrc/quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu,
+// quant_matmul_int8_tc.cu, flash_attention_tc.cu, flash_attention.cu,
+// quant_matmul.cu), beside cuda_runtime.h's:
 // a whole block runs at once, one thread per CUDA thread; __syncthreads
 // meets at a block barrier, __shfl_xor_sync at its warp's; dynamic shared
 // memory is one buffer a block, filled with 0xff bytes (a bf16 NaN) so that
@@ -44,6 +45,18 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class K> inline int cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+// what a launch would use: nothing is compiled for a card here, so no
+// registers, no local memory and one block an SM
+struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+template <class K> inline int cudaFuncGetAttributes(cudaFuncAttributes* fa, K) {
+  *fa = {0, 0};
+  return 0;
+}
+template <class K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return 0;
+}
 // a card of 4 SMs: grids of fewer than 4 blocks of 128 output rows take the
 // 64-row tiles
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };

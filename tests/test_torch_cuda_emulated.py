@@ -1,8 +1,9 @@
 """The CUDA matmul source run on the CPU: ``csrc/quant_matmul.cu`` compiled
-by g++ against the stand-in headers of ``tests/cuda_emu`` (each warp of a
-launch as 32 threads, its shuffles through a barrier), driven through the
-port's own wrappers with their device check lifted, against the plain
-PyTorch versions.
+by g++ against the stand-in headers of ``tests/cuda_emu`` (whole blocks as
+threads, shuffles through a warp barrier, and ``tc_emu.h``'s ``cp.async``
+and ``mma.sync`` for the 8-bit kernel, as ``test_torch_cuda_emulated_tc.py``
+builds its sources), driven through the port's own wrappers with their
+device check lifted, against the plain PyTorch versions.
 
 This holds the kernels' index arithmetic, element rules and rounding points
 to the plain versions where no card is present; what nvcc makes of the
@@ -14,7 +15,6 @@ g++ with C++20.
 
 import ctypes
 import os
-import re
 import shutil
 import subprocess
 import types
@@ -24,12 +24,12 @@ import torch
 
 from llama_gguf_inference_tpu_torch.ops import _build
 from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+from test_torch_cuda_emulated_tc import _emulated_source
 
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(os.path.dirname(HERE), "llama_gguf_inference_tpu_torch", "csrc",
-                   "quant_matmul.cu")
+CSRC = os.path.join(os.path.dirname(HERE), "llama_gguf_inference_tpu_torch", "csrc")
 TOL = 1e-5
 
 
@@ -41,15 +41,10 @@ def emu(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
     d = tmp_path_factory.mktemp("cuda_emu")
-    with open(SRC) as f:
-        src = f.read()
-    src = re.sub(r"([A-Za-z_0-9]+<[^<>;]*>)<<<([^>]*)>>>\(([^)]*)\);",
-                 r"emu_launch(\2, [&]() { \1(\3); });", src)
-    src = src.replace("fmaf(", "std::fmaf(")
     cpp, lib = d / "quant_matmul.cpp", d / "quant_matmul.so"
-    cpp.write_text(src)
+    cpp.write_text(_emulated_source("quant_matmul").replace("fmaf(", "std::fmaf("))
     r = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                        "-pthread", "-I", os.path.join(HERE, "cuda_emu"), "-I", os.path.dirname(SRC),
+                        "-pthread", "-I", os.path.join(HERE, "cuda_emu"), "-I", CSRC,
                         str(cpp),
                         "-o", str(lib)], capture_output=True, text=True, timeout=600)
     if r.returncode != 0 and "barrier" in r.stderr and "No such file" in r.stderr:
@@ -174,3 +169,52 @@ def test_8bit_kernel(emu, layout, has_min, signed, sub, bias):
     args = (x, codes, d, sc, sub, bias, dmin, mn)
     _close(mod.quant_matmul_8bit(*args), qm.quant_matmul_8bit_plain(*args))
     assert launches[qm.NAME_8BIT_MIN if has_min else qm.NAME_8BIT] > 0
+
+
+# (in, sub, layout, has_min, signed sc, bias): the decode kernel's walk over
+# 64-position cells, cell q meeting sub-blocks (64q + 16t + e) mod nsub. The
+# emulated card has 4 SMs, so at 13 output rows (two blocks of 8, one
+# ragged) a chunk's run splits as far as 16 warps a block allow.
+GEOMETRIES_8BIT = [
+    # Q5_K's ffn_down in small: nsub 56 (no multiple of 16, so a lane's run
+    # of 16 sub-blocks wraps it), nd 7, the scales read one at a time; 7
+    # chunks each split in 2
+    (1792, 32, "compact", True, False, 0),
+    # Q6_K's ffn_down in small: nsub 112, nd 7, i8 sc
+    (1792, 16, "compact", False, True, 0),
+    (1792, 32, "flat", True, False, 0),
+    # Q5_K at in 4096: 2 chunks, each run split in 8, 16 warps summed in the block
+    (4096, 32, "compact", True, False, 0),
+    # the Q6_K head's geometry: nsub 256, nd 16, i8 sc in 16-byte loads
+    (4096, 16, "compact", False, True, 0),
+    # Q5_K's ffn_down: 7 chunks of 32 cells, 14 warps of 16, so each warp's
+    # ring (4 cells with a min side) refills; 16-byte scale loads whose
+    # super-block index wraps (nd 56)
+    (14336, 32, "compact", True, False, 0),
+    # Q6_K's ffn_down: nsub 896, 14 chunks of 16 cells through rings of 8
+    (14336, 16, "compact", False, True, 0),
+    # the same wrap at nd 12: 3 chunks
+    (3072, 32, "compact", True, False, 0),
+    # nsub 33: a ragged last cell (in % 64 == 16) and 9 one-cell chunks
+    (528, 16, "flat", False, False, 8),
+    # nsub 136: 17 chunks of 2 cells dealt two a warp over 9 warps
+    (2176, 16, "flat", True, False, 0),
+]
+
+
+@pytest.mark.parametrize("B", [1, 4, 7, 9])
+@pytest.mark.parametrize("in_f,sub,layout,has_min,signed,bias", GEOMETRIES_8BIT, ids=str)
+def test_8bit_kernel_geometry(emu, in_f, sub, layout, has_min, signed, bias, B):
+    """The 8-bit decode kernel where nsub does not divide the lanes' step,
+    where a row splits over several warps, where K is ragged; B = 1, 4, 7
+    and 9 (a second tile of activation rows), 13 output rows (a ragged
+    block of 8)."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(in_f + sub + B)
+    codes, d, sc, dmin, mn = _arrays(8, 13, in_f, sub, layout, has_min, signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    args = (x, codes, d, sc, sub, bias, dmin, mn)
+    name = qm.NAME_8BIT_MIN if has_min else qm.NAME_8BIT
+    before = launches.get(name, 0)
+    _close(mod.quant_matmul_8bit_decode(*args), qm.quant_matmul_8bit_plain(*args))
+    assert launches[name] == before + 1

@@ -284,6 +284,78 @@ def _8bit_arrays(out_f, in_f, sub, layout, has_min, signed, g):
         (u8(False) if has_min else None)
 
 
+# the 8B's projections (out, in) and the decode kernel's formats there:
+# (layout, has min, signed sc, sub) of Q5_K compact and flat, Q6_K compact,
+# Q8_0 flat
+SHAPES_8B = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
+             "down": (4096, 14336), "head": (128256, 4096)}
+FORMATS_8BIT = {"q5_k": ("compact", True, False, 32), "q5_k_flat": ("flat", True, False, 32),
+                "q6_k": ("compact", False, True, 16), "q8_0": ("flat", False, False, 32)}
+_FULL = {}
+
+
+def _full_weight(fmt, shape, dev):
+    """One 8B-shaped weight at a time, kept while the tests that share it
+    run (B varies fastest)."""
+    key = (fmt, shape)
+    if key not in _FULL:
+        _FULL.clear()
+        torch.cuda.empty_cache()
+        layout, has_min, signed, sub = FORMATS_8BIT[fmt]
+        out_f, in_f = SHAPES_8B[shape]
+        g = torch.Generator(device=dev).manual_seed(out_f + in_f + sub)
+        nsub, nd = in_f // sub, in_f // 256
+        codes = torch.randint(-128, 128, (out_f, in_f), generator=g, device=dev,
+                              dtype=torch.int8)
+
+        def f32(n):
+            return torch.rand(out_f, n, generator=g, device=dev) * 0.02 + 1e-3
+
+        def u8(signed_):
+            lo = -32 if signed_ else 0
+            return torch.randint(lo, lo + 64, (out_f, nsub), generator=g, device=dev,
+                                 dtype=torch.int32).to(torch.int8 if signed_ else torch.uint8)
+        if layout == "flat":
+            arrs = (codes, f32(nsub), None, f32(nsub) if has_min else None, None)
+        else:
+            arrs = (codes, f32(nd), u8(signed), f32(nd) if has_min else None,
+                    u8(False) if has_min else None)
+        _FULL[key] = (arrs, sub)
+    return _FULL[key]
+
+
+def _decode_check(dev, fmt, shape, B, fn):
+    (codes, d, sc, dmin, mn), sub = _full_weight(fmt, shape, dev)
+    in_f = codes.shape[1]
+    x = torch.randn(B, in_f, generator=torch.Generator().manual_seed(B)).bfloat16().to(dev)
+    args = (x, codes, d, sc, sub, 0, dmin, mn)
+    name = qm.NAME_8BIT if dmin is None else qm.NAME_8BIT_MIN
+    before = _build.LAUNCHES.get(name, 0)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    _close(got, qm.quant_matmul_8bit_plain(*args), 1e-4)
+
+
+@pytest.mark.parametrize("B", range(1, qm.TC_MIN_ROWS))
+@pytest.mark.parametrize("shape", SHAPES_8B)
+@pytest.mark.parametrize("fmt", FORMATS_8BIT)
+def test_quant_matmul_8bit_decode_8b_shapes(dev, fmt, shape, B):
+    """The 8-bit decode kernel at every 8B projection and the head, for the
+    decode rows the dispatcher sends it (B < TC_MIN_ROWS), through the
+    dispatching wrapper."""
+    _decode_check(dev, fmt, shape, B, qm.quant_matmul_8bit)
+
+
+@pytest.mark.parametrize("B", [8, 16, 300])
+@pytest.mark.parametrize("shape", SHAPES_8B)
+@pytest.mark.parametrize("fmt", FORMATS_8BIT)
+def test_quant_matmul_8bit_decode_any_rows(dev, fmt, shape, B):
+    """The decode kernel called directly at row counts the dispatcher gives
+    the tensor-core kernel: it takes any B, in tiles of 8 rows."""
+    _decode_check(dev, fmt, shape, B, qm.quant_matmul_8bit_decode)
+
+
 # every (scale side, min side) instance: (layout, has min, signed sc, sub, bias)
 TC_SIDES = [("flat", False, False, 32, 0), ("flat", True, False, 32, 16),
             ("compact", False, False, 32, 4), ("compact", True, False, 32, 0),
