@@ -6,6 +6,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 
 1. device   — require a card; print its name and power limit (nvidia-smi)
 2. build    — compile the CUDA kernels from ``csrc/`` (one nvcc per source)
+   plans    — the 8-bit and int8 decode kernels' launch plans at the 8B
+              shapes (grid, block, shared bytes, registers, spills, resident
+              warps; a spill fails the run)
 3. kernels  — each kernel against its plain PyTorch version at the 8B
               shapes: 4-bit matmul (flat Q4_K) at the four projection shapes
               for 1, 4 and 512 rows, and with Q3_K's geometry (sub-blocks of
@@ -23,7 +26,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               and 16 (the crossover that sets TC_MIN_ROWS);
               the 4-bit base, xsum, split and int8 kernels at Q4_K gate_up and
               down (1, 4, 512 rows) and at Q4_0, Q4_1 and Q3_K's o; the base
-              body's 2-bit kernel at Q2_K gate_up (flat, compact); the IQ2/IQ3
+              body's 2-bit kernel at Q2_K gate_up (flat, compact); the int8
+              kernel also at Q4_K qkv and o (1 and 4 rows); the IQ2/IQ3
               value maps through fsplit and base at o; flash
               attention over each cache kind (bf16, q8_0, q4_0, q4_1, paged
               bf16, paged q8_0) at decode through the split kernel (T=1, B=4,
@@ -41,7 +45,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               and at 8 and 32 rows too in the served layouts (Q4_K flat, Q2_K
               mixed: the crossover that sets LOWBIT_TC_MIN_ROWS); the int8 body's
               and the base rule's tensor-core kernels at the four Q4_K flat
-              projections for 8, 16, 32, 64, 300 and 512 rows and at Q4_0,
+              projections for 8, 16, 32, 64, 300 and 512 rows (int8 also 24
+              and 48) and at Q4_0,
               Q4_1 and Q3_K's o for 16, 64, 300 and 512, the base_f32 rule
               at Q2_K flat and compact gate_up for 512, the xsum and split
               rules at the four Q4_K flat projections for 16, 64, 300 and
@@ -249,49 +254,77 @@ PLANS_8BIT += [(f"q8_0 flat {name}", name, 32, 1, 0) for name in SHAPES_4BIT]
 PLANS_8BIT += [("q6_k head", "head", 16, 3, 0), ("q6_k down", "down", 16, 3, 0)]
 
 
-def _ptxas_8bit(report: str) -> dict:
-    """(scale side, min side) -> registers and spill bytes of each
-    ``quant_matmul_8bit_kernel`` instance, from ptxas's -v report."""
+# the int8 decode kernel's launch at the 8B shapes of the int8 body, B=4:
+# (label, projection, sub-block size, scale side, min side)
+PLANS_INT8 = [(f"q4_k {lay} {name}", name, 32, side, side)
+              for lay, side in (("flat", 1), ("compact", 2)) for name in SHAPES_4BIT]
+PLANS_INT8 += [("q4_0 flat o", "o", 32, 1, 0), ("q3_k flat o", "o", 16, 1, 0)]
+
+
+def _ptxas(report: str, kernel: str) -> dict:
+    """Template arguments -> registers and spill bytes of each instance of
+    ``kernel``, from ptxas's -v report (the arguments as the mangled name
+    gives them, bools as 0 and 1)."""
     out = {}
     for entry in report.split("Compiling entry function")[1:]:
         head = entry.split("'")[1] if "'" in entry else ""
-        if "quant_matmul_8bit_kernel" not in head:
+        if kernel + "I" not in head:
             continue
-        sides = tuple(int(v) for v in head.split("quant_matmul_8bit_kernelILi")[1]
-                      .split("EE")[0].split("ELi"))
+        targs = tuple(int(v) for v in re.findall(r"L[ib](\d+)E", head.split(kernel + "I")[1]))
+
         def num(pattern):
             return int(re.search(pattern, entry).group(1))
-        out[sides] = {"ptxas_registers": num(r"Used (\d+) registers"),
+        out[targs] = {"ptxas_registers": num(r"Used (\d+) registers"),
                       "spill_stores": num(r"(\d+) bytes spill stores"),
                       "spill_loads": num(r"(\d+) bytes spill loads")}
     return out
 
 
-def phase_plans(torch, report: str) -> None:
-    """One line: the 8-bit decode kernel's grid, block, registers, spills
-    and resident blocks at each 8B shape (B=4), from the kernel's own
-    launch plan (cudaFuncGetAttributes, the occupancy calculator) and
-    ptxas's report. A spill fails the run."""
+def _plan_line(plan_fn, B, in_f, out_f, nsub, s_side, m_side, n, label):
+    """One launch plan as the kernel's plan entry point reports it into
+    int[n] (the int8 one's eighth value is the instance)."""
     import ctypes
 
     from llama_gguf_inference_tpu_torch.ops import _build
+    info = (ctypes.c_int * n)()
+    _build.check(plan_fn(B, in_f, out_f, nsub, s_side, m_side, info), label)
+    gx, gy, threads, smem, regs, local, per_sm = list(info)[:7]
+    line = {"shape": f"{label} {out_f}x{in_f} B={B}", "grid": [gx, gy], "threads": threads,
+            "smem_bytes": smem, "registers": regs, "local_bytes": local,
+            "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32}
+    if n > 7:
+        line["instance"] = info[7]
+    return line
+
+
+def phase_plans(torch, report: str) -> None:
+    """One line: the 8-bit and int8 decode kernels' grid, block,
+    registers, spills and resident blocks at each 8B shape (B=4; int8: and
+    the instance, 0 for sub 32 on m16n8k32, 1 for m16n8k16), from each
+    kernel's own launch plan (cudaFuncGetAttributes, the occupancy
+    calculator) and ptxas's report. A spill fails the run."""
+    from llama_gguf_inference_tpu_torch.ops import _build
     lib = _build.library("quant_matmul")
-    ptxas = _ptxas_8bit(report)
-    plans = []
+    ptxas8 = _ptxas(report, "quant_matmul_8bit_kernel")
+    ptxas_i8 = _ptxas(report, "quant_matmul_int8_kernel")
+    plans, plans_i8 = [], []
     for label, name, sub, s_side, m_side in PLANS_8BIT:
         out_f, in_f = HEAD if name == "head" else SHAPES_4BIT[name]
-        info = (ctypes.c_int * 7)()
-        _build.check(lib.lgt_quant_matmul_8bit_plan(4, in_f, out_f, in_f // sub, s_side,
-                                                    m_side, info), "8-bit plan")
-        gx, gy, threads, smem, regs, local, per_sm = list(info)
-        plans.append({"shape": f"{label} {out_f}x{in_f} B=4", "grid": [gx, gy],
-                      "threads": threads, "smem_bytes": smem, "registers": regs,
-                      "local_bytes": local, "blocks_per_sm": per_sm,
-                      "warps_per_sm": per_sm * threads // 32,
-                      **ptxas.get((s_side, m_side), {})})
-        if local or plans[-1].get("spill_stores", 0):
-            raise AssertionError(f"8-bit decode kernel spills: {plans[-1]}")
-    emit({"phase": "plans", "quant_matmul_8bit": plans})
+        plans.append(_plan_line(lib.lgt_quant_matmul_8bit_plan, 4, in_f, out_f, in_f // sub,
+                                s_side, m_side, 7, label))
+        plans[-1].update(ptxas8.get((s_side, m_side), {}))
+    for label, name, sub, s_side, m_side in PLANS_INT8:
+        out_f, in_f = SHAPES_4BIT[name]
+        line = _plan_line(lib.lgt_quant_matmul_int8_plan, 4, in_f, out_f, in_f // sub,
+                          s_side, m_side, 8, label)
+        # the instance's template arguments: sides, sub 32 on m16n8k32, sub-blocks a step
+        inst = line["instance"]
+        line.update(ptxas_i8.get((s_side, m_side, int(inst == 0), 4 if inst == 2 else 16), {}))
+        plans_i8.append(line)
+    for line in plans + plans_i8:
+        if line["local_bytes"] or line.get("spill_stores", 0):
+            raise AssertionError(f"decode kernel spills: {line}")
+    emit({"phase": "plans", "quant_matmul_8bit": plans, "quant_matmul_4bit_int8": plans_i8})
 
 
 def _err(got, want, tol):
@@ -616,10 +649,10 @@ def _variant_rows(torch, qm, g, timer):
     512) and Q5_1's flat min at o; the
     4-bit base, xsum, split and int8 kernels at Q4_K flat gate+up and down
     (B = 1, 4, 512) and at Q4_0 (bias 8), Q4_1 (flat min) and Q3_K (sub 16,
-    bias 4) at o; the base body's f32 branch at Q2_K flat and compact
-    gate+up; the IQ2/IQ3 value maps through fsplit and base at o (codes
-    drawn at random, no IQ repack). The int8 kernel's operations bound is
-    taken at the int8 rate."""
+    bias 4) at o; the int8 kernel also at Q4_K flat qkv and o (B = 1, 4);
+    the base body's f32 branch at Q2_K flat and compact gate+up; the IQ2/IQ3
+    value maps through fsplit and base at o (codes drawn at random, no IQ
+    repack). The int8 kernel's operations bound is taken at the int8 rate."""
     cases = [("q5_k", layout, name, (1, 4, 512), ("8bit",))
              for layout in ("compact", "flat") for name in SHAPES_4BIT]
     cases += [("q5_k", "compact", name, (16, 64, 300), ("8bit",)) for name in ("gate_up", "qkv")]
@@ -629,6 +662,7 @@ def _variant_rows(torch, qm, g, timer):
     cases.append(("q8_0", "flat", "o", (8, 16), ("8bit_decode", "8bit_tc")))
     cases.append(("q5_1", "flat", "o", (4,), ("8bit",)))
     cases += [("q4_k", "flat", name, (1, 4, 512), VARIANTS) for name in ("gate_up", "down")]
+    cases += [("q4_k", "flat", name, (1, 4), ("int8",)) for name in ("qkv", "o")]
     cases += [(fmt, "flat", "o", (4,), VARIANTS) for fmt in ("q4_0", "q4_1", "q3_k")]
     cases += [("q2_k", layout, "gate_up", (4,), ("base",)) for layout in ("flat", "compact")]
     cases += [(fmt, "flat", "o", (4,), ("fsplit", "base")) for fmt in ("iq2_xs", "iq3_s")]
@@ -662,14 +696,16 @@ def _variant_tc_rows(torch, qm, g, timer):
     """The tensor-core kernels of the int8 body, of the base rules and of
     the xsum and split bodies through their own wrappers, each beside its
     decode kernel on the same inputs (``decode_ms``): Q4_K flat at the four
-    projections for 8, 16, 32, 64, 300 and 512 rows (int8 and base; 8 to 64
+    projections for 8, 16, 32, 64, 300 and 512 rows (int8 also 24 and 48; 8 to 64
     rows are where the two kernels cross) and for 16, 64, 300 and 512 (xsum
     and split; at gate+up also 8 and 32, their crossover), Q4_0, Q4_1 and
     Q3_K at o for 16, 64, 300 and 512, and the base_f32 rule at Q2_K flat
     and compact gate+up for 512 rows. Bound as in :func:`_variant_rows`
     (the int8 kernel's operations at the int8 rate)."""
-    cases = [("q4_k", "flat", name, (8, 16, 32, 64, 300, 512), ("int8", "base"))
+    cases = [("q4_k", "flat", name, (8, 16, 24, 32, 48, 64, 300, 512), ("int8",))
              for name in SHAPES_4BIT]
+    cases += [("q4_k", "flat", name, (8, 16, 32, 64, 300, 512), ("base",))
+              for name in SHAPES_4BIT]
     cases += [("q4_k", "flat", name, (8, 16, 32, 64, 300, 512) if name == "gate_up"
                else (16, 64, 300, 512), ("xsum", "split")) for name in SHAPES_4BIT]
     cases += [(fmt, "flat", "o", (16, 64, 300, 512), ("int8", "base"))
@@ -1260,16 +1296,25 @@ def _variant_forward(torch, engine, label, want, absent=(), shadow=None, tol=LOG
                       "logits_tol": tol, **out, "kernel_path_s": round(t1 - t0, 3)}
 
 
+def _prompt_of(engine, rows: int) -> str:
+    """PROMPT repeated until it is at least ``rows`` tokens long."""
+    prompt = PROMPT
+    while len(engine.tokenizer.encode(prompt)) < rows:
+        prompt += " " + PROMPT
+    return prompt
+
+
 def phase_variants(torch, engine):
     """The Q4_K_M engine under each LGT_MM_VARIANT: its Q4_K projections
     through that variant's decode kernel (never fsplit's, decode or
     tensor-core; the body's own tensor-core kernel only for a prompt of at
-    least its threshold's rows: int8's 10-row prefill), the Q6_K head
-    through the 8-bit kernel, held against the plain versions over 17
-    steps; then three greedy requests through the server. Under each, then
-    one 512-token chunk through that body's tensor-core kernel (int8: its
-    logits held to INT8_LOGITS_TOL and every call shadowed by its plain
-    version). Each run is one launch window."""
+    least its threshold's rows: int8's prompt is PROMPT repeated to
+    INT8_TC_MIN_ROWS tokens, so its prefill takes the tensor-core kernel),
+    the Q6_K head through the 8-bit kernel, held against the plain versions
+    over 17 steps; then three greedy requests through the server. Under
+    each, then one 512-token chunk through that body's tensor-core kernel
+    (int8: its logits held to INT8_LOGITS_TOL and every call shadowed by its
+    plain version). Each run is one launch window."""
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     kernel = {"base": qm.NAME_4BIT_BASE, "xsum": qm.NAME_4BIT_XSUM,
               "split": qm.NAME_4BIT_SPLIT, "int8": qm.NAME_4BIT_INT8}
@@ -1277,20 +1322,27 @@ def phase_variants(torch, engine):
                     "xsum": qm.NAME_4BIT_XSUM_TC, "split": qm.NAME_4BIT_SPLIT_TC}
     tc_rows = {var: qm.INT8_TC_MIN_ROWS if var == "int8" else qm.LOWBIT_TC_MIN_ROWS
                for var in chunk_kernel}
-    n_prompt = len(engine.tokenizer.encode(PROMPT))
     paths = []
     for var in VARIANTS:
         # the prompt's prefill takes the body's tensor-core kernel from its
         # threshold (the decode steps never do); the served prompts' prefill,
-        # padded to the engine's 16-row bucket, may take it too
+        # padded to the engine's 16-row bucket, may take it too (int8: must,
+        # where that bucket reaches its threshold)
+        prompt = _prompt_of(engine, qm.INT8_TC_MIN_ROWS) if var == "int8" else PROMPT
+        n_prompt = len(engine.tokenizer.encode(prompt))
         tc = [chunk_kernel[var]] if var in chunk_kernel and n_prompt >= tc_rows[var] else []
         want = (kernel[var], qm.NAME_8BIT, *tc)
+        served_want = want
+        if var == "int8":
+            served_rows = engine._bucket(len(engine.tokenizer.encode("request 0: the lazy dog")))
+            served_want = (kernel[var], qm.NAME_8BIT,
+                           *(tc if served_rows >= qm.INT8_TC_MIN_ROWS else ()))
         served_absent = (qm.NAME_4BIT, qm.NAME_4BIT_TC, qm.NAME_DEQUANT)
         absent = (*served_absent, *(k for k in chunk_kernel.values() if k not in tc))
         with mm_variant(var):
             launches, out = _variant_forward(
                 torch, engine, f"variant {var}", want, absent, shadow=kernel[var],
-                tol=INT8_LOGITS_TOL if var == "int8" else LOGITS_TOL)
+                tol=INT8_LOGITS_TOL if var == "int8" else LOGITS_TOL, prompt=prompt)
             served: dict[str, int] = {}
             with serving(torch, engine, served) as (port, key):
                 t0 = time.time()
@@ -1298,9 +1350,10 @@ def phase_variants(torch, engine):
                     {"prompt": f"request {i}: the lazy dog", "max_tokens": 16,
                      "temperature": 0} for i in range(3)])
                 wall = time.time() - t0
-        _check_launches(f"variant {var} serve", served, want, served_absent)
+        _check_launches(f"variant {var} serve", served, served_want, served_absent)
         ntok = sum(r[1]["usage"]["completion_tokens"] for r in results)
-        emit({"phase": "variants", "ok": True, "variant": var, "kernel": kernel[var], **out,
+        emit({"phase": "variants", "ok": True, "variant": var, "kernel": kernel[var],
+              "prompt_tokens": n_prompt, **out,
               "launches": launches, "served_tokens": ntok,
               "served_tok_s": round(ntok / wall, 2), "served_launches": served})
         paths += [launches, served]

@@ -66,26 +66,59 @@
 // 0.406 compact (3.25); Q4_K 0.75 flat, 0.672 mixed, 0.594 compact; Q3_K
 // 0.75 flat, 0.578 compact; Q6_K about 1.08 compact; Q5_K 1.09 compact,
 // 1.25 flat. At prefill (512 rows) they are bound by operations.
-// Design of the 2/4-bit and int8 kernels: one warp per output row, lanes
-// walking the row in 16-byte code loads (coalesced, 512 bytes per warp
-// step, the next step's load in flight during this one's arithmetic; 64
-// weights a lane at 2 bits, 32 at 4), the 2-bit lane's 16 sub-block scales
-// formed once in registers and shared by the byte's four planes, the
-// dequantized run applied to up to 8 activation rows at once; a second grid
-// axis tiles further activation rows, so any row count works (prefill
-// re-reads the weights from L2 once per 8 rows: right, not fast). The 8-bit
-// kernel here serves fewer than TC_MIN_ROWS rows (ops/quant_matmul.py), the
-// fsplit, base and base_f32 rules of the 2/4-bit kernel fewer than
+// Design of the 2/4-bit kernel: one warp per output row, lanes walking the
+// row in 16-byte code loads (coalesced, 512 bytes per warp step, the next
+// step's load in flight during this one's arithmetic; 64 weights a lane at
+// 2 bits, 32 at 4), the 2-bit lane's 16 sub-block scales formed once in
+// registers and shared by the byte's four planes, the dequantized run
+// applied to up to 8 activation rows at once; a second grid axis tiles
+// further activation rows, so any row count works (prefill re-reads the
+// weights from L2 once per 8 rows: right, not fast). The 8-bit kernel here
+// serves fewer than TC_MIN_ROWS rows (ops/quant_matmul.py), the fsplit,
+// base and base_f32 rules of the 2/4-bit kernel fewer than
 // LOWBIT_TC_MIN_ROWS, the int8 kernel fewer than INT8_TC_MIN_ROWS; from
 // there up the wrappers take the tensor-core kernels of quant_matmul_tc.cu,
 // quant_matmul_lowbit_tc.cu and quant_matmul_int8_tc.cu, which decode each
-// weight once per 128 rows. The int8 kernel here gives each lane four
-// neighbouring sub-blocks and walks their elements (stride nsub), so a warp
-// reads 128 neighbouring code bytes per step and keeps 4 exact int32 sums
-// per activation row. The element rules live in lowbit_rule.cuh, shared
-// with the tensor-core 2/4-bit kernel. Tensor cores for the xsum and split
-// rules, TMA and split-K are later work.
+// weight once per 128 rows. The element rules live in lowbit_rule.cuh,
+// shared with the tensor-core 2/4-bit kernel. Tensor cores for the xsum and
+// split rules, TMA and split-K are later work.
 //
+// Design of the int8 decode kernel (quant_matmul_int8_kernel). Q4_K flat
+// moves 0.75 bytes a weight, so at the card's 3.35 TB/s a weight may cost
+// about 6.7 lane instructions; what stood in the way, and what this does:
+// - Bytes in flight. Each warp keeps a 3-step ring of code bytes and raw
+//   scale sides in shared memory through cp.async (L1 bypassed; about 4 KB
+//   of codes in flight a warp at Q4_K). Blocks stay resident and walk tiles
+//   of row groups, so the rings run on from one tile into the next.
+// - DRAM pages. A sub-block's 16 code rows lie nsub bytes apart, so a step
+//   of 16 sub-blocks takes a 16-byte piece of every line of its rows. A row
+//   group's steps are split over as many warps as it has steps (up to 16),
+//   so a block asks for its rows' bytes together and each page is opened
+//   once; one warp walking the steps was 15% slower at gate+up.
+// - Activations shared across rows. s8 mma.sync with the activation rows
+//   as A (rows 8-15 zero) and 8 output rows as B: one activation fragment a
+//   lane serves 8 output rows. A block stages its activation rows once, in
+//   fragment order with coalesced loads and the same byte transposes as the
+//   codes, beside each sub-block's xs and xsum; a warp then reads a
+//   fragment with one 8-byte shared load.
+// - Integer products on tensor cores. A step is 16 whole sub-blocks of 8
+//   output rows: lane (g, t) copies code rows 4t..4t+3 of row g (16 bytes
+//   each), and a 4 x 4 byte transpose makes one fragment word a sub-block,
+//   whose low nibbles are k = 4t.. and high ones k = 16+4t.. of one
+//   m16n8k32 (sub 32). Q3_K's 16-wide sub-blocks, and any other even size,
+//   take 16-element steps (code rows 8h + 4(t%2).., low nibbles for t < 2),
+//   two sub-blocks a m16n8k32: the second's activations in the rows 8-15
+//   that the first leaves idle.
+//   The exact int32 sum starts at the bits of 1.5*2^23, so one f32 subtract
+//   converts it.
+// - Scales once, no second pass. A step holds whole sub-blocks, so each
+//   lane forms s and m' = bias*s + m of its 4 sub-blocks once (8-bit
+//   factors exact through byte_f32) into the warp's table; the epilogue
+//   takes (p*xs)*s and the min term per sub-block in the same walk, and a
+//   tile's split partial sums meet in shared memory. nsub % 16 != 0 takes
+//   a second instance of 4 sub-blocks a step with 4-byte copies.
+// Measured: PERF.md §6 (tools/tc_ablate.py --kinds q4_k_int8_decode).
+
 // Design of the 8-bit decode kernel (quant_matmul_8bit_kernel), where the
 // bytes a weight and the instructions a weight both sit near the card's
 // limits (about 1.1 bytes and 4.5 instructions a weight at B = 4):
@@ -123,6 +156,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <numeric>
 
 #include "lowbit_rule.cuh"
@@ -364,112 +398,6 @@ int launch_map(const LowbitArgs& a, int vmap, int s_side, int m_side, cudaStream
   return (int)cudaErrorInvalidValue;
 }
 
-struct Int8Args {
-  const int8_t* xq;        // (B, in) block-minor, Q8_1-style codes
-  const float* xs;         // (B, nsub) activation scales
-  const float* xsum;       // (B, nsub) exact block sums
-  const uint8_t* codes;    // (out, in / 2) planar nibbles
-  const float* d;          // (out, nd)
-  const uint8_t* sc;       // (out, nsub) or null
-  const float* dmin;       // (out, nd) or null
-  const uint8_t* mn;       // (out, nsub) or null
-  float* y;                // (B, out)
-  int B, in_f, out_f, nsub, nd, bias;
-};
-
-// Byte q of a 32-bit word as a signed value.
-__device__ __forceinline__ int sbyte(uint32_t w, int q) {
-  return (int)(int8_t)(uint8_t)(w >> (8 * q));
-}
-
-template <int kS, int kM>
-__global__ void __launch_bounds__(kWarps * 32, 6)
-quant_matmul_int8_kernel(const Int8Args a) {
-  const int lane = threadIdx.x & 31;
-  const int o = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int b0 = blockIdx.y * kRows;
-  if (o >= a.out_f) return;  // warp-uniform; the kernel has no block barrier
-  const int nb = min(kRows, a.B - b0);
-  const int half = a.in_f / 2;      // stored bytes per row
-  const int hsub = half / a.nsub;   // elements of a sub-block in one plane
-  const uint8_t* crow = a.codes + (size_t)o * half;
-  const float* drow = a.d + (size_t)o * a.nd;
-  const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + (size_t)o * a.nsub;
-
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-
-  // a lane owns sub-blocks k0..k0+3: byte t*nsub + k holds element (t, k) in
-  // its low nibble and (t + hsub, k) in its high one
-  for (int k0 = lane * 4; k0 < a.nsub; k0 += 32 * 4) {
-    int p[kRows][4];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) p[r][q] = 0;
-    for (int t = 0; t < hsub; ++t) {
-      const uint32_t c = __ldg(reinterpret_cast<const uint32_t*>(crow + (size_t)t * a.nsub + k0));
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < nb) {
-          const int8_t* xr = a.xq + (size_t)(b0 + r) * a.in_f;
-          const uint32_t xl = __ldg(reinterpret_cast<const uint32_t*>(xr + (size_t)t * a.nsub + k0));
-          const uint32_t xh = __ldg(reinterpret_cast<const uint32_t*>(
-              xr + (size_t)(t + hsub) * a.nsub + k0));
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            p[r][q] += sbyte(xl, q) * (int)((c >> (8 * q)) & 0xF)
-                       + sbyte(xh, q) * (int)((c >> (8 * q + 4)) & 0xF);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = k0 + q;
-      const float s = side_at<kS>(drow, scrow, k, k % a.nd);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < nb)
-          acc[r] = __fadd_rn(acc[r], __fmul_rn(__fmul_rn((float)p[r][q],
-                                                         a.xs[(size_t)(b0 + r) * a.nsub + k]), s));
-    }
-  }
-
-  // min term as in the 2/4-bit kernel: m'[k] = bias*s[k] + m[k]
-  float macc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) macc[r] = 0.f;
-  if (kM != kNone || a.bias != 0) {
-    const float* dminrow = kM == kNone ? nullptr : a.dmin + (size_t)o * a.nd;
-    const uint8_t* mnrow = (kM == kHierU8 || kM == kHierI8) ? a.mn + (size_t)o * a.nsub
-                                                            : nullptr;
-    for (int k = lane; k < a.nsub; k += 32) {
-      float mp = 0.f;
-      if constexpr (kM != kNone) mp = side_at<kM>(dminrow, mnrow, k, kM == kFlat ? k : k % a.nd);
-      if (a.bias != 0) {
-        const float bs = __fmul_rn((float)a.bias, side_at<kS>(drow, scrow, k, kS == kFlat ? k : k % a.nd));
-        mp = kM == kNone ? bs : __fadd_rn(bs, mp);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < nb) macc[r] = fmaf(a.xsum[(size_t)(b0 + r) * a.nsub + k], mp, macc[r]);
-    }
-  }
-  for (int r = 0; r < nb; ++r) {
-    const float dot = warp_sum(acc[r]);
-    const float mdot = warp_sum(macc[r]);
-    if (lane == 0) a.y[(size_t)(b0 + r) * a.out_f + o] = dot - mdot;
-  }
-}
-
-template <int kS, int kM>
-int launch_int8(const Int8Args& a, cudaStream_t st) {
-  const dim3 grid((a.out_f + kWarps - 1) / kWarps, (a.B + kRows - 1) / kRows);
-  quant_matmul_int8_kernel<kS, kM><<<grid, kWarps * 32, 0, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
 struct Args8 {
   const __nv_bfloat16* x;  // (B, in) block-minor
   const int8_t* codes;     // (out, in)
@@ -493,6 +421,55 @@ template <int kM>
 constexpr int k8Ring = kM == kNone ? 8 : 4;
 template <int kM>
 constexpr int k8WarpSmem = k8Ring<kM> * 32 * 16;
+
+// What a launch plan reads of a device and of one kernel instance: the
+// device's SMs, shared memory an SM holds, a block may opt into and a block
+// reserves, threads and registers an SM; the instance's registers a thread.
+struct Card {
+  int sms, smem_sm, smem_block, smem_reserve, threads_sm, regs_sm, regs;
+};
+constexpr int kMaxDevices = 64;
+
+// One Card a device for one instance (a static of the instance's launcher),
+// read on the instance's first use on that device, where its shared-memory
+// opt-in (`optin` bytes; the device's most where 0) is set too. A lock
+// guards the first read, so any thread may launch on any device.
+class CardCache {
+ public:
+  template <class K>
+  int get(K kernel, int optin, Card& c) {
+    int dev = 0;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc == 0 && (dev < 0 || dev >= kMaxDevices)) rc = (int)cudaErrorInvalidValue;
+    if (rc != 0) return rc;
+    std::lock_guard<std::mutex> lock(mu_);
+    if (!ready_[dev]) {
+      Card& n = cards_[dev];
+      const cudaDeviceAttr attr[6] = {
+          cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+          cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrReservedSharedMemoryPerBlock,
+          cudaDevAttrMaxThreadsPerMultiProcessor, cudaDevAttrMaxRegistersPerMultiprocessor};
+      int* const dst[6] = {&n.sms, &n.smem_sm, &n.smem_block, &n.smem_reserve, &n.threads_sm,
+                           &n.regs_sm};
+      for (int i = 0; rc == 0 && i < 6; ++i) rc = (int)cudaDeviceGetAttribute(dst[i], attr[i], dev);
+      if (rc == 0)
+        rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       optin > 0 ? optin : n.smem_block);
+      cudaFuncAttributes fa;
+      if (rc == 0) rc = (int)cudaFuncGetAttributes(&fa, kernel);
+      if (rc != 0) return rc;
+      n.regs = fa.numRegs;
+      ready_[dev] = true;
+    }
+    c = cards_[dev];
+    return 0;
+  }
+
+ private:
+  std::mutex mu_;
+  Card cards_[kMaxDevices];
+  bool ready_[kMaxDevices] = {};
+};
 
 // How a block of 8 output rows splits its row. Cell q holds stored positions
 // 64q..64q+63; cells q and q + C meet the same sub-blocks (64*C is the least
@@ -700,25 +677,15 @@ quant_matmul_8bit_kernel(const Args8 a, const Plan8 p) {
   }
 }
 
-// The plan of a launch, the shared-memory limit of the instance set on its
-// first use and the card's SM count read once.
+// The plan of a launch on the current device (its card read, and the
+// instance's shared-memory limit set, on the instance's first use there).
 template <int kS, int kM>
 int prepare_8bit(int B, int in_f, int out_f, int nsub, Plan8& p) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    int rc = (int)cudaGetDevice(&dev);
-    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc == 0)
-      rc = (int)cudaFuncSetAttribute(quant_matmul_8bit_kernel<kS, kM>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     k8MaxWarps * k8WarpSmem<kM>);
-    if (rc != 0) {
-      sms = 0;
-      return rc;
-    }
-  }
-  p = plan8(B, in_f, out_f, nsub, sms);
+  static CardCache cards;
+  Card c;
+  const int rc = cards.get(quant_matmul_8bit_kernel<kS, kM>, k8MaxWarps * k8WarpSmem<kM>, c);
+  if (rc != 0) return rc;
+  p = plan8(B, in_f, out_f, nsub, c.sms);
   return 0;
 }
 
@@ -750,6 +717,506 @@ int plan_8bit(int B, int in_f, int out_f, int nsub, int* info) {
                     p.warps * k8WarpSmem<kM>, fa.numRegs, (int)fa.localSizeBytes, per_sm};
   for (int i = 0; i < 7; ++i) info[i] = v[i];
   return 0;
+}
+
+struct Int8Args {
+  const int8_t* xq;        // (B, in) block-minor, Q8_1-style codes
+  const float* xs;         // (B, nsub) activation scales
+  const float* xsum;       // (B, nsub) exact block sums
+  const uint8_t* codes;    // (out, in / 2) planar nibbles
+  const float* d;          // (out, nd)
+  const uint8_t* sc;       // (out, nsub) or null
+  const float* dmin;       // (out, nd), (out, nsub) when flat, or null
+  const uint8_t* mn;       // (out, nsub) or null
+  float* y;                // (B, out)
+  int B, in_f, out_f, nsub, nd, bias;
+};
+
+constexpr int kI8Rows = 8;        // output rows a warp: mma's n, the weights as B
+constexpr int kI8Acts = 8;        // activation rows a block at most: rows 0-7 of mma's m = 16
+constexpr int kI8MaxWarps = 16;
+constexpr int kI8Ring = 3;        // steps of codes a warp keeps in its cp.async ring
+constexpr int kI8Magic = 0x4B400000;  // the bits of 1.5 * 2^23
+constexpr float kI8MagicF = 12582912.f;
+
+// Four words w[j] (bytes: sub-blocks c = 0..3 of row j) to four words
+// col[c] (bytes: rows j = 0..3 of sub-block c).
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&col)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
+  col[0] = __byte_perm(t0, t1, 0x5410);
+  col[1] = __byte_perm(t0, t1, 0x7632);
+  col[2] = __byte_perm(t2, t3, 0x5410);
+  col[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// A launch's shape. A block walks tiles of `groups` row groups of kI8Rows
+// output rows (tiles bx, bx + grid, ...) for one tile of `acts` activation
+// rows; each row group's `steps` steps (kV whole sub-blocks each, so a warp
+// forms each scale once and never meets it again) are split over `splits`
+// warps, runs of `per` steps, and the splits' partial sums meet in shared
+// memory at the end of each tile. A warp's region is a ring of kI8Ring slots
+// of `slot` bytes, its scale table and its partial sums (two tiles); the
+// block stages its activations first (x_smem bytes: nw fragment words a
+// sub-block and activation row, at a row stride of nbs).
+struct PlanI8 {
+  int steps, per, splits, groups, warps, tiles, grid, acts, nbs, nw, slot, warp_smem, x_smem;
+};
+
+// Blocks stay resident and walk their tiles, so the rings run on from one
+// tile into the next and the activations are staged once a block. A row
+// group's steps are split over as many warps as it has steps (at most 16),
+// so a block requests its rows' bytes all at once and each DRAM page is
+// opened once (one warp walking the steps re-opened them every step: 15%
+// slower at gate+up, PERF.md §6), and only as far as one row group's warps
+// and the staged activations fit a block's shared memory (227 KB on an
+// H100); then the row groups a tile are chosen for the most warps resident
+// an SM, by shared memory (an SM's, less each block's reserve), registers
+// (the instance's a thread; 0 for no limit) and threads, times the share of
+// the last round of tiles that is busy, the smaller tile on a tie.
+// Activation tiles shrink from 8 rows only where the staging would take
+// over half of a block's shared memory, or a row group would not fit.
+inline PlanI8 plan_i8(int B, int out_f, int nsub, int steps, int slot, int tables, int nw,
+                      const Card& c) {
+  const int smem_max = c.smem_block;
+  PlanI8 p;
+  p.steps = steps;
+  p.slot = slot;
+  p.nw = nw;
+  p.warp_smem = kI8Ring * slot + tables + 2 * kI8Acts * kI8Rows * 4;
+  const long G = (out_f + kI8Rows - 1) / kI8Rows;
+  long Y = 1;
+  for (p.acts = kI8Acts;; p.acts /= 2) {
+    p.nbs = B < p.acts ? B : p.acts;
+    p.x_smem = nsub * p.nbs * (nw * 4 + 8);
+    if (p.acts > 1 && p.x_smem > smem_max / 2) continue;
+    Y = (B + p.acts - 1) / p.acts;
+    long s = steps < kI8MaxWarps ? steps : kI8MaxWarps;
+    for (;; --s) {
+      p.per = (steps + (int)s - 1) / (int)s;
+      p.splits = (steps + p.per - 1) / p.per;
+      if (s == 1 || p.x_smem + p.splits * p.warp_smem <= smem_max) break;
+    }
+    if (p.acts == 1 || p.x_smem + p.splits * p.warp_smem <= smem_max) break;
+  }
+  const int warps_sm = c.threads_sm / 32;
+  const int reg_warps = c.regs > 0 ? c.regs_sm / ((c.regs * 32 + 255) / 256 * 256) : warps_sm;
+  long rmax = kI8MaxWarps / p.splits;
+  if (rmax > G) rmax = G;
+  p.groups = 1;
+  double best = -1.0;
+  for (int r = 1; r <= rmax; ++r) {
+    const int w = r * p.splits, smem = p.x_smem + w * p.warp_smem;
+    if (smem > smem_max) break;
+    int per_sm = c.smem_sm / (smem + c.smem_reserve);
+    if (per_sm > reg_warps / w) per_sm = reg_warps / w;
+    if (per_sm > warps_sm / w) per_sm = warps_sm / w;
+    const long tiles = (G + r - 1) / r;
+    long grid = (long)c.sms * per_sm / Y;
+    if (grid < 1) grid = 1;
+    if (grid > tiles) grid = tiles;
+    const long rounds = (tiles + grid - 1) / grid;
+    const double score = (double)per_sm * w * tiles / (grid * rounds);
+    if (score > best) {
+      best = score;
+      p.groups = r;
+      p.tiles = (int)tiles;
+      p.grid = (int)grid;
+    }
+  }
+  if (best < 0) {
+    p.tiles = (int)G;
+    p.grid = (int)G;
+  }
+  p.warps = p.groups * p.splits;
+  return p;
+}
+
+// A sub-block side's chunks: this lane's kQ f32 values (flat, or the
+// super-block values at k mod nd) and, for a hierarchical side, the word of
+// 8-bit factors holding theirs.
+template <int kSide, int kV>
+__device__ __forceinline__ void copy_side(unsigned char* fdst, unsigned char* bdst,
+                                          const float* base, const uint8_t* sub, int k0,
+                                          int nd) {
+  if constexpr (kV == 4) {
+    cp_async4(fdst, base + (kSide == kFlat ? k0 : k0 % nd), true);
+  } else if (kSide == kFlat || nd % 4 == 0) {
+    cp_async16(fdst, base + (kSide == kFlat ? k0 : k0 % nd), true);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cp_async4(fdst + 4 * e, base + (k0 + e) % nd, true);
+  }
+  if constexpr (kSide != kFlat) cp_async4(bdst, sub + (k0 & ~3), true);
+}
+
+// Value e of this lane's side chunk, as side_at forms it; byte q of the
+// factor word is this value's factor.
+template <int kSide>
+__device__ __forceinline__ float side_value(const unsigned char* fsrc, const unsigned char* bsrc,
+                                            int e, int q) {
+  const float f = reinterpret_cast<const float*>(fsrc)[e];
+  if constexpr (kSide == kFlat) {
+    return f;
+  } else {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(bsrc);
+    if constexpr (kSide == kHierI8) return __fmul_rn(f, byte_f32(w ^ 0x80808080u, q, 8388736.f));
+    return __fmul_rn(f, byte_f32(w, q, 8388608.f));
+  }
+}
+
+// Block (blockIdx.x, blockIdx.y): tiles bx, bx + grid, ... of `groups` row
+// groups of kI8Rows output rows, activation rows acts*by..; warp w takes row
+// group w / splits of each tile and steps (w % splits)*per.. of its row.
+// - Staging: the block's threads turn its activation rows into fragment
+//   words once, coalesced: word 2t + h of (sub-block, row) holds elements
+//   4t + 16h..+3 for sub 32 (lane t's k = 4t.. and 16+4t.. of m16n8k32),
+//   word 4h + t elements (t/2)*sub/2 + 8h + 4(t%2)..+3 otherwise (k16 step
+//   h; past the sub-block, zeros); beside them (xs, xsum) per sub-block,
+//   zeros past B (a staged row past B repeats row 0; its sums are not
+//   stored).
+// - Codes: lane (g, t) copies, for output row g, code rows 4t..4t+3 of the
+//   step's 16 sub-blocks for sub 32 (a byte's low nibble is k = 4t.., its
+//   high one k = 16+4t..), or rows 8h + 4(t%2)..+3 with the low nibble for
+//   t < 2 and the high one for t >= 2 for k16 step h; a 4 x 4 byte
+//   transpose turns four code rows of four sub-blocks into one fragment word
+//   a sub-block. The lane also forms s and m' of row g at its kV/4
+//   sub-blocks into the warp's scale table.
+template <int kS, int kM, bool kK32, int kV>
+__global__ void __launch_bounds__(kI8MaxWarps * 32, 1)
+quant_matmul_int8_kernel(const Int8Args a, const PlanI8 p) {
+  static_assert(!kK32 || kV == 16, "sub 32 fragments walk 16 sub-blocks a step");
+  constexpr int kQ = kV / 4;                // sub-blocks of a lane's side chunk
+  constexpr int kCB = kV == 4 ? 4 : 16;     // bytes a lane's chunk
+  constexpr int kCS = 32 * kCB;             // bytes a chunk
+  constexpr bool kHasSc = kS != kFlat;
+  constexpr bool kHasMin = kM != kNone;
+  constexpr bool kHasMn = kM == kHierU8 || kM == kHierI8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nthr = p.warps * 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / p.splits, b0 = blockIdx.y * p.acts;
+  const int nb = min(p.acts, a.B - b0), nbs = p.nbs, nw = p.nw;
+  const int half = a.in_f / 2, hsub = a.in_f / a.nsub / 2;
+  const int nh = kK32 ? 1 : (hsub + 7) / 8;   // k16 steps a sub-block
+  // chunks of a slot: codes (k16 step h, code row j), then the sides
+  const int ncode = nh * 4;
+  const int ic_sc = ncode + 1, ic_dm = ic_sc + (kHasSc ? 1 : 0);
+  const int ic_mn = ic_dm + (kHasMin ? 1 : 0);
+  const uint32_t* const xf = reinterpret_cast<const uint32_t*>(smem);   // [nsub][nbs][nw]
+  const float2* const xsx =
+      reinterpret_cast<const float2*>(smem + (size_t)a.nsub * nbs * nw * 4);   // [nsub][nbs]
+  unsigned char* const ring = smem + p.x_smem + warp * p.warp_smem;
+  float2* const tab_s = reinterpret_cast<float2*>(ring + kI8Ring * p.slot);  // [kV][kI8Rows]
+  // partial sums of two tiles, [tile parity][activation row][output row]
+  float* const part = reinterpret_cast<float*>(tab_s + kV * kI8Rows);
+  const int ndm = kM == kFlat ? a.nsub : a.nd;
+  const int ks = warp % p.splits, st0 = ks * p.per, n = min(p.per, p.steps - st0);
+  const int jobs = n * ((p.tiles - (int)blockIdx.x + p.grid - 1) / p.grid);
+  auto tile_of = [&](int j) { return (int)blockIdx.x + j / n * p.grid; };
+
+  // the code bytes and side chunks of this warp's job j (step st0 + j % n
+  // of tile tile_of(j)) into slot j % kI8Ring; a code row past sub/2 (k16
+  // steps of sub % 16 != 0) is zero-filled, a row past out repeats the last
+  // row (its sums are not stored)
+  auto load_step = [&](int j) {
+    unsigned char* sb = ring + (j % kI8Ring) * p.slot + lane * kCB;
+    const int s0 = (st0 + j % n) * kV, k0 = s0 + kQ * t;
+    const size_t o = min((tile_of(j) * p.groups + rg) * kI8Rows + g, a.out_f - 1);
+    const uint8_t* crow = a.codes + o * half;
+    for (int h = 0; h < nh; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cr = kK32 ? 4 * t + j : 8 * h + 4 * (t & 1) + j;
+        const bool ok = kK32 || cr < hsub;
+        unsigned char* dst = sb + (h * 4 + j) * kCS;
+        const uint8_t* src = crow + (ok ? (size_t)cr * a.nsub + s0 : 0);
+        if constexpr (kV == 16) cp_async16(dst, src, ok);
+        else cp_async4(dst, src, ok);
+      }
+    }
+    copy_side<kS, kV>(sb + ncode * kCS, sb + ic_sc * kCS,
+                      a.d + o * (kS == kFlat ? a.nsub : a.nd),
+                      kHasSc ? a.sc + o * a.nsub : nullptr, k0, a.nd);
+    if constexpr (kHasMin)
+      copy_side<kM, kV>(sb + ic_dm * kCS, sb + ic_mn * kCS, a.dmin + o * ndm,
+                        kHasMn ? a.mn + o * a.nsub : nullptr, k0, a.nd);
+  };
+
+  // the first jobs are in flight while the block stages its activations
+#pragma unroll
+  for (int j = 0; j < kI8Ring; ++j) {
+    if (j < jobs) load_step(j);
+    cp_async_commit();
+  }
+  {
+    uint32_t* const xw = reinterpret_cast<uint32_t*>(smem);
+    const int ng = a.nsub / kV;   // kV sub-blocks a load
+    for (int u = tid; u < ng * nbs * nw; u += nthr) {
+      const int w = u % nw, b = (u / nw) % nbs, sg = u / (nw * nbs);
+      int t0, rows = 4;
+      if constexpr (kK32) {
+        t0 = 4 * (w >> 1) + 16 * (w & 1);
+      } else {
+        const int cr0 = 8 * (w >> 2) + 4 * (w & 1);
+        t0 = ((w & 3) >> 1) * hsub + cr0;
+        rows = min(4, hsub - cr0);
+      }
+      const int8_t* xr = a.xq + (size_t)(b0 + (b < nb ? b : 0)) * a.in_f + sg * kV;
+      uint32_t v[4][kV / 4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (kV == 16) {
+          const uint4 l = j < rows ? __ldg(reinterpret_cast<const uint4*>(xr + (size_t)(t0 + j) * a.nsub))
+                                   : uint4{0, 0, 0, 0};
+          v[j][0] = l.x; v[j][1] = l.y; v[j][2] = l.z; v[j][3] = l.w;
+        } else {
+          v[j][0] = j < rows ? __ldg(reinterpret_cast<const uint32_t*>(xr + (size_t)(t0 + j) * a.nsub))
+                             : 0u;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kV / 4; ++q) {
+        const uint32_t w4[4] = {v[0][q], v[1][q], v[2][q], v[3][q]};
+        uint32_t col[4];
+        transpose4(w4, col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xw[((size_t)(sg * kV + 4 * q + c) * nbs + b) * nw + w] = col[c];
+      }
+    }
+    float2* const xt = reinterpret_cast<float2*>(smem + (size_t)a.nsub * nbs * nw * 4);
+    for (int u = tid; u < a.nsub * nbs; u += nthr) {
+      const int b = u % nbs, k = u / nbs;
+      const size_t ix = (size_t)(b0 + b) * a.nsub + k;
+      xt[u] = b < nb ? float2{__ldg(a.xs + ix), __ldg(a.xsum + ix)} : float2{0.f, 0.f};
+    }
+  }
+  __syncthreads();
+
+  // accumulator e < 2: activation row g, output row 2t + e (e >= 2 are
+  // mma's idle rows 8-15). A lane's activation row past nbs reads row
+  // nbs - 1; its sums are not stored.
+  const int gx = min(g, nbs - 1);
+  float acc[2] = {0.f, 0.f};
+  // (p*xs)*s, then - xsum*m', into the accumulators, for sub-block sl of
+  // the step (k in the row)
+  auto epilogue = [&](int sl, int k, const float (&pf)[2]) {
+    const float2 xv = xsx[k * nbs + gx];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float2 sv = tab_s[sl * kI8Rows + 2 * t + e];
+      acc[e] = __fadd_rn(acc[e], __fmul_rn(__fmul_rn(pf[e], xv.x), sv.x));
+      acc[e] = fmaf(-xv.y, sv.y, acc[e]);
+    }
+  };
+
+  for (int i = 0; i < jobs; ++i) {
+    // the slot of job i-1, read and used, takes job i-1+kI8Ring: group j
+    // of the warp holds job j
+    if (i > 0) {
+      if (i - 1 + kI8Ring < jobs) load_step(i - 1 + kI8Ring);
+      cp_async_commit();
+    }
+    const int s0 = (st0 + i % n) * kV;
+    cp_async_wait<kI8Ring - 1>();
+    const unsigned char* sb = ring + (i % kI8Ring) * p.slot + lane * kCB;
+    // scales once a step: s and m' = bias*s + m of row g at this lane's
+    // sub-blocks; every lane is done with the last step's table
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < kQ; ++e) {
+      const int q = kV == 16 ? e : t;   // byte of the factor word
+      const float s = side_value<kS>(sb + ncode * kCS, sb + ic_sc * kCS, e, q);
+      float mp = 0.f;
+      if constexpr (kHasMin) mp = side_value<kM>(sb + ic_dm * kCS, sb + ic_mn * kCS, e, q);
+      if (a.bias != 0) {
+        const float bs = __fmul_rn((float)a.bias, s);
+        mp = kHasMin ? __fadd_rn(bs, mp) : bs;
+      }
+      tab_s[(kQ * t + e) * kI8Rows + g] = float2{s, mp};
+    }
+    __syncwarp();
+
+    if constexpr (kK32) {
+      uint4 cw[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cw[j] = *reinterpret_cast<const uint4*>(sb + j * kCS);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {   // sub-blocks 4q..4q+3 of the step
+        uint32_t col[4];
+        const uint32_t w[4] = {(&cw[0].x)[q], (&cw[1].x)[q], (&cw[2].x)[q], (&cw[3].x)[q]};
+        transpose4(w, col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int k = s0 + 4 * q + c;
+          const uint2 xv = *reinterpret_cast<const uint2*>(xf + ((size_t)k * nbs + gx) * 8 + 2 * t);
+          const uint32_t af[4] = {xv.x, 0u, xv.y, 0u};
+          int pr[4];
+          mma_s8_k32(pr, af, col[c] & 0x0F0F0F0Fu, (col[c] >> 4) & 0x0F0F0F0Fu, kI8Magic);
+          // |p| <= 127 * 15 * 32 < 2^22: the sum's bits are 1.5*2^23 + p's
+          const float pf[2] = {__fsub_rn(__int_as_float(pr[0]), kI8MagicF),
+                               __fsub_rn(__int_as_float(pr[1]), kI8MagicF)};
+          epilogue(4 * q + c, k, pf);
+        }
+      }
+    } else {
+      // 16-element steps h of each sub-block; the sums start at the bits of
+      // 1.5*2^23 and stay exact in int32 across the steps
+      const int nib = (t >> 1) * 4;
+      int pr[kQ][4][2];
+      for (int h = 0; h < nh; ++h) {
+        uint32_t cw[4][kQ];   // word q of code chunk (h, j)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned char* src = sb + (h * 4 + j) * kCS;
+          if constexpr (kV == 16) {
+            const uint4 v = *reinterpret_cast<const uint4*>(src);
+            cw[j][0] = v.x;
+            cw[j][1] = v.y;
+            cw[j][2] = v.z;
+            cw[j][3] = v.w;
+          } else {
+            cw[j][0] = *reinterpret_cast<const uint32_t*>(src);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {   // sub-blocks 4q..4q+3 of the step
+          uint32_t col[4];
+          const uint32_t w[4] = {cw[0][q], cw[1][q], cw[2][q], cw[3][q]};
+          transpose4(w, col);
+          const uint32_t* xk = xf + ((size_t)(s0 + 4 * q) * nbs + gx) * nw + 4 * h + t;
+          const int c0 = h == 0 ? kI8Magic : 0;
+          // two sub-blocks a m16n8k32: the second's activations in rows
+          // 8-15 against k 16-31, so its sums land in accumulators 2, 3
+#pragma unroll
+          for (int c = 0; c < 4; c += 2) {
+            const uint32_t af[4] = {xk[(size_t)c * nbs * nw], 0u, 0u, xk[(size_t)(c + 1) * nbs * nw]};
+            int dk[4];
+            mma_s8_k32(dk, af, (col[c] >> nib) & 0x0F0F0F0Fu, (col[c + 1] >> nib) & 0x0F0F0F0Fu,
+                       c0);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              pr[q][c][e] = h == 0 ? dk[e] : pr[q][c][e] + dk[e];
+              pr[q][c + 1][e] = h == 0 ? dk[2 + e] : pr[q][c + 1][e] + dk[2 + e];
+            }
+          }
+        }
+      }
+      // |p| <= 127 * 15 * sub < 2^22 up to sub 2048 (one subtract converts
+      // it), < 2^24 beyond (the integer difference converts exactly)
+      const bool small = hsub <= 1024;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float pf[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            pf[e] = small ? __fsub_rn(__int_as_float(pr[q][c][e]), kI8MagicF)
+                          : (float)(pr[q][c][e] - kI8Magic);
+          epilogue(4 * q + c, s0 + 4 * q + c, pf);
+        }
+      }
+    }
+
+    // the tile's last step for this warp: its partial sums into the
+    // buffer of the tile's parity; the block then sums each row group's
+    // splits and writes y (the other buffer takes the next tile)
+    if (i % n == n - 1) {
+      const int tile = tile_of(i), buf = (i / n) & 1;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        part[buf * kI8Acts * kI8Rows + g * kI8Rows + 2 * t + e] = acc[e];
+        acc[e] = 0.f;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < p.groups * kI8Acts * kI8Rows; idx += nthr) {
+        const int grp = idx / (kI8Acts * kI8Rows), b = idx / kI8Rows % kI8Acts;
+        const int o = (tile * p.groups + grp) * kI8Rows + idx % kI8Rows;
+        float sum = 0.f;
+        for (int v = 0; v < p.splits; ++v)
+          sum += reinterpret_cast<const float*>(smem + p.x_smem + (grp * p.splits + v) * p.warp_smem
+                                                + kI8Ring * p.slot + kV * kI8Rows * 8)
+              [buf * kI8Acts * kI8Rows + idx % (kI8Acts * kI8Rows)];
+        if (b < nb && o < a.out_f) a.y[(size_t)(b0 + b) * a.out_f + o] = sum;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The instance a geometry takes: sub 32 on m16n8k32 (0), other sub-block
+// sizes on m16n8k16 (1), both walking 16 sub-blocks a step with 16-byte
+// copies where nsub % 16 == 0; 4 sub-blocks a step with 4-byte copies
+// otherwise (2).
+inline int int8_instance(int in_f, int nsub) {
+  if (nsub % 16) return 2;
+  return in_f / nsub == 32 ? 0 : 1;
+}
+
+// The plan of a launch on the current device (ring slot, table and staged
+// activations from the instance's chunks and fragment words; the card read,
+// and the instance's shared-memory limit set, on its first use there).
+template <int kS, int kM, bool kK32, int kV>
+int prepare_int8(int B, int in_f, int out_f, int nsub, PlanI8& p) {
+  static CardCache cards;
+  Card c;
+  const int rc = cards.get(quant_matmul_int8_kernel<kS, kM, kK32, kV>, 0, c);
+  if (rc != 0) return rc;
+  const int nh = kK32 ? 1 : (in_f / nsub / 2 + 7) / 8;
+  const int sides = 1 + (kS != kFlat) + (kM != kNone) + (kM == kHierU8 || kM == kHierI8);
+  const int slot = (nh * 4 + sides) * 32 * (kV == 4 ? 4 : 16);
+  p = plan_i8(B, out_f, nsub, nsub / kV, slot, kV * kI8Rows * 8, kK32 ? 8 : 4 * nh, c);
+  return p.x_smem + p.warps * p.warp_smem > c.smem_block ? (int)cudaErrorInvalidValue : 0;
+}
+
+template <int kS, int kM, bool kK32, int kV>
+int launch_int8(const Int8Args& a, cudaStream_t st) {
+  PlanI8 p;
+  const int rc = prepare_int8<kS, kM, kK32, kV>(a.B, a.in_f, a.out_f, a.nsub, p);
+  if (rc != 0) return rc;
+  const dim3 grid(p.grid, (a.B + p.acts - 1) / p.acts);
+  const int smem = p.x_smem + p.warps * p.warp_smem;
+  quant_matmul_int8_kernel<kS, kM, kK32, kV><<<grid, p.warps * 32, smem, st>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+// What a launch of one instance would be, as plan_8bit reports it, and the
+// instance in info[7].
+template <int kS, int kM, bool kK32, int kV>
+int plan_int8(int B, int in_f, int out_f, int nsub, int* info) {
+  PlanI8 p;
+  int rc = prepare_int8<kS, kM, kK32, kV>(B, in_f, out_f, nsub, p);
+  cudaFuncAttributes fa;
+  if (rc == 0) rc = (int)cudaFuncGetAttributes(&fa, quant_matmul_int8_kernel<kS, kM, kK32, kV>);
+  int per_sm = 0;
+  const int smem = p.x_smem + p.warps * p.warp_smem;
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, quant_matmul_int8_kernel<kS, kM, kK32, kV>, p.warps * 32, smem);
+  if (rc != 0) return rc;
+  const int v[8] = {p.grid, (B + p.acts - 1) / p.acts, p.warps * 32, smem, fa.numRegs,
+                    (int)fa.localSizeBytes, per_sm, int8_instance(in_f, nsub)};
+  for (int i = 0; i < 8; ++i) info[i] = v[i];
+  return 0;
+}
+
+template <int kS, int kM>
+int launch_int8_geometry(const Int8Args& a, cudaStream_t st) {
+  switch (int8_instance(a.in_f, a.nsub)) {
+    case 0: return launch_int8<kS, kM, true, 16>(a, st);
+    case 1: return launch_int8<kS, kM, false, 16>(a, st);
+  }
+  return launch_int8<kS, kM, false, 4>(a, st);
+}
+
+template <int kS, int kM>
+int plan_int8_geometry(int B, int in_f, int out_f, int nsub, int* info) {
+  switch (int8_instance(in_f, nsub)) {
+    case 0: return plan_int8<kS, kM, true, 16>(B, in_f, out_f, nsub, info);
+    case 1: return plan_int8<kS, kM, false, 16>(B, in_f, out_f, nsub, info);
+  }
+  return plan_int8<kS, kM, false, 4>(B, in_f, out_f, nsub, info);
 }
 
 }  // namespace
@@ -788,20 +1255,43 @@ int lgt_quant_matmul_lowbit(const void* x, const void* xsum, const void* codes,
 }
 
 // xq (B, in) int8 block-minor; xs, xsum (B, nsub) f32; codes (out, in/2) u8;
-// d (out, nd) f32; sc (out, nsub) u8/i8 or null; dmin (out, nd) f32 or null;
-// mn (out, nsub) u8/i8 or null -> y (B, out) f32. nsub % 4 == 0, in % 8 == 0.
+// d (out, nd) f32; sc (out, nsub) u8/i8 or null; dmin (out, nd) f32 or null
+// ((out, nsub) when flat); mn (out, nsub) u8/i8 or null -> y (B, out) f32.
+// nsub % 4 == 0, in/nsub even; 16-byte aligned arrays.
 int lgt_quant_matmul_int8(const void* xq, const void* xs, const void* xsum,
                           const void* codes, const void* d, const void* sc,
                           const void* dmin, const void* mn, void* y, int B, int in_f,
                           int out_f, int nsub, int nd, int bias, int s_side, int m_side,
                           void* stream) {
+  if (nsub <= 0 || nd <= 0 || nsub % 4 || in_f % nsub || (in_f / nsub) % 2)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || out_f == 0) return 0;
   const Int8Args a{(const int8_t*)xq, (const float*)xs, (const float*)xsum,
                    (const uint8_t*)codes, (const float*)d, (const uint8_t*)sc,
                    (const float*)dmin, (const uint8_t*)mn, (float*)y,
                    B, in_f, out_f, nsub, nd, bias};
   const cudaStream_t st = (cudaStream_t)stream;
 #define LGT_CASE(S, M) \
-  if (s_side == S && m_side == M) return launch_int8<S, M>(a, st);
+  if (s_side == S && m_side == M) return launch_int8_geometry<S, M>(a, st);
+  LGT_CASE(kFlat, kNone) LGT_CASE(kFlat, kFlat)
+  LGT_CASE(kHierU8, kNone) LGT_CASE(kHierU8, kHierU8) LGT_CASE(kHierU8, kHierI8)
+  LGT_CASE(kHierI8, kNone) LGT_CASE(kHierI8, kHierU8) LGT_CASE(kHierI8, kHierI8)
+#undef LGT_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch lgt_quant_matmul_int8 makes for these arguments, into info[8]:
+// grid x, grid y, threads a block, dynamic shared bytes, registers a thread,
+// local (spill) bytes a thread, resident blocks an SM, and the instance (0:
+// sub 32 on m16n8k32, 1: m16n8k16, both 16 sub-blocks a step; 2: m16n8k16,
+// 4 sub-blocks a step, for nsub % 16 != 0).
+int lgt_quant_matmul_int8_plan(int B, int in_f, int out_f, int nsub, int s_side, int m_side,
+                               void* info) {
+  if (nsub <= 0 || nsub % 4 || in_f % nsub || (in_f / nsub) % 2)
+    return (int)cudaErrorInvalidValue;
+  int* const v = (int*)info;
+#define LGT_CASE(S, M) \
+  if (s_side == S && m_side == M) return plan_int8_geometry<S, M>(B, in_f, out_f, nsub, v);
   LGT_CASE(kFlat, kNone) LGT_CASE(kFlat, kFlat)
   LGT_CASE(kHierU8, kNone) LGT_CASE(kHierU8, kHierU8) LGT_CASE(kHierU8, kHierI8)
   LGT_CASE(kHierI8, kNone) LGT_CASE(kHierI8, kHierU8) LGT_CASE(kHierI8, kHierI8)

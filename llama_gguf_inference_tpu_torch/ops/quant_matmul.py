@@ -128,9 +128,11 @@ TC_STEP = 64      # the tensor-core kernels' step: they need in and nsub multipl
 # 0.1 ms at 16 rows (PERF.md §6)
 LOWBIT_TC_MIN_ROWS = 16
 # activation rows from which quant_matmul_4bit_int8 takes the tensor-core
-# kernel of csrc/quant_matmul_int8_tc.cu: on an H100 it beats the decode
-# kernel at every 8B projection from 8 rows, the fewest measured (PERF.md §6)
-INT8_TC_MIN_ROWS = 8
+# kernel of csrc/quant_matmul_int8_tc.cu: on an H100 the decode kernel wins
+# a layer's four 8B projections at 32 rows (0.498 against 0.611 ms), the
+# tensor-core one at 48 (0.615 against 0.703); alone, gate+up crosses near
+# 28 rows, down near 45, qkv near 56 and o past 64 (PERF.md §6)
+INT8_TC_MIN_ROWS = 48
 INT8_TC_GROUP = 16   # the int8 tensor-core kernel walks groups of 16 sub-blocks
 
 # how one side (scale or min) of a weight is stored; the values are the
@@ -584,9 +586,10 @@ def quant_matmul_4bit_int8(xq: torch.Tensor, xs: torch.Tensor, xsum: torch.Tenso
 
 def quant_matmul_4bit_int8_decode(xq, xs, xsum, codes, d, sc, dmin, mn,
                                   code_bias=0) -> torch.Tensor:
-    """As :func:`quant_matmul_4bit_int8`, through the decode kernel (one warp
-    an output row, 8 activation rows a block) at any row count; launches
-    count under :data:`NAME_4BIT_INT8`."""
+    """As :func:`quant_matmul_4bit_int8`, through the decode kernel (s8
+    tensor-core products, 8 output rows a warp, up to 8 activation rows a
+    block, a second grid axis beyond) at any row count; launches count
+    under :data:`NAME_4BIT_INT8`."""
     B, in_f, out_f, nsub, nd = _check_int8(xq, xs, xsum, codes, d, sc, dmin, mn, code_bias)
     dev = xq.device
     if dev.type != "cuda":

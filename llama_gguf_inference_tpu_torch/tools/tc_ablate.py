@@ -1,6 +1,7 @@
 """Where the tensor-core matmul kernels' time goes, on one card.
 
     python -m llama_gguf_inference_tpu_torch.tools.tc_ablate [--seed 0] [--kinds q4_k,q4_k_int8]
+        [--full-only]
 
 Builds each tensor-core source into the build directory as it is and cut:
 ``csrc/quant_matmul_tc.cu`` (8-bit codes) and
@@ -14,7 +15,8 @@ and byte transposes: constant fragments), without its s8 ``mma.sync``
 epilogue (one f32 add a sum in place of the conversion, the two scales and
 the min term, and their shared-memory loads). Times each build, and the
 decode kernel and ``torch.matmul`` on a bf16 weight of the same shape, at
-the 8B's projections for 8, 16, 32, 64 and 512 activation rows, in the
+the 8B's projections for 8, 16, 32, 64 and 512 activation rows (the int8
+body also 24 and 48, about where its decode kernel crosses), in the
 layout each kernel serves: Q5_K compact (8-bit, with its min), Q4_K flat
 (4-bit fsplit, the base rule, and the int8 body) and Q2_K mixed (2-bit) or
 flat (the base_f32 rule); codes and scales drawn from ``--seed``. The int8
@@ -30,7 +32,20 @@ the Q6_K head; 1 and 4 rows): without its dequantization (the code words
 passed to ``mma.sync`` as they are, so no scales are formed either), without
 its products (one integer op a fragment in place of ``mma.sync``), without
 its activation loads (zero fragments), and with rings of 8 and of 16 code
-cells a warp in place of 8 without a min side and 4 with one.
+cells a warp in place of 8 without a min side and 4 with one. The kind
+``q4_k_int8_decode`` cuts the int8 decode kernel of the same source (Q4_K
+flat at the four projections, and Q3_K flat at o for its instance of
+16-wide sub-blocks; 1 and 4 rows): without its decode (constant code
+fragments: no shared-memory reads, no byte transposes), without its
+products (one integer op in place of ``mma.sync``), without its activation
+loads (no staging, fragments made from the lane's indices), without its
+epilogue (each sum added as it is: no conversion, scales or min term, no
+table reads); to split the time, with only its loads (each step waited for
+and nothing computed) and without its code loads (the code copies
+zero-filled, so no code bytes leave the card's memory). ``--full-only``
+times each kind's build as it is and cuts nothing: run from a parent
+tree's sources (this module copied in), it times the kernel a redesign
+replaces at the same shapes and seed.
 """
 
 from __future__ import annotations
@@ -50,16 +65,21 @@ from ..ops import quant_matmul as qm
 SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
           "down": (4096, 14336)}
 ROWS = (8, 16, 32, 64, 512)
+INT8_ROWS = (8, 16, 24, 32, 48, 64, 512)
 DECODE_ROWS = (1, 4)
 KINDS = ("q5_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base", "q2_k_base", "q5_k_decode",
-         "q6_k_decode")
-SOURCE = {"q5_k": "quant_matmul_tc", "q4_k_int8": "quant_matmul_int8_tc",
-          **{k: "quant_matmul_lowbit_tc" for k in ("q4_k", "q2_k", "q4_k_base", "q2_k_base")},
-          "q5_k_decode": "quant_matmul", "q6_k_decode": "quant_matmul"}
+         "q6_k_decode", "q4_k_int8_decode")
+# kind -> (library, its cut set)
+SOURCE = {"q5_k": ("quant_matmul_tc",) * 2, "q4_k_int8": ("quant_matmul_int8_tc",) * 2,
+          **{k: ("quant_matmul_lowbit_tc",) * 2
+             for k in ("q4_k", "q2_k", "q4_k_base", "q2_k_base")},
+          "q5_k_decode": ("quant_matmul", "quant_matmul_8bit"),
+          "q6_k_decode": ("quant_matmul", "quant_matmul_8bit"),
+          "q4_k_int8_decode": ("quant_matmul", "quant_matmul_int8")}
 _PRODUCTS = ("    if (i >= 0 && warp_live) {", "    if (false) {")
-# each source's cut builds: the text each replaces
+# each cut set's builds: the text each replaces (or a list of such edits)
 CUTS = {
-    "quant_matmul": {
+    "quant_matmul_8bit": {
         "no_decode": ("      decode16<kM>(c4, s, m, magic, w);",
                       """#pragma unroll
       for (int h = 0; h < 8; ++h) w[h] = (&c4.x)[h / 2] ^ (h & 1);"""),
@@ -69,6 +89,41 @@ CUTS = {
         "ring8": ("constexpr int k8Ring = kM == kNone ? 8 : 4;", "constexpr int k8Ring = 8;"),
         "ring16": ("constexpr int k8Ring = kM == kNone ? 8 : 4;",
                    "constexpr int k8Ring = 16;")},
+    "quant_matmul_int8": {
+        # each edit of the sub-32 path is followed by its k16 path's
+        "no_decode": [
+            ("""        const uint32_t w[4] = {(&cw[0].x)[q], (&cw[1].x)[q], (&cw[2].x)[q], (&cw[3].x)[q]};
+        transpose4(w, col);""",
+             """#pragma unroll
+        for (int j = 0; j < 4; ++j) col[j] = 0x01020304u * (j + 1) ^ q;"""),
+            ("""          const uint32_t w[4] = {cw[0][q], cw[1][q], cw[2][q], cw[3][q]};
+          transpose4(w, col);""",
+             """#pragma unroll
+          for (int j = 0; j < 4; ++j) col[j] = 0x01020304u * (j + 1) ^ q ^ h;""")],
+        "no_products": [
+            ("          mma_s8_k32(pr, af, col[c] & 0x0F0F0F0Fu, (col[c] >> 4) & 0x0F0F0F0Fu, kI8Magic);",
+             """#pragma unroll
+          for (int e = 0; e < 4; ++e) pr[e] = kI8Magic + (int)(af[e] ^ col[c]);"""),
+            ("""            mma_s8_k32(dk, af, (col[c] >> nib) & 0x0F0F0F0Fu, (col[c + 1] >> nib) & 0x0F0F0F0Fu,
+                       c0);""",
+             """#pragma unroll
+            for (int e = 0; e < 4; ++e) dk[e] = c0 + (int)(af[e] ^ col[c] ^ (col[c + 1] >> nib));""")],
+        "no_x": [("    for (int u = tid; u < ng * nbs * nw; u += nthr) {",
+                  "    for (int u = tid; u < 0; u += nthr) {"),
+                 ("          const uint2 xv = *reinterpret_cast<const uint2*>(xf + ((size_t)k * nbs + gx) * 8 + 2 * t);",
+                  "          const uint2 xv = {(unsigned)lane, (unsigned)k};"),
+                 ("            const uint32_t af[4] = {xk[(size_t)c * nbs * nw], 0u, 0u, xk[(size_t)(c + 1) * nbs * nw]};",
+                  "            const uint32_t af[4] = {(unsigned)lane, 0u, 0u, (unsigned)(c + 4 * q + h)};")],
+        "no_epilogue": ("""      const float2 sv = tab_s[sl * kI8Rows + 2 * t + e];
+      acc[e] = __fadd_rn(acc[e], __fmul_rn(__fmul_rn(pf[e], xv.x), sv.x));
+      acc[e] = fmaf(-xv.y, sv.y, acc[e]);""", "      acc[e] += pf[e];"),
+        "loads_only": ("    const unsigned char* sb = ring + (i % kI8Ring) * p.slot + lane * kCB;",
+                       """    const unsigned char* sb = ring + (i % kI8Ring) * p.slot + lane * kCB;
+    if (a.bias != 12345) {
+      acc[0] += sb[0];
+      continue;
+    }"""),
+        "no_code_loads": ("        const bool ok = kK32 || cr < hsub;", "        const bool ok = false;")},
     "quant_matmul_tc": {
         "no_decode": ("      decode_run<kM, kPer>(", "      if (false) decode_run<kM, kPer>("),
         "no_products": _PRODUCTS},
@@ -94,17 +149,20 @@ CUTS = {
                         "                acc[mt][nt][e] += __int_as_float(p[nt][e]);")}}
 
 
-def _builds(source: str) -> dict[str, ctypes.CDLL]:
+def _builds(source: str, cuts: str, full_only: bool) -> dict[str, ctypes.CDLL]:
     with open(os.path.join(_build._CSRC, source + ".cu")) as f:
         src = f.read()
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     procs = {}
-    for name, (old, new) in CUTS[source].items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"{source} {name}: the source no longer holds {old!r} once")
-        cu = os.path.join(_build.BUILD_DIR, f"tc_ablate_{source}_{name}.cu")
+    for name, edits in ({} if full_only else CUTS[cuts]).items():
+        cut = src
+        for old, new in edits if isinstance(edits, list) else [edits]:
+            if cut.count(old) != 1:
+                raise RuntimeError(f"{source} {name}: the source no longer holds {old!r} once")
+            cut = cut.replace(old, new)
+        cu = os.path.join(_build.BUILD_DIR, f"tc_ablate_{cuts}_{name}.cu")
         with open(cu, "w") as f:
-            f.write(src.replace(old, new))
+            f.write(cut)
         procs[name] = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build._CSRC,
                                         cu, "-o", cu[:-3] + ".so"], stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
@@ -113,7 +171,7 @@ def _builds(source: str) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {source} {name}:\n{log}")
-        path = os.path.join(_build.BUILD_DIR, f"tc_ablate_{source}_{name}.so")
+        path = os.path.join(_build.BUILD_DIR, f"tc_ablate_{cuts}_{name}.so")
         libs[name] = _build._bind(source, ctypes.CDLL(path))
     return libs
 
@@ -142,15 +200,29 @@ def _f32(out_f: int, n: int, scale: float, g: torch.Generator) -> torch.Tensor:
     return torch.rand(out_f, n, generator=g, device="cuda") * scale + scale / 10
 
 
-def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator):
+def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator, q3_k: bool = False):
     """(source, tensor-core wrapper, decode wrapper, plain version, args) of
-    one kernel's call on random arrays: Q5_K
+    one kernel's call on random arrays (the decode kinds: no tensor-core
+    wrapper, the decode kernel in its place): Q5_K
     compact (5-bit codes, f32 d and dmin per 256, u8 sc and mn per 32), Q4_K
     flat (f32 d and dmin per 32; fsplit, ``q4_k_base`` the base rule,
     ``q4_k_int8`` the int8 body on quantize_acts' codes), Q2_K mixed (f32 d
     per 16, f32 dmin per 256 with u8 mn per 16) or ``q2_k_base`` flat (the
-    base_f32 rule, f32 d and dmin per 16)."""
+    base_f32 rule, f32 d and dmin per 16); ``q4_k_int8_decode`` Q4_K flat
+    through the int8 decode kernel, or with ``q3_k`` Q3_K flat (f32 d per
+    16, no min, codes biased by 4)."""
     x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
+    if kind == "q4_k_int8_decode":
+        sub = 16 if q3_k else 32
+        nsub = in_f // sub
+        codes = torch.randint(0, 256, (out_f, in_f // 2), generator=g, device="cuda",
+                              dtype=torch.uint8)
+        xq, xs = qm.quantize_acts(x, sub)
+        dmin = None if q3_k else _f32(out_f, nsub, 5e-2, g)
+        return ("quant_matmul", qm.quant_matmul_4bit_int8_decode, None,
+                qm.quant_matmul_4bit_int8_plain,
+                (xq, xs, qm._block_sums(x, sub), codes, _f32(out_f, nsub, 1e-2, g), None,
+                 dmin, None, 4 if q3_k else 0))
     if kind.endswith("_decode"):
         sub, signed, has_min = (32, False, True) if kind == "q5_k_decode" else (16, True, False)
         nsub, nd = in_f // sub, in_f // 256
@@ -205,30 +277,35 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kinds", default=",".join(KINDS),
                     help="comma-separated kernels and layouts to time (default: all)")
+    ap.add_argument("--full-only", action="store_true",
+                    help="time each source as it is, with no cut builds")
     a = ap.parse_args()
     kinds = a.kinds.split(",")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = {src: _builds(src) for src in {SOURCE[k] for k in kinds}}
+    libs = {src: _builds(*src, a.full_only) for src in {SOURCE[k] for k in kinds}}
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(a.seed)
     for kind in kinds:
         decode_kind = kind.endswith("_decode")
         shapes = {"head": (128256, 4096)} if kind == "q6_k_decode" else SHAPES
+        if kind == "q4_k_int8_decode":
+            shapes = {**SHAPES, "q3_k_o": SHAPES["o"]}
+        rows = DECODE_ROWS if decode_kind else INT8_ROWS if kind == "q4_k_int8" else ROWS
         for name, (out_f, in_f) in shapes.items():
             w_lib = torch.randn(out_f, in_f, generator=g, device="cuda").bfloat16()
-            for B in DECODE_ROWS if decode_kind else ROWS:
-                src, tc, decode, plain, args = _case(kind, out_f, in_f, B, g)
+            for B in rows:
+                src, tc, decode, plain, args = _case(kind, out_f, in_f, B, g, name == "q3_k_o")
                 row = {"shape": f"{kind} {name} {out_f}x{in_f}", "B": B}
-                for build, lib in libs[src].items():
+                for build, lib in libs[SOURCE[kind]].items():
                     _build._LIBS[src] = lib
                     if build == "full":
                         want = plain(*args)
                         row["rel_err"] = ((tc(*args) - want).abs().max()
                                           / want.abs().max()).item()
                     row[f"{build}_ms"] = _timer(flush, lambda: tc(*args))
-                _build._LIBS[src] = libs[src]["full"]
+                _build._LIBS[src] = libs[SOURCE[kind]]["full"]
                 if not decode_kind:
                     row["decode_kernel_ms"] = _timer(flush, lambda: decode(*args),
                                                      5 if B > 64 else 20)
@@ -236,7 +313,7 @@ def main() -> None:
                 row["torch_matmul_ms"] = _timer(flush, lambda: torch.matmul(xb, w_lib.t()))
                 nbytes = sum(t.numel() * t.element_size() for t in args
                              if isinstance(t, torch.Tensor)) + B * out_f * 4
-                rate = 1979e12 if kind == "q4_k_int8" else 989e12
+                rate = 1979e12 if kind.startswith("q4_k_int8") else 989e12
                 row["bound_ms"] = max(2.0 * B * in_f * out_f / rate, nbytes / 3.35e12) * 1e3
                 print(json.dumps(row), flush=True)
                 del args

@@ -57,11 +57,28 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t)
   *n = 1;
   return 0;
 }
-// a card of 4 SMs: grids of fewer than 4 blocks of 128 output rows take the
-// 64-row tiles
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+// a card of 4 SMs (grids of fewer than 4 blocks of 128 output rows take the
+// 64-row tiles), each with an H100's shared memory, threads and registers
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxThreadsPerMultiProcessor = 39,
+  cudaDevAttrMaxSharedMemoryPerMultiprocessor = 81,
+  cudaDevAttrMaxRegistersPerMultiprocessor = 82,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97,
+  cudaDevAttrReservedSharedMemoryPerBlock = 111
+};
 inline int cudaGetDevice(int* dev) { *dev = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 4; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr attr, int) {
+  switch (attr) {
+    case cudaDevAttrMultiProcessorCount: *v = 4; break;
+    case cudaDevAttrMaxThreadsPerMultiProcessor: *v = 2048; break;
+    case cudaDevAttrMaxSharedMemoryPerMultiprocessor: *v = 233472; break;
+    case cudaDevAttrMaxRegistersPerMultiprocessor: *v = 65536; break;
+    case cudaDevAttrMaxSharedMemoryPerBlockOptin: *v = 232448; break;
+    case cudaDevAttrReservedSharedMemoryPerBlock: *v = 1024; break;
+  }
+  return 0;
+}
 
 struct emu_block {
   std::unique_ptr<std::barrier<>> bar;

@@ -218,3 +218,105 @@ def test_8bit_kernel_geometry(emu, in_f, sub, layout, has_min, signed, bias, B):
     before = launches.get(name, 0)
     _close(mod.quant_matmul_8bit_decode(*args), qm.quant_matmul_8bit_plain(*args))
     assert launches[name] == before + 1
+
+
+def _int8_arrays(out_f, in_f, sub, layout, nd, has_min, signed, mn_signed, g):
+    """Planar 4-bit codes and one layout's sides, compact ones ``nd`` wide."""
+    nsub = in_f // sub
+    codes = torch.randint(0, 256, (out_f, in_f // 2), generator=g, dtype=torch.uint8)
+
+    def f32(n):
+        return torch.rand(out_f, n, generator=g) * 0.02 + 1e-3
+
+    def u8(s):
+        lo = -32 if s else 0
+        return torch.randint(lo, lo + 64, (out_f, nsub), generator=g,
+                             dtype=torch.int32).to(torch.int8 if s else torch.uint8)
+    if layout == "flat":
+        return codes, f32(nsub), None, (f32(nsub) if has_min else None), None
+    return codes, f32(nd), u8(signed), (f32(nd) if has_min else None), \
+        (u8(mn_signed) if has_min else None)
+
+
+# (in, sub, layout, nd, has_min, signed sc, bias, signed mn): the int8 decode
+# kernel's steps of 16 sub-blocks (nsub % 16 == 0) or of 4, on m16n8k32 (sub
+# 32) or m16n8k16. The emulated card has 4 SMs; at 13 output rows (two row
+# groups of 8, one ragged) a block holds both or walks them as two tiles, and
+# a row group's steps split over up to 16 warps.
+GEOMETRIES_INT8 = [
+    # nsub 4: one step of 4 sub-blocks, sub 32 through two k16 steps
+    (128, 32, "flat", 4, True, False, 0, False),
+    # nsub 12, Q3_K-like (sub 16, bias 4, i8 sc), nd 3: the scales one at a time
+    (192, 16, "compact", 3, False, True, 4, False),
+    # nsub 12, sub 32, u8 sc and mn, nd 4
+    (384, 32, "compact", 4, True, False, 0, False),
+    # Q4_K flat at in 4096: nsub 128, 8 steps, one a warp
+    (4096, 32, "flat", 128, True, False, 0, False),
+    # Q4_K compact: nd 16, u8 sc and mn
+    (4096, 32, "compact", 16, True, False, 0, False),
+    # Q4_0: flat, bias 8, no min side
+    (4096, 32, "flat", 128, False, False, 8, False),
+    # Q3_K compact at in 4096: nsub 256 on m16n8k16, i8 sc, bias 4
+    (4096, 16, "compact", 16, False, True, 4, False),
+    # Q4_K's ffn_down: nsub 448, 28 steps over 14 warps, the super-block
+    # index wrapping (nd 56); at B 9 activation tiles of 4 rows (8 would
+    # take over half the shared memory)
+    (14336, 32, "compact", 56, True, False, 0, False),
+    # nsub 200 (no multiple of 16): 50 steps of 4 sub-blocks over 13 warps,
+    # 4 each, so each ring refills within a tile; i8 sc and mn, nd 25
+    (6400, 32, "compact", 25, True, True, 0, True),
+    # nsub 896 at sub 32: 56 steps over 14 warps, 4 each, the m16n8k32 ring
+    # refilling; at B 9 activation tiles of 2 rows
+    (28672, 32, "flat", 896, False, False, 8, False),
+    # nsub 48 on m16n8k16, nd 3: 16-sub-block steps whose compact scales
+    # come one at a time
+    (768, 16, "compact", 3, True, False, 4, False),
+    # sub 24 (two k16 steps, the second half past the sub-block) and sub 64
+    # (four)
+    (768, 24, "flat", 32, True, False, 0, False),
+    (1024, 64, "compact", 4, False, True, 0, False),
+]
+
+
+@pytest.mark.parametrize("B", [1, 4, 7, 9])
+@pytest.mark.parametrize("in_f,sub,layout,nd,has_min,signed,bias,mn_signed", GEOMETRIES_INT8,
+                         ids=str)
+def test_int8_kernel_geometry(emu, in_f, sub, layout, nd, has_min, signed, bias, mn_signed, B):
+    """The int8 decode kernel where nsub is not a multiple of 16, where a
+    row splits over several warps and their rings refill, at sub-blocks of
+    16, 32 and other even sizes, flat and compact sides (u8 and i8 factors,
+    with and without a min side), bias 0, 4 and 8; B = 1, 4, 7 and 9 (a
+    second tile of activation rows), 13 output rows (a ragged block of 8)."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(in_f + sub + B)
+    arrs = _int8_arrays(13, in_f, sub, layout, nd, has_min, signed, mn_signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xq, xs = qm.quantize_acts(x, sub)
+    args = (xq, xs, qm._block_sums(x, sub), *arrs, bias)
+    before = launches.get(qm.NAME_4BIT_INT8, 0)
+    _close(mod.quant_matmul_4bit_int8_decode(*args), qm.quant_matmul_4bit_int8_plain(*args))
+    assert launches[qm.NAME_4BIT_INT8] == before + 1
+
+
+@pytest.mark.parametrize("B", [8, 9])
+def test_int8_kernel_persistent_tiles(emu, B):
+    """Blocks walking several tiles: 200 output rows (25 row groups) at in
+    11520 (nsub 360, no multiple of 16) go to fewer blocks in x than there
+    are row groups, each block staging its activations once (115 KB at 8
+    rows) and walking its tiles with its rings running on from one tile into
+    the next; each row group's 90 steps split over 15 warps, 6 each, so the
+    rings also refill within a tile; B 9 takes two activation tiles;
+    compact i8 sc, u8 mn, nd 45."""
+    import ctypes
+    mod, launches = emu
+    out_f, in_f, sub = 200, 11520, 32
+    g = torch.Generator().manual_seed(B)
+    arrs = _int8_arrays(out_f, in_f, sub, "compact", 45, True, True, False, g)
+    info = (ctypes.c_int * 8)()
+    _build.check(mod._build.library("quant_matmul").lgt_quant_matmul_int8_plan(
+        B, in_f, out_f, in_f // sub, qm.SIDE_HIER_I8, qm.SIDE_HIER_U8, info), "plan")
+    assert info[0] < 25 and info[7] == 2
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xq, xs = qm.quantize_acts(x, sub)
+    args = (xq, xs, qm._block_sums(x, sub), *arrs, 0)
+    _close(mod.quant_matmul_4bit_int8_decode(*args), qm.quant_matmul_4bit_int8_plain(*args))

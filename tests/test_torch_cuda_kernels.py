@@ -671,6 +671,45 @@ def test_quant_matmul_int8_dispatch_by_rows(dev):
         qm.quant_matmul_4bit_int8_tc(*args)
 
 
+# the int8 decode kernel's weights at the 8B shapes: (sub, bias, layout,
+# signed sc, has min) of Q4_K flat and compact at the four projections and
+# of Q4_0, Q4_1 and Q3_K at o
+FORMATS_INT8 = {"q4_k": (32, 0, "flat", False, True), "q4_k_compact": (32, 0, "compact", False, True),
+                "q4_0": (32, 8, "flat", False, False), "q4_1": (32, 0, "flat", False, True),
+                "q3_k": (16, 4, "flat", False, False)}
+INT8_8B = [(fmt, shape) for fmt in ("q4_k", "q4_k_compact") for shape in ("qkv", "o", "gate_up",
+                                                                          "down")]
+INT8_8B += [(fmt, "o") for fmt in ("q4_0", "q4_1", "q3_k")]
+_FULL_INT8 = {}
+
+
+@pytest.mark.parametrize("B", [*range(1, 8), 8, 16, 300])
+@pytest.mark.parametrize("fmt,shape", INT8_8B, ids=str)
+def test_quant_matmul_int8_decode_8b_shapes(dev, fmt, shape, B):
+    """The int8 decode kernel at the 8B projections, through its own
+    wrapper, for the decode rows and beyond (it takes any B, in tiles of 8
+    rows); one weight kept while its row counts run."""
+    sub, bias, layout, signed, has_min = FORMATS_INT8[fmt]
+    out_f, in_f = SHAPES_8B[shape]
+    if (fmt, shape) not in _FULL_INT8:
+        _FULL_INT8.clear()
+        torch.cuda.empty_cache()
+        g = torch.Generator().manual_seed(out_f + in_f + sub)
+        arrs = _lowbit_arrays(4, out_f, in_f, sub, bias, layout, signed, g)
+        if not has_min:
+            arrs = (*arrs[:3], None, None)
+        _FULL_INT8[(fmt, shape)] = [t if t is None else t.to(dev) for t in arrs]
+    g = torch.Generator().manual_seed(B)
+    x = torch.randn(B, in_f, generator=g)
+    xq, xs = qm.quantize_acts(x, sub)
+    args = [t.to(dev) for t in (xq, xs, qm._block_sums(x, sub))] + _FULL_INT8[(fmt, shape)] + [bias]
+    before = _build.LAUNCHES.get(qm.NAME_4BIT_INT8, 0)
+    got = qm.quant_matmul_4bit_int8_decode(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[qm.NAME_4BIT_INT8] == before + 1
+    _close(got, qm.quant_matmul_4bit_int8_plain(*args), 1e-4)
+
+
 @pytest.mark.parametrize("B", [4, 512])
 def test_dequant_matmul_on_the_card(dev, B):
     """The dequantize path (``matmul_xla``'s counterpart): a bf16 product
