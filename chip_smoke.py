@@ -6,7 +6,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 
 1. device   — require a card; print its name and power limit (nvidia-smi)
 2. build    — compile the CUDA kernels from ``csrc/`` (one nvcc per source)
-   plans    — the 8-bit and int8 decode kernels' launch plans at the 8B
+   plans    — the 8-bit, int8 and 2/4-bit decode kernels' launch plans at the 8B
               shapes (grid, block, shared bytes, registers, spills, resident
               warps; a spill fails the run)
 3. kernels  — each kernel against its plain PyTorch version at the 8B
@@ -261,6 +261,17 @@ PLANS_INT8 = [(f"q4_k {lay} {name}", name, 32, side, side)
 PLANS_INT8 += [("q4_0 flat o", "o", 32, 1, 0), ("q3_k flat o", "o", 16, 1, 0)]
 
 
+# the 2/4-bit decode kernel's launch (fsplit rule) at the 8B shapes of the
+# served formats, B=4: (label, projection, bits, sub-block size, scale
+# side, min side)
+PLANS_LOWBIT = [(f"q4_k {lay} {name}", name, 4, 32, side, side)
+                for lay, side in (("flat", 1), ("compact", 2)) for name in SHAPES_4BIT]
+PLANS_LOWBIT += [(f"q2_k {lay} {name}", name, 2, 16, s_side, m_side)
+                 for lay, s_side, m_side in (("flat", 1, 1), ("mixed", 1, 2), ("compact", 2, 2))
+                 for name in SHAPES_2BIT]
+PLANS_LOWBIT += [(f"q3_k flat {name}", name, 4, 16, 1, 0) for name in ("o", "down")]
+
+
 def _ptxas(report: str, kernel: str) -> dict:
     """Template arguments -> registers and spill bytes of each instance of
     ``kernel``, from ptxas's -v report (the arguments as the mangled name
@@ -298,16 +309,20 @@ def _plan_line(plan_fn, B, in_f, out_f, nsub, s_side, m_side, n, label):
 
 
 def phase_plans(torch, report: str) -> None:
-    """One line: the 8-bit and int8 decode kernels' grid, block,
+    """One line: the 8-bit, int8 and 2/4-bit decode kernels' grid, block,
     registers, spills and resident blocks at each 8B shape (B=4; int8: and
-    the instance, 0 for sub 32 on m16n8k32, 1 for m16n8k16), from each
+    the instance, 0 for sub 32 on m16n8k32, 1 for m16n8k16; 2/4-bit: 0 for
+    steps of 16 sub-blocks, 1 of 32, 2 the generic instance), from each
     kernel's own launch plan (cudaFuncGetAttributes, the occupancy
     calculator) and ptxas's report. A spill fails the run."""
     from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     lib = _build.library("quant_matmul")
     ptxas8 = _ptxas(report, "quant_matmul_8bit_kernel")
     ptxas_i8 = _ptxas(report, "quant_matmul_int8_kernel")
-    plans, plans_i8 = [], []
+    ptxas_lb = {inst: _ptxas(report, kernel) for inst, kernel in
+                ((0, "quant_matmul_lowbit_kernel"), (2, "quant_matmul_lowbit_generic"))}
+    plans, plans_i8, plans_lb = [], [], []
     for label, name, sub, s_side, m_side in PLANS_8BIT:
         out_f, in_f = HEAD if name == "head" else SHAPES_4BIT[name]
         plans.append(_plan_line(lib.lgt_quant_matmul_8bit_plan, 4, in_f, out_f, in_f // sub,
@@ -321,10 +336,21 @@ def phase_plans(torch, report: str) -> None:
         inst = line["instance"]
         line.update(ptxas_i8.get((s_side, m_side, int(inst == 0), 4 if inst == 2 else 16), {}))
         plans_i8.append(line)
-    for line in plans + plans_i8:
+    for label, name, bits, sub, s_side, m_side in PLANS_LOWBIT:
+        out_f, in_f = (SHAPES_4BIT if bits == 4 else SHAPES_2BIT)[name]
+
+        def plan_fn(*args, bits=bits):
+            return lib.lgt_quant_matmul_lowbit_plan(*args[:6], bits, qm.VAR_FSPLIT, 0, args[6])
+        line = _plan_line(plan_fn, 4, in_f, out_f, in_f // sub, s_side, m_side, 8, label)
+        # the instance's template arguments: bits, rule, code map, sides
+        line.update(ptxas_lb[2 if line["instance"] == 2 else 0].get(
+            (bits, qm.VAR_FSPLIT, 0, s_side, m_side), {}))
+        plans_lb.append(line)
+    for line in plans + plans_i8 + plans_lb:
         if line["local_bytes"] or line.get("spill_stores", 0):
             raise AssertionError(f"decode kernel spills: {line}")
-    emit({"phase": "plans", "quant_matmul_8bit": plans, "quant_matmul_4bit_int8": plans_i8})
+    emit({"phase": "plans", "quant_matmul_8bit": plans, "quant_matmul_4bit_int8": plans_i8,
+          "quant_matmul_lowbit": plans_lb})
 
 
 def _err(got, want, tol):

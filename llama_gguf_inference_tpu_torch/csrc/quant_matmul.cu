@@ -66,22 +66,56 @@
 // 0.406 compact (3.25); Q4_K 0.75 flat, 0.672 mixed, 0.594 compact; Q3_K
 // 0.75 flat, 0.578 compact; Q6_K about 1.08 compact; Q5_K 1.09 compact,
 // 1.25 flat. At prefill (512 rows) they are bound by operations.
-// Design of the 2/4-bit kernel: one warp per output row, lanes walking the
-// row in 16-byte code loads (coalesced, 512 bytes per warp step, the next
-// step's load in flight during this one's arithmetic; 64 weights a lane at
-// 2 bits, 32 at 4), the 2-bit lane's 16 sub-block scales formed once in
-// registers and shared by the byte's four planes, the dequantized run
-// applied to up to 8 activation rows at once; a second grid axis tiles
-// further activation rows, so any row count works (prefill re-reads the
-// weights from L2 once per 8 rows: right, not fast). The 8-bit kernel here
-// serves fewer than TC_MIN_ROWS rows (ops/quant_matmul.py), the fsplit,
-// base and base_f32 rules of the 2/4-bit kernel fewer than
-// LOWBIT_TC_MIN_ROWS, the int8 kernel fewer than INT8_TC_MIN_ROWS; from
-// there up the wrappers take the tensor-core kernels of quant_matmul_tc.cu,
-// quant_matmul_lowbit_tc.cu and quant_matmul_int8_tc.cu, which decode each
-// weight once per 128 rows. The element rules live in lowbit_rule.cuh,
-// shared with the tensor-core 2/4-bit kernel. Tensor cores for the xsum and
-// split rules, TMA and split-K are later work.
+// The 8-bit decode kernel here serves fewer than TC_MIN_ROWS rows
+// (ops/quant_matmul.py), the 2/4-bit one fewer than LOWBIT_TC_MIN_ROWS, the
+// int8 one fewer than INT8_TC_MIN_ROWS; from there up the wrappers take the
+// tensor-core kernels of quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu and
+// quant_matmul_int8_tc.cu, which decode each weight once per 128 rows. The
+// 2/4-bit element rules live in lowbit_rule.cuh, shared with the
+// tensor-core 2/4-bit kernel.
+//
+// Design of the 2/4-bit decode kernel (quant_matmul_lowbit_kernel). Q4_K
+// flat moves 0.75 bytes a weight, Q2_K mixed 0.58, so at the card's 3.35
+// TB/s a weight may cost 4-7 lane instructions; it follows the int8 decode
+// kernel below in everything but the arithmetic:
+// - Persistent blocks walk tiles of row groups of 8 output rows, each row
+//   group's steps split over up to 16 warps, so a block asks for its rows'
+//   bytes together (the block-minor stride puts a sub-block's code rows
+//   nsub bytes apart); each warp keeps a 2-step cp.async ring of code
+//   pieces and raw scale sides, running on from one tile into the next (3
+//   steps were slower: PERF.md §6).
+// - Scales once a sub-block: a step holds 16 whole sub-blocks (32 where a
+//   sub-block has at most 8 code rows: Q3_K, Q2_K, so a step still holds 16
+//   16-byte pieces a row), each lane forms the factors of its 4 (8)
+//   sub-blocks once (8-bit factors exact through byte_f32) into the warp's
+//   table, in the form its rule's decode reads, and their min term against
+//   the block sums in the same walk.
+// - Activations shared across rows: bf16 mma.sync.m16n8k16 with the
+//   activation rows as A (rows 8-15 zero) and 8 output rows as B. The K
+//   order is free, so each code byte is one weight a plane at the lane's own
+//   k slots; the block stages its activation rows and block sums once in
+//   shared memory, each row's positions in the order the lanes read them (a
+//   warp's fragment reads are contiguous), so the steps read no global
+//   memory but their codes and sides. Activation tiles shrink from 8 rows
+//   only where the staged rows would leave fewer than 8 warps' regions.
+// - Lean elements, exact: fsplit takes fma(2^23 + v, s, -2^23*s), v*s
+//   rounded once to f32 as the reference's product, and one cvt.rn.bf16x2 a
+//   pair; xsum and split fma.rn.bf16x2(128 + v, bf16 s, -128*bf16 s), v*bf16
+//   s rounded once to bf16, the codes placed by one byte_perm a pair; base
+//   then sub.rn.bf16x2 of bf16 m' (the reference's f32 subtract is exact
+//   for these operands, so one rounding agrees); base_f32 and the IQ2/IQ3
+//   maps in f32. Split keeps its planes in separate accumulators; the base
+//   rules take no min term.
+// - Any geometry: nsub % 16 != 0, or more than 16 code rows a sub-block,
+//   takes quant_matmul_lowbit_generic (each byte's factors where it is used,
+//   the same products), which the 8B's weights never reach.
+// What bounds it: the instructions, not the bytes. At 128 registers a
+// thread and 16 warps an SM each mma costs a few dozen lane instructions
+// (moves into the zero-padded A quad among them), and with the code loads
+// cut it runs about as long as whole (PERF.md §6, tools/tc_ablate.py
+// --kinds q4_k_decode,q2_k_decode). The weights as A (16 output rows a warp, no
+// idle rows) halve the instructions an mma but double each warp's ring and
+// table, so only 8 warps an SM fit: slower in a trial build.
 //
 // Design of the int8 decode kernel (quant_matmul_int8_kernel). Q4_K flat
 // moves 0.75 bytes a weight, so at the card's 3.35 TB/s a weight may cost
@@ -163,240 +197,6 @@
 #include "tc_common.cuh"
 
 namespace {
-
-constexpr int kWarps = 4;   // output rows per block, one warp each
-constexpr int kRows = 8;    // activation rows per block
-
-// 16 consecutive bf16 at a 16-byte aligned address -> f32.
-__device__ __forceinline__ void load_bf16x16(const __nv_bfloat16* p, float* out) {
-  const uint4* p4 = reinterpret_cast<const uint4*>(p);
-  const uint4 a = p4[0], b = p4[1];
-  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-struct LowbitArgs {
-  const __nv_bfloat16* x;  // (B, in) block-minor
-  const float* xsum;       // (B, nsub), in the min side's sub-block order; null for base
-  const uint8_t* codes;    // (out, in * kBits / 8)
-  const float* d;          // (out, nd)
-  const uint8_t* sc;       // (out, nsub) or null
-  const float* dmin;       // (out, ndm) or null
-  const uint8_t* mn;       // (out, nsub) or null
-  float* y;                // (B, out)
-  int B, in_f, out_f, nsub, nd, ndm, bias;
-};
-
-// Steps the sub-block index k of consecutive stored positions, and kd = k
-// mod nd when a hierarchical side needs it.
-template <bool kTrackKd>
-__device__ __forceinline__ void next_sub(int& k, int& kd, int nsub, int nd) {
-  if (++k == nsub) {
-    k = 0;
-    kd = 0;
-  } else if (kTrackKd && ++kd == nd) {
-    kd = 0;
-  }
-}
-
-// Registers bound the occupancy of these latency-bound loops: the 2-bit
-// instances keep 16 scales live across their four planes and are held to
-// four blocks an SM, the 4-bit ones (no scale array) to six, as the flat
-// Q4_K kernel ran before the layouts were added.
-template <int kBits, int kVar, int kMap, int kS, int kM>
-__global__ void __launch_bounds__(kWarps * 32, kBits == 2 ? 4 : 6)
-quant_matmul_lowbit_kernel(const LowbitArgs a) {
-  constexpr int kPlanes = 8 / kBits;
-  constexpr int kMask = (1 << kBits) - 1;
-  constexpr bool kBaseVar = kVar == kBase || kVar == kBaseF32;
-  // the base variants read the min side at kd too (they take no mixed layout)
-  constexpr bool kTrackKd = kS != kFlat || (kBaseVar && (kM == kHierU8 || kM == kHierI8));
-  constexpr int kAcc = kVar == kSplit ? 2 : 1;  // split sums the planes apart
-  const int lane = threadIdx.x & 31;
-  const int o = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int b0 = blockIdx.y * kRows;
-  if (o >= a.out_f) return;  // warp-uniform; the kernel has no block barrier
-  const int nb = min(kRows, a.B - b0);
-  const int qn = a.in_f / kPlanes;  // codes per plane = stored bytes per row
-  const uint8_t* crow = a.codes + (size_t)o * qn;
-  const float* drow = a.d + (size_t)o * a.nd;
-  const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + (size_t)o * a.nsub;
-  const float* dminrow = kM == kNone ? nullptr : a.dmin + (size_t)o * a.ndm;
-  const uint8_t* mnrow = (kM == kHierU8 || kM == kHierI8) ? a.mn + (size_t)o * a.nsub
-                                                          : nullptr;
-
-  float acc[kAcc][kRows];
-#pragma unroll
-  for (int h = 0; h < kAcc; ++h)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[h][r] = 0.f;
-
-  // the next 16 code bytes are loaded while the current ones are applied
-  int j0 = lane * 16;
-  uint4 c_next = j0 < qn ? __ldg(reinterpret_cast<const uint4*>(crow + j0)) : uint4{};
-  for (; j0 < qn; j0 += 32 * 16) {
-    const uint4 c4 = c_next;
-    if (j0 + 32 * 16 < qn) c_next = __ldg(reinterpret_cast<const uint4*>(crow + j0 + 32 * 16));
-    const uint8_t* c = reinterpret_cast<const uint8_t*>(&c4);
-    // stored byte j belongs to sub-block k = j mod nsub in every plane,
-    // because q is a multiple of nsub
-    int k = j0 % a.nsub;
-    int kd = kTrackKd ? k % a.nd : 0;
-    if constexpr (kBits == 4) {
-      // two nibble planes, each product summed in the order of the flat
-      // Q4_K kernel
-      float wlo[16], whi[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        float s, m = 0.f;
-        sub_factors<kVar, kS, kM>(drow, scrow, dminrow, mnrow, a.bias, k, kd, s, m);
-        wlo[e] = element<kVar, kM, kMap>(c[e] & 0xF, s, m, a.bias);
-        whi[e] = element<kVar, kM, kMap>(c[e] >> 4, s, m, a.bias);
-        next_sub<kTrackKd>(k, kd, a.nsub, a.nd);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < nb) {
-          const __nv_bfloat16* xr = a.x + (size_t)(b0 + r) * a.in_f;
-          float xl[16], xh[16];
-          load_bf16x16(xr + j0, xl);
-          load_bf16x16(xr + qn + j0, xh);
-          if constexpr (kVar == kSplit) {
-            float tl = acc[0][r], th = acc[kAcc - 1][r];
-#pragma unroll
-            for (int e = 0; e < 16; ++e) {
-              tl = fmaf(xl[e], wlo[e], tl);
-              th = fmaf(xh[e], whi[e], th);
-            }
-            acc[0][r] = tl;
-            acc[kAcc - 1][r] = th;
-          } else {
-            float t = acc[0][r];
-#pragma unroll
-            for (int e = 0; e < 16; ++e) {
-              t = fmaf(xl[e], wlo[e], t);
-              t = fmaf(xh[e], whi[e], t);
-            }
-            acc[0][r] = t;
-          }
-        }
-      }
-    } else {
-      // the 16 scales (and mins), formed once and shared by the four planes
-      float s[16], m[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        m[e] = 0.f;
-        sub_factors<kVar, kS, kM>(drow, scrow, dminrow, mnrow, a.bias, k, kd, s[e], m[e]);
-        next_sub<kTrackKd>(k, kd, a.nsub, a.nd);
-      }
-#pragma unroll
-      for (int i = 0; i < kPlanes; ++i) {
-        float w[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          w[e] = element<kVar, kM, kMap>((c[e] >> (kBits * i)) & kMask, s[e], m[e], a.bias);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (r < nb) {
-            float xv[16];
-            load_bf16x16(a.x + (size_t)(b0 + r) * a.in_f + i * qn + j0, xv);
-            float t = acc[0][r];
-#pragma unroll
-            for (int e = 0; e < 16; ++e) t = fmaf(xv[e], w[e], t);
-            acc[0][r] = t;
-          }
-        }
-      }
-    }
-  }
-
-  // min term: m'[k] formed once per sub-block, applied to every row (the
-  // base variants folded theirs into the weights)
-  float macc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) macc[r] = 0.f;
-  if (!kBaseVar && (kM != kNone || a.bias != 0)) {
-    for (int k = lane; k < a.nsub; k += 32) {
-      float mp = 0.f;
-      if constexpr (kM != kNone) mp = side_at<kM>(dminrow, mnrow, k, kM == kFlat ? k : k % a.ndm);
-      if (a.bias != 0) {
-        const float bs = __fmul_rn((float)a.bias, side_at<kS>(drow, scrow, k, kS == kFlat ? k : k % a.nd));
-        mp = kM == kNone ? bs : __fadd_rn(bs, mp);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < nb) macc[r] = fmaf(a.xsum[(size_t)(b0 + r) * a.nsub + k], mp, macc[r]);
-    }
-  }
-  for (int r = 0; r < nb; ++r) {
-    float dot = warp_sum(acc[0][r]);
-    if constexpr (kAcc == 2) dot = dot + warp_sum(acc[kAcc - 1][r]);
-    const float mdot = kBaseVar ? 0.f : warp_sum(macc[r]);
-    if (lane == 0) a.y[(size_t)(b0 + r) * a.out_f + o] = dot - mdot;
-  }
-}
-
-template <int kBits, int kVar, int kMap, int kS, int kM>
-int launch_one(const LowbitArgs& a, cudaStream_t st) {
-  const dim3 grid((a.out_f + kWarps - 1) / kWarps, (a.B + kRows - 1) / kRows);
-  quant_matmul_lowbit_kernel<kBits, kVar, kMap, kS, kM><<<grid, kWarps * 32, 0, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// The min sides a scale side pairs with: none or flat beside a flat scale,
-// none or hierarchical beside a hierarchical one, and the mixed layout (flat
-// scale, hierarchical min) for the variants with an xsum term. Value-mapped
-// codes come without a min.
-template <int kBits, int kVar, int kMap, int kS>
-int launch_m(const LowbitArgs& a, int m_side, cudaStream_t st) {
-  constexpr bool kBaseVar = kVar == kBase || kVar == kBaseF32;
-  if (m_side == kNone) return launch_one<kBits, kVar, kMap, kS, kNone>(a, st);
-  if constexpr (kMap == kIdentity) {
-    if constexpr (kS == kFlat) {
-      if (m_side == kFlat) return launch_one<kBits, kVar, kMap, kS, kFlat>(a, st);
-    }
-    if constexpr (kS != kFlat || !kBaseVar) {
-      if (m_side == kHierU8) return launch_one<kBits, kVar, kMap, kS, kHierU8>(a, st);
-      if (m_side == kHierI8) return launch_one<kBits, kVar, kMap, kS, kHierI8>(a, st);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int kBits, int kVar, int kMap>
-int launch_s(const LowbitArgs& a, int s_side, int m_side, cudaStream_t st) {
-  if (s_side == kFlat) return launch_m<kBits, kVar, kMap, kFlat>(a, m_side, st);
-  if (s_side == kHierU8) return launch_m<kBits, kVar, kMap, kHierU8>(a, m_side, st);
-  if (s_side == kHierI8) return launch_m<kBits, kVar, kMap, kHierI8>(a, m_side, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Which maps an instance takes: the fsplit rule and the 4-bit f32 base rule
-// take the IQ2/IQ3 alphabets, the 4-bit f32 base rule nothing else (plain
-// 4-bit codes take the bf16-magic base rule).
-template <int kBits, int kVar>
-int launch_map(const LowbitArgs& a, int vmap, int s_side, int m_side, cudaStream_t st) {
-  constexpr bool kMapped = kBits == 4 && (kVar == kFsplit || kVar == kBaseF32);
-  if constexpr (!(kBits == 4 && kVar == kBaseF32)) {
-    if (vmap == kIdentity) return launch_s<kBits, kVar, kIdentity>(a, s_side, m_side, st);
-  }
-  if constexpr (kMapped) {
-    if (vmap == kIq2) return launch_s<kBits, kVar, kIq2>(a, s_side, m_side, st);
-    if (vmap == kIq3) return launch_s<kBits, kVar, kIq3>(a, s_side, m_side, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
 
 struct Args8 {
   const __nv_bfloat16* x;  // (B, in) block-minor
@@ -750,6 +550,46 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&co
   col[3] = __byte_perm(t2, t3, 0x7632);
 }
 
+// The row groups a tile, of G row groups and Y activation tiles with
+// `splits` warps a row group and fixed + warps * warp_smem shared bytes a
+// block (at most max_warps warps), for the most warps resident an SM, by
+// shared memory (an SM's, less each block's reserve), registers (the
+// instance's a thread; 0 for no limit) and threads, times the share of the
+// last round of tiles that is busy, the smaller tile on a tie; and the
+// tiles and the grid (the resident blocks, at most one a tile).
+inline void tile_groups(long G, long Y, int splits, int fixed_smem, int warp_smem, int max_warps,
+                        const Card& c, int& groups, int& tiles, int& grid) {
+  const int warps_sm = c.threads_sm / 32;
+  const int reg_warps = c.regs > 0 ? c.regs_sm / ((c.regs * 32 + 255) / 256 * 256) : warps_sm;
+  long rmax = max_warps / splits;
+  if (rmax > G) rmax = G;
+  groups = 1;
+  double best = -1.0;
+  for (int r = 1; r <= rmax; ++r) {
+    const int w = r * splits, smem = fixed_smem + w * warp_smem;
+    if (smem > c.smem_block) break;
+    int per_sm = c.smem_sm / (smem + c.smem_reserve);
+    if (per_sm > reg_warps / w) per_sm = reg_warps / w;
+    if (per_sm > warps_sm / w) per_sm = warps_sm / w;
+    const long nt = (G + r - 1) / r;
+    long gr = (long)c.sms * per_sm / Y;
+    if (gr < 1) gr = 1;
+    if (gr > nt) gr = nt;
+    const long rounds = (nt + gr - 1) / gr;
+    const double score = (double)per_sm * w * nt / (gr * rounds);
+    if (score > best) {
+      best = score;
+      groups = r;
+      tiles = (int)nt;
+      grid = (int)gr;
+    }
+  }
+  if (best < 0) {
+    tiles = (int)G;
+    grid = (int)G;
+  }
+}
+
 // A launch's shape. A block walks tiles of `groups` row groups of kI8Rows
 // output rows (tiles bx, bx + grid, ...) for one tile of `acts` activation
 // rows; each row group's `steps` steps (kV whole sub-blocks each, so a warp
@@ -799,35 +639,8 @@ inline PlanI8 plan_i8(int B, int out_f, int nsub, int steps, int slot, int table
     }
     if (p.acts == 1 || p.x_smem + p.splits * p.warp_smem <= smem_max) break;
   }
-  const int warps_sm = c.threads_sm / 32;
-  const int reg_warps = c.regs > 0 ? c.regs_sm / ((c.regs * 32 + 255) / 256 * 256) : warps_sm;
-  long rmax = kI8MaxWarps / p.splits;
-  if (rmax > G) rmax = G;
-  p.groups = 1;
-  double best = -1.0;
-  for (int r = 1; r <= rmax; ++r) {
-    const int w = r * p.splits, smem = p.x_smem + w * p.warp_smem;
-    if (smem > smem_max) break;
-    int per_sm = c.smem_sm / (smem + c.smem_reserve);
-    if (per_sm > reg_warps / w) per_sm = reg_warps / w;
-    if (per_sm > warps_sm / w) per_sm = warps_sm / w;
-    const long tiles = (G + r - 1) / r;
-    long grid = (long)c.sms * per_sm / Y;
-    if (grid < 1) grid = 1;
-    if (grid > tiles) grid = tiles;
-    const long rounds = (tiles + grid - 1) / grid;
-    const double score = (double)per_sm * w * tiles / (grid * rounds);
-    if (score > best) {
-      best = score;
-      p.groups = r;
-      p.tiles = (int)tiles;
-      p.grid = (int)grid;
-    }
-  }
-  if (best < 0) {
-    p.tiles = (int)G;
-    p.grid = (int)G;
-  }
+  tile_groups(G, Y, p.splits, p.x_smem, p.warp_smem, kI8MaxWarps, c, p.groups, p.tiles,
+              p.grid);
   p.warps = p.groups * p.splits;
   return p;
 }
@@ -1219,6 +1032,648 @@ int plan_int8_geometry(int B, int in_f, int out_f, int nsub, int* info) {
   return plan_int8<kS, kM, false, 4>(B, in_f, out_f, nsub, info);
 }
 
+// ---------------------------------------------------------------------------
+// The 2/4-bit decode kernel.
+
+struct LowbitArgs {
+  const __nv_bfloat16* x;  // (B, in) block-minor
+  const float* xsum;       // (B, nsub), in the min side's sub-block order; null for base
+  const uint8_t* codes;    // (out, in * kBits / 8)
+  const float* d;          // (out, nd)
+  const uint8_t* sc;       // (out, nsub) or null
+  const float* dmin;       // (out, ndm) or null
+  const uint8_t* mn;       // (out, nsub) or null
+  float* y;                // (B, out)
+  int B, in_f, out_f, nsub, nd, ndm, bias;
+};
+
+constexpr int kLbRows = 8;         // output rows a row group: mma's n, the weights as B
+constexpr int kLbActs = 8;         // activation rows a block at most: rows 0-7 of mma's m = 16
+constexpr int kLbMaxWarps = 16;
+constexpr int kLbRing = 2;         // steps a warp keeps in its cp.async ring
+constexpr int kLbPieces = 4;       // 16-byte code pieces a lane a step, at most
+constexpr int kLbTab = kLbRows * 32 * 8;                // a warp's factor table, bytes
+constexpr int kLbPart = 3 * kLbActs * kLbRows * 4;      // its partial sums (two tiles), min sums
+constexpr int kLbGenWarps = 4;     // warps a block of the generic instance
+
+// The instance a geometry takes (R = in*bits/8/nsub code rows a
+// sub-block): steps of 16 sub-blocks (0) or of 32 (1, where R <= 8 and
+// nsub % 32 == 0, so that a step still holds 16 code pieces a row); any
+// other geometry (nsub % 16 != 0 or R > 16) the generic instance (2).
+inline int lowbit_instance(int bits, int in_f, int nsub) {
+  const int R = in_f * bits / 8 / nsub;
+  if (nsub % 16 || R > 16) return 2;
+  return R <= 8 && nsub % 32 == 0 ? 1 : 0;
+}
+
+// A launch's shape, as PlanI8's: a block walks tiles of `groups` row groups
+// (tiles bx, bx + grid, ...) for one tile of `acts` activation rows; each
+// row group's `steps` steps of 16*G whole sub-blocks are split over
+// `splits` warps, runs of `per` steps. The block first stages its
+// activation rows (nbs of them, x_smem bytes with their block sums at
+// xs_off); then each warp's region: a ring of kLbRing slots of `slot`
+// bytes (npl code chunks of 512 bytes, the scale side's f32 chunk at
+// npl*512, its 8-bit factors at off_sc, the min side's at off_dm and
+// off_mn), its factor table and its partial sums.
+struct PlanLb {
+  int G, npl, steps, per, splits, groups, warps, tiles, grid, acts, nbs, xs_off, x_smem, slot,
+      off_sc, off_dm, off_mn, warp_smem;
+};
+
+// Activation tiles shrink from 8 rows only where the staged rows would
+// leave fewer than 8 warps' regions of a block's shared memory; the rest as
+// plan_i8.
+inline PlanLb plan_lb(int B, int in_f, int out_f, int nsub, int bits, bool has_sc, bool has_min,
+                      bool has_mn, const Card& c) {
+  PlanLb p;
+  const int R = in_f * bits / 8 / nsub;
+  p.G = lowbit_instance(bits, in_f, nsub) == 1 ? 2 : 1;
+  const int q = 4 * p.G;   // sub-blocks whose factors a lane forms a step
+  p.npl = (R * p.G + 3) / 4;
+  p.steps = nsub / (16 * p.G);
+  p.off_sc = p.npl * 512 + 128 * q;
+  p.off_dm = p.off_sc + (has_sc ? 32 * q : 0);
+  p.off_mn = p.off_dm + (has_min ? 128 * q : 0);
+  p.slot = p.off_mn + (has_mn ? 32 * q : 0);
+  p.warp_smem = kLbRing * p.slot + kLbTab + kLbPart;
+  for (p.acts = kLbActs;; p.acts /= 2) {
+    p.nbs = B < p.acts ? B : p.acts;
+    // the staged rows: 128 bytes a code piece, plane and row, every piece
+    // of every step; then nsub block sums a row
+    p.xs_off = p.steps * p.npl * (8 / bits) * 128 * p.nbs;
+    p.x_smem = p.xs_off + nsub * 4 * p.nbs;
+    if (p.acts == 1 || p.x_smem + 8 * p.warp_smem <= c.smem_block) break;
+  }
+  const long Y = (B + p.acts - 1) / p.acts;
+  int s = p.steps < kLbMaxWarps ? p.steps : kLbMaxWarps;
+  for (;; --s) {
+    p.per = (p.steps + s - 1) / s;
+    p.splits = (p.steps + p.per - 1) / p.per;
+    if (s == 1 || p.x_smem + p.splits * p.warp_smem <= c.smem_block) break;
+  }
+  tile_groups((out_f + kLbRows - 1) / kLbRows, Y, p.splits, p.x_smem, p.warp_smem, kLbMaxWarps,
+              c, p.groups, p.tiles, p.grid);
+  p.warps = p.groups * p.splits;
+  return p;
+}
+
+// This lane's kQ values of one side (flat, or the super-block values at k
+// mod nd) and, for a hierarchical side, its kQ 8-bit factors.
+template <int kSide>
+__device__ __forceinline__ void lb_copy_side(unsigned char* fdst, unsigned char* bdst,
+                                             const float* base, const uint8_t* sub, int k0,
+                                             int kQ, int nd) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (4 * q < kQ) {
+      const int k = k0 + 4 * q;
+      if (kSide == kFlat || nd % 4 == 0) {
+        cp_async16(fdst + 16 * q, base + (kSide == kFlat ? k : k % nd), true);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cp_async4(fdst + 16 * q + 4 * e, base + (k + e) % nd, true);
+      }
+      if constexpr (kSide != kFlat) cp_async4(bdst + 4 * q, sub + k, true);
+    }
+  }
+}
+
+// Value e of this lane's side chunk, as side_at forms it.
+template <int kSide>
+__device__ __forceinline__ float lb_side_value(const unsigned char* fsrc,
+                                               const unsigned char* bsrc, int e) {
+  const float f = reinterpret_cast<const float*>(fsrc)[e];
+  if constexpr (kSide == kFlat) {
+    return f;
+  } else {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(bsrc)[e / 4];
+    if constexpr (kSide == kHierI8) return __fmul_rn(f, byte_f32(w ^ 0x80808080u, e % 4, 8388736.f));
+    return __fmul_rn(f, byte_f32(w, e % 4, 8388608.f));
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The table entries of sub-blocks e, e+1 of a row from their scale and min
+// side values, in the form the decode of kVar reads:
+//   fsplit    {s, -2^23*s} each (f32 bits)
+//   base_f32  {s, m} each
+//   xsum, split  {(b_e, b_e+1), -128*(b_e, b_e+1)} then zeros, b = bf16(s)
+//   base      the same, then {(bf16 m'_e, bf16 m'_e+1), 0}
+template <int kVar, int kM>
+__device__ __forceinline__ void lb_factors(const float (&sv)[2], const float (&mv)[2], int bias,
+                                           uint2 (&ent)[2]) {
+  if constexpr (kVar == kFsplit || kVar == kBaseF32) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float second = kVar == kFsplit ? __fmul_rn(-8388608.f, sv[h]) : mv[h];
+      ent[h] = uint2{__float_as_uint(sv[h]), __float_as_uint(second)};
+    }
+  } else {
+    float s[2], m[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rule_factors<kVar, kM>(sv[h], mv[h], bias, s[h], m[h]);
+    ent[0] = uint2{bf16_pair(s[0], s[1]), bf16_pair(-128.f * s[0], -128.f * s[1])};
+    ent[1] = uint2{kVar == kBase ? bf16_pair(m[0], m[1]) : 0u, 0u};
+  }
+}
+
+// Four codes of one plane (byte e of nib, sub-blocks 4q+e of the piece's
+// group) to two words of bf16 weights, the lower position in the lower half,
+// exactly as element() forms them:
+//   fsplit    fma(2^23 + v, s, -2^23*s) = v*s rounded once to f32 (v mapped
+//             by code_value through 2^23 + 128 + v and a subtract)
+//   xsum, split  fma.bf16x2(128 + v, b, -128*b) = v*b rounded once to bf16
+//   base      then sub.bf16x2 of bf16 m'
+//   base_f32  (2^23 + v) - (2^23 + bias), times s, minus m, in f32
+// magic is 2^23 + bias (and + 128 for mapped codes).
+template <int kVar, int kM, int kMap>
+__device__ __forceinline__ void lb_decode(uint32_t nib, const uint2 (&f)[16], int q, float magic,
+                                          uint32_t& w0, uint32_t& w1) {
+  if constexpr (kVar == kXsum || kVar == kSplit || kVar == kBase) {
+    w0 = fma_bf16x2(__byte_perm(nib, 0x43u, 0x4140u), f[4 * q].x, f[4 * q].y);
+    w1 = fma_bf16x2(__byte_perm(nib, 0x43u, 0x4342u), f[4 * q + 2].x, f[4 * q + 2].y);
+    if constexpr (kVar == kBase) {
+      w0 = sub_bf16x2(w0, f[4 * q + 1].x);
+      w1 = sub_bf16x2(w1, f[4 * q + 3].x);
+    }
+  } else {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float s = __uint_as_float(f[4 * q + e].x);
+      float c;
+      if constexpr (kMap == kIdentity) {
+        c = __int_as_float((int)__byte_perm(nib, 0x4B000000u, 0x7440u | e));
+      } else {
+        c = __int_as_float(0x4B000000 | (code_value<kMap>((int)((nib >> (8 * e)) & 0xF)) + 128));
+      }
+      if constexpr (kVar == kFsplit && kMap == kIdentity) {
+        v[e] = __fmaf_rn(c, s, __uint_as_float(f[4 * q + e].y));
+      } else {
+        v[e] = __fmul_rn(__fsub_rn(c, magic), s);
+        if constexpr (kVar == kBaseF32 && kM != kNone)
+          v[e] = __fsub_rn(v[e], __uint_as_float(f[4 * q + e].y));
+      }
+    }
+    w0 = bf16_pair(v[0], v[1]);
+    w1 = bf16_pair(v[2], v[3]);
+  }
+}
+
+// A warp's partial sums of its tile into part ([activation row][output
+// row]): lane (g, t)'s accumulators are activation row g, output rows 2t,
+// 2t+1; its min sums macc[b] (row g, activation row b, over the lane's
+// sub-blocks) meet their quad's through pmin ([output row][activation row]).
+__device__ __forceinline__ void lb_warp_partials(float (&acc)[2][4], float (&macc)[kLbActs],
+                                                 bool min_live, float* pmin, float* part, int g,
+                                                 int t) {
+  if (min_live) {
+#pragma unroll
+    for (int b = 0; b < kLbActs; ++b) {
+      macc[b] += __shfl_xor_sync(0xffffffffu, macc[b], 1);
+      macc[b] += __shfl_xor_sync(0xffffffffu, macc[b], 2);
+      if (t == 0) pmin[g * kLbActs + b] = macc[b];
+      macc[b] = 0.f;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int o = 2 * t + e;
+    part[g * kLbRows + o] = acc[0][e] + acc[1][e] - (min_live ? pmin[o * kLbActs + g] : 0.f);
+    acc[0][e] = acc[1][e] = 0.f;
+  }
+}
+
+// Block (blockIdx.x, blockIdx.y): tiles bx, bx + grid, ... of `groups` row
+// groups of 8 output rows, activation rows acts*by..; warp w takes row
+// group w / splits of each tile and steps (w % splits)*per.. of its row. A
+// step is 16*G whole sub-blocks (s0..) of the row group's 8 rows: R*G code
+// pieces a row (piece pc: code row pc / G, 16 sub-blocks from s0 +
+// 16*(pc % G), 16 bytes), lane (g, t) copying pieces t, t+4, ... of row g
+// (so all its pieces lie in group t % G) and the scale and min sides of its
+// 4*G sub-blocks s0 + 4G*t... . Each lane forms those sub-blocks' factors
+// once into the warp's table and their min term against the block sums in
+// the same walk; then every byte e of word q of a piece gives one weight a
+// plane, k slot (2t, 2t+1, 2t+8, 2t+9)[e] of one m16n8k16 whose A row g
+// holds activation row g at the same four positions.
+// - Staging: the block's threads copy its activation rows once, coalesced,
+//   each 16-byte run of a row (8 positions of one piece's plane: words q =
+//   2qq, 2qq+1) to the slot lane (g = row, t) reads it from, [step][piece
+//   i][plane][qq][row][t], so a warp's fragment reads are 512 contiguous
+//   bytes; and the block sums beside them, [row][sub-block]. Rows past B
+//   are zeros.
+template <int kBits, int kVar, int kMap, int kS, int kM>
+__global__ void __launch_bounds__(kLbMaxWarps * 32, 1)
+quant_matmul_lowbit_kernel(const LowbitArgs a, const PlanLb p) {
+  constexpr int kPlanes = 8 / kBits;
+  constexpr uint32_t kMask = kBits == 4 ? 0x0F0F0F0Fu : 0x03030303u;
+  constexpr bool kMinTerm = kVar != kBase && kVar != kBaseF32;
+  constexpr bool kHasSc = kS != kFlat;
+  constexpr bool kHasMin = kM != kNone;
+  constexpr bool kHasMn = kM == kHierU8 || kM == kHierI8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nthr = p.warps * 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / p.splits, b0 = blockIdx.y * p.acts;
+  const int nb = min(p.acts, a.B - b0), nbs = p.nbs;
+  const int qn = a.in_f / kPlanes, np = qn / a.nsub * p.G;
+  const int kV = 16 * p.G, kQ = 4 * p.G, grp = t & (p.G - 1);
+  const bool min_live = kMinTerm && (kHasMin || a.bias != 0);
+  // fsplit's mapped codes take no bias (it is in m'), base_f32's do
+  const float magic = kVar == kBaseF32
+      ? __fadd_rn(kMap == kIdentity ? 8388608.f : 8388736.f, (float)a.bias) : 8388736.f;
+  const int ks = warp % p.splits, st0 = ks * p.per, n = min(p.per, p.steps - st0);
+  const int jobs = n * ((p.tiles - (int)blockIdx.x + p.grid - 1) / p.grid);
+  auto tile_of = [&](int j) { return (int)blockIdx.x + j / n * p.grid; };
+  const float* const xsum_s = reinterpret_cast<const float*>(smem + p.xs_off);   // [row][nsub]
+  unsigned char* const ring = smem + p.x_smem + warp * p.warp_smem;
+  uint2* const tab = reinterpret_cast<uint2*>(ring + kLbRing * p.slot);   // [row][32]
+  // partial sums of two tiles [parity][activation row][output row], then pmin
+  float* const part = reinterpret_cast<float*>(ring + kLbRing * p.slot + kLbTab);
+
+  // the code pieces and side chunks of this warp's job j (step st0 + j % n
+  // of tile tile_of(j)) into slot j % kLbRing; a piece past R*G is
+  // zero-filled, a row past out repeats the last row (its sums are not
+  // stored)
+  auto load_step = [&](int j) {
+    unsigned char* sb = ring + (j % kLbRing) * p.slot;
+    const int s0 = (st0 + j % n) * kV, k0 = s0 + kQ * t;
+    const size_t o = min((tile_of(j) * p.groups + rg) * kLbRows + g, a.out_f - 1);
+    const uint8_t* crow = a.codes + o * qn;
+#pragma unroll
+    for (int i = 0; i < kLbPieces; ++i) {
+      if (i < p.npl) {
+        const int pc = 4 * i + t;
+        const bool ok = pc < np;
+        cp_async16(sb + i * 512 + lane * 16,
+                   crow + (ok ? (size_t)(p.G == 2 ? pc >> 1 : pc) * a.nsub + s0 + 16 * grp : 0), ok);
+      }
+    }
+    lb_copy_side<kS>(sb + p.npl * 512 + lane * 4 * kQ, sb + p.off_sc + lane * kQ,
+                     a.d + o * a.nd, kHasSc ? a.sc + o * a.nsub : nullptr, k0, kQ, a.nd);
+    if constexpr (kHasMin)
+      lb_copy_side<kM>(sb + p.off_dm + lane * 4 * kQ, sb + p.off_mn + lane * kQ,
+                       a.dmin + o * a.ndm, kHasMn ? a.mn + o * a.nsub : nullptr, k0, kQ, a.ndm);
+  };
+
+  // the first jobs are in flight while the block stages its activations
+#pragma unroll
+  for (int j = 0; j < kLbRing; ++j) {
+    if (j < jobs) load_step(j);
+    cp_async_commit();
+  }
+  {
+    const int cpr = a.in_f / 8;   // 16-byte runs a row
+    uint4* const xs = reinterpret_cast<uint4*>(smem);
+    for (int u = tid; u < nbs * cpr; u += nthr) {
+      const int b = u / cpr, pos0 = u % cpr * 8;
+      const int pl = pos0 / qn, j = pos0 % qn, k0 = j % a.nsub;
+      const int pc = j / a.nsub * p.G + k0 % kV / 16;
+      const int qq = k0 / 8 & 1;
+      xs[((((k0 / kV * p.npl + pc / 4) * kPlanes + pl) * 2 + qq) * nbs + b) * 4 + pc % 4] =
+          b < nb ? __ldg(reinterpret_cast<const uint4*>(a.x + (size_t)(b0 + b) * a.in_f + pos0))
+                 : uint4{0, 0, 0, 0};
+    }
+    if (min_live) {
+      float* const xm = reinterpret_cast<float*>(smem + p.xs_off);
+      for (int u = tid; u < nbs * a.nsub; u += nthr)
+        xm[u] = u / a.nsub < nb ? __ldg(a.xsum + (size_t)b0 * a.nsub + u) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float macc[kLbActs];
+#pragma unroll
+  for (int b = 0; b < kLbActs; ++b) macc[b] = 0.f;
+  const bool x_live = g < nbs;
+
+  for (int i = 0; i < jobs; ++i) {
+    // the slot of job i-1, read and used, takes job i-1+kLbRing: group j
+    // of the warp holds job j
+    if (i > 0) {
+      if (i - 1 + kLbRing < jobs) load_step(i - 1 + kLbRing);
+      cp_async_commit();
+    }
+    const int st = st0 + i % n, s0 = st * kV, k0 = s0 + kQ * t;
+    cp_async_wait<kLbRing - 1>();
+    const unsigned char* sb = ring + (i % kLbRing) * p.slot;
+    // factors once a step, and the min term m' = bias*s + m of the same
+    // sub-blocks against the block sums; every lane is done with the last
+    // step's table
+    __syncwarp();
+    {
+      float mp[8];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        if (e < kQ) {
+          float sv[2], mv[2] = {0.f, 0.f};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            sv[h] = lb_side_value<kS>(sb + p.npl * 512 + lane * 4 * kQ, sb + p.off_sc + lane * kQ,
+                                      e + h);
+            if constexpr (kHasMin)
+              mv[h] = lb_side_value<kM>(sb + p.off_dm + lane * 4 * kQ, sb + p.off_mn + lane * kQ,
+                                        e + h);
+            mp[e + h] = mv[h];
+            if (a.bias != 0) {
+              const float bs = __fmul_rn((float)a.bias, sv[h]);
+              mp[e + h] = kHasMin ? __fadd_rn(bs, mv[h]) : bs;
+            }
+          }
+          uint2 ent[2];
+          lb_factors<kVar, kM>(sv, mv, a.bias, ent);
+          tab[g * 32 + kQ * t + e] = ent[0];
+          tab[g * 32 + kQ * t + e + 1] = ent[1];
+        }
+      }
+      if (min_live) {
+#pragma unroll
+        for (int b = 0; b < kLbActs; ++b) {
+          if (b < nb) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              if (4 * q < kQ) {
+                const float4 xs = *reinterpret_cast<const float4*>(xsum_s + b * a.nsub + k0 + 4 * q);
+                macc[b] = fmaf(xs.x, mp[4 * q], macc[b]);
+                macc[b] = fmaf(xs.y, mp[4 * q + 1], macc[b]);
+                macc[b] = fmaf(xs.z, mp[4 * q + 2], macc[b]);
+                macc[b] = fmaf(xs.w, mp[4 * q + 3], macc[b]);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();
+
+    uint2 fac[16];
+    {
+      const uint4* tq = reinterpret_cast<const uint4*>(tab + g * 32 + 16 * grp);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const uint4 v = tq[q];
+        fac[2 * q] = uint2{v.x, v.y};
+        fac[2 * q + 1] = uint2{v.z, v.w};
+      }
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < kLbPieces; ++i2) {
+      if (i2 < p.npl) {
+        const bool ok = x_live && 4 * i2 + t < np;
+        const uint4 c4 = *reinterpret_cast<const uint4*>(sb + i2 * 512 + lane * 16);
+        const unsigned char* xq = smem + (size_t)((st * p.npl + i2) * kPlanes * 2 * nbs + g) * 64
+                                  + t * 16;
+#pragma unroll
+        for (int pl = 0; pl < kPlanes; ++pl) {
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            const uint4 xv = ok ? *reinterpret_cast<const uint4*>(xq + (pl * 2 + qq) * nbs * 64)
+                                : uint4{0, 0, 0, 0};
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q = 2 * qq + h;
+              const uint32_t nib = ((&c4.x)[q] >> (kBits * pl)) & kMask;
+              uint32_t w0, w1;
+              lb_decode<kVar, kM, kMap>(nib, fac, q, magic, w0, w1);
+              const uint32_t af[4] = {h ? xv.z : xv.x, 0u, h ? xv.w : xv.y, 0u};
+              // split sums its two planes apart
+              mma_bf16(acc[kVar == kSplit ? pl : h], af, w0, w1);
+            }
+          }
+        }
+      }
+    }
+
+    // the tile's last step for this warp: its partial sums into the buffer
+    // of the tile's parity; the block then sums each row group's splits and
+    // writes y (the other buffer takes the next tile)
+    if (i % n == n - 1) {
+      const int tile = tile_of(i), buf = (i / n) & 1;
+      lb_warp_partials(acc, macc, min_live, part + 2 * kLbActs * kLbRows,
+                       part + buf * kLbActs * kLbRows, g, t);
+      __syncthreads();
+      for (int idx = tid; idx < p.groups * kLbActs * kLbRows; idx += nthr) {
+        const int gr = idx / (kLbActs * kLbRows), b = idx / kLbRows % kLbActs;
+        const int o = (tile * p.groups + gr) * kLbRows + idx % kLbRows;
+        float sum = 0.f;
+        for (int v = 0; v < p.splits; ++v)
+          sum += reinterpret_cast<const float*>(smem + p.x_smem + (gr * p.splits + v) * p.warp_smem
+                                                + kLbRing * p.slot + kLbTab)
+              [buf * kLbActs * kLbRows + idx % (kLbActs * kLbRows)];
+        if (b < nb && o < a.out_f) a.y[(size_t)(b0 + b) * a.out_f + o] = sum;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Every geometry the stepped instances do not take (nsub % 16 != 0, or more
+// than 16 code rows a sub-block): a block of 4 warps owns 8 output rows and
+// 8 activation rows, its warps walking the row's 4-byte words in turn, lane
+// (g, t) word 4c + t of row g; each byte's factors formed where it is used
+// (element(), sub_factors()), the weights on the same m16n8k16 products, the
+// min term summed after the walk; the warps' partial sums meet in shared
+// memory.
+template <int kBits, int kVar, int kMap, int kS, int kM>
+__global__ void __launch_bounds__(kLbGenWarps * 32)
+quant_matmul_lowbit_generic(const LowbitArgs a) {
+  constexpr int kPlanes = 8 / kBits;
+  constexpr uint32_t kMask = kBits == 4 ? 0x0F0F0F0Fu : 0x03030303u;
+  constexpr bool kMinTerm = kVar != kBase && kVar != kBaseF32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * kLbRows, b0 = blockIdx.y * kLbActs;
+  const int nb = min(kLbActs, a.B - b0);
+  const int qn = a.in_f / kPlanes, words = qn / 4;
+  // a row past out repeats the last row's loads; its sums are not stored
+  const size_t o = (size_t)min(r0 + g, a.out_f - 1);
+  const uint8_t* crow = a.codes + o * qn;
+  const float* drow = a.d + o * a.nd;
+  const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + o * a.nsub;
+  const float* dminrow = kM == kNone ? nullptr : a.dmin + o * a.ndm;
+  const uint8_t* mnrow = (kM == kHierU8 || kM == kHierI8) ? a.mn + o * a.nsub : nullptr;
+  const bool x_live = g < nb;
+  const __nv_bfloat16* const xrow = a.x + (size_t)(b0 + (x_live ? g : 0)) * a.in_f;
+  const bool min_live = kMinTerm && (kM != kNone || a.bias != 0);
+
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float macc[kLbActs];
+#pragma unroll
+  for (int b = 0; b < kLbActs; ++b) macc[b] = 0.f;
+  for (int c = warp; 4 * c < words; c += kLbGenWarps) {
+    const int wd = 4 * c + t;
+    const bool ok = wd < words;
+    const uint32_t u = ok ? __ldg(reinterpret_cast<const uint32_t*>(crow) + wd) : 0u;
+    float s[4], m[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = (4 * wd + e) % a.nsub;
+      m[e] = 0.f;
+      // the base rules read the min side at k mod nd too (no mixed layout)
+      sub_factors<kVar, kS, kM>(drow, scrow, dminrow, mnrow, a.bias, k, k % a.nd, s[e], m[e]);
+    }
+#pragma unroll
+    for (int pl = 0; pl < kPlanes; ++pl) {
+      const uint32_t nib = (u >> (kBits * pl)) & kMask;
+      float w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = element<kVar, kM, kMap>((int)((nib >> (8 * e)) & 0xFF), s[e], m[e], a.bias);
+      uint2 xv = {0u, 0u};
+      if (x_live && ok) xv = __ldg(reinterpret_cast<const uint2*>(xrow + pl * qn + 4 * wd));
+      const uint32_t af[4] = {xv.x, 0u, xv.y, 0u};
+      mma_bf16(acc[pl & 1], af, bf16_pair(w[0], w[1]), bf16_pair(w[2], w[3]));
+    }
+  }
+  if (min_live) {
+    for (int k = warp * 4 + t; k < a.nsub; k += 4 * kLbGenWarps) {
+      float mp = 0.f;
+      if constexpr (kM != kNone) mp = side_at<kM>(dminrow, mnrow, k, kM == kFlat ? k : k % a.ndm);
+      if (a.bias != 0) {
+        const float bs = __fmul_rn((float)a.bias, side_at<kS>(drow, scrow, k, kS == kFlat ? k : k % a.nd));
+        mp = kM == kNone ? bs : __fadd_rn(bs, mp);
+      }
+#pragma unroll
+      for (int b = 0; b < kLbActs; ++b)
+        if (b < nb) macc[b] = fmaf(__ldg(a.xsum + (size_t)(b0 + b) * a.nsub + k), mp, macc[b]);
+    }
+  }
+  float* const wpart = reinterpret_cast<float*>(smem) + warp * 2 * kLbActs * kLbRows;
+  lb_warp_partials(acc, macc, min_live, wpart + kLbActs * kLbRows, wpart, g, t);
+  __syncthreads();
+  for (int idx = tid; idx < kLbActs * kLbRows; idx += kLbGenWarps * 32) {
+    const int b = idx / kLbRows, r = idx % kLbRows;
+    float sum = 0.f;
+    for (int v = 0; v < kLbGenWarps; ++v)
+      sum += reinterpret_cast<const float*>(smem)[v * 2 * kLbActs * kLbRows + idx];
+    if (b < nb && r0 + r < a.out_f) a.y[(size_t)(b0 + b) * a.out_f + r0 + r] = sum;
+  }
+}
+
+// What a launch of `kernel` would be, into info[8]: grid x and y, threads,
+// shared bytes, registers a thread, local bytes a thread (spills), blocks
+// an SM, and the instance.
+template <class K>
+int lb_plan_info(K kernel, dim3 grid, int threads, int smem, int inst, int* info) {
+  cudaFuncAttributes fa;
+  int rc = (int)cudaFuncGetAttributes(&fa, kernel);
+  int per_sm = 0;
+  if (rc == 0) rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (rc != 0) return rc;
+  const int v[8] = {(int)grid.x, (int)grid.y, threads, smem, fa.numRegs,
+                    (int)fa.localSizeBytes, per_sm, inst};
+  for (int i = 0; i < 8; ++i) info[i] = v[i];
+  return 0;
+}
+
+// One instance: its launch, or with info its plan (lb_plan_info). The card
+// is read, and the stepped kernel's shared-memory limit set, on the
+// instance's first use on a device; a row too long for one staged
+// activation row and a warp's region takes the generic instance.
+template <int kBits, int kVar, int kMap, int kS, int kM>
+int launch_one(const LowbitArgs& a, cudaStream_t st, int* info) {
+  const dim3 gen_grid((a.out_f + kLbRows - 1) / kLbRows, (a.B + kLbActs - 1) / kLbActs);
+  const int gen_smem = kLbGenWarps * 2 * kLbActs * kLbRows * 4;
+  PlanLb p;
+  int smem = 0;
+  if (lowbit_instance(kBits, a.in_f, a.nsub) != 2) {
+    static CardCache cards;
+    Card c;
+    const int rc = cards.get(quant_matmul_lowbit_kernel<kBits, kVar, kMap, kS, kM>, 0, c);
+    if (rc != 0) return rc;
+    p = plan_lb(a.B, a.in_f, a.out_f, a.nsub, kBits, kS != kFlat, kM != kNone,
+                kM == kHierU8 || kM == kHierI8, c);
+    smem = p.x_smem + p.warps * p.warp_smem;
+    if (smem > c.smem_block) smem = 0;
+  }
+  if (smem == 0) {
+    if (info)
+      return lb_plan_info(quant_matmul_lowbit_generic<kBits, kVar, kMap, kS, kM>, gen_grid,
+                          kLbGenWarps * 32, gen_smem, 2, info);
+    quant_matmul_lowbit_generic<kBits, kVar, kMap, kS, kM><<<gen_grid, kLbGenWarps * 32, gen_smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(p.grid, (a.B + p.acts - 1) / p.acts);
+  if (info)
+    return lb_plan_info(quant_matmul_lowbit_kernel<kBits, kVar, kMap, kS, kM>, grid,
+                        p.warps * 32, smem, p.G - 1, info);
+  quant_matmul_lowbit_kernel<kBits, kVar, kMap, kS, kM><<<grid, p.warps * 32, smem, st>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+// The min sides a scale side pairs with: none or flat beside a flat scale,
+// none or hierarchical beside a hierarchical one, and the mixed layout (flat
+// scale, hierarchical min) for the variants with an xsum term. Value-mapped
+// codes come without a min.
+template <int kBits, int kVar, int kMap, int kS>
+int launch_m(const LowbitArgs& a, int m_side, cudaStream_t st, int* info) {
+  constexpr bool kBaseVar = kVar == kBase || kVar == kBaseF32;
+  if (m_side == kNone) return launch_one<kBits, kVar, kMap, kS, kNone>(a, st, info);
+  if constexpr (kMap == kIdentity) {
+    if constexpr (kS == kFlat) {
+      if (m_side == kFlat) return launch_one<kBits, kVar, kMap, kS, kFlat>(a, st, info);
+    }
+    if constexpr (kS != kFlat || !kBaseVar) {
+      if (m_side == kHierU8) return launch_one<kBits, kVar, kMap, kS, kHierU8>(a, st, info);
+      if (m_side == kHierI8) return launch_one<kBits, kVar, kMap, kS, kHierI8>(a, st, info);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int kBits, int kVar, int kMap>
+int launch_s(const LowbitArgs& a, int s_side, int m_side, cudaStream_t st, int* info) {
+  if (s_side == kFlat) return launch_m<kBits, kVar, kMap, kFlat>(a, m_side, st, info);
+  if (s_side == kHierU8) return launch_m<kBits, kVar, kMap, kHierU8>(a, m_side, st, info);
+  if (s_side == kHierI8) return launch_m<kBits, kVar, kMap, kHierI8>(a, m_side, st, info);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Which maps an instance takes: the fsplit rule and the 4-bit f32 base rule
+// take the IQ2/IQ3 alphabets, the 4-bit f32 base rule nothing else (plain
+// 4-bit codes take the bf16-magic base rule).
+template <int kBits, int kVar>
+int launch_map(const LowbitArgs& a, int vmap, int s_side, int m_side, cudaStream_t st, int* info) {
+  constexpr bool kMapped = kBits == 4 && (kVar == kFsplit || kVar == kBaseF32);
+  if constexpr (!(kBits == 4 && kVar == kBaseF32)) {
+    if (vmap == kIdentity) return launch_s<kBits, kVar, kIdentity>(a, s_side, m_side, st, info);
+  }
+  if constexpr (kMapped) {
+    if (vmap == kIq2) return launch_s<kBits, kVar, kIq2>(a, s_side, m_side, st, info);
+    if (vmap == kIq3) return launch_s<kBits, kVar, kIq3>(a, s_side, m_side, st, info);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The instance of bits, var and vmap (launch_map), after the checks every
+// launch and plan share.
+inline int lowbit_dispatch(const LowbitArgs& a, int s_side, int m_side, int bits, int var,
+                           int vmap, cudaStream_t st, int* info) {
+  if ((bits != 2 && bits != 4) || a.nsub <= 0 || a.in_f % (128 / bits)
+      || (a.in_f * bits / 8) % a.nsub)
+    return (int)cudaErrorInvalidValue;
+  if (bits == 4) {
+    switch (var) {
+      case kFsplit: return launch_map<4, kFsplit>(a, vmap, s_side, m_side, st, info);
+      case kXsum: return launch_map<4, kXsum>(a, vmap, s_side, m_side, st, info);
+      case kSplit: return launch_map<4, kSplit>(a, vmap, s_side, m_side, st, info);
+      case kBase: return launch_map<4, kBase>(a, vmap, s_side, m_side, st, info);
+      case kBaseF32: return launch_map<4, kBaseF32>(a, vmap, s_side, m_side, st, info);
+    }
+  } else {
+    if (var == kFsplit) return launch_map<2, kFsplit>(a, vmap, s_side, m_side, st, info);
+    if (var == kBaseF32) return launch_map<2, kBaseF32>(a, vmap, s_side, m_side, st, info);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1235,23 +1690,25 @@ int lgt_quant_matmul_lowbit(const void* x, const void* xsum, const void* codes,
                             const void* mn, void* y, int B, int in_f, int out_f,
                             int nsub, int nd, int ndm, int bias, int s_side,
                             int m_side, int bits, int var, int vmap, void* stream) {
+  if (B == 0 || out_f == 0) return 0;
   const LowbitArgs a{(const __nv_bfloat16*)x, (const float*)xsum, (const uint8_t*)codes,
                      (const float*)d, (const uint8_t*)sc, (const float*)dmin,
                      (const uint8_t*)mn, (float*)y, B, in_f, out_f, nsub, nd, ndm, bias};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (bits == 4) {
-    switch (var) {
-      case kFsplit: return launch_map<4, kFsplit>(a, vmap, s_side, m_side, st);
-      case kXsum: return launch_map<4, kXsum>(a, vmap, s_side, m_side, st);
-      case kSplit: return launch_map<4, kSplit>(a, vmap, s_side, m_side, st);
-      case kBase: return launch_map<4, kBase>(a, vmap, s_side, m_side, st);
-      case kBaseF32: return launch_map<4, kBaseF32>(a, vmap, s_side, m_side, st);
-    }
-  } else if (bits == 2) {
-    if (var == kFsplit) return launch_map<2, kFsplit>(a, vmap, s_side, m_side, st);
-    if (var == kBaseF32) return launch_map<2, kBaseF32>(a, vmap, s_side, m_side, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return lowbit_dispatch(a, s_side, m_side, bits, var, vmap, (cudaStream_t)stream, nullptr);
+}
+
+// The launch lgt_quant_matmul_lowbit makes for these arguments, into
+// info[8]: grid x, grid y, threads a block, dynamic shared bytes, registers
+// a thread, local (spill) bytes a thread, resident blocks an SM, and the
+// instance (0: steps of 16 sub-blocks, 1: of 32, 2: the generic instance).
+int lgt_quant_matmul_lowbit_plan(int B, int in_f, int out_f, int nsub, int s_side, int m_side,
+                                 int bits, int var, int vmap, void* info) {
+  LowbitArgs a{};
+  a.B = B;
+  a.in_f = in_f;
+  a.out_f = out_f;
+  a.nsub = nsub;
+  return lowbit_dispatch(a, s_side, m_side, bits, var, vmap, nullptr, (int*)info);
 }
 
 // xq (B, in) int8 block-minor; xs, xsum (B, nsub) f32; codes (out, in/2) u8;

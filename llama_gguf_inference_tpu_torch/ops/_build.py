@@ -113,7 +113,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # sides, the stream. 8-bit: x, codes, d, sc, dmin, mn, y; B, in, out,
         # nd, nsub, bias, the sides, the stream. The 8-bit and int8
         # launches' plans: B, in, out, nsub, the sides, an int[7] (int8:
-        # int[8]) to fill.
+        # int[8]) to fill; the lowbit one's: B, in, out, nsub, the sides,
+        # the bits, the element rule, the code map, an int[8].
         for fn, n_ptr, n_int in (("lgt_quant_matmul_lowbit", 8, 12),
                                  ("lgt_quant_matmul_int8", 9, 8),
                                  ("lgt_quant_matmul_8bit", 7, 8)):
@@ -122,6 +123,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         for fn in ("lgt_quant_matmul_8bit_plan", "lgt_quant_matmul_int8_plan"):
             getattr(lib, fn).argtypes = [i] * 6 + [p]
             getattr(lib, fn).restype = i
+        lib.lgt_quant_matmul_lowbit_plan.argtypes = [i] * 9 + [p]
+        lib.lgt_quant_matmul_lowbit_plan.restype = i
     elif name == "quant_matmul_tc":
         # the 8-bit entry point's arguments: x, codes, d, sc, dmin, mn, y;
         # B, in, out, nd, nsub, bias, the sides, the stream

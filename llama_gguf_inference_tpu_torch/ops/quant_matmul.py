@@ -115,18 +115,14 @@ NAME_DEQUANT = "quant_matmul_dequant"
 # the fewest measured, and at Q8_0's o from 16 (PERF.md §6)
 TC_MIN_ROWS = 8
 TC_STEP = 64      # the tensor-core kernels' step: they need in and nsub multiples of it
-# activation rows from which quant_matmul_2bit and quant_matmul_4bit take the
-# tensor-core kernel: on an H100 the decode kernels win at every 8B
-# projection at 8 rows, the tensor-core one at every projection from 32, and
-# at 16 it wins or ties at each but the 4-bit o (PERF.md §6). The base rules
-# (quant_matmul_4bit_base, quant_matmul_lowbit_base) cross at the same rows:
-# at 8 the decode kernel wins at every projection but Q2_K's gate+up, from 16
-# the tensor-core one at each but Q4_K's o (PERF.md §6). The xsum and split
-# wrappers cross as fsplit does: at 8 rows the decode kernel wins at gate+up,
-# at 16 the tensor-core one at qkv and gate+up and the decode one at o and
-# (by 3%) down, which over a layer's four projections still saves about
-# 0.1 ms at 16 rows (PERF.md §6)
-LOWBIT_TC_MIN_ROWS = 16
+# activation rows from which quant_matmul_2bit and quant_matmul_4bit (and the
+# base, xsum and split wrappers, which cross alike) take the tensor-core
+# kernel: on an H100 the decode kernel, which reads the codes again for each
+# 8 activation rows, wins a layer's four 8B projections at 24 rows (Q4_K
+# flat 0.594 against 0.662 ms, Q2_K mixed 0.781 against 0.813), the
+# tensor-core kernel at 32 (0.663 against 0.764, 0.814 against 1.027;
+# PERF.md §6, tools/tc_ablate.py --full-only --kinds q4_k,q2_k)
+LOWBIT_TC_MIN_ROWS = 32
 # activation rows from which quant_matmul_4bit_int8 takes the tensor-core
 # kernel of csrc/quant_matmul_int8_tc.cu: on an H100 the decode kernel wins
 # a layer's four 8B projections at 32 rows (0.498 against 0.611 ms), the
@@ -378,9 +374,10 @@ def quant_matmul_4bit(x: torch.Tensor, xsum: torch.Tensor, codes: torch.Tensor,
 
 def quant_matmul_2bit_decode(x, xsum, codes, d, sc, dmin, mn, code_bias=0,
                              fmt="") -> torch.Tensor:
-    """As :func:`quant_matmul_2bit`, through the decode kernel (one warp an
-    output row, 8 activation rows a block) at any row count; launches count
-    under :data:`NAME_2BIT`."""
+    """As :func:`quant_matmul_2bit`, through the decode kernel (bf16
+    tensor-core products of 8 output rows by up to 8 activation rows, a
+    second grid axis beyond) at any row count; launches count under
+    :data:`NAME_2BIT`."""
     return _lowbit(2, VAR_FSPLIT, NAME_2BIT, lambda: quant_matmul_2bit_plain(
         x, xsum, codes, d, sc, dmin, mn, code_bias, fmt), x, xsum, codes, d, sc, dmin, mn,
         code_bias, fmt)

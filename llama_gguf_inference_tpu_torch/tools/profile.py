@@ -68,7 +68,7 @@ def _kernel_group(name: str) -> str:
         group = LOWBIT_TC[int(m[1]), int(m[2])]
         return qm.NAME_4BIT_SPLIT_TC if group == qm.NAME_4BIT_XSUM_TC and \
             qm.variant() == "split" else group
-    m = re.search(r"quant_matmul_lowbit_kernel<(\d+), (\d+)", name)
+    m = re.search(r"quant_matmul_lowbit_(?:kernel|generic)<(\d+), (\d+)", name)
     if m:
         return LOWBIT[int(m[1]), int(m[2])]
     m = re.search(r"quant_matmul_8bit_kernel<\d+, (\d+)", name)

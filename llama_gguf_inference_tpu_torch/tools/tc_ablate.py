@@ -16,7 +16,8 @@ epilogue (one f32 add a sum in place of the conversion, the two scales and
 the min term, and their shared-memory loads). Times each build, and the
 decode kernel and ``torch.matmul`` on a bf16 weight of the same shape, at
 the 8B's projections for 8, 16, 32, 64 and 512 activation rows (the int8
-body also 24 and 48, about where its decode kernel crosses), in the
+body and the 2/4-bit fsplit kinds also 24 and 48, about where their decode
+kernels cross), in the
 layout each kernel serves: Q5_K compact (8-bit, with its min), Q4_K flat
 (4-bit fsplit, the base rule, and the int8 body) and Q2_K mixed (2-bit) or
 flat (the base_f32 rule); codes and scales drawn from ``--seed``. The int8
@@ -32,7 +33,16 @@ the Q6_K head; 1 and 4 rows): without its dequantization (the code words
 passed to ``mma.sync`` as they are, so no scales are formed either), without
 its products (one integer op a fragment in place of ``mma.sync``), without
 its activation loads (zero fragments), and with rings of 8 and of 16 code
-cells a warp in place of 8 without a min side and 4 with one. The kind
+cells a warp in place of 8 without a min side and 4 with one. The kinds
+``q4_k_decode`` and ``q2_k_decode`` cut the 2/4-bit decode kernel of the same
+source (Q4_K flat at the four projections and Q3_K flat at o, or Q2_K
+mixed, through the fsplit rule; 1 and 4 rows): without its decode (the code
+words passed to ``mma.sync`` as they are), without its products (one
+integer op in place of ``mma.sync``), without its activation loads (no
+staging, fragments made from the lane's indices), without its min term,
+with only its loads (each step waited for and nothing computed), without
+its code loads (the code copies zero-filled), and with a ring of 3 steps a
+warp in place of 2. The kind
 ``q4_k_int8_decode`` cuts the int8 decode kernel of the same source (Q4_K
 flat at the four projections, and Q3_K flat at o for its instance of
 16-wide sub-blocks; 1 and 4 rows): without its decode (constant code
@@ -65,17 +75,18 @@ from ..ops import quant_matmul as qm
 SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
           "down": (4096, 14336)}
 ROWS = (8, 16, 32, 64, 512)
-INT8_ROWS = (8, 16, 24, 32, 48, 64, 512)
+CROSS_ROWS = (8, 16, 24, 32, 48, 64, 512)
 DECODE_ROWS = (1, 4)
 KINDS = ("q5_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base", "q2_k_base", "q5_k_decode",
-         "q6_k_decode", "q4_k_int8_decode")
+         "q6_k_decode", "q4_k_int8_decode", "q4_k_decode", "q2_k_decode")
 # kind -> (library, its cut set)
 SOURCE = {"q5_k": ("quant_matmul_tc",) * 2, "q4_k_int8": ("quant_matmul_int8_tc",) * 2,
           **{k: ("quant_matmul_lowbit_tc",) * 2
              for k in ("q4_k", "q2_k", "q4_k_base", "q2_k_base")},
           "q5_k_decode": ("quant_matmul", "quant_matmul_8bit"),
           "q6_k_decode": ("quant_matmul", "quant_matmul_8bit"),
-          "q4_k_int8_decode": ("quant_matmul", "quant_matmul_int8")}
+          "q4_k_int8_decode": ("quant_matmul", "quant_matmul_int8"),
+          **{k: ("quant_matmul", "quant_matmul_lowbit") for k in ("q4_k_decode", "q2_k_decode")}}
 _PRODUCTS = ("    if (i >= 0 && warp_live) {", "    if (false) {")
 # each cut set's builds: the text each replaces (or a list of such edits)
 CUTS = {
@@ -124,6 +135,28 @@ CUTS = {
       continue;
     }"""),
         "no_code_loads": ("        const bool ok = kK32 || cr < hsub;", "        const bool ok = false;")},
+    "quant_matmul_lowbit": {
+        "no_decode": ("              lb_decode<kVar, kM, kMap>(nib, fac, q, magic, w0, w1);",
+                      """              w0 = nib;
+              w1 = nib >> 1;"""),
+        "no_products": ("              mma_bf16(acc[kVar == kSplit ? pl : h], af, w0, w1);",
+                        "              acc[h][q] += __int_as_float(af[0] ^ w0 ^ w1);"),
+        "no_x": [("    for (int u = tid; u < nbs * cpr; u += nthr) {",
+                  "    for (int u = tid; u < 0; u += nthr) {"),
+                 ("""            const uint4 xv = ok ? *reinterpret_cast<const uint4*>(xq + (pl * 2 + qq) * nbs * 64)
+                                : uint4{0, 0, 0, 0};""",
+                  """            const uint4 xv = {(unsigned)lane, (unsigned)pl, (unsigned)qq, (unsigned)i2};""")],
+        "no_min": ("      if (min_live) {\n#pragma unroll\n        for (int b = 0;",
+                   "      if (false) {\n#pragma unroll\n        for (int b = 0;"),
+        "loads_only": ("    const unsigned char* sb = ring + (i % kLbRing) * p.slot;",
+                       """    const unsigned char* sb = ring + (i % kLbRing) * p.slot;
+    if (a.bias != 12345) {
+      acc[0][0] += sb[lane];
+      continue;
+    }"""),
+        "no_code_loads": ("        const bool ok = pc < np;\n        cp_async16(",
+                          "        const bool ok = false;\n        cp_async16("),
+        "ring3": ("constexpr int kLbRing = 2;", "constexpr int kLbRing = 3;")},
     "quant_matmul_tc": {
         "no_decode": ("      decode_run<kM, kPer>(", "      if (false) decode_run<kM, kPer>("),
         "no_products": _PRODUCTS},
@@ -212,6 +245,23 @@ def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator, q3_k: bo
     through the int8 decode kernel, or with ``q3_k`` Q3_K flat (f32 d per
     16, no min, codes biased by 4)."""
     x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
+    if kind in ("q4_k_decode", "q2_k_decode"):
+        bits, sub = (4, 16 if q3_k else 32) if kind == "q4_k_decode" else (2, 16)
+        nsub = in_f // sub
+        codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, device="cuda",
+                              dtype=torch.uint8)
+        xsum = qm._block_sums(x, sub)
+        if bits == 4:
+            arrs = (codes, _f32(out_f, nsub, 1e-2, g), None,
+                    None if q3_k else _f32(out_f, nsub, 5e-2, g), None)
+        else:
+            arrs = (codes, _f32(out_f, nsub, 1e-2, g), None, _f32(out_f, in_f // 256, 5e-3, g),
+                    _u8(out_f, nsub, g))
+            xsum = xsum.reshape(B, in_f // 256, 256 // sub).transpose(1, 2).reshape(B, nsub)
+            xsum = xsum.contiguous()
+        return ("quant_matmul", getattr(qm, f"quant_matmul_{bits}bit_decode"), None,
+                getattr(qm, f"quant_matmul_{bits}bit_plain"),
+                (x, xsum, *arrs, 4 if q3_k else 0))
     if kind == "q4_k_int8_decode":
         sub = 16 if q3_k else 32
         nsub = in_f // sub
@@ -290,9 +340,10 @@ def main() -> None:
     for kind in kinds:
         decode_kind = kind.endswith("_decode")
         shapes = {"head": (128256, 4096)} if kind == "q6_k_decode" else SHAPES
-        if kind == "q4_k_int8_decode":
+        if kind in ("q4_k_int8_decode", "q4_k_decode"):
             shapes = {**SHAPES, "q3_k_o": SHAPES["o"]}
-        rows = DECODE_ROWS if decode_kind else INT8_ROWS if kind == "q4_k_int8" else ROWS
+        rows = DECODE_ROWS if decode_kind else CROSS_ROWS if kind in ("q4_k_int8", "q4_k", "q2_k") \
+            else ROWS
         for name, (out_f, in_f) in shapes.items():
             w_lib = torch.randn(out_f, in_f, generator=g, device="cuda").bfloat16()
             for B in rows:

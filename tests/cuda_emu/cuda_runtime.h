@@ -39,7 +39,9 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 
 struct emu_warp { float vals[32]; std::barrier<>* bar; };
 inline thread_local int emu_lane;

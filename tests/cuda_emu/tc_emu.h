@@ -185,6 +185,22 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
   b->warp_bar[w]->arrive_and_wait();
 }
 
+// fma.rn.bf16x2 and sub.rn.bf16x2, each half in double and rounded to bf16
+// through f32: one rounding wherever the exact result fits an f32, as it
+// does for the 2/4-bit decode kernel's operands (a bf16 scale times a code
+// of at most 8 bits; two bf16 weights at most 2^16 apart).
+inline uint32_t emu_bf16_op(uint32_t a, uint32_t b, uint32_t c, bool fma) {
+  uint32_t r = 0;
+  for (int h = 0; h < 2; ++h) {
+    const double v = fma ? (double)emu_half(a, h) * emu_half(b, h) + emu_half(c, h)
+                         : (double)emu_half(a, h) - emu_half(b, h);
+    r |= (uint32_t)__float2bfloat16_rn((float)v).v << (16 * h);
+  }
+  return r;
+}
+inline uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) { return emu_bf16_op(a, b, c, true); }
+inline uint32_t sub_bf16x2(uint32_t a, uint32_t b) { return emu_bf16_op(a, b, 0, false); }
+
 inline int emu_s8(uint32_t reg, int byte) { return (int)(int8_t)(uint8_t)(reg >> (8 * byte)); }
 
 // m16n8k32 s8: a[r] holds row g (+8 for r odd), bytes 4*tg..+3 (+16 for

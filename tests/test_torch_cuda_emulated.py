@@ -320,3 +320,167 @@ def test_int8_kernel_persistent_tiles(emu, B):
     xq, xs = qm.quantize_acts(x, sub)
     args = (xq, xs, qm._block_sums(x, sub), *arrs, 0)
     _close(mod.quant_matmul_4bit_int8_decode(*args), qm.quant_matmul_4bit_int8_plain(*args))
+
+
+def _lowbit_arrays(bits, out_f, in_f, sub, layout, nd, has_min, signed, g):
+    """Planar 2/4-bit codes and one layout's sides: flat (f32 per
+    sub-block), compact (f32 ``nd`` wide times an 8-bit factor per
+    sub-block) or mixed (the scale flat, the min side ``nd`` wide times u8
+    factors)."""
+    nsub = in_f // sub
+    codes = torch.randint(0, 256, (out_f, in_f * bits // 8), generator=g, dtype=torch.uint8)
+
+    def f32(n):
+        return torch.rand(out_f, n, generator=g) * 0.02 + 1e-3
+
+    def u8(s):
+        lo = -32 if s else 0
+        return torch.randint(lo, lo + 64, (out_f, nsub), generator=g,
+                             dtype=torch.int32).to(torch.int8 if s else torch.uint8)
+    if layout == "flat":
+        return codes, f32(nsub), None, (f32(nsub) if has_min else None), None
+    if layout == "compact":
+        return codes, f32(nd), u8(signed), (f32(nd) if has_min else None), \
+            (u8(False) if has_min else None)
+    return codes, f32(nsub), None, f32(nd), u8(False)
+
+
+# each rule's decode wrapper, plain version and launch name
+_LOWBIT_RULES = {
+    "fsplit": lambda bits: (f"quant_matmul_{bits}bit_decode", f"quant_matmul_{bits}bit_plain",
+                            qm.NAME_2BIT if bits == 2 else qm.NAME_4BIT),
+    "xsum": lambda bits: ("quant_matmul_4bit_xsum_decode", "quant_matmul_4bit_xsum_plain",
+                          qm.NAME_4BIT_XSUM),
+    "split": lambda bits: ("quant_matmul_4bit_split_decode", "quant_matmul_4bit_split_plain",
+                           qm.NAME_4BIT_SPLIT),
+    "base": lambda bits: ("quant_matmul_4bit_base_decode", "quant_matmul_4bit_base_plain",
+                          qm.NAME_4BIT_BASE),
+    "base_f32": lambda bits: ("quant_matmul_lowbit_base_decode",
+                              "quant_matmul_lowbit_base_plain", qm.NAME_LOWBIT_BASE)}
+
+
+def _lowbit_call(mod, rule, bits, x, xsum, arrs, bias, fmt):
+    """The decode kernel's and the plain version's outputs of one rule, and
+    the launch name it counts under."""
+    kern, plain, name = _LOWBIT_RULES[rule](bits)
+    if rule == "base":
+        args = (x, *arrs, bias)
+    elif rule == "base_f32":
+        args = (x, *arrs, bias, bits, fmt)
+    else:
+        args = (x, xsum, *arrs, bias, fmt)
+    return getattr(mod, kern)(*args), getattr(qm, plain)(*args), name
+
+
+# (bits, in, sub, layout, nd, has_min, signed sc, bias, fmt, rules): the
+# decode kernel's steps of 16 sub-blocks (R = in*bits/8/nsub = 16 code rows
+# a sub-block: Q4_K, Q4_0), of 32 (R <= 8: Q3_K, Q2_K, sub 8) and its
+# generic instance (nsub % 16 != 0, or R > 16). The emulated card has 4
+# SMs; at 13 output rows (two row groups, one ragged) a block holds both or
+# walks them as two tiles, and a row group's steps split over up to 16
+# warps.
+GEOMETRIES_LOWBIT = [
+    # Q4_K flat, compact (nd 4, u8 sc and mn) and mixed (dmin per 256)
+    (4, 1024, 32, "flat", 32, True, False, 0, "", ("fsplit", "xsum", "split", "base")),
+    (4, 1024, 32, "compact", 4, True, False, 0, "", ("fsplit", "xsum", "split", "base")),
+    (4, 1024, 32, "mixed", 4, True, False, 0, "", ("fsplit", "xsum", "split")),
+    # Q4_0: flat, bias 8, no min side
+    (4, 1024, 32, "flat", 32, False, False, 8, "", ("fsplit", "xsum", "base")),
+    # Q3_K: sub 16 (8 code rows, steps of 32 sub-blocks), i8 sc, bias 4
+    (4, 1024, 16, "compact", 4, False, True, 4, "", ("fsplit", "split", "base")),
+    # Q2_K: sub 16 (4 code rows), mixed, flat and compact (i8 sc)
+    (2, 1024, 16, "mixed", 4, True, False, 0, "", ("fsplit",)),
+    (2, 1024, 16, "flat", 64, True, False, 0, "", ("fsplit", "base_f32")),
+    (2, 1024, 16, "compact", 4, True, True, 0, "", ("fsplit", "base_f32")),
+    # IQ1's 2-bit geometry: sub 8 (2 code rows, a piece a lane a step), bias 1
+    (2, 1024, 8, "compact", 4, False, True, 1, "", ("fsplit", "base_f32")),
+    # nd 6 (the super-block values copied 4 bytes at a time), min side too
+    (4, 1536, 32, "compact", 6, True, False, 0, "", ("fsplit", "base")),
+    # Q4_K's ffn_down at a narrow out: nsub 448, 28 steps over 14 warps, 2
+    # each, so each ring refills; the super-block index wrapping (nd 56)
+    (4, 14336, 32, "compact", 56, True, False, 0, "", ("fsplit",)),
+    # Q2_K's ffn_down: nsub 896, steps of 32 sub-blocks
+    (2, 14336, 16, "mixed", 56, True, False, 0, "", ("fsplit",)),
+    # nsub 12 and 24 (no multiple of 16): the generic instance
+    (4, 384, 32, "flat", 12, True, False, 0, "", ("fsplit", "xsum", "split", "base")),
+    (2, 384, 16, "compact", 3, True, True, 0, "", ("fsplit", "base_f32")),
+    # sub 64: 32 code rows a sub-block, the generic instance
+    (4, 2048, 64, "compact", 8, False, False, 4, "", ("fsplit", "base")),
+    # the IQ2/IQ3 code->value maps, no min side
+    (4, 1024, 32, "flat", 32, False, False, 0, "iq2_xs", ("fsplit", "base_f32")),
+    (4, 1024, 32, "compact", 4, False, False, 0, "iq3_s", ("fsplit", "base_f32")),
+]
+_GEOM_CASES = [(geo[:-1], rule) for geo in GEOMETRIES_LOWBIT for rule in geo[-1]]
+
+
+@pytest.mark.parametrize("B", [1, 4, 7, 9])
+@pytest.mark.parametrize("geo,rule", _GEOM_CASES, ids=str)
+def test_lowbit_kernel_geometry(emu, geo, rule, B):
+    """The 2/4-bit decode kernel at every rule, flat, compact and mixed
+    sides, sub-blocks of 8, 16, 32 and 64 (bias 0, 1, 4 and 8, u8 and i8
+    factors), the IQ2/IQ3 maps, nsub 12 to 896; B = 1, 4, 7 and 9 (a second
+    tile of activation rows), 13 output rows (a ragged row group)."""
+    bits, in_f, sub, layout, nd, has_min, signed, bias, fmt = geo
+    mod, launches = emu
+    g = torch.Generator().manual_seed(in_f + sub + B + bits)
+    arrs = _lowbit_arrays(bits, 13, in_f, sub, layout, nd, has_min, signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    if layout == "mixed":
+        xsum = qm._mixed_xsum(xsum, types.SimpleNamespace(
+            min_size=in_f // nd, sub_size=sub, in_features=in_f))
+    name = _LOWBIT_RULES[rule](bits)[2]
+    before = launches.get(name, 0)
+    got, want, _ = _lowbit_call(mod, rule, bits, x, xsum, arrs, bias, fmt)
+    _close(got, want)
+    assert launches[name] == before + 1
+
+
+@pytest.mark.parametrize("bits,rule", [(4, "fsplit"), (2, "fsplit"), (4, "base")])
+def test_lowbit_kernel_persistent_tiles(emu, bits, rule):
+    """Blocks walking several tiles: 811 output rows (102 row groups, the
+    last ragged) at in 2048 go to fewer blocks than there are tiles, each
+    warp walking several row groups a tile, the warps' rings running on
+    from one tile into the next and each tile's partial sums alternating
+    between two buffers; B 9 takes two activation tiles; compact u8 sc and
+    mn (Q4_K-like) or mixed (Q2_K-like)."""
+    import ctypes
+    mod, _ = emu
+    out_f, in_f, B = 811, 2048, 9
+    sub = 32 if bits == 4 else 16
+    layout = "mixed" if bits == 2 else "compact"
+    g = torch.Generator().manual_seed(bits)
+    arrs = _lowbit_arrays(bits, out_f, in_f, sub, layout, 8, True, False, g)
+    info = (ctypes.c_int * 8)()
+    var = qm.VAR_BASE if rule == "base" else qm.VAR_FSPLIT
+    _build.check(mod._build.library("quant_matmul").lgt_quant_matmul_lowbit_plan(
+        B, in_f, out_f, in_f // sub, qm._side(arrs[1], arrs[2]), qm._side(arrs[3], arrs[4]),
+        bits, var, 0, info), "plan")
+    assert info[0] < 102 // 8 and info[1] == 2 and info[7] == (0 if bits == 4 else 1)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    if layout == "mixed":
+        xsum = qm._mixed_xsum(xsum, types.SimpleNamespace(min_size=256, sub_size=sub,
+                                                          in_features=in_f))
+    got, want, _ = _lowbit_call(mod, rule, bits, x, xsum, arrs, 0, "")
+    _close(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_lowbit_kernel_long_row(emu, B):
+    """A row whose one staged activation row and warp regions pass a block's
+    shared memory (in 114688: 229 KB of staged bf16 a row) takes the generic
+    instance, as the plan reports, and still matches the plain version."""
+    import ctypes
+    mod, launches = emu
+    in_f, sub = 114688, 32
+    g = torch.Generator().manual_seed(B)
+    arrs = _lowbit_arrays(4, 9, in_f, sub, "compact", in_f // 256, True, False, g)
+    info = (ctypes.c_int * 8)()
+    _build.check(mod._build.library("quant_matmul").lgt_quant_matmul_lowbit_plan(
+        B, in_f, 9, in_f // sub, qm.SIDE_HIER_U8, qm.SIDE_HIER_U8, 4, qm.VAR_FSPLIT, 0, info),
+        "plan")
+    assert info[7] == 2
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    got, want, _ = _lowbit_call(mod, "fsplit", 4, x, qm._block_sums(x, sub), arrs, 0, "")
+    _close(got, want)

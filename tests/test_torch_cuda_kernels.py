@@ -1039,3 +1039,66 @@ def test_quant_matmul_xsum_split_dispatch_by_rows(dev, rule):
         torch.cuda.synchronize()
         assert _build.LAUNCHES == {want: 1}
         _close(got, plain(*args), 1e-4)
+
+
+# the 2/4-bit decode kernel's weights at the 8B shapes: (bits, sub, bias,
+# layout, signed sc, has min) of Q4_K flat, compact and mixed, Q3_K flat
+# (sub 16, bias 4), Q2_K flat, compact and mixed; each with the rules that
+# take it (base and base_f32 no mixed layout)
+FORMATS_LOWBIT = {"q4_k": (4, 32, 0, "flat", False, True),
+                  "q4_k_compact": (4, 32, 0, "compact", False, True),
+                  "q4_k_mixed": (4, 32, 0, "mixed", False, True),
+                  "q3_k": (4, 16, 4, "flat", False, False),
+                  "q2_k": (2, 16, 0, "flat", False, True),
+                  "q2_k_compact": (2, 16, 0, "compact", False, True),
+                  "q2_k_mixed": (2, 16, 0, "mixed", False, True)}
+LOWBIT_RULES_8B = {"fsplit": tuple(FORMATS_LOWBIT), "xsum": ("q4_k", "q4_k_compact"),
+                   "split": ("q4_k", "q4_k_compact"), "base": ("q4_k", "q4_k_compact"),
+                   "base_f32": ("q2_k", "q2_k_compact")}
+LOWBIT_8B = [(fmt, shape, rule) for fmt in FORMATS_LOWBIT for shape in ("qkv", "o", "gate_up", "down")
+             for rule in LOWBIT_RULES_8B if fmt in LOWBIT_RULES_8B[rule]]
+_FULL_LOWBIT = {}
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("fmt,shape,rule", LOWBIT_8B, ids=str)
+def test_quant_matmul_lowbit_decode_8b_shapes(dev, fmt, shape, rule, B):
+    """The 2/4-bit decode kernel at the 8B projections, each rule through
+    its decode wrapper, at the decode rows; one weight kept while its rules
+    and row counts run."""
+    bits, sub, bias, layout, signed, has_min = FORMATS_LOWBIT[fmt]
+    out_f, in_f = SHAPES_8B[shape]
+    if (fmt, shape) not in _FULL_LOWBIT:
+        _FULL_LOWBIT.clear()
+        torch.cuda.empty_cache()
+        g = torch.Generator().manual_seed(out_f + in_f + sub + bits)
+        arrs = _lowbit_arrays(bits, out_f, in_f, sub, bias, layout, signed, g)
+        if not has_min:
+            arrs = (*arrs[:3], None, None)
+        _FULL_LOWBIT[(fmt, shape)] = [t if t is None else t.to(dev) for t in arrs]
+    arrs = _FULL_LOWBIT[(fmt, shape)]
+    x = torch.randn(B, in_f, generator=torch.Generator().manual_seed(B)).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    if layout == "mixed":
+        xsum = xsum.reshape(B, in_f // 256, 256 // sub).transpose(1, 2).reshape(B, -1)
+    x, xsum = x.to(dev), xsum.contiguous().to(dev)
+    if rule == "base":
+        kern, plain, name = (qm.quant_matmul_4bit_base_decode, qm.quant_matmul_4bit_base_plain,
+                             qm.NAME_4BIT_BASE)
+        args = (x, *arrs, bias)
+    elif rule == "base_f32":
+        kern, plain, name = (qm.quant_matmul_lowbit_base_decode,
+                             qm.quant_matmul_lowbit_base_plain, qm.NAME_LOWBIT_BASE)
+        args = (x, *arrs, bias, bits)
+    else:
+        suffix = "" if rule == "fsplit" else f"_{rule}"
+        kern = getattr(qm, f"quant_matmul_{bits}bit{suffix}_decode")
+        plain = getattr(qm, f"quant_matmul_{bits}bit{suffix}_plain")
+        name = {"fsplit": LOWBIT[bits][2], "xsum": qm.NAME_4BIT_XSUM,
+                "split": qm.NAME_4BIT_SPLIT}[rule]
+        args = (x, xsum, *arrs, bias)
+    before = _build.LAUNCHES.get(name, 0)
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    _close(got, plain(*args), 1e-4)

@@ -325,6 +325,18 @@ def test_profile_names_the_lowbit_tensor_core_kernels():
         "void quant_matmul_lowbit_tc_kernel<2, 0, 1, 2>(ArgsLowTC)") == qm.NAME_2BIT_TC
 
 
+def test_profile_names_both_lowbit_decode_instances():
+    """tools/profile.py books the 2/4-bit decode kernel's stepped and generic
+    instances alike, by (bits, element rule)."""
+    from llama_gguf_inference_tpu_torch.tools import profile
+    assert profile._kernel_group(
+        "void quant_matmul_lowbit_kernel<4, 0, 0, 1, 1>(LowbitArgs, PlanLb)") == qm.NAME_4BIT
+    assert profile._kernel_group(
+        "void quant_matmul_lowbit_generic<4, 1, 0, 1, 1>(LowbitArgs)") == qm.NAME_4BIT_XSUM
+    assert profile._kernel_group(
+        "void quant_matmul_lowbit_generic<2, 4, 0, 2, 2>(LowbitArgs)") == qm.NAME_LOWBIT_BASE
+
+
 def test_profile_names_the_xsum_split_and_flash_tensor_core_kernels(monkeypatch):
     """tools/profile.py books the xsum rule's tensor-core instances under the
     body that ran them (split runs xsum's instances), and the tensor-core
