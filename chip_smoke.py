@@ -8,7 +8,11 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 2. build    — compile the CUDA kernels from ``csrc/`` (one nvcc per source)
    plans    — the 8-bit, int8 and 2/4-bit decode kernels' launch plans at the 8B
               shapes (grid, block, shared bytes, registers, spills, resident
-              warps; a spill fails the run)
+              warps; a spill fails the run); the 2/4-bit tensor-core (wgmma)
+              kernel's plans at 32 and 512 rows (with the host's time to
+              build a launch's tensor maps) and every instance's
+              registers, spills and whether its SASS holds HGMMA (a spill or
+              a missing HGMMA fails the run)
 3. kernels  — each kernel against its plain PyTorch version at the 8B
               shapes: 4-bit matmul (flat Q4_K) at the four projection shapes
               for 1, 4 and 512 rows, and with Q3_K's geometry (sub-blocks of
@@ -42,8 +46,10 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               300 and 512 rows (4-bit: Q4_K flat, compact and mixed, Q3_K at
               o and down, the IQ2/IQ3 maps at o; 2-bit: Q2_K flat, mixed and
               compact), each beside the decode kernel on the same inputs,
-              and at 8 and 32 rows too in the served layouts (Q4_K flat, Q2_K
-              mixed: the crossover that sets LOWBIT_TC_MIN_ROWS); the int8 body's
+              and at 8, 24, 32 and 48 rows too in the served layouts (Q4_K
+              flat, Q2_K mixed: the crossover that sets LOWBIT_TC_MIN_ROWS;
+              at 16 and 512 rows with the host's time for one call);
+              the int8 body's
               and the base rule's tensor-core kernels at the four Q4_K flat
               projections for 8, 16, 32, 64, 300 and 512 rows (int8 also 24
               and 48) and at Q4_0,
@@ -146,6 +152,7 @@ import json
 import os
 import re
 import secrets
+import shutil
 import statistics
 import subprocess
 import sys
@@ -242,7 +249,7 @@ def phase_build():
         _build.library(name)
     emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 3),
           "ptxas": regs})
-    return reports["quant_matmul"]
+    return reports
 
 
 # the 8-bit decode kernel's launch at each 8B shape it serves, B=4: (label,
@@ -271,6 +278,12 @@ PLANS_LOWBIT += [(f"q2_k {lay} {name}", name, 2, 16, s_side, m_side)
                  for name in SHAPES_2BIT]
 PLANS_LOWBIT += [(f"q3_k flat {name}", name, 4, 16, 1, 0) for name in ("o", "down")]
 
+# the 2/4-bit tensor-core kernel's launch at the 8B shapes of the served
+# layouts (fsplit), at B = 32 and 512: (label, projection, bits, sub-block
+# size, scale side, min side)
+PLANS_LOWBIT_TC = [(f"q4_k flat {name}", name, 4, 32, 1, 1) for name in ("qkv", "o", "gate_up")]
+PLANS_LOWBIT_TC += [(f"q2_k mixed {name}", name, 2, 16, 1, 2) for name in ("qkv", "o", "gate_up")]
+
 
 def _ptxas(report: str, kernel: str) -> dict:
     """Template arguments -> registers and spill bytes of each instance of
@@ -293,7 +306,9 @@ def _ptxas(report: str, kernel: str) -> dict:
 
 def _plan_line(plan_fn, B, in_f, out_f, nsub, s_side, m_side, n, label):
     """One launch plan as the kernel's plan entry point reports it into
-    int[n] (the int8 one's eighth value is the instance)."""
+    int[n] (the int8 one's eighth value is the instance; the 2/4-bit
+    tensor-core one's eighth the activation rows a tile, its ninth the ns
+    the host takes to build the launch's tensor maps)."""
     import ctypes
 
     from llama_gguf_inference_tpu_torch.ops import _build
@@ -305,18 +320,58 @@ def _plan_line(plan_fn, B, in_f, out_f, nsub, s_side, m_side, n, label):
             "blocks_per_sm": per_sm, "warps_per_sm": per_sm * threads // 32}
     if n > 7:
         line["instance"] = info[7]
+    if n > 8:
+        line["tensor_maps_host_us"] = info[8] / 1e3
     return line
 
 
-def phase_plans(torch, report: str) -> None:
+def _sass_functions(path: str) -> dict[str, str]:
+    """Mangled function name -> its SASS, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=600,
+                         check=True).stdout
+    return {part.split()[0]: part for part in out.split("Function : ")[1:]}
+
+
+def _tc_instances(report: str) -> list[dict]:
+    """Every instance of the 2/4-bit tensor-core kernel: its template
+    arguments (bits, rule, code map, scale side, min side, activation rows
+    a tile), ptxas's registers and spills, and whether its SASS holds
+    ``HGMMA`` (wgmma); ``report`` is empty where the library was already
+    built, and the source is then compiled again for ptxas's report. No
+    instance, an instance without ptxas's registers, a spill or an instance
+    without HGMMA fails the run."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    kernel = "quant_matmul_lowbit_tc_kernel"
+    ptxas = _ptxas(report or _build.ptxas_report("quant_matmul_lowbit_tc"), kernel)
+    out = []
+    for name, sass in _sass_functions(_build._lib_path("quant_matmul_lowbit_tc")).items():
+        if kernel + "I" not in name:
+            continue
+        targs = tuple(int(v) for v in re.findall(r"L[ib](\d+)E", name.split(kernel + "I")[1]))
+        out.append({"instance": list(targs), "hgmma": "HGMMA" in sass, **ptxas.get(targs, {})})
+    bad = [i for i in out if not i["hgmma"] or i.get("spill_stores", 0) or i.get("spill_loads", 0)
+           or "ptxas_registers" not in i]
+    if not out or bad:
+        raise AssertionError(f"tensor-core 2/4-bit instances without HGMMA or spilling: {bad}")
+    return out
+
+
+def phase_plans(torch, reports: dict) -> None:
     """One line: the 8-bit, int8 and 2/4-bit decode kernels' grid, block,
     registers, spills and resident blocks at each 8B shape (B=4; int8: and
     the instance, 0 for sub 32 on m16n8k32, 1 for m16n8k16; 2/4-bit: 0 for
     steps of 16 sub-blocks, 1 of 32, 2 the generic instance), from each
     kernel's own launch plan (cudaFuncGetAttributes, the occupancy
-    calculator) and ptxas's report. A spill fails the run."""
+    calculator) and ptxas's report; the 2/4-bit tensor-core kernel's launch
+    at the served layouts' 8B shapes for 32 and 512 rows (its instance the
+    activation rows a tile; its registers those at entry, before
+    setmaxnreg), and each of its instances' registers, spills and HGMMA
+    (:func:`_tc_instances`). A spill, or a tensor-core instance without
+    HGMMA, fails the run."""
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    report = reports["quant_matmul"]
     lib = _build.library("quant_matmul")
     ptxas8 = _ptxas(report, "quant_matmul_8bit_kernel")
     ptxas_i8 = _ptxas(report, "quant_matmul_int8_kernel")
@@ -346,11 +401,24 @@ def phase_plans(torch, report: str) -> None:
         line.update(ptxas_lb[2 if line["instance"] == 2 else 0].get(
             (bits, qm.VAR_FSPLIT, 0, s_side, m_side), {}))
         plans_lb.append(line)
-    for line in plans + plans_i8 + plans_lb:
+    tc_lib = _build.library("quant_matmul_lowbit_tc")
+    plans_tc = []
+    for label, name, bits, sub, s_side, m_side in PLANS_LOWBIT_TC:
+        out_f, in_f = SHAPES_4BIT[name]
+        for B in (32, 512):
+
+            def plan_fn(*args, bits=bits):
+                return tc_lib.lgt_quant_matmul_lowbit_tc_plan(*args[:6], bits, qm.VAR_FSPLIT, 0,
+                                                              args[6])
+            plans_tc.append(_plan_line(plan_fn, B, in_f, out_f, in_f // sub, s_side, m_side, 9,
+                                       label))
+    for line in plans + plans_i8 + plans_lb + plans_tc:
         if line["local_bytes"] or line.get("spill_stores", 0):
-            raise AssertionError(f"decode kernel spills: {line}")
+            raise AssertionError(f"kernel spills: {line}")
     emit({"phase": "plans", "quant_matmul_8bit": plans, "quant_matmul_4bit_int8": plans_i8,
-          "quant_matmul_lowbit": plans_lb})
+          "quant_matmul_lowbit": plans_lb, "quant_matmul_lowbit_tc": plans_tc,
+          "quant_matmul_lowbit_tc_instances": _tc_instances(
+              reports["quant_matmul_lowbit_tc"])})
 
 
 def _err(got, want, tol):
@@ -553,21 +621,35 @@ def _lowbit_rows(torch, qm, g, timer):
     return rows
 
 
+def _host_us(torch, fn, n: int = 50) -> float:
+    """Mean host microseconds of one call of ``fn`` (a wrapper that
+    enqueues its kernel and returns), over ``n`` calls in a row."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
 def _lowbit_tc_rows(torch, qm, g, timer):
     """The 2- and 4-bit tensor-core kernels through their own wrappers, each
     beside the decode kernel on the same inputs (``decode_ms``): Q4_K flat,
     compact and mixed and Q2_K flat, mixed and compact at the four
     projections, Q3_K at o and down, the IQ2/IQ3 maps at o, for 16, 64, 300
-    and 512 rows; the served layouts (Q4_K flat, Q2_K mixed) also at 8 and
-    32, where the two kernels cross. Bound and library call as in
-    :func:`_lowbit_rows`."""
+    and 512 rows; the served layouts (Q4_K flat, Q2_K mixed) also at 8, 24,
+    32 and 48, where the two kernels cross, and at 16 and 512 rows with
+    the host's time for one call of the wrapper (``host_us``). Bound and
+    library call as in :func:`_lowbit_rows`."""
     cases = []
     for fmt, layouts in (("q4_k", ("flat", "compact", "mixed")),
                          ("q2_k", ("mixed", "flat", "compact"))):
         for layout in layouts:
             for name in SHAPES_4BIT:
                 served = layout == ("flat" if fmt == "q4_k" else "mixed")
-                cases.append((fmt, layout, name, (8, 16, 32, 64, 300, 512) if served
+                cases.append((fmt, layout, name, (8, 16, 24, 32, 48, 64, 300, 512) if served
                               else (16, 64, 300, 512)))
     cases += [("q3_k", "flat", name, (16, 64, 300, 512)) for name in ("o", "down")]
     cases += [(fmt, "flat", "o", (16, 64, 300, 512)) for fmt in ("iq2_xs", "iq3_s")]
@@ -593,13 +675,16 @@ def _lowbit_tc_rows(torch, qm, g, timer):
             b_ms, b_by = bound(wbytes + B * in_f * 2 + B * nsub * 4 + B * out_f * 4,
                                2.0 * B * in_f * out_f)
             ms = timer(lambda: kernel(*args))
+            host = {"host_us": _host_us(torch, lambda: kernel(*args))} \
+                if (fmt, layout) in (("q4_k", "flat"), ("q2_k", "mixed")) and B in (16, 512) \
+                else {}
             rows.append({"kernel": kname, "shape": f"{fmt} {layout} tc {name} {out_f}x{in_f} B={B}",
                          "B": B, "max_abs_err": err, "max_rel_err": rel,
                          "bits_per_weight": 8 * wbytes / (out_f * in_f), "ms": ms,
                          "decode_ms": timer(lambda: decode(*args), 5 if B > 64 else 20),
                          "plain_ms": timer(lambda: plain(*args), 5),
                          "library_ms": timer(lambda: torch.matmul(x, w_lib.t())),
-                         "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
+                         "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms, **host})
             emit({"phase": "kernels", **rows[-1]})
         del w, w_lib
     return rows
@@ -1866,9 +1951,9 @@ def main() -> int:
     try:
         card = phase_device(torch)
         phase = "build"
-        report = phase_build()
+        reports = phase_build()
         phase = "plans"
-        phase_plans(torch, report)
+        phase_plans(torch, reports)
         phase = "kernels"
         with torch.inference_mode():
             rows = phase_kernels(torch, Timer(torch))

@@ -190,7 +190,6 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <mutex>
 #include <numeric>
 
 #include "lowbit_rule.cuh"
@@ -221,55 +220,6 @@ template <int kM>
 constexpr int k8Ring = kM == kNone ? 8 : 4;
 template <int kM>
 constexpr int k8WarpSmem = k8Ring<kM> * 32 * 16;
-
-// What a launch plan reads of a device and of one kernel instance: the
-// device's SMs, shared memory an SM holds, a block may opt into and a block
-// reserves, threads and registers an SM; the instance's registers a thread.
-struct Card {
-  int sms, smem_sm, smem_block, smem_reserve, threads_sm, regs_sm, regs;
-};
-constexpr int kMaxDevices = 64;
-
-// One Card a device for one instance (a static of the instance's launcher),
-// read on the instance's first use on that device, where its shared-memory
-// opt-in (`optin` bytes; the device's most where 0) is set too. A lock
-// guards the first read, so any thread may launch on any device.
-class CardCache {
- public:
-  template <class K>
-  int get(K kernel, int optin, Card& c) {
-    int dev = 0;
-    int rc = (int)cudaGetDevice(&dev);
-    if (rc == 0 && (dev < 0 || dev >= kMaxDevices)) rc = (int)cudaErrorInvalidValue;
-    if (rc != 0) return rc;
-    std::lock_guard<std::mutex> lock(mu_);
-    if (!ready_[dev]) {
-      Card& n = cards_[dev];
-      const cudaDeviceAttr attr[6] = {
-          cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-          cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrReservedSharedMemoryPerBlock,
-          cudaDevAttrMaxThreadsPerMultiProcessor, cudaDevAttrMaxRegistersPerMultiprocessor};
-      int* const dst[6] = {&n.sms, &n.smem_sm, &n.smem_block, &n.smem_reserve, &n.threads_sm,
-                           &n.regs_sm};
-      for (int i = 0; rc == 0 && i < 6; ++i) rc = (int)cudaDeviceGetAttribute(dst[i], attr[i], dev);
-      if (rc == 0)
-        rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       optin > 0 ? optin : n.smem_block);
-      cudaFuncAttributes fa;
-      if (rc == 0) rc = (int)cudaFuncGetAttributes(&fa, kernel);
-      if (rc != 0) return rc;
-      n.regs = fa.numRegs;
-      ready_[dev] = true;
-    }
-    c = cards_[dev];
-    return 0;
-  }
-
- private:
-  std::mutex mu_;
-  Card cards_[kMaxDevices];
-  bool ready_[kMaxDevices] = {};
-};
 
 // How a block of 8 output rows splits its row. Cell q holds stored positions
 // 64q..64q+63; cells q and q + C meet the same sub-blocks (64*C is the least

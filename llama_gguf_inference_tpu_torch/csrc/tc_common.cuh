@@ -1,20 +1,24 @@
 // What the tensor-core kernels share (quant_matmul_tc.cu, 8-bit codes;
 // quant_matmul_lowbit_tc.cu, 2- and 4-bit codes; quant_matmul_int8_tc.cu,
-// int8 activations; flash_attention_tc.cu, prefill attention): the matmuls'
-// block tile, the inline PTX (cp.async, ldmatrix, mma.sync), the scale
-// side's loads and the products of one step. Each kernel keeps its own
-// loads, decode stage and epilogue. The decode flash kernel
-// (flash_attention.cu) takes only its cp.async helpers.
+// int8 activations; flash_attention_tc.cu, prefill attention): the
+// mma.sync matmuls' block tile, the inline PTX (cp.async, ldmatrix,
+// mma.sync; for the Hopper kernel quant_matmul_lowbit_tc.cu, mbarriers, TMA
+// tile loads and wgmma), the scale side's loads, the products of one
+// step, and the card each launcher reads per device (CardCache). Each
+// kernel keeps its own loads, decode stage and epilogue. The
+// decode flash kernel (flash_attention.cu) takes only its cp.async helpers.
 //
-// A block of 8 warps owns kBM = 128 activation rows by kBN = 128 or 64
-// output rows and walks 64 positions of x a step; x and the decoded bf16
-// weight tile sit in shared memory with rows padded to 144 bytes, so the 8
-// rows an ldmatrix reads fall on distinct banks.
+// In the mma.sync kernels a block of 8 warps owns kBM = 128 activation rows
+// by kBN = 128 or 64 output rows and walks 64 positions of x a step; x and
+// the decoded bf16 weight tile sit in shared memory with rows padded to 144
+// bytes, so the 8 rows an ldmatrix reads fall on distinct banks.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "side.cuh"
 
@@ -39,6 +43,55 @@ struct Tile {
   static constexpr int kWarpsN = kBN / 32;
   static constexpr int kWarpM = kBM / (kThreads / 32 / kWarpsN);           // 64 or 32 rows a warp
   static constexpr int kMT = kWarpM / 16;                                  // m16 tiles a warp
+};
+
+// What a launch plan reads of a device and of one kernel instance: the
+// device's SMs, shared memory an SM holds, a block may opt into and a block
+// reserves, threads and registers an SM; the instance's registers a thread.
+struct Card {
+  int sms, smem_sm, smem_block, smem_reserve, threads_sm, regs_sm, regs;
+};
+constexpr int kMaxDevices = 64;
+
+// One Card a device for one instance (a static of the instance's launcher),
+// read on the instance's first use on that device, where its shared-memory
+// opt-in (`optin` bytes; the device's most where 0) is set too. A lock
+// guards the first read, so any thread may launch on any device.
+class CardCache {
+ public:
+  template <class K>
+  int get(K kernel, int optin, Card& c) {
+    int dev = 0;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc == 0 && (dev < 0 || dev >= kMaxDevices)) rc = (int)cudaErrorInvalidValue;
+    if (rc != 0) return rc;
+    std::lock_guard<std::mutex> lock(mu_);
+    if (!ready_[dev]) {
+      Card& n = cards_[dev];
+      const cudaDeviceAttr attr[6] = {
+          cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+          cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrReservedSharedMemoryPerBlock,
+          cudaDevAttrMaxThreadsPerMultiProcessor, cudaDevAttrMaxRegistersPerMultiprocessor};
+      int* const dst[6] = {&n.sms, &n.smem_sm, &n.smem_block, &n.smem_reserve, &n.threads_sm,
+                           &n.regs_sm};
+      for (int i = 0; rc == 0 && i < 6; ++i) rc = (int)cudaDeviceGetAttribute(dst[i], attr[i], dev);
+      if (rc == 0)
+        rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       optin > 0 ? optin : n.smem_block);
+      cudaFuncAttributes fa;
+      if (rc == 0) rc = (int)cudaFuncGetAttributes(&fa, kernel);
+      if (rc != 0) return rc;
+      n.regs = fa.numRegs;
+      ready_[dev] = true;
+    }
+    c = cards_[dev];
+    return 0;
+  }
+
+ private:
+  std::mutex mu_;
+  Card cards_[kMaxDevices];
+  bool ready_[kMaxDevices] = {};
 };
 
 // PTX: the only inline assembly of the tensor-core kernels.
@@ -122,6 +175,180 @@ __device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
   asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
   return d;
 }
+
+// Hopper (sm_90a) pieces of quant_matmul_lowbit_tc.cu: mbarriers, TMA tile
+// loads, wgmma and the register hand-off between warpgroups.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also expects `bytes` more of asynchronous copies.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Expects `bytes` more of asynchronous copies in the current phase, no
+// arrival.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed (a fresh barrier
+// counts the phase before its first, of parity 1, as completed).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// A 2D tile of the tensor map (a __grid_constant__ kernel parameter) at
+// element coordinates (c0 innermost, c1) into shared memory; its bytes
+// complete on bar. Out-of-range elements land as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3}], [%4];\n"
+               :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Makes this thread's shared-memory stores visible to wgmma and TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+// Barrier `id` (1..15) among `count` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// The wgmma descriptor of a K-major bf16 operand tile with the 128-byte
+// swizzle: rows of 64 values (128 bytes), 8-row atoms 1024 bytes apart, the
+// tile 1024-byte aligned. Adding 2 moves it 16 values along K.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32)
+         | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kN) : "memory");
+}
+
+// d (64 x n f32, the warpgroup's accumulators) += a (64 x 16 bf16) * b (16 x
+// n bf16, K-major at descriptor db): a from registers (wgmma_rs, the
+// m16n8k16 A fragment of warp w's rows 16w..16w+15) or from a descriptor
+// (wgmma_ss). d[4j + e]: row g (+8 for e >= 2) of the warp's 16, column 8j +
+// 2t + e%2.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
 // end PTX
 
 // Sub-blocks k0..k0+kPer-1 of one side of a row, as side_at reads them,

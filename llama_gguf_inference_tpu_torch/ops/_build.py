@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,19 +61,35 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
+def _nvcc_cmd(name: str, out: str) -> list[str]:
+    return [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, os.path.join(_CSRC, name + ".cu"), "-o", out]
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's report of ``csrc/<name>.cu``, compiled again into a
+    temporary file under :data:`BUILD_DIR` (a library already built keeps no
+    report)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        proc = subprocess.run(_nvcc_cmd(name, os.path.join(d, name + ".so")),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{name}.cu:\n{proc.stdout}")
+    return proc.stdout
+
+
 def build_all() -> dict[str, str]:
     """Compile every missing library in parallel; returns name -> ptxas
     report (empty for a library that was already built)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name in SOURCES:
         out = _lib_path(name)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", _CSRC, os.path.join(_CSRC, name + ".cu"), "-o", tmp]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        procs[name] = (subprocess.Popen(_nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     reports = {name: "" for name in SOURCES}
@@ -137,6 +154,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         for fn in ("lgt_quant_matmul_4bit_tc", "lgt_quant_matmul_2bit_tc"):
             getattr(lib, fn).argtypes = [p] * 8 + [i] * 11 + [p]
             getattr(lib, fn).restype = i
+        # its launch plan: B, in, out, nsub, the sides, the bits, the rule,
+        # the code map, an int[9] to fill
+        lib.lgt_quant_matmul_lowbit_tc_plan.argtypes = [i] * 9 + [p]
+        lib.lgt_quant_matmul_lowbit_tc_plan.restype = i
     elif name == "quant_matmul_int8_tc":
         # xq (sub-block-major), xs and xsum interleaved, codes, d, sc, dmin,
         # mn, y; B, in, out, nsub, nd, bias, the sides; the stream

@@ -116,13 +116,14 @@ NAME_DEQUANT = "quant_matmul_dequant"
 TC_MIN_ROWS = 8
 TC_STEP = 64      # the tensor-core kernels' step: they need in and nsub multiples of it
 # activation rows from which quant_matmul_2bit and quant_matmul_4bit (and the
-# base, xsum and split wrappers, which cross alike) take the tensor-core
-# kernel: on an H100 the decode kernel, which reads the codes again for each
-# 8 activation rows, wins a layer's four 8B projections at 24 rows (Q4_K
-# flat 0.594 against 0.662 ms, Q2_K mixed 0.781 against 0.813), the
-# tensor-core kernel at 32 (0.663 against 0.764, 0.814 against 1.027;
-# PERF.md §6, tools/tc_ablate.py --full-only --kinds q4_k,q2_k)
-LOWBIT_TC_MIN_ROWS = 32
+# base, xsum and split wrappers) take the tensor-core (wgmma) kernel: on an
+# H100 the decode kernel, which reads the codes again for each 8 activation
+# rows, wins a layer's four 8B projections at 8 rows (Q4_K flat 0.256
+# against 0.272 ms, Q2_K mixed 0.313 against 0.417, the base rule 0.216
+# against 0.256), the tensor-core kernel at 16 (0.272 against 0.425, 0.415
+# against 0.549, 0.255 against 0.352; PERF.md §6, tools/tc_ablate.py
+# --full-only --kinds q4_k,q2_k,q4_k_base)
+LOWBIT_TC_MIN_ROWS = 16
 # activation rows from which quant_matmul_4bit_int8 takes the tensor-core
 # kernel of csrc/quant_matmul_int8_tc.cu: on an H100 the decode kernel wins
 # a layer's four 8B projections at 32 rows (0.498 against 0.611 ms), the

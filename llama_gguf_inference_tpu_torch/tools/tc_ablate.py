@@ -4,11 +4,15 @@
         [--full-only]
 
 Builds each tensor-core source into the build directory as it is and cut:
-``csrc/quant_matmul_tc.cu`` (8-bit codes) and
-``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes) without their decode
-stage (each step's weight tile left as an earlier step wrote it) and without
-their products (``ldmatrix`` and ``mma.sync``); the 2/4-bit one also
-without its min-term epilogue; ``csrc/quant_matmul_int8_tc.cu`` (int8
+``csrc/quant_matmul_tc.cu`` (8-bit codes) without its decode stage (each
+step's weight tile left as an earlier step wrote it) and without its
+products (``ldmatrix`` and ``mma.sync``); ``csrc/quant_matmul_lowbit_tc.cu``
+(2- and 4-bit codes, ``wgmma``) without its decode (the code words passed
+to ``wgmma`` as they are), without its products (one integer op on the
+fragments in place of each ``wgmma``, the min term's too), without its min
+term (no A or B tiles formed, no min ``wgmma``), with only its loads (each
+stage waited for and handed back, nothing computed) and without its code
+loads (no code tiles fetched); ``csrc/quant_matmul_int8_tc.cu`` (int8
 activations) without its decode (the weight fragments' shared-memory reads
 and byte transposes: constant fragments), without its s8 ``mma.sync``
 (sums made from the fragments by one integer op) and without its scaling
@@ -16,8 +20,8 @@ epilogue (one f32 add a sum in place of the conversion, the two scales and
 the min term, and their shared-memory loads). Times each build, and the
 decode kernel and ``torch.matmul`` on a bf16 weight of the same shape, at
 the 8B's projections for 8, 16, 32, 64 and 512 activation rows (the int8
-body and the 2/4-bit fsplit kinds also 24 and 48, about where their decode
-kernels cross), in the
+body and the 2/4-bit fsplit kinds also 24, 48 and 300, about where their
+decode kernels cross and a ragged 128-row tile), in the
 layout each kernel serves: Q5_K compact (8-bit, with its min), Q4_K flat
 (4-bit fsplit, the base rule, and the int8 body) and Q2_K mixed (2-bit) or
 flat (the base_f32 rule); codes and scales drawn from ``--seed``. The int8
@@ -75,7 +79,7 @@ from ..ops import quant_matmul as qm
 SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
           "down": (4096, 14336)}
 ROWS = (8, 16, 32, 64, 512)
-CROSS_ROWS = (8, 16, 24, 32, 48, 64, 512)
+CROSS_ROWS = (8, 16, 24, 32, 48, 64, 300, 512)
 DECODE_ROWS = (1, 4)
 KINDS = ("q5_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base", "q2_k_base", "q5_k_decode",
          "q6_k_decode", "q4_k_int8_decode", "q4_k_decode", "q2_k_decode")
@@ -87,7 +91,6 @@ SOURCE = {"q5_k": ("quant_matmul_tc",) * 2, "q4_k_int8": ("quant_matmul_int8_tc"
           "q6_k_decode": ("quant_matmul", "quant_matmul_8bit"),
           "q4_k_int8_decode": ("quant_matmul", "quant_matmul_int8"),
           **{k: ("quant_matmul", "quant_matmul_lowbit") for k in ("q4_k_decode", "q2_k_decode")}}
-_PRODUCTS = ("    if (i >= 0 && warp_live) {", "    if (false) {")
 # each cut set's builds: the text each replaces (or a list of such edits)
 CUTS = {
     "quant_matmul_8bit": {
@@ -159,13 +162,48 @@ CUTS = {
         "ring3": ("constexpr int kLbRing = 2;", "constexpr int kLbRing = 3;")},
     "quant_matmul_tc": {
         "no_decode": ("      decode_run<kM, kPer>(", "      if (false) decode_run<kM, kPer>("),
-        "no_products": _PRODUCTS},
+        "no_products": ("    if (i >= 0 && warp_live) {", "    if (false) {")},
     "quant_matmul_lowbit_tc": {
-        "no_decode": ("      decode_plane<kVar, kBits, kMap, kM, kPer>(",
-                      "      if (false) decode_plane<kVar, kBits, kMap, kM, kPer>("),
-        "no_products": _PRODUCTS,
-        "no_min": ("  if (kMinTerm<kVar> && (kM != kNone || a.bias != 0)) {",
-                   "  if (false) {")},
+        "no_decode": ("""          decode4<kVar, kM, kMap>((creg[r][kk] >> (kBits * p)) & kMask, fa[r][kk], fb[r][kk],
+                                  magic, A[kk][r], A[kk][2 + r]);""",
+                      """        {
+          A[kk][r] = creg[r][kk] >> p;
+          A[kk][2 + r] = creg[r][kk] ^ p;
+        }"""),
+        "no_products": [
+            # a warpgroup barrier keeps its warps within a step of each other,
+            # as the wgmma's own collective issue did
+            ("      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, A[kk], dx + 2 * kk);",
+             """      for (int kk = 0; kk < 4; ++kk) acc[kk] += __int_as_float(A[kk][0] ^ A[kk][3] ^ (int)dx);
+      named_bar_sync(1 + wg, 128);"""),
+            ("""            wgmma_ss(acc, dh + 2 * kk, xh + 2 * kk);
+            wgmma_ss(acc, dh + 2 * kk, xl + 2 * kk);
+            wgmma_ss(acc, dl + 2 * kk, xh + 2 * kk);""",
+             "            acc[kk] += __int_as_float((int)(dh ^ xl ^ dl));")],
+        "no_min": ("  const bool min_live = kMinTerm<kVar> && (kM != kNone || a.bias != 0);",
+                   "  const bool min_live = false;"),
+        "loads_only": [
+            ("  const bool min_live = kMinTerm<kVar> && (kM != kNone || a.bias != 0);",
+             "  const bool min_live = false;"),
+            ("      mbar_wait(full + st, (it / L::kStages) & 1);\n      if (p == 0) {",
+             """      mbar_wait(full + st, (it / L::kStages) & 1);
+      if (a.bias != 12345) {
+        named_bar_sync(1 + wg, 128);   // every warp is past this stage's wait
+        if ((tid & 127) == 0) {
+          mbar_arrive(empty + st);
+          if (aux_pend && n == 1) mbar_arrive(aux_empty);
+        }
+        aux_pend = aux_pend && n == 0;
+        acc[0] += sm[st * L::kX + lane];
+        ++it;
+        return;
+      }
+      if (p == 0) {""")],
+        "no_code_loads": [
+            ("            mbar_arrive_tx(full + st, L::kX + (p == 0 ? kLtCode : 0));",
+             "            mbar_arrive_tx(full + st, L::kX);"),
+            ("            if (p == 0) tma_load_2d(sm + L::kCs + st * kLtCode, &tmc, j0, m0, full + st);",
+             "            if (false) tma_load_2d(sm + L::kCs + st * kLtCode, &tmc, j0, m0, full + st);")]},
     "quant_matmul_int8_tc": {
         "no_decode": ("            w[j] = *reinterpret_cast<const uint32_t*>(cr + (tr + j) * 16 + kb + 4 * q);",
                       "            w[j] = 0x01020304u * (j + 1);"),

@@ -31,7 +31,7 @@ struct emu_index { unsigned x, y, z; };
 inline thread_local emu_index threadIdx, blockIdx, gridDim;
 
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801 };
 inline int cudaGetLastError() { return 0; }
 
 template <class T> inline T __ldg(const T* p) { return *p; }

@@ -15,13 +15,29 @@
 // __threadfence does nothing and an __ldcg is a plain load: that holds the
 // decode flash kernel's split partials, merge and counter reset, not their
 // ordering between blocks running at once.
+//
+// For the Hopper kernel (quant_matmul_lowbit_tc.cu): an mbarrier is a
+// counter of arrivals and expected bytes with a phase, waited on by parity;
+// a TMA tile load (its tensor map from cuda.h's stand-in encoder) lands,
+// swizzled by the address bits as the hardware swizzles them and with
+// zeros past the array's edge, only when the phase that expects its bytes
+// completes; a wgmma is queued at its issue and runs at the wait_group that
+// retires its group, reading then (not at issue) the A fragment registers
+// of its warpgroup's 128 threads and the shared-memory tiles its
+// descriptors name, so a register or a stage reused before the wait shows.
+// setmaxnreg and the proxy fences do nothing; bar.sync with an id meets at
+// a barrier of its own.
 #pragma once
+#include <condition_variable>
 #include <cstring>
 #include <deque>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
+#include "cuda.h"
 #include "cuda_bf16.h"
 #include "cuda_runtime.h"
 
@@ -80,17 +96,35 @@ inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr attr, int) {
   return 0;
 }
 
+struct emu_tma {
+  unsigned char* dst;
+  CUtensorMap map;
+  int c0, c1;
+};
+struct emu_mbar {
+  int count, pending, phase;
+  long expect, issued;
+  std::vector<emu_tma> copies;
+};
+
 struct emu_block {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
-  std::vector<unsigned char> smem;
+  std::vector<std::unique_ptr<std::barrier<>>> wg_bar;
+  std::unique_ptr<std::barrier<>> named[16];
+  std::vector<unsigned char> smem_buf;
+  unsigned char* smem;   // 1024-byte aligned within smem_buf
   const unsigned char* addr[32][32];
   uint32_t regs[32][32][6];
+  uint32_t wg_regs[4][128][4];
+  std::mutex mu;
+  std::condition_variable cv;
+  std::map<const void*, emu_mbar> mbars;
 };
 inline thread_local emu_block* emu_blk;
 inline thread_local int emu_tid;
 
-inline unsigned char* emu_smem() { return emu_blk->smem.data(); }
+inline unsigned char* emu_smem() { return emu_blk->smem; }
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_blk->warp_bar[emu_tid >> 5]->arrive_and_wait();
@@ -248,6 +282,170 @@ inline void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0, int c
   b->warp_bar[w]->arrive_and_wait();
 }
 
+
+// ---- Hopper: mbarriers, TMA, wgmma ----
+#define __grid_constant__
+
+inline void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  emu_blk->mbars[bar] = emu_mbar{count, count, 0, 0, 0, {}};
+}
+inline void mbar_fence_init() {}
+
+// the byte offset in shared memory where a swizzled access to `off` lands:
+// the 128-byte mode XORs address bits 4-6 with bits 7-9, the 64-byte mode
+// bits 4-5 with bits 7-8
+inline int emu_swizzle(int off, int mode) {
+  if (mode == CU_TENSOR_MAP_SWIZZLE_128B) return off ^ ((off >> 3) & 0x70);
+  if (mode == CU_TENSOR_MAP_SWIZZLE_64B) return off ^ ((off >> 3) & 0x30);
+  return off;
+}
+
+// with the block's lock held: completes the phase once every arrival and
+// every expected byte is in, landing the phase's copies first
+inline void emu_mbar_try(emu_mbar& m) {
+  if (m.pending > 0 || m.issued < m.expect) return;
+  unsigned char* sm = emu_smem();
+  for (const emu_tma& c : m.copies) {
+    const CUtensorMap& t = c.map;
+    const int base = (int)(c.dst - sm);
+    for (uint32_t r = 0; r < t.box[1]; ++r)
+      for (uint32_t e = 0; e < t.box[0]; ++e) {
+        const uint64_t gc = (uint64_t)c.c0 + e, gr = (uint64_t)c.c1 + r;
+        const int off = emu_swizzle(base + (int)((r * t.box[0] + e) * t.esize), t.swizzle);
+        if (gc < t.dims[0] && gr < t.dims[1])
+          std::memcpy(sm + off, t.base + gr * t.stride + gc * t.esize, t.esize);
+        else
+          std::memset(sm + off, 0, t.esize);
+      }
+  }
+  m.copies.clear();
+  m.phase ^= 1;
+  m.pending = m.count;
+  m.expect = m.issued = 0;
+  emu_blk->cv.notify_all();
+}
+
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  emu_mbar& m = emu_blk->mbars.at(bar);
+  --m.pending;
+  emu_mbar_try(m);
+}
+inline void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  emu_mbar& m = emu_blk->mbars.at(bar);
+  m.expect += bytes;
+  --m.pending;
+  emu_mbar_try(m);
+}
+inline void mbar_expect_tx(uint64_t* bar, int bytes) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  emu_blk->mbars.at(bar).expect += bytes;
+}
+// the phase of parity `parity` has completed once the current one differs
+inline void mbar_wait(uint64_t* bar, int parity) {
+  std::unique_lock<std::mutex> lk(emu_blk->mu);
+  emu_mbar& m = emu_blk->mbars.at(bar);
+  emu_blk->cv.wait(lk, [&] { return m.phase != parity; });
+}
+inline void tma_load_2d(void* dst, const void* map, int c0, int c1, uint64_t* bar) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  emu_mbar& m = emu_blk->mbars.at(bar);
+  const CUtensorMap& t = *static_cast<const CUtensorMap*>(map);
+  m.copies.push_back({static_cast<unsigned char*>(dst), t, c0, c1});
+  m.issued += (long)t.box[0] * t.box[1] * t.esize;
+  emu_mbar_try(m);
+}
+
+inline void fence_proxy_async() {}
+template <int kRegs> inline void setmaxnreg_inc() {}
+template <int kRegs> inline void setmaxnreg_dec() {}
+inline void named_bar_sync(int id, int count) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lk(emu_blk->mu);
+    if (!emu_blk->named[id]) emu_blk->named[id] = std::make_unique<std::barrier<>>(count);
+    bar = emu_blk->named[id].get();
+  }
+  bar->arrive_and_wait();
+}
+
+// The descriptor of a K-major tile with the 128-byte swizzle as the card's
+// wgmma_desc builds it: start address / 16 (here the offset in the block's
+// shared memory), leading byte offset 16, stride byte offset 1024, layout 1.
+inline uint64_t wgmma_desc(const void* p) {
+  const uint64_t off = (uint64_t)(static_cast<const unsigned char*>(p) - emu_smem());
+  return ((off & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// The shared-memory byte offset of element (row, k) (k < 16) of the operand
+// at descriptor desc: rows of 8-row core-matrix groups stride-byte-offset
+// apart, each row 128 bytes, k at 2 bytes, then the 128-byte swizzle on the
+// address bits (layout 1, the only one these kernels use).
+inline int emu_desc_addr(uint64_t desc, int row, int k) {
+  const int start = (int)(desc & 0x3FFF) << 4, sbo = (int)((desc >> 32) & 0x3FFF) << 4;
+  const int addr = start + (row / 8) * sbo + (row % 8) * 128 + 2 * k;
+  return (desc >> 62) == 1 ? emu_swizzle(addr, CU_TENSOR_MAP_SWIZZLE_128B) : addr;
+}
+
+struct emu_wgmma { int n; float* d; const uint32_t* a; uint64_t da, db; };
+inline thread_local std::vector<emu_wgmma> emu_wg_open;
+inline thread_local std::deque<std::vector<emu_wgmma>> emu_wg_groups;
+
+template <int kAcc> inline void wgmma_rs(float (&d)[kAcc], const uint32_t (&a)[4], uint64_t db) {
+  emu_wg_open.push_back({2 * kAcc, d, a, 0, db});
+}
+template <int kAcc> inline void wgmma_ss(float (&d)[kAcc], uint64_t da, uint64_t db) {
+  emu_wg_open.push_back({2 * kAcc, d, nullptr, da, db});
+}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {
+  emu_wg_groups.push_back(std::move(emu_wg_open));
+  emu_wg_open.clear();
+}
+
+inline float emu_bf16_at(const unsigned char* p) {
+  uint16_t h;
+  std::memcpy(&h, p, 2);
+  return emu_half(h, 0);
+}
+
+// One m64nNk16 of the thread's warpgroup, run by all its 128 threads: each
+// publishes its A fragment (when A comes from registers) and computes its
+// own accumulators, d[4j + e] at row 16w + g (+8 for e >= 2), column 8j + 2t
+// + e%2. A's element (row, k) sits in the register of lane 4*(row%8) +
+// (k%8)/2 of warp row/16, word (row%16)/8 + 2*(k/8), half k%2 (the m16n8k16
+// A fragment).
+inline void emu_wgmma_run(const emu_wgmma& op) {
+  emu_block* b = emu_blk;
+  const int wg = emu_tid >> 7, lt = emu_tid & 127;
+  if (op.a) std::memcpy(b->wg_regs[wg][lt], op.a, 16);
+  b->wg_bar[wg]->arrive_and_wait();
+  const unsigned char* sm = emu_smem();
+  const int w = lt >> 5, g = (lt & 31) >> 2, t = lt & 3;
+  for (int j = 0; j < op.n / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int row = 16 * w + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+      float s = op.d[4 * j + e];
+      for (int k = 0; k < 16; ++k) {
+        const float av = op.a
+            ? emu_half(b->wg_regs[wg][(row / 16) * 32 + (row % 8) * 4 + (k % 8) / 2]
+                                 [(row % 16) / 8 + 2 * (k / 8)], k % 2)
+            : emu_bf16_at(sm + emu_desc_addr(op.da, row, k));
+        s += av * emu_bf16_at(sm + emu_desc_addr(op.db, col, k));
+      }
+      op.d[4 * j + e] = s;
+    }
+  b->wg_bar[wg]->arrive_and_wait();
+}
+
+template <int kN> inline void wgmma_wait() {
+  while ((int)emu_wg_groups.size() > kN) {
+    for (const emu_wgmma& op : emu_wg_groups.front()) emu_wgmma_run(op);
+    emu_wg_groups.pop_front();
+  }
+}
+
 // kernel<<<grid, block, smem, stream>>>(args) is rewritten to
 // emu_launch_block(grid, block, smem, stream, [&] { kernel(args); }).
 template <class F>
@@ -262,7 +460,11 @@ void emu_launch_block(dim3 grid, int threads, int smem, cudaStream_t, F f) {
           blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
           warps[w].bar = blk.warp_bar[w].get();
         }
-        blk.smem.assign(smem, 0xff);
+        blk.smem_buf.assign(smem + 1024, 0xff);
+        blk.smem = reinterpret_cast<unsigned char*>(
+            (reinterpret_cast<uintptr_t>(blk.smem_buf.data()) + 1023) & ~uintptr_t(1023));
+        for (int g = 0; g < threads / 128; ++g)
+          blk.wg_bar.push_back(std::make_unique<std::barrier<>>(128));
         std::vector<std::thread> ts;
         for (int t = 0; t < threads; ++t)
           ts.emplace_back([&, t] {

@@ -1,10 +1,13 @@
 """The tensor-core matmul sources run on the CPU: ``csrc/quant_matmul_tc.cu``
-(8-bit codes), ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes, the
-fsplit, xsum, base and base_f32 rules; split through xsum's instances) and ``csrc/quant_matmul_int8_tc.cu`` (int8
-activations, s8 ``mma.sync``) compiled by g++ against the stand-in headers
-of ``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads, ``cp.async``
-copies that land at their wait, ``ldmatrix`` and ``mma.sync`` (bf16; s8 at
-k32 and k16) through a warp barrier in the PTX ISA's fragment layout), with
+(8-bit codes), ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes on
+Hopper's ``wgmma``, TMA and mbarriers; the fsplit, xsum, base and base_f32
+rules; split through xsum's instances) and ``csrc/quant_matmul_int8_tc.cu``
+(int8 activations, s8 ``mma.sync``) compiled by g++ against the stand-in
+headers of ``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads,
+``cp.async`` copies that land at their wait, ``ldmatrix`` and ``mma.sync``
+(bf16; s8 at k32 and k16) through a warp barrier in the PTX ISA's fragment
+layout; mbarriers, TMA tile loads that land when their phase completes and
+``wgmma`` run at the wait that retires it; ``cuda.h``: tensor maps), with
 the inline-PTX helpers of ``csrc/tc_common.cuh`` swapped for those
 stand-ins, driven through the port's own wrappers with their device check
 lifted, against the plain PyTorch versions.
@@ -412,3 +415,146 @@ def test_base_int8_dispatch_by_rows(emu, body):
         got = wrapper(*args)
         assert launches == {want: 1}
         assert _rel_err(got, plain(*args)) <= TOL
+
+
+# The operand address of a K-major bf16 tile with the 128-byte swizzle, as
+# the PTX ISA lays it out for wgmma's descriptors (and TMA's
+# CU_TENSOR_MAP_SWIZZLE_128B writes it): row r at (r // 8) * 1024 + (r % 8)
+# * 128 from the start address, element k at 2 * k, then the 16-byte chunk
+# index (address bits 4-6) XORed with the row within its 8-row group
+# (address bits 7-9). (tile offset, start advance in 16-byte units, row, k)
+# -> byte offset, worked by hand.
+DESC_TABLE = [(0, 0, 0, 0, 0), (0, 0, 0, 8, 16), (0, 0, 1, 0, 144), (0, 0, 1, 8, 128),
+              (0, 0, 3, 5, 442), (0, 0, 7, 15, 1006), (0, 0, 8, 0, 1024), (0, 0, 9, 0, 1168),
+              (0, 2, 0, 0, 32), (0, 2, 1, 0, 176), (0, 2, 5, 3, 758), (0, 6, 7, 15, 910),
+              (2048, 0, 2, 1, 2338), (2048, 4, 10, 9, 3442)]
+# (offset, mode) -> where a TMA copy's byte lands: the 64-byte mode XORs
+# address bits 4-5 with bits 7-8
+SWIZZLE_TABLE = [(0, 3, 0), (144, 3, 128), (1006, 3, 926), (16, 2, 16), (128, 2, 144),
+                 (144, 2, 128), (256, 2, 288), (400, 2, 416), (960, 2, 1008), (50, 0, 50)]
+
+
+@pytest.fixture(scope="module")
+def emu_addr(tmp_path_factory):
+    """tc_emu.h's descriptor and swizzle address functions, built alone."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the emulator")
+    d = tmp_path_factory.mktemp("cuda_emu_addr")
+    cpp, lib = d / "addr.cpp", d / "addr.so"
+    cpp.write_text('#include "tc_emu.h"\n'
+                   'extern "C" int desc_addr(unsigned long long d, int r, int k) '
+                   '{ return emu_desc_addr(d, r, k); }\n'
+                   'extern "C" int swizzle(int off, int mode) { return emu_swizzle(off, mode); }\n')
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-I",
+                           os.path.join(HERE, "cuda_emu"), str(cpp), "-o", str(lib)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0 and "barrier" in proc.stderr and "No such file" in proc.stderr:
+        pytest.skip("g++ lacks C++20's <barrier>")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    so = ctypes.CDLL(str(lib))
+    so.desc_addr.argtypes = [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int]
+    return so
+
+
+def test_wgmma_desc_swizzle_table(emu_addr):
+    """The emulator's wgmma descriptor and TMA swizzle addresses against a
+    table worked from the PTX ISA's 128-byte (and 64-byte) swizzle layouts;
+    the descriptor as csrc/tc_common.cuh's wgmma_desc builds it (start / 16,
+    leading byte offset 16, stride byte offset 1024, layout 1)."""
+    for off, adv, row, k, want in DESC_TABLE:
+        desc = ((off >> 4) + adv) | (1 << 16) | ((1024 >> 4) << 32) | (1 << 62)
+        assert emu_addr.desc_addr(desc, row, k) == want, (off, adv, row, k)
+    for off, mode, want in SWIZZLE_TABLE:
+        assert emu_addr.swizzle(off, mode) == want, (off, mode)
+
+
+# (bits, rule, B, out, in, sub, bias, layout, has min, signed sc, code map) of
+# the wgmma kernel: every rule at each bit width it takes, flat, compact and
+# mixed sides, sub-blocks of 16 and 32, Q3_K's and Q4_0's biases, Q2_K's
+# bias 1 beside an i8 compact scale, the IQ2/IQ3 maps; B of 32, 33, 64 (the
+# 64-row activation tile), 200 and 512 (128-row tiles, ragged at 200); out
+# 72, 136, 200 and 264 (ragged 128-row tiles); grids of up to the stand-in's
+# 4 SMs walking up to 12 tiles each (persistent blocks); in 1024 and 2048
+# (one or two chunks of 64 sub-blocks a tile)
+WGMMA_CASES = [(4, "fsplit", 512, 136, 1024, 16, 4, "compact", False, True, ""),
+               (4, "fsplit", 33, 264, 2048, 32, 0, "flat", True, False, ""),
+               (4, "fsplit", 200, 72, 2048, 32, 0, "mixed", True, False, ""),
+               (4, "fsplit", 64, 200, 2048, 32, 8, "flat", False, False, ""),
+               (4, "fsplit", 32, 136, 2048, 32, 0, "flat", False, False, "iq2_xs"),
+               (4, "fsplit", 200, 136, 2048, 32, 0, "compact", False, False, "iq3_s"),
+               (2, "fsplit", 200, 264, 1024, 16, 0, "mixed", True, False, ""),
+               (2, "fsplit", 512, 72, 2048, 16, 0, "flat", True, False, ""),
+               (2, "fsplit", 33, 136, 1024, 16, 1, "compact", True, True, ""),
+               (4, "xsum", 200, 264, 2048, 32, 0, "compact", True, False, ""),
+               (4, "xsum", 33, 136, 2048, 32, 0, "mixed", True, False, ""),
+               (4, "xsum", 64, 72, 1024, 16, 4, "flat", False, False, ""),
+               (4, "split", 512, 136, 1024, 16, 4, "compact", False, True, ""),
+               (4, "split", 32, 200, 2048, 32, 0, "flat", True, False, ""),
+               (4, "base", 200, 136, 2048, 32, 0, "flat", True, False, ""),
+               (4, "base", 33, 264, 2048, 32, 0, "compact", True, True, ""),
+               (4, "base", 512, 72, 1024, 16, 4, "flat", False, False, ""),
+               (2, "base_f32", 64, 136, 1024, 16, 0, "compact", True, False, ""),
+               (2, "base_f32", 200, 200, 2048, 16, 0, "flat", True, False, ""),
+               (4, "base_f32", 33, 136, 2048, 32, 0, "flat", False, False, "iq2_xs"),
+               (4, "base_f32", 512, 72, 2048, 32, 0, "compact", False, False, "iq3_s")]
+
+
+@pytest.mark.parametrize("bits,rule,B,out_f,in_f,sub,bias,layout,has_min,signed,fmt",
+                         WGMMA_CASES, ids=str)
+def test_lowbit_tc_wgmma_rules(emu, bits, rule, B, out_f, in_f, sub, bias, layout, has_min,
+                               signed, fmt):
+    """Every rule of the wgmma 2/4-bit kernel at prefill row counts, through
+    its tensor-core wrapper, against the plain version."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(bits * 1000 + B + out_f + in_f + sub + bias + len(rule))
+    codes, d, sc, dmin, mn = _lowbit_arrays(bits, out_f, in_f, sub, layout, has_min, signed, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    if layout == "mixed":
+        w = types.SimpleNamespace(min_size=256, sub_size=sub, in_features=in_f)
+        xsum = qm._mixed_xsum(xsum, w)
+    if rule == "base":
+        name, kernel, plain = qm.NAME_4BIT_BASE_TC, mod.quant_matmul_4bit_base_tc, \
+            qm.quant_matmul_4bit_base_plain
+        args = (x, codes, d, sc, dmin, mn, bias)
+    elif rule == "base_f32":
+        name, kernel, plain = qm.NAME_LOWBIT_BASE_TC, mod.quant_matmul_lowbit_base_tc, \
+            qm.quant_matmul_lowbit_base_plain
+        args = (x, codes, d, sc, dmin, mn, bias, bits, fmt)
+    elif rule == "fsplit":
+        name = qm.NAME_4BIT_TC if bits == 4 else qm.NAME_2BIT_TC
+        kernel = getattr(mod, name)
+        plain = getattr(qm, f"quant_matmul_{bits}bit_plain")
+        args = (x, xsum, codes, d, sc, dmin, mn, bias, fmt)
+    else:
+        name = qm.NAME_4BIT_XSUM_TC if rule == "xsum" else qm.NAME_4BIT_SPLIT_TC
+        kernel = getattr(mod, f"quant_matmul_4bit_{rule}_tc")
+        plain = getattr(qm, f"quant_matmul_4bit_{rule}_plain")
+        args = (x, xsum, codes, d, sc, dmin, mn, bias)
+    before = launches.get(name, 0)
+    got = kernel(*args)
+    assert launches[name] == before + 1
+    assert _rel_err(got, plain(*args)) <= TOL
+
+
+def _tool_edits():
+    """(cut set, cut name, source) of every cut that ``tools/tc_ablate.py``
+    makes to a CUDA source."""
+    from llama_gguf_inference_tpu_torch.tools import tc_ablate
+    lib = {"quant_matmul_8bit": "quant_matmul", "quant_matmul_int8": "quant_matmul",
+           "quant_matmul_lowbit": "quant_matmul"}
+    return [(cuts, name, lib.get(cuts, cuts))
+            for cuts, edits in tc_ablate.CUTS.items() for name in edits]
+
+
+@pytest.mark.parametrize("cuts,name,source", _tool_edits(), ids=str)
+def test_tool_edits_apply(cuts, name, source):
+    """Every cut of tools/tc_ablate.py finds the text it replaces exactly
+    once in the source it builds, as the tool requires on the card."""
+    from llama_gguf_inference_tpu_torch.tools import tc_ablate
+    with open(os.path.join(CSRC, source + ".cu")) as f:
+        src = f.read()
+    edits = tc_ablate.CUTS[cuts][name]
+    for old, _ in edits if isinstance(edits, list) else [edits]:
+        assert src.count(old) == 1, old[:80]

@@ -1102,3 +1102,65 @@ def test_quant_matmul_lowbit_decode_8b_shapes(dev, fmt, shape, rule, B):
     torch.cuda.synchronize()
     assert _build.LAUNCHES[name] == before + 1
     _close(got, plain(*args), 1e-4)
+
+
+# the 2/4-bit tensor-core kernel's weights at the 8B shapes, each with the
+# rules that take it: fsplit every format, xsum and split and the base rule
+# the 4-bit identity codes (Q4_K flat and compact, Q3_K), base_f32 Q2_K flat
+# and compact (the base rules take no mixed layout)
+LOWBIT_TC_RULES_8B = {"fsplit": ("q4_k", "q4_k_compact", "q3_k", "q2_k", "q2_k_compact",
+                                 "q2_k_mixed"),
+                      "xsum": ("q4_k", "q4_k_compact", "q3_k"),
+                      "split": ("q4_k", "q4_k_compact", "q3_k"),
+                      "base": ("q4_k", "q4_k_compact", "q3_k"),
+                      "base_f32": ("q2_k", "q2_k_compact")}
+LOWBIT_TC_8B = [(fmt, shape, rule) for fmt in FORMATS_LOWBIT
+                for shape in ("qkv", "o", "gate_up", "down")
+                for rule in LOWBIT_TC_RULES_8B if fmt in LOWBIT_TC_RULES_8B[rule]]
+_FULL_LOWBIT_TC = {}
+
+
+@pytest.mark.parametrize("B", [16, 24, 32, 48, 64, 300, 512])
+@pytest.mark.parametrize("fmt,shape,rule", LOWBIT_TC_8B, ids=str)
+def test_quant_matmul_lowbit_tc_8b_shapes(dev, fmt, shape, rule, B):
+    """The 2/4-bit tensor-core (wgmma) kernel at the 8B projections, each
+    rule through its tensor-core wrapper, at prefill row counts: the 64-row
+    activation tile (16, 24, 32, 48, 64; from LOWBIT_TC_MIN_ROWS) and the
+    128-row one (300 ragged, 512); one
+    weight kept while its rules and row counts run."""
+    bits, sub, bias, layout, signed, has_min = FORMATS_LOWBIT[fmt]
+    out_f, in_f = SHAPES_8B[shape]
+    if (fmt, shape) not in _FULL_LOWBIT_TC:
+        _FULL_LOWBIT_TC.clear()
+        torch.cuda.empty_cache()
+        g = torch.Generator().manual_seed(out_f + in_f + sub + bits)
+        arrs = _lowbit_arrays(bits, out_f, in_f, sub, bias, layout, signed, g)
+        if not has_min:
+            arrs = (*arrs[:3], None, None)
+        _FULL_LOWBIT_TC[(fmt, shape)] = [t if t is None else t.to(dev) for t in arrs]
+    arrs = _FULL_LOWBIT_TC[(fmt, shape)]
+    x = torch.randn(B, in_f, generator=torch.Generator().manual_seed(B)).bfloat16()
+    xsum = qm._block_sums(x, sub)
+    if layout == "mixed":
+        xsum = xsum.reshape(B, in_f // 256, 256 // sub).transpose(1, 2).reshape(B, -1)
+    x, xsum = x.to(dev), xsum.contiguous().to(dev)
+    if rule == "base":
+        kern, plain, name = (qm.quant_matmul_4bit_base_tc, qm.quant_matmul_4bit_base_plain,
+                             qm.NAME_4BIT_BASE_TC)
+        args = (x, *arrs, bias)
+    elif rule == "base_f32":
+        kern, plain, name = (qm.quant_matmul_lowbit_base_tc, qm.quant_matmul_lowbit_base_plain,
+                             qm.NAME_LOWBIT_BASE_TC)
+        args = (x, *arrs, bias, bits)
+    else:
+        suffix = "" if rule == "fsplit" else f"_{rule}"
+        kern = getattr(qm, f"quant_matmul_{bits}bit{suffix}_tc")
+        plain = getattr(qm, f"quant_matmul_{bits}bit{suffix}_plain")
+        name = {"fsplit": qm.NAME_4BIT_TC if bits == 4 else qm.NAME_2BIT_TC,
+                "xsum": qm.NAME_4BIT_XSUM_TC, "split": qm.NAME_4BIT_SPLIT_TC}[rule]
+        args = (x, xsum, *arrs, bias)
+    before = _build.LAUNCHES.get(name, 0)
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    _close(got, plain(*args), 1e-4)
