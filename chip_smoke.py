@@ -9,10 +9,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
    plans    — the 8-bit, int8 and 2/4-bit decode kernels' launch plans at the 8B
               shapes (grid, block, shared bytes, registers, spills, resident
               warps; a spill fails the run); the 2/4-bit tensor-core (wgmma)
-              kernel's plans at 32 and 512 rows (with the host's time to
-              build a launch's tensor maps) and every instance's
-              registers, spills and whether its SASS holds HGMMA (a spill or
-              a missing HGMMA fails the run)
+              kernel's plans at 32 and 512 rows and the int8 one's at
+              INT8_TC_MIN_ROWS and 512 (with the host's time to build a
+              launch's tensor maps), and every instance of each with its
+              registers, spills and its SASS's count of HGMMA (bf16 wgmma)
+              and, int8, IGMMA (s8 wgmma) (a spill or a missing GMMA fails
+              the run)
 3. kernels  — each kernel against its plain PyTorch version at the 8B
               shapes: 4-bit matmul (flat Q4_K) at the four projection shapes
               for 1, 4 and 512 rows, and with Q3_K's geometry (sub-blocks of
@@ -284,6 +286,12 @@ PLANS_LOWBIT += [(f"q3_k flat {name}", name, 4, 16, 1, 0) for name in ("o", "dow
 PLANS_LOWBIT_TC = [(f"q4_k flat {name}", name, 4, 32, 1, 1) for name in ("qkv", "o", "gate_up")]
 PLANS_LOWBIT_TC += [(f"q2_k mixed {name}", name, 2, 16, 1, 2) for name in ("qkv", "o", "gate_up")]
 
+# the int8 tensor-core kernel's launch at the 8B shapes of its 512-token
+# chunk (Q4_K flat) and at Q3_K's o, at B = INT8_TC_MIN_ROWS and 512:
+# (label, projection, sub-block size, scale side, min side)
+PLANS_INT8_TC = [(f"q4_k flat {name}", name, 32, 1, 1) for name in ("qkv", "o", "gate_up")]
+PLANS_INT8_TC += [("q3_k flat o", "o", 16, 1, 0)]
+
 
 def _ptxas(report: str, kernel: str) -> dict:
     """Template arguments -> registers and spill bytes of each instance of
@@ -333,27 +341,31 @@ def _sass_functions(path: str) -> dict[str, str]:
     return {part.split()[0]: part for part in out.split("Function : ")[1:]}
 
 
-def _tc_instances(report: str) -> list[dict]:
-    """Every instance of the 2/4-bit tensor-core kernel: its template
-    arguments (bits, rule, code map, scale side, min side, activation rows
-    a tile), ptxas's registers and spills, and whether its SASS holds
-    ``HGMMA`` (wgmma); ``report`` is empty where the library was already
-    built, and the source is then compiled again for ptxas's report. No
-    instance, an instance without ptxas's registers, a spill or an instance
-    without HGMMA fails the run."""
+def _tc_instances(report: str, source: str, kernel: str, gmma: tuple[str, ...]) -> list[dict]:
+    """Every instance of the wgmma kernel ``kernel`` of ``csrc/<source>.cu``:
+    its template arguments, ptxas's registers and spills, and how many
+    instructions of each SASS mnemonic of ``gmma`` (``HGMMA``, bf16 wgmma;
+    ``IGMMA``, s8 wgmma) its SASS holds, and whether ptxas reports its
+    wgmmas serialized; ``report`` is empty where the
+    library was already built, and the source is then compiled again for
+    ptxas's report. No instance, an instance without ptxas's registers, a
+    spill or an instance without one of ``gmma`` fails the run."""
     from llama_gguf_inference_tpu_torch.ops import _build
-    kernel = "quant_matmul_lowbit_tc_kernel"
-    ptxas = _ptxas(report or _build.ptxas_report("quant_matmul_lowbit_tc"), kernel)
+    report = report or _build.ptxas_report(source)
+    ptxas = _ptxas(report, kernel)
+    serialized = [ln for ln in report.splitlines() if "wgmma" in ln and "serialized" in ln]
     out = []
-    for name, sass in _sass_functions(_build._lib_path("quant_matmul_lowbit_tc")).items():
+    for name, sass in _sass_functions(_build._lib_path(source)).items():
         if kernel + "I" not in name:
             continue
         targs = tuple(int(v) for v in re.findall(r"L[ib](\d+)E", name.split(kernel + "I")[1]))
-        out.append({"instance": list(targs), "hgmma": "HGMMA" in sass, **ptxas.get(targs, {})})
-    bad = [i for i in out if not i["hgmma"] or i.get("spill_stores", 0) or i.get("spill_loads", 0)
-           or "ptxas_registers" not in i]
+        counts = {op.lower(): len(re.findall(rf"\b{op}\b", sass)) for op in gmma}
+        out.append({"instance": list(targs), **counts, **ptxas.get(targs, {}),
+                    "wgmma_serialized": any(name in ln for ln in serialized)})
+    bad = [i for i in out if not all(i[op.lower()] for op in gmma) or i.get("spill_stores", 0)
+           or i.get("spill_loads", 0) or "ptxas_registers" not in i]
     if not out or bad:
-        raise AssertionError(f"tensor-core 2/4-bit instances without HGMMA or spilling: {bad}")
+        raise AssertionError(f"{source} instances without {gmma} or spilling: {bad}")
     return out
 
 
@@ -368,7 +380,9 @@ def phase_plans(torch, reports: dict) -> None:
     activation rows a tile; its registers those at entry, before
     setmaxnreg), and each of its instances' registers, spills and HGMMA
     (:func:`_tc_instances`). A spill, or a tensor-core instance without
-    HGMMA, fails the run."""
+    HGMMA, fails the run; the int8 tensor-core kernel's the same at
+    INT8_TC_MIN_ROWS and 512 rows, its instances' registers, spills and
+    IGMMA and HGMMA counts."""
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     report = reports["quant_matmul"]
@@ -412,13 +426,24 @@ def phase_plans(torch, reports: dict) -> None:
                                                               args[6])
             plans_tc.append(_plan_line(plan_fn, B, in_f, out_f, in_f // sub, s_side, m_side, 9,
                                        label))
-    for line in plans + plans_i8 + plans_lb + plans_tc:
+    i8_lib = _build.library("quant_matmul_int8_tc")
+    plans_i8tc = [_plan_line(i8_lib.lgt_quant_matmul_int8_tc_plan, B, SHAPES_4BIT[name][1],
+                             SHAPES_4BIT[name][0], SHAPES_4BIT[name][1] // sub, s_side, m_side,
+                             9, label)
+                  for label, name, sub, s_side, m_side in PLANS_INT8_TC
+                  for B in (qm.INT8_TC_MIN_ROWS, 512)]
+    for line in plans + plans_i8 + plans_lb + plans_tc + plans_i8tc:
         if line["local_bytes"] or line.get("spill_stores", 0):
             raise AssertionError(f"kernel spills: {line}")
     emit({"phase": "plans", "quant_matmul_8bit": plans, "quant_matmul_4bit_int8": plans_i8,
           "quant_matmul_lowbit": plans_lb, "quant_matmul_lowbit_tc": plans_tc,
           "quant_matmul_lowbit_tc_instances": _tc_instances(
-              reports["quant_matmul_lowbit_tc"])})
+              reports["quant_matmul_lowbit_tc"], "quant_matmul_lowbit_tc",
+              "quant_matmul_lowbit_tc_kernel", ("HGMMA",)),
+          "quant_matmul_int8_tc": plans_i8tc,
+          "quant_matmul_int8_tc_instances": _tc_instances(
+              reports["quant_matmul_int8_tc"], "quant_matmul_int8_tc",
+              "quant_matmul_int8_tc_kernel", ("IGMMA", "HGMMA"))})
 
 
 def _err(got, want, tol):

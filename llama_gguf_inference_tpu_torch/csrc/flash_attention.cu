@@ -489,13 +489,11 @@ __global__ void __launch_bounds__(kWarps * 32) flash_attention_kernel(const Args
 template <int D, int KIND, bool PAGED>
 int launch_d(const Args& a, int B, cudaStream_t stream) {
   constexpr int smem = Layout<KIND, D>::kSmem;
-  static bool sized = false;   // the shared-memory limit is set once an instance
-  if (!sized) {
-    const int rc = (int)cudaFuncSetAttribute(flash_attention_kernel<D, KIND, PAGED>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != 0) return rc;
-    sized = true;
-  }
+  static CardCache cards;   // the shared-memory opt-in, set per device on first use
+  Card c;
+  const int rc = cards.get(flash_attention_kernel<D, KIND, PAGED>, smem, c);
+  if (rc != 0) return rc;
+  if (smem > c.smem_block) return (int)cudaErrorInvalidValue;
   const int R = (a.H / a.KVH) * a.T;
   const int n_chunks = (a.S + kChunk - 1) / kChunk;
   const dim3 grid(n_chunks * ((R + kWarps - 1) / kWarps), a.KVH, B);

@@ -411,13 +411,11 @@ flash_attention_tc_kernel(const FArgs a) {
 template <int D, int KIND, bool PAGED>
 int launch_d(const FArgs& a, int B, cudaStream_t st) {
   constexpr int smem = FLayout<D, KIND>::kSmem;
-  static bool sized = false;   // the shared-memory limit is set once an instance
-  if (!sized) {
-    const int rc = (int)cudaFuncSetAttribute(flash_attention_tc_kernel<D, KIND, PAGED>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != 0) return rc;
-    sized = true;
-  }
+  static CardCache cards;   // the shared-memory opt-in, set per device on first use
+  Card c;
+  const int rc = cards.get(flash_attention_tc_kernel<D, KIND, PAGED>, smem, c);
+  if (rc != 0) return rc;
+  if (smem > c.smem_block) return (int)cudaErrorInvalidValue;
   const int R = (a.H / a.KVH) * a.T;
   const dim3 grid((R + kFRows - 1) / kFRows, a.KVH, B);
   flash_attention_tc_kernel<D, KIND, PAGED><<<grid, kFThreads, smem, st>>>(a);

@@ -110,8 +110,6 @@
 //   at sub-blocks of 16 or 32); the wrapper keeps other geometries on the
 //   decode kernel.
 
-#include <cuda.h>
-
 #include <chrono>
 
 #include "tc_common.cuh"
@@ -551,41 +549,6 @@ quant_matmul_lowbit_tc_kernel(const ArgsLowTC a, const __grid_constant__ CUtenso
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, fetched once through
-// cudaGetDriverEntryPointByVersion (no -lcuda on the nvcc line).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled fetch_encode_tiled() {
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-  const int rc = (int)cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &got);
-#else
-  const int rc = (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &got);
-#endif
-  return rc == 0 && got == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
-}
-
-// A row-major (outer, inner) array of esize-byte elements as a tensor map of
-// (box1, box0) tiles.
-int tensor_map(CUtensorMap* m, CUtensorMapDataType type, int esize, const void* base, int inner,
-               int outer, int box0, int box1, CUtensorMapSwizzle swizzle) {
-  static const EncodeTiled fn = fetch_encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)box0, (cuuint32_t)box1}, unit[2] = {1, 1};
-  const CUresult rc = fn(m, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // A launch's tensor maps, built on the host for each call: x, the codes and

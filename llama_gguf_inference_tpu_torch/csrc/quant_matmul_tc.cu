@@ -217,35 +217,36 @@ quant_matmul_8bit_tc_kernel(const ArgsTC a) {
   }
 }
 
+// The current device as instance (kS, kM, kBN) reads it, its shared-memory
+// opt-in set there to the instance's bytes on first use (CardCache).
+template <int kS, int kM, int kBN>
+int card_tc(Card& c) {
+  static CardCache cards;
+  return cards.get(quant_matmul_8bit_tc_kernel<kS, kM, kBN>, kSmem8<kBN>, c);
+}
+
 template <int kS, int kM, int kBN>
 int launch_tc(const ArgsTC& a, cudaStream_t st) {
   constexpr int smem = kSmem8<kBN>;
-  static bool sized = false;   // the shared-memory limit is set once an instance
-  if (!sized) {
-    const int rc = (int)cudaFuncSetAttribute(quant_matmul_8bit_tc_kernel<kS, kM, kBN>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != 0) return rc;
-    sized = true;
-  }
+  Card c;
+  const int rc = card_tc<kS, kM, kBN>(c);
+  if (rc != 0) return rc;
+  if (smem > c.smem_block) return (int)cudaErrorInvalidValue;
   const dim3 grid((a.B + kBM - 1) / kBM, (a.out_f + kBN - 1) / kBN);
   quant_matmul_8bit_tc_kernel<kS, kM, kBN><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // 128 output rows a block, or 64 where 128-row tiles would not give every
-// SM a block
+// SM of the current device a block
 template <int kS, int kM>
 int launch_tile(const ArgsTC& a, cudaStream_t st) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    int rc = (int)cudaGetDevice(&dev);
-    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc != 0) return rc;
-  }
+  Card c;
+  const int rc = card_tc<kS, kM, 128>(c);
+  if (rc != 0) return rc;
   const long blocks = (long)((a.B + kBM - 1) / kBM) * ((a.out_f + 127) / 128);
-  return a.B <= kBM && blocks < sms ? launch_tc<kS, kM, 64>(a, st)
-                                    : launch_tc<kS, kM, 128>(a, st);
+  return a.B <= kBM && blocks < c.sms ? launch_tc<kS, kM, 64>(a, st)
+                                      : launch_tc<kS, kM, 128>(a, st);
 }
 
 }  // namespace

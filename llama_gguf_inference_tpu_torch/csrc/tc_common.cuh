@@ -2,9 +2,11 @@
 // quant_matmul_lowbit_tc.cu, 2- and 4-bit codes; quant_matmul_int8_tc.cu,
 // int8 activations; flash_attention_tc.cu, prefill attention): the
 // mma.sync matmuls' block tile, the inline PTX (cp.async, ldmatrix,
-// mma.sync; for the Hopper kernel quant_matmul_lowbit_tc.cu, mbarriers, TMA
-// tile loads and wgmma), the scale side's loads, the products of one
-// step, and the card each launcher reads per device (CardCache). Each
+// mma.sync; for the Hopper kernels quant_matmul_lowbit_tc.cu and
+// quant_matmul_int8_tc.cu, mbarriers, TMA tile loads, bf16 and s8 wgmma),
+// the tensor maps those two build on the host, the scale side's loads, the
+// products of one step, and the card each launcher reads per device
+// (CardCache: every launcher's shared-memory opt-in and SM count). Each
 // kernel keeps its own loads, decode stage and epilogue. The
 // decode flash kernel (flash_attention.cu) takes only its cp.async helpers.
 //
@@ -14,6 +16,7 @@
 // bytes, so the 8 rows an ldmatrix reads fall on distinct banks.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -93,6 +96,41 @@ class CardCache {
   Card cards_[kMaxDevices];
   bool ready_[kMaxDevices] = {};
 };
+
+// cuTensorMapEncodeTiled, fetched once through
+// cudaGetDriverEntryPointByVersion (no -lcuda on the nvcc line).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled fetch_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+  const int rc = (int)cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &got);
+#else
+  const int rc = (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &got);
+#endif
+  return rc == 0 && got == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+}
+
+// A row-major (outer, inner) array of esize-byte elements as a tensor map of
+// (box1, box0) tiles.
+inline int tensor_map(CUtensorMap* m, CUtensorMapDataType type, int esize, const void* base,
+                      int inner, int outer, int box0, int box1, CUtensorMapSwizzle swizzle) {
+  static const EncodeTiled fn = fetch_encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box0, (cuuint32_t)box1}, unit[2] = {1, 1};
+  const CUresult rc = fn(m, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 // PTX: the only inline assembly of the tensor-core kernels.
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -268,6 +306,29 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kN) : "memory");
 }
 
+// Pins registers in place: the compiler moves no read or write of r across
+// this point. A wgmma writes its accumulators until the wait that retires
+// it, which the compiler does not see: reading them after that wait needs
+// this fence between, and writing them (or A) before a wgmma this fence
+// before its wgmma_fence.
+template <int kN>
+__device__ __forceinline__ void fence_regs(int (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
 // d (64 x n f32, the warpgroup's accumulators) += a (64 x 16 bf16) * b (16 x
 // n bf16, K-major at descriptor db): a from registers (wgmma_rs, the
 // m16n8k16 A fragment of warp w's rows 16w..16w+15) or from a descriptor
@@ -346,6 +407,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d (64 x 64 s32, the warpgroup's accumulators) = a (64 x 32 s8) * b (32 x
+// 64 s8, K-major at descriptor db) (+ d where scale_d), exact integer sums:
+// a from registers, laid out as mma_s8_k32's A fragment of warp w's rows
+// 16w..16w+15 (a[0] row g, bytes 4t..4t+3; a[1] row g+8; a[2], a[3] the
+// same at bytes 16+4t..); d as wgmma_rs's. One k32 step is 32 bytes of b's
+// rows: adding 2 to db moves it one step.
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 

@@ -163,6 +163,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # mn, y; B, in, out, nsub, nd, bias, the sides; the stream
         lib.lgt_quant_matmul_int8_tc.argtypes = [p] * 8 + [i] * 8 + [p]
         lib.lgt_quant_matmul_int8_tc.restype = i
+        # its launch plan: B, in, out, nsub, the sides, an int[9] to fill
+        lib.lgt_quant_matmul_int8_tc_plan.argtypes = [i] * 6 + [p]
+        lib.lgt_quant_matmul_int8_tc_plan.restype = i
     elif name in ("flash_attention", "flash_attention_tc"):
         # pointers: q, the cache tensors, offsets (and the page table), out
         # (the decode kernel then its partials' scratch and arrival counters);

@@ -126,10 +126,11 @@ TC_STEP = 64      # the tensor-core kernels' step: they need in and nsub multipl
 LOWBIT_TC_MIN_ROWS = 16
 # activation rows from which quant_matmul_4bit_int8 takes the tensor-core
 # kernel of csrc/quant_matmul_int8_tc.cu: on an H100 the decode kernel wins
-# a layer's four 8B projections at 32 rows (0.498 against 0.611 ms), the
-# tensor-core one at 48 (0.615 against 0.703); alone, gate+up crosses near
-# 28 rows, down near 45, qkv near 56 and o past 64 (PERF.md §6)
-INT8_TC_MIN_ROWS = 48
+# a layer's four 8B projections at 16 rows (0.289 against 0.360 ms), the
+# tensor-core (wgmma) one at 24 (0.361 against 0.395); alone, gate+up
+# crosses near 16 rows, down near 20, qkv near 24 and o near 32 (PERF.md §6,
+# tools/tc_ablate.py --full-only --kinds q4_k_int8)
+INT8_TC_MIN_ROWS = 24
 INT8_TC_GROUP = 16   # the int8 tensor-core kernel walks groups of 16 sub-blocks
 
 # how one side (scale or min) of a weight is stored; the values are the

@@ -1,7 +1,7 @@
 """Where the tensor-core matmul kernels' time goes, on one card.
 
     python -m llama_gguf_inference_tpu_torch.tools.tc_ablate [--seed 0] [--kinds q4_k,q4_k_int8]
-        [--full-only]
+        [--full-only] [--shapes gate_up,o] [--rows 16,512]
 
 Builds each tensor-core source into the build directory as it is and cut:
 ``csrc/quant_matmul_tc.cu`` (8-bit codes) without its decode stage (each
@@ -13,18 +13,25 @@ fragments in place of each ``wgmma``, the min term's too), without its min
 term (no A or B tiles formed, no min ``wgmma``), with only its loads (each
 stage waited for and handed back, nothing computed) and without its code
 loads (no code tiles fetched); ``csrc/quant_matmul_int8_tc.cu`` (int8
-activations) without its decode (the weight fragments' shared-memory reads
-and byte transposes: constant fragments), without its s8 ``mma.sync``
-(sums made from the fragments by one integer op) and without its scaling
-epilogue (one f32 add a sum in place of the conversion, the two scales and
-the min term, and their shared-memory loads). Times each build, and the
+activations, s8 ``wgmma``) without its decode (the weight fragments'
+shared-memory reads and byte transposes: constant fragments), without its
+products (one integer op for each s8 ``wgmma`` and for the min term's),
+without its epilogue (one f32 add a sum in place of the conversion, the two
+scales, and their shared-memory loads), without its min-term
+group (no -m' parts formed, no bf16 ``wgmma``), with only its loads
+(each stage, code tile and factor stage waited for and handed back) and
+without its code loads (no code tiles fetched); to split the time further,
+without its factor stage (each group's TMA loads handed to the consumers as
+they land), without the epilogue's table reads ((xs', c) from registers)
+and without its x loads (no x tiles fetched). Times each build, and the
 decode kernel and ``torch.matmul`` on a bf16 weight of the same shape, at
 the 8B's projections for 8, 16, 32, 64 and 512 activation rows (the int8
 body and the 2/4-bit fsplit kinds also 24, 48 and 300, about where their
 decode kernels cross and a ragged 128-row tile), in the
 layout each kernel serves: Q5_K compact (8-bit, with its min), Q4_K flat
-(4-bit fsplit, the base rule, and the int8 body) and Q2_K mixed (2-bit) or
-flat (the base_f32 rule); codes and scales drawn from ``--seed``. The int8
+(4-bit fsplit, the base rule, and the int8 body, which is also timed at o
+with Q3_K's, Q4_0's and Q4_1's geometry) and Q2_K mixed (2-bit) or flat
+(the base_f32 rule); codes and scales drawn from ``--seed``. The int8
 kernel's bound takes its operations at the int8 rate. CUDA events, the L2
 flushed before each launch, the median of 20. Prints the card's name and
 power limit first, then one JSON line per shape. The cut builds compute
@@ -83,6 +90,24 @@ CROSS_ROWS = (8, 16, 24, 32, 48, 64, 300, 512)
 DECODE_ROWS = (1, 4)
 KINDS = ("q5_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base", "q2_k_base", "q5_k_decode",
          "q6_k_decode", "q4_k_int8_decode", "q4_k_decode", "q2_k_decode")
+# the int8 tensor-core kernel's texts that more than one of its cuts replace
+_I8_WGMMA = "          wgmma_s8(bank[q % 2], Ab, db, keep);"
+_I8_NO_WGMMA = """          bank[q % 2][0] += (int)(Ab[0] ^ Ab[3] ^ (uint32_t)db);
+          named_bar_sync(1 + wg, 128);"""
+_I8_MIN = """            wgmma_rs(acc[hh], mh, dh);
+            wgmma_rs(acc[hh], mh, dm);
+            wgmma_rs(acc[hh], ml, dh);
+            wgmma_rs(acc[hh], mh, dl);
+            wgmma_rs(acc[hh], ml, dm);"""
+_I8_NO_MIN = "            acc[hh][0] += __int_as_float((int)(mh[0] ^ ml[1] ^ (uint32_t)(dh ^ dm ^ dl)));"
+_I8_MIN_CALL = "        min_term();\n"
+# without wgmmas the banks start at zero, not undefined
+_I8_BANK_INIT = ("    int bank[2][32];", "    int bank[2][32] = {};")
+_I8_CODES = """                uint32_t wd[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  wd[j] = *reinterpret_cast<const uint32_t*>(ct + code_at(r0 + 8 * r, tr + j, c / 4));
+                transpose4(wd, col[r]);"""
 # kind -> (library, its cut set)
 SOURCE = {"q5_k": ("quant_matmul_tc",) * 2, "q4_k_int8": ("quant_matmul_int8_tc",) * 2,
           **{k: ("quant_matmul_lowbit_tc",) * 2
@@ -205,19 +230,58 @@ CUTS = {
             ("            if (p == 0) tma_load_2d(sm + L::kCs + st * kLtCode, &tmc, j0, m0, full + st);",
              "            if (false) tma_load_2d(sm + L::kCs + st * kLtCode, &tmc, j0, m0, full + st);")]},
     "quant_matmul_int8_tc": {
-        "no_decode": ("            w[j] = *reinterpret_cast<const uint32_t*>(cr + (tr + j) * 16 + kb + 4 * q);",
-                      "            w[j] = 0x01020304u * (j + 1);"),
-        "no_products": ("""              if constexpr (kSub == 32)
-                mma_s8_k32(p[nt], af, bf[nt][sb][0], bf[nt][sb][1], kMagic);
-              else
-                mma_s8_k16(p[nt], af[2 * h], af[2 * h + 1], bf[nt][sb][0], kMagic);""",
-                        """#pragma unroll
-              for (int e = 0; e < 4; ++e) p[nt][e] = kMagic + (int)(af[e] ^ bf[nt][sb][0]);"""),
-        "no_epilogue": ("""                const float pf = __int_as_float(p[nt][e]) - kMagicF;
-                const float t = __fmul_rn(pf, xv.x);
-                acc[mt][nt][e] = fmaf(t, s2[e & 1], acc[mt][nt][e]);
-                acc[mt][nt][e] = fmaf(-xv.y, m2[e & 1], acc[mt][nt][e]);""",
-                        "                acc[mt][nt][e] += __int_as_float(p[nt][e]);")}}
+        # constant code fragments: no code-tile reads, no byte transposes
+        "no_decode": (_I8_CODES, """#pragma unroll
+                for (int j = 0; j < 4; ++j) col[r][j] = 0x01020304u * (j + 1) ^ (uint32_t)(kg + c + r);"""),
+        # one integer op in place of each s8 wgmma and of the min term's; a
+        # warpgroup barrier keeps its warps within a unit of each other, as
+        # the wgmma's collective issue did
+        "no_products": [(_I8_WGMMA, _I8_NO_WGMMA), (_I8_MIN, _I8_NO_MIN), _I8_BANK_INIT],
+        # each sum added as it is: no conversion, no scales, no table reads
+        "no_epilogue": ("""#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            // at most 2 float4 of (xs', c) loaded ahead of their use
+            if (j % 2 == 0 && j > 0) asm volatile("" ::: "memory");
+            const float4 xv = xt[4 * j];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float pf = __int_as_float(bank[q % 2][4 * j + e] + kMagic);
+              const float tx = __fmaf_rn(pf, e & 1 ? xv.z : xv.x, e & 1 ? xv.w : xv.y);
+              acc[h][4 * j + e] = __fmaf_rn(tx, e >> 1 ? sv.y : sv.x, acc[h][4 * j + e]);
+            }
+          }""", """#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[h][i] += __int_as_float(bank[q % 2][i]);"""),
+        # no min-term group: no -m' parts formed, no bf16 wgmma
+        "no_min": (_I8_MIN_CALL, ""),
+        # each stage, code tile and factor stage waited for and handed back,
+        # nothing read or computed
+        "loads_only": [(_I8_MIN_CALL, ""), (_I8_WGMMA, _I8_NO_WGMMA), _I8_BANK_INIT,
+                       (_I8_CODES, """#pragma unroll
+                for (int j = 0; j < 4; ++j) col[r][j] = (uint32_t)(kg + c + r + j);"""),
+                       ("          epilogue(qc);",
+                        "          acc[h][0] += __int_as_float(bank[q % 2][0]);")],
+        # no factor stage formed: each group's stage handed to the
+        # consumers as its TMA loads land, no (xs', c) or xsum parts written
+        "no_factor_stage": ("          unsigned char* const raw = ax + L::kAuxX;", """          if (a.bias != 12345) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(afull + as);
+            continue;
+          }
+          unsigned char* const raw = ax + L::kAuxX;"""),
+        # the epilogue's (xs', c) from registers, not the table: its
+        # shared-memory reads alone cut
+        "no_epilogue_loads": ("            const float4 xv = xt[4 * j];",
+                              "            const float4 xv = {sv.x + j, sv.y, sv.x - j, sv.y * j};"),
+        # no x tiles fetched (each stage's barrier armed for no bytes): the
+        # products read whatever the ring holds
+        "no_x_loads": ("""              mbar_arrive_tx(full + st, L::kX);
+              tma_load_2d(sm + st * L::kX, &tmx, (grp * kSpg + s) * 128, n0, full + st);""",
+                       "              mbar_arrive(full + st);"),
+        # no code tiles fetched: the consumers read whatever the ring holds
+        "no_code_loads": ("""            mbar_arrive_tx(cfull + (gc & 1), L::kCode);
+            for (int tp = 0; tp < kSub / 2; ++tp)
+              tma_load_2d(cd + tp * kI8M * kI8G, &tmc, tp * a.nsub + grp * kI8G, m0,
+                          cfull + (gc & 1));""", "            mbar_arrive(cfull + (gc & 1));")}}
 
 
 def _builds(source: str, cuts: str, full_only: bool) -> dict[str, ctypes.CDLL]:
@@ -271,7 +335,7 @@ def _f32(out_f: int, n: int, scale: float, g: torch.Generator) -> torch.Tensor:
     return torch.rand(out_f, n, generator=g, device="cuda") * scale + scale / 10
 
 
-def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator, q3_k: bool = False):
+def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator, fmt: str = ""):
     """(source, tensor-core wrapper, decode wrapper, plain version, args) of
     one kernel's call on random arrays (the decode kinds: no tensor-core
     wrapper, the decode kernel in its place): Q5_K
@@ -281,7 +345,11 @@ def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator, q3_k: bo
     per 16, f32 dmin per 256 with u8 mn per 16) or ``q2_k_base`` flat (the
     base_f32 rule, f32 d and dmin per 16); ``q4_k_int8_decode`` Q4_K flat
     through the int8 decode kernel, or with ``q3_k`` Q3_K flat (f32 d per
-    16, no min, codes biased by 4)."""
+    16, no min, codes biased by 4); ``fmt`` ``q3_k`` is that (sub-blocks of
+    16 through the 2/4-bit and int8 decode kinds), and ``q3_k``, ``q4_0``
+    (bias 8, no min) or ``q4_1`` (flat min) give ``q4_k_int8`` that
+    format's geometry."""
+    q3_k = fmt == "q3_k"
     x = torch.randn(B, in_f, generator=g, device="cuda").bfloat16()
     if kind in ("q4_k_decode", "q2_k_decode"):
         bits, sub = (4, 16 if q3_k else 32) if kind == "q4_k_decode" else (2, 16)
@@ -337,10 +405,15 @@ def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator, q3_k: bo
     if kind in ("q4_k_base", "q2_k_base", "q4_k_int8"):
         arrs = (codes, _f32(out_f, nsub, 1e-2, g), None, _f32(out_f, nsub, 5e-2, g), None)
         if kind == "q4_k_int8":
+            sub = 16 if q3_k else 32
+            nsub = in_f // sub
+            arrs = (codes, _f32(out_f, nsub, 1e-2, g), None,
+                    None if fmt in ("q3_k", "q4_0") else _f32(out_f, nsub, 5e-2, g), None)
             xq, xs = qm.quantize_acts(x, sub)
             return ("quant_matmul_int8_tc", qm.quant_matmul_4bit_int8_tc,
                     qm.quant_matmul_4bit_int8_decode, qm.quant_matmul_4bit_int8_plain,
-                    (xq, xs, xsum, *arrs, 0))
+                    (xq, xs, qm._block_sums(x, sub), *arrs,
+                     {"q3_k": 4, "q4_0": 8}.get(fmt, 0)))
         if kind == "q4_k_base":
             return ("quant_matmul_lowbit_tc", qm.quant_matmul_4bit_base_tc,
                     qm.quant_matmul_4bit_base_decode, qm.quant_matmul_4bit_base_plain,
@@ -367,6 +440,10 @@ def main() -> None:
                     help="comma-separated kernels and layouts to time (default: all)")
     ap.add_argument("--full-only", action="store_true",
                     help="time each source as it is, with no cut builds")
+    ap.add_argument("--shapes", default="",
+                    help="comma-separated projections to time (default: each kind's all)")
+    ap.add_argument("--rows", default="",
+                    help="comma-separated activation row counts (default: each kind's own)")
     a = ap.parse_args()
     kinds = a.kinds.split(",")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -380,12 +457,19 @@ def main() -> None:
         shapes = {"head": (128256, 4096)} if kind == "q6_k_decode" else SHAPES
         if kind in ("q4_k_int8_decode", "q4_k_decode"):
             shapes = {**SHAPES, "q3_k_o": SHAPES["o"]}
+        if kind == "q4_k_int8":
+            shapes = {**SHAPES, **{f"{f}_o": SHAPES["o"] for f in ("q3_k", "q4_0", "q4_1")}}
         rows = DECODE_ROWS if decode_kind else CROSS_ROWS if kind in ("q4_k_int8", "q4_k", "q2_k") \
             else ROWS
+        if a.shapes:
+            shapes = {k: v for k, v in shapes.items() if k in a.shapes.split(",")}
+        if a.rows:
+            rows = tuple(int(r) for r in a.rows.split(","))
         for name, (out_f, in_f) in shapes.items():
             w_lib = torch.randn(out_f, in_f, generator=g, device="cuda").bfloat16()
             for B in rows:
-                src, tc, decode, plain, args = _case(kind, out_f, in_f, B, g, name == "q3_k_o")
+                fmt = name[:-2] if name.endswith("_o") else ""
+                src, tc, decode, plain, args = _case(kind, out_f, in_f, B, g, fmt)
                 row = {"shape": f"{kind} {name} {out_f}x{in_f}", "B": B}
                 for build, lib in libs[SOURCE[kind]].items():
                     _build._LIBS[src] = lib

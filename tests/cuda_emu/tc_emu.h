@@ -16,17 +16,18 @@
 // decode flash kernel's split partials, merge and counter reset, not their
 // ordering between blocks running at once.
 //
-// For the Hopper kernel (quant_matmul_lowbit_tc.cu): an mbarrier is a
-// counter of arrivals and expected bytes with a phase, waited on by parity;
-// a TMA tile load (its tensor map from cuda.h's stand-in encoder) lands,
-// swizzled by the address bits as the hardware swizzles them and with
-// zeros past the array's edge, only when the phase that expects its bytes
-// completes; a wgmma is queued at its issue and runs at the wait_group that
-// retires its group, reading then (not at issue) the A fragment registers
-// of its warpgroup's 128 threads and the shared-memory tiles its
-// descriptors name, so a register or a stage reused before the wait shows.
-// setmaxnreg and the proxy fences do nothing; bar.sync with an id meets at
-// a barrier of its own.
+// For the Hopper kernels (quant_matmul_lowbit_tc.cu, quant_matmul_int8_tc.cu):
+// an mbarrier is a counter of arrivals and expected bytes with a phase,
+// waited on by parity; a TMA tile load (its tensor map from cuda.h's
+// stand-in encoder) lands, swizzled by the address bits as the
+// hardware swizzles them and with zeros past the array's edge, only when the
+// phase that expects its bytes completes; a wgmma (bf16 into f32, or s8 into
+// s32 at k32) is queued at its issue and runs at the wait_group that retires
+// its group, reading then (not at issue) the A fragment registers of its
+// warpgroup's 128 threads and the shared-memory tiles its descriptors name,
+// and writing the accumulators then (the s8 one adds to them only with
+// scale-d set), so a register or a stage reused before the wait shows. setmaxnreg, the proxy fences and the register
+// fences do nothing; bar.sync with an id meets at a barrier of its own.
 #pragma once
 #include <condition_variable>
 #include <cstring>
@@ -125,6 +126,10 @@ inline thread_local emu_block* emu_blk;
 inline thread_local int emu_tid;
 
 inline unsigned char* emu_smem() { return emu_blk->smem; }
+// a shared-memory address: the offset in the block's buffer
+inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)(static_cast<const unsigned char*>(p) - emu_smem());
+}
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_blk->warp_bar[emu_tid >> 5]->arrive_and_wait();
@@ -371,6 +376,10 @@ inline void named_bar_sync(int id, int count) {
   bar->arrive_and_wait();
 }
 
+template <int kN> inline void fence_regs(int (&)[kN]) {}
+template <int kN> inline void fence_regs(uint32_t (&)[kN]) {}
+template <int kN> inline void fence_regs(float (&)[kN]) {}
+
 // The descriptor of a K-major tile with the 128-byte swizzle as the card's
 // wgmma_desc builds it: start address / 16 (here the offset in the block's
 // shared memory), leading byte offset 16, stride byte offset 1024, layout 1.
@@ -378,25 +387,46 @@ inline uint64_t wgmma_desc(const void* p) {
   const uint64_t off = (uint64_t)(static_cast<const unsigned char*>(p) - emu_smem());
   return ((off & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
-// The shared-memory byte offset of element (row, k) (k < 16) of the operand
-// at descriptor desc: rows of 8-row core-matrix groups stride-byte-offset
-// apart, each row 128 bytes, k at 2 bytes, then the 128-byte swizzle on the
-// address bits (layout 1, the only one these kernels use).
-inline int emu_desc_addr(uint64_t desc, int row, int k) {
+// The shared-memory byte offset of byte `kb` (< 32) of row `row` of the
+// operand at descriptor desc: rows of 8-row core-matrix groups
+// stride-byte-offset apart, each row 128 bytes, then the 128-byte swizzle on
+// the address bits (layout 1, the only one these kernels use). A bf16
+// element k sits at byte 2k, an s8 one at k.
+inline int emu_desc_addr(uint64_t desc, int row, int kb) {
   const int start = (int)(desc & 0x3FFF) << 4, sbo = (int)((desc >> 32) & 0x3FFF) << 4;
-  const int addr = start + (row / 8) * sbo + (row % 8) * 128 + 2 * k;
+  const int addr = start + (row / 8) * sbo + (row % 8) * 128 + kb;
   return (desc >> 62) == 1 ? emu_swizzle(addr, CU_TENSOR_MAP_SWIZZLE_128B) : addr;
 }
 
-struct emu_wgmma { int n; float* d; const uint32_t* a; uint64_t da, db; };
+// The PTX ISA's register fragment of a warpgroup's A for 8-bit types at
+// m64nNk32: element (row, k) of the 64 x 32 tile sits in thread 32*(row/16)
+// + 4*(row%8) + (k%16)/4 of the warpgroup, register (row%16)/8 + 2*(k/16),
+// byte k%4 (each warp's 16 rows as mma.sync's m16n8k32 A).
+inline void emu_s8_a_slot(int row, int k, int& thread, int& reg, int& byte) {
+  thread = 32 * (row / 16) + 4 * (row % 8) + (k % 16) / 4;
+  reg = (row % 16) / 8 + 2 * (k / 16);
+  byte = k % 4;
+}
+// The accumulator fragment of m64nN (f32 or s32): register i of thread th
+// of the warpgroup holds (row, col) = (16*(th/32) + (th%32)/4 + 8*((i%4)/2),
+// 8*(i/4) + 2*(th%4) + i%2).
+inline void emu_acc_at(int th, int i, int& row, int& col) {
+  row = 16 * (th / 32) + (th % 32) / 4 + 8 * ((i % 4) / 2);
+  col = 8 * (i / 4) + 2 * (th % 4) + i % 2;
+}
+
+struct emu_wgmma { int n; float* d; int* di; const uint32_t* a; uint64_t da, db; };
 inline thread_local std::vector<emu_wgmma> emu_wg_open;
 inline thread_local std::deque<std::vector<emu_wgmma>> emu_wg_groups;
 
 template <int kAcc> inline void wgmma_rs(float (&d)[kAcc], const uint32_t (&a)[4], uint64_t db) {
-  emu_wg_open.push_back({2 * kAcc, d, a, 0, db});
+  emu_wg_open.push_back({2 * kAcc, d, nullptr, a, 0, db});
 }
 template <int kAcc> inline void wgmma_ss(float (&d)[kAcc], uint64_t da, uint64_t db) {
-  emu_wg_open.push_back({2 * kAcc, d, nullptr, da, db});
+  emu_wg_open.push_back({2 * kAcc, d, nullptr, nullptr, da, db});
+}
+inline void wgmma_s8(int (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  emu_wg_open.push_back({64, nullptr, d, a, (uint64_t)(scale_d != 0), db});
 }
 inline void wgmma_fence() {}
 inline void wgmma_commit() {
@@ -422,6 +452,24 @@ inline void emu_wgmma_run(const emu_wgmma& op) {
   if (op.a) std::memcpy(b->wg_regs[wg][lt], op.a, 16);
   b->wg_bar[wg]->arrive_and_wait();
   const unsigned char* sm = emu_smem();
+  if (op.di) {
+    // s8 at k32: the exact int32 sums of A (the 8-bit fragment) times B's
+    // bytes, added to the accumulators where scale-d (da here) is set, else
+    // in place of their earlier values
+    for (int i = 0; i < op.n / 2; ++i) {
+      int row, col, th, reg, byte;
+      emu_acc_at(lt, i, row, col);
+      int s = op.da ? op.di[i] : 0;
+      for (int k = 0; k < 32; ++k) {
+        emu_s8_a_slot(row, k, th, reg, byte);
+        s += emu_s8(b->wg_regs[wg][th][reg], byte)
+             * (int)(int8_t)sm[emu_desc_addr(op.db, col, k)];
+      }
+      op.di[i] = s;
+    }
+    b->wg_bar[wg]->arrive_and_wait();
+    return;
+  }
   const int w = lt >> 5, g = (lt & 31) >> 2, t = lt & 3;
   for (int j = 0; j < op.n / 8; ++j)
     for (int e = 0; e < 4; ++e) {
@@ -431,8 +479,8 @@ inline void emu_wgmma_run(const emu_wgmma& op) {
         const float av = op.a
             ? emu_half(b->wg_regs[wg][(row / 16) * 32 + (row % 8) * 4 + (k % 8) / 2]
                                  [(row % 16) / 8 + 2 * (k / 8)], k % 2)
-            : emu_bf16_at(sm + emu_desc_addr(op.da, row, k));
-        s += av * emu_bf16_at(sm + emu_desc_addr(op.db, col, k));
+            : emu_bf16_at(sm + emu_desc_addr(op.da, row, 2 * k));
+        s += av * emu_bf16_at(sm + emu_desc_addr(op.db, col, 2 * k));
       }
       op.d[4 * j + e] = s;
     }

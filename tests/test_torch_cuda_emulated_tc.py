@@ -2,12 +2,13 @@
 (8-bit codes), ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes on
 Hopper's ``wgmma``, TMA and mbarriers; the fsplit, xsum, base and base_f32
 rules; split through xsum's instances) and ``csrc/quant_matmul_int8_tc.cu``
-(int8 activations, s8 ``mma.sync``) compiled by g++ against the stand-in
-headers of ``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads,
-``cp.async`` copies that land at their wait, ``ldmatrix`` and ``mma.sync``
-(bf16; s8 at k32 and k16) through a warp barrier in the PTX ISA's fragment
-layout; mbarriers, TMA tile loads that land when their phase completes and
-``wgmma`` run at the wait that retires it; ``cuda.h``: tensor maps), with
+(int8 activations on s8 ``wgmma``, TMA and mbarriers) compiled by g++
+against the stand-in headers of ``tests/cuda_emu`` (``tc_emu.h``: whole
+blocks of threads, ``cp.async`` copies that land at their wait, ``ldmatrix``
+and ``mma.sync`` (bf16; s8 at k32 and k16) through a warp barrier in the PTX
+ISA's fragment layout; mbarriers, 2D and 3D TMA tile loads that land when
+their phase completes and ``wgmma`` (bf16, and s8 at k32) run at the wait
+that retires it; ``cuda.h``: tensor maps), with
 the inline-PTX helpers of ``csrc/tc_common.cuh`` swapped for those
 stand-ins, driven through the port's own wrappers with their device check
 lifted, against the plain PyTorch versions.
@@ -347,9 +348,9 @@ def test_xsum_split_tc_kernel(emu, rule, B, out_f, in_f, sub, bias, layout, has_
 
 # (B, out, in, sub, bias, layout, has min, signed sc): Q4_K flat and compact
 # (u8 or i8 sc beside a u8 min), Q4_1's flat min, Q4_0's bias 8, Q3_K's
-# sub-blocks of 16 with bias 4 (flat and compact i8 sc; one m16n8k16 a
-# sub-block); nsub 64 and 128 (4 and 8 groups of 16); B of 1, 7, 16 and
-# 130; out 72 and 136 (ragged 128-row tiles)
+# sub-blocks of 16 with bias 4 (flat and compact i8 sc; each sub-block its
+# own wgmma, half of A zero); nsub 64 and 128 (4 and 8 groups of 16); B of
+# 1, 7, 16 and 130; out 72 and 136 (ragged 128-row tiles)
 INT8_CASES = [(130, 136, 2048, 32, 0, "flat", True, False),
               (7, 72, 4096, 32, 0, "compact", True, False),
               (16, 136, 2048, 32, 8, "flat", False, False),
@@ -375,6 +376,61 @@ def test_int8_tc_kernel(emu, B, out_f, in_f, sub, bias, layout, has_min, signed)
         got = mod.quant_matmul_4bit_int8_tc(*args)
         assert launches[qm.NAME_4BIT_INT8_TC] == before + 1
         assert _rel_err(got, qm.quant_matmul_4bit_int8_plain(*args)) <= TOL
+
+
+def _int8_arrays(out_f, in_f, sub, s_side, m_side, g):
+    """4-bit planar codes with the int8 kernel's (scale side, min side):
+    ``flat`` (f32 per sub-block), ``u8`` or ``i8`` (f32 per 256 times an
+    8-bit factor per sub-block), or ``none`` for the min."""
+    nsub, nd = in_f // sub, in_f // 256
+    codes = torch.randint(0, 256, (out_f, in_f // 2), generator=g, dtype=torch.uint8)
+
+    def f32(n):
+        return torch.rand(out_f, n, generator=g) * 0.02 + 1e-3
+
+    def factor(side):
+        if side == "i8":
+            return torch.randint(-32, 32, (out_f, nsub), generator=g, dtype=torch.int32).to(torch.int8)
+        return torch.randint(0, 64, (out_f, nsub), generator=g, dtype=torch.int32).to(torch.uint8)
+    d, sc = (f32(nsub), None) if s_side == "flat" else (f32(nd), factor(s_side))
+    if m_side == "none":
+        return codes, d, sc, None, None
+    if m_side == "flat":
+        return codes, d, sc, f32(nsub), None
+    return codes, d, sc, f32(nd), factor(m_side)
+
+
+# (B, out, in, sub, bias, scale side, min side) of the wgmma int8 kernel:
+# all eight (scale side, min side) pairs it takes; sub-blocks of 32 and 16
+# (Q3_K's bias 4), Q4_0's bias 8; B of 16, 33, 64 (64-row activation
+# tiles), 200 and 512 (128-row tiles, ragged at 200); out 72, 136 and 200
+# (ragged 128-row output tiles), grids of up to the stand-in's 4 SMs
+# walking several tiles; nsub 16 (one group) to 128
+INT8_WGMMA_CASES = [(16, 136, 2048, 32, 8, "flat", "none"),
+                    (33, 200, 512, 32, 0, "flat", "flat"),
+                    (64, 136, 1024, 16, 4, "u8", "none"),
+                    (200, 72, 1024, 32, 0, "u8", "u8"),
+                    (512, 72, 1024, 32, 0, "u8", "i8"),
+                    (33, 136, 2048, 16, 4, "i8", "none"),
+                    (16, 200, 1024, 16, 0, "i8", "u8"),
+                    (64, 72, 2048, 32, 0, "i8", "i8")]
+
+
+@pytest.mark.parametrize("B,out_f,in_f,sub,bias,s_side,m_side", INT8_WGMMA_CASES, ids=str)
+def test_int8_tc_wgmma_sides(emu, B, out_f, in_f, sub, bias, s_side, m_side):
+    """Every (scale side, min side) instance of the wgmma int8 kernel at
+    prefill row counts, through its tensor-core wrapper, against the plain
+    version of _make_kernel_int8 on quantize_acts' codes."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(B + out_f + in_f + sub + bias + len(s_side + m_side))
+    codes, d, sc, dmin, mn = _int8_arrays(out_f, in_f, sub, s_side, m_side, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    xq, xs = qm.quantize_acts(x, sub)
+    args = (xq, xs, qm._block_sums(x, sub), codes, d, sc, dmin, mn, bias)
+    before = launches.get(qm.NAME_4BIT_INT8_TC, 0)
+    got = mod.quant_matmul_4bit_int8_tc(*args)
+    assert launches[qm.NAME_4BIT_INT8_TC] == before + 1
+    assert _rel_err(got, qm.quant_matmul_4bit_int8_plain(*args)) <= TOL
 
 
 @pytest.mark.parametrize("body", ["base", "base_f32", "int8", "xsum", "split"])
@@ -444,7 +500,11 @@ def emu_addr(tmp_path_factory):
     cpp, lib = d / "addr.cpp", d / "addr.so"
     cpp.write_text('#include "tc_emu.h"\n'
                    'extern "C" int desc_addr(unsigned long long d, int r, int k) '
-                   '{ return emu_desc_addr(d, r, k); }\n'
+                   '{ return emu_desc_addr(d, r, 2 * k); }\n'
+                   'extern "C" void s8_a_slot(int r, int k, int* out) '
+                   '{ emu_s8_a_slot(r, k, out[0], out[1], out[2]); }\n'
+                   'extern "C" void acc_at(int th, int i, int* out) '
+                   '{ emu_acc_at(th, i, out[0], out[1]); }\n'
                    'extern "C" int swizzle(int off, int mode) { return emu_swizzle(off, mode); }\n')
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-I",
                            os.path.join(HERE, "cuda_emu"), str(cpp), "-o", str(lib)],
@@ -455,6 +515,41 @@ def emu_addr(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     so.desc_addr.argtypes = [ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int]
     return so
+
+
+# The PTX ISA's register fragments of wgmma at m64nNk32 with 8-bit A and B:
+# (thread of the warpgroup, register, byte) -> (row, k) of A, as in its
+# figure for .atype s8 (each warp's 16 rows as mma.sync's m16n8k32 A:
+# register 0 row groupID, bytes 4 * threadID_in_group..; register 1 row + 8;
+# registers 2 and 3 the same 16 bytes on), worked by hand
+S8_A_TABLE = [(0, 0, 0, 0, 0), (1, 0, 2, 0, 6), (3, 0, 3, 0, 15), (4, 0, 0, 1, 0),
+              (5, 1, 3, 9, 7), (28, 1, 1, 15, 1), (2, 2, 1, 0, 25), (37, 2, 0, 17, 20),
+              (66, 3, 2, 40, 26), (127, 3, 3, 63, 31)]
+# (thread, register) -> (row, col) of the m64nN accumulators (s32 as f32):
+# register 4j + e at row 16 * warp + groupID (+8 for e >= 2), column 8j +
+# 2 * threadID_in_group + e % 2
+ACC_TABLE = [(0, 0, 0, 0), (0, 1, 0, 1), (0, 2, 8, 0), (0, 4, 0, 8), (6, 7, 9, 13),
+             (33, 30, 24, 58), (127, 31, 63, 63), (64, 16, 32, 32)]
+
+
+def test_wgmma_s8_fragment_table(emu_addr):
+    """The emulator's s8 wgmma A-fragment and accumulator layouts against
+    tables worked from the PTX ISA's m64nNk32 8-bit fragment figures: every
+    (row, k) of A has one (thread, register, byte), and the table's entries
+    hold."""
+    out = (ctypes.c_int * 3)()
+    seen = set()
+    for r in range(64):
+        for k in range(32):
+            emu_addr.s8_a_slot(r, k, out)
+            seen.add(tuple(out))
+    assert len(seen) == 64 * 32
+    for th, reg, byte, row, k in S8_A_TABLE:
+        emu_addr.s8_a_slot(row, k, out)
+        assert tuple(out) == (th, reg, byte), (row, k)
+    for th, i, row, col in ACC_TABLE:
+        emu_addr.acc_at(th, i, out)
+        assert tuple(out[:2]) == (row, col), (th, i)
 
 
 def test_wgmma_desc_swizzle_table(emu_addr):

@@ -626,7 +626,13 @@ def _int8_call(dev, B, out_f, in_f, sub, bias, layout, signed, has_min, g):
             for t in (xq, xs, qm._block_sums(x, sub), codes, d, sc, dmin, mn)] + [bias]
 
 
-@pytest.mark.parametrize("B", [16, 64, 512])
+# 16 and 24 rows, INT8_TC_MIN_ROWS and its neighbours (64-row activation
+# tiles), 64 and 512 (128-row tiles)
+INT8_TC_ROWS = sorted({16, 24, qm.INT8_TC_MIN_ROWS - 1, qm.INT8_TC_MIN_ROWS,
+                       qm.INT8_TC_MIN_ROWS + 1, 64, 512})
+
+
+@pytest.mark.parametrize("B", INT8_TC_ROWS)
 @pytest.mark.parametrize("sub,bias,layout,signed,has_min", INT8_TC, ids=str)
 def test_quant_matmul_int8_tc_kernel(dev, sub, bias, layout, signed, has_min, B):
     """The tensor-core int8 kernel against the plain version of
