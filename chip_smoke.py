@@ -9,12 +9,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
    plans    — the 8-bit, int8 and 2/4-bit decode kernels' launch plans at the 8B
               shapes (grid, block, shared bytes, registers, spills, resident
               warps; a spill fails the run); the 2/4-bit tensor-core (wgmma)
-              kernel's plans at 32 and 512 rows and the int8 one's at
-              INT8_TC_MIN_ROWS and 512 (with the host's time to build a
-              launch's tensor maps), and every instance of each with its
-              registers, spills and its SASS's count of HGMMA (bf16 wgmma)
-              and, int8, IGMMA (s8 wgmma) (a spill or a missing GMMA fails
-              the run)
+              kernel's plans at 32 and 512 rows, the int8 one's at
+              INT8_TC_MIN_ROWS and 512 and the 8-bit one's at TC_MIN_ROWS
+              and 512 (with the host's time to build a launch's tensor
+              maps), and every instance of each with its registers, spills
+              and its SASS's count of HGMMA (bf16 wgmma) and, int8, IGMMA
+              (s8 wgmma) (a spill or a missing GMMA fails the run)
 3. kernels  — each kernel against its plain PyTorch version at the 8B
               shapes: 4-bit matmul (flat Q4_K) at the four projection shapes
               for 1, 4 and 512 rows, and with Q3_K's geometry (sub-blocks of
@@ -28,8 +28,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               TC_MIN_ROWS rows up through its tensor-core kernel, which also
               runs Q8_0's flat o at 16, 64, 300 and 512 rows; the decode and
               tensor-core 8-bit kernels side by side at the four Q5_K compact
-              projections for 8, 16, 32 and 64 rows and at Q8_0's o for 8
-              and 16 (the crossover that sets TC_MIN_ROWS);
+              projections and at Q8_0's o for 8, 16, 32 and 64 rows (the
+              crossover that sets TC_MIN_ROWS);
               the 4-bit base, xsum, split and int8 kernels at Q4_K gate_up and
               down (1, 4, 512 rows) and at Q4_0, Q4_1 and Q3_K's o; the base
               body's 2-bit kernel at Q2_K gate_up (flat, compact); the int8
@@ -165,7 +165,11 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # H100 SXM data sheet, dense bf16
 INT8_OPS = 1979e12             # H100 SXM data sheet, dense int8
-MATMUL_TOL = 1e-4              # f32 sum order only (same bf16 weights, exact int8 dots)
+# a matmul kernel against its plain version, of the output's scale: the same
+# bf16 weights (int8: exact int32 dots) summed in another f32 order; the
+# 2/4-bit and int8 wgmma kernels also take the min term as products of split
+# bf16 parts, and the int8 one rounds xs to 22 significant bits
+MATMUL_TOL = 1e-4
 FLASH_TOL = 2 * 2 ** -8        # two bf16 ulps of the output scale
 LOGITS_TOL = 0.05              # 8B forward: kernel vs plain, of max |logit|
 # LGT_MM_VARIANT=int8 forward, kernel vs plain. Its activations are quantized
@@ -292,6 +296,12 @@ PLANS_LOWBIT_TC += [(f"q2_k mixed {name}", name, 2, 16, 1, 2) for name in ("qkv"
 PLANS_INT8_TC = [(f"q4_k flat {name}", name, 32, 1, 1) for name in ("qkv", "o", "gate_up")]
 PLANS_INT8_TC += [("q3_k flat o", "o", 16, 1, 0)]
 
+# the 8-bit tensor-core kernel's launch at the 8B shapes of the Q5_K chunk
+# (compact) and at the Q6_K head, at B = TC_MIN_ROWS and 512: (label,
+# projection, sub-block size, scale side, min side)
+PLANS_8BIT_TC = [(f"q5_k compact {name}", name, 32, 2, 2) for name in ("qkv", "o", "gate_up")]
+PLANS_8BIT_TC += [("q6_k head", "head", 16, 3, 0)]
+
 
 def _ptxas(report: str, kernel: str) -> dict:
     """Template arguments -> registers and spill bytes of each instance of
@@ -382,7 +392,8 @@ def phase_plans(torch, reports: dict) -> None:
     (:func:`_tc_instances`). A spill, or a tensor-core instance without
     HGMMA, fails the run; the int8 tensor-core kernel's the same at
     INT8_TC_MIN_ROWS and 512 rows, its instances' registers, spills and
-    IGMMA and HGMMA counts."""
+    IGMMA and HGMMA counts; the 8-bit tensor-core kernel's at TC_MIN_ROWS
+    and 512 rows, its instances' registers, spills and HGMMA counts."""
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     report = reports["quant_matmul"]
@@ -432,7 +443,13 @@ def phase_plans(torch, reports: dict) -> None:
                              9, label)
                   for label, name, sub, s_side, m_side in PLANS_INT8_TC
                   for B in (qm.INT8_TC_MIN_ROWS, 512)]
-    for line in plans + plans_i8 + plans_lb + plans_tc + plans_i8tc:
+    t8_lib = _build.library("quant_matmul_tc")
+    plans_t8 = [_plan_line(t8_lib.lgt_quant_matmul_8bit_tc_plan, B, in_f, out_f, in_f // sub,
+                           s_side, m_side, 9, label)
+                for label, name, sub, s_side, m_side in PLANS_8BIT_TC
+                for out_f, in_f in [HEAD if name == "head" else SHAPES_4BIT[name]]
+                for B in (qm.TC_MIN_ROWS, 512)]
+    for line in plans + plans_i8 + plans_lb + plans_tc + plans_i8tc + plans_t8:
         if line["local_bytes"] or line.get("spill_stores", 0):
             raise AssertionError(f"kernel spills: {line}")
     emit({"phase": "plans", "quant_matmul_8bit": plans, "quant_matmul_4bit_int8": plans_i8,
@@ -443,7 +460,11 @@ def phase_plans(torch, reports: dict) -> None:
           "quant_matmul_int8_tc": plans_i8tc,
           "quant_matmul_int8_tc_instances": _tc_instances(
               reports["quant_matmul_int8_tc"], "quant_matmul_int8_tc",
-              "quant_matmul_int8_tc_kernel", ("IGMMA", "HGMMA"))})
+              "quant_matmul_int8_tc_kernel", ("IGMMA", "HGMMA")),
+          "quant_matmul_8bit_tc": plans_t8,
+          "quant_matmul_8bit_tc_instances": _tc_instances(
+              reports["quant_matmul_tc"], "quant_matmul_tc", "quant_matmul_8bit_tc_kernel",
+              ("HGMMA",))})
 
 
 def _err(got, want, tol):
@@ -780,8 +801,7 @@ def _variant_rows(torch, qm, g, timer):
     projections (compact, the ``auto`` layout, and flat; B = 1, 4, 512, the
     512 rows through the tensor-core kernel; compact gate_up and qkv at 16,
     64 and 300 too), the decode and tensor-core kernels side by side at the
-    compact projections for B = 8, 16, 32, 64 and at Q8_0's flat o for 8
-    and 16, Q8_0's flat o through the tensor-core kernel (B = 16, 64, 300,
+    compact projections and at Q8_0's flat o for B = 8, 16, 32, 64, Q8_0's flat o through the tensor-core kernel (B = 16, 64, 300,
     512) and Q5_1's flat min at o; the
     4-bit base, xsum, split and int8 kernels at Q4_K flat gate+up and down
     (B = 1, 4, 512) and at Q4_0 (bias 8), Q4_1 (flat min) and Q3_K (sub 16,
@@ -795,7 +815,7 @@ def _variant_rows(torch, qm, g, timer):
     cases += [("q5_k", "compact", name, (8, 16, 32, 64), ("8bit_decode", "8bit_tc"))
               for name in SHAPES_4BIT]
     cases.append(("q8_0", "flat", "o", (16, 64, 300, 512), ("8bit",)))
-    cases.append(("q8_0", "flat", "o", (8, 16), ("8bit_decode", "8bit_tc")))
+    cases.append(("q8_0", "flat", "o", (8, 16, 32, 64), ("8bit_decode", "8bit_tc")))
     cases.append(("q5_1", "flat", "o", (4,), ("8bit",)))
     cases += [("q4_k", "flat", name, (1, 4, 512), VARIANTS) for name in ("gate_up", "down")]
     cases += [("q4_k", "flat", name, (1, 4), ("int8",)) for name in ("qkv", "o")]

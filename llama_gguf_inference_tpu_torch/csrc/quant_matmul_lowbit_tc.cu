@@ -159,11 +159,6 @@ struct ArgsLowTC {
   int B, in_f, out_f, nsub, nd, ndm, bias;
 };
 
-__device__ __forceinline__ uint32_t bf16_bits(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
 // Byte offset of (row, col) in a K-major tile of 64 bf16 a row with the
 // 128-byte swizzle (the tile 1024-byte aligned), as TMA and wgmma lay it.
 __device__ __forceinline__ int swz128(int row, int col) {

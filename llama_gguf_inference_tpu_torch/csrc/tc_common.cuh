@@ -1,19 +1,13 @@
-// What the tensor-core kernels share (quant_matmul_tc.cu, 8-bit codes;
-// quant_matmul_lowbit_tc.cu, 2- and 4-bit codes; quant_matmul_int8_tc.cu,
-// int8 activations; flash_attention_tc.cu, prefill attention): the
-// mma.sync matmuls' block tile, the inline PTX (cp.async, ldmatrix,
-// mma.sync; for the Hopper kernels quant_matmul_lowbit_tc.cu and
-// quant_matmul_int8_tc.cu, mbarriers, TMA tile loads, bf16 and s8 wgmma),
-// the tensor maps those two build on the host, the scale side's loads, the
-// products of one step, and the card each launcher reads per device
-// (CardCache: every launcher's shared-memory opt-in and SM count). Each
-// kernel keeps its own loads, decode stage and epilogue. The
-// decode flash kernel (flash_attention.cu) takes only its cp.async helpers.
-//
-// In the mma.sync kernels a block of 8 warps owns kBM = 128 activation rows
-// by kBN = 128 or 64 output rows and walks 64 positions of x a step; x and
-// the decoded bf16 weight tile sit in shared memory with rows padded to 144
-// bytes, so the 8 rows an ldmatrix reads fall on distinct banks.
+// What the tensor-core kernels share (quant_matmul_tc.cu, 8-bit codes, and
+// quant_matmul_lowbit_tc.cu, 2- and 4-bit codes, both bf16 wgmma;
+// quant_matmul_int8_tc.cu, int8 activations, s8 wgmma; flash_attention_tc.cu,
+// prefill attention on mma.sync): the inline PTX (cp.async, ldmatrix,
+// mma.sync; for the Hopper kernels mbarriers, TMA tile loads, bf16 and s8
+// wgmma), the tensor maps the Hopper kernels build on the host, the scale
+// side's loads, and the card each launcher reads per device (CardCache:
+// every launcher's shared-memory opt-in and SM count). Each kernel keeps
+// its own loads, decode stage and epilogue. The decode kernels
+// (quant_matmul.cu, flash_attention.cu) take its PTX helpers.
 #pragma once
 
 #include <cuda.h>
@@ -27,26 +21,7 @@
 
 namespace {
 
-constexpr int kBM = 128;        // activation rows a block
-constexpr int kBK = 64;         // positions of x a step
-constexpr int kStages = 4;      // cp.async ring of x tiles
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kPitch = kBK + 8;         // bf16 a row of the x and weight tiles (144 bytes)
-constexpr int kCPitch = kBK + 16;       // bytes a row of a code tile (80)
-constexpr int kXTile = kBM * kPitch * 2;
-
-// The tile geometry of kBN output rows a block (128 or 64): the warps split
-// 2 x 4 (64 x 32 outputs each) or 4 x 2 (32 x 32); a thread decodes kPer
-// weights of one output row a step.
-template <int kBN>
-struct Tile {
-  static constexpr int kCTile = kBN * kCPitch;
-  static constexpr int kWTile = kBN * kPitch * 2;
-  static constexpr int kPer = kBN * kBK / kThreads;                       // 32 or 16
-  static constexpr int kWarpsN = kBN / 32;
-  static constexpr int kWarpM = kBM / (kThreads / 32 / kWarpsN);           // 64 or 32 rows a warp
-  static constexpr int kMT = kWarpM / 16;                                  // m16 tiles a warp
-};
+constexpr int kBK = 64;         // stored positions a step of the Hopper matmul kernels
 
 // What a launch plan reads of a device and of one kernel instance: the
 // device's SMs, shared memory an SM holds, a block may opt into and a block
@@ -214,7 +189,7 @@ __device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
   return d;
 }
 
-// Hopper (sm_90a) pieces of quant_matmul_lowbit_tc.cu: mbarriers, TMA tile
+// Hopper (sm_90a) pieces of the wgmma kernels: mbarriers, TMA tile
 // loads, wgmma and the register hand-off between warpgroups.
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
@@ -435,6 +410,12 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4], u
 
 // end PTX
 
+// Two f32 values rounded to bf16 and packed, lo in the lower half.
+__device__ __forceinline__ uint32_t bf16_bits(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
 // Sub-blocks k0..k0+kPer-1 of one side of a row, as side_at reads them,
 // into v. The 8-bit factors and the f32 values come in 16-byte loads, all
 // issued before any is used; the f32 ones 4 at a time, which never wrap the
@@ -463,36 +444,6 @@ __device__ __forceinline__ void chunk_side(const float* base, const uint8_t* sub
       v[e] = __fmul_rn(fv[e], (float)reinterpret_cast<const int8_t*>(b)[e]);
     else
       v[e] = fv[e];
-  }
-}
-
-// The products of one step: the warp's kMT x 4 m16n8 accumulator tiles
-// (rows wm.., columns wn..) += the x tile xt (rows x 64 positions) times the
-// weight tile wt (output rows x 64 positions), both bf16 row-major at kPitch.
-template <int kMT>
-__device__ __forceinline__ void step_products(float (&acc)[kMT][4][4], const unsigned char* xt,
-                                              const unsigned char* wt, int wm, int wn, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    uint32_t b[4][2];
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      const int row = wn + np * 16 + (lane & 7) + ((lane >> 4) << 3);
-      const int col = kk + ((lane >> 3) & 1) * 8;
-      uint32_t r[4];
-      ldmatrix_x4(r, wt + (row * kPitch + col) * 2);
-      b[2 * np][0] = r[0];
-      b[2 * np][1] = r[1];
-      b[2 * np + 1][0] = r[2];
-      b[2 * np + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      uint32_t af[4];
-      ldmatrix_x4(af, xt + ((wm + mt * 16 + (lane & 15)) * kPitch + kk + (lane >> 4) * 8) * 2);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af, b[nt][0], b[nt][1]);
-    }
   }
 }
 

@@ -147,6 +147,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # B, in, out, nd, nsub, bias, the sides, the stream
         lib.lgt_quant_matmul_8bit_tc.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.lgt_quant_matmul_8bit_tc.restype = i
+        # its launch plan: B, in, out, nsub, the sides, an int[9] to fill
+        lib.lgt_quant_matmul_8bit_tc_plan.argtypes = [i] * 6 + [p]
+        lib.lgt_quant_matmul_8bit_tc_plan.restype = i
     elif name == "quant_matmul_lowbit_tc":
         # the lowbit entry point's arguments without the bits: x, xsum, codes,
         # d, sc, dmin, mn, y; B, in, out, nsub, nd, ndm, bias, the sides, the

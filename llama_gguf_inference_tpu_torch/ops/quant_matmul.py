@@ -110,10 +110,14 @@ NAME_8BIT_TC = "quant_matmul_8bit_tc"
 NAME_8BIT_MIN_TC = "quant_matmul_8bit_min_tc"
 NAME_DEQUANT = "quant_matmul_dequant"
 
-# activation rows from which quant_matmul_8bit takes the tensor-core kernel:
-# on an H100 it beats the decode kernel at every Q5_K projection from 8 rows,
-# the fewest measured, and at Q8_0's o from 16 (PERF.md §6)
-TC_MIN_ROWS = 8
+# activation rows from which quant_matmul_8bit takes the tensor-core (wgmma)
+# kernel: on an H100 the decode kernel wins a layer's four Q5_K 8B
+# projections at 8 rows (0.202 against 0.312 ms), the tensor-core kernel at
+# 16 (0.312 against 0.336; at o and down the decode kernel still wins there,
+# at qkv and gate+up the tensor-core one), and every projection from 32;
+# Q8_0's o crosses between 16 and 24 (PERF.md §6, tools/tc_ablate.py
+# --full-only --kinds q5_k,q8_0)
+TC_MIN_ROWS = 16
 TC_STEP = 64      # the tensor-core kernels' step: they need in and nsub multiples of it
 # activation rows from which quant_matmul_2bit and quant_matmul_4bit (and the
 # base, xsum and split wrappers) take the tensor-core (wgmma) kernel: on an

@@ -4,9 +4,15 @@
         [--full-only] [--shapes gate_up,o] [--rows 16,512]
 
 Builds each tensor-core source into the build directory as it is and cut:
-``csrc/quant_matmul_tc.cu`` (8-bit codes) without its decode stage (each
-step's weight tile left as an earlier step wrote it) and without its
-products (``ldmatrix`` and ``mma.sync``); ``csrc/quant_matmul_lowbit_tc.cu``
+``csrc/quant_matmul_tc.cu`` (8-bit codes, ``wgmma``) without its decode (the
+code words passed to ``wgmma`` as they are: no conversion, no factors),
+without its products (one integer op on the fragments in place of each
+``wgmma``), with only its loads (each stage waited for and handed back,
+nothing computed), without its code loads (no code tiles fetched), without
+its factor stage (each chunk's stage handed to the consumers unformed),
+and, to split the time further, without any loads (the decode and
+products alone), with only its decode and with only its products (no
+loads either); ``csrc/quant_matmul_lowbit_tc.cu``
 (2- and 4-bit codes, ``wgmma``) without its decode (the code words passed
 to ``wgmma`` as they are), without its products (one integer op on the
 fragments in place of each ``wgmma``, the min term's too), without its min
@@ -26,9 +32,11 @@ they land), without the epilogue's table reads ((xs', c) from registers)
 and without its x loads (no x tiles fetched). Times each build, and the
 decode kernel and ``torch.matmul`` on a bf16 weight of the same shape, at
 the 8B's projections for 8, 16, 32, 64 and 512 activation rows (the int8
-body and the 2/4-bit fsplit kinds also 24, 48 and 300, about where their
-decode kernels cross and a ragged 128-row tile), in the
-layout each kernel serves: Q5_K compact (8-bit, with its min), Q4_K flat
+body, the 2/4-bit fsplit kinds and the 8-bit ones at Q5_K and Q8_0 also
+24, 48 and 300, about where their decode kernels cross and a ragged 128-row
+tile; the Q6_K head 8 to 64), in the layout each kernel serves: Q5_K
+compact (8-bit, with its min; ``q5_k_flat`` its flat layout, ``q8_0`` Q8_0's
+flat o without a min, ``q6_k`` the Q6_K head, i8 sc per 16), Q4_K flat
 (4-bit fsplit, the base rule, and the int8 body, which is also timed at o
 with Q3_K's, Q4_0's and Q4_1's geometry) and Q2_K mixed (2-bit) or flat
 (the base_f32 rule); codes and scales drawn from ``--seed``. The int8
@@ -88,8 +96,12 @@ SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
 ROWS = (8, 16, 32, 64, 512)
 CROSS_ROWS = (8, 16, 24, 32, 48, 64, 300, 512)
 DECODE_ROWS = (1, 4)
-KINDS = ("q5_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base", "q2_k_base", "q5_k_decode",
-         "q6_k_decode", "q4_k_int8_decode", "q4_k_decode", "q2_k_decode")
+KINDS = ("q5_k", "q5_k_flat", "q8_0", "q6_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base",
+         "q2_k_base", "q5_k_decode", "q6_k_decode", "q4_k_int8_decode", "q4_k_decode",
+         "q2_k_decode")
+# the 8-bit tensor-core kernel's kinds: Q5_K compact (the Q5_K model's layout)
+# and flat at the four projections, Q8_0 flat at o, the Q6_K head
+EIGHT_BIT_KINDS = ("q5_k", "q5_k_flat", "q8_0", "q6_k")
 # the int8 tensor-core kernel's texts that more than one of its cuts replace
 _I8_WGMMA = "          wgmma_s8(bank[q % 2], Ab, db, keep);"
 _I8_NO_WGMMA = """          bank[q % 2][0] += (int)(Ab[0] ^ Ab[3] ^ (uint32_t)db);
@@ -108,8 +120,41 @@ _I8_CODES = """                uint32_t wd[4];
                 for (int j = 0; j < 4; ++j)
                   wd[j] = *reinterpret_cast<const uint32_t*>(ct + code_at(r0 + 8 * r, tr + j, c / 4));
                 transpose4(wd, col[r]);"""
+# the 8-bit tensor-core kernel's texts that more than one of its cuts
+# replace (each described at its cut in CUTS)
+_T8_LOADS_ONLY = ("""      mbar_wait(full + st, (it / L::kStages) & 1);
+      const unsigned char* const ct = sm + L::kCs + st * kT8Code;""",
+                  """      mbar_wait(full + st, (it / L::kStages) & 1);
+      if (a.bias != 12345) {
+        named_bar_sync(1 + wg, 128);   // every warp is past this stage's wait
+        if ((tid & 127) == 0) {
+          mbar_arrive(empty + st);
+          if (fdue >= 0) mbar_arrive(fempty + fdue);
+        }
+        fdue = first ? ck % L::kFac : -1;
+        ck += first;
+        acc[0] += sm[st * L::kX + lane];
+        ++it;
+        return;
+      }
+      const unsigned char* const ct = sm + L::kCs + st * kT8Code;""")
+_T8_NO_DECODE = ("""          decode4<kM>(__byte_perm(lo, hi, csel) ^ 0x80808080u, fs[r][kk], fm[r][kk], magic,
+                      A[kk][r], A[kk][2 + r]);""", """          A[kk][r] = __byte_perm(lo, hi, csel);
+          A[kk][2 + r] = lo ^ hi;""")
+_T8_NO_PRODUCTS = ("      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, A[kk], dx + 2 * kk);",
+                   """      for (int kk = 0; kk < 4; ++kk) acc[kk] += __int_as_float(A[kk][0] ^ A[kk][3] ^ (int)dx);
+      named_bar_sync(1 + wg, 128);""")
+_T8_NO_LOADS = [("            mbar_arrive_tx(full + st, L::kX + kT8Code);",
+                 "            mbar_arrive(full + st);"),
+                ("            tma_load_2d(sm + st * L::kX, &tmx, j0, n0, full + st);", ""),
+                ("            tma_load_2d(sm + L::kCs + st * kT8Code, &tmc, j0, m0, full + st);", "")]
+_T8_NO_CODE_LOADS = [("            mbar_arrive_tx(full + st, L::kX + kT8Code);",
+                      "            mbar_arrive_tx(full + st, L::kX);"),
+                     ("            tma_load_2d(sm + L::kCs + st * kT8Code, &tmc, j0, m0, full + st);",
+                      "")]
 # kind -> (library, its cut set)
-SOURCE = {"q5_k": ("quant_matmul_tc",) * 2, "q4_k_int8": ("quant_matmul_int8_tc",) * 2,
+SOURCE = {**{k: ("quant_matmul_tc",) * 2 for k in EIGHT_BIT_KINDS},
+          "q4_k_int8": ("quant_matmul_int8_tc",) * 2,
           **{k: ("quant_matmul_lowbit_tc",) * 2
              for k in ("q4_k", "q2_k", "q4_k_base", "q2_k_base")},
           "q5_k_decode": ("quant_matmul", "quant_matmul_8bit"),
@@ -186,8 +231,34 @@ CUTS = {
                           "        const bool ok = false;\n        cp_async16("),
         "ring3": ("constexpr int kLbRing = 2;", "constexpr int kLbRing = 3;")},
     "quant_matmul_tc": {
-        "no_decode": ("      decode_run<kM, kPer>(", "      if (false) decode_run<kM, kPer>("),
-        "no_products": ("    if (i >= 0 && warp_live) {", "    if (false) {")},
+        # the code words passed to wgmma as they are: no conversion, no
+        # scales or mins (and so no factor reads)
+        "no_decode": _T8_NO_DECODE,
+        # one integer op on the fragments in place of each wgmma; a
+        # warpgroup barrier keeps its warps within a step of each other, as
+        # the wgmma's own collective issue did
+        "no_products": _T8_NO_PRODUCTS,
+        # each stage (and factor stage) waited for and handed back, nothing
+        # decoded or multiplied
+        "loads_only": _T8_LOADS_ONLY,
+        # no code tiles fetched: the consumers decode whatever the ring holds
+        "no_code_loads": _T8_NO_CODE_LOADS,
+        # no loads at all (each stage's barrier armed for no bytes): the
+        # decode and products alone, on whatever the ring holds
+        "no_loads": _T8_NO_LOADS,
+        # the decode alone, and the products alone: no loads, and no
+        # products or no decode
+        "decode_only": [*_T8_NO_LOADS, _T8_NO_PRODUCTS],
+        "products_only": [*_T8_NO_LOADS, _T8_NO_DECODE],
+        # no factor stage formed: each chunk's stage handed to the consumers
+        # at once, holding whatever it held
+        "no_factor_stage": ("          mbar_wait(fempty + fb, ((ck / L::kFac) & 1) ^ 1);",
+                            """          mbar_wait(fempty + fb, ((ck / L::kFac) & 1) ^ 1);
+          if (a.bias != 12345) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(ffull + fb);
+            continue;
+          }""")},
     "quant_matmul_lowbit_tc": {
         "no_decode": ("""          decode4<kVar, kM, kMap>((creg[r][kk] >> (kBits * p)) & kMask, fa[r][kk], fb[r][kk],
                                   magic, A[kk][r], A[kk][2 + r]);""",
@@ -390,11 +461,22 @@ def _case(kind: str, out_f: int, in_f: int, B: int, g: torch.Generator, fmt: str
                 _u8(out_f, nsub, g) if has_min else None)
         return ("quant_matmul", qm.quant_matmul_8bit_decode, None, qm.quant_matmul_8bit_plain,
                 (x, *arrs))
-    if kind == "q5_k":
-        nsub, nd = in_f // 32, in_f // 256
-        codes = torch.randint(0, 32, (out_f, in_f), generator=g, device="cuda").to(torch.int8)
-        arrs = (codes, _f32(out_f, nd, 1e-3, g), _u8(out_f, nsub, g), 32, 0,
-                _f32(out_f, nd, 5e-3, g), _u8(out_f, nsub, g))
+    if kind in EIGHT_BIT_KINDS:
+        sub = 16 if kind == "q6_k" else 32
+        nsub, nd = in_f // sub, in_f // 256
+        lo, hi = {"q8_0": (-128, 128), "q6_k": (-32, 32)}.get(kind, (0, 32))
+        codes = torch.randint(lo, hi, (out_f, in_f), generator=g, device="cuda").to(torch.int8)
+        if kind == "q5_k":
+            arrs = (codes, _f32(out_f, nd, 1e-3, g), _u8(out_f, nsub, g), sub, 0,
+                    _f32(out_f, nd, 5e-3, g), _u8(out_f, nsub, g))
+        elif kind == "q5_k_flat":
+            arrs = (codes, _f32(out_f, nsub, 1e-2, g), None, sub, 0, _f32(out_f, nsub, 5e-2, g),
+                    None)
+        elif kind == "q8_0":
+            arrs = (codes, _f32(out_f, nsub, 1e-2, g), None, sub, 0)
+        else:
+            sc = torch.randint(-32, 32, (out_f, nsub), generator=g, device="cuda").to(torch.int8)
+            arrs = (codes, _f32(out_f, nd, 1e-3, g), sc, sub, 0)
         return ("quant_matmul_tc", qm.quant_matmul_8bit_tc, qm.quant_matmul_8bit_decode,
                 qm.quant_matmul_8bit_plain, (x, *arrs))
     bits, sub = (4, 32) if kind.startswith("q4_k") else (2, 16)
@@ -454,13 +536,16 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(a.seed)
     for kind in kinds:
         decode_kind = kind.endswith("_decode")
-        shapes = {"head": (128256, 4096)} if kind == "q6_k_decode" else SHAPES
+        shapes = {"head": (128256, 4096)} if kind in ("q6_k_decode", "q6_k") else SHAPES
+        if kind == "q8_0":
+            shapes = {"o": SHAPES["o"]}
         if kind in ("q4_k_int8_decode", "q4_k_decode"):
             shapes = {**SHAPES, "q3_k_o": SHAPES["o"]}
         if kind == "q4_k_int8":
             shapes = {**SHAPES, **{f"{f}_o": SHAPES["o"] for f in ("q3_k", "q4_0", "q4_1")}}
-        rows = DECODE_ROWS if decode_kind else CROSS_ROWS if kind in ("q4_k_int8", "q4_k", "q2_k") \
-            else ROWS
+        rows = DECODE_ROWS if decode_kind else CROSS_ROWS \
+            if kind in ("q4_k_int8", "q4_k", "q2_k", "q5_k", "q5_k_flat", "q8_0") \
+            else ROWS[:4] if kind == "q6_k" else ROWS
         if a.shapes:
             shapes = {k: v for k, v in shapes.items() if k in a.shapes.split(",")}
         if a.rows:

@@ -16,7 +16,8 @@
 // decode flash kernel's split partials, merge and counter reset, not their
 // ordering between blocks running at once.
 //
-// For the Hopper kernels (quant_matmul_lowbit_tc.cu, quant_matmul_int8_tc.cu):
+// For the Hopper kernels (quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu,
+// quant_matmul_int8_tc.cu):
 // an mbarrier is a counter of arrivals and expected bytes with a phase,
 // waited on by parity; a TMA tile load (its tensor map from cuda.h's
 // stand-in encoder) lands, swizzled by the address bits as the

@@ -1,22 +1,20 @@
 """The tensor-core matmul sources run on the CPU: ``csrc/quant_matmul_tc.cu``
-(8-bit codes), ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes on
-Hopper's ``wgmma``, TMA and mbarriers; the fsplit, xsum, base and base_f32
-rules; split through xsum's instances) and ``csrc/quant_matmul_int8_tc.cu``
+(8-bit codes) and ``csrc/quant_matmul_lowbit_tc.cu`` (2- and 4-bit codes; the
+fsplit, xsum, base and base_f32 rules; split through xsum's instances), both
+on Hopper's ``wgmma``, TMA and mbarriers, and ``csrc/quant_matmul_int8_tc.cu``
 (int8 activations on s8 ``wgmma``, TMA and mbarriers) compiled by g++
 against the stand-in headers of ``tests/cuda_emu`` (``tc_emu.h``: whole
-blocks of threads, ``cp.async`` copies that land at their wait, ``ldmatrix``
-and ``mma.sync`` (bf16; s8 at k32 and k16) through a warp barrier in the PTX
-ISA's fragment layout; mbarriers, 2D and 3D TMA tile loads that land when
-their phase completes and ``wgmma`` (bf16, and s8 at k32) run at the wait
-that retires it; ``cuda.h``: tensor maps), with
-the inline-PTX helpers of ``csrc/tc_common.cuh`` swapped for those
-stand-ins, driven through the port's own wrappers with their device check
-lifted, against the plain PyTorch versions.
+blocks of threads; mbarriers, 2D TMA tile loads that land when their phase
+completes and ``wgmma`` (bf16, and s8 at k32) run at the wait that retires
+it; ``cuda.h``: tensor maps), with the inline-PTX helpers of
+``csrc/tc_common.cuh`` swapped for those stand-ins, driven through the
+port's own wrappers with their device check lifted, against the plain
+PyTorch versions.
 
 This holds the kernels' tiling, their rings of stages, their chunked walk
-over the sub-blocks, the 2/4-bit kernel's plane groups and min-term
-epilogue, and their ragged edges to the plain versions where no card is
-present; what nvcc makes of the sources, and the PTX itself, are checked
+over the sub-blocks, the 8-bit kernel's double-buffered factor stages, the
+2/4-bit kernel's plane groups and min-term epilogue, and their ragged
+edges to the plain versions where no card is present; what nvcc makes of the sources, and the PTX itself, are checked
 only on the card (``test_torch_cuda_kernels.py``). Tolerance: the same bf16
 weights and exact bf16 products on both sides (the int8 kernel: the same
 exact int32 sums per sub-block), f32 sums in another order: 1e-5 of the
@@ -116,6 +114,11 @@ def emu(tmp_path_factory):
     return mod, launches
 
 
+def _rel_err(got, want):
+    assert torch.isfinite(got).all()
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
 def _arrays(out_f, in_f, sub, layout, has_min, signed, g):
     """8-bit codes with flat sides (f32 per sub-block) or compact ones (f32
     per 256 times an 8-bit factor per sub-block)."""
@@ -136,10 +139,10 @@ def _arrays(out_f, in_f, sub, layout, has_min, signed, g):
 
 
 # (B, out, in, sub, layout, has min, signed sc, bias): every (scale side, min
-# side) instance in 64-row output tiles (3 blocks, fewer than the stand-in's
-# 4 SMs, out ragged), and in 128-row tiles over 2 x 2 blocks (rows and out
-# ragged); one sub-block chunk of 32 steps (in 2048, sub 32) or three of 16
-# whose runs wrap the 12 super-blocks (in 3072, sub 16)
+# side) instance over two 128-row output tiles (out ragged) of one 64-row
+# activation tile, and over 2 x 2 tiles of 128 activation rows (rows and
+# out ragged); one sub-block chunk of 32 steps (in 2048, sub 32) or three of
+# 16 whose runs wrap the 12 super-blocks (in 3072, sub 16)
 CASES = [(20, 136, 2048, 32, "flat", False, False, 0),
          (20, 136, 2048, 32, "flat", True, False, 16),
          (20, 136, 3072, 16, "compact", False, True, 0),
@@ -166,6 +169,65 @@ def test_8bit_tc_kernel(emu, B, out_f, in_f, sub, layout, has_min, signed, bias)
     want = qm.quant_matmul_8bit_plain(*args)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+def _8bit_side_arrays(out_f, in_f, sub, s_side, m_side, g):
+    """int8 codes with the 8-bit kernel's (scale side, min side): ``flat``
+    (f32 per sub-block), ``u8`` or ``i8`` (f32 per 256 times an 8-bit
+    factor per sub-block), or ``none`` for the min."""
+    nsub, nd = in_f // sub, in_f // 256
+    codes = torch.randint(-128, 128, (out_f, in_f), generator=g, dtype=torch.int32).to(torch.int8)
+
+    def f32(n):
+        return torch.rand(out_f, n, generator=g) * 0.02 + 1e-3
+
+    def factor(side):
+        if side == "i8":
+            return torch.randint(-32, 32, (out_f, nsub), generator=g, dtype=torch.int32).to(torch.int8)
+        return torch.randint(0, 64, (out_f, nsub), generator=g, dtype=torch.int32).to(torch.uint8)
+    d, sc = (f32(nsub), None) if s_side == "flat" else (f32(nd), factor(s_side))
+    if m_side == "none":
+        return codes, d, sc, None, None
+    if m_side == "flat":
+        return codes, d, sc, f32(nsub), None
+    return codes, d, sc, f32(nd), factor(m_side)
+
+
+# (B, out, in, sub, bias, scale side, min side) of the wgmma 8-bit kernel:
+# all six (scale side, min side) pairs it takes; sub-blocks of 32 and 16,
+# biases 4 and 16; B of 8, 16, 33, 64 (64-row activation tiles, ragged at 8,
+# 16 and 33), 200 and 512 (128-row tiles, ragged at 200); out 72, 136, 200
+# and 264 (ragged 128-row output tiles); grids of up to the stand-in's 4 SMs
+# walking up to 3 tiles each (6 and 12 tiles); in 1024 and 2048 (two or
+# four chunks of 64 sub-blocks, one to four of them a tile's whole walk),
+# and 14336 (ffn_down: 448 sub-blocks in 7 chunks whose 56 super-blocks
+# wrap inside a chunk); sub-blocks of 3 (in 192: three steps, the last one
+# alone in its buffer)
+EIGHT_WGMMA_CASES = [(8, 200, 2048, 32, 0, "flat", "none"),
+                     (16, 136, 1024, 16, 16, "flat", "flat"),
+                     (33, 264, 2048, 32, 4, "u8", "none"),
+                     (64, 136, 1024, 16, 0, "u8", "u8"),
+                     (200, 264, 2048, 32, 0, "i8", "none"),
+                     (512, 264, 1024, 16, 0, "i8", "u8"),
+                     (33, 72, 14336, 32, 0, "u8", "u8"),
+                     (20, 136, 192, 3, 0, "flat", "flat")]
+
+
+@pytest.mark.parametrize("B,out_f,in_f,sub,bias,s_side,m_side", EIGHT_WGMMA_CASES, ids=str)
+def test_8bit_tc_wgmma_sides(emu, B, out_f, in_f, sub, bias, s_side, m_side):
+    """Every (scale side, min side) instance of the wgmma 8-bit kernel at
+    prefill row counts, through its tensor-core wrapper, against the plain
+    version of _make_kernel's 8-bit branch."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(B + out_f + in_f + sub + bias + len(s_side + m_side))
+    codes, d, sc, dmin, mn = _8bit_side_arrays(out_f, in_f, sub, s_side, m_side, g)
+    x = torch.randn(B, in_f, generator=g).bfloat16()
+    args = (x, codes, d, sc, sub, bias, dmin, mn)
+    name = qm.NAME_8BIT_TC if m_side == "none" else qm.NAME_8BIT_MIN_TC
+    before = launches.get(name, 0)
+    got = mod.quant_matmul_8bit_tc(*args)
+    assert launches[name] == before + 1
+    assert _rel_err(got, qm.quant_matmul_8bit_plain(*args)) <= TOL
 
 
 def _lowbit_arrays(bits, out_f, in_f, sub, layout, has_min, signed, g):
@@ -257,11 +319,6 @@ def test_lowbit_dispatch_by_rows(emu, bits):
         assert launches == {want: 1}
         want_y = plain(*args)
         assert (got - want_y).abs().max().item() <= TOL * want_y.abs().max().item()
-
-
-def _rel_err(got, want):
-    assert torch.isfinite(got).all()
-    return (got - want).abs().max().item() / want.abs().max().item()
 
 
 # (bits, rule, B, out, in, sub, bias, layout, has min, signed sc, code map):
@@ -405,7 +462,8 @@ def _int8_arrays(out_f, in_f, sub, s_side, m_side, g):
 # (Q3_K's bias 4), Q4_0's bias 8; B of 16, 33, 64 (64-row activation
 # tiles), 200 and 512 (128-row tiles, ragged at 200); out 72, 136 and 200
 # (ragged 128-row output tiles), grids of up to the stand-in's 4 SMs
-# walking several tiles; nsub 16 (one group) to 128
+# walking several tiles; nsub 16 (one group) to 128, and 448 (ffn_down's in
+# 14336, a compact min side)
 INT8_WGMMA_CASES = [(16, 136, 2048, 32, 8, "flat", "none"),
                     (33, 200, 512, 32, 0, "flat", "flat"),
                     (64, 136, 1024, 16, 4, "u8", "none"),
@@ -413,7 +471,8 @@ INT8_WGMMA_CASES = [(16, 136, 2048, 32, 8, "flat", "none"),
                     (512, 72, 1024, 32, 0, "u8", "i8"),
                     (33, 136, 2048, 16, 4, "i8", "none"),
                     (16, 200, 1024, 16, 0, "i8", "u8"),
-                    (64, 72, 2048, 32, 0, "i8", "i8")]
+                    (64, 72, 2048, 32, 0, "i8", "i8"),
+                    (24, 72, 14336, 32, 0, "u8", "u8")]
 
 
 @pytest.mark.parametrize("B,out_f,in_f,sub,bias,s_side,m_side", INT8_WGMMA_CASES, ids=str)
@@ -571,7 +630,8 @@ def test_wgmma_desc_swizzle_table(emu_addr):
 # 64-row activation tile), 200 and 512 (128-row tiles, ragged at 200); out
 # 72, 136, 200 and 264 (ragged 128-row tiles); grids of up to the stand-in's
 # 4 SMs walking up to 12 tiles each (persistent blocks); in 1024 and 2048
-# (one or two chunks of 64 sub-blocks a tile)
+# (one or two chunks of 64 sub-blocks a tile), and 14336 (ffn_down: 448 or
+# 896 sub-blocks, compact and mixed min sides)
 WGMMA_CASES = [(4, "fsplit", 512, 136, 1024, 16, 4, "compact", False, True, ""),
                (4, "fsplit", 33, 264, 2048, 32, 0, "flat", True, False, ""),
                (4, "fsplit", 200, 72, 2048, 32, 0, "mixed", True, False, ""),
@@ -592,7 +652,9 @@ WGMMA_CASES = [(4, "fsplit", 512, 136, 1024, 16, 4, "compact", False, True, ""),
                (2, "base_f32", 64, 136, 1024, 16, 0, "compact", True, False, ""),
                (2, "base_f32", 200, 200, 2048, 16, 0, "flat", True, False, ""),
                (4, "base_f32", 33, 136, 2048, 32, 0, "flat", False, False, "iq2_xs"),
-               (4, "base_f32", 512, 72, 2048, 32, 0, "compact", False, False, "iq3_s")]
+               (4, "base_f32", 512, 72, 2048, 32, 0, "compact", False, False, "iq3_s"),
+               (4, "fsplit", 33, 72, 14336, 32, 0, "compact", True, False, ""),
+               (2, "fsplit", 24, 72, 14336, 16, 0, "mixed", True, False, "")]
 
 
 @pytest.mark.parametrize("bits,rule,B,out_f,in_f,sub,bias,layout,has_min,signed,fmt",

@@ -362,13 +362,13 @@ TC_SIDES = [("flat", False, False, 32, 0), ("flat", True, False, 32, 16),
             ("compact", False, True, 16, 0), ("compact", True, True, 16, 0)]
 
 
-@pytest.mark.parametrize("B", [qm.TC_MIN_ROWS, 65, 129, 300, 512])
+@pytest.mark.parametrize("B", sorted({qm.TC_MIN_ROWS, qm.TC_MIN_ROWS + 1, 64, 65, 129, 300, 512}))
 @pytest.mark.parametrize("layout,has_min,signed,sub,bias", TC_SIDES, ids=str)
 def test_quant_matmul_8bit_tc_kernel(dev, layout, has_min, signed, sub, bias, B):
     """The tensor-core 8-bit kernel against the plain version: every side
-    instance, ragged rows, an out (200) that is no multiple of the 128-row
-    tile; through the dispatching wrapper, which launches it from
-    TC_MIN_ROWS rows up."""
+    instance, ragged rows (64 and 65 either side of the 64-row activation
+    tile), an out (200) that is no multiple of the 128-row tile; through the
+    dispatching wrapper, which launches it from TC_MIN_ROWS rows up."""
     g = torch.Generator().manual_seed(B + sub + bias + has_min)
     out_f, in_f = 200, 2048
     arrs = [t if t is None else t.to(dev)
@@ -409,6 +409,7 @@ def test_quant_matmul_8bit_dispatch_by_rows(dev):
     g = torch.Generator().manual_seed(7)
     for in_f, B, want in ((2048, qm.TC_MIN_ROWS - 1, qm.NAME_8BIT_MIN),
                           (2048, qm.TC_MIN_ROWS, qm.NAME_8BIT_MIN_TC),
+                          (2048, qm.TC_MIN_ROWS + 1, qm.NAME_8BIT_MIN_TC),
                           (1536, 300, qm.NAME_8BIT_MIN)):
         codes, d, sc, dmin, mn = [t if t is None else t.to(dev)
                                   for t in _8bit_arrays(72, in_f, 32, "compact", True, False, g)]

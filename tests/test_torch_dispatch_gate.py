@@ -296,6 +296,33 @@ def test_lowbit_rows_threshold(bits, on_card_spies):
         assert on_card_spies == [f"{bits}bit_{want}"]
 
 
+@pytest.mark.parametrize("has_min", [False, True])
+def test_8bit_rows_threshold(has_min, monkeypatch):
+    """The 8-bit dispatch as on the card (``_on_card`` answers True): below
+    TC_MIN_ROWS rows the decode kernel, from it up (512 included) the
+    tensor-core kernel; a geometry the tensor-core kernel does not take
+    (nsub 48) keeps the decode kernel at any row count."""
+    calls = []
+    monkeypatch.setattr(qm, "_on_card", lambda t: True)
+    for kind in ("tc", "decode"):
+        def fn(*a, _tag=kind):
+            calls.append(_tag)
+            return qm.quant_matmul_8bit_plain(*a)
+        monkeypatch.setattr(qm, f"quant_matmul_8bit_{kind}", fn)
+    g = torch.Generator().manual_seed(int(has_min))
+    for in_f, B, want in ((2048, 1, "decode"), (2048, qm.TC_MIN_ROWS - 1, "decode"),
+                          (2048, qm.TC_MIN_ROWS, "tc"), (2048, qm.TC_MIN_ROWS + 1, "tc"),
+                          (2048, 512, "tc"), (1536, 512, "decode")):
+        nsub = in_f // 32
+        codes = torch.randint(-128, 128, (8, in_f), generator=g, dtype=torch.int32).to(torch.int8)
+        d = torch.rand(8, nsub, generator=g)
+        dmin = torch.rand(8, nsub, generator=g) if has_min else None
+        x = torch.randn(B, in_f, generator=g).bfloat16()
+        calls.clear()
+        qm.quant_matmul_8bit(x, codes, d, None, 32, 0, dmin)
+        assert calls == [want], (in_f, B)
+
+
 @pytest.mark.parametrize("variant", ["fsplit", "xsum", "split", "base", "int8"])
 @pytest.mark.parametrize("gtype", [GGMLType.Q4_K, GGMLType.Q2_K], ids=lambda t: t.name)
 def test_variants_never_reach_the_lowbit_tc_kernel(gtype, variant, on_card_spies, monkeypatch):
