@@ -12,9 +12,10 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               kernel's plans at 32 and 512 rows, the int8 one's at
               INT8_TC_MIN_ROWS and 512 and the 8-bit one's at TC_MIN_ROWS
               and 512 (with the host's time to build a launch's tensor
-              maps), and every instance of each with its registers, spills
-              and its SASS's count of HGMMA (bf16 wgmma) and, int8, IGMMA
-              (s8 wgmma) (a spill or a missing GMMA fails the run)
+              maps), and every instance of each and of the tensor-core
+              flash kernel with its registers, spills and its SASS's count
+              of HGMMA (bf16 wgmma) and, int8, IGMMA (s8 wgmma) (a spill,
+              a missing GMMA or a wgmma ptxas serialized fails the run)
 3. kernels  — each kernel against its plain PyTorch version at the 8B
               shapes: 4-bit matmul (flat Q4_K) at the four projection shapes
               for 1, 4 and 512 rows, and with Q3_K's geometry (sub-blocks of
@@ -39,8 +40,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               bf16, paged q8_0) at decode through the split kernel (T=1, B=4,
               offsets up to 1000, beside the unsplit kernel's time as
               PERF.md recorded it; B=1 at offset 1000 over 1024 slots and at 8191
-              over 8192) and prefill (T=512, B=1, offsets 0 and 1024)
-              through its tensor-core kernel beside the CUDA-core one, and
+              over 8192) and prefill (T=512, B=1, offsets 0 and 1024; bf16
+              and q8_0 also at 7680 over 8192 slots, an 8K prompt's last
+              chunk) through its tensor-core kernel beside the CUDA-core one, and
               at T=16, 32 and 64 (offset 1000: the crossover that sets
               FLASH_TC_MIN_ROWS); the paged ones through shuffled pages of
               256 with one idle slot whose table row is all -1; the 2- and
@@ -85,8 +87,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               scheduler over four slots of that kind (one idle), each token
               checked against a replay on a one-sequence cache (their
               prefill, padded to the engine's bucket of 16 or 32 rows,
-              through the kind's decode flash kernel or, from
-              FLASH_TC_MIN_ROWS, its tensor-core one)
+              through the kind's tensor-core flash kernel, from
+              FLASH_TC_MIN_ROWS (16, the smallest bucket), their decode
+              steps through its decode kernel)
 6. serve    — the port's OpenAI server in-process on localhost (4 slots, 1024
               context each): a chat completion, a streamed one, four concurrent
               completions, and a request without the key (must get 401)
@@ -359,7 +362,8 @@ def _tc_instances(report: str, source: str, kernel: str, gmma: tuple[str, ...]) 
     wgmmas serialized; ``report`` is empty where the
     library was already built, and the source is then compiled again for
     ptxas's report. No instance, an instance without ptxas's registers, a
-    spill or an instance without one of ``gmma`` fails the run."""
+    spill, an instance without one of ``gmma`` or one whose wgmmas ptxas
+    serialized fails the run."""
     from llama_gguf_inference_tpu_torch.ops import _build
     report = report or _build.ptxas_report(source)
     ptxas = _ptxas(report, kernel)
@@ -373,7 +377,7 @@ def _tc_instances(report: str, source: str, kernel: str, gmma: tuple[str, ...]) 
         out.append({"instance": list(targs), **counts, **ptxas.get(targs, {}),
                     "wgmma_serialized": any(name in ln for ln in serialized)})
     bad = [i for i in out if not all(i[op.lower()] for op in gmma) or i.get("spill_stores", 0)
-           or i.get("spill_loads", 0) or "ptxas_registers" not in i]
+           or i.get("spill_loads", 0) or "ptxas_registers" not in i or i["wgmma_serialized"]]
     if not out or bad:
         raise AssertionError(f"{source} instances without {gmma} or spilling: {bad}")
     return out
@@ -393,7 +397,9 @@ def phase_plans(torch, reports: dict) -> None:
     HGMMA, fails the run; the int8 tensor-core kernel's the same at
     INT8_TC_MIN_ROWS and 512 rows, its instances' registers, spills and
     IGMMA and HGMMA counts; the 8-bit tensor-core kernel's at TC_MIN_ROWS
-    and 512 rows, its instances' registers, spills and HGMMA counts."""
+    and 512 rows, its instances' registers, spills and HGMMA counts; the
+    tensor-core flash kernel's 12 instances' the same. A serialized wgmma
+    fails the run too."""
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     report = reports["quant_matmul"]
@@ -464,6 +470,9 @@ def phase_plans(torch, reports: dict) -> None:
           "quant_matmul_8bit_tc": plans_t8,
           "quant_matmul_8bit_tc_instances": _tc_instances(
               reports["quant_matmul_tc"], "quant_matmul_tc", "quant_matmul_8bit_tc_kernel",
+              ("HGMMA",)),
+          "flash_attention_tc_instances": _tc_instances(
+              reports["flash_attention_tc"], "flash_attention_tc", "flash_attention_tc_kernel",
               ("HGMMA",))})
 
 
@@ -906,7 +915,8 @@ UNSPLIT_DECODE_MS = {"flash_attention": 0.1199, "flash_attention_q8": 0.0970,
 def _attention_rows(torch, F, fa, rand, g, timer):
     """Every flash kernel at decode (T=1: B=4, offsets up to 1000; B=1 at
     offset 1000 over 1024 slots and at 8191 over 8192), at prefill (T=512,
-    B=1, offsets 0 and 1024) and at T=16, 32 and 64 (B=1, offset 1000: the
+    B=1, offsets 0 and 1024; bf16 and q8_0 also at 7680 over 8192 slots, an
+    8K prompt's last chunk) and at T=16, 32 and 64 (B=1, offset 1000: the
     crossover that sets FLASH_TC_MIN_ROWS): H 32 over KVH 8, D 128, 1024
     slots a sequence (more where its keys reach past 1024), contiguous or in
     pages of 256. Above T=1 every entry point runs its tensor-core kernel,
@@ -960,6 +970,7 @@ def _attention_rows(torch, F, fa, rand, g, timer):
     for label, B, T, offs in (("decode", 4, 1, [1000, 700, 300, 37]),
                               ("decode", 1, 1, [1000]), ("decode", 1, 1, [8191]),
                               ("prefill", 1, 512, [0]), ("prefill", 1, 512, [1024]),
+                              ("prefill", 1, 512, [7680]),
                               ("crossover", 1, 16, [1000]), ("crossover", 1, 32, [1000]),
                               ("crossover", 1, 64, [1000])):
         S = max(1024, -(-(max(offs) + T) // 1024) * 1024)
@@ -968,14 +979,18 @@ def _attention_rows(torch, F, fa, rand, g, timer):
         k = rand(B, KVH, S, D).bfloat16()
         v = rand(B, KVH, S, D).bfloat16()
         off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        long_chunk = offs == [7680]   # bf16 and q8_0 only
         measure(fa.NAME, label, (q, k, v, off), k, v, 2 * D * 2, off)
         for name, codec, key_bytes in ((fa.NAME_Q8, QuantKV, 2 * (D + 4)),
                                        (fa.NAME_Q4, QuantKV4, 2 * (D // 2 + 4)),
-                                       (fa.NAME_Q41, QuantKV41, 2 * (D // 2 + 8))):
+                                       (fa.NAME_Q41, QuantKV41, 2 * (D // 2 + 8)))[
+                                           :1 if long_chunk else 3]:
             kc, vc = codec.quantize(k), codec.quantize(v)
             measure(name, label, (q, *kc, *vc, off), codec.dequantize(*kc),
                     codec.dequantize(*vc), key_bytes, off)
         del k, v
+        if long_chunk:
+            continue
 
         # paged: the same sequences plus one idle slot (offset 0, table row
         # all -1), over shuffled pages; a slot maps only the pages it uses
@@ -1142,7 +1157,8 @@ def kv_engine(torch, engine, ecfg):
         swap(saved)
 
 
-# the third prompt's prefill bucket reaches FLASH_TC_MIN_ROWS, the others' not
+# prompts of three lengths: two pad to the engine's bucket of 16 rows, the
+# third to 32; every bucket reaches FLASH_TC_MIN_ROWS (16)
 ENGINE_PROMPTS = (PROMPT, "hello world, the quick brown fox",
                   "request 2: " + PROMPT + ", and then " + PROMPT)
 
@@ -1154,8 +1170,8 @@ def _engine_run(torch, engine, kind, steps):
     tokens, through a one-sequence cache of the same kind: every token the
     engine chose must lie within LOGITS_TOL (of the logits' scale) of the
     replay's largest logit. The prompts' prefill, padded to the engine's
-    buckets, runs the kind's decode flash kernel below FLASH_TC_MIN_ROWS and
-    its tensor-core one from there (the third prompt's)."""
+    buckets (all from FLASH_TC_MIN_ROWS), runs the kind's tensor-core flash
+    kernel, their decode steps its decode kernel."""
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.runtime.sampler import SamplingParams
     name = KV_KINDS[kind][2]

@@ -1,5 +1,5 @@
 // Causal flash attention for prefill-sized query counts on tensor cores, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): wgmma, TMA and mbarriers.
 //
 // Replaces, from ops/flash_attention.py's FLASH_TC_MIN_ROWS query positions
 // up, these TPU kernels of llama_gguf_inference_tpu/ops/flash_attention.py,
@@ -20,63 +20,105 @@
 // rows r = g*T + t of one (b, kv head) problem (the reference's (g, t) row
 // order); masked scores are -1e30, not -inf; the running max and sum are
 // f32; the scales come after the dots, score = (q.c)*ks*scale [+ qsum*km]
-// and P.V accumulates (p*vs).c [+ sum p*vm] while l sums the unscaled p;
-// out = acc / max(l, 1e-30); a block stops at the last key its rows see; a
-// paged row is looked up per key row, a -1 entry read as page 0 and never
-// dereferenced. The JAX package builds no 4-bit paged pool, nor does the
-// port, so q4_0 and q4_1 are contiguous only.
+// and P.V accumulates (p*vs).c [+ sum p*vm] while l sums the unscaled p
+// (q4_1's c and minimums centred, below);
+// out = acc / max(l, 1e-30); a block stops at the last key its rows see; in
+// a paged cache a -1 table entry is read as page 0 and never used unmasked.
+// The JAX package builds no 4-bit paged pool, nor does the port, so q4_0 and
+// q4_1 are contiguous only. The scores are kept in the base-2 domain: the
+// scale is folded with log2(e), the exponentials are ex2 (MUFU.EX2); P is
+// rounded to bf16 (times vs) for the second product, the one rounding the
+// reference does not make.
 //
 // What bounds it: at T = 512 the operations (4*H*D per (query, key) pair
 // over 989 TFLOP/s bf16), not the cache bytes: each KV head's keys serve G*T
-// query rows. The CUDA-core kernel stages each K/V tile once per 4 query
-// rows and forms every dot on CUDA cores; this one stages it once per 64
-// rows and forms both products on tensor cores.
+// query rows. At D = 128 the softmax's exponentials (16 an SM a cycle) take
+// about half the products' tensor time, so the two consumers overlap one's
+// softmax with the other's products; the quantized kinds' conversion adds
+// shared-memory traffic (codes read, bf16 tiles written) that the products
+// then contend with.
 //
-// Design (a simple tensor-core kernel; TMA and wgmma are later work):
-// - A block of 4 warps owns one (b, kv head) and 64 consecutive rows r, 16 a
-//   warp: a tile spans one head's t's (two heads' where T % 64 != 0). Folding
-//   the G heads of one t into a tile instead would stage the same key tiles
-//   (at T = 512, offset 1024, G = 4: 656 per kv head either way) and mask the
-//   same share of its last tile, and would tie the tile to G dividing 64;
-//   the (g, t) order takes any G and T. Blocks take their row tiles last
-//   first, so the ones that walk the most keys start first.
-// - K and V tiles of 64 keys come through a 2-slot cp.async ring, the next
-//   tile's loads in flight while this one is multiplied. bf16 rows are
-//   padded to D + 8 elements, so the 8 rows an ldmatrix reads fall on
-//   distinct banks. The q8_0, q4_0 and q4_1 codes (64 keys x D or D/2
-//   bytes) land raw in a ring of their own, with their per-token scales
-//   (ks, vs, and for q4_1 km, vm; 4-byte cp.async), and are converted to
-//   bf16 into one K and one V tile before the products: exact, since
-//   |c| <= 127. A nibble byte j gives column j (low) and j + D/2 (high),
-//   minus 8 for q4_0.
-// - q4_1's minimums, as _flash_step folds them (:94-96, :108-110): each
-//   score adds qsum_row * km[key], qsum_row the f32 sum of the row's
-//   pre-scaled q, taken once from the Q tile; after the alpha rescale each
-//   row adds sum_k p_k * vm_k, from the f32 p reduced over the quad (not
-//   rounded to bf16), to every output dim.
-// - S = Q.K^T: mma.sync.m16n8k16 bf16 with f32 accumulators; a warp's Q
-//   fragments (its 16 rows, unscaled bf16) are read once with ldmatrix and
-//   stay in registers for the whole walk; K by ldmatrix. The scores are then
-//   scaled by (ks and) 1/sqrt(D) in f32.
-// - Online softmax in registers: a lane holds two rows' scores, each row's
-//   max and sum reduced across the four lanes of its quad.
-// - O += P.V: P (times vs) is re-packed from the score accumulators into
-//   bf16 A fragments in registers, the one rounding the reference does not
-//   make; V by ldmatrix.trans. A warp skips the 16-key steps past its rows'
-//   last visible key.
-// - Dynamic shared memory a block (kSmem; contiguous and paged alike), at
-//   D 64 / 128: bf16 46080 / 87040 bytes, q8_0 45056 / 86016, q4_0 36864 /
-//   69632, q4_1 37888 / 70656: two blocks an SM at D = 128.
+// Design, in FlashAttention-3's shape:
+// - A block of three warpgroups owns one (b, kv head) and 128 consecutive
+//   rows r: consumer warpgroups 0 and 1 take 64 rows each, the producer
+//   warpgroup 2 feeds them; setmaxnreg gives the consumers 232 registers and
+//   the producer 40 (q8_0 and q4_0, whose producer converts: 224 and 56),
+//   3 x 168 in all, the registers a block starts with. A tile of rows spans
+//   one head's t's (two heads' where T % 64 != 0); blocks take their row
+//   tiles last first, so the ones that walk the most keys start first.
+// - Q stays in registers: each consumer thread loads its rows' wgmma_rs A
+//   fragments once (4-byte loads, zeros past R), the A of S = Q.K^T. That
+//   spares the products 32 KB of shared-memory reads a tile of keys and
+//   frees the 32 KB a Q tile would take (so q8_0 has two code stages at
+//   D = 128); Q by TMA would also need a box for each run of rows of one
+//   head, of any length.
+// - K and V, tiles of kKT = 128 keys, come in a ring of stages, each with
+//   full barriers for K and for V and empty ones for each: K's goes back
+//   once every consumer warp has read the tile's vectors (its S retired
+//   first), V's once each consumer's P.V of the tile retired. K (keys x D)
+//   is S's K-major B operand; V (keys x D, D contiguous) is P.V's MN-major B
+//   operand (wgmma_desc_mn, the transpose flag of wgmma_rs_tb). bf16 K and
+//   V come straight by TMA with the 128-byte swizzle, in 64-column boxes of
+//   hb keys, from producer warp 0.
+// - The quantized kinds' codes come raw by TMA (q8_0 rows of D bytes,
+//   q4_0/q4_1 rows of D/2 planar nibble bytes) into a ring of code stages,
+//   with the tile's key vectors (ks, vs, and for q4_1 km, vm) by 4-byte
+//   cp.async whose arrival the code stage's full barrier counts. The
+//   producer's warps 1-3 convert each tile into a stage's bf16 K and V
+//   tiles, ahead of the consumers, with its vectors beside them. The
+//   conversion is exact and has no I2F: a nibble n is the bf16 0x4300 | n
+//   (128 + n) less 136 (n - 8); a signed byte c is 0x4300 | (c & 127) less
+//   0x4300 | (c & 128) (128 or 256); one byte permute spreads two codes into
+//   a bf16 pair, one sub.bf16x2 finishes them. fence.proxy.async makes the
+//   tiles visible to wgmma before the full barriers' arrivals.
+// - q4_1 is taken centred, as q4_0: c s + m = (c - 8) s + (m + 8 s), so the
+//   converter writes c - 8 and stores km + 8 ks and vm + 8 vs as the
+//   minimums. The same sums, but the rounded term (p vs)(c - 8) is about half
+//   of (p vs) c, whose cancellation against sum p vm made the rounding of P
+//   reach two bf16 ulps of the output where an element's value is far from
+//   its row's minimum (an H100 run of the uncentred form: 8.6e-3 of the
+//   output's scale at D = 128, T = 100, offsets 300 and 17).
+// - Paged kinds: the producer reads the table once per box, not per row. A
+//   box is hb = min(kKT, the largest power of two dividing page_s) keys, so
+//   no box straddles a page (pages of 256 or 1024: one box a tile; of 48:
+//   16 keys a box; of an odd size: one key a box, slow but right). The maps
+//   run over the pool's rows (P x KVH x page_s); keys past the table's pages
+//   read page 0, masked.
+// - A consumer's walk: tile j's S = Q.K^T is issued with tile j-1's O +=
+//   P.V, both retire, then tile j's softmax (f32 running max and sum, each
+//   row's reduced over the quad of lanes holding it; only the tiles the
+//   diagonal crosses masked), O's rescale and P's packing (from the S
+//   accumulators into wgmma_rs's bf16 A fragments). The two consumers issue
+//   their products in turn (named barriers), so one's
+//   softmax runs under the other's products (about 10% at T = 512 on an
+//   H100); running
+//   the softmax under the warpgroup's own P.V as well (FlashAttention-3's
+//   in-warpgroup pipelining) measured no faster and kept P's registers live
+//   through it. A consumer stops at the last key its rows see and hands the
+//   stages of the block's later tiles back unread.
+// - The epilogue stores rows < R from registers: out = acc / max(l, 1e-30).
+// - Dynamic shared memory a block (kBytes; one block an SM), bf16 stages
+//   and code stages at D 64 / 128: bf16 4 / 3; q8_0 3 and 4 / 2 and 2;
+//   q4_0 and q4_1 3 and 4 / 2 and 4.
 
 #include "tc_common.cuh"
 
 namespace {
 
-constexpr int kFRows = 64;      // query rows a block, 16 a warp
-constexpr int kFKeys = 64;      // keys a tile
-constexpr int kFThreads = 128;  // 4 warps
+constexpr int kFRows = 128;     // query rows a block, 64 a consumer warpgroup
+constexpr int kFThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr float kLog2e = 1.4426950408889634f;
 
 enum FKind { kFBF16 = 0, kFQ8 = 1, kFQ4 = 2, kFQ41 = 3 };
+
+// registers a thread after setmaxnreg: a block starts with 168 a thread (the
+// most 384 threads may have), and the three warpgroups' counts must sum to
+// 3 x 168, or a consumer's setmaxnreg.inc waits for registers that never
+// come. bf16: the producer only issues TMA; q8_0 and q4_0: its warps 1-3
+// convert; q4_1's consumers hold its minimums' terms too.
+template <int KIND> constexpr int kFConsRegs = KIND == kFQ8 || KIND == kFQ4 ? 224 : 232;
+template <int KIND> constexpr int kFProdRegs = 3 * 168 - 2 * kFConsRegs<KIND>;
+static_assert(kFProdRegs<kFBF16> >= 24 && kFProdRegs<kFQ8> >= 24, "setmaxnreg counts");
 
 struct FArgs {
   const __nv_bfloat16* q;
@@ -92,38 +134,56 @@ struct FArgs {
   int T, H, KVH;
   int S;                 // logical slots per sequence (NP * page_s when paged)
   int NP, page_s;
+  int hb;                // keys a TMA box
   float scale;
 };
 
+// Shared memory of a block, from a 1024-byte aligned base: the stages (each
+// K then V, bf16 tiles of kKT keys in 64-column panels of kKT x 128 bytes,
+// then its keys' vectors ks, vs (, km, vm)), the code stages (K codes, V
+// codes, the same vectors as stored), the barriers.
 template <int D, int KIND>
 struct FLayout {
-  static constexpr int kPitch = D + 8;                  // bf16 a row of the Q, K and V tiles
-  static constexpr int kTile = kFKeys * kPitch * 2;     // bytes of one K or V tile
-  static constexpr int kQ = kFRows * kPitch * 2;        // bytes of the Q tile
-  static constexpr int kSlots = KIND == kFBF16 ? 2 : 1; // bf16 K/V tiles (the ring for bf16)
-  static constexpr int kRB = KIND == kFBF16 ? 2 * D : KIND == kFQ8 ? D : D / 2;  // bytes a cache row
-  static constexpr int kCodes = kFKeys * kRB;           // quantized: bytes of one K or V code tile
+  static constexpr int kKT = 128;                         // keys a tile
+  static constexpr int kKV = kKT * D * 2;                  // a bf16 K or V tile
   static constexpr int kNV = KIND == kFBF16 ? 0 : KIND == kFQ41 ? 4 : 2;  // ks, vs (, km, vm)
-  static constexpr int kSmem = kQ + 2 * kSlots * kTile
-                               + (KIND == kFBF16 ? 0 : 2 * (2 * kCodes + kNV * kFKeys * 4));
+  static constexpr int kStage = 2 * kKV + (kNV * kKT * 4 + 1023) / 1024 * 1024;
+  static constexpr int kRB = KIND == kFQ8 ? D : D / 2;    // code bytes a key
+  static constexpr int kCodes = 2 * kKT * kRB;             // a code stage's K and V codes
+  static constexpr int kCode = KIND == kFBF16 ? 0 : kCodes + kNV * kKT * 4;
+  static constexpr int kBudget = 230400;   // 232,448 less the alignment pad and barriers
+  static constexpr int kStages =
+      KIND == kFBF16 ? (kBudget / kStage < 4 ? kBudget / kStage : 4)
+      : kBudget - 3 * kStage >= 2 * kCode ? 3 : 2;
+  static constexpr int kCFit = KIND == kFBF16 ? 0 : (kBudget - kStages * kStage) / kCode;
+  static constexpr int kCStages = kCFit < 4 ? kCFit : 4;
+  static constexpr int kSt = 0;
+  static constexpr int kCs = kSt + kStages * kStage;
+  static constexpr int kBar = kCs + kCStages * kCode;
+  static constexpr int kBytes = kBar + (4 * kStages + 2 * kCStages) * 8 + 1024;
+  static_assert(kStages >= 2 && (KIND == kFBF16 || kCStages >= 1), "stages do not fit");
+  static_assert(kCode % 128 == 0, "code stages 128-byte aligned");
 };
 
 // Row index of logical slot pos of (b, kvh): codes at row * row bytes,
-// scales at row.
+// scales at row. Paged: a -1 entry, or a slot past the table's pages, reads
+// page 0.
 template <bool PAGED>
-__device__ __forceinline__ size_t frow(const FArgs& a, int b, int kvh, int pos) {
+__device__ __forceinline__ int frow(const FArgs& a, int b, int kvh, int pos) {
   if constexpr (PAGED) {
     const int lp = pos / a.page_s;
-    const int phys = max(a.table[(size_t)b * a.NP + lp], 0);
-    return ((size_t)phys * a.KVH + kvh) * a.page_s + (pos - lp * a.page_s);
+    const int phys = lp < a.NP ? max(a.table[(size_t)b * a.NP + lp], 0) : 0;
+    return (phys * a.KVH + kvh) * a.page_s + (pos - lp * a.page_s);
   } else {
-    return ((size_t)b * a.KVH + kvh) * a.S + pos;
+    return (b * a.KVH + kvh) * a.S + pos;
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
+// Byte offset of (row, col) (col a multiple of 8) in a bf16 tile of `rows`
+// rows as TMA lays it with the 128-byte swizzle: 64-column panels of rows x
+// 128 bytes, the 16-byte chunk XORed with the row's place in its 8.
+__device__ __forceinline__ int swz(int row, int col, int rows) {
+  return (col >> 6) * rows * 128 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -142,289 +202,452 @@ __device__ __forceinline__ int last_t(int r, int n, int T) {
   return lo + n - 1 >= T ? T - 1 : lo + n - 1;
 }
 
-template <int D, int KIND, bool PAGED>
-__global__ void __launch_bounds__(kFThreads)
-flash_attention_tc_kernel(const FArgs a) {
-  using L = FLayout<D, KIND>;
-  constexpr int P = L::kPitch;
-  constexpr int RB = L::kRB;                        // bytes a cache row
-  constexpr int NV = L::kNV;                        // per-token vectors a key
-  constexpr int KT = D / 16;                        // k16 steps over D
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* const qs = smem;
-  unsigned char* const kt = qs + L::kQ;                      // kSlots x (64 x P) bf16
-  unsigned char* const vt = kt + L::kSlots * L::kTile;
-  unsigned char* const cs = vt + L::kSlots * L::kTile;       // quantized: 2 x (K codes, V codes)
-  float* const ss = reinterpret_cast<float*>(cs + 2 * 2 * L::kCodes);  // 2 x (ks, vs (, km, vm))
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int G = a.H / a.KVH, T = a.T, R = G * T;
-  const int r0 = ((R + kFRows - 1) / kFRows - 1 - (int)blockIdx.x) * kFRows;
-  const int off = a.offsets[b];
-  const int last = min(a.S - 1, off + last_t(r0, min(kFRows, R - r0), T));
-  const int n_tiles = last / kFKeys + 1;
-
-  // this warp's rows wr0.. (none where wr0 >= R) and the last key they see;
-  // this lane's two rows, wr0 + lane/4 and 8 more, and their last keys
-  const int wr0 = r0 + 16 * warp;
-  const int warp_last = wr0 < R ? min(a.S - 1, off + last_t(wr0, min(16, R - wr0), T)) : -1;
-  int lim[2];
+// One code tile (kKT keys) to its bf16 tile, 16 code bytes a thread step
+// over the producer's 96 converting threads (ct). q8_0: two codes a bf16
+// pair, 0x4300 | (c & 127) less 0x4300 | (c & 128); q4_0/q4_1: byte j's low
+// nibble to column j, its high one to j + D/2, 0x4300 | n less 136 (n - 8).
+template <int D, int KIND, int KT>
+__device__ __forceinline__ void convert_tile(const unsigned char* codes, unsigned char* tile,
+                                             int ct) {
+  constexpr int RB = KIND == kFQ8 ? D : D / 2;
+  constexpr uint32_t kMagic = 0x43004300u;
+  constexpr uint32_t kBias = 0x43084308u;   // 136: n - 8 (q4_1 too, its minimums moved by 8 s)
+  for (int c = ct; c < KT * RB / 16; c += 96) {
+    const int key = c / (RB / 16), col = (c % (RB / 16)) * 16;
+    const uint4 w = *reinterpret_cast<const uint4*>(codes + key * RB + col);
+    const uint32_t wd[4] = {w.x, w.y, w.z, w.w};
+    uint32_t lo[8], hi[8];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = wr0 + (lane >> 2) + 8 * h;
-    lim[h] = min(a.S - 1, off + (r < R ? r % T : 0));
-  }
-
-  // the Q tile: rows r0.. of the (g, t) order, zeros past R
-  for (int c = tid; c < kFRows * D / 8; c += kFThreads) {
-    const int i = c / (D / 8), col = (c % (D / 8)) * 8;
-    const int r = r0 + i;
-    const bool ok = r < R;
-    const __nv_bfloat16* src = a.q;
-    if (ok) {
-      const int g = r / T, t = r - g * T;
-      src = a.q + (((size_t)b * T + t) * a.H + kvh * G + g) * D + col;
-    }
-    cp_async16(qs + (i * P + col) * 2, src, ok);
-  }
-
-  // the loads of tile j into ring slot j % 2: keys past the block's last
-  // are zero-filled, not read
-  auto load = [&](int j) {
-    const int s0 = j * kFKeys;
-    if constexpr (KIND == kFBF16) {
-      unsigned char* kd = kt + (j & 1) * L::kTile;
-      unsigned char* vd = vt + (j & 1) * L::kTile;
-      for (int c = tid; c < kFKeys * D / 8; c += kFThreads) {
-        const int key = c / (D / 8), col = (c % (D / 8)) * 8;
-        const bool ok = s0 + key <= last;
-        const size_t base = ok ? frow<PAGED>(a, b, kvh, s0 + key) * RB + col * 2 : 0;
-        cp_async16(kd + (key * P + col) * 2, a.k + base, ok);
-        cp_async16(vd + (key * P + col) * 2, a.v + base, ok);
-      }
-    } else {
-      unsigned char* kd = cs + (j & 1) * 2 * L::kCodes;
-      unsigned char* vd = kd + L::kCodes;
-      for (int c = tid; c < kFKeys * RB / 16; c += kFThreads) {
-        const int key = c / (RB / 16), col = (c % (RB / 16)) * 16;
-        const bool ok = s0 + key <= last;
-        const size_t base = ok ? frow<PAGED>(a, b, kvh, s0 + key) * RB + col : 0;
-        cp_async16(kd + key * RB + col, a.k + base, ok);
-        cp_async16(vd + key * RB + col, a.v + base, ok);
-      }
-      // the keys' scale vectors, one 4-byte copy a (vector, key): ks, vs (, km, vm)
-      for (int i = tid; i < NV * kFKeys; i += kFThreads) {
-        const int vec = i / kFKeys, key = i % kFKeys;
-        const bool ok = s0 + key <= last;
-        const size_t row = ok ? frow<PAGED>(a, b, kvh, s0 + key) : 0;
-        const float* src = vec == 0 ? a.ks : vec == 1 ? a.vs : vec == 2 ? a.km : a.vm;
-        cp_async4(ss + (j & 1) * NV * kFKeys + i, src + row, ok);
-      }
-    }
-  };
-  load(0);
-  cp_async_commit();
-
-  uint32_t qf[KT][4];
-  float o[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  float m_i[2] = {-1e30f, -1e30f}, l_i[2] = {0.f, 0.f};   // l: this lane's share
-  float qsum[2] = {0.f, 0.f};   // q4_1: the f32 sums of this lane's two rows' pre-scaled q
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) load(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();   // tile j (and, at j = 0, Q) has landed
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk)
-        ldmatrix_x4(qf[kk], qs + ((16 * warp + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8) * 2);
-      if constexpr (KIND == kFQ41) {
-        // a quad's four lanes sum a quarter of each of its two rows each
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const __nv_bfloat16* qrow = reinterpret_cast<const __nv_bfloat16*>(qs) +
-                                      (16 * warp + (lane >> 2) + 8 * h) * P + (lane & 3) * (D / 4);
-          float sum = 0.f;
-          for (int e = 0; e < D / 4; ++e) sum += __bfloat162float(qrow[e]) * a.scale;
-          qsum[h] = quad_sum(sum);
-        }
-      }
-    }
-    const unsigned char* ktile = kt + (KIND == kFBF16 ? (j & 1) * L::kTile : 0);
-    const unsigned char* vtile = vt + (KIND == kFBF16 ? (j & 1) * L::kTile : 0);
-    const float* kss = ss + (j & 1) * NV * kFKeys;   // ks, vs (, km, vm) of the tile's keys
-    if constexpr (KIND != kFBF16) {
-      // the slot's codes to bf16 K and V tiles, 16 code bytes a chunk
-      const unsigned char* kc = cs + (j & 1) * 2 * L::kCodes;
-      for (int c = tid; c < 2 * kFKeys * RB / 16; c += kFThreads) {
-        const int half = c / (kFKeys * RB / 16), cc = c % (kFKeys * RB / 16);
-        const int key = cc / (RB / 16), col = (cc % (RB / 16)) * 16;
-        const uint4 w = *reinterpret_cast<const uint4*>(kc + half * L::kCodes + key * RB + col);
-        unsigned char* row = (half ? vt : kt) + key * P * 2;
-        if constexpr (KIND == kFQ8) {
-          const int8_t* cb = reinterpret_cast<const int8_t*>(&w);
-          uint32_t pk[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) pk[e] = pack_bf16((float)cb[2 * e], (float)cb[2 * e + 1]);
-          uint4* dst = reinterpret_cast<uint4*>(row + col * 2);
-          dst[0] = uint4{pk[0], pk[1], pk[2], pk[3]};
-          dst[1] = uint4{pk[4], pk[5], pk[6], pk[7]};
-        } else {
-          // byte col + e: low nibble to column col + e, high to col + e + D/2
-          constexpr float bias = KIND == kFQ4 ? 8.f : 0.f;
-          const uint8_t* cb = reinterpret_cast<const uint8_t*>(&w);
-          uint32_t lo[8], hi[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            lo[e] = pack_bf16((float)(cb[2 * e] & 15) - bias, (float)(cb[2 * e + 1] & 15) - bias);
-            hi[e] = pack_bf16((float)(cb[2 * e] >> 4) - bias, (float)(cb[2 * e + 1] >> 4) - bias);
-          }
-          uint4* dl = reinterpret_cast<uint4*>(row + col * 2);
-          uint4* dh = reinterpret_cast<uint4*>(row + (col + D / 2) * 2);
-          dl[0] = uint4{lo[0], lo[1], lo[2], lo[3]};
-          dl[1] = uint4{lo[4], lo[5], lo[6], lo[7]};
-          dh[0] = uint4{hi[0], hi[1], hi[2], hi[3]};
-          dh[1] = uint4{hi[4], hi[5], hi[6], hi[7]};
-        }
-      }
-      __syncthreads();
-    }
-
-    const int s0 = j * kFKeys;
-    if (s0 <= warp_last) {   // warp-uniform
-      // S = Q.K^T over this tile's 64 keys: n8 tiles nt, key pairs np of 16
-      float s[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        if (s0 + np * 16 > warp_last) continue;
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-          const int row = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-          const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-          uint32_t r[4];
-          ldmatrix_x4(r, ktile + (row * P + col) * 2);
-          mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
-        }
-      }
-      // scale, mask, online softmax; accumulator (nt, e) is row lane/4 (+8
-      // for e >= 2), key s0 + nt*8 + (lane%4)*2 + e%2
-      float mx[2] = {-1e30f, -1e30f};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = nt * 8 + (lane & 3) * 2 + (e & 1);
-          float x = s[nt][e];
-          if constexpr (KIND != kFBF16) x *= kss[kl];
-          x *= a.scale;
-          if constexpr (KIND == kFQ41) x += qsum[e >> 1] * kss[2 * kFKeys + kl];
-          s[nt][e] = s0 + kl <= lim[e >> 1] ? x : -1e30f;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-        }
-      float alpha[2];
+    for (int e = 0; e < 4; ++e) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float m_new = fmaxf(m_i[h], quad_max(mx[h]));
-        alpha[h] = expf(m_i[h] - m_new);
-        m_i[h] = m_new;
-      }
-      float ls[2] = {0.f, 0.f}, pm[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[nt][e] - m_i[e >> 1]);
-          ls[e >> 1] += p;
-          if constexpr (KIND == kFQ41)
-            pm[e >> 1] = fmaf(p, kss[3 * kFKeys + nt * 8 + (lane & 3) * 2 + (e & 1)], pm[e >> 1]);
-          s[nt][e] = p;
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) l_i[h] = l_i[h] * alpha[h] + ls[h];
-      if constexpr (KIND == kFQ41) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) pm[h] = quad_sum(pm[h]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nt][e] = o[nt][e] * alpha[e >> 1] + pm[e >> 1];
-
-      // O += P.V, 16 keys a step: P's A fragments from the score registers
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (s0 + kk * 16 > warp_last) continue;
-        float pv[2][4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            pv[h][e] = s[2 * kk + h][e];
-            if constexpr (KIND != kFBF16)
-              pv[h][e] *= kss[kFKeys + (2 * kk + h) * 8 + (lane & 3) * 2 + (e & 1)];
-          }
-        const uint32_t pa[4] = {pack_bf16(pv[0][0], pv[0][1]), pack_bf16(pv[0][2], pv[0][3]),
-                                pack_bf16(pv[1][0], pv[1][1]), pack_bf16(pv[1][2], pv[1][3])};
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          const int row = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-          const int col = dp * 16 + (lane >> 4) * 8;
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, vtile + (row * P + col) * 2);
-          mma_bf16(o[2 * dp], pa, r[0], r[1]);
-          mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
+        // bytes 2h, 2h+1 of word e to the low bytes of a pair's halves
+        const uint32_t s = __byte_perm(wd[e], 0u, h ? 0x4342u : 0x4140u);
+        if constexpr (KIND == kFQ8) {
+          lo[2 * e + h] = sub_bf16x2((s & 0x007f007fu) | kMagic, (s & 0x00800080u) | kMagic);
+        } else {
+          lo[2 * e + h] = sub_bf16x2((s & 0x000f000fu) | kMagic, kBias);
+          hi[2 * e + h] = sub_bf16x2(((s >> 4) & 0x000f000fu) | kMagic, kBias);
         }
       }
     }
-    __syncthreads();   // every warp is done with slot j % 2 (and the converted tiles)
-  }
-
-  // out = acc / max(l, 1e-30), rows < R only; accumulator (nt, e) is row
-  // lane/4 (+8 for e >= 2), dim nt*8 + (lane%4)*2 + e%2
-  if (wr0 < R) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float l = fmaxf(quad_sum(l_i[h]), 1e-30f);
-      const int r = wr0 + (lane >> 2) + 8 * h;
-      if (r >= R) continue;
-      const int g = r / T, t = r - g * T;
-      __nv_bfloat16* orow = a.out + (((size_t)b * T + t) * a.H + kvh * G + g) * D;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        *reinterpret_cast<uint32_t*>(orow + nt * 8 + (lane & 3) * 2) =
-            pack_bf16(o[nt][2 * h] / l, o[nt][2 * h + 1] / l);
+    *reinterpret_cast<uint4*>(tile + swz(key, col, KT)) = uint4{lo[0], lo[1], lo[2], lo[3]};
+    *reinterpret_cast<uint4*>(tile + swz(key, col + 8, KT)) = uint4{lo[4], lo[5], lo[6], lo[7]};
+    if constexpr (KIND != kFQ8) {
+      *reinterpret_cast<uint4*>(tile + swz(key, col + D / 2, KT)) = uint4{hi[0], hi[1], hi[2], hi[3]};
+      *reinterpret_cast<uint4*>(tile + swz(key, col + D / 2 + 8, KT)) =
+          uint4{hi[4], hi[5], hi[6], hi[7]};
     }
   }
 }
 
 template <int D, int KIND, bool PAGED>
-int launch_d(const FArgs& a, int B, cudaStream_t st) {
-  constexpr int smem = FLayout<D, KIND>::kSmem;
+__global__ void __launch_bounds__(kFThreads, 1)
+flash_attention_tc_kernel(const FArgs a, const __grid_constant__ CUtensorMap tmk,
+                          const __grid_constant__ CUtensorMap tmv) {
+  using L = FLayout<D, KIND>;
+  constexpr int KT = L::kKT, NS = L::kStages, NC = L::kCStages, NV = L::kNV, RB = L::kRB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the base rounded up to 1024 bytes by pointer arithmetic on smem, so the
+  // compiler keeps every access in the shared window
+  unsigned char* const sm = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  uint64_t* const kfull = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* const vfull = kfull + NS;
+  uint64_t* const kempty = vfull + NS;    // a stage's K and vectors read: each consumer warp
+  uint64_t* const vempty = kempty + NS;   // its V (and vs, vm): each consumer warpgroup
+  uint64_t* const cfull = vempty + NS;    // quantized: a code stage landed
+  uint64_t* const cempty = cfull + NC;    // quantized: a code stage converted
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(kfull + s, KIND == kFBF16 ? 1 : 3);
+      mbar_init(vfull + s, KIND == kFBF16 ? 1 : 3);
+      mbar_init(kempty + s, 8);
+      mbar_init(vempty + s, 2);
+    }
+    for (int s = 0; s < NC; ++s) {
+      mbar_init(cfull + s, 33);   // the TMA bytes' arrival and each lane's vector copies
+      mbar_init(cempty + s, 3);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int G = a.H / a.KVH, T = a.T, R = G * T;
+  const int r0 = ((R + kFRows - 1) / kFRows - 1 - (int)blockIdx.x) * kFRows;
+  const int off = a.offsets[b];
+  const int last = min(a.S - 1, off + last_t(r0, min(kFRows, R - r0), T));
+  const int n_tiles = last / KT + 1;
+
+  if (wg == 2) {
+    setmaxnreg_dec<kFProdRegs<KIND>>();
+    const int pw = (tid >> 5) & 3;
+    if (pw == 0) {
+      // tile j's boxes of hb keys, their table reads and copies spread over
+      // the warp's lanes; quantized, the keys' vectors too (4-byte cp.async,
+      // zeros past the block's last key)
+      const int nbox = KT / a.hb;
+      for (int j = 0; j < n_tiles; ++j) {
+        if constexpr (KIND == kFBF16) {
+          const int st = j % NS, ph = ((j / NS) & 1) ^ 1;
+          unsigned char* const kd = sm + L::kSt + st * L::kStage;
+          mbar_wait(kempty + st, ph);
+          if (lane == 0) mbar_arrive_tx(kfull + st, L::kKV);
+          __syncwarp();
+          for (int i = lane; i < nbox * (D / 64); i += 32) {
+            const int bx = i / (D / 64), p = i % (D / 64);
+            tma_load_2d(kd + p * KT * 128 + bx * a.hb * 128, &tmk, p * 64,
+                        frow<PAGED>(a, b, kvh, j * KT + bx * a.hb), kfull + st);
+          }
+          mbar_wait(vempty + st, ph);
+          if (lane == 0) mbar_arrive_tx(vfull + st, L::kKV);
+          __syncwarp();
+          for (int i = lane; i < nbox * (D / 64); i += 32) {
+            const int bx = i / (D / 64), p = i % (D / 64);
+            tma_load_2d(kd + L::kKV + p * KT * 128 + bx * a.hb * 128, &tmv, p * 64,
+                        frow<PAGED>(a, b, kvh, j * KT + bx * a.hb), vfull + st);
+          }
+        } else {
+          const int cs = j % NC;
+          unsigned char* const cd = sm + L::kCs + cs * L::kCode;
+          mbar_wait(cempty + cs, ((j / NC) & 1) ^ 1);
+          if (lane == 0) mbar_arrive_tx(cfull + cs, L::kCodes);
+          __syncwarp();
+          for (int bx = lane; bx < nbox; bx += 32) {
+            const int row = frow<PAGED>(a, b, kvh, j * KT + bx * a.hb);
+            tma_load_2d(cd + bx * a.hb * RB, &tmk, 0, row, cfull + cs);
+            tma_load_2d(cd + KT * RB + bx * a.hb * RB, &tmv, 0, row, cfull + cs);
+          }
+          float* const cv = reinterpret_cast<float*>(cd + L::kCodes);
+          for (int i = lane; i < NV * KT; i += 32) {
+            const int vi = i / KT, pos = j * KT + i % KT;
+            const float* src = vi == 0 ? a.ks : vi == 1 ? a.vs : vi == 2 ? a.km : a.vm;
+            const bool ok = pos <= last;
+            cp_async4(cv + i, src + (ok ? frow<PAGED>(a, b, kvh, pos) : 0), ok);
+          }
+          cp_async_mbar_arrive(cfull + cs);
+        }
+      }
+    } else if constexpr (KIND != kFBF16) {
+      // warps 1-3: each code stage to a stage's bf16 K and V tiles and its
+      // vectors (q4_1: codes centred, c - 8, minimums moved by 8 scales)
+      const int ct = tid - 288;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NS, cs = j % NC, ph = ((j / NS) & 1) ^ 1;
+        unsigned char* const kd = sm + L::kSt + st * L::kStage;
+        float* const vec = reinterpret_cast<float*>(kd + 2 * L::kKV);
+        const unsigned char* const cd = sm + L::kCs + cs * L::kCode;
+        const float* const cv = reinterpret_cast<const float*>(cd + L::kCodes);
+        mbar_wait(cfull + cs, (j / NC) & 1);
+        mbar_wait(kempty + st, ph);
+        // all the tile's vectors with K: a consumer reads vs and vm before
+        // it waits for V
+        for (int i = ct; i < KT; i += 96) {
+          vec[i] = cv[i];
+          vec[KT + i] = cv[KT + i];
+          if constexpr (KIND == kFQ41) {
+            vec[2 * KT + i] = fmaf(8.f, cv[i], cv[2 * KT + i]);
+            vec[3 * KT + i] = fmaf(8.f, cv[KT + i], cv[3 * KT + i]);
+          }
+        }
+        convert_tile<D, KIND, KT>(cd, kd, ct);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kfull + st);
+        mbar_wait(vempty + st, ph);
+        convert_tile<D, KIND, KT>(cd + KT * RB, kd + L::kKV, ct);
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(vfull + st);
+          mbar_arrive(cempty + cs);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kFConsRegs<KIND>>();
+    // this warpgroup's rows cr0..cr0+63 (crn of them < R); this thread's two,
+    // rows g and g+8 of its warp's 16, and their last visible keys
+    const int w = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+    const int cr0 = r0 + 64 * wg, crn = min(64, R - cr0);
+    // Q in registers, wgmma_rs's A fragments of this thread's rows over D
+    // (rows g, g+8; columns 16kk + 2t4, +1, +8, +9), zeros past R
+    uint32_t qf[D / 16][4];
+    int lim[2];
+    float qsum2[2] = {0.f, 0.f};   // q4_1: log2(e) x the f32 sum of the row's pre-scaled q
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = cr0 + 16 * w + g + 8 * h;
+      lim[h] = r < R ? min(a.S - 1, off + r % T) : a.S - 1;
+      const int gq = r / T, t = r - gq * T;
+      const uint32_t* const qrow = reinterpret_cast<const uint32_t*>(
+          a.q + (((size_t)b * T + t) * a.H + kvh * G + gq) * D) + t4;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        qf[kk][h] = r < R ? qrow[8 * kk] : 0u;
+        qf[kk][2 + h] = r < R ? qrow[8 * kk + 4] : 0u;
+      }
+      if constexpr (KIND == kFQ41) {
+        // a quad's four lanes hold a quarter of the row each
+        float sum = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t u = qf[kk][h + 2 * (e >> 1)];
+            sum += __uint_as_float((e & 1 ? u >> 16 : u & 0xffffu) << 16) * a.scale;
+          }
+        qsum2[h] = quad_sum(sum) * kLog2e;
+      }
+    }
+    // the tiles each warpgroup walks: to the last key its rows see
+    auto tiles_of = [&](int c) {
+      const int r = r0 + 64 * c, n = min(64, R - r);
+      return n > 0 ? min(a.S - 1, off + last_t(r, n, T)) / KT + 1 : 0;
+    };
+    const int c_tiles = tiles_of(wg);
+    // the smallest last key among the rows: tiles past it cross the diagonal
+    const int c_diag = crn > 0 ? min(a.S - 1, off + ((cr0 % T) + crn - 1 >= T ? 0 : cr0 % T)) : 0;
+    const float c1 = a.scale * kLog2e;
+
+    float sacc[KT / 2];       // S, then P in f32: (row g (+8 for e >= 2), key 8j + 2t4 + e%2) at 4j + e
+    float o[D / 2];           // O, the same layout over D
+    uint32_t pa[KT / 16][4];  // P times vs, wgmma_rs's bf16 A fragments
+    float m_i[2] = {-1e30f, -1e30f}, l_i[2] = {0.f, 0.f};   // l: this lane's share
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) sacc[i] = 0.f;
+    auto stage = [&](int j) { return sm + L::kSt + (j % NS) * L::kStage; };
+    auto issue_s = [&](int j) {
+      const uint64_t dk = wgmma_desc(stage(j));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs(sacc, qf[kk], dk + (kk / 4) * (KT * 128 >> 4) + 2 * (kk % 4), kk);
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int j) {
+      const uint64_t dv = wgmma_desc_mn(stage(j) + L::kKV, KT * 128);
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_tb(o, pa[kk], dv + kk * (16 * 128 >> 4));
+      wgmma_commit();
+    };
+    auto fence_pa = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) fence_regs(pa[kk]);
+    };
+    // the products' turns (tile j's S with tile j-1's P.V, the last P.V its
+    // own): the two warpgroups issue theirs in turn (FlashAttention-3's
+    // ping-pong), one's softmax under the other's products, over the turns
+    // both take
+    const int o_tiles = tiles_of(wg ^ 1);
+    const int common = min(c_tiles > 0 ? c_tiles + 1 : 0, o_tiles > 0 ? o_tiles + 1 : 0);
+    auto turn_begin = [&](int u) {
+      if (u < common && (wg == 1 || u > 0)) named_bar_sync(3 + wg, 256);
+    };
+    auto turn_end = [&](int u) {
+      if (u < common && (wg == 0 || u < common - 1)) named_bar_arrive(4 - wg, 256);
+    };
+    // tile j's scores (in sacc) to p, the running max and sum updated; alpha
+    // rescales O, pm (q4_1) is each row's sum of p * vm
+    auto softmax = [&](int j, float (&alpha)[2], float (&pm)[2]) {
+      const float* const vec = reinterpret_cast<const float*>(stage(j) + 2 * L::kKV);
+      const int s0 = j * KT;
+      const bool mask = s0 + KT - 1 > c_diag;
+      float mx[2] = {-1e30f, -1e30f}, m_new[2];
+#pragma unroll
+      for (int jj = 0; jj < KT / 8; ++jj) {
+        float2 k2 = {c1, c1}, km2 = {0.f, 0.f};
+        if constexpr (KIND != kFBF16) {
+          k2 = *reinterpret_cast<const float2*>(vec + 8 * jj + 2 * t4);
+          k2 = {k2.x * c1, k2.y * c1};
+        }
+        if constexpr (KIND == kFQ41) km2 = *reinterpret_cast<const float2*>(vec + 2 * KT + 8 * jj + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float x = sacc[4 * jj + e];
+          // bf16: the raw dot, the (positive) scale applied to the max and in the exponent
+          if constexpr (KIND != kFBF16) x *= e & 1 ? k2.y : k2.x;
+          if constexpr (KIND == kFQ41) x = fmaf(qsum2[h], e & 1 ? km2.y : km2.x, x);
+          if (mask && s0 + 8 * jj + 2 * t4 + (e & 1) > lim[h]) x = -1e30f;
+          sacc[4 * jj + e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = quad_max(mx[h]);
+        if constexpr (KIND == kFBF16) m_new[h] *= c1;
+        m_new[h] = fmaxf(m_i[h], m_new[h]);
+      }
+      float ls[2] = {0.f, 0.f};
+      pm[0] = pm[1] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < KT / 8; ++jj) {
+        float2 vm2 = {0.f, 0.f};
+        if constexpr (KIND == kFQ41) vm2 = *reinterpret_cast<const float2*>(vec + 3 * KT + 8 * jj + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float p = KIND == kFBF16 ? ex2_approx(fmaf(sacc[4 * jj + e], c1, -m_new[h]))
+                                         : ex2_approx(sacc[4 * jj + e] - m_new[h]);
+          ls[h] += p;
+          if constexpr (KIND == kFQ41) pm[h] = fmaf(p, e & 1 ? vm2.y : vm2.x, pm[h]);
+          sacc[4 * jj + e] = p;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        alpha[h] = ex2_approx(m_i[h] - m_new[h]);
+        m_i[h] = m_new[h];
+        l_i[h] = l_i[h] * alpha[h] + ls[h];
+        if constexpr (KIND == kFQ41) pm[h] = quad_sum(pm[h]);
+      }
+    };
+    // O = O * alpha (+ pm), then P (times vs) from sacc into pa
+    auto rescale_pack = [&](int j, const float (&alpha)[2], const float (&pm)[2]) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        o[i] = KIND == kFQ41 ? fmaf(o[i], alpha[h], pm[h]) : o[i] * alpha[h];
+      }
+      const float* const vs = reinterpret_cast<const float*>(stage(j) + 2 * L::kKV) + KT;
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 8 * kk + 2 * q;   // keys 8 * (i / 4) + 2t4, +1
+          float p0 = sacc[i], p1 = sacc[i + 1];
+          if constexpr (KIND != kFBF16) {
+            const float2 v2 = *reinterpret_cast<const float2*>(vs + 8 * (i / 4) + 2 * t4);
+            p0 *= v2.x;
+            p1 *= v2.y;
+          }
+          pa[kk][q] = bf16_bits(p0, p1);
+        }
+      // this warp is done with the stage's K and vectors (S retired, the
+      // vectors read): the K side goes back
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kempty + j % NS);
+    };
+
+    float alpha[2], pm[2];
+    if (c_tiles > 0) {
+      mbar_wait(kfull, 0);
+      turn_begin(0);
+      wgmma_fence();
+      issue_s(0);
+      turn_end(0);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      softmax(0, alpha, pm);
+      rescale_pack(0, alpha, pm);
+    }
+    for (int j = 1; j < c_tiles; ++j) {
+      mbar_wait(kfull + j % NS, (j / NS) & 1);
+      mbar_wait(vfull + (j - 1) % NS, ((j - 1) / NS) & 1);
+      fence_regs(o);
+      fence_pa();
+      turn_begin(j);
+      wgmma_fence();
+      issue_s(j);
+      issue_pv(j - 1);
+      turn_end(j);
+      wgmma_wait<0>();   // S of tile j and tile j-1's P.V
+      fence_regs(sacc);
+      fence_regs(o);
+      if ((tid & 127) == 0) mbar_arrive(vempty + (j - 1) % NS);
+      softmax(j, alpha, pm);
+      rescale_pack(j, alpha, pm);
+    }
+    if (c_tiles > 0) {
+      const int j = c_tiles - 1;
+      mbar_wait(vfull + j % NS, (j / NS) & 1);
+      fence_regs(o);
+      fence_pa();
+      turn_begin(c_tiles);
+      wgmma_fence();
+      issue_pv(j);
+      turn_end(c_tiles);
+      wgmma_wait<0>();
+      fence_regs(o);
+      if ((tid & 127) == 0) mbar_arrive(vempty + j % NS);
+    }
+    // the block's later tiles, which no row of this warpgroup sees
+    if (lane == 0) {
+      for (int j = c_tiles; j < n_tiles; ++j) {
+        mbar_wait(kfull + j % NS, (j / NS) & 1);
+        mbar_arrive(kempty + j % NS);
+        if (w == 0) {
+          mbar_wait(vfull + j % NS, (j / NS) & 1);
+          mbar_arrive(vempty + j % NS);
+        }
+      }
+    }
+
+    // out = acc / max(l, 1e-30), rows < R only; the row recomputed through
+    // an opaque copy, so its address (Q's) is not held across the walk
+    int rq = cr0 + 16 * w + g;
+    asm volatile("" : "+r"(rq));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float inv = 1.f / fmaxf(quad_sum(l_i[h]), 1e-30f);
+      const int r = rq + 8 * h;
+      if (r >= R) continue;
+      const int gq = r / T, t = r - gq * T;
+      __nv_bfloat16* orow = a.out + (((size_t)b * T + t) * a.H + kvh * G + gq) * D;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(orow + 8 * jj + 2 * t4) =
+            bf16_bits(o[4 * jj + 2 * h] * inv, o[4 * jj + 2 * h + 1] * inv);
+    }
+  }
+}
+
+// A launch's K and V tensor maps over the cache's rows (contiguous: B x KVH
+// x S; paged: the pool's, whose count the entry points are not given, so
+// the maps reach as far as any row a table entry names), boxes of hb keys:
+// bf16 64 columns with the 128-byte swizzle; codes whole rows.
+template <int D, int KIND, bool PAGED>
+int tensor_maps(const FArgs& a, int B, CUtensorMap (&tm)[2]) {
+  const int rows = PAGED ? 0x7fffffff : B * a.KVH * a.S;
+  for (int i = 0; i < 2; ++i) {
+    const void* base = i ? a.v : a.k;
+    const int rc = KIND == kFBF16
+        ? tensor_map(&tm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, D, rows, 64, a.hb,
+                     CU_TENSOR_MAP_SWIZZLE_128B)
+        : tensor_map(&tm[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, FLayout<D, KIND>::kRB, rows,
+                     FLayout<D, KIND>::kRB, a.hb, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+template <int D, int KIND, bool PAGED>
+int launch_d(FArgs a, int B, cudaStream_t st) {
+  using L = FLayout<D, KIND>;
   static CardCache cards;   // the shared-memory opt-in, set per device on first use
   Card c;
-  const int rc = cards.get(flash_attention_tc_kernel<D, KIND, PAGED>, smem, c);
+  const int rc = cards.get(flash_attention_tc_kernel<D, KIND, PAGED>, L::kBytes, c);
   if (rc != 0) return rc;
-  if (smem > c.smem_block) return (int)cudaErrorInvalidValue;
+  if (L::kBytes > c.smem_block) return (int)cudaErrorInvalidValue;
+  const int low = a.page_s & -a.page_s;   // the largest power of two dividing page_s
+  a.hb = PAGED && low < L::kKT ? low : L::kKT;
+  CUtensorMap tm[2];
+  const int rm = tensor_maps<D, KIND, PAGED>(a, B, tm);
+  if (rm != 0) return rm;
   const int R = (a.H / a.KVH) * a.T;
   const dim3 grid((R + kFRows - 1) / kFRows, a.KVH, B);
-  flash_attention_tc_kernel<D, KIND, PAGED><<<grid, kFThreads, smem, st>>>(a);
+  flash_attention_tc_kernel<D, KIND, PAGED><<<grid, kFThreads, L::kBytes, st>>>(a, tm[0], tm[1]);
   return (int)cudaGetLastError();
 }
 
 template <int KIND, bool PAGED>
 int launch(const FArgs& a, int B, int D, void* stream) {
   if (B == 0 || a.T == 0) return 0;
+  if (PAGED && a.page_s <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64: return launch_d<64, KIND, PAGED>(a, B, st);

@@ -59,12 +59,13 @@ NAME_PAGED_Q8_TC = "flash_attention_paged_q8_tc"
 HEAD_DIMS = (64, 128, 256)
 TC_HEAD_DIMS = (64, 128)   # the tensor-core kernel's register tiles
 # query positions T from which every wrapper takes the tensor-core kernel. On
-# an H100 at offset 1000, B = 1 (PERF.md §6) the split CUDA-core kernel wins
-# at T = 16 for every kind (bf16 0.0372 against 0.0449 ms, q4_0 0.0505
-# against 0.0632) and the tensor-core one from T = 32 for bf16, q4_0, q4_1
-# and paged bf16 (0.0475 against 0.0597 ms for bf16), paged q8_0 even there,
-# q8_0 from 64; one threshold for all, at the engine's second prefill bucket
-FLASH_TC_MIN_ROWS = 32
+# an H100 at offset 1000, B = 1 (chip_smoke.py's crossover rows, PERF.md
+# §6) the tensor-core kernel wins from T = 16 for every kind: bf16 0.0202
+# against the split CUDA-core kernel's 0.0370 ms, q8_0 0.0346 against
+# 0.0398 (the narrowest), q4_0 0.0295 against 0.0505, paged q8_0 0.0366
+# against 0.0472; one threshold for all, the engine's smallest prefill
+# bucket, so every prefill chunk takes it and decode steps the split kernel
+FLASH_TC_MIN_ROWS = 16
 # keys a split of the decode kernel (kChunk of csrc/flash_attention.cu, which
 # refuses a launch sized for another)
 FLASH_SPLIT_KEYS = 256

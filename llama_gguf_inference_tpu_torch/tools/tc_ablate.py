@@ -1,7 +1,24 @@
-"""Where the tensor-core matmul kernels' time goes, on one card.
+"""Where the tensor-core matmul and flash kernels' time goes, on one card.
 
     python -m llama_gguf_inference_tpu_torch.tools.tc_ablate [--seed 0] [--kinds q4_k,q4_k_int8]
         [--full-only] [--shapes gate_up,o] [--rows 16,512]
+    python -m llama_gguf_inference_tpu_torch.tools.tc_ablate --kinds flash_bf16,flash_q8,flash_paged
+        [--rows 512] [--offsets 0,1024,7680] [--parent-csrc OTHER_TREE/llama_gguf_inference_tpu_torch/csrc]
+
+The flash kinds (``flash_bf16``, ``flash_q8``, ``flash_q4``, ``flash_q41``,
+``flash_paged``, ``flash_paged_q8``) build ``csrc/flash_attention_tc.cu`` as
+it is and cut: with only its loads (the consumers wait for each stage and
+hand it back; the converters forward each code stage unconverted), without
+its conversion (quantized kinds' codes), without its softmax (the
+exponentials and O's rescale replaced by the raw scores), without Q.K^T and
+without P.V (one integer op in place of each ``wgmma``); and, still
+computing the attention, with 64-key tiles, without the consumers'
+ping-pong and with FlashAttention-3's in-warpgroup pipelining. Each at H 32
+over KVH 8, D 128, B 1 (paged: beside an idle slot, pages of 256), T 512
+(``--rows``), offsets 0, 1024 and 7680 (``--offsets``), beside the split
+CUDA-core kernel, SDPA on a bf16 copy and the bound, and beside another
+tree's body (``--parent-csrc``: its ``flash_attention_tc.cu`` built with
+its own headers), in the same call.
 
 Builds each tensor-core source into the build directory as it is and cut:
 ``csrc/quant_matmul_tc.cu`` (8-bit codes, ``wgmma``) without its decode (the
@@ -98,7 +115,11 @@ CROSS_ROWS = (8, 16, 24, 32, 48, 64, 300, 512)
 DECODE_ROWS = (1, 4)
 KINDS = ("q5_k", "q5_k_flat", "q8_0", "q6_k", "q4_k", "q2_k", "q4_k_int8", "q4_k_base",
          "q2_k_base", "q5_k_decode", "q6_k_decode", "q4_k_int8_decode", "q4_k_decode",
-         "q2_k_decode")
+         "q2_k_decode", "flash_bf16", "flash_q8", "flash_paged")
+# the tensor-core flash kernel's cache kinds (paged: pages of 256 beside an
+# idle slot, as chip_smoke.py's rows), at H 32 over KVH 8, D 128, B 1, T 512
+FLASH_KINDS = ("flash_bf16", "flash_q8", "flash_q4", "flash_q41", "flash_paged", "flash_paged_q8")
+FLASH_OFFSETS = (0, 1024, 7680)
 # the 8-bit tensor-core kernel's kinds: Q5_K compact (the Q5_K model's layout)
 # and flat at the four projections, Q8_0 flat at o, the Q6_K head
 EIGHT_BIT_KINDS = ("q5_k", "q5_k_flat", "q8_0", "q6_k")
@@ -152,6 +173,12 @@ _T8_NO_CODE_LOADS = [("            mbar_arrive_tx(full + st, L::kX + kT8Code);",
                       "            mbar_arrive_tx(full + st, L::kX);"),
                      ("            tma_load_2d(sm + L::kCs + st * kT8Code, &tmc, j0, m0, full + st);",
                       "")]
+# the flash kernel's texts that more than one of its cuts replace
+_FA_NO_CONVERT = [("        convert_tile<D, KIND, KT>(cd, kd, ct);", ""),
+                  ("        convert_tile<D, KIND, KT>(cd + KT * RB, kd + L::kKV, ct);", "")]
+_FA_EXP = """          const float p = KIND == kFBF16 ? ex2_approx(fmaf(sacc[4 * jj + e], c1, -m_new[h]))
+                                         : ex2_approx(sacc[4 * jj + e] - m_new[h]);"""
+_FA_QK = "        wgmma_rs(sacc, qf[kk], dk + (kk / 4) * (KT * 128 >> 4) + 2 * (kk % 4), kk);"
 # kind -> (library, its cut set)
 SOURCE = {**{k: ("quant_matmul_tc",) * 2 for k in EIGHT_BIT_KINDS},
           "q4_k_int8": ("quant_matmul_int8_tc",) * 2,
@@ -160,7 +187,8 @@ SOURCE = {**{k: ("quant_matmul_tc",) * 2 for k in EIGHT_BIT_KINDS},
           "q5_k_decode": ("quant_matmul", "quant_matmul_8bit"),
           "q6_k_decode": ("quant_matmul", "quant_matmul_8bit"),
           "q4_k_int8_decode": ("quant_matmul", "quant_matmul_int8"),
-          **{k: ("quant_matmul", "quant_matmul_lowbit") for k in ("q4_k_decode", "q2_k_decode")}}
+          **{k: ("quant_matmul", "quant_matmul_lowbit") for k in ("q4_k_decode", "q2_k_decode")},
+          **{k: ("flash_attention_tc",) * 2 for k in FLASH_KINDS}}
 # each cut set's builds: the text each replaces (or a list of such edits)
 CUTS = {
     "quant_matmul_8bit": {
@@ -352,7 +380,45 @@ CUTS = {
         "no_code_loads": ("""            mbar_arrive_tx(cfull + (gc & 1), L::kCode);
             for (int tp = 0; tp < kSub / 2; ++tp)
               tma_load_2d(cd + tp * kI8M * kI8G, &tmc, tp * a.nsub + grp * kI8G, m0,
-                          cfull + (gc & 1));""", "            mbar_arrive(cfull + (gc & 1));")}}
+                          cfull + (gc & 1));""", "            mbar_arrive(cfull + (gc & 1));")},
+    "flash_attention_tc": {
+        # consumers wait for each stage and hand it back, computing nothing;
+        # the converters forward each code stage unconverted
+        "loads_only": [("    const int c_tiles = tiles_of(wg);",
+                        "    const int c_tiles = a.scale == 12345.f ? tiles_of(wg) : 0;"),
+                       *_FA_NO_CONVERT],
+        "no_convert": _FA_NO_CONVERT,
+        # the exponentials and O's rescale replaced by the raw scores (the max,
+        # the sums and the packing stay)
+        "no_softmax": [(_FA_EXP, "          const float p = sacc[4 * jj + e];"),
+                       ("        alpha[h] = ex2_approx(m_i[h] - m_new[h]);", "        alpha[h] = 1.f;"),
+                       ("        o[i] = KIND == kFQ41 ? fmaf(o[i], alpha[h], pm[h]) : o[i] * alpha[h];",
+                        "        o[i] += pm[h];")],
+        # one integer op on the descriptors in place of each S = Q.K^T wgmma
+        "no_qk": (_FA_QK, "        sacc[kk] += __int_as_float((int)(qf[kk][0] ^ (uint32_t)dk) + kk);"),
+        # one integer op on P's fragments in place of each P.V wgmma
+        "no_pv": ("      for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs_tb(o, pa[kk], dv + kk * (16 * 128 >> 4));",
+                  """      for (int kk = 0; kk < KT / 16; ++kk)
+        o[kk] += __int_as_float((int)(pa[kk][0] ^ pa[kk][3] ^ (uint32_t)dv));"""),
+        # tiles of 64 keys, and the consumers' products unordered: both still
+        # compute the attention
+        "keys_other": ("  static constexpr int kKT = 128;                         // keys a tile",
+                       "  static constexpr int kKT = 64;"),
+        "no_pingpong": ("    const int common = min(c_tiles > 0 ? c_tiles + 1 : 0, o_tiles > 0 ? o_tiles + 1 : 0);",
+                        "    const int common = 0;"),
+        # FlashAttention-3's in-warpgroup pipelining: tile j's softmax under
+        # tile j-1's P.V (it still computes the attention)
+        "pipelined": ("""      wgmma_wait<0>();   // S of tile j and tile j-1's P.V
+      fence_regs(sacc);
+      fence_regs(o);
+      if ((tid & 127) == 0) mbar_arrive(vempty + (j - 1) % NS);
+      softmax(j, alpha, pm);""", """      wgmma_wait<1>();
+      fence_regs(sacc);
+      softmax(j, alpha, pm);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_pa();
+      if ((tid & 127) == 0) mbar_arrive(vempty + (j - 1) % NS);""")}}
 
 
 def _builds(source: str, cuts: str, full_only: bool) -> dict[str, ctypes.CDLL]:
@@ -380,6 +446,99 @@ def _builds(source: str, cuts: str, full_only: bool) -> dict[str, ctypes.CDLL]:
         path = os.path.join(_build.BUILD_DIR, f"tc_ablate_{cuts}_{name}.so")
         libs[name] = _build._bind(source, ctypes.CDLL(path))
     return libs
+
+
+def _parent_build(csrc: str, source: str) -> ctypes.CDLL:
+    """``source`` as another tree's ``csrc`` directory holds it (its own
+    headers), built into the build directory and bound as this tree's."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, f"tc_ablate_parent_{source}.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc,
+                           os.path.join(csrc, source + ".cu"), "-o", out],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent's {source}:\n{proc.stdout}")
+    return _build._bind(source, ctypes.CDLL(out))
+
+
+def _flash_case(kind: str, T: int, off: int, g: torch.Generator):
+    """(tensor-core wrapper, plain version, args, SDPA's bf16 K and V, key
+    bytes) of one flash call: B 1 (paged: beside an idle slot whose table
+    row is all -1, shuffled pages of 256), H 32 over KVH 8, D 128, S the
+    offset's keys rounded up to 1024."""
+    from ..ops import flash_attention as fa
+    from ..runtime.kv_cache import QuantKV, QuantKV4, QuantKV41
+    H, KVH, D, page = 32, 8, 128, 256
+    S = max(1024, -(-(off + T) // 1024) * 1024)
+    paged = kind.startswith("flash_paged")
+    B = 2 if paged else 1
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    q = rand(B, T, H, D).bfloat16()
+    offs = torch.tensor([off] + [0] * (B - 1), dtype=torch.int32, device="cuda")
+    if paged:
+        NP = S // page
+        table = torch.randperm(B * NP, generator=g, device="cuda").int().reshape(B, NP)
+        table[0, -(-(off + T) // page):] = -1
+        table[1] = -1
+        k, v = rand(B * NP, KVH, page, D).bfloat16(), rand(B * NP, KVH, page, D).bfloat16()
+        if kind == "flash_paged":
+            return (fa.flash_attention_paged_tc, fa.flash_attention_paged_plain,
+                    (q, k, v, offs, table), fa.gather_pages(k, table), fa.gather_pages(v, table),
+                    2 * D * 2)
+        kc, vc = QuantKV.quantize(k), QuantKV.quantize(v)
+        lk, lv = (QuantKV.dequantize(fa.gather_pages(c, table), fa.gather_pages(sc, table))
+                  for c, sc in (kc, vc))
+        return (fa.flash_attention_paged_q8_tc, fa.flash_attention_paged_q8_plain,
+                (q, kc[0], kc[1], vc[0], vc[1], offs, table), lk, lv, 2 * (D + 4))
+    k, v = rand(B, KVH, S, D).bfloat16(), rand(B, KVH, S, D).bfloat16()
+    if kind == "flash_bf16":
+        return fa.flash_attention_tc, fa.flash_attention_plain, (q, k, v, offs), k, v, 2 * D * 2
+    codec, name, kb = {"flash_q8": (QuantKV, "q8", 2 * (D + 4)),
+                       "flash_q4": (QuantKV4, "q4", 2 * (D // 2 + 4)),
+                       "flash_q41": (QuantKV41, "q41", 2 * (D // 2 + 8))}[kind]
+    kc, vc = codec.quantize(k), codec.quantize(v)
+    return (getattr(fa, f"flash_attention_{name}_tc"), getattr(fa, f"flash_attention_{name}_plain"),
+            (q, *kc, *vc, offs), codec.dequantize(*kc), codec.dequantize(*vc), kb)
+
+
+def _flash_rows(kind: str, libs: dict, flush: torch.Tensor, g: torch.Generator, rows,
+                offsets) -> None:
+    """One JSON line per (T, offset) of a flash kind: each build's ms (the
+    builds that still compute the attention, and the parent's, also their
+    error to the plain version), the CUDA-core split kernel's (the crossover
+    that sets FLASH_TC_MIN_ROWS), SDPA's on a bf16 copy, and the bound."""
+    import torch.nn.functional as F
+
+    from ..ops import flash_attention as fa
+    for T in rows:
+        for off in offsets:
+            tc, plain, args, lk, lv, key_bytes = _flash_case(kind, T, off, g)
+            want = plain(*args).float()
+            row = {"shape": f"{kind} T={T} offset={off} S={lk.shape[2]}", "T": T}
+            for build, lib in libs.items():
+                _build._LIBS["flash_attention_tc"] = lib
+                if build in ("full", "keys_other", "no_pingpong", "pipelined", "parent"):
+                    err = (tc(*args).float() - want).abs().max() / want.abs().max()
+                    row[f"{build}_rel_err"] = err.item()
+                row[f"{build}_ms"] = _timer(flush, lambda: tc(*args))
+            _build._LIBS["flash_attention_tc"] = libs["full"]
+            dec = getattr(fa, tc.__name__[:-3] + "_decode")   # the CUDA-core split kernel
+            row["decode_kernel_ms"] = _timer(flush, lambda: dec(*args), 5 if off > 2048 else 20)
+            pos = off + torch.arange(T, device="cuda")
+            mask = (torch.arange(lk.shape[2], device="cuda")[None] <= pos[:, None])[None, None]
+            qt = args[0][:1].transpose(1, 2)
+            row["library_ms"] = _timer(flush, lambda: F.scaled_dot_product_attention(
+                qt, lk[:1], lv[:1], attn_mask=mask, enable_gqa=True))
+            H, D = args[0].shape[2], args[0].shape[3]
+            KVH = lk.shape[1]
+            offs = [off] + [0] * (args[0].shape[0] - 1)   # the paged kinds' idle slot too
+            pairs = sum(o * T + T * (T + 1) // 2 for o in offs)
+            nbytes = sum(o + T for o in offs) * KVH * key_bytes + 2 * args[0].numel() * 2
+            row["bound_ms"] = max(4.0 * H * D * pairs / 989e12, nbytes / 3.35e12) * 1e3
+            print(json.dumps(row), flush=True)
+            del args, lk, lv, want
 
 
 def _timer(flush: torch.Tensor, fn, iters: int = 20) -> float:
@@ -525,16 +684,31 @@ def main() -> None:
     ap.add_argument("--shapes", default="",
                     help="comma-separated projections to time (default: each kind's all)")
     ap.add_argument("--rows", default="",
-                    help="comma-separated activation row counts (default: each kind's own)")
+                    help="comma-separated activation row counts (default: each kind's own; "
+                         "flash kinds: query positions, default 512)")
+    ap.add_argument("--offsets", default=",".join(map(str, FLASH_OFFSETS)),
+                    help="flash kinds: comma-separated offsets (cached keys before the chunk)")
+    ap.add_argument("--parent-csrc", default="",
+                    help="flash kinds: another tree's csrc directory, whose "
+                         "flash_attention_tc.cu is timed beside this tree's builds")
     a = ap.parse_args()
     kinds = a.kinds.split(",")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = {src: _builds(*src, a.full_only) for src in {SOURCE[k] for k in kinds}}
+    if a.parent_csrc and ("flash_attention_tc",) * 2 in libs:
+        libs[("flash_attention_tc",) * 2]["parent"] = _parent_build(a.parent_csrc,
+                                                                     "flash_attention_tc")
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(a.seed)
     for kind in kinds:
+        if kind in FLASH_KINDS:
+            with torch.inference_mode():
+                _flash_rows(kind, libs[SOURCE[kind]], flush, g,
+                            tuple(int(r) for r in a.rows.split(",")) if a.rows else (512,),
+                            tuple(int(o) for o in a.offsets.split(",")))
+            continue
         decode_kind = kind.endswith("_decode")
         shapes = {"head": (128256, 4096)} if kind in ("q6_k_decode", "q6_k") else SHAPES
         if kind == "q8_0":

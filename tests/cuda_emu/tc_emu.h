@@ -7,9 +7,9 @@
 // meets at a block barrier, __shfl_xor_sync at its warp's; dynamic shared
 // memory is one buffer a block, filled with 0xff bytes (a bf16 NaN) so that
 // a read of a slot nothing wrote shows; a cp.async copy (16 or 4 bytes)
-// lands only at the wait_group that covers it; ldmatrix (plain and .trans)
-// and mma.sync (bf16, and s8 at k32 and k16) exchange their fragments
-// through a warp barrier, laid out as the PTX ISA lays them out. It checks
+// lands only at the wait_group that covers it; mma.sync (bf16, and s8 at
+// k32 and k16) exchanges its fragments through a warp barrier, laid out as
+// the PTX ISA lays them out. It checks
 // the kernels' tiling, ring and index arithmetic, not what nvcc makes of
 // them. Blocks run one after another, so an atomicAdd is a plain add, a
 // __threadfence does nothing and an __ldcg is a plain load: that holds the
@@ -17,7 +17,7 @@
 // ordering between blocks running at once.
 //
 // For the Hopper kernels (quant_matmul_tc.cu, quant_matmul_lowbit_tc.cu,
-// quant_matmul_int8_tc.cu):
+// quant_matmul_int8_tc.cu, flash_attention_tc.cu):
 // an mbarrier is a counter of arrivals and expected bytes with a phase,
 // waited on by parity; a TMA tile load (its tensor map from cuda.h's
 // stand-in encoder) lands, swizzled by the address bits as the
@@ -27,8 +27,12 @@
 // its group, reading then (not at issue) the A fragment registers of its
 // warpgroup's 128 threads and the shared-memory tiles its descriptors name,
 // and writing the accumulators then (the s8 one adds to them only with
-// scale-d set), so a register or a stage reused before the wait shows. setmaxnreg, the proxy fences and the register
-// fences do nothing; bar.sync with an id meets at a barrier of its own.
+// scale-d set; the bf16 wgmma_rs with scale-d clear overwrites them), so a
+// register or a stage reused before the wait shows; B may be MN-major (the
+// flash kernel's V, wgmma_rs_tb). setmaxnreg, the proxy fences and the
+// register fences do nothing; bar.sync and bar.arrive with an id meet at a
+// barrier of its own; cp.async.mbarrier.arrive lands the thread's copies,
+// then arrives; ex2.approx is std::exp2.
 #pragma once
 #include <condition_variable>
 #include <cstring>
@@ -116,7 +120,6 @@ struct emu_block {
   std::unique_ptr<std::barrier<>> named[16];
   std::vector<unsigned char> smem_buf;
   unsigned char* smem;   // 1024-byte aligned within smem_buf
-  const unsigned char* addr[32][32];
   uint32_t regs[32][32][6];
   uint32_t wg_regs[4][128][4];
   std::mutex mu;
@@ -162,34 +165,6 @@ template <int kN> inline void cp_async_wait() {
     }
     emu_groups.pop_front();
   }
-}
-
-// matrix q's row t/4 comes from the address lane 8q + t/4 gave; lane t takes
-// its bytes (t%4)*4 .. +3
-inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  emu_block* b = emu_blk;
-  const int w = emu_tid >> 5, l = emu_tid & 31;
-  b->addr[w][l] = static_cast<const unsigned char*>(p);
-  b->warp_bar[w]->arrive_and_wait();
-  for (int q = 0; q < 4; ++q) std::memcpy(&r[q], b->addr[w][8 * q + l / 4] + (l % 4) * 4, 4);
-  b->warp_bar[w]->arrive_and_wait();
-}
-
-// matrix q's rows 2*(t%4) and 2*(t%4)+1 come from the addresses lanes
-// 8q + 2*(t%4) (+1) gave; lane t takes their b16 element t/4, the first in
-// its low half
-inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  emu_block* b = emu_blk;
-  const int w = emu_tid >> 5, l = emu_tid & 31;
-  b->addr[w][l] = static_cast<const unsigned char*>(p);
-  b->warp_bar[w]->arrive_and_wait();
-  for (int q = 0; q < 4; ++q) {
-    uint16_t lo, hi;
-    std::memcpy(&lo, b->addr[w][8 * q + 2 * (l % 4)] + 2 * (l / 4), 2);
-    std::memcpy(&hi, b->addr[w][8 * q + 2 * (l % 4) + 1] + 2 * (l / 4), 2);
-    r[q] = (uint32_t)lo | ((uint32_t)hi << 16);
-  }
-  b->warp_bar[w]->arrive_and_wait();
 }
 
 inline float emu_half(uint32_t reg, int hi) {
@@ -367,14 +342,21 @@ inline void tma_load_2d(void* dst, const void* map, int c0, int c1, uint64_t* ba
 inline void fence_proxy_async() {}
 template <int kRegs> inline void setmaxnreg_inc() {}
 template <int kRegs> inline void setmaxnreg_dec() {}
-inline void named_bar_sync(int id, int count) {
-  std::barrier<>* bar;
-  {
-    std::lock_guard<std::mutex> lk(emu_blk->mu);
-    if (!emu_blk->named[id]) emu_blk->named[id] = std::make_unique<std::barrier<>>(count);
-    bar = emu_blk->named[id].get();
+inline std::barrier<>* emu_named(int id, int count) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  if (!emu_blk->named[id]) emu_blk->named[id] = std::make_unique<std::barrier<>>(count);
+  return emu_blk->named[id].get();
+}
+inline void named_bar_sync(int id, int count) { emu_named(id, count)->arrive_and_wait(); }
+inline void named_bar_arrive(int id, int count) { (void)emu_named(id, count)->arrive(); }
+// the thread's open cp.async copies land, then one arrival on bar
+inline void cp_async_mbar_arrive(uint64_t* bar) {
+  for (const emu_copy& c : emu_open) {
+    if (c.ok) std::memcpy(c.dst, c.src, c.n);
+    else std::memset(c.dst, 0, c.n);
   }
-  bar->arrive_and_wait();
+  emu_open.clear();
+  mbar_arrive(bar);
 }
 
 template <int kN> inline void fence_regs(int (&)[kN]) {}
@@ -416,19 +398,49 @@ inline void emu_acc_at(int th, int i, int& row, int& col) {
   col = 8 * (i / 4) + 2 * (th % 4) + i % 2;
 }
 
-struct emu_wgmma { int n; float* d; int* di; const uint32_t* a; uint64_t da, db; };
+// The descriptor of an MN-major tile with the 128-byte swizzle as the card's
+// wgmma_desc_mn builds it: start address / 16, leading byte offset `lbo`
+// (between 64-column panels along n), stride byte offset 1024 (between
+// 8-row groups along k), layout 1.
+inline uint64_t wgmma_desc_mn(const void* p, int lbo) {
+  const uint64_t off = (uint64_t)(static_cast<const unsigned char*>(p) - emu_smem());
+  return ((off & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// The shared-memory byte offset of element (k, n) of a bf16 B operand
+// MN-major at descriptor desc (the PTX ISA's canonical 128-byte swizzled
+// MN-major layout, CUTLASS's ((64, m), (8, k)) : ((1, LBO), (64, SBO)) in
+// elements): row k of n's 64-column atom at (k / 8) * SBO + (k % 8) * 128,
+// atom n / 64 at n / 64 * LBO, element n % 64 at 2 * (n % 64), then the
+// 128-byte swizzle on the address bits.
+inline int emu_desc_addr_mn(uint64_t desc, int k, int n) {
+  const int start = (int)(desc & 0x3FFF) << 4, lbo = (int)((desc >> 16) & 0x3FFF) << 4;
+  const int sbo = (int)((desc >> 32) & 0x3FFF) << 4;
+  const int addr = start + (n / 64) * lbo + (k / 8) * sbo + (k % 8) * 128 + 2 * (n % 64);
+  return (desc >> 62) == 1 ? emu_swizzle(addr, CU_TENSOR_MAP_SWIZZLE_128B) : addr;
+}
+
+// keep: the accumulators are added to (scale-d set), else overwritten;
+// tnsp: B is MN-major (the transpose flag)
+struct emu_wgmma { int n; float* d; int* di; const uint32_t* a; uint64_t da, db; int keep, tnsp; };
 inline thread_local std::vector<emu_wgmma> emu_wg_open;
 inline thread_local std::deque<std::vector<emu_wgmma>> emu_wg_groups;
 
-template <int kAcc> inline void wgmma_rs(float (&d)[kAcc], const uint32_t (&a)[4], uint64_t db) {
-  emu_wg_open.push_back({2 * kAcc, d, nullptr, a, 0, db});
+template <int kAcc>
+inline void wgmma_rs(float (&d)[kAcc], const uint32_t (&a)[4], uint64_t db, int scale_d = 1) {
+  emu_wg_open.push_back({2 * kAcc, d, nullptr, a, 0, db, scale_d != 0, 0});
+}
+template <int kAcc> inline void wgmma_rs_tb(float (&d)[kAcc], const uint32_t (&a)[4], uint64_t db) {
+  emu_wg_open.push_back({2 * kAcc, d, nullptr, a, 0, db, 1, 1});
 }
 template <int kAcc> inline void wgmma_ss(float (&d)[kAcc], uint64_t da, uint64_t db) {
-  emu_wg_open.push_back({2 * kAcc, d, nullptr, nullptr, da, db});
+  emu_wg_open.push_back({2 * kAcc, d, nullptr, nullptr, da, db, 1, 0});
 }
 inline void wgmma_s8(int (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  emu_wg_open.push_back({64, nullptr, d, a, (uint64_t)(scale_d != 0), db});
+  emu_wg_open.push_back({64, nullptr, d, a, (uint64_t)(scale_d != 0), db, 1, 0});
 }
+// MUFU.EX2 in f32 (the card's approximation differs in the last bits)
+inline float ex2_approx(float x) { return std::exp2(x); }
 inline void wgmma_fence() {}
 inline void wgmma_commit() {
   emu_wg_groups.push_back(std::move(emu_wg_open));
@@ -475,13 +487,14 @@ inline void emu_wgmma_run(const emu_wgmma& op) {
   for (int j = 0; j < op.n / 8; ++j)
     for (int e = 0; e < 4; ++e) {
       const int row = 16 * w + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
-      float s = op.d[4 * j + e];
+      float s = op.keep ? op.d[4 * j + e] : 0.f;
       for (int k = 0; k < 16; ++k) {
         const float av = op.a
             ? emu_half(b->wg_regs[wg][(row / 16) * 32 + (row % 8) * 4 + (k % 8) / 2]
                                  [(row % 16) / 8 + 2 * (k / 8)], k % 2)
             : emu_bf16_at(sm + emu_desc_addr(op.da, row, 2 * k));
-        s += av * emu_bf16_at(sm + emu_desc_addr(op.db, col, 2 * k));
+        const int bo = op.tnsp ? emu_desc_addr_mn(op.db, k, col) : emu_desc_addr(op.db, col, 2 * k);
+        s += av * emu_bf16_at(sm + bo);
       }
       op.d[4 * j + e] = s;
     }

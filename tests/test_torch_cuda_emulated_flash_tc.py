@@ -1,23 +1,27 @@
 """The tensor-core flash attention source runs on the CPU:
 ``csrc/flash_attention_tc.cu`` compiled by g++ against the stand-in headers
-of ``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads, ``cp.async``
-copies of 16 and 4 bytes that land at their wait, ``ldmatrix`` plain and
-``.trans`` and the bf16 ``mma.sync`` through a warp barrier in the PTX
-ISA's fragment layout, quad shuffles through the same barrier), with the
+of ``tests/cuda_emu`` (``tc_emu.h``: whole blocks of threads; mbarriers,
+TMA tile loads that land with the 128-byte swizzle when their phase
+completes, 4-byte ``cp.async`` copies whose arrival lands them; bf16
+``wgmma`` run at the wait that retires it, S = Q.K^T with Q from registers
+and K K-major, P.V with V MN-major (the transpose flag); named barriers for
+the consumers' ping-pong; quad shuffles through a warp barrier), with the
 inline-PTX helpers of ``csrc/tc_common.cuh`` swapped for those stand-ins,
 driven through the port's own ``*_tc`` wrappers with their device check
 lifted, against the plain PyTorch versions.
 
-This holds the kernel's row tiles in the (g, t) order, its ring of K/V
-tiles, the q8_0, q4_0 and q4_1 codes' conversion and their scales (q4_1's
-minimums, folded in after the dots), the page lookups, the masks, the online
-softmax and its early exits to the plain versions where
-no card is present; what nvcc makes of the source, and the PTX itself, are
-checked only on the card (``test_torch_cuda_kernels.py``). Tolerance: two
-bf16 ulps of the output's scale (2 * 2^-8), as for the CUDA-core kernel:
-both round once to bf16 at the end, and this kernel also rounds P (times
-the V scale) to bf16 for the second product. Skips where there is no g++
-with C++20.
+This holds the kernel's row tiles in the (g, t) order (a 128-row tile
+spanning two heads where T % 64 != 0), its rings of K/V and code stages
+(walks of several tiles that wrap them), the q8_0, q4_0 and q4_1 codes'
+conversion and their scales (q4_1 centred, its minimums folded in after the
+dots), the page lookups in boxes of a page's power-of-two part (pages of
+7 to 64 keys), the masks, the online softmax and its early exits to the
+plain versions where no card is present; what nvcc makes of the source, and
+the PTX itself, are checked only on the card (``test_torch_cuda_kernels.py``
+and ``chip_smoke.py``). Tolerance: two bf16 ulps of the output's scale
+(2 * 2^-8), as for the CUDA-core kernel: both round once to bf16 at the end,
+and this kernel also rounds P (times the V scale) to bf16 for the second
+product. Skips where there is no g++ with C++20.
 """
 
 import ctypes
@@ -188,6 +192,125 @@ def test_flash_tc_paged(emu, quant, D, T, page_s):
     got = kernel(*args)
     assert launches[name] == before + 1
     _close(got, plain(*args))
+
+
+def _contig_args(mod, quant, B, T, KVH, H, D, S, offsets, g):
+    """One contiguous call of ``quant``: (kernel, plain version, args, launch name)."""
+    q = torch.randn(B, T, H, D, generator=g).bfloat16()
+    off = torch.tensor(offsets, dtype=torch.int32)
+    if quant == "q8":
+        kc, ks = _codes((B, KVH, S, D), g)
+        vc, vs = _codes((B, KVH, S, D), g)
+        return (mod.flash_attention_q8_tc, fa.flash_attention_q8_plain,
+                (q, kc, ks, vc, vs, off), fa.NAME_Q8_TC)
+    if quant in ("q4", "q41"):
+        asym = quant == "q41"
+        args = (q, *_nibbles((B, KVH, S, D), g, asym), *_nibbles((B, KVH, S, D), g, asym), off)
+        return ((mod.flash_attention_q41_tc, fa.flash_attention_q41_plain, args, fa.NAME_Q41_TC)
+                if asym else
+                (mod.flash_attention_q4_tc, fa.flash_attention_q4_plain, args, fa.NAME_Q4_TC))
+    k = torch.randn(B, KVH, S, D, generator=g).bfloat16()
+    v = torch.randn(B, KVH, S, D, generator=g).bfloat16()
+    return mod.flash_attention_tc, fa.flash_attention_plain, (q, k, v, off), fa.NAME_TC
+
+
+@pytest.mark.parametrize("quant", ["bf16", "q8", "q4", "q41"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_tc_long_walk(emu, quant, D):
+    """T = 100 (each 128-row tile spans two heads' t's) at offsets 600 and
+    17 over 768 slots: a block walks up to six 128-key tiles, so every ring
+    (two to four bf16 stages, two to four code stages) wraps, and its two
+    consumers stop at different tiles."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(D + QUANT_SEED[quant] + 600)
+    kernel, plain, args, name = _contig_args(mod, quant, 2, 100, 2, 8, D, 768, (600, 17), g)
+    before = launches.get(name, 0)
+    got = kernel(*args)
+    assert launches[name] == before + 1
+    _close(got, plain(*args))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("page_s", [24, 12, 7])
+def test_flash_tc_odd_pages(emu, quant, page_s):
+    """Pages of 24, 12 and 7 keys: TMA boxes of 8, 4 and 1 key (the largest
+    power of two dividing the page), so a 128-key tile takes 16 to 128
+    boxes, each looked up in the table; shuffled pages, an idle all -1 row."""
+    mod, launches = emu
+    g = torch.Generator().manual_seed(page_s + quant + 77)
+    B, KVH, H, D, T = 3, 2, 8, 128, 40
+    NP = -(-(T + 150) // page_s)
+    P = B * NP
+    q = torch.randn(B, T, H, D, generator=g).bfloat16()
+    table = torch.randperm(P, generator=g).reshape(B, NP).int()
+    used = -(-(T + 60) // page_s)
+    table[1, used:] = -1
+    table[2] = -1
+    off = torch.tensor([NP * page_s - T, used * page_s - T - 2, 0], dtype=torch.int32)
+    if quant:
+        kc, ks = _codes((P, KVH, page_s, D), g)
+        vc, vs = _codes((P, KVH, page_s, D), g)
+        args, name = (q, kc, ks, vc, vs, off, table), fa.NAME_PAGED_Q8_TC
+        kernel, plain = mod.flash_attention_paged_q8_tc, fa.flash_attention_paged_q8_plain
+    else:
+        k = torch.randn(P, KVH, page_s, D, generator=g).bfloat16()
+        v = torch.randn(P, KVH, page_s, D, generator=g).bfloat16()
+        args, name = (q, k, v, off, table), fa.NAME_PAGED_TC
+        kernel, plain = mod.flash_attention_paged_tc, fa.flash_attention_paged_plain
+    before = launches.get(name, 0)
+    got = kernel(*args)
+    assert launches[name] == before + 1
+    _close(got, plain(*args))
+
+
+# The operand address of an MN-major bf16 tile with the 128-byte swizzle,
+# as the PTX ISA's canonical layout places it for wgmma's descriptors (and
+# TMA's CU_TENSOR_MAP_SWIZZLE_128B writes a (rows = k, 64 columns = n) box):
+# row k of n's 64-column atom at (k // 8) * SBO + (k % 8) * 128, atoms along
+# n LBO apart, element n % 64 at 2 * (n % 64), then the 16-byte chunk
+# (address bits 4-6) XORed with address bits 7-9. (start, LBO, k, n) -> byte
+# offset, worked by hand; SBO 1024, as csrc/tc_common.cuh's wgmma_desc_mn
+# builds it. The card holds it through the flash kernel's P.V (D 64 and
+# 128, the smoke's flash rows against their plain versions).
+MN_TABLE = [(0, 16384, 0, 0, 0), (0, 16384, 0, 1, 2), (0, 16384, 0, 8, 16),
+            (0, 16384, 1, 0, 144), (0, 16384, 1, 8, 128), (0, 16384, 7, 63, 910),
+            (0, 16384, 8, 0, 1024), (0, 16384, 9, 5, 1178), (0, 16384, 0, 64, 16384),
+            (0, 16384, 3, 70, 16828), (2048, 16384, 0, 0, 2048), (2048, 16384, 2, 17, 2306),
+            (8192, 8192, 15, 127, 18318), (32768, 16384, 12, 100, 50696)]
+
+
+@pytest.fixture(scope="module")
+def emu_mn(tmp_path_factory):
+    """tc_emu.h's MN-major descriptor and address functions, built alone."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the emulator")
+    d = tmp_path_factory.mktemp("cuda_emu_mn")
+    cpp, lib = d / "mn.cpp", d / "mn.so"
+    cpp.write_text('#include "tc_emu.h"\n'
+                   'extern "C" int mn_addr(int start, int lbo, int k, int n) {\n'
+                   '  emu_block blk;\n'
+                   '  blk.smem_buf.assign(65536 + 1024, 0);\n'
+                   '  blk.smem = blk.smem_buf.data();\n'
+                   '  emu_blk = &blk;\n'
+                   '  const int r = emu_desc_addr_mn(wgmma_desc_mn(blk.smem + start, lbo), k, n);\n'
+                   '  emu_blk = nullptr;\n'
+                   '  return r;\n'
+                   '}\n')
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-I",
+                           os.path.join(HERE, "cuda_emu"), str(cpp), "-o", str(lib)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0 and "barrier" in proc.stderr and "No such file" in proc.stderr:
+        pytest.skip("g++ lacks C++20's <barrier>")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return ctypes.CDLL(str(lib))
+
+
+def test_wgmma_mn_desc_table(emu_mn):
+    """The emulator's MN-major descriptor (wgmma_desc_mn, the transpose
+    flag's B) against the hand-worked table."""
+    for start, lbo, k, n, want in MN_TABLE:
+        assert emu_mn.mn_addr(start, lbo, k, n) == want, (start, lbo, k, n)
 
 
 def test_flash_tc_group_of_one(emu):
