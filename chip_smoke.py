@@ -93,7 +93,18 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 6. serve    — the port's OpenAI server in-process on localhost (4 slots, 1024
               context each): a chat completion, a streamed one, four concurrent
               completions, and a request without the key (must get 401)
-7. variants — the same engine under each ``LGT_MM_VARIANT`` (base, xsum,
+7. decode-dispatch — the same engine served at ``multi_step`` 1 and 4: four
+              concurrent greedy requests of 64 tokens (the same tokens at
+              both) and a streamed one; at 4 also a request banning every
+              EOG token by ``logit_bias`` (runs to its max_tokens), a seeded
+              request with temperature, top-k/p, min-p, typical-p, the
+              penalties and ``top_logprobs``, and a seeded mirostat one, each
+              twice (the same answer twice); at 4 every dispatch runs under
+              ``torch.cuda.set_sync_debug_mode("error")`` and continuations
+              (dispatches issued from the previous one's on-card outputs)
+              must have been issued; batch-1 and 4-request rates at both
+              printed for information beside the card's name and power limit
+8. variants — the same engine under each ``LGT_MM_VARIANT`` (base, xsum,
               split, int8): a prefill and 16 greedy steps held against the
               plain versions, then three greedy requests through the server;
               each run launches that variant's kernel and never fsplit's
@@ -102,13 +113,13 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               ffn_down through the dequantize path, the head through the
               8-bit decode kernel), held against the plain versions (int8:
               to INT8_LOGITS_TOL, every call shadowed)
-8. serve-paged — that engine freed, a second one from the environment
+9. serve-paged — that engine freed, a second one from the environment
               (``build_engine_from_env``: q8_0 paged KV, 4 pages of 1024): a
               1,500-token prompt, longer than a slot's contiguous share, with
               three short ones; the pool cannot hold all four, so one waits;
               the prompts' chunks through the paged q8_0 tensor-core flash
               kernel (the long prompt's time to its first token printed)
-9. q2k      — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
+10. q2k     — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
               projections, Q6_K head; ``cached_model(quant="q2_k")``) loaded
               under ``LGT_SCALE_LAYOUT=mixed``, its resident weight bytes
               printed; a prefill and 16 greedy steps through the kernels
@@ -120,7 +131,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               dequantize path, as in the JAX package), and the 17 steps with
               the weights relaid flat through the base body's 2-bit kernel,
               then one 512-token chunk through its tensor-core kernel
-10. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
+11. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
               projections, Q6_K head; ``cached_model(quant="q5_k")``) under
               the default layout (compact), its resident bytes printed, the
               17 steps of a longer prompt against the plain versions (its
@@ -132,12 +143,13 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               ``matmul_xla``) and whose logits are held against the plain
               versions, and the served time to the first token of a prompt
               of at most 512 tokens
-11. the ``{"kernels": [...]}`` line, the card line, and the final
+12. the ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
 (the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
-run and engine run, the serve phase, each variant's
+run and engine run, the serve phase, the decode-dispatch phase's two served
+runs, each variant's
 kernel run and serve, the serve-paged phase, the q2k phase's kernel run,
 serve, 512-token chunk, flat base run and base chunk, the base, xsum, split
 and int8 variants' chunks, the q5k phase's kernel run, serve, 512-token
@@ -1397,6 +1409,116 @@ def phase_serve(torch, engine, label="serve"):
     return launches
 
 
+def _sync_checked(torch, engine, errors: list):
+    """Wrap the engine's dispatch (``_issue``) in
+    ``torch.cuda.set_sync_debug_mode("error")``: any operation in it that
+    waits for the card raises, and is recorded in ``errors``. The drain's
+    one wait, on the dispatch's event, lies outside."""
+    issue = engine._issue
+
+    def checked(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return issue(*a, **k)
+        except RuntimeError as e:
+            errors.append(str(e)[:300])
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    engine._issue = checked
+    return issue
+
+
+DISPATCH_PROMPTS = [f"request {i}: the lazy dog" for i in range(4)]
+
+
+def phase_decode_dispatch(torch, engine, card):
+    """The loaded Q4_K_M engine (4 slots of 1024, bf16 cache) at
+    ``multi_step`` 1 and then 4, served over HTTP, each a launch window:
+    four concurrent greedy requests of 64 tokens (the same tokens at both,
+    their aggregate rate printed) and one streamed one (its decode rate); at
+    4 also a request banning every EOG token by ``logit_bias`` (it must run
+    to its ``max_tokens``), a seeded request with temperature, top-k, top-p,
+    min-p, typical-p, the three penalties and ``top_logprobs``, and a seeded
+    mirostat one, each twice (the same answer twice). At 4 every dispatch
+    runs under the sync debug mode (no wait for the card inside it) and
+    continuations must have been issued. The rates are for information,
+    printed beside the card's name and power limit."""
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig
+    paths, texts, out, rates, sync_errors = [], {}, {}, {}, []
+    eog = sorted(engine.tokenizer.eog_ids)
+    sampled = {"prompt": "the quick brown fox", "max_tokens": 32, "temperature": 0.8,
+               "top_k": 40, "top_p": 0.95, "min_p": 0.02, "typical_p": 0.9,
+               "presence_penalty": 0.4, "frequency_penalty": 0.2, "repeat_penalty": 1.1,
+               "seed": 1234, "logprobs": True, "top_logprobs": 5}
+    miro = {"prompt": "hello world, the quick brown fox", "max_tokens": 32,
+            "temperature": 1.0, "mirostat": 2, "mirostat_tau": 4.0, "mirostat_eta": 0.2,
+            "seed": 99}
+    for n in (1, 4):
+        launches: dict[str, int] = {}
+        with kv_engine(torch, engine, EngineConfig(max_slots=4, ctx=1024, multi_step=n)):
+            engine.dispatches = engine.continuations = 0
+            issue = _sync_checked(torch, engine, sync_errors) if n == 4 else None
+            try:
+                with serving(torch, engine, launches) as (port, key):
+                    t0 = time.time()
+                    res = _completions(port, key, [
+                        {"prompt": p, "max_tokens": 64, "temperature": 0}
+                        for p in DISPATCH_PROMPTS])
+                    wall = time.time() - t0
+                    texts[n] = [r[1]["choices"][0]["text"] for r in res]
+                    ntok = sum(r[1]["usage"]["completion_tokens"] for r in res)
+                    t_first, t_last, usage, _ = _stream(
+                        port, "/v1/completions",
+                        {"prompt": PROMPT, "max_tokens": 64, "temperature": 0}, key)
+                    rates[n] = {"decode_tok_s_b1": round(
+                        (usage["completion_tokens"] - 1) / (t_last - t_first), 2),
+                        "aggregate_tok_s_b4": round(ntok / wall, 2)}
+                    if n == 4:
+                        _, banned = _completions(port, key, [{
+                            "prompt": PROMPT, "max_tokens": 64, "temperature": 0,
+                            "logit_bias": {str(t): False for t in eog}}])[0]
+                        fin = banned["choices"][0]["finish_reason"]
+                        if fin != "length" or banned["usage"]["completion_tokens"] != 64:
+                            raise AssertionError(f"EOG-banned request: {fin}, "
+                                                 f"{banned['usage']}")
+                        for label, body in (("sampled", sampled), ("mirostat", miro)):
+                            a, b = (_completions(port, key, [body])[0][1] for _ in range(2))
+                            ca, cb = a["choices"][0], b["choices"][0]
+                            if ca["text"] != cb["text"] or ca["logprobs"] != cb["logprobs"]:
+                                raise AssertionError(f"{label}: two seeded answers differ")
+                            if label == "sampled" and (
+                                    len(ca["logprobs"]["token_logprobs"])
+                                    != a["usage"]["completion_tokens"]
+                                    or not all(0 < len(t) <= 5
+                                               for t in ca["logprobs"]["top_logprobs"])):
+                                raise AssertionError(f"sampled: logprobs {ca['logprobs']}")
+                            out[f"{label}_tokens"] = a["usage"]["completion_tokens"]
+                    rates[n].update(dispatches=engine.dispatches,
+                                    continuations=engine.continuations)
+            except Exception as e:
+                if sync_errors:
+                    raise AssertionError(f"a dispatch waited for the card: {sync_errors}") from e
+                raise
+            finally:
+                if issue is not None:
+                    engine._issue = issue
+        _check_launches(f"decode-dispatch multi_step {n}", launches,
+                        ("quant_matmul_4bit", "quant_matmul_8bit", "flash_attention"))
+        paths.append(launches)
+    if sync_errors:
+        raise AssertionError(f"a dispatch waited for the card: {sync_errors}")
+    if texts[1] != texts[4]:
+        raise AssertionError(f"multi_step 4 tokens differ from multi_step 1: {texts}")
+    if rates[4]["continuations"] <= 0 or rates[1]["continuations"] != 0:
+        raise AssertionError(f"continuations: {rates}")
+    emit({"phase": "decode-dispatch", "ok": True, "nvidia_smi": card,
+          **{f"multi_step_{n}": r for n, r in rates.items()}, "eog_banned": eog, **out,
+          "sync_checked_dispatches": rates[4]["dispatches"],
+          "launches": {n: sum(p.values()) for n, p in zip((1, 4), paths)}})
+    return paths
+
+
 def _check_launches(what, launches, want, absent=()):
     """Every kernel of ``want`` launched, none of ``absent``, no plain
     version."""
@@ -2031,6 +2153,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase = "serve"
         paths.append(phase_serve(torch, engine))
+        phase = "decode-dispatch"
+        paths += phase_decode_dispatch(torch, engine, card)
         phase = "variants"
         paths += phase_variants(torch, engine)
         engine.stop()

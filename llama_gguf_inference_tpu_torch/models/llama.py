@@ -46,10 +46,8 @@ class KVCache:
               device: str | torch.device, dtype=torch.bfloat16) -> "KVCache":
         shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
         return KVCache(
-            k=[torch.zeros(shape, dtype=dtype, device=device)
-               for _ in range(cfg.n_layers)],
-            v=[torch.zeros(shape, dtype=dtype, device=device)
-               for _ in range(cfg.n_layers)])
+            k=[sink_zeros(shape, dtype, device) for _ in range(cfg.n_layers)],
+            v=[sink_zeros(shape, dtype, device) for _ in range(cfg.n_layers)])
 
     @property
     def max_seq(self) -> int:
@@ -61,7 +59,7 @@ class KVCache:
                        v=[a[b:b + 1] for a in self.v])
 
     def write_index(self, offsets: torch.Tensor, T: int):
-        return _write_index(offsets, T, self.max_seq)
+        return _write_index(offsets, T, self.k[0])
 
     def write(self, layer: int, k: torch.Tensor, v: torch.Tensor, idx) -> None:
         _write_kv(self.k[layer], k, idx)
@@ -87,7 +85,9 @@ def rope_angles(positions: torch.Tensor, rope_dim: int, base: float,
     (frequency-dependent wavelength interpolation)."""
     half = rope_dim // 2
     dev = positions.device
-    freqs = torch.pow(torch.tensor(base, dtype=torch.float32, device=dev),
+    # torch.full, not torch.tensor: a copy from the host would wait for
+    # the card's queue on every forward
+    freqs = torch.pow(torch.full((), base, dtype=torch.float32, device=dev),
                       -torch.arange(half, dtype=torch.float32, device=dev) / half)
     pos = positions.float()
     if cfg is not None and cfg.rope_scaling_type == "linear" \
@@ -121,25 +121,77 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return rot.to(x.dtype)
 
 
-def _write_index(offsets: torch.Tensor, T: int, S: int):
-    """(b, t, row, s) index vectors of the chunk rows that land inside the
-    cache: chunk row (b, t) goes to cache row b, slot s.
+def sink_zeros(shape: tuple, dtype=torch.float32, device="cpu",
+               fill: int | float = 0) -> torch.Tensor:
+    """A cache tensor (N, KVH, S, ...) filled with ``fill`` whose storage
+    runs on for KVH more rows of its trailing shape: the sink rows that
+    the KV writes send every dropped chunk row to (one per kv head). No
+    kernel reads them, so they are not part of the cache."""
+    n, kvh, s, *rest = shape
+    buf = torch.full((n * kvh * s + kvh, *rest), fill, dtype=dtype, device=device)
+    return buf[:n * kvh * s].view(shape)
 
-    Rows at s >= S are dropped. They can only be padding: callers keep each
-    sequence's real tokens within S. The JAX package's dynamic-update-slice
-    instead clamps the whole chunk's start to S - T, shifting real rows;
-    the two agree whenever offset + T <= S.
+
+def with_sink(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the cache tensor ``t`` with sink rows (:func:`sink_zeros`)."""
+    out = sink_zeros(tuple(t.shape), t.dtype, t.device)
+    out.copy_(t)
+    return out
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """The cache tensor ``t`` (N, KVH, S, ...) as a view of rows of its
+    trailing shape, from its first row to the end of its storage: its
+    N * KVH * S rows, the rows of any later slots when ``t`` is one slot's
+    view, then the KVH sink rows."""
+    rest = t.shape[3:]
+    row = 1
+    for d in rest:
+        row *= d
+    n = t.untyped_storage().nbytes() // t.element_size() - t.storage_offset()
+    if not t.is_contiguous() or t.storage_offset() % row \
+            or n // row < t.shape[0] * t.shape[1] * t.shape[2] + t.shape[1]:
+        raise ValueError(f"cache tensor {tuple(t.shape)} has no sink rows "
+                         "(allocate it with sink_zeros)")
+    return torch.as_strided(t, (n // row, *rest), (row, *t.stride()[3:]),
+                            t.storage_offset())
+
+
+def _sink_index(rows: torch.Tensor, dest: torch.Tensor, t: torch.Tensor
+                ) -> torch.Tensor:
+    """(B, T, KVH) row indices of :func:`_rows` (``t``): kv head h of chunk
+    row (b, t) at ``rows[b, t] * KVH + h`` (a ``(N, KVH, S)`` flat index
+    without the head) where ``dest`` holds, else at sink row h."""
+    S, KVH = t.shape[2], t.shape[1]
+    sink = _rows(t).shape[0] - KVH
+    h = torch.arange(KVH, device=rows.device)
+    flat = ((rows // S * KVH)[..., None] + h) * S + (rows % S)[..., None]
+    return torch.where(dest[..., None], flat, sink + h)
+
+
+def _write_index(offsets: torch.Tensor, T: int, t: torch.Tensor) -> torch.Tensor:
+    """Where a (B, T) chunk's rows land in a contiguous cache shaped like
+    ``t`` (B, KVH, S, ...): chunk row (b, t) at slot ``offsets[b] + t`` of
+    cache row b, as (B, T, KVH) indices of :func:`_rows` (``t``).
+
+    Rows at s >= S go to the sink rows. They can only be padding: callers
+    keep each sequence's real tokens within S. Static shapes and no read
+    of ``offsets`` on the host, so a forward never waits for the card. The
+    JAX package's dynamic-update-slice instead clamps the whole chunk's
+    start to S - T, shifting real rows; the two agree whenever
+    offset + T <= S.
     """
+    B, S = offsets.shape[0], t.shape[2]
     pos = offsets.long()[:, None] + torch.arange(T, device=offsets.device)[None, :]
-    bi, ti = torch.nonzero(pos < S, as_tuple=True)
-    return bi, ti, bi, pos[bi, ti]
+    b = torch.arange(B, device=offsets.device)[:, None]
+    return _sink_index(b * S + pos.clamp(max=S - 1), pos < S, t)
 
 
-def _write_kv(cache: torch.Tensor, new: torch.Tensor, idx) -> None:
-    """cache (rows, H, S, ...) <- new (B, T, H, ...) in place: chunk row
-    (b, t) of idx lands at (row, :, s)."""
-    bi, ti, row, si = idx
-    cache[row, :, si] = new[bi, ti].to(cache.dtype)
+def _write_kv(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None:
+    """cache (rows, H, S, ...) <- new (B, T, H, ...) in place, each (chunk
+    row, head) vector at its row of ``idx`` (:func:`_write_index`). Two
+    indices meet only in the sink rows, which nothing reads."""
+    _rows(cache)[idx] = new.to(cache.dtype)
 
 
 def attention(layer: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -19,7 +19,8 @@ bf16 arrays (numpy's ``bfloat16`` extension dtype) keep their bits exactly.
 cache's fields given as numpy arrays (an L-list per per-layer field, one
 array for ``page_table``), e.g. a JAX ``KVCache``, ``QuantKV``,
 ``QuantKV4``, ``QuantKV41``, ``PagedKV`` or ``PagedQuantKV`` after
-``_asdict()`` and ``numpy.asarray`` of every array.
+``_asdict()`` and ``numpy.asarray`` of every array; each per-layer tensor
+gets the sink rows the port's KV writes need (``models.llama.sink_zeros``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.llama import KVCache
+from ..models.llama import KVCache, with_sink
 from ..ops.linear import DenseLinear, QuantEmbedding, QuantLinear
 from .kv_cache import QuantKV, QuantKV4, QuantKV41
 from .paged_kv import PagedKV, PagedQuantKV
@@ -86,5 +87,6 @@ def cache_from_numpy(fields: dict, device: str | torch.device = "cuda"):
         cls = QuantKV if np.asarray(fields["k_q"][0]).dtype == np.int8 else QuantKV4
     else:
         cls = KVCache
-    return cls(**{k: (_tensor(v, dev) if k == "page_table" else [_tensor(a, dev) for a in v])
+    return cls(**{k: (_tensor(v, dev) if k == "page_table"
+                      else [with_sink(_tensor(a, dev)) for a in v])
                   for k, v in fields.items()})

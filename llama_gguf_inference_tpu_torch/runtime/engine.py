@@ -1,13 +1,23 @@
 """The inference engine: slots, continuous batching, streaming.
 
-- ``max_slots`` sequences share one decode batch; one step per iteration
-  advances every slot (free slots run on pad tokens at offset 0 and their
-  outputs are dropped)
+- ``max_slots`` sequences share one decode batch; a dispatch advances every
+  slot by ``multi_step`` forward+sample steps (free slots run on pad tokens
+  at offset 0 and their outputs are dropped)
+- sampling state lives on the card (``sampler.SampleState``): admission
+  writes a slot's parameters, prompt counts and logit bias there, and the
+  final prefill chunk's last row is sampled for the first token by the same
+  batched ``sample`` the decode steps use
+- a decode dispatch keeps its tokens and offsets on the card between steps
+  and brings its (N, B) tokens back once, through pinned memory and a CUDA
+  event; the host keeps its own copy of the offsets. With ``multi_step`` > 1
+  the next dispatch (a continuation) is issued from the previous one's
+  on-card outputs before the host waits for them, so the card works while
+  the host emits tokens (the JAX engine's pipelined dispatch). One stream
+  only: the split flash kernel's arrival counters are shared per device
 - prompt prefill runs per slot in bucketed chunks written straight into that
-  slot's rows of the KV cache; the final chunk's last row is sampled for the
-  first token
-- stop handling (EOG, ``max_tokens``, slot capacity, stop strings) and
-  detokenization run on the host
+  slot's rows of the KV cache
+- stop handling (EOG, ``max_tokens``, slot capacity, stop strings),
+  detokenization and the first token's logprobs run on the host
 - the engine is transport-agnostic: the server talks to it through
   ``submit()`` and per-request thread-safe event queues
 - the KV cache is bf16, q8_0, q4_0 or q4_1 (``kv_dtype``), contiguous
@@ -16,9 +26,9 @@
   for its prompt and ``max_tokens`` at admission and waits at the head of
   the line while the pool is short)
 
-Not yet here (the JAX engine has them): multi-step decode, pipelined
-dispatch, the slot prefix cache, speculation, slot save/restore, context
-shift, logprobs and grammars.
+Not yet here (the JAX engine has them): the slot prefix cache, speculation,
+slot save/restore, context shift, grammars and a decode step captured as a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import traceback
 import uuid
 from typing import Iterator
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -37,7 +48,8 @@ from ..models.llama import KVCache, forward
 from .kv_cache import QuantKV, QuantKV4, QuantKV41
 from .loader import load_model
 from .paged_kv import PageAllocator, PagedKV, PagedQuantKV
-from .sampler import SamplingParams, sample, unsupported
+from .sampler import (Gates, SampleState, SamplingParams, sample, to_device,
+                      token_logprobs, unsupported)
 from .tokenizer import Tokenizer, from_gguf_metadata
 
 
@@ -58,6 +70,7 @@ class EngineConfig:
     # (llama.cpp's unified KV)
     kv_layout: str = "contig"
     kv_page_size: int = 1024           # paged: tokens per physical page
+    multi_step: int = 1                # decode steps fused per dispatch (1 = off)
 
 
 def make_kv_cache(cfg, ecfg: EngineConfig, device):
@@ -82,6 +95,8 @@ class GenEvent:
     finish_reason: str | None = None   # "stop" | "length" | "error"
     n_prompt: int = 0
     n_generated: int = 0
+    logprob: float | None = None
+    top_logprobs: list[tuple[int, float]] | None = None
 
 
 @dataclasses.dataclass
@@ -95,7 +110,6 @@ class _Slot:
     pending_text: str = ""             # held back: possible stop-string prefix
     utf8_buf: bytes = b""              # held back: incomplete UTF-8 sequence
     offset: int = 0                    # tokens currently in this slot's cache
-    generator: torch.Generator | None = None
 
 
 def _utf8_split(buf: bytes, flush: bool = False) -> tuple[str, bytes]:
@@ -113,7 +127,10 @@ def _utf8_split(buf: bytes, flush: bool = False) -> tuple[str, bytes]:
 
 
 class InferenceEngine:
-    """Owns model weights, the KV cache and the scheduler thread."""
+    """Owns model weights, the KV cache, the sampling state and the scheduler
+    thread."""
+
+    TOP_LOGPROBS_K = 8   # top-k logprobs computed per step (OpenAI `logprobs`)
 
     def __init__(self, model_path: str, engine_cfg: EngineConfig | None = None,
                  device: str | torch.device = "cuda"):
@@ -128,6 +145,8 @@ class InferenceEngine:
         if ecfg.kv_layout == "paged" and ecfg.kv_dtype in ("q4_0", "q4_1"):
             raise ValueError("kv_layout='paged' supports bf16 and q8_0 "
                              "KV (4-bit paged pools are not built)")
+        if ecfg.multi_step < 1:
+            raise ValueError(f"multi_step must be >= 1, got {ecfg.multi_step}")
         cfg, params, reader = load_model(model_path, self.device, fuse=True)
         self.cfg = cfg
         self.params = params
@@ -136,7 +155,12 @@ class InferenceEngine:
         self.model_name = str(self.metadata.get("general.name", "model"))
         reader.close()
         self.cache, self.alloc = make_kv_cache(cfg, ecfg, self.device)
+        self.sample_state = SampleState.init(ecfg.max_slots, cfg.vocab_size, self.device)
         self.slots = [_Slot() for _ in range(ecfg.max_slots)]
+        self._pending: dict | None = None  # the decode dispatch in flight
+        self.dispatches = 0               # decode dispatches issued
+        self.continuations = 0            # ... of them issued before the previous one was read
+        self.total_generated = 0
         self._queue: "queue.Queue[tuple[str, list[int], SamplingParams, queue.Queue]]" = queue.Queue()
         self._waiting: list = []          # paged: the head of the line, short of pages
         self._cancelled: set[str] = set()
@@ -192,6 +216,7 @@ class InferenceEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        self._pending = None
 
     def _loop(self) -> None:
         while not self._stop_evt.is_set():
@@ -204,9 +229,17 @@ class InferenceEngine:
             if not worked:   # idle: sleep until a submit (or a cancel poll)
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
+        # drain the dispatch in flight so its requests get their tokens
+        if self._pending is not None:
+            try:
+                self._drain(self._pending)
+            except Exception:  # noqa: BLE001 — best effort at shutdown
+                traceback.print_exc()
+            self._pending = None
 
     def _fail_all(self) -> None:
         """Terminate every active and queued request with an error event."""
+        self._pending = None
         for b, slot in enumerate(self.slots):
             if slot.state != "free":
                 slot.out.put(GenEvent(finished=True, finish_reason="error",
@@ -222,6 +255,15 @@ class InferenceEngine:
             except queue.Empty:
                 break
             out.put(GenEvent(finished=True, finish_reason="error"))
+
+    def n_active(self) -> int:
+        return sum(s.state != "free" for s in self.slots)
+
+    def stats(self) -> dict:
+        return {"model": self.model_name, "slots_total": self.ecfg.max_slots,
+                "slots_active": self.n_active(), "multi_step": self.ecfg.multi_step,
+                "total_generated": self.total_generated,
+                "dispatches": self.dispatches, "continuations": self.continuations}
 
     def step(self) -> bool:
         """One scheduler iteration. Returns True if any work was done."""
@@ -269,8 +311,16 @@ class InferenceEngine:
         return self.ecfg.ctx
 
     def _push_table(self) -> None:
-        """Mirror the host allocator's page table to the device cache."""
-        self.cache.page_table.copy_(torch.from_numpy(self.alloc.table))
+        """Mirror the host allocator's page table to the device cache (in
+        stream order: a dispatch in flight keeps the table it was issued
+        with)."""
+        self.cache.page_table.copy_(to_device(self.alloc.table, self.device))
+
+    def _max_advance(self) -> int:
+        """Worst-case per-dispatch offset advance: a slot's reservation keeps
+        this much room past its last token, so multi-step dispatches stay
+        viable up to ``max_tokens`` (1, the single-step margin, by default)."""
+        return self.ecfg.multi_step
 
     def _next_request(self):
         if self._waiting:
@@ -280,8 +330,13 @@ class InferenceEngine:
         except queue.Empty:
             return None
 
+    @torch.inference_mode()
     def _admit(self) -> bool:
-        did = False
+        """Two phases, as the JAX engine's admission: every request that
+        finds a slot gets its sampling state written and its prefill (with
+        the first token's draw) queued on the card; only then does the host
+        wait for the first tokens."""
+        pending_adm = []
         for b, slot in enumerate(self.slots):
             if slot.state != "free":
                 continue
@@ -290,9 +345,10 @@ class InferenceEngine:
                 break
             rid, ids, params, out = item
             if self.alloc is not None:
-                # reserve the whole lifetime up front (prompt + max_tokens),
-                # so decode never allocates mid-flight
-                need = -(-(len(ids) + params.max_tokens + 1) // self.ecfg.kv_page_size)
+                # reserve the whole lifetime up front (prompt + max_tokens and
+                # a dispatch's advance), so decode never allocates mid-flight
+                need = -(-(len(ids) + params.max_tokens + self._max_advance())
+                         // self.ecfg.kv_page_size)
                 if not self.alloc.reserve(b, min(need, self.alloc.table.shape[1])):
                     # pool short: hold at the head of the line until a
                     # running request frees its pages
@@ -307,14 +363,18 @@ class InferenceEngine:
             slot.out = out
             slot.pending_text = ""
             slot.utf8_buf = b""
-            slot.generator = torch.Generator(device=self.device)
-            slot.generator.manual_seed(params.seed)
-            logits = self._prefill(b, ids)
+            # the counts start from the prompt, so the repeat, frequency and
+            # presence penalties see every token of the sequence so far
+            self.sample_state.write_slot(b, params, ids)
+            pending_adm.append((b, *self._prefill(b, ids)))
             slot.offset = len(ids)
-            tok = sample(logits, [params], [slot.generator])
-            self._emit_token(b, int(tok[0]))
-            did = True
-        return did
+        for b, tok, row in pending_adm:
+            tok = int(tok)
+            slot = self.slots[b]
+            lp, top = self._host_token_stats(slot, row, tok) \
+                if slot.params.n_probs > 0 else (None, None)
+            self._emit_token(b, tok, lp, top)
+        return bool(pending_adm)
 
     def _bucket(self, n: int) -> int:
         for t in PREFILL_BUCKETS:
@@ -322,54 +382,199 @@ class InferenceEngine:
                 return t
         return PREFILL_BUCKETS[-1]
 
-    @torch.inference_mode()
-    def _prefill(self, b: int, ids: list[int]) -> torch.Tensor:
-        """Prefill slot b in bucketed chunks; returns the (1, V) logits of
-        the last prompt position."""
+    def _prefill(self, b: int, ids: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Prefill slot b in bucketed chunks; returns the first token (1,)
+        sampled on the card from the last prompt position's logits, and
+        those (V,) logits, neither read back."""
         view = self.cache.slot(b)
         pos = 0
         while True:
             chunk = min(len(ids) - pos, PREFILL_BUCKETS[-1])
             T = self._bucket(chunk)
-            tok = torch.zeros((1, T), dtype=torch.int32)
-            tok[0, :chunk] = torch.tensor(ids[pos:pos + chunk], dtype=torch.int32)
-            logits = forward(
-                self.params, self.cfg, tok.to(self.device),
-                torch.tensor([pos], dtype=torch.int32, device=self.device),
-                view, logits_at=torch.tensor([max(chunk - 1, 0)], device=self.device))
+            tok = np.zeros((1, T), np.int32)
+            tok[0, :chunk] = ids[pos:pos + chunk]
+            # the chunk's start and the row whose logits the head computes
+            meta = to_device(np.array([pos, max(chunk - 1, 0)], np.int32), self.device)
+            logits = forward(self.params, self.cfg, to_device(tok, self.device), meta[:1],
+                             view, logits_at=meta[1:])
             pos += chunk
             if pos >= len(ids):
-                return logits[:, 0]
+                break
+        row = logits[:, 0]
+        tok = sample(row, self.sample_state.row(b), Gates.of([self.slots[b].params]))
+        return tok, row[0]
+
+    def _host_token_stats(self, slot: _Slot, logits_row: torch.Tensor, tok: int):
+        """The first token's logprob and top list, on the host (once per
+        request that asked for logprobs), as the JAX engine computes them."""
+        row = logits_row.float().cpu().numpy()
+        m = float(row.max())
+        lse = m + float(np.log(np.exp(row - m).sum()))
+        k = min(slot.params.n_probs, self.TOP_LOGPROBS_K)
+        idx = np.argpartition(-row, k)[:k]
+        idx = idx[np.argsort(-row[idx])]
+        return float(row[tok]) - lse, [(int(i), float(row[i]) - lse) for i in idx]
+
+    @staticmethod
+    def _top_list(slot: _Slot, idx_row, val_row):
+        if slot.params.n_probs <= 0:
+            return None
+        n = min(slot.params.n_probs, len(idx_row))
+        return [(int(idx_row[j]), float(val_row[j])) for j in range(n)]
 
     # -- batched decode ------------------------------------------------------
+    def _multi_steps_viable(self, active: list[int]) -> int:
+        """How many decode steps can be fused into one dispatch right now."""
+        n = self.ecfg.multi_step
+        if n <= 1:
+            return 1
+        if not self._queue.empty() and self.n_active() < self.ecfg.max_slots:
+            return 1   # stay responsive: admit waiting requests first
+        # all-or-nothing: a slot finishing mid-batch just ignores the tail
+        # (bounded waste, < n steps)
+        for b in active:
+            if self._slot_cap(b) - self.slots[b].offset - 1 < n:
+                return 1
+        return n
+
+    def _decode_inputs(self, active: list[int]):
+        """(B, 1) tokens, (B,) offsets and (B,) per-step advance (1 for an
+        active slot, 0 for a free one, which stays at offset 0), on the host."""
+        B = self.ecfg.max_slots
+        tokens = np.zeros((B, 1), np.int32)
+        offsets = np.zeros(B, np.int32)
+        advance = np.zeros(B, np.int32)
+        for b in active:
+            tokens[b, 0] = self.slots[b].generated[-1]
+            offsets[b] = self.slots[b].offset
+            advance[b] = 1
+        return tokens, offsets, advance
+
+    # -- pipelined dispatch: keep one multi-step decode in flight, so the
+    # host's wait for a dispatch's tokens and its emission of them overlap
+    # the NEXT dispatch's device time. The continuation's inputs are the
+    # in-flight dispatch's own on-card outputs, so issuing it needs no host
+    # data. Slots that turn out to have finished inside the fetched batch
+    # simply waste their speculative tail (bounded, as mid-batch EOG).
+    def _pipeline_ok(self, pend) -> bool:
+        active, n_steps = pend["active"], pend["n_steps"]
+        if n_steps <= 1:
+            return False
+        if not self._queue.empty() and self.n_active() < self.ecfg.max_slots:
+            return False   # stay responsive: drain + admit first
+        now_active = [b for b, s in enumerate(self.slots) if s.state == "active"]
+        if now_active != active:
+            return False   # a newly admitted slot must join the batch
+        for b in active:
+            slot = self.slots[b]
+            if slot.state != "active" or slot.request_id != pend["gen"][b]:
+                return False
+            # room for the in-flight steps AND the continuation
+            if slot.offset + 2 * n_steps + 1 >= self._slot_cap(b):
+                return False
+            if len(slot.generated) + 2 * n_steps > slot.params.max_tokens:
+                return False   # would overshoot max_tokens: don't speculate
+        return True
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t`` that is complete once the dispatch's event
+        has passed: pinned and not waited for on a card."""
+        if t.device.type != "cuda":
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+
     @torch.inference_mode()
+    def _issue(self, tokens: torch.Tensor, offsets: torch.Tensor, advance: torch.Tensor,
+               n_steps: int, want_lp: bool, active: list[int],
+               offsets_np: np.ndarray) -> dict:
+        """Queue a decode dispatch on the card without waiting for it:
+        ``n_steps`` forward+sample steps over the full slot batch from the
+        on-card (B, 1) ``tokens`` and (B,) ``offsets``, each step's tokens fed
+        to the next and its offsets advanced by ``advance``; then the copy of
+        the (N, B) tokens (and with ``want_lp`` their logprobs and top-k) to
+        pinned host memory and an event after it. Nothing here reads the
+        card. ``offsets_np`` is the host's bookkeeping copy of ``offsets``."""
+        gates = Gates.of(self.slots[b].params for b in active)
+        tok, off, outs = tokens, offsets, []
+        for _ in range(n_steps):
+            logits = forward(self.params, self.cfg, tok, off, self.cache)[:, 0]
+            nxt = sample(logits, self.sample_state, gates)
+            # logprobs only where asked: the default path pays no (B, V)
+            # log-softmax
+            outs.append((nxt, *token_logprobs(logits, nxt, self.TOP_LOGPROBS_K))
+                        if want_lp else (nxt,))
+            tok, off = nxt.to(torch.int32)[:, None], off + advance
+        host = [self._to_host(torch.stack(x)) for x in zip(*outs)]
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self.dispatches += 1
+        return {"host": host, "event": event, "next_tok": tok, "next_off": off,
+                "advance": advance, "offsets": offsets_np, "n_steps": n_steps,
+                "want_lp": want_lp, "active": active,
+                "gen": {b: self.slots[b].request_id for b in active}}
+
+    def _drain(self, pend: dict) -> None:
+        """Wait for a dispatch's tokens (its event: the one point where the
+        host waits for the card) and emit them."""
+        if pend["event"] is not None:
+            pend["event"].synchronize()
+        host = [h.numpy() for h in pend["host"]]
+        toks = host[0]
+        lps, tv, ti = host[1:] if pend["want_lp"] else (None, None, None)
+        for step in range(pend["n_steps"]):
+            for b in pend["active"]:
+                slot = self.slots[b]
+                # the slot may have finished (EOG/stop) mid-batch: drop the rest
+                if slot.state != "active" or slot.request_id != pend["gen"][b]:
+                    continue
+                slot.offset += 1
+                top = None if ti is None else self._top_list(slot, ti[step, b], tv[step, b])
+                lp = None if lps is None else float(lps[step, b])
+                self._emit_token(b, int(toks[step, b]), lp, top)
+
     def _decode(self) -> bool:
+        pend, self._pending = self._pending, None
+        if pend is not None:
+            nxt = None
+            if self._pipeline_ok(pend):
+                # both continuation inputs are the in-flight dispatch's own
+                # on-card outputs: no host data, no wait
+                nxt = self._issue(pend["next_tok"], pend["next_off"], pend["advance"],
+                                  pend["n_steps"], pend["want_lp"], list(pend["active"]),
+                                  offsets_np=pend["offsets"] + pend["n_steps"])
+                self.continuations += 1
+            self._drain(pend)           # the wait overlaps nxt's device time
+            if nxt is not None:
+                # continuation slots that finished during the drain waste
+                # their speculative tail; _drain's request check drops it
+                self._pending = nxt
+            return True
+
         active = [b for b, s in enumerate(self.slots) if s.state == "active"]
         if not active:
             return False
-        B = self.ecfg.max_slots
-        tokens = torch.zeros((B, 1), dtype=torch.int32)
-        offsets = torch.zeros(B, dtype=torch.int32)
-        params: list[SamplingParams | None] = [None] * B
-        gens: list[torch.Generator | None] = [None] * B
-        for b in active:
-            slot = self.slots[b]
-            tokens[b, 0] = slot.generated[-1]
-            offsets[b] = slot.offset
-            params[b] = slot.params
-            gens[b] = slot.generator
-        logits = forward(self.params, self.cfg, tokens.to(self.device),
-                         offsets.to(self.device), self.cache)
-        toks = sample(logits[:, 0], params, gens).tolist()
-        for b in active:
-            self.slots[b].offset += 1
-            self._emit_token(b, toks[b])
+        n_steps = self._multi_steps_viable(active)
+        want_lp = any(self.slots[b].params.n_probs > 0 for b in active)
+        tokens, offsets, advance = self._decode_inputs(active)
+        pend = self._issue(to_device(tokens, self.device), to_device(offsets, self.device),
+                           to_device(advance, self.device), n_steps, want_lp, active,
+                           offsets_np=offsets)
+        if n_steps > 1:
+            self._pending = pend        # drain on the next scheduler tick
+        else:
+            self._drain(pend)
         return True
 
     # -- emission / termination ---------------------------------------------
-    def _emit_token(self, b: int, token_id: int) -> None:
+    def _emit_token(self, b: int, token_id: int, logprob: float | None = None,
+                    top: list[tuple[int, float]] | None = None) -> None:
         slot = self.slots[b]
         slot.generated.append(token_id)
+        self.total_generated += 1
         n_gen = len(slot.generated)
 
         finish: str | None = None
@@ -429,7 +634,8 @@ class InferenceEngine:
         slot.out.put(GenEvent(
             token_id=token_id, text=emit_text,
             finished=finish is not None, finish_reason=finish,
-            n_prompt=len(slot.prompt_ids), n_generated=n_gen))
+            n_prompt=len(slot.prompt_ids), n_generated=n_gen,
+            logprob=logprob, top_logprobs=top))
         if finish is not None:
             self._release(b)
 
@@ -438,7 +644,6 @@ class InferenceEngine:
         slot.state = "free"
         slot.request_id = ""
         slot.offset = 0
-        slot.generator = None
         if self.alloc is not None:
             self.alloc.release(b)
             self._push_table()

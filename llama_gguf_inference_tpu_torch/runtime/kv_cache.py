@@ -27,7 +27,7 @@ import dataclasses
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import _write_index, _write_kv
+from ..models.llama import _write_index, _write_kv, sink_zeros
 from ..ops import flash_attention as fa
 
 
@@ -70,7 +70,7 @@ class _QuantCache:
                              for f in dataclasses.fields(self)})
 
     def write_index(self, offsets: torch.Tensor, T: int):
-        return _write_index(offsets, T, self.max_seq)
+        return _write_index(offsets, T, self.k_q[0])
 
     def write(self, layer: int, k: torch.Tensor, v: torch.Tensor, idx) -> None:
         """Quantize k/v (B, T, KVH, D) and write the rows of idx in place."""
@@ -98,8 +98,8 @@ class QuantKV(_QuantCache):
     @classmethod
     def _buffers(cls, cfg, batch, max_seq, device):
         L, H, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        codes = lambda: torch.zeros(batch, H, max_seq, D, dtype=torch.int8, device=device)
-        scale = lambda: torch.zeros(batch, H, max_seq, device=device)
+        codes = lambda: sink_zeros((batch, H, max_seq, D), torch.int8, device)
+        scale = lambda: sink_zeros((batch, H, max_seq), torch.float32, device)
         return dict(k_q=_lists(L, codes), k_s=_lists(L, scale),
                     v_q=_lists(L, codes), v_s=_lists(L, scale))
 
@@ -136,9 +136,9 @@ class QuantKV4(_QuantCache):
     @classmethod
     def _buffers(cls, cfg, batch, max_seq, device):
         L, H, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        codes = lambda: torch.full((batch, H, max_seq, D // 2), 0x88,
-                                   dtype=torch.uint8, device=device)
-        scale = lambda: torch.zeros(batch, H, max_seq, device=device)
+        codes = lambda: sink_zeros((batch, H, max_seq, D // 2), torch.uint8, device,
+                                   fill=0x88)
+        scale = lambda: sink_zeros((batch, H, max_seq), torch.float32, device)
         return dict(k_q=_lists(L, codes), k_s=_lists(L, scale),
                     v_q=_lists(L, codes), v_s=_lists(L, scale))
 
@@ -177,9 +177,8 @@ class QuantKV41(_QuantCache):
     @classmethod
     def _buffers(cls, cfg, batch, max_seq, device):
         L, H, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        codes = lambda: torch.zeros(batch, H, max_seq, D // 2, dtype=torch.uint8,
-                                    device=device)
-        scale = lambda: torch.zeros(batch, H, max_seq, device=device)
+        codes = lambda: sink_zeros((batch, H, max_seq, D // 2), torch.uint8, device)
+        scale = lambda: sink_zeros((batch, H, max_seq), torch.float32, device)
         return dict(k_q=_lists(L, codes), k_s=_lists(L, scale), k_m=_lists(L, scale),
                     v_q=_lists(L, codes), v_s=_lists(L, scale), v_m=_lists(L, scale))
 

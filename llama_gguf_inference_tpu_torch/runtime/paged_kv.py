@@ -16,10 +16,13 @@ sequences on demand; this is the same idea, as in the JAX package's
 
 Writes go through the table too. A position whose table entry is -1 (an
 idle slot, or a padded chunk row past the slot's reservation) is dropped,
-as the JAX scatter drops it (``mode="drop"``): indexing a tensor with -1
-would write the pool's LAST page instead, another slot's keys. Positions
-past the table's last page are dropped as well, where the JAX package
-clamps them onto its last page.
+as the JAX scatter drops it (``mode="drop"``), into the sink rows that
+every pool's storage carries past its last page (``models.llama.
+sink_zeros``): indexing a tensor with -1 would write the pool's LAST page
+instead, another slot's keys, and clamping onto page 0 would write a page
+some slot owns. Positions past the table's last page are dropped as well,
+where the JAX package clamps them onto its last page. The index has static
+shapes and the host reads neither the offsets nor the device table.
 """
 
 from __future__ import annotations
@@ -30,20 +33,22 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import _write_kv
+from ..models.llama import _sink_index, _write_kv, sink_zeros
 from ..ops import flash_attention as fa
 from .kv_cache import QuantKV
 
 
-def _paged_index(page_table: torch.Tensor, page_s: int, offsets: torch.Tensor, T: int):
-    """(b, t, page, slot-in-page) index vectors of the chunk rows whose
-    logical page is mapped."""
-    NP = page_table.shape[1]
+def _paged_index(page_table: torch.Tensor, pool: torch.Tensor, offsets: torch.Tensor,
+                 T: int) -> torch.Tensor:
+    """(B, T, KVH) row indices (``models.llama._rows`` of ``pool``, a
+    (P, KVH, page_s, ...) pool) of a chunk's rows: the mapped ones in their
+    page, the others in the sink rows."""
+    NP, page_s = page_table.shape[1], pool.shape[2]
     pos = offsets.long()[:, None] + torch.arange(T, device=offsets.device)[None, :]
     lp = pos // page_s
     phys = torch.gather(page_table.long(), 1, lp.clamp(max=NP - 1))
-    bi, ti = torch.nonzero((lp < NP) & (phys >= 0), as_tuple=True)
-    return bi, ti, phys[bi, ti], pos[bi, ti] % page_s
+    dest = (lp < NP) & (phys >= 0)
+    return _sink_index(phys.clamp(min=0) * page_s + pos % page_s, dest, pool)
 
 
 class _Paged:
@@ -74,7 +79,7 @@ class _Paged:
         return dataclasses.replace(self, page_table=self.page_table[b:b + 1])
 
     def write_index(self, offsets: torch.Tensor, T: int):
-        return _paged_index(self.page_table, self.page_s, offsets, T)
+        return _paged_index(self.page_table, self._pool, offsets, T)
 
 
 @dataclasses.dataclass
@@ -89,7 +94,7 @@ class PagedKV(_Paged):
     def zeros(cfg: ModelConfig, batch: int, pool_pages: int, page_s: int,
               device: str | torch.device) -> "PagedKV":
         shape = (pool_pages, cfg.n_kv_heads, page_s, cfg.head_dim)
-        bf16 = lambda: [torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        bf16 = lambda: [sink_zeros(shape, torch.bfloat16, device)
                         for _ in range(cfg.n_layers)]
         return PagedKV(k=bf16(), v=bf16(),
                        page_table=torch.full((batch, pool_pages), -1, dtype=torch.int32,
@@ -122,9 +127,8 @@ class PagedQuantKV(_Paged):
         qshape = (pool_pages, cfg.n_kv_heads, page_s, cfg.head_dim)
         sshape = qshape[:3]
         L = cfg.n_layers
-        codes = lambda: [torch.zeros(qshape, dtype=torch.int8, device=device)
-                         for _ in range(L)]
-        scales = lambda: [torch.zeros(sshape, device=device) for _ in range(L)]
+        codes = lambda: [sink_zeros(qshape, torch.int8, device) for _ in range(L)]
+        scales = lambda: [sink_zeros(sshape, torch.float32, device) for _ in range(L)]
         return PagedQuantKV(k_q=codes(), k_s=scales(), v_q=codes(), v_s=scales(),
                             page_table=torch.full((batch, pool_pages), -1,
                                                   dtype=torch.int32, device=device))

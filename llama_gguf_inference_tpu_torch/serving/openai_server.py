@@ -7,10 +7,14 @@ Endpoints:
 - ``GET  /v1/models``            — the single loaded model
 - ``GET  /health``               — public liveness
 
-``/v1/*`` requires the bearer key when one is configured. Request fields
-the engine cannot honour yet (logprobs, penalties, typical-p, mirostat,
-logit bias, grammars, tools, ``n > 1``) get a 400 naming the field; none is
-ignored silently.
+``/v1/*`` requires the bearer key when one is configured. Sampling fields
+follow the JAX package's server: temperature, top_p, top_k, min_p,
+typical_p, the presence/frequency/repeat penalties, mirostat with
+``mirostat_tau``/``mirostat_eta``, seed, stop, ``logit_bias`` (an OpenAI
+object with string keys or llama.cpp ``[id, bias]`` pairs; ``false`` bans the
+token) and ``logprobs``/``top_logprobs`` (at most 8). Fields the engine cannot
+honour yet (grammars, ``json_schema``, a non-text ``response_format``,
+tools, ``n > 1``) get a 400 naming the field; none is ignored silently.
 
 Run: ``MODEL_PATH=model.gguf python -m
 llama_gguf_inference_tpu_torch.serving.openai_server`` (on the card).
@@ -68,11 +72,33 @@ def _now() -> int:
 
 # request fields with no engine support yet: key -> value that means "off"
 _OFF_FIELDS = {"tools": None, "grammar": None, "json_schema": None}
+TOP_LOGPROBS_MAX = 8   # the engine's top-k a step (InferenceEngine.TOP_LOGPROBS_K)
+
+
+def _parse_logit_bias(body: dict) -> dict[int, float] | None:
+    lb = body.get("logit_bias")
+    if not lb:
+        return None
+    out: dict[int, float] = {}
+    if isinstance(lb, dict):             # OpenAI: {"token_id": bias}
+        items = lb.items()
+    elif isinstance(lb, list):           # llama.cpp: [[id, bias], ...]
+        items = ((p[0], p[1]) for p in lb
+                 if isinstance(p, (list, tuple)) and len(p) == 2)
+    else:
+        raise ValueError("logit_bias must be an object or a list of pairs")
+    for k, v in items:
+        try:
+            out[int(k)] = -1e9 if v is False else float(v)
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"bad logit_bias entry {k!r}: {v!r}") from e
+    return out or None
 
 
 def _params_from_request(body: dict, default_max: int = 256) -> SamplingParams:
-    """SamplingParams from an OpenAI request body; ValueError (-> 400)
-    names any field set that the engine cannot honour."""
+    """SamplingParams from an OpenAI request body (the JAX package's
+    parse); ValueError (-> 400) names any field set that the engine cannot
+    honour."""
     for key, off in _OFF_FIELDS.items():
         if body.get(key) not in (off, [], ""):
             raise ValueError(f"{key} is not supported yet")
@@ -87,8 +113,15 @@ def _params_from_request(body: dict, default_max: int = 256) -> SamplingParams:
     seed = body.get("seed")
     max_tokens = body.get("max_tokens") or body.get("max_completion_tokens") \
         or body.get("n_predict") or default_max
+    n_probs = 0
+    if body.get("logprobs"):
+        lp = body.get("logprobs")
+        n_probs = int(body.get("top_logprobs") or
+                      (lp if isinstance(lp, int) and not isinstance(lp, bool)
+                       else 0))
+        n_probs = max(n_probs, 1)
     p = SamplingParams(
-        n_probs=1 if body.get("logprobs") else 0,
+        n_probs=min(n_probs, TOP_LOGPROBS_MAX),
         temperature=float(body.get("temperature", 1.0)),
         top_p=float(body.get("top_p", 1.0)),
         top_k=int(body.get("top_k", 0)),
@@ -98,16 +131,16 @@ def _params_from_request(body: dict, default_max: int = 256) -> SamplingParams:
         frequency_penalty=float(body.get("frequency_penalty", 0.0)),
         repeat_penalty=float(body.get("repeat_penalty", 1.0)),
         mirostat=int(body.get("mirostat", 0)),
+        mirostat_tau=float(body.get("mirostat_tau", 5.0)),
+        mirostat_eta=float(body.get("mirostat_eta", 0.1)),
         seed=int(seed) if seed is not None else int.from_bytes(os.urandom(4), "little"),
         max_tokens=int(max_tokens),
         stop=stop,
-        logit_bias=body.get("logit_bias") or None,
+        logit_bias=_parse_logit_bias(body),
     )
     bad = unsupported(p)
     if bad:
-        names = {"n_probs": "logprobs"}
-        raise ValueError(", ".join(names.get(f, f) for f in bad)
-                         + " is not supported yet")
+        raise ValueError(", ".join(bad) + " is not supported yet")
     return p
 
 
@@ -205,9 +238,9 @@ class OpenAIServer:
         if body.get("stream"):
             include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
             await self._stream(writer, rid, obj + (".chunk" if chat else ""),
-                               pre, chat, include_usage)
+                               pre, chat, include_usage, params)
         else:
-            await self._complete(writer, rid, obj, pre, chat)
+            await self._complete(writer, rid, obj, pre, chat, params)
 
     async def _collect(self, pre):
         """Drain a submitted request's event queue without blocking the
@@ -224,12 +257,29 @@ class OpenAIServer:
             if not finished:
                 self.engine.cancel(rid)
 
-    async def _complete(self, writer, rid: str, obj: str, pre, chat: bool) -> None:
+    def _lp_entry(self, ev) -> dict:
+        tok = self.engine.tokenizer
+        return {
+            "token": ev.text,
+            "logprob": ev.logprob if ev.logprob is not None else 0.0,
+            "bytes": list(ev.text.encode("utf-8")),
+            "top_logprobs": [
+                {"token": tok.piece(i), "logprob": lp,
+                 "bytes": list(tok.piece(i).encode("utf-8"))}
+                for i, lp in (ev.top_logprobs or [])
+            ],
+        }
+
+    async def _complete(self, writer, rid: str, obj: str, pre, chat: bool,
+                        params: SamplingParams) -> None:
         text: list[str] = []
+        lp_content: list[dict] = []
         finish, n_prompt, n_gen = "stop", 0, 0
         async for ev in self._collect(pre):
             text.append(ev.text)
             n_prompt, n_gen = ev.n_prompt, ev.n_generated
+            if params.n_probs > 0:
+                lp_content.append(self._lp_entry(ev))
             if ev.finished:
                 finish = ev.finish_reason or "stop"
         if finish == "error":
@@ -240,9 +290,18 @@ class OpenAIServer:
         if chat:
             choice = {"index": 0, "finish_reason": finish,
                       "message": {"role": "assistant", "content": content}}
+            if params.n_probs > 0:
+                choice["logprobs"] = {"content": lp_content}
         else:
             choice = {"index": 0, "text": content, "finish_reason": finish,
                       "logprobs": None}
+            if params.n_probs > 0:
+                choice["logprobs"] = {
+                    "tokens": [e["token"] for e in lp_content],
+                    "token_logprobs": [e["logprob"] for e in lp_content],
+                    "top_logprobs": [{t["token"]: t["logprob"] for t in e["top_logprobs"]}
+                                     for e in lp_content],
+                }
         await send_response(writer, 200, json.dumps({
             "id": rid, "object": obj, "created": _now(),
             "model": self.engine.model_name, "choices": [choice],
@@ -251,7 +310,7 @@ class OpenAIServer:
         }).encode())
 
     async def _stream(self, writer, rid: str, obj: str, pre, chat: bool,
-                      include_usage: bool) -> None:
+                      include_usage: bool, params: SamplingParams) -> None:
         def chunk(delta: dict | None, finish: str | None) -> dict:
             c: dict[str, Any] = {"index": 0, "finish_reason": finish}
             if chat:
@@ -284,7 +343,10 @@ class OpenAIServer:
                 if chat:
                     writer.write(sse_event(chunk({"role": "assistant"}, None)))
             if ev.text:
-                writer.write(sse_event(chunk({"content": ev.text}, None)))
+                c = chunk({"content": ev.text}, None)
+                if chat and params.n_probs > 0:   # as the JAX server: chat chunks only
+                    c["choices"][0]["logprobs"] = {"content": [self._lp_entry(ev)]}
+                writer.write(sse_event(c))
             await writer.drain()
         writer.write(sse_event(chunk(None, finish)))
         if include_usage:
@@ -324,7 +386,8 @@ def build_engine_from_env(device: str = "cuda"):
     """The engine the environment names: ``MODEL_PATH``, ``MAX_SLOTS``,
     ``CTX`` (total, split over slots) or ``CTX_PER_SLOT``, and the KV cache:
     ``KV_CACHE_TYPE`` (bf16, q8_0, q4_0, q4_1; q5_0/q5_1 run as q8_0),
-    ``KV_LAYOUT`` (contig or paged) and ``KV_PAGE_SIZE`` (tokens per page)."""
+    ``KV_LAYOUT`` (contig or paged) and ``KV_PAGE_SIZE`` (tokens per page),
+    and ``MULTI_STEP``, the decode steps fused in one dispatch (1 = off)."""
     from ..runtime.engine import EngineConfig, InferenceEngine
 
     model_path = os.environ.get("MODEL_PATH", "")
@@ -344,7 +407,8 @@ def build_engine_from_env(device: str = "cuda"):
         max_slots=max_slots, ctx=ctx,
         kv_dtype=kv if kv in ("q8_0", "q4_0", "q4_1") else "bf16",
         kv_layout=os.environ.get("KV_LAYOUT", "contig").lower(),
-        kv_page_size=int(os.environ.get("KV_PAGE_SIZE", 1024))), device=device)
+        kv_page_size=int(os.environ.get("KV_PAGE_SIZE", 1024)),
+        multi_step=int(os.environ.get("MULTI_STEP", 1))), device=device)
 
 
 def main() -> None:

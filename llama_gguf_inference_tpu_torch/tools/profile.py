@@ -28,7 +28,17 @@ card's name and power limit (``nvidia-smi``), the scale layout
    too) and each flash kernel (the CUDA-core split kernel, its merge in
    the same launch, and the tensor-core one, every cache kind's instances
    under one name each); the dequantize path's cuBLAS product and its
-   elementwise decode are among the other kernels.
+   elementwise decode are among the other kernels;
+3. the engine's decode dispatch (``InferenceEngine._issue``: forward, the
+   batched greedy sampler and the tokens' copy to pinned host memory,
+   waited for on its event) over all 4 slots from 512 live tokens each, at
+   ``multi_step`` 1 and 4, each dispatch issued from the previous one's
+   on-card outputs, without and with pipelining (the next dispatch issued
+   before the host waits for the previous one; the engine pipelines from
+   ``multi_step`` 2), and item 2's decode step in the same turns: wall ms
+   per decode step (one token of each slot; two runs in turns and their
+   mean), the host's ms a step issuing work and waiting for the card,
+   device-busy ms per step and the device's idle share.
 """
 
 from __future__ import annotations
@@ -153,6 +163,103 @@ def profile(engine, steps: int = 8, offsets=(0,)) -> list[dict]:
                      "device_ms_by_kernel": by_group,
                      "top_other_kernels": [{"name": k, "ms": ms, "launches": c}
                                            for ms, k, c in sorted(other, reverse=True)[:6]]})
+    rows += dispatch_rows(engine, steps)
+    return rows
+
+
+def dispatch_rows(engine, steps: int = 8) -> list[dict]:
+    """Item 3 above: ``4 * steps`` decode steps a row, every row measured
+    twice in turns (the other rows between), with the host's time split into
+    issuing the dispatches and waiting for them; beside them, in the same
+    turns, the decode step of item 2 (forward, argmax, ``.tolist()``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from ..models.llama import forward
+    from ..runtime.sampler import SamplingParams
+    dev, B = engine.device, engine.ecfg.max_slots
+    active = list(range(B))
+    saved = [s.params for s in engine.slots]
+    for s in engine.slots:
+        s.params = SamplingParams(temperature=0.0)
+    advance = torch.ones(B, dtype=torch.int32, device=dev)
+
+    def wait(pend, clock):
+        t = time.perf_counter()
+        if pend["event"] is not None:
+            pend["event"].synchronize()
+        [h.numpy() for h in pend["host"]]
+        clock[1] += time.perf_counter() - t
+
+    def issue(clock, tok, off, n_steps):
+        t = time.perf_counter()
+        pend = engine._issue(tok, off, advance, n_steps, False, active, None)
+        clock[0] += time.perf_counter() - t
+        return pend
+
+    def run(n_steps, pipelined, dispatches, clock):
+        if n_steps is None:       # item 2's step, timed the same way
+            for _ in range(dispatches):
+                t = time.perf_counter()
+                lg = forward(engine.params, engine.cfg,
+                             torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                             torch.full((B,), LIVE, dtype=torch.int32, device=dev),
+                             engine.cache)
+                clock[0] += time.perf_counter() - t
+                t = time.perf_counter()
+                lg[:, 0].argmax(-1).tolist()
+                clock[1] += time.perf_counter() - t
+            return
+        pend = issue(clock, torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                     torch.full((B,), LIVE, dtype=torch.int32, device=dev), n_steps)
+        for _ in range(dispatches - 1):
+            if pipelined:
+                nxt = issue(clock, pend["next_tok"], pend["next_off"], n_steps)
+                wait(pend, clock)
+                pend = nxt
+            else:
+                wait(pend, clock)
+                pend = issue(clock, pend["next_tok"], pend["next_off"], n_steps)
+        wait(pend, clock)
+
+    configs = [(None, False), (1, False), (1, True), (4, False), (4, True)]
+    walls = {c: [] for c in configs}
+    clocks = {c: [0.0, 0.0] for c in configs}
+    rows = []
+    try:
+        with torch.inference_mode():
+            for c in configs:
+                run(*c, 2, [0.0, 0.0])
+            for _ in range(2):
+                for c in configs:
+                    n = 4 * steps // (c[0] or 1)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(*c, n, clocks[c])
+                    walls[c].append((time.perf_counter() - t0) * 1e3 / (4 * steps))
+            for c in configs:
+                n = 4 * steps // (c[0] or 1)
+                with torch.profiler.profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    run(*c, n, [0.0, 0.0])
+                    torch.cuda.synchronize()
+                busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                           if ev.device_type == DeviceType.CUDA) / 1e3 / (4 * steps)
+                wall = sum(walls[c]) / len(walls[c])
+                label = ("forward, argmax, .tolist() (item 2's step)" if c[0] is None else
+                         f"decode dispatch, multi_step {c[0]}, "
+                         + ("pipelined" if c[1] else "not pipelined"))
+                rows.append({"step": f"B={B}, {LIVE} live tokens each: {label}",
+                             "multi_step": c[0], "pipelined": c[1],
+                             "decode_steps": 4 * steps,
+                             "wall_ms_per_step": wall, "wall_ms_per_step_runs": walls[c],
+                             "host_issue_ms_per_step": clocks[c][0] * 1e3 / (8 * steps),
+                             "host_wait_ms_per_step": clocks[c][1] * 1e3 / (8 * steps),
+                             "device_busy_ms_per_step": busy if busy else "not measured",
+                             "device_idle_share": 1.0 - busy / wall if busy else "not measured"})
+    finally:
+        for s, p in zip(engine.slots, saved):
+            s.params = p
     return rows
 
 

@@ -9,6 +9,7 @@ mismatch is a bug, never rounding.
 """
 
 import asyncio
+import dataclasses
 import json
 import os
 import pytest
@@ -20,10 +21,12 @@ from llama_gguf_inference_tpu.runtime.sampler import SamplingParams as JParams
 from llama_gguf_inference_tpu_torch.models import llama as tllama
 from llama_gguf_inference_tpu_torch.ops import _build
 from llama_gguf_inference_tpu_torch.runtime import engine as tengine
-from llama_gguf_inference_tpu_torch.runtime.sampler import (SamplingParams, sample,
+from llama_gguf_inference_tpu_torch.runtime.sampler import (Gates, SampleState,
+                                                            SamplingParams, sample,
                                                             unsupported)
 from llama_gguf_inference_tpu_torch.serving.openai_server import (BackendConfig,
-                                                                  OpenAIServer)
+                                                                  OpenAIServer,
+                                                                  _params_from_request)
 from test_torch_model import write_tiny_q4km
 
 torch.set_num_threads(1)
@@ -131,29 +134,56 @@ def test_sampler_seeded_and_truncation():
     g = torch.Generator().manual_seed(0)
     logits = torch.randn(3, 50, generator=g)
     p = SamplingParams(temperature=0.9, top_k=5, top_p=0.8, min_p=0.05, seed=7)
+    greedy = SamplingParams(temperature=0.0)
 
-    def draw(seed):
-        gen = torch.Generator().manual_seed(seed)
-        return [int(sample(logits, [p, None, p], [gen, None, gen])[i])
-                for i in range(3)]
+    def draw(seed, params=None):
+        rows = params or [dataclasses.replace(p, seed=seed), greedy,
+                          dataclasses.replace(p, seed=seed)]
+        st = SampleState.init(len(rows), 50)
+        for b, q in enumerate(rows):
+            st.write_slot(b, q)
+        return sample(logits[:len(rows)], st, Gates.of(rows)).tolist()
 
     a, b = draw(7), draw(7)
     assert a == b                                     # seeded: reproducible
-    assert a[1] == int(logits[1].argmax())            # None row: greedy
-    top5 = set(torch.topk(logits[0], 5).indices.tolist())
+    assert a[1] == int(logits[1].argmax())            # greedy row: argmax
+    top5 = [set(torch.topk(logits[r], 5).indices.tolist()) for r in (0, 2)]
     for s in range(20):
-        assert draw(s)[0] in top5                     # top-k truncation holds
+        got = draw(s)
+        assert got[0] in top5[0] and got[2] in top5[1]   # top-k truncation holds
     one = SamplingParams(temperature=1.0, top_k=1)
-    gen = torch.Generator().manual_seed(1)
-    assert int(sample(logits[:1], [one], [gen])[0]) == int(logits[0].argmax())
+    assert draw(1, [one]) == [int(logits[0].argmax())]
 
 
 def test_unsupported_settings_are_named(port_engine):
+    """Grammars, tools and json_schema (and a non-text response_format, n > 1)
+    are refused naming the field; the sampler's other settings pass."""
     assert unsupported(SamplingParams()) == []
-    p = SamplingParams(presence_penalty=0.5, mirostat=2, logit_bias={3: 1.0})
-    assert unsupported(p) == ["presence_penalty", "mirostat", "logit_bias"]
-    with pytest.raises(ValueError, match="presence_penalty"):
+    ok = SamplingParams(presence_penalty=0.5, frequency_penalty=0.2, repeat_penalty=1.1,
+                        typical_p=0.9, mirostat=2, mirostat_tau=4.0, logit_bias={3: 1.0},
+                        n_probs=2)
+    assert unsupported(ok) == []
+    p = SamplingParams(grammar='root ::= "a"')
+    assert unsupported(p) == ["grammar"]
+    with pytest.raises(ValueError, match="grammar"):
         port_engine.submit("hi", p)
+    for body, field in (({"grammar": 'root ::= "a"'}, "grammar"),
+                        ({"tools": [{"type": "function"}]}, "tools"),
+                        ({"json_schema": {"type": "object"}}, "json_schema"),
+                        ({"response_format": {"type": "json_object"}}, "response_format"),
+                        ({"n": 2}, "n > 1")):
+        with pytest.raises(ValueError, match=field):
+            _params_from_request(body)
+    got = _params_from_request({
+        "presence_penalty": 0.5, "frequency_penalty": 0.2, "repeat_penalty": 1.1,
+        "typical_p": 0.9, "mirostat": 2, "mirostat_tau": 4.0, "mirostat_eta": 0.2,
+        "logit_bias": {"3": 1.0, "7": False}, "logprobs": True, "top_logprobs": 12,
+        "response_format": {"type": "text"}, "n": 1})
+    assert (got.presence_penalty, got.frequency_penalty, got.repeat_penalty,
+            got.typical_p, got.mirostat, got.mirostat_tau, got.mirostat_eta) == \
+        (0.5, 0.2, 1.1, 0.9, 2, 4.0, 0.2)
+    assert got.logit_bias == {3: 1.0, 7: -1e9} and got.n_probs == 8
+    port_engine.generate_text("hi", dataclasses.replace(ok, max_tokens=2))
 
 
 async def _http(port, method, path, body=None, key=KEY):
@@ -204,8 +234,13 @@ async def test_http_round_trip(port_engine):
         st, body = await _http(srv.port, "GET", "/v1/models")
         assert st == 200 and json.loads(body)["data"][0]["id"] == "tiny-q4km"
         st, body = await _http(srv.port, "POST", "/v1/completions",
-                               {"prompt": "x", "logprobs": 2})
-        assert st == 400 and b"logprobs" in body
+                               {"prompt": "x", "grammar": 'root ::= "a"'})
+        assert st == 400 and b"grammar" in body
+        st, body = await _http(srv.port, "POST", "/v1/completions",
+                               {"prompt": "x", "logprobs": 2, "max_tokens": 3})
+        lp = json.loads(body)["choices"][0]["logprobs"]
+        assert st == 200 and len(lp["token_logprobs"]) == 3
+        assert all(len(t) <= 2 for t in lp["top_logprobs"])
         st, _ = await _http(srv.port, "GET", "/health", key="")
         assert st == 200
     finally:

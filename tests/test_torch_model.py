@@ -203,9 +203,9 @@ def test_prefill_equals_incremental_decode(models):
 
 def test_write_kv_drops_rows_past_capacity():
     """A padded chunk running past S writes only the rows that fit."""
-    cache = torch.zeros(2, 1, 8, 2)
+    cache = tllama.sink_zeros((2, 1, 8, 2))
     new = torch.arange(2 * 4 * 2, dtype=torch.float32).reshape(2, 4, 1, 2)
-    idx = tllama._write_index(torch.tensor([2, 6], dtype=torch.int32), 4, 8)
+    idx = tllama._write_index(torch.tensor([2, 6], dtype=torch.int32), 4, cache)
     tllama._write_kv(cache, new, idx)
     assert torch.equal(cache[0, 0, 2:6], new[0, :, 0])
     assert torch.equal(cache[1, 0, 6:8], new[1, :2, 0])
