@@ -104,7 +104,23 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               (dispatches issued from the previous one's on-card outputs)
               must have been issued; batch-1 and 4-request rates at both
               printed for information beside the card's name and power limit
-8. variants — the same engine under each ``LGT_MM_VARIANT`` (base, xsum,
+8. structured — the same engine, multi_step 4, through the server: on four
+              cold slots a json_schema answer (an enum and a boolean) at
+              temperature 0, every dispatch and grammar mask flush under the
+              sync debug mode, and at 0.8 seeded, EOG banned (the mask forces
+              it where the grammar can stop); a json_object answer cut at 16
+              tokens that a fresh matcher still accepts; a forced tool call,
+              non-streamed and streamed (the same calls, finish "tool_calls");
+              n = 3 (choices 0-2, choice 0 the n = 1 answer); the constrained
+              decode rate at B = 1 beside the unconstrained one. Then five
+              slots with the prefix cache on: a prompt of about 700 tokens
+              cold, another sharing its system prompt (both TTFTs, the tokens
+              reused, its last logits against a cold run within LOGITS_TOL),
+              the 4-request load while its slot sits free, and it again (the
+              same tokens). The sampler's stages on masked rows on the card
+              against its CPU draws; the vocab trie's build time, each new
+              grammar state's mask time and the state count
+9. variants — the same engine under each ``LGT_MM_VARIANT`` (base, xsum,
               split, int8): a prefill and 16 greedy steps held against the
               plain versions, then three greedy requests through the server;
               each run launches that variant's kernel and never fsplit's
@@ -113,13 +129,13 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               ffn_down through the dequantize path, the head through the
               8-bit decode kernel), held against the plain versions (int8:
               to INT8_LOGITS_TOL, every call shadowed)
-9. serve-paged — that engine freed, a second one from the environment
+10. serve-paged — that engine freed, a second one from the environment
               (``build_engine_from_env``: q8_0 paged KV, 4 pages of 1024): a
               1,500-token prompt, longer than a slot's contiguous share, with
               three short ones; the pool cannot hold all four, so one waits;
               the prompts' chunks through the paged q8_0 tensor-core flash
               kernel (the long prompt's time to its first token printed)
-10. q2k     — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
+11. q2k     — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
               projections, Q6_K head; ``cached_model(quant="q2_k")``) loaded
               under ``LGT_SCALE_LAYOUT=mixed``, its resident weight bytes
               printed; a prefill and 16 greedy steps through the kernels
@@ -131,7 +147,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               dequantize path, as in the JAX package), and the 17 steps with
               the weights relaid flat through the base body's 2-bit kernel,
               then one 512-token chunk through its tensor-core kernel
-11. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
+12. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
               projections, Q6_K head; ``cached_model(quant="q5_k")``) under
               the default layout (compact), its resident bytes printed, the
               17 steps of a longer prompt against the plain versions (its
@@ -143,18 +159,22 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               ``matmul_xla``) and whose logits are held against the plain
               versions, and the served time to the first token of a prompt
               of at most 512 tokens
-12. the ``{"kernels": [...]}`` line, the card line, and the final
+13. the ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
 (the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
 run and engine run, the serve phase, the decode-dispatch phase's two served
-runs, each variant's
+runs, the structured phase's two served runs, each variant's
 kernel run and serve, the serve-paged phase, the q2k phase's kernel run,
 serve, 512-token chunk, flat base run and base chunk, the base, xsum, split
 and int8 variants' chunks, the q5k phase's kernel run, serve, 512-token
 chunk and long-prompt serve) and read just after; comparison runs fall
 outside those windows.
+
+Every engine but the structured phase's second is built with the slot
+prefix cache off, so a phase that sends one prompt twice times and counts
+two cold prefills, as it did before the port had the cache.
 
 The breakdown of a decode step and a prefill chunk by kernel is
 ``python -m llama_gguf_inference_tpu_torch.tools.profile``.
@@ -1056,7 +1076,8 @@ def phase_engine(torch):
     t0 = time.time()
     path = cached_model("8b", seed=0)
     t1 = time.time()
-    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024), device="cuda")
+    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024, prefix_cache=False),
+                             device="cuda")
     torch.cuda.synchronize()
     emit({"phase": "load", "ok": True, "synth_s": round(t1 - t0, 3),
           "load_s": round(time.time() - t1, 3), "gguf_gb": os.path.getsize(path) / 1e9,
@@ -1135,7 +1156,7 @@ def _kv_config(kind, max_slots):
     from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig
     kv_dtype, kv_layout, _ = KV_KINDS[kind]
     return EngineConfig(max_slots=max_slots, ctx=1024, kv_dtype=kv_dtype,
-                        kv_layout=kv_layout, kv_page_size=PAGE_S)
+                        kv_layout=kv_layout, kv_page_size=PAGE_S, prefix_cache=False)
 
 
 def _kv_cache(torch, kind, engine):
@@ -1151,10 +1172,17 @@ def _kv_cache(torch, kind, engine):
 @contextlib.contextmanager
 def kv_engine(torch, engine, ecfg):
     """The loaded engine, idle and its loop not started, over a fresh cache
-    of ``ecfg``'s kind; its own cache is rebuilt on the way out."""
+    of ``ecfg``'s kind; its own cache is rebuilt on the way out. A fresh
+    cache holds no slot's kept prompt, so every claim is dropped."""
     from llama_gguf_inference_tpu_torch.runtime.engine import make_kv_cache
 
     def swap(cfg):
+        for slot in engine.slots:
+            slot.cached_ids = []
+        engine.slots = engine.slots[:cfg.max_slots] + [
+            type(engine.slots[0])() for _ in range(cfg.max_slots - len(engine.slots))]
+        engine.sample_state = type(engine.sample_state).init(
+            cfg.max_slots, engine.cfg.vocab_size, engine.device)
         engine.cache = engine.alloc = None
         gc.collect()
         torch.cuda.empty_cache()
@@ -1409,24 +1437,37 @@ def phase_serve(torch, engine, label="serve"):
     return launches
 
 
-def _sync_checked(torch, engine, errors: list):
-    """Wrap the engine's dispatch (``_issue``) in
-    ``torch.cuda.set_sync_debug_mode("error")``: any operation in it that
+@contextlib.contextmanager
+def sync_checked(torch, engine, errors: list, names=("_issue",)):
+    """Run the engine's methods ``names`` (its dispatch, ``_issue``, and for
+    a constrained batch the grammar masks' flush before it) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any operation in them that
     waits for the card raises, and is recorded in ``errors``. The drain's
-    one wait, on the dispatch's event, lies outside."""
-    issue = engine._issue
+    one wait, on the dispatch's event, lies outside. Yields the number of
+    calls checked, by name."""
+    saved = {n: getattr(engine, n) for n in names}
+    calls = dict.fromkeys(names, 0)
 
-    def checked(*a, **k):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return issue(*a, **k)
-        except RuntimeError as e:
-            errors.append(str(e)[:300])
-            raise
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    engine._issue = checked
-    return issue
+    def checked(name, fn):
+        def run(*a, **k):
+            calls[name] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            except RuntimeError as e:
+                errors.append(str(e)[:300])
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    for n, fn in saved.items():
+        setattr(engine, n, checked(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(engine, n, fn)
 
 
 DISPATCH_PROMPTS = [f"request {i}: the lazy dog" for i in range(4)]
@@ -1456,11 +1497,12 @@ def phase_decode_dispatch(torch, engine, card):
             "seed": 99}
     for n in (1, 4):
         launches: dict[str, int] = {}
-        with kv_engine(torch, engine, EngineConfig(max_slots=4, ctx=1024, multi_step=n)):
+        with kv_engine(torch, engine, EngineConfig(max_slots=4, ctx=1024, multi_step=n,
+                                                   prefix_cache=False)):
             engine.dispatches = engine.continuations = 0
-            issue = _sync_checked(torch, engine, sync_errors) if n == 4 else None
             try:
-                with serving(torch, engine, launches) as (port, key):
+                with sync_checked(torch, engine, sync_errors, () if n == 1 else ("_issue",)), \
+                        serving(torch, engine, launches) as (port, key):
                     t0 = time.time()
                     res = _completions(port, key, [
                         {"prompt": p, "max_tokens": 64, "temperature": 0}
@@ -1500,9 +1542,6 @@ def phase_decode_dispatch(torch, engine, card):
                 if sync_errors:
                     raise AssertionError(f"a dispatch waited for the card: {sync_errors}") from e
                 raise
-            finally:
-                if issue is not None:
-                    engine._issue = issue
         _check_launches(f"decode-dispatch multi_step {n}", launches,
                         ("quant_matmul_4bit", "quant_matmul_8bit", "flash_attention"))
         paths.append(launches)
@@ -1516,6 +1555,354 @@ def phase_decode_dispatch(torch, engine, card):
           **{f"multi_step_{n}": r for n, r in rates.items()}, "eog_banned": eog, **out,
           "sync_checked_dispatches": rates[4]["dispatches"],
           "launches": {n: sum(p.values()) for n, p in zip((1, 4), paths)}})
+    return paths
+
+
+# the structured phase's schema: a finite language (an enum and a boolean)
+STRUCT_SCHEMA = {"type": "object",
+                 "properties": {"color": {"enum": ["red", "green", "blue"]},
+                                "ok": {"type": "boolean"}},
+                 "required": ["color", "ok"]}
+STRUCT_TOOL = {"type": "function", "function": {
+    "name": "set_light", "description": "Switch the light of a room",
+    "parameters": {"type": "object",
+                   "properties": {"room": {"enum": ["hall", "kitchen"]},
+                                  "on": {"type": "boolean"}},
+                   "required": ["room", "on"], "additionalProperties": False}}}
+# a shared system prompt of about 700 tokens and two tails
+SYSTEM_PROMPT = "Rules:" + " the quick brown fox jumps over the lazy dog." * 70
+TAILS = (" Question: hello world?", " Question: over the lazy dog?")
+
+
+def _json_post(port, path, body, key) -> dict:
+    """POST a request that must succeed; its JSON answer."""
+    conn, r = _post(port, path, body, key)
+    out = json.loads(r.read())
+    conn.close()
+    if r.status != 200:
+        raise AssertionError(f"{path}: {r.status} {out}")
+    return out
+
+
+def _sse_chunks(port, path, body, key):
+    """A streamed request's chunks (JSON objects), without ``[DONE]``."""
+    conn, r = _post(port, path, {**body, "stream": True}, key)
+    if r.status != 200:
+        raise AssertionError(f"stream: {r.status}")
+    lines = [raw.decode().strip() for raw in r]
+    conn.close()
+    data = [ln[6:] for ln in lines if ln.startswith("data: ")]
+    if data[-1] != "[DONE]":
+        raise AssertionError("stream did not end with [DONE]")
+    return [json.loads(d) for d in data[:-1]]
+
+
+def _schema_value(text: str) -> dict:
+    val = json.loads(text)
+    if set(val) != {"color", "ok"} or val["color"] not in ("red", "green", "blue") \
+            or not isinstance(val["ok"], bool):
+        raise AssertionError(f"answer outside the schema: {text!r}")
+    return val
+
+
+def _tool_args(calls) -> list:
+    out = []
+    for c in calls:
+        args = json.loads(c["arguments"])
+        if c["name"] != "set_light" or set(args) != {"room", "on"} \
+                or args["room"] not in ("hall", "kitchen") or not isinstance(args["on"], bool):
+            raise AssertionError(f"tool call outside the schema: {c}")
+        out.append((c["name"], args))
+    return out
+
+
+@contextlib.contextmanager
+def _host_costs():
+    """Time the vocab trie's build and each new grammar state's mask."""
+    from llama_gguf_inference_tpu_torch.grammar import matcher as gm
+    costs: dict[str, list] = {"trie_s": [], "mask_s": []}
+    init, compute = gm.TokenTrie.__init__, gm.GrammarMatcher._compute_mask
+
+    def timed_init(self, tokenizer):
+        t = time.perf_counter()
+        init(self, tokenizer)
+        costs["trie_s"].append(time.perf_counter() - t)
+
+    def timed_mask(self):
+        t = time.perf_counter()
+        mask = compute(self)
+        costs["mask_s"].append(time.perf_counter() - t)
+        return mask
+
+    gm.TokenTrie.__init__, gm.GrammarMatcher._compute_mask = timed_init, timed_mask
+    try:
+        yield costs
+    finally:
+        gm.TokenTrie.__init__, gm.GrammarMatcher._compute_mask = init, compute
+
+
+def _masked_sampler(torch, vocab: int, card: str = "cuda") -> dict:
+    """Every sampler stage on rows a grammar's mask leaves 37 tokens finite
+    (fewer than mirostat v1's fit reads, so its differences are NaN): the
+    card's draws over 8 steps and its mirostat mu against the port's CPU
+    draws on the same inputs."""
+    from llama_gguf_inference_tpu_torch.runtime import sampler as ts
+    g = torch.Generator().manual_seed(19)
+    B, n_valid, steps = 7, 37, 8
+    logits = torch.randn(B, vocab, generator=g) * 3
+    bias = torch.full((B, vocab), float("-inf"))
+    for b in range(B):
+        bias[b, torch.randperm(vocab, generator=g)[:n_valid]] = 0.0
+    params = [ts.SamplingParams(temperature=0.0),
+              ts.SamplingParams(temperature=0.9, top_k=5, seed=1),
+              ts.SamplingParams(temperature=0.9, top_p=0.9, seed=2),
+              ts.SamplingParams(temperature=0.9, min_p=0.1, seed=3),
+              ts.SamplingParams(temperature=0.9, typical_p=0.8, seed=4),
+              ts.SamplingParams(temperature=1.0, mirostat=1, mirostat_tau=5.0, seed=5),
+              ts.SamplingParams(temperature=1.0, mirostat=2, mirostat_tau=3.0, seed=6)]
+    gates = ts.Gates.of(params)
+    runs = []
+    for dev in ("cpu", card):
+        st = ts.SampleState.init(B, vocab, dev)
+        for b, p in enumerate(params):
+            st.write_slot(b, p, bias=bias[b].numpy())
+        x = logits.to(dev)
+        kept = ts._mirostat_mask(x + st.bias, st)
+        toks = torch.stack([ts.sample(x, st, gates) for _ in range(steps)])
+        runs.append((toks.cpu(), st.miro_mu.cpu(), torch.isneginf(kept).cpu()))
+    (tc, mc, kc), (tg, mg, kg) = runs
+    if not torch.equal(tc, tg) or not torch.equal(kc, kg):
+        raise AssertionError(f"masked draws: card {tg.tolist()} against CPU {tc.tolist()}")
+    if not bool((bias.gather(1, tg.T) == 0).all()):
+        raise AssertionError("a masked token was drawn")
+    mu_err = ((mg - mc).abs() / mc.abs().clamp(min=1e-6)).max().item()
+    if not mu_err <= 1e-4:
+        raise AssertionError(f"mirostat mu: card {mg.tolist()} against CPU {mc.tolist()}")
+    return {"rows": B, "valid_tokens": n_valid, "steps": steps, "tokens_equal": True,
+            "mu_max_rel_diff": mu_err, "mirostat_v1_kept": int((~kg[5]).sum())}
+
+
+def _structured_requests(torch, engine, port, key, sync_errors) -> dict:
+    """Phase items 1 to 4 and the decode rates, on a cold engine."""
+    from llama_gguf_inference_tpu_torch.grammar import JSON_GBNF, GrammarMatcher, parse_gbnf
+    from llama_gguf_inference_tpu_torch.serving.tool_calls import parse_tool_calls
+    ban = {str(t): False for t in sorted(engine.tokenizer.eog_ids)}
+    rf = {"type": "json_schema", "json_schema": {"name": "light", "schema": STRUCT_SCHEMA}}
+    msgs = [{"role": "user", "content": "pick a light and say if it is on"}]
+    out = {}
+    # 1. json_schema at temperature 0, every dispatch and mask flush under the
+    # sync debug mode, then at 0.8 with a seed; every EOG token banned, so
+    # the grammar's mask forces one where it can stop
+    d0 = engine.dispatches
+    with sync_checked(torch, engine, sync_errors, ("_issue", "_flush_grammar_masks")) as calls:
+        a = _json_post(port, "/v1/chat/completions", {
+            "messages": msgs, "response_format": rf, "temperature": 0, "max_tokens": 96,
+            "logit_bias": ban}, key)
+    if a["choices"][0]["finish_reason"] != "stop":
+        raise AssertionError(f"json_schema: {a}")
+    out["schema_greedy"] = _schema_value(a["choices"][0]["message"]["content"])
+    out["sync_checked"] = {"dispatches": engine.dispatches - d0, **calls}
+    if calls["_flush_grammar_masks"] <= 0 or engine.dispatches - d0 <= 0:
+        raise AssertionError(f"no constrained dispatch was checked: {calls}")
+    sampled = {"messages": msgs, "response_format": rf, "temperature": 0.8, "seed": 4321,
+               "max_tokens": 96, "logit_bias": ban}
+    b = _json_post(port, "/v1/chat/completions", sampled, key)
+    out["schema_sampled"] = _schema_value(b["choices"][0]["message"]["content"])
+    n_schema = b["usage"]["completion_tokens"]
+    # 2. json_object, cut at 16 tokens: a fresh matcher accepts the text as
+    # a prefix of a JSON object
+    c = _json_post(port, "/v1/chat/completions", {
+        "messages": msgs, "response_format": {"type": "json_object"}, "temperature": 0,
+        "max_tokens": 16}, key)
+    text = c["choices"][0]["message"]["content"]
+    m = GrammarMatcher(parse_gbnf(JSON_GBNF), engine._token_trie)
+    if not text.startswith("{") or not m._accepts(m.state, text):
+        raise AssertionError(f"json_object: {text!r}")
+    out["json_object_text"] = text
+    # 3. a forced tool call, non-streamed and streamed; a bias on "]" closes
+    # the call list after its first call (its maxItems is 8)
+    close = [i for i, t in enumerate(engine._token_trie.token_text) if t == "]"]
+    tool = {"messages": [{"role": "user", "content": "turn the hall light on"}],
+            "tools": [STRUCT_TOOL], "temperature": 0, "max_tokens": 128,
+            "tool_choice": {"type": "function", "function": {"name": "set_light"}},
+            "logit_bias": {str(i): 100.0 for i in close}}
+    t = _json_post(port, "/v1/chat/completions", tool, key)
+    choice = t["choices"][0]
+    if choice["finish_reason"] != "tool_calls":
+        raise AssertionError(f"tool call: {t}")
+    calls_plain = _tool_args([c["function"] for c in choice["message"]["tool_calls"]])
+    chunks = _sse_chunks(port, "/v1/chat/completions", tool, key)
+    deltas = [d for ch in chunks for d in ch["choices"][0]["delta"].get("tool_calls", [])]
+    streamed = _tool_args([{"name": h["function"]["name"], "arguments": a["function"]["arguments"]}
+                           for h, a in zip(deltas[::2], deltas[1::2])])
+    if streamed != calls_plain or chunks[-1]["choices"][0]["finish_reason"] != "tool_calls":
+        raise AssertionError(f"streamed tool calls {streamed} != {calls_plain}")
+    if parse_tool_calls(json.dumps({"tool_calls": [
+            {"name": n, "arguments": a} for n, a in calls_plain]}), [STRUCT_TOOL["function"]]) is None:
+        raise AssertionError("the calls do not parse back")
+    out["tool_calls"] = [{"name": n, "arguments": a} for n, a in calls_plain]
+    out["tool_prompt_tokens"] = t["usage"]["prompt_tokens"]
+    # 4. n = 3, seeded: choices 0, 1 and 2; choice 0 is the n = 1 answer
+    fan = {"prompt": "the quick brown fox", "temperature": 0.8, "seed": 2024, "max_tokens": 16}
+    f3 = _json_post(port, "/v1/completions", {**fan, "n": 3}, key)
+    f1 = _json_post(port, "/v1/completions", fan, key)
+    idx = [c["index"] for c in f3["choices"]]
+    if idx != [0, 1, 2] or f1["choices"][0]["text"] != f3["choices"][0]["text"]:
+        raise AssertionError(f"n = 3: {idx}, {f3['choices']} against {f1['choices']}")
+    out["n3_distinct_texts"] = len({c["text"] for c in f3["choices"]})
+    # the decode rate at B = 1: the seeded schema request (its states seen
+    # before) and an unconstrained one of as many tokens
+    rates = {}
+    for label, body in (("constrained", sampled),
+                        ("unconstrained", {"messages": msgs, "temperature": 0,
+                                           "max_tokens": n_schema, "logit_bias": ban})):
+        t_first, t_last, usage, _ = _stream(port, "/v1/chat/completions", body, key)
+        rates[label] = round((usage["completion_tokens"] - 1) / (t_last - t_first), 2)
+    out["decode_tok_s_b1"] = rates
+    out["decode_tokens_b1"] = n_schema
+    return out
+
+
+def _prefix_reuse(torch, engine, port, key) -> tuple[dict, dict]:
+    """Phase item 5 on a fresh engine with the prefix cache on: tail A cold,
+    tail B reusing the shared system prompt (its last position's logits
+    kept for the cold check), the other slots seeded, the 4-request load at
+    multi_step 4 while B's slot sits free, then B again."""
+    from llama_gguf_inference_tpu_torch.runtime.sampler import SamplingParams
+    prompts = [SYSTEM_PROMPT + t for t in TAILS]
+    rows, emitted = [], []
+    prefill, emit_token = engine._prefill, engine._emit_token
+
+    def spy_prefill(b, ids):
+        tok, row = prefill(b, ids)
+        rows.append((list(ids), row.float().clone()))
+        return tok, row
+
+    def spy_emit(b, token_id, *a, **k):
+        emitted.append(token_id)
+        return emit_token(b, token_id, *a, **k)
+
+    engine._prefill, engine._emit_token = spy_prefill, spy_emit
+    out, toks = {}, {}
+    try:
+        for label, prompt in zip(("cold", "reuse"), prompts):
+            emitted.clear()
+            r0 = engine.total_prefix_reused
+            t0 = time.time()
+            t_first, _, usage, _ = _stream(port, "/v1/completions", {
+                "prompt": prompt, "max_tokens": 16, "temperature": 0}, key)
+            out[f"ttft_{label}_s"] = round(t_first - t0, 4)
+            out[f"reused_{label}"] = engine.total_prefix_reused - r0
+            toks[label] = list(emitted)
+        ids_b = engine.tokenizer.encode(prompts[1])
+        row_b = next(r for i, r in rows if i == ids_b)
+        # seed the four other slots with the load's prompts while B's slot
+        # is busy (submitted first, so it takes B's claim), so the load's
+        # requests then each find their own slot
+        greedy = SamplingParams(temperature=0.0, max_tokens=16)
+        queues = [engine.submit(p, greedy)[1] for p in (prompts[1], *DISPATCH_PROMPTS)]
+        seeded = []
+        for q in queues:
+            evs = [q.get(timeout=600)]
+            while not evs[-1].finished:
+                evs.append(q.get(timeout=600))
+            seeded.append([e.token_id for e in evs])
+        b_slot = next(b for b, s in enumerate(engine.slots)
+                      if s.cached_ids[:len(ids_b)] == ids_b)
+        claim = list(engine.slots[b_slot].cached_ids)
+        c0 = engine.continuations
+        t0 = time.time()
+        res = _completions(port, key, [{"prompt": p, "max_tokens": 64, "temperature": 0}
+                                       for p in DISPATCH_PROMPTS])
+        wall = time.time() - t0
+        ntok = sum(r[1]["usage"]["completion_tokens"] for r in res)
+        if engine.slots[b_slot].cached_ids != claim or engine.continuations - c0 <= 0:
+            raise AssertionError("B's claim was taken, or the load never pipelined")
+        emitted.clear()
+        r0 = engine.total_prefix_reused
+        _stream(port, "/v1/completions", {"prompt": prompts[1], "max_tokens": 16,
+                                          "temperature": 0}, key)
+        again = list(emitted)
+        reused_again = engine.total_prefix_reused - r0
+    finally:
+        engine._prefill, engine._emit_token = prefill, emit_token
+    if out["reused_cold"] != 0 or out["reused_reuse"] < len(engine.tokenizer.encode(SYSTEM_PROMPT)) - 1:
+        raise AssertionError(f"prefix reuse: {out}")
+    if again != toks["reuse"] or seeded[0] != toks["reuse"] or reused_again != len(ids_b) - 1:
+        raise AssertionError(f"B after the load: {again} ({reused_again} reused) against "
+                             f"{toks['reuse']}; seeded {seeded[0]}")
+    out.update({"prompt_tokens": [len(engine.tokenizer.encode(p)) for p in prompts],
+                "prefix_tokens_reused": out.pop("reused_reuse"),
+                "load_tokens": ntok, "load_tok_s": round(ntok / wall, 2),
+                "load_continuations": engine.continuations - c0,
+                "b_after_load_equal": True, "b_after_load_reused": reused_again})
+    return out, {"ids": ids_b, "row": row_b, "toks": toks["reuse"]}
+
+
+def phase_structured(torch, engine, card):
+    """Grammar-constrained decoding, tool calls, ``n > 1`` and the slot
+    prefix cache through the port's server, on the loaded Q4_K_M engine
+    with multi_step 4. First on four cold slots (the prefix cache off, so
+    repeated prompts compare cold runs): json_schema answers at temperature
+    0 (every dispatch and mask flush under the sync debug mode) and 0.8,
+    EOG banned; a json_object answer cut at 16 tokens; a forced tool call
+    non-streamed and streamed; n = 3 against n = 1; the constrained decode
+    rate at B = 1 beside the unconstrained one. Then on five slots with the
+    prefix cache on: a cold prompt of about 700 tokens, one sharing its
+    system prompt (TTFT of both, the reused one's last logits against a cold
+    run), the 4-request load while that slot sits free, and the prompt
+    again. The masked sampler on the card against the CPU; the trie's build
+    time, each new state's mask time and the state count. Two launch
+    windows."""
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig
+    paths, sync_errors = [], []
+    with _host_costs() as costs:
+        launches: dict[str, int] = {}
+        with kv_engine(torch, engine, EngineConfig(max_slots=4, ctx=1024, multi_step=4,
+                                                   prefix_cache=False)):
+            engine.dispatches = engine.continuations = 0
+            try:
+                with serving(torch, engine, launches) as (port, key):
+                    out = _structured_requests(torch, engine, port, key, sync_errors)
+            except Exception as e:
+                if sync_errors:
+                    raise AssertionError(f"a dispatch waited for the card: {sync_errors}") from e
+                raise
+        paths.append(launches)
+        trie = engine._token_trie
+        states = sum(len(c[0]) for c in trie._mask_caches.values())
+        reuse_launches: dict[str, int] = {}
+        with kv_engine(torch, engine, EngineConfig(max_slots=5, ctx=1024, multi_step=4)):
+            engine.dispatches = engine.continuations = 0
+            with serving(torch, engine, reuse_launches) as (port, key):
+                reuse, b = _prefix_reuse(torch, engine, port, key)
+        paths.append(reuse_launches)
+    if sync_errors:
+        raise AssertionError(f"a dispatch waited for the card: {sync_errors}")
+    for what, counts in (("structured", launches), ("structured prefix", reuse_launches)):
+        _check_launches(what, counts, ("quant_matmul_4bit", "quant_matmul_8bit",
+                                       "flash_attention", "quant_matmul_4bit_tc",
+                                       "flash_attention_tc"))
+    # the reused request against a cold run of the same prompt, fed its tokens
+    ref, _ = _greedy_run(torch, engine, b["ids"], len(b["toks"]) - 1, feed=b["toks"])
+    _check_logits(torch, engine, ref)
+    errs, agree = _compare([b["row"]], [ref[0]])
+    gaps = [((lg.max() - lg[t]) / lg.abs().max()).item() for lg, t in zip(ref, b["toks"])]
+    if not max(gaps) <= LOGITS_TOL:
+        raise AssertionError(f"reused request: a token below the cold run's max by {max(gaps)}")
+    reuse.update({"reuse_logits_rel_err": errs[0], "logits_tol": LOGITS_TOL,
+                  "reuse_greedy_agree": sum(int(lg.argmax()) == t
+                                            for lg, t in zip(ref, b["toks"])),
+                  "reuse_greedy_steps": len(b["toks"]), "reuse_token_gap_max": max(gaps)})
+    mask_s = sorted(costs["mask_s"])
+    emit({"phase": "structured", "ok": True, "nvidia_smi": card, **out, **reuse,
+          "trie_build_s": [round(x, 4) for x in costs["trie_s"]],
+          "grammar_states": states, "new_state_masks": len(mask_s),
+          "mask_s_median": round(statistics.median(mask_s), 5) if mask_s else None,
+          "mask_s_max": round(mask_s[-1], 5) if mask_s else None,
+          "mask_s_total": round(sum(mask_s), 4),
+          "masked_sampler": _masked_sampler(torch, engine.cfg.vocab_size),
+          "launches": {"cold": sum(launches.values()), "prefix": sum(reuse_launches.values())}})
     return paths
 
 
@@ -1768,7 +2155,8 @@ def phase_q2k(torch):
     t0 = time.time()
     path = cached_model("8b", seed=0, quant="q2_k")
     t1 = time.time()
-    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024), device="cuda")
+    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024, prefix_cache=False),
+                             device="cuda")
     torch.cuda.synchronize()
     t2 = time.time()
     try:
@@ -1864,7 +2252,8 @@ def phase_q5k(torch):
     t0 = time.time()
     path = cached_model("8b", seed=0, quant="q5_k")
     t1 = time.time()
-    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024), device="cuda")
+    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024, prefix_cache=False),
+                             device="cuda")
     torch.cuda.synchronize()
     t2 = time.time()
     try:
@@ -2155,6 +2544,8 @@ def main() -> int:
         paths.append(phase_serve(torch, engine))
         phase = "decode-dispatch"
         paths += phase_decode_dispatch(torch, engine, card)
+        phase = "structured"
+        paths += phase_structured(torch, engine, card)
         phase = "variants"
         paths += phase_variants(torch, engine)
         engine.stop()

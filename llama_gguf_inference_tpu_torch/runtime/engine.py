@@ -2,11 +2,21 @@
 
 - ``max_slots`` sequences share one decode batch; a dispatch advances every
   slot by ``multi_step`` forward+sample steps (free slots run on pad tokens
-  at offset 0 and their outputs are dropped)
+  parked past their kept prefix, and their outputs are dropped)
 - sampling state lives on the card (``sampler.SampleState``): admission
   writes a slot's parameters, prompt counts and logit bias there, and the
   final prefill chunk's last row is sampled for the first token by the same
   batched ``sample`` the decode steps use
+- grammar-constrained requests (GBNF, JSON schema, forced tool calls): a
+  host-side matcher per slot (``grammar.GrammarMatcher``) steps with every
+  emitted token, and the slot's bias row on the card is rewritten with
+  ``-inf`` on every token the grammar forbids before the next dispatch; such
+  a batch decodes one step a dispatch
+- slot prompt caching (``prefix_cache``, on by default as llama-server's
+  prompt cache): a freed slot keeps its KV, admission picks the free slot
+  whose kept tokens share the longest prefix with the prompt and prefills
+  only the rest; free rows of a decode batch park just past their slot's
+  claim, so they never overwrite it (contiguous caches only)
 - a decode dispatch keeps its tokens and offsets on the card between steps
   and brings its (N, B) tokens back once, through pinned memory and a CUDA
   event; the host keeps its own copy of the offsets. With ``multi_step`` > 1
@@ -26,9 +36,8 @@
   for its prompt and ``max_tokens`` at admission and waits at the head of
   the line while the pool is short)
 
-Not yet here (the JAX engine has them): the slot prefix cache, speculation,
-slot save/restore, context shift, grammars and a decode step captured as a
-CUDA graph.
+Not yet here (the JAX engine has them): speculation, slot save/restore,
+context shift and a decode step captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -48,8 +57,8 @@ from ..models.llama import KVCache, forward
 from .kv_cache import QuantKV, QuantKV4, QuantKV41
 from .loader import load_model
 from .paged_kv import PageAllocator, PagedKV, PagedQuantKV
-from .sampler import (Gates, SampleState, SamplingParams, sample, to_device,
-                      token_logprobs, unsupported)
+from .sampler import (Gates, SampleState, SamplingParams, bias_row, sample, to_device,
+                      token_logprobs)
 from .tokenizer import Tokenizer, from_gguf_metadata
 
 
@@ -71,6 +80,11 @@ class EngineConfig:
     kv_layout: str = "contig"
     kv_page_size: int = 1024           # paged: tokens per physical page
     multi_step: int = 1                # decode steps fused per dispatch (1 = off)
+    # llama-server-style slot prompt caching: freed slots keep their KV;
+    # admission picks the free slot with the longest common prompt prefix
+    # and prefills only the suffix. Contiguous layout only: a paged slot
+    # returns its pages to the pool
+    prefix_cache: bool = True
 
 
 def make_kv_cache(cfg, ecfg: EngineConfig, device):
@@ -110,6 +124,12 @@ class _Slot:
     pending_text: str = ""             # held back: possible stop-string prefix
     utf8_buf: bytes = b""              # held back: incomplete UTF-8 sequence
     offset: int = 0                    # tokens currently in this slot's cache
+    cached_ids: list[int] = dataclasses.field(default_factory=list)
+    """Tokens whose KV sit at positions [0, len) of this slot's region,
+    kept across release for prompt-prefix reuse."""
+    matcher: object = None             # grammar.GrammarMatcher (constrained)
+    static_bias: np.ndarray | None = None   # (V,) logit_bias row under a grammar
+    mask_dirty: bool = False           # matcher advanced; the card's row is stale
 
 
 def _utf8_split(buf: bytes, flush: bool = False) -> tuple[str, bytes]:
@@ -161,6 +181,9 @@ class InferenceEngine:
         self.dispatches = 0               # decode dispatches issued
         self.continuations = 0            # ... of them issued before the previous one was read
         self.total_generated = 0
+        self.total_prefix_reused = 0      # prompt tokens skipped by slot reuse
+        self._token_trie = None           # grammar.TokenTrie, built on first use
+        self._grammar_cache: dict = {}    # GBNF text -> parsed Grammar
         self._queue: "queue.Queue[tuple[str, list[int], SamplingParams, queue.Queue]]" = queue.Queue()
         self._waiting: list = []          # paged: the head of the line, short of pages
         self._cancelled: set[str] = set()
@@ -171,11 +194,9 @@ class InferenceEngine:
     # ------------------------------------------------------------- requests
     def submit(self, prompt: str | list[int], params: SamplingParams,
                request_id: str | None = None) -> tuple[str, "queue.Queue[GenEvent]"]:
-        """Enqueue a request; returns (request_id, event queue). Raises
-        ValueError for sampling settings this engine cannot honour."""
-        bad = unsupported(params)
-        if bad:
-            raise ValueError(f"not supported yet: {', '.join(bad)}")
+        """Enqueue a request; returns (request_id, event queue). A grammar
+        that does not parse fails this request alone, with an ``error``
+        event whose text says why."""
         rid = request_id or uuid.uuid4().hex[:16]
         ids = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         ids = ids[: self.cache.max_seq - 1]
@@ -246,6 +267,7 @@ class InferenceEngine:
                                       n_prompt=len(slot.prompt_ids),
                                       n_generated=len(slot.generated)))
                 self._release(b)
+            slot.cached_ids = []   # the cache's state is unknown after an error
         for item in self._waiting:
             item[3].put(GenEvent(finished=True, finish_reason="error"))
         self._waiting = []
@@ -263,6 +285,7 @@ class InferenceEngine:
         return {"model": self.model_name, "slots_total": self.ecfg.max_slots,
                 "slots_active": self.n_active(), "multi_step": self.ecfg.multi_step,
                 "total_generated": self.total_generated,
+                "prefix_tokens_reused": self.total_prefix_reused,
                 "dispatches": self.dispatches, "continuations": self.continuations}
 
     def step(self) -> bool:
@@ -330,6 +353,26 @@ class InferenceEngine:
         except queue.Empty:
             return None
 
+    def _reusable_prefix(self, b: int, ids: list[int]) -> int:
+        """Prompt tokens already sitting in slot b's KV (llama-server slot
+        prompt caching). Capped at len(ids) - 1: the last prompt position
+        always runs, so its logits exist for the first token's draw."""
+        if not self.ecfg.prefix_cache or self.alloc is not None:
+            return 0
+        cached = self.slots[b].cached_ids
+        n = 0
+        limit = min(len(cached), len(ids) - 1)
+        while n < limit and cached[n] == ids[n]:
+            n += 1
+        return n
+
+    def _pick_slot(self, free: list[int], ids: list[int]) -> int:
+        """The free slot with the longest reusable prompt prefix; among equal
+        matches the one whose kept claim is least worth keeping (the
+        shortest), then the lowest index."""
+        return max(free, key=lambda b: (self._reusable_prefix(b, ids),
+                                        -len(self.slots[b].cached_ids), -b))
+
     @torch.inference_mode()
     def _admit(self) -> bool:
         """Two phases, as the JAX engine's admission: every request that
@@ -337,13 +380,27 @@ class InferenceEngine:
         the first token's draw) queued on the card; only then does the host
         wait for the first tokens."""
         pending_adm = []
-        for b, slot in enumerate(self.slots):
-            if slot.state != "free":
-                continue
+        while True:
+            free = [b for b, s in enumerate(self.slots) if s.state == "free"]
+            if not free:
+                break
             item = self._next_request()
             if item is None:
                 break
             rid, ids, params, out = item
+            # a grammar is parsed before any slot is touched, so a bad one
+            # fails this request alone (the server refuses it earlier, with
+            # a 400)
+            matcher = None
+            if params.grammar:
+                try:
+                    matcher = self._make_matcher(params.grammar)
+                except Exception as e:  # noqa: BLE001 — bad grammar or schema
+                    out.put(GenEvent(finished=True, finish_reason="error",
+                                     text=f"invalid grammar: {e}"))
+                    continue
+            b = self._pick_slot(free, ids)
+            slot = self.slots[b]
             if self.alloc is not None:
                 # reserve the whole lifetime up front (prompt + max_tokens and
                 # a dispatch's advance), so decode never allocates mid-flight
@@ -363,11 +420,22 @@ class InferenceEngine:
             slot.out = out
             slot.pending_text = ""
             slot.utf8_buf = b""
+            slot.matcher = matcher
+            slot.static_bias = None
+            slot.mask_dirty = False
             # the counts start from the prompt, so the repeat, frequency and
-            # presence penalties see every token of the sequence so far
-            self.sample_state.write_slot(b, params, ids)
+            # presence penalties see every token of the sequence so far; a
+            # grammar's mask is in the bias row already, so the first token,
+            # drawn at the end of the prefill, is constrained too
+            brow = bias_row(params, self.cfg.vocab_size)
+            if matcher is not None:
+                if params.logit_bias:
+                    slot.static_bias = brow.copy()
+                brow = self._grammar_bias(slot, brow)
+            self.sample_state.write_slot(b, params, ids, bias=brow)
             pending_adm.append((b, *self._prefill(b, ids)))
             slot.offset = len(ids)
+            slot.cached_ids = list(ids)
         for b, tok, row in pending_adm:
             tok = int(tok)
             slot = self.slots[b]
@@ -383,11 +451,13 @@ class InferenceEngine:
         return PREFILL_BUCKETS[-1]
 
     def _prefill(self, b: int, ids: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
-        """Prefill slot b in bucketed chunks; returns the first token (1,)
-        sampled on the card from the last prompt position's logits, and
-        those (V,) logits, neither read back."""
+        """Prefill slot b in bucketed chunks from the first position its kept
+        claim does not already hold; returns the first token (1,) sampled
+        on the card from the last prompt position's logits, and those (V,)
+        logits, neither read back."""
         view = self.cache.slot(b)
-        pos = 0
+        pos = self._reusable_prefix(b, ids)
+        self.total_prefix_reused += pos
         while True:
             chunk = min(len(ids) - pos, PREFILL_BUCKETS[-1])
             T = self._bucket(chunk)
@@ -422,12 +492,46 @@ class InferenceEngine:
         n = min(slot.params.n_probs, len(idx_row))
         return [(int(idx_row[j]), float(val_row[j])) for j in range(n)]
 
+    # -- grammar-constrained decoding -----------------------------------------
+    def _make_matcher(self, gbnf: str):
+        """A GrammarMatcher over this engine's tokenizer. The vocab trie is
+        built on the first constrained request and parsed grammars are
+        cached, so requests with one schema share a parse and its per-state
+        masks."""
+        from ..grammar import GrammarMatcher, TokenTrie, parse_gbnf
+        if self._token_trie is None:
+            self._token_trie = TokenTrie(self.tokenizer)
+        g = self._grammar_cache.get(gbnf)
+        if g is None:
+            g = self._grammar_cache[gbnf] = parse_gbnf(gbnf)
+        return GrammarMatcher(g, self._token_trie)
+
+    def _grammar_bias(self, slot: _Slot, base: np.ndarray | None = None) -> np.ndarray:
+        """(V,) f32 bias row: -inf on the tokens the slot's grammar forbids,
+        ``base`` (the request's static logit_bias) elsewhere."""
+        if base is None:
+            base = slot.static_bias if slot.static_bias is not None \
+                else np.zeros(self.cfg.vocab_size, np.float32)
+        return np.where(slot.matcher.valid_mask(), base, -np.inf).astype(np.float32)
+
+    def _flush_grammar_masks(self, active: list[int]) -> None:
+        """Write the stale grammar masks to the card's bias rows before a
+        decode dispatch: one pinned copy per slot whose matcher advanced,
+        in stream order, with no wait for the card."""
+        for b in active:
+            slot = self.slots[b]
+            if slot.matcher is not None and slot.mask_dirty:
+                self.sample_state.set_bias_row(b, self._grammar_bias(slot))
+                slot.mask_dirty = False
+
     # -- batched decode ------------------------------------------------------
     def _multi_steps_viable(self, active: list[int]) -> int:
         """How many decode steps can be fused into one dispatch right now."""
         n = self.ecfg.multi_step
         if n <= 1:
             return 1
+        if any(self.slots[b].matcher is not None for b in active):
+            return 1   # the mask must refresh between steps (host automaton)
         if not self._queue.empty() and self.n_active() < self.ecfg.max_slots:
             return 1   # stay responsive: admit waiting requests first
         # all-or-nothing: a slot finishing mid-batch just ignores the tail
@@ -439,11 +543,18 @@ class InferenceEngine:
 
     def _decode_inputs(self, active: list[int]):
         """(B, 1) tokens, (B,) offsets and (B,) per-step advance (1 for an
-        active slot, 0 for a free one, which stays at offset 0), on the host."""
+        active slot, 0 for a free one), on the host. A free row still writes
+        a KV row at its offset every step: it parks just past its slot's
+        kept claim (which ``_release`` caps so that this row lies inside the
+        slot), so it never overwrites a prefix kept for reuse, and with
+        advance 0 a pipelined continuation never moves it."""
         B = self.ecfg.max_slots
         tokens = np.zeros((B, 1), np.int32)
         offsets = np.zeros(B, np.int32)
         advance = np.zeros(B, np.int32)
+        for b, slot in enumerate(self.slots):
+            if slot.state == "free":
+                offsets[b] = len(slot.cached_ids)
         for b in active:
             tokens[b, 0] = self.slots[b].generated[-1]
             offsets[b] = self.slots[b].offset
@@ -559,6 +670,7 @@ class InferenceEngine:
             return False
         n_steps = self._multi_steps_viable(active)
         want_lp = any(self.slots[b].params.n_probs > 0 for b in active)
+        self._flush_grammar_masks(active)
         tokens, offsets, advance = self._decode_inputs(active)
         pend = self._issue(to_device(tokens, self.device), to_device(offsets, self.device),
                            to_device(advance, self.device), n_steps, want_lp, active,
@@ -585,9 +697,17 @@ class InferenceEngine:
         elif slot.offset + 1 >= self._slot_cap(b):
             finish = "length"
 
+        if slot.matcher is not None and finish is None:
+            if slot.matcher.accept_token(token_id):
+                slot.mask_dirty = True
+            else:
+                # the mask makes this unreachable; a rejected token ends the
+                # request rather than decoding on unconstrained
+                finish = "stop"
+
         # UTF-8 boundary holdback: byte-fallback tokens can carry partial
         # multi-byte sequences; emit only complete sequences
-        if finish == "stop":
+        if finish == "stop" and self.tokenizer.is_eog(token_id):
             raw = b""
         elif hasattr(self.tokenizer, "piece_bytes"):
             raw = self.tokenizer.piece_bytes(token_id)
@@ -644,6 +764,17 @@ class InferenceEngine:
         slot.state = "free"
         slot.request_id = ""
         slot.offset = 0
+        slot.matcher = None
+        slot.static_bias = None
+        slot.mask_dirty = False
+        # keep the slot's KV claim for prompt-prefix reuse: the prompt and
+        # every generated token that was fed back (the last one's KV is
+        # never written; a dispatch's tail past a finish lies beyond the
+        # claim). Capped so the free row's parked writes (_decode_inputs)
+        # stay inside the slot
+        claim_cap = max(0, self.ecfg.ctx - self._max_advance() - 1)
+        slot.cached_ids = ((slot.prompt_ids + slot.generated[:-1])[:claim_cap]
+                           if self.ecfg.prefix_cache and self.alloc is None else [])
         if self.alloc is not None:
             self.alloc.release(b)
             self._push_table()

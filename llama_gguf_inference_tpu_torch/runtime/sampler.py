@@ -24,8 +24,10 @@ Chain order (the JAX package's, not llama.cpp's default): temperature
 FIRST, then top-k, typical, min-p and top-p on the tempered distribution;
 mirostat replaces that chain for its slots.
 
-Grammars are not implemented yet: :func:`unsupported` names the field, and
-the engine and server refuse such requests instead of ignoring it.
+A grammar reaches the sampler only as its slot's bias row: the engine's
+host-side matcher writes ``-inf`` on every token the grammar forbids
+(:meth:`SampleState.set_bias_row`), so every stage sees rows where only a
+few tokens are finite.
 """
 
 from __future__ import annotations
@@ -59,15 +61,6 @@ class SamplingParams:
     logit_bias: dict[int, float] | None = None
     n_probs: int = 0             # logprobs per token (OpenAI `logprobs`)
     grammar: str = ""            # GBNF text (response_format / grammar)
-
-
-_NOT_YET = ("grammar",)
-
-
-def unsupported(p: SamplingParams) -> list[str]:
-    """Names of the fields ``p`` sets that this sampler cannot honour."""
-    default = SamplingParams()
-    return [f for f in _NOT_YET if getattr(p, f) != getattr(default, f)]
 
 
 class Gates(NamedTuple):
@@ -136,12 +129,14 @@ class SampleState:
         return SampleState(**{f.name: getattr(self, f.name)[b:b + 1]
                               for f in dataclasses.fields(self)})
 
-    def write_slot(self, b: int, p: SamplingParams, prompt_ids=()) -> None:
+    def write_slot(self, b: int, p: SamplingParams, prompt_ids=(),
+                   bias: np.ndarray | None = None) -> None:
         """(Re)initialize slot b for a request, as the JAX package's
         ``write_slot_device`` does: every parameter (f32 as there), mirostat's
         mu at 2 * tau, the step at 0, the counts to the prompt's ids and the
-        logit-bias row. Scalars go over as kernel arguments and the ids and
-        bias row through pinned memory, so nothing waits for the card."""
+        bias row (``bias``, else ``p``'s logit_bias). Scalars go over as
+        kernel arguments and the ids and bias row through pinned memory, so
+        nothing waits for the card."""
         dev = self.counts.device
         vals = dict(temperature=p.temperature, top_p=p.top_p, min_p=p.min_p,
                     typical=p.typical_p, presence=p.presence_penalty,
@@ -155,7 +150,12 @@ class SampleState:
         if len(prompt_ids):
             ids = to_device(np.asarray(prompt_ids, np.int64), dev)
             self.counts[b].index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
-        self.bias[b] = to_device(bias_row(p, self.bias.shape[1]), dev)
+        self.set_bias_row(b, bias_row(p, self.bias.shape[1]) if bias is None else bias)
+
+    def set_bias_row(self, b: int, row: np.ndarray) -> None:
+        """Replace slot b's (V,) bias row (a grammar mask update): a copy
+        through pinned memory, in stream order, that never reads the card."""
+        self.bias[b] = to_device(np.asarray(row, np.float32), self.bias.device)
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -259,7 +259,12 @@ def _mirostat_mask(scaled: torch.Tensor, st: SampleState) -> torch.Tensor:
     eps = (s_hat - 1.0).clamp(min=1e-5)
     k1 = ((eps * torch.exp2(st.miro_mu)) / (1.0 - float(V) ** (-eps))) \
         ** (1.0 / s_hat.clamp(min=1e-5))
-    k1 = k1.clamp(1.0, float(V)).to(torch.int64)
+    # under a grammar mask fewer than m1 + 1 tokens may be finite: their
+    # differences are -inf - -inf = NaN, and so is k1. XLA converts NaN to
+    # 0 (keep every token), the CPU to INT64_MIN and the card to its own
+    # value; make it 0 here on every device, as the JAX sampler has it
+    k1 = torch.where(torch.isnan(k1), torch.zeros_like(k1), k1.clamp(1.0, float(V)))
+    k1 = k1.to(torch.int64)
     keep1 = _mask_top_k(scaled, k1) > _NEG_INF
     keep = torch.where((st.miro == 2)[:, None], keep2, keep1)
     keep = keep | (lp >= lp.max(dim=-1, keepdim=True).values)

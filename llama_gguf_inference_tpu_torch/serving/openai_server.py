@@ -7,14 +7,24 @@ Endpoints:
 - ``GET  /v1/models``            — the single loaded model
 - ``GET  /health``               — public liveness
 
-``/v1/*`` requires the bearer key when one is configured. Sampling fields
-follow the JAX package's server: temperature, top_p, top_k, min_p,
-typical_p, the presence/frequency/repeat penalties, mirostat with
-``mirostat_tau``/``mirostat_eta``, seed, stop, ``logit_bias`` (an OpenAI
-object with string keys or llama.cpp ``[id, bias]`` pairs; ``false`` bans the
-token) and ``logprobs``/``top_logprobs`` (at most 8). Fields the engine cannot
-honour yet (grammars, ``json_schema``, a non-text ``response_format``,
-tools, ``n > 1``) get a 400 naming the field; none is ignored silently.
+``/v1/*`` requires the bearer key when one is configured. Request fields
+follow the JAX package's server:
+
+- sampling: temperature, top_p, top_k, min_p, typical_p, the
+  presence/frequency/repeat penalties, mirostat with
+  ``mirostat_tau``/``mirostat_eta``, seed, stop, ``logit_bias`` (an OpenAI
+  object with string keys or llama.cpp ``[id, bias]`` pairs; ``false`` bans
+  the token) and ``logprobs``/``top_logprobs`` (at most 8);
+- constrained output: ``grammar`` (GBNF), ``json_schema`` and
+  ``response_format`` (``json_object``, ``json_schema``), each turned into
+  a GBNF grammar the engine's matcher enforces; a malformed one gets a 400
+  before anything is submitted;
+- ``tools`` and ``tool_choice`` on chat: the tool schemas go into the
+  system message, a forced choice (``required`` or a named function)
+  constrains the answer to a tool-call object, and an answer that parses
+  as one comes back as ``tool_calls`` with ``finish_reason: "tool_calls"``;
+- ``n`` in [1, 8]: every choice is submitted at once, so the choices decode
+  together in the batch; choice i samples with seed + i.
 
 Run: ``MODEL_PATH=model.gguf python -m
 llama_gguf_inference_tpu_torch.serving.openai_server`` (on the card).
@@ -31,9 +41,12 @@ import time
 import uuid
 from typing import Any
 
-from ..runtime.sampler import SamplingParams, unsupported
+from ..grammar import JSON_GBNF, json_schema_to_gbnf, parse_gbnf
+from ..runtime.sampler import SamplingParams
 from .chat_template import normalize_messages, render_chat
 from .http import HttpLimitError, read_request, send_error, send_response, sse_event
+from .tool_calls import (ToolRequestError, parse_tool_calls, prepare_messages, tool_grammar,
+                         validate_tools)
 
 
 @dataclasses.dataclass
@@ -70,9 +83,39 @@ def _now() -> int:
     return int(time.time())
 
 
-# request fields with no engine support yet: key -> value that means "off"
-_OFF_FIELDS = {"tools": None, "grammar": None, "json_schema": None}
 TOP_LOGPROBS_MAX = 8   # the engine's top-k a step (InferenceEngine.TOP_LOGPROBS_K)
+N_MAX = 8              # OpenAI ``n``: choices a request may fan out to
+
+
+def _resolve_grammar(body: dict) -> str:
+    """GBNF text for the request's constraint fields, '' when none: the
+    native ``grammar`` (GBNF) and ``json_schema`` fields, or OpenAI
+    ``response_format`` (json_object, json_schema). ValueError (-> 400) on
+    a malformed schema or grammar."""
+    if body.get("grammar"):
+        g = str(body["grammar"])
+        parse_gbnf(g)                    # validate here -> 400, not mid-decode
+        return g
+    if body.get("json_schema") is not None:
+        return json_schema_to_gbnf(body["json_schema"])
+    rf = body.get("response_format")
+    if not rf:
+        return ""
+    if not isinstance(rf, dict):
+        raise ValueError("response_format must be an object")
+    rtype = rf.get("type", "text")
+    if rtype == "text":
+        return ""
+    if rtype == "json_object":
+        schema = rf.get("schema")        # llama.cpp extension
+        return json_schema_to_gbnf(schema) if schema else JSON_GBNF
+    if rtype == "json_schema":
+        js = rf.get("json_schema") or {}
+        schema = js.get("schema") if isinstance(js, dict) else None
+        if schema is None:
+            raise ValueError("response_format.json_schema.schema is required")
+        return json_schema_to_gbnf(schema)
+    raise ValueError(f"unsupported response_format type {rtype!r}")
 
 
 def _parse_logit_bias(body: dict) -> dict[int, float] | None:
@@ -97,17 +140,7 @@ def _parse_logit_bias(body: dict) -> dict[int, float] | None:
 
 def _params_from_request(body: dict, default_max: int = 256) -> SamplingParams:
     """SamplingParams from an OpenAI request body (the JAX package's
-    parse); ValueError (-> 400) names any field set that the engine cannot
-    honour."""
-    for key, off in _OFF_FIELDS.items():
-        if body.get(key) not in (off, [], ""):
-            raise ValueError(f"{key} is not supported yet")
-    rf = body.get("response_format")
-    if rf and not (isinstance(rf, dict) and rf.get("type", "text") == "text"):
-        raise ValueError("response_format is not supported yet")
-    n = body.get("n", 1)
-    if n not in (None, 1):
-        raise ValueError("n > 1 is not supported yet")
+    parse); ValueError (-> 400) on a malformed field."""
     stop = body.get("stop") or ()
     stop = (stop,) if isinstance(stop, str) else tuple(str(s) for s in stop)
     seed = body.get("seed")
@@ -120,7 +153,7 @@ def _params_from_request(body: dict, default_max: int = 256) -> SamplingParams:
                       (lp if isinstance(lp, int) and not isinstance(lp, bool)
                        else 0))
         n_probs = max(n_probs, 1)
-    p = SamplingParams(
+    return SamplingParams(
         n_probs=min(n_probs, TOP_LOGPROBS_MAX),
         temperature=float(body.get("temperature", 1.0)),
         top_p=float(body.get("top_p", 1.0)),
@@ -137,11 +170,27 @@ def _params_from_request(body: dict, default_max: int = 256) -> SamplingParams:
         max_tokens=int(max_tokens),
         stop=stop,
         logit_bias=_parse_logit_bias(body),
+        grammar=_resolve_grammar(body),
     )
-    bad = unsupported(p)
-    if bad:
-        raise ValueError(", ".join(bad) + " is not supported yet")
-    return p
+
+
+def _parse_n(body: dict) -> int | None:
+    """OpenAI ``n`` (choices per request), at most N_MAX; None when invalid
+    (-> 400)."""
+    n = body.get("n", 1)
+    if n is None:
+        return 1
+    if isinstance(n, bool) or not isinstance(n, int) or not 1 <= n <= N_MAX:
+        return None
+    return n
+
+
+def _fanout_params(params: SamplingParams, n: int) -> list[SamplingParams]:
+    """Each choice's params: choice i samples with the request's seed + i, so
+    choice 0 is the n = 1 answer and a seeded request stays reproducible."""
+    return [params if i == 0 else
+            dataclasses.replace(params, seed=(params.seed + i) & 0xFFFFFFFF)
+            for i in range(n)]
 
 
 class OpenAIServer:
@@ -220,27 +269,58 @@ class OpenAIServer:
             await send_error(writer, 400, f"{field} is required",
                              "invalid_request_error", "bad_request")
             return
+        tools = None
         try:
-            params = _params_from_request(body)
             if chat:
-                prompt = self._render_prompt(body["messages"])
+                fns, forced, tools_on = validate_tools(body)
+                messages = body["messages"]
+                if tools_on or any(isinstance(m, dict) and (m.get("role") == "tool"
+                                                            or m.get("tool_calls"))
+                                   for m in messages):
+                    messages = prepare_messages(messages, fns, tools_on)
+                prompt = self._render_prompt(messages)
+                params = _params_from_request(body)
+                if tools_on and forced is not None:
+                    if params.grammar:
+                        raise ToolRequestError(
+                            "grammar/response_format cannot be combined with a "
+                            "forced tool_choice")
+                    params = dataclasses.replace(params, grammar=tool_grammar(fns, forced))
+                tools = fns if tools_on else None
             else:
+                params = _params_from_request(body)
                 prompt = body["prompt"]
                 if isinstance(prompt, list):
                     prompt = "".join(str(p) for p in prompt)
-            pre = self.engine.submit(prompt, params)
-        except ValueError as e:
+        except ValueError as e:          # includes ToolRequestError
             await send_error(writer, 400, str(e), "invalid_request_error",
                              "bad_request")
             return
+        n = _parse_n(body)
+        if n is None:
+            await send_error(writer, 400, f"n must be an integer in [1, {N_MAX}]",
+                             "invalid_request_error", "bad_request")
+            return
+        if n > 1 and tools:
+            await send_error(writer, 400, "n > 1 cannot be combined with tools",
+                             "invalid_request_error", "bad_request")
+            return
+        # every choice is submitted up front, so the choices decode together
+        pres = [self.engine.submit(prompt, p) for p in _fanout_params(params, n)]
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
         obj = "chat.completion" if chat else "text_completion"
         if body.get("stream"):
             include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
             await self._stream(writer, rid, obj + (".chunk" if chat else ""),
-                               pre, chat, include_usage, params)
+                               pres, chat, include_usage, params, tools)
         else:
-            await self._complete(writer, rid, obj, pre, chat, params)
+            await self._complete(writer, rid, obj, pres, chat, params, tools)
+
+    def _cancel(self, pres: list) -> None:
+        """Cancel submitted choices that will never be read (an early error
+        return or a client gone), so their slots free at once."""
+        for rid, _ in pres:
+            self.engine.cancel(rid)
 
     async def _collect(self, pre):
         """Drain a submitted request's event queue without blocking the
@@ -270,49 +350,82 @@ class OpenAIServer:
             ],
         }
 
-    async def _complete(self, writer, rid: str, obj: str, pre, chat: bool,
-                        params: SamplingParams) -> None:
-        text: list[str] = []
-        lp_content: list[dict] = []
-        finish, n_prompt, n_gen = "stop", 0, 0
-        async for ev in self._collect(pre):
-            text.append(ev.text)
-            n_prompt, n_gen = ev.n_prompt, ev.n_generated
-            if params.n_probs > 0:
-                lp_content.append(self._lp_entry(ev))
-            if ev.finished:
-                finish = ev.finish_reason or "stop"
-        if finish == "error":
-            await send_error(writer, 500, "inference engine failure",
-                             "server_error", "engine_error")
-            return
-        content = "".join(text)
-        if chat:
-            choice = {"index": 0, "finish_reason": finish,
-                      "message": {"role": "assistant", "content": content}}
-            if params.n_probs > 0:
-                choice["logprobs"] = {"content": lp_content}
-        else:
-            choice = {"index": 0, "text": content, "finish_reason": finish,
-                      "logprobs": None}
-            if params.n_probs > 0:
-                choice["logprobs"] = {
-                    "tokens": [e["token"] for e in lp_content],
-                    "token_logprobs": [e["logprob"] for e in lp_content],
-                    "top_logprobs": [{t["token"]: t["logprob"] for t in e["top_logprobs"]}
-                                     for e in lp_content],
-                }
+    async def _complete(self, writer, rid: str, obj: str, pres: list, chat: bool,
+                        params: SamplingParams, tools: list | None = None) -> None:
+        choices = []
+        usage_prompt = usage_gen = 0
+        idx = 0
+        try:
+            for idx, pre in enumerate(pres):
+                text: list[str] = []
+                lp_content: list[dict] = []
+                finish, n_prompt, n_gen = "stop", 0, 0
+                async for ev in self._collect(pre):
+                    text.append(ev.text)
+                    n_prompt, n_gen = ev.n_prompt, ev.n_generated
+                    if params.n_probs > 0:
+                        lp_content.append(self._lp_entry(ev))
+                    if ev.finished:
+                        finish = ev.finish_reason or "stop"
+                if finish == "error":
+                    self._cancel(pres[idx + 1:])
+                    await send_error(writer, 500, "inference engine failure",
+                                     "server_error", "engine_error")
+                    return
+                usage_prompt = n_prompt
+                usage_gen += n_gen
+                content = "".join(text)
+                if chat:
+                    calls = parse_tool_calls(content, tools) if tools else None
+                    if calls:
+                        choice = {"index": idx,
+                                  "message": {"role": "assistant", "content": None,
+                                              "tool_calls": calls},
+                                  "finish_reason": "tool_calls"}
+                    else:
+                        choice = {"index": idx,
+                                  "message": {"role": "assistant", "content": content},
+                                  "finish_reason": finish}
+                    if params.n_probs > 0:
+                        choice["logprobs"] = {"content": lp_content}
+                else:
+                    choice = {"index": idx, "text": content, "finish_reason": finish,
+                              "logprobs": None}
+                    if params.n_probs > 0:
+                        choice["logprobs"] = {
+                            "tokens": [e["token"] for e in lp_content],
+                            "token_logprobs": [e["logprob"] for e in lp_content],
+                            "top_logprobs": [{t["token"]: t["logprob"]
+                                              for t in e["top_logprobs"]}
+                                             for e in lp_content],
+                        }
+                choices.append(choice)
+        except BaseException:
+            self._cancel(pres[idx + 1:])
+            raise
         await send_response(writer, 200, json.dumps({
             "id": rid, "object": obj, "created": _now(),
-            "model": self.engine.model_name, "choices": [choice],
-            "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_gen,
-                      "total_tokens": n_prompt + n_gen},
+            "model": self.engine.model_name, "choices": choices,
+            "usage": {"prompt_tokens": usage_prompt, "completion_tokens": usage_gen,
+                      "total_tokens": usage_prompt + usage_gen},
         }).encode())
 
-    async def _stream(self, writer, rid: str, obj: str, pre, chat: bool,
-                      include_usage: bool, params: SamplingParams) -> None:
-        def chunk(delta: dict | None, finish: str | None) -> dict:
-            c: dict[str, Any] = {"index": 0, "finish_reason": finish}
+    async def _stream(self, writer, rid: str, obj: str, pres: list, chat: bool,
+                      include_usage: bool, params: SamplingParams,
+                      tools: list | None = None) -> None:
+        """SSE for every choice, drained in index order (OpenAI clients route
+        chunks by ``choices[].index``)."""
+        head_sent = False
+
+        def ensure_head():
+            nonlocal head_sent
+            if not head_sent:
+                head_sent = True
+                writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream"
+                             b"\r\nCache-Control: no-cache\r\nConnection: close\r\n\r\n")
+
+        def chunk(delta: dict | None, finish: str | None, idx: int) -> dict:
+            c: dict[str, Any] = {"index": idx, "finish_reason": finish}
             if chat:
                 c["delta"] = delta if delta is not None else {}
             else:
@@ -320,41 +433,97 @@ class OpenAIServer:
             return {"id": rid, "object": obj, "created": _now(),
                     "model": self.engine.model_name, "choices": [c]}
 
-        head_sent = False
-        finish, n_prompt, n_gen = "stop", 0, 0
-        async for ev in self._collect(pre):
-            n_prompt, n_gen = ev.n_prompt, ev.n_generated
-            if ev.finished:
-                finish = ev.finish_reason or "stop"
-            if finish == "error":
-                if not head_sent:   # nothing streamed yet: a real 5xx
+        usage_prompt = usage_gen = 0
+
+        async def stream_one(idx: int, pre) -> bool:
+            nonlocal usage_prompt, usage_gen
+            finish, n_prompt, n_gen = "stop", 0, 0
+            first = True
+            # with tools, text is held back while it may still be a tool-call
+            # object; once its first character rules that out it streams
+            buffering = bool(tools) and chat
+            buf: list = []
+
+            async def emit(ev) -> None:
+                nonlocal first
+                ensure_head()
+                if first and chat:
+                    first = False
+                    writer.write(sse_event(chunk({"role": "assistant"}, None, idx)))
+                if ev.text:
+                    c = chunk({"content": ev.text}, None, idx)
+                    if chat and params.n_probs > 0:   # as the JAX server: chat chunks only
+                        c["choices"][0]["logprobs"] = {"content": [self._lp_entry(ev)]}
+                    writer.write(sse_event(c))
+                await writer.drain()
+
+            async for ev in self._collect(pre):
+                n_prompt, n_gen = ev.n_prompt, ev.n_generated
+                if ev.finished:
+                    finish = ev.finish_reason or "stop"
+                if finish == "error" and not head_sent:
+                    # nothing streamed yet: a real 5xx
                     await send_error(writer, 500, "inference engine failure",
                                      "server_error", "engine_error")
-                else:               # mid-stream: an SSE error event, no [DONE]
-                    writer.write(sse_event({"error": {
-                        "message": "inference engine failure",
-                        "type": "server_error", "code": "engine_error"}}))
+                    return False
+                if buffering:
+                    buf.append(ev)
+                    lead = "".join(e.text for e in buf).lstrip()
+                    if lead and lead[0] not in "{`":
+                        buffering = False
+                        for e in buf:
+                            await emit(e)
+                        buf.clear()
+                    continue
+                await emit(ev)
+            if buf or (tools and chat and finish != "error"):
+                content = "".join(e.text for e in buf)
+                calls = parse_tool_calls(content, tools) if content else None
+                if calls:
+                    ensure_head()
+                    writer.write(sse_event(chunk({"role": "assistant"}, None, idx)))
+                    for i, call in enumerate(calls):
+                        writer.write(sse_event(chunk({"tool_calls": [{
+                            "index": i, "id": call["id"], "type": "function",
+                            "function": {"name": call["function"]["name"],
+                                         "arguments": ""}}]}, None, idx)))
+                        writer.write(sse_event(chunk({"tool_calls": [{
+                            "index": i, "function": {
+                                "arguments": call["function"]["arguments"]}}]},
+                            None, idx)))
                     await writer.drain()
-                return
-            if not head_sent:
-                head_sent = True
-                writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream"
-                             b"\r\nCache-Control: no-cache\r\nConnection: close\r\n\r\n")
-                if chat:
-                    writer.write(sse_event(chunk({"role": "assistant"}, None)))
-            if ev.text:
-                c = chunk({"content": ev.text}, None)
-                if chat and params.n_probs > 0:   # as the JAX server: chat chunks only
-                    c["choices"][0]["logprobs"] = {"content": [self._lp_entry(ev)]}
-                writer.write(sse_event(c))
-            await writer.drain()
-        writer.write(sse_event(chunk(None, finish)))
+                    finish = "tool_calls"
+                elif content:
+                    for e in buf:
+                        await emit(e)
+            ensure_head()
+            if finish == "error":
+                # mid-stream: an SSE error event, no [DONE]
+                writer.write(sse_event({"error": {
+                    "message": "inference engine failure",
+                    "type": "server_error", "code": "engine_error"}}))
+                await writer.drain()
+                return False
+            writer.write(sse_event(chunk(None, finish, idx)))
+            usage_prompt = n_prompt
+            usage_gen += n_gen
+            return True
+
+        idx = 0
+        try:
+            for idx, pre in enumerate(pres):
+                if not await stream_one(idx, pre):
+                    self._cancel(pres[idx + 1:])
+                    return
+        except BaseException:
+            self._cancel(pres[idx + 1:])
+            raise
         if include_usage:
             writer.write(sse_event({
                 "id": rid, "object": obj, "created": _now(),
                 "model": self.engine.model_name, "choices": [],
-                "usage": {"prompt_tokens": n_prompt, "completion_tokens": n_gen,
-                          "total_tokens": n_prompt + n_gen}}))
+                "usage": {"prompt_tokens": usage_prompt, "completion_tokens": usage_gen,
+                          "total_tokens": usage_prompt + usage_gen}}))
         writer.write(sse_event("[DONE]"))
         await writer.drain()
 
@@ -387,7 +556,8 @@ def build_engine_from_env(device: str = "cuda"):
     ``CTX`` (total, split over slots) or ``CTX_PER_SLOT``, and the KV cache:
     ``KV_CACHE_TYPE`` (bf16, q8_0, q4_0, q4_1; q5_0/q5_1 run as q8_0),
     ``KV_LAYOUT`` (contig or paged) and ``KV_PAGE_SIZE`` (tokens per page),
-    and ``MULTI_STEP``, the decode steps fused in one dispatch (1 = off)."""
+    ``MULTI_STEP``, the decode steps fused in one dispatch (1 = off), and
+    ``PREFIX_CACHE`` (slot prompt caching, on unless 0, false or no)."""
     from ..runtime.engine import EngineConfig, InferenceEngine
 
     model_path = os.environ.get("MODEL_PATH", "")
@@ -408,7 +578,9 @@ def build_engine_from_env(device: str = "cuda"):
         kv_dtype=kv if kv in ("q8_0", "q4_0", "q4_1") else "bf16",
         kv_layout=os.environ.get("KV_LAYOUT", "contig").lower(),
         kv_page_size=int(os.environ.get("KV_PAGE_SIZE", 1024)),
-        multi_step=int(os.environ.get("MULTI_STEP", 1))), device=device)
+        multi_step=int(os.environ.get("MULTI_STEP", 1)),
+        prefix_cache=os.environ.get("PREFIX_CACHE", "true").lower()
+        not in ("0", "false", "no")), device=device)
 
 
 def main() -> None:

@@ -21,12 +21,13 @@ from llama_gguf_inference_tpu.runtime.sampler import SamplingParams as JParams
 from llama_gguf_inference_tpu_torch.models import llama as tllama
 from llama_gguf_inference_tpu_torch.ops import _build
 from llama_gguf_inference_tpu_torch.runtime import engine as tengine
+from llama_gguf_inference_tpu_torch.grammar import JSON_GBNF, json_schema_to_gbnf
 from llama_gguf_inference_tpu_torch.runtime.sampler import (Gates, SampleState,
-                                                            SamplingParams, sample,
-                                                            unsupported)
+                                                            SamplingParams, sample)
 from llama_gguf_inference_tpu_torch.serving.openai_server import (BackendConfig,
                                                                   OpenAIServer,
-                                                                  _params_from_request)
+                                                                  _params_from_request,
+                                                                  _parse_n)
 from test_torch_model import write_tiny_q4km
 
 torch.set_num_threads(1)
@@ -156,24 +157,37 @@ def test_sampler_seeded_and_truncation():
 
 
 def test_unsupported_settings_are_named(port_engine):
-    """Grammars, tools and json_schema (and a non-text response_format, n > 1)
-    are refused naming the field; the sampler's other settings pass."""
-    assert unsupported(SamplingParams()) == []
+    """Grammars, json_schema, a non-text response_format, tools and n > 1,
+    which the port refused until its grammar slice, are parsed into the
+    request's parameters and served; a malformed one is refused naming what
+    is wrong; the sampler's other settings pass as before."""
+    assert _params_from_request({}).grammar == ""
+    digits = 'root ::= [0-9]+'
+    for body, want in (({"grammar": digits}, digits),
+                       ({"json_schema": {"type": "integer"}},
+                        json_schema_to_gbnf({"type": "integer"})),
+                       ({"response_format": {"type": "json_object"}}, JSON_GBNF),
+                       ({"response_format": {"type": "json_schema", "json_schema": {
+                           "schema": {"enum": ["a", "b"]}}}},
+                        json_schema_to_gbnf({"enum": ["a", "b"]})),
+                       ({"response_format": {"type": "text"}, "n": 3,
+                         "tools": [{"type": "function", "function": {"name": "f"}}]}, "")):
+        assert _params_from_request(body).grammar == want
+    assert _parse_n({"n": 3}) == 3 and _parse_n({"n": 9}) is None
+    for body, what in (({"grammar": 'root ::= "a'}, "unterminated"),
+                       ({"json_schema": {"type": "tuple"}}, "unsupported schema type"),
+                       ({"response_format": {"type": "xml"}}, "response_format"),
+                       ({"response_format": {"type": "json_schema"}}, "schema is required")):
+        with pytest.raises(ValueError, match=what):
+            _params_from_request(body)
     ok = SamplingParams(presence_penalty=0.5, frequency_penalty=0.2, repeat_penalty=1.1,
                         typical_p=0.9, mirostat=2, mirostat_tau=4.0, logit_bias={3: 1.0},
                         n_probs=2)
-    assert unsupported(ok) == []
-    p = SamplingParams(grammar='root ::= "a"')
-    assert unsupported(p) == ["grammar"]
-    with pytest.raises(ValueError, match="grammar"):
-        port_engine.submit("hi", p)
-    for body, field in (({"grammar": 'root ::= "a"'}, "grammar"),
-                        ({"tools": [{"type": "function"}]}, "tools"),
-                        ({"json_schema": {"type": "object"}}, "json_schema"),
-                        ({"response_format": {"type": "json_object"}}, "response_format"),
-                        ({"n": 2}, "n > 1")):
-        with pytest.raises(ValueError, match=field):
-            _params_from_request(body)
+    text = port_engine.generate_text("hi", SamplingParams(
+        temperature=0.0, max_tokens=6, grammar=digits))
+    assert text and text.isdigit()
+    evs = list(port_engine.generate("hi", SamplingParams(grammar='root ::= "a')))
+    assert evs[-1].finish_reason == "error" and "invalid grammar" in evs[-1].text
     got = _params_from_request({
         "presence_penalty": 0.5, "frequency_penalty": 0.2, "repeat_penalty": 1.1,
         "typical_p": 0.9, "mirostat": 2, "mirostat_tau": 4.0, "mirostat_eta": 0.2,
@@ -234,8 +248,26 @@ async def test_http_round_trip(port_engine):
         st, body = await _http(srv.port, "GET", "/v1/models")
         assert st == 200 and json.loads(body)["data"][0]["id"] == "tiny-q4km"
         st, body = await _http(srv.port, "POST", "/v1/completions",
-                               {"prompt": "x", "grammar": 'root ::= "a"'})
-        assert st == 400 and b"grammar" in body
+                               {"prompt": "x", "grammar": 'root ::= [0-9]+', "max_tokens": 4,
+                                "temperature": 0, "n": 2})
+        choices = json.loads(body)["choices"]
+        assert st == 200 and [c["index"] for c in choices] == [0, 1]
+        assert all(c["text"].isdigit() for c in choices)
+        st, body = await _http(srv.port, "POST", "/v1/chat/completions",
+                               {"messages": msgs, "max_tokens": 3,
+                                "response_format": {"type": "json_object"},
+                                "tools": [{"type": "function", "function": {"name": "f"}}]})
+        assert st == 200 and json.loads(body)["choices"][0]["message"]["role"] == "assistant"
+        tools = [{"type": "function", "function": {"name": "f"}}]
+        for bad, what in (({"n": 9}, b"n must be"),
+                          ({"n": 2, "tools": tools}, b"cannot be combined with tools"),
+                          ({"tools": tools, "tool_choice": "required",
+                            "grammar": 'root ::= "a"'}, b"forced tool_choice"),
+                          ({"json_schema": {"type": "tuple"}}, b"schema type"),
+                          ({"grammar": "root ::= [broken"}, b"unterminated")):
+            st, body = await _http(srv.port, "POST", "/v1/chat/completions",
+                                   {"messages": msgs, **bad})
+            assert st == 400 and what in body, (bad, body)
         st, body = await _http(srv.port, "POST", "/v1/completions",
                                {"prompt": "x", "logprobs": 2, "max_tokens": 3})
         lp = json.loads(body)["choices"][0]["logprobs"]

@@ -98,3 +98,15 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
     # and the explicit CPU request works
     cfg, _, _ = load_model(path, device="cpu")
     assert cfg.dim == 512
+
+
+def test_grammar_and_tool_modules_are_scanned():
+    """The grammar package and the tool-call module, pure Python copies of
+    the JAX package's, are among the files and modules checked above."""
+    names = set(_module_names())
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    for mod in ("grammar", "grammar.gbnf", "grammar.json_schema", "grammar.matcher",
+                "serving.tool_calls"):
+        assert f"{port.__name__}.{mod}" in names
+        assert mod.replace(".", os.sep) + (".py" if "." in mod else os.sep + "__init__.py") \
+            in files

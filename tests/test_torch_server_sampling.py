@@ -142,9 +142,9 @@ def test_logprob_responses_match_jax(chat, stream):
             coro = srv._stream(w, "x", obj + ".chunk", "p", params, chat) if stream \
                 else srv._complete(w, "x", obj, "p", params, chat)
         else:
-            pre = srv.engine.submit("p", params)
-            coro = srv._stream(w, "x", obj + ".chunk", pre, chat, False, params) if stream \
-                else srv._complete(w, "x", obj, pre, chat, params)
+            pres = [srv.engine.submit("p", params)]
+            coro = srv._stream(w, "x", obj + ".chunk", pres, chat, False, params) if stream \
+                else srv._complete(w, "x", obj, pres, chat, params)
         asyncio.run(coro)
         out.append(_parse(w.data, stream))
     assert out[1] == out[0]
