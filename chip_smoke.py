@@ -70,7 +70,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               (bytes over 3.35 TB/s or bf16 operations over 989 TFLOP/s,
               whichever is larger) and its share of the kernel's time
 4. forward  — synthesize the 8B Q4_K_M GGUF (``tools.synth.cached_model``:
-              under the temp dir, reused when present), load it on the card,
+              under the temp dir, reused when present; with its three FIM
+              tokens, which leave every tensor as it was), load it on the card,
               run a prefill and 16 greedy decode steps through the kernels,
               then again through the plain versions on the card, fed the
               kernel run's tokens; compare the logits of every step; then one
@@ -129,13 +130,34 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               ffn_down through the dequantize path, the head through the
               8-bit decode kernel), held against the plain versions (int8:
               to INT8_LOGITS_TOL, every call shadowed)
-10. serve-paged — that engine freed, a second one from the environment
-              (``build_engine_from_env``: q8_0 paged KV, 4 pages of 1024): a
+10. ctx-shift — the same engine with ``ctx_shift`` over 4 slots of 128
+              positions at multi_step 4, a bf16 and a q8_0 cache: two greedy
+              requests, EOG banned, of 144 tokens each, far past their slots,
+              so the engine shifts (at least twice a run); the first shift
+              held against the same shift of a copy of the slot's rows on
+              the CPU, the matmul and flash calls of the two decode steps
+              after it shadowed by their plain versions; the time of one
+              shift of a full 1024-position slot; then bf16 over slots of
+              1024 with one request of a 1000-token prompt and 32 tokens,
+              shifted after 19 (the same checks, the decode kernels reading
+              up to 1024 keys)
+11. slots   — the same engine served with the prefix cache on and
+              ``SLOT_SAVE_PATH`` in a temporary directory: a prompt of about
+              100 tokens cold, again from its kept slot, that slot saved,
+              erased and restored, the prompt once more through
+              ``/completion`` (the second run's tokens from the restored
+              rows; ``t_save_ms``, ``t_restore_ms``, the file's bytes), and
+              ``/props``, ``/tokenize``, ``/detokenize``, ``/apply-template``,
+              ``GET /slots`` and ``/infill`` (from the GGUF's FIM tokens)
+              each answering with its checked shape
+12. serve-paged — a second engine from the environment, sharing the first
+              one's weights (``build_engine_from_env``: q8_0 paged KV, 4 pages
+              of 1024; its ``load_s`` builds the engine, not the weights): a
               1,500-token prompt, longer than a slot's contiguous share, with
               three short ones; the pool cannot hold all four, so one waits;
               the prompts' chunks through the paged q8_0 tensor-core flash
               kernel (the long prompt's time to its first token printed)
-11. q2k     — that engine freed, the 8B Q2_K GGUF (Q2_K embedding and
+13. q2k     — both engines freed, the 8B Q2_K GGUF (Q2_K embedding and
               projections, Q6_K head; ``cached_model(quant="q2_k")``) loaded
               under ``LGT_SCALE_LAYOUT=mixed``, its resident weight bytes
               printed; a prefill and 16 greedy steps through the kernels
@@ -147,7 +169,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               dequantize path, as in the JAX package), and the 17 steps with
               the weights relaid flat through the base body's 2-bit kernel,
               then one 512-token chunk through its tensor-core kernel
-12. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
+14. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
               projections, Q6_K head; ``cached_model(quant="q5_k")``) under
               the default layout (compact), its resident bytes printed, the
               17 steps of a longer prompt against the plain versions (its
@@ -159,21 +181,34 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               ``matmul_xla``) and whose logits are held against the plain
               versions, and the served time to the first token of a prompt
               of at most 512 tokens
-13. the ``{"kernels": [...]}`` line, the card line, and the final
+15. lora    — that engine freed, the 8b widths at 2 layers (Q4_K_M,
+              ``cached_model(n_layers=2)``) loaded with a rank-16 adapter on
+              all seven projections and the head (``tools.synth.synth_lora``;
+              every projection unfused, its quantized base on its kernels)
+              and loaded dense (``mode="dense"``, bf16; its 512-token chunk
+              held against the quantized bases' without the adapter), then
+              with the adapter merged in f32, the oracle: a
+              512-token prefill chunk and 4 greedy decode steps at B = 4,
+              every 2/4-bit and 8-bit call shadowed by its plain version, the
+              logits within LOGITS_TOL of the oracle's; each projection's
+              base and adapted call timed at 4 and 512 rows
+16. the ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
 (the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
 run and engine run, the serve phase, the decode-dispatch phase's two served
 runs, the structured phase's two served runs, each variant's
-kernel run and serve, the serve-paged phase, the q2k phase's kernel run,
+kernel run and serve, each ctx-shift run (its shadowed calls' plain
+launches taken back out), the slots phase, the serve-paged phase, the q2k
+phase's kernel run,
 serve, 512-token chunk, flat base run and base chunk, the base, xsum, split
 and int8 variants' chunks, the q5k phase's kernel run, serve, 512-token
-chunk and long-prompt serve) and read just after; comparison runs fall
-outside those windows.
+chunk and long-prompt serve, the lora phase's chunk and decode steps) and
+read just after; comparison runs fall outside those windows.
 
-Every engine but the structured phase's second is built with the slot
-prefix cache off, so a phase that sends one prompt twice times and counts
+Every engine but the structured phase's second and the slots phase's is
+built with the slot prefix cache off, so a phase that sends one prompt twice times and counts
 two cold prefills, as it did before the port had the cache.
 
 The breakdown of a decode step and a prefill chunk by kernel is
@@ -182,6 +217,7 @@ The breakdown of a decode step and a prefill chunk by kernel is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import http.client
@@ -490,22 +526,21 @@ def phase_plans(torch, reports: dict) -> None:
     for line in plans + plans_i8 + plans_lb + plans_tc + plans_i8tc + plans_t8:
         if line["local_bytes"] or line.get("spill_stores", 0):
             raise AssertionError(f"kernel spills: {line}")
+    # the four libraries' instances: cuobjdump (and, where a library was
+    # already built, ptxas) runs for each at once
+    tc = {"quant_matmul_lowbit_tc": ("quant_matmul_lowbit_tc_kernel", ("HGMMA",)),
+          "quant_matmul_int8_tc": ("quant_matmul_int8_tc_kernel", ("IGMMA", "HGMMA")),
+          "quant_matmul_8bit_tc": ("quant_matmul_8bit_tc_kernel", ("HGMMA",)),
+          "flash_attention_tc": ("flash_attention_tc_kernel", ("HGMMA",))}
+    sources = {"quant_matmul_8bit_tc": "quant_matmul_tc"}
+    with concurrent.futures.ThreadPoolExecutor(len(tc)) as pool:
+        insts = {key: pool.submit(_tc_instances, reports[sources.get(key, key)],
+                                  sources.get(key, key), kernel, gmma)
+                 for key, (kernel, gmma) in tc.items()}
+        insts = {key + "_instances": f.result() for key, f in insts.items()}
     emit({"phase": "plans", "quant_matmul_8bit": plans, "quant_matmul_4bit_int8": plans_i8,
           "quant_matmul_lowbit": plans_lb, "quant_matmul_lowbit_tc": plans_tc,
-          "quant_matmul_lowbit_tc_instances": _tc_instances(
-              reports["quant_matmul_lowbit_tc"], "quant_matmul_lowbit_tc",
-              "quant_matmul_lowbit_tc_kernel", ("HGMMA",)),
-          "quant_matmul_int8_tc": plans_i8tc,
-          "quant_matmul_int8_tc_instances": _tc_instances(
-              reports["quant_matmul_int8_tc"], "quant_matmul_int8_tc",
-              "quant_matmul_int8_tc_kernel", ("IGMMA", "HGMMA")),
-          "quant_matmul_8bit_tc": plans_t8,
-          "quant_matmul_8bit_tc_instances": _tc_instances(
-              reports["quant_matmul_tc"], "quant_matmul_tc", "quant_matmul_8bit_tc_kernel",
-              ("HGMMA",)),
-          "flash_attention_tc_instances": _tc_instances(
-              reports["flash_attention_tc"], "flash_attention_tc", "flash_attention_tc_kernel",
-              ("HGMMA",))})
+          "quant_matmul_int8_tc": plans_i8tc, "quant_matmul_8bit_tc": plans_t8, **insts})
 
 
 def _err(got, want, tol):
@@ -1074,7 +1109,9 @@ def phase_engine(torch):
     from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
     from llama_gguf_inference_tpu_torch.tools.synth import cached_model
     t0 = time.time()
-    path = cached_model("8b", seed=0)
+    # the FIM tokens rename three filler pieces and add three metadata keys
+    # (the slots phase's /infill); every tensor is the same bytes
+    path = cached_model("8b", seed=0, fim=True)
     t1 = time.time()
     engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024, prefix_cache=False),
                              device="cuda")
@@ -1084,7 +1121,7 @@ def phase_engine(torch):
           "device_gb": torch.cuda.memory_allocated() / 1e9,
           "layers": engine.cfg.n_layers, "dim": engine.cfg.dim,
           "vocab": engine.cfg.vocab_size})
-    return engine, path
+    return engine
 
 
 def _greedy_run(torch, engine, ids, steps, cache=None, feed=None):
@@ -1929,20 +1966,12 @@ def mm_variant(name):
 def shadowed(torch, wrapper, errs):
     """Each call of the matmul wrapper ``wrapper`` also runs its plain
     version on the same arguments, and ``errs`` gets the error of the
-    kernel's output relative to the plain output's scale."""
-    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
-    real, plain = getattr(qm, wrapper), getattr(qm, wrapper + "_plain")
-
-    def both(*args):
-        y = real(*args)
-        want = plain(*args)
-        errs.append(((y - want).abs().max() / (want.abs().max() + 1e-12)).item())
-        return y
-    setattr(qm, wrapper, both)
-    try:
+    kernel's output relative to the plain output's scale
+    (:func:`shadowed_live` with no limit)."""
+    by_name: dict[str, list] = {}
+    with shadowed_live(torch, (wrapper,), by_name, {"left": float("inf")}):
         yield
-    finally:
-        setattr(qm, wrapper, real)
+    errs.extend(by_name.get(wrapper, ()))
 
 
 def _variant_forward(torch, engine, label, want, absent=(), shadow=None, tol=LOGITS_TOL,
@@ -2047,19 +2076,42 @@ def phase_variants(torch, engine):
     return paths
 
 
-def phase_serve_paged(torch, path):
-    """A q8_0 paged engine from the environment: 4 slots over 4 pages of
-    1024 (a contiguous slot's share is 1024). One streamed request of about
-    1,500 prompt tokens and three short ones at once need 5 pages, so one
-    of them waits at the head of the line until pages come back. The
+@contextlib.contextmanager
+def shared_weights(loaded):
+    """Engines built while this is open take the weights ``loaded`` (an
+    engine) holds, rather than reading and repacking its file again, when
+    they ask for that file in the same residency without an adapter; the
+    file's metadata is still read."""
+    from llama_gguf_inference_tpu_torch.gguf.reader import GGUFReader
+    from llama_gguf_inference_tpu_torch.runtime import engine as eng_mod
+    real, path = eng_mod.load_model, loaded.model_path
+
+    def load(model_path, device, fuse=True, mode="quant", lora_path="", lora_scale=1.0):
+        if model_path != path or mode != "quant" or lora_path or not fuse:
+            return real(model_path, device, fuse=fuse, mode=mode, lora_path=lora_path,
+                        lora_scale=lora_scale)
+        return loaded.cfg, loaded.params, GGUFReader(model_path)
+
+    with _patched(eng_mod, "load_model", load):
+        yield
+
+
+def phase_serve_paged(torch, loaded):
+    """A q8_0 paged engine from the environment (``build_engine_from_env``,
+    sharing the loaded engine's weights: ``shared_weights``): 4 slots over 4
+    pages of 1024 (a contiguous slot's share is 1024). One streamed request
+    of about 1,500 prompt tokens and three short ones at once need 5 pages,
+    so one of them waits at the head of the line until pages come back. The
     prompts' chunks run the paged q8_0 tensor-core flash kernel, the decode
-    steps its CUDA-core kernel."""
+    steps its CUDA-core kernel. Its ``load_s`` is the engine's construction
+    from the environment without a load of the weights."""
     from llama_gguf_inference_tpu_torch.serving.openai_server import build_engine_from_env
-    os.environ.update({"MODEL_PATH": path, "MAX_SLOTS": "4", "CTX": "4096",
+    os.environ.update({"MODEL_PATH": loaded.model_path, "MAX_SLOTS": "4", "CTX": "4096",
                        "KV_CACHE_TYPE": "q8_0", "KV_LAYOUT": "paged",
                        "KV_PAGE_SIZE": "1024"})
     t0 = time.time()
-    engine = build_engine_from_env()
+    with shared_weights(loaded):
+        engine = build_engine_from_env()
     torch.cuda.synchronize()
     load_s = time.time() - t0
     alloc = engine.alloc
@@ -2405,6 +2457,508 @@ def phase_q4k_prefill(torch, engine):
     return [chunk, served]
 
 
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+@contextlib.contextmanager
+def shadowed_live(torch, names, errs, window):
+    """Inside a launch window: while ``window["left"]`` > 0, each call of
+    the wrappers ``names`` (matmul wrappers of ``ops.quant_matmul``, flash
+    wrappers of ``ops.flash_attention``) also runs its plain version on the
+    same arguments, ``errs[name]`` gets the kernel's error relative to the
+    plain output's scale, and ``window["left"]`` counts down. The plain
+    launches are taken back out of the counters, so the window shows the
+    kernels' launches alone."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    saved = {}
+    for name in names:
+        mod = fa if name.startswith("flash") else qm
+        real, plain = getattr(mod, name), getattr(mod, name + "_plain")
+
+        def both(*args, _real=real, _plain=plain, _name=name):
+            y = _real(*args)
+            if window["left"] > 0:
+                window["left"] -= 1
+                n_plain = _build.LAUNCHES.get(_name + ".plain", 0)
+                want = _plain(*args)
+                if n_plain:
+                    _build.LAUNCHES[_name + ".plain"] = n_plain
+                else:
+                    _build.LAUNCHES.pop(_name + ".plain", None)
+                errs.setdefault(_name, []).append(
+                    ((y.float() - want.float()).abs().max()
+                     / (want.float().abs().max() + 1e-12)).item())
+            return y
+        saved[name] = (mod, real)
+        setattr(mod, name, both)
+    try:
+        yield
+    finally:
+        for name, (mod, real) in saved.items():
+            setattr(mod, name, real)
+
+
+SHIFT_KINDS = {"bf16": "flash_attention", "q8_0": "flash_attention_q8"}
+SHIFT_CTX = 128                # each slot's positions in the ctx-shift phase
+SHIFT_TOKENS = 144             # tokens a request generates there
+SHIFT_PROMPTS = (PROMPT, "request 2: " + PROMPT + ", and then " + PROMPT)
+SHIFT_LONG = (1024, 1000, 32)  # the bf16 run at a full slot: ctx, prompt, tokens
+
+
+def _slot_rows(cache, b):
+    """Slot b's rows of every cache field, on the host."""
+    import dataclasses
+    return {f.name: [t[b].to("cpu", copy=True) for t in getattr(cache, f.name)]
+            for f in dataclasses.fields(cache)}
+
+
+def _shift_vs_cpu(torch, cache, cfg, b, keep, discard, before) -> dict:
+    """Slot b's rows after the card's shift against the same shift of a
+    one-slot copy of its rows taken before, run on the CPU: V, every row
+    below ``keep`` and the other positions' K scales as the ctx-shift tests
+    hold them; K values (bf16) or codes (q8_0) equal but for a few one
+    apart where the f32 rotation rounds differently."""
+    import dataclasses
+
+    from llama_gguf_inference_tpu_torch.models.llama import shift_cache_slot, with_sink
+    cpu = type(cache)(**{f: [with_sink(t[None]) for t in rows] for f, rows in before.items()})
+    shift_cache_slot(cpu, cfg, 0, keep, discard)
+    near = total = 0
+    for f in (x.name for x in dataclasses.fields(cache)):
+        for got_t, want_t, old in zip(getattr(cache, f), getattr(cpu, f), before[f]):
+            got, want = got_t[b].cpu(), want_t[0]
+            if not torch.equal(got[:, :keep], old[:, :keep]):
+                raise AssertionError(f"ctx shift: {f} changed below keep")
+            if f.startswith("v"):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"ctx shift: {f} differs from the CPU's")
+                continue
+            if f == "k_s":
+                if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+                    raise AssertionError("ctx shift: K scales differ from the CPU's")
+                continue
+            if got.dtype == torch.bfloat16:
+                # one bf16 ulp of the value, or where the rotation cancels to
+                # near 0, an f32 rounding of the row's scale (the card's FMAs)
+                diff = (got.float() - want.float()).abs()
+                bad = diff > 2 ** -7 * want.float().abs() + 2 ** -20 * want.float().abs().max()
+            else:
+                diff = (got.int() - want.int()).abs()
+                bad = diff > 1
+            if bool(bad.any()):
+                raise AssertionError(f"ctx shift: {f} off by {diff.max().item()}")
+            near += int((diff > 0).sum())
+            total += diff.numel()
+    if near > 0.01 * total:
+        raise AssertionError(f"ctx shift: {near} of {total} K values one apart")
+    return {"k_one_apart": near, "k_compared": total}
+
+
+def _time_shift(torch, engine, timer, kind) -> float:
+    """Median ms of one shift of a slot full to 1024 positions (4 slots of
+    1024, the decode phases' cache), keep 512, discard 256."""
+    from llama_gguf_inference_tpu_torch.models.llama import shift_cache_slot
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, make_kv_cache
+    cache, _ = make_kv_cache(engine.cfg, EngineConfig(max_slots=4, ctx=1024, kv_dtype=kind),
+                             engine.device)
+    with torch.inference_mode():
+        ms = timer(lambda: shift_cache_slot(cache, engine.cfg, 1, 512, 256), iters=5)
+    del cache
+    return ms
+
+
+def _shift_run(torch, engine, kind, ctx, prompts, tokens, min_shifts) -> dict:
+    """Greedy requests ``prompts`` (text or ids) on four slots of ``ctx``
+    positions at multi_step 4 with a ``kind`` cache, every EOG token banned
+    (``logit_bias``), each generating ``tokens``: the engine shifts instead
+    of finishing, at least ``min_shifts`` times (``stats()``). The first
+    shift is held against the same shift of a copy of the slot's rows on
+    the CPU; the matmul and that kind's flash calls of the two decode steps
+    after it are shadowed by their plain versions on the same inputs. One
+    launch window."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.runtime import engine as eng_mod
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig
+    from llama_gguf_inference_tpu_torch.runtime.sampler import SamplingParams
+    fa_name = SHIFT_KINDS[kind]
+    ban = {int(t): -1e9 for t in engine.tokenizer.eog_ids}
+    layers = engine.cfg.n_layers
+    ecfg = EngineConfig(max_slots=4, ctx=ctx, kv_dtype=kind, multi_step=4,
+                        ctx_shift=True, prefix_cache=False)
+    real_shift = eng_mod.shift_cache_slot
+    first: dict = {}
+    window = {"left": 0}
+    errs: dict[str, list] = {}
+
+    def shift(cache, cfg, b, keep, discard):
+        if first:
+            return real_shift(cache, cfg, b, keep, discard)
+        before = _slot_rows(cache, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_shift(cache, cfg, b, keep, discard)
+        torch.cuda.synchronize()
+        first.update(first_shift_ms=round((time.perf_counter() - t0) * 1e3, 3), keep=keep,
+                     discard=discard, **_shift_vs_cpu(torch, cache, cfg, b, keep,
+                                                      discard, before))
+        # the two decode steps after it: 4 matmuls a layer and the head,
+        # one flash call a layer, each step
+        window["left"] = 2 * (5 * layers + 1)
+        return None
+
+    t0 = time.time()
+    with kv_engine(torch, engine, ecfg), _patched(eng_mod, "shift_cache_slot", shift), \
+            shadowed_live(torch, (qm.NAME_4BIT, qm.NAME_8BIT, fa_name), errs, window):
+        shifts0 = engine.total_ctx_shifts
+        _build.reset_launches()
+        outs = [engine.submit(p, SamplingParams(temperature=0.0, max_tokens=tokens,
+                                                logit_bias=ban))[1]
+                for p in prompts]
+        while engine.step():
+            pass
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        shifts = engine.stats()["ctx_shifts"] - shifts0
+    wall = time.time() - t0
+    for out in outs:
+        evs = []
+        while not out.empty():
+            evs.append(out.get_nowait())
+        if len(evs) != tokens or evs[-1].finish_reason != "length":
+            raise AssertionError(f"ctx-shift {kind} at {ctx}: {len(evs)} tokens, "
+                                 f"ended {evs[-1] if evs else None}")
+    if shifts < min_shifts or not first:
+        raise AssertionError(f"ctx-shift {kind} at {ctx}: {shifts} shifts")
+    bad = {n: max(e) for n, e in errs.items()
+           if max(e) > (FLASH_TOL if n.startswith("flash") else MATMUL_TOL)}
+    if set(errs) != {qm.NAME_4BIT, qm.NAME_8BIT, fa_name} or bad:
+        raise AssertionError(f"ctx-shift {kind} at {ctx}: shadowed calls {errs}")
+    _check_launches(f"ctx-shift {kind} at {ctx}", launches,
+                    (qm.NAME_4BIT, qm.NAME_8BIT, fa_name, fa_name + "_tc"))
+    return {"phase": "ctx-shift", "ok": True, "kind": kind, "ctx": ctx,
+            "requests": len(prompts), "tokens_each": tokens, "ctx_shifts": shifts, **first,
+            "shadow_calls": {n: len(e) for n, e in errs.items()},
+            "shadow_rel_err_max": {n: max(e) for n, e in errs.items()},
+            "wall_s": round(wall, 3), "launches": launches}
+
+
+def phase_ctx_shift(torch, engine):
+    """llama-server ``--ctx-shift`` on the loaded Q4_K_M engine
+    (``_shift_run``): for a bf16 and a q8_0 cache, slots of SHIFT_CTX
+    positions and two requests of SHIFT_TOKENS each, far past their slots
+    (at least two shifts a run), each followed by the time of one shift of a
+    full 1024-position slot; then bf16 at a full slot (SHIFT_LONG: a prompt
+    near the slot's size, so a shift comes after a short generation and the
+    shadowed decode kernels read up to 1024 keys)."""
+    paths = []
+    timer = Timer(torch)
+    for kind in SHIFT_KINDS:
+        line = _shift_run(torch, engine, kind, SHIFT_CTX, SHIFT_PROMPTS, SHIFT_TOKENS, 2)
+        line["shift_ms_1024"] = round(_time_shift(torch, engine, timer, kind), 4)
+        emit(line)
+        paths.append(line["launches"])
+    del timer
+    ctx, rows, tokens = SHIFT_LONG
+    ids = engine.tokenizer.encode(_prompt_of(engine, rows))[:rows]
+    line = _shift_run(torch, engine, "bf16", ctx, [ids], tokens, 1)
+    emit(line)
+    paths.append(line["launches"])
+    return paths
+
+
+def _get(port, path, key):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("GET", path, headers={"Authorization": f"Bearer {key}"})
+    r = conn.getresponse()
+    out = json.loads(r.read())
+    conn.close()
+    if r.status != 200:
+        raise AssertionError(f"{path}: {r.status} {out}")
+    return out
+
+
+def phase_slots(torch, engine):
+    """llama-server's utility paths and slot files on the loaded Q4_K_M
+    engine, served with the prefix cache on (4 slots of 1024) and
+    ``SLOT_SAVE_PATH`` in a temporary directory: a prompt of about 100
+    tokens cold, then again from its kept slot (the unsaved run); that slot
+    saved, erased and restored; the prompt once more through
+    ``/completion``, which must give the unsaved run's tokens from the
+    restored rows. Each of the eight paths answers with its checked shape
+    (``/infill`` from the model's FIM tokens). One launch window."""
+    import tempfile
+
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig
+    text, ids = _words(engine, 100)
+    tok = engine.tokenizer
+    tmp = tempfile.mkdtemp(prefix="slots-")
+    launches: dict[str, int] = {}
+    out: dict = {"prompt_tokens": len(ids)}
+    body = {"prompt": text, "max_tokens": 16, "temperature": 0}
+    try:
+        os.environ["SLOT_SAVE_PATH"] = tmp
+        with kv_engine(torch, engine, EngineConfig(max_slots=4, ctx=1024, prefix_cache=True)), \
+                serving(torch, engine, launches) as (port, key):
+            cold = _json_post(port, "/v1/completions", body, key)["choices"][0]["text"]
+            r0 = _get(port, "/props", key)["prefix_tokens_reused"]
+            unsaved = _json_post(port, "/v1/completions", body, key)["choices"][0]["text"]
+            props = _get(port, "/props", key)
+            if props["prefix_tokens_reused"] - r0 != len(ids) - 1:
+                raise AssertionError(f"slots: reuse {props['prefix_tokens_reused'] - r0}")
+            slots = _get(port, "/slots", key)
+            kept = [s for s in slots if s["prefix_cached_tokens"] > 0]
+            if len(slots) != 4 or len(kept) != 1 or any(s["state"] for s in slots):
+                raise AssertionError(f"slots: {slots}")
+            b, n_kept = kept[0]["id"], kept[0]["prefix_cached_tokens"]
+            saved = _json_post(port, f"/slots/{b}?action=save", {"filename": "slot.npz"}, key)
+            erased = _json_post(port, f"/slots/{b}?action=erase", {}, key)
+            if _get(port, "/slots", key)[b]["prefix_cached_tokens"] != 0:
+                raise AssertionError("slots: erase left a claim")
+            restored = _json_post(port, f"/slots/{b}?action=restore",
+                                  {"filename": "slot.npz"}, key)
+            if not saved["n_saved"] == erased["n_erased"] == restored["n_restored"] == n_kept:
+                raise AssertionError(f"slots: {saved} {erased} {restored}")
+            r1 = _get(port, "/props", key)["prefix_tokens_reused"]
+            again = _json_post(port, "/completion", body, key)
+            if again["choices"][0]["text"] != unsaved \
+                    or _get(port, "/props", key)["prefix_tokens_reused"] - r1 != len(ids) - 1:
+                raise AssertionError("slots: the restored slot did not give the unsaved run")
+            plain_ids = tok.encode(text, add_bos=False)
+            toks = _json_post(port, "/tokenize", {"content": text}, key)["tokens"]
+            pieces = _json_post(port, "/tokenize", {"content": "hello world",
+                                                    "with_pieces": True}, key)["tokens"]
+            detok = _json_post(port, "/detokenize", {"tokens": ids}, key)["content"]
+            tmpl = _json_post(port, "/apply-template", {"messages": [
+                {"role": "user", "content": "hello world"}]}, key)["prompt"]
+            sp = tok.special
+            infill = _json_post(port, "/infill", {"input_prefix": "the quick", "input_suffix":
+                                                  "lazy dog", "max_tokens": 8,
+                                                  "temperature": 0}, key)
+            n_infill = 4 + len(tok.encode("the quick", add_bos=False)) \
+                + len(tok.encode("lazy dog", add_bos=False))
+            if toks != plain_ids or detok != tok.decode(ids) or "hello world" not in tmpl \
+                    or [p["id"] for p in pieces] != tok.encode("hello world", add_bos=False) \
+                    or infill["object"] != "text_completion" \
+                    or infill["usage"]["prompt_tokens"] != n_infill or min(
+                        sp.fim_pre_id, sp.fim_suf_id, sp.fim_mid_id) < 0:
+                raise AssertionError("slots: a utility path answered wrongly")
+            props = _get(port, "/props", key)
+            if props["model"] != engine.model_name or props["ctx"] != 1024:
+                raise AssertionError(f"slots: /props {props}")
+            out.update({"cold_equals_unsaved": cold == unsaved, "n_saved": saved["n_saved"],
+                        "file_bytes": os.path.getsize(os.path.join(tmp, "slot.npz")),
+                        "t_save_ms": saved["t_save_ms"],
+                        "t_restore_ms": restored["t_restore_ms"],
+                        "infill_prompt_tokens": n_infill,
+                        "paths_checked": ["/props", "/completion", "/tokenize", "/detokenize",
+                                          "/apply-template", "GET /slots",
+                                          "POST /slots/{id}?action=save|erase|restore",
+                                          "/infill"]})
+    finally:
+        os.environ.pop("SLOT_SAVE_PATH", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check_launches("slots", launches, (qm.NAME_4BIT, fa.NAME_TC))
+    emit({"phase": "slots", "ok": True, **out, "launches": launches})
+    return launches
+
+
+LORA_SHAPE, LORA_LAYERS = "8b", 2   # the lora phase's widths, at this depth
+LORA_RANK, LORA_ALPHA = 16, 32.0
+
+
+def _lora_model():
+    """The 8b shape's Q4_K_M file at LORA_LAYERS layers and a rank-16
+    adapter on its seven projections of every layer and on the head."""
+    import tempfile
+
+    from llama_gguf_inference_tpu_torch.tools.synth import cached_model, synth_lora
+    path = cached_model(LORA_SHAPE, seed=0, n_layers=LORA_LAYERS)
+    adapter = os.path.join(tempfile.gettempdir(), f"llama_gguf_port_lora_{os.getpid()}.gguf")
+    synth_lora(adapter, LORA_SHAPE, seed=1, rank=LORA_RANK, alpha=LORA_ALPHA,
+               n_layers=LORA_LAYERS)
+    return path, adapter
+
+
+def _merged_dense(torch, dense, alpha, pairs):
+    """The oracle: every adapted weight of the dense parameters replaced by
+    W + alpha / r * B @ A in f32 (on the card), for the adapter's
+    ``load_adapter`` pairs."""
+    from llama_gguf_inference_tpu_torch.ops.linear import DenseLinear
+    from llama_gguf_inference_tpu_torch.runtime.lora import _resolve
+    for name, (a, b) in pairs.items():
+        cont, key = _resolve(dense, name)
+        w = cont[key]
+        ba = torch.from_numpy(b).cuda() @ torch.from_numpy(a).cuda()
+        cont[key] = DenseLinear(w=w.w.float() + alpha / a.shape[0] * ba,
+                                out_features=w.out_features, in_features=w.in_features)
+    return len(pairs)
+
+
+def _lora_kernel_rows(torch, qm, params, timer) -> list[dict]:
+    """Each adapted projection of layer 0 at 4 and 512 rows: its base's
+    call (the body ``select_kernel`` picks) and the whole adapted call."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    layer = params["layers"][0]
+    for name in ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down"):
+        lw = layer[name]
+        for B in (4, 512):
+            x = torch.randn(B, lw.in_features, generator=g, device="cuda").bfloat16()
+            rows.append({"proj": name, "shape": f"{lw.out_features}x{lw.in_features}", "B": B,
+                         "body": qm.select_kernel(lw.base, B),
+                         "base_ms": round(timer(lambda: lw.base.matmul(x)), 4),
+                         "lora_ms": round(timer(lambda: lw.matmul(x)), 4)})
+    return rows
+
+
+def phase_lora(torch):
+    """GGUF LoRA and dense residency at the 8b widths, LORA_LAYERS layers:
+    the Q4_K_M file loaded with a rank-16 adapter on all seven projections
+    and the head (every projection unfused: LoraLinear over the
+    quantized-resident base, which runs its kernels) and loaded dense
+    (``mode="dense"``, bf16). The dense weights' 512-token chunk is held to
+    LOGITS_TOL of the quantized bases' without the adapter; then their
+    adapted weights are merged in f32, the oracle. A 512-token prefill chunk (qkv's three, o, gate and up
+    through the 4-bit tensor-core kernel, ffn_down through the dequantize
+    path, the head's row through the 8-bit kernel) and 4 greedy decode steps
+    at B = 4 (the 4-bit and 8-bit decode kernels), each a launch window,
+    every call of those wrappers then shadowed by its plain version, and the
+    logits held to LOGITS_TOL of the oracle's fed the same tokens. Then the
+    base and adapted calls of each projection timed at 4 and 512 rows."""
+    from llama_gguf_inference_tpu_torch.models.llama import KVCache, forward
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.ops.linear import LoraLinear
+    from llama_gguf_inference_tpu_torch.runtime.loader import load_model
+    from llama_gguf_inference_tpu_torch.runtime.lora import load_adapter
+    from llama_gguf_inference_tpu_torch.runtime.tokenizer import from_gguf_metadata
+    path, adapter = _lora_model()
+    try:
+        t0 = time.time()
+        cfg, params, reader = load_model(path, "cuda", lora_path=adapter)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        tok = from_gguf_metadata(reader.metadata)
+        reader.close()
+        t0 = time.time()
+        _, dense, reader = load_model(path, "cuda", mode="dense", fuse=False)
+        torch.cuda.synchronize()
+        dense_load_s = time.time() - t0
+        reader.close()
+        alpha, pairs = load_adapter(adapter)
+    finally:
+        os.remove(adapter)
+    wrapped = [params["output"]] + [lw for layer in params["layers"] for lw in layer.values()
+                                    if isinstance(lw, LoraLinear)]
+    if not len(wrapped) == len(pairs) == 7 * LORA_LAYERS + 1 \
+            or any("attn_qkv" in layer or "ffn_gateup" in layer for layer in params["layers"]):
+        raise AssertionError("lora: expected every projection and the head adapted, unfused")
+    dev = torch.device("cuda")
+    words = "the quick brown fox jumps over the lazy dog and".split()
+    ids = tok.encode(" ".join(words[i % len(words)] for i in range(600)))[:512]
+    L = cfg.n_layers
+
+    def chunk(p):
+        with torch.inference_mode():
+            lg = forward(p, cfg, torch.tensor([ids], dtype=torch.int32, device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev),
+                         KVCache.zeros(cfg, 1, 1024, dev),
+                         logits_at=torch.tensor([511], device=dev))[0, 0]
+        torch.cuda.synchronize()
+        return lg
+
+    def decode(p, feed=None):
+        """4 prompts of 16 tokens prefilled together, then 4 steps at B = 4
+        (each fed the argmax or ``feed``); the steps' logits, tokens, ms."""
+        cache = KVCache.zeros(cfg, 4, 1024, dev)
+        prompts = torch.tensor([ids[16 * i:16 * i + 16] for i in range(4)], dtype=torch.int32,
+                               device=dev)
+        with torch.inference_mode():
+            lg = forward(p, cfg, prompts, torch.zeros(4, dtype=torch.int32, device=dev), cache,
+                         logits_at=torch.full((4,), 15, device=dev))[:, 0]
+            torch.cuda.synchronize()
+            logits, toks, ms = [], [], []
+            _build.reset_launches()
+            for s in range(4):
+                nxt = lg.argmax(-1).int() if feed is None else feed[s]
+                toks.append(nxt)
+                t0 = time.perf_counter()
+                lg = forward(p, cfg, nxt[:, None],
+                             torch.full((4,), 16 + s, dtype=torch.int32, device=dev), cache)[:, 0]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg)
+        return logits, toks, ms, dict(_build.LAUNCHES)
+
+    # dense residency on its own: the bf16 weights' chunk (DenseLinear's
+    # bf16 product on the card) against the quantized bases' without the
+    # adapter, before the dense weights are merged into the oracle
+    bases = {**params, "output": params["output"].base,
+             "layers": [{n: lw.base if isinstance(lw, LoraLinear) else lw
+                         for n, lw in layer.items()} for layer in params["layers"]]}
+    errs_dense, _ = _compare([chunk(dense)], [chunk(bases)])
+    del bases
+    n_adapted = _merged_dense(torch, dense, alpha, pairs)
+    _build.reset_launches()
+    t0 = time.time()
+    k_chunk = chunk(params)
+    chunk_s = time.time() - t0
+    chunk_launches = dict(_build.LAUNCHES)
+    want = {qm.NAME_4BIT_TC: 6 * L, qm.NAME_DEQUANT: L, qm.NAME_8BIT: 1}
+    got = {n: c for n, c in chunk_launches.items() if n.startswith("quant_matmul")}
+    if got != want or {n: c for n, c in chunk_launches.items() if n.startswith("flash")} \
+            != {fa.NAME_TC: L}:
+        raise AssertionError(f"lora chunk: launches {chunk_launches}, want {want}")
+    k_logits, k_toks, step_ms, dec_launches = decode(params)
+    _check_launches("lora decode", dec_launches, (qm.NAME_4BIT, qm.NAME_8BIT, fa.NAME))
+    errs: dict[str, list] = {}
+    window = {"left": float("inf")}
+    with shadowed_live(torch, (qm.NAME_4BIT, qm.NAME_8BIT), errs, window):
+        chunk(params)
+        decode(params, feed=k_toks)
+    if any(max(e) > MATMUL_TOL for e in errs.values()) \
+            or len(errs.get(qm.NAME_4BIT, ())) != 6 * L + 7 * L * 5:
+        raise AssertionError(f"lora: shadowed calls {({n: len(e) for n, e in errs.items()})}")
+    o_chunk = chunk(dense)
+    o_logits, *_ = decode(dense, feed=k_toks)
+    k_rows = [k_chunk] + [r for lg in k_logits for r in lg]
+    if any(r.shape != (cfg.vocab_size,) or not bool(torch.isfinite(r).all()) for r in k_rows):
+        raise AssertionError("lora: non-finite or misshapen logits")
+    errs_c, _ = _compare([k_chunk], [o_chunk])
+    errs_d, agree = _compare(k_rows[1:], [r for lg in o_logits for r in lg])
+    timer = Timer(torch)
+    with torch.inference_mode():
+        rows = _lora_kernel_rows(torch, qm, params, timer)
+    del timer, params, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lora", "ok": True, "layers": L, "rank": LORA_RANK, "alpha": LORA_ALPHA,
+          "adapted": n_adapted, "load_s": round(load_s, 3),
+          "dense_load_s": round(dense_load_s, 3), "chunk_wall_s": round(chunk_s, 4),
+          "decode_step_ms": [round(m, 3) for m in step_ms],
+          "dense_chunk_rel_err_vs_quant": errs_dense[0],
+          "chunk_rel_err_vs_merged": errs_c[0], "decode_rel_err_vs_merged_max": max(errs_d),
+          "decode_argmax_agree": agree, "logits_tol": LOGITS_TOL,
+          "shadow_calls": {n: len(e) for n, e in errs.items()},
+          "shadow_rel_err_max": {n: max(e) for n, e in errs.items()},
+          "kernel_rows": rows, "chunk_launches": chunk_launches,
+          "decode_launches": dec_launches})
+    return [chunk_launches, dec_launches]
+
+
 _FA_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention.cu"
 _FA_TC_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention_tc.cu"
 _FA_JAX = "llama_gguf_inference_tpu/ops/flash_attention.py"
@@ -2520,54 +3074,73 @@ def main() -> int:
     phase = "device"
     engine = None
     launches: dict[str, int] = {}
+    seconds: dict[str, float] = {}
+    t_last = time.time()
+
+    def enter(name):
+        """Book the time since the last phase began to that phase."""
+        nonlocal phase, t_last
+        now = time.time()
+        seconds[phase] = round(seconds.get(phase, 0.0) + now - t_last, 1)
+        phase, t_last = name, now
+
     try:
         card = phase_device(torch)
-        phase = "build"
+        enter("build")
         reports = phase_build()
-        phase = "plans"
+        enter("plans")
         phase_plans(torch, reports)
-        phase = "kernels"
+        enter("kernels")
         with torch.inference_mode():
             rows = phase_kernels(torch, Timer(torch))
         torch.cuda.empty_cache()
-        phase = "load"
-        engine, path = phase_engine(torch)
-        phase = "forward"
+        enter("load")
+        engine = phase_engine(torch)
+        enter("forward")
         bf16_prefill = phase_forward(torch, engine)
-        phase = "q4k-prefill"
+        enter("q4k-prefill")
         paths = phase_q4k_prefill(torch, engine)
         torch.cuda.empty_cache()
-        phase = "kv-forward"
+        enter("kv-forward")
         paths.append(phase_kv_forward(torch, engine, bf16_prefill))
         torch.cuda.empty_cache()
-        phase = "serve"
+        enter("serve")
         paths.append(phase_serve(torch, engine))
-        phase = "decode-dispatch"
+        enter("decode-dispatch")
         paths += phase_decode_dispatch(torch, engine, card)
-        phase = "structured"
+        enter("structured")
         paths += phase_structured(torch, engine, card)
-        phase = "variants"
+        enter("variants")
         paths += phase_variants(torch, engine)
+        enter("ctx-shift")
+        paths += phase_ctx_shift(torch, engine)
+        torch.cuda.empty_cache()
+        enter("slots")
+        paths.append(phase_slots(torch, engine))
+        enter("serve-paged")
+        paths.append(phase_serve_paged(torch, engine))
         engine.stop()
         engine = None
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "serve-paged"
-        paths.append(phase_serve_paged(torch, path))
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase = "q2k"
+        enter("q2k")
         paths += phase_q2k(torch)
         gc.collect()
         torch.cuda.empty_cache()
-        phase = "q5k"
+        enter("q5k")
         paths += phase_q5k(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("lora")
+        paths += phase_lora(torch)
         emit({"phase": "memory", "max_allocated_gb":
               torch.cuda.max_memory_allocated() / 1e9})
         for counts in paths:
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
         line = kernels_line(rows, launches)
+        enter("end")
+        emit({"phase": "seconds", **seconds, "total": round(sum(seconds.values()), 1)})
     except Exception:  # noqa: BLE001 — report the failing phase, exit non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False})

@@ -217,6 +217,55 @@ def attention(layer: Params, cfg: ModelConfig, x: torch.Tensor,
     return matmul(layer["attn_output"], ctx.reshape(B, T, H * hd).to(x.dtype))
 
 
+def shift_cache_slot(cache, cfg: ModelConfig, b: int, keep: int, discard: int) -> None:
+    """Context shift (llama-server ``--ctx-shift``): roll slot ``b``'s KV
+    left by ``discard`` positions beyond ``keep`` and re-rope the moved K by
+    ``-angle(discard)``, in place, as the JAX package's function does.
+
+    The delta rotation is exact for the scalings the port has (none, linear,
+    llama3), whose angle is linear in the position, up to the re-rounding
+    of already rounded values (llama.cpp's K-shift has the same property).
+    A bf16 cache rolls and rotates K and rolls V. A quantized cache
+    (``runtime.kv_cache``) dequantizes slot b's K to f32, rolls, rotates
+    and requantizes it, and rolls V's codes, scales and minimums directly,
+    which is exact. Positions below ``keep`` are never written, so they
+    stay bit-identical.
+
+    Every cache tensor is a view into storage that runs on into sink rows
+    (:func:`sink_zeros`), so the shift writes into slot b's rows of the
+    same tensors (``copy_``) and never rebinds them; rolls run over the
+    ``S`` axis of the slot's (KVH, S, ...) view, never over the storage or
+    the packed 4-bit ``D`` axis. Contiguous caches only.
+    """
+    first = cache.k[0] if isinstance(cache, KVCache) else cache.k_q[0]
+    delta = torch.full((1, 1), float(discard), dtype=torch.float32, device=first.device)
+    cos_d, sin_d = rope_angles(delta, cfg.rope_dim, cfg.rope_base, cfg)
+
+    def rope_rolled(kf: torch.Tensor) -> torch.Tensor:
+        """(KVH, S, D) f32 -> rolled along S and rotated by -delta."""
+        x = torch.roll(kf, -discard, dims=1).transpose(0, 1)[None]   # (1, S, KVH, D)
+        return apply_rope(x, cos_d, -sin_d)[0].transpose(0, 1)
+
+    def put(buf: torch.Tensor, new: torch.Tensor) -> None:
+        buf[b, :, keep:].copy_(new[:, keep:])
+
+    if isinstance(cache, KVCache):
+        for k, v in zip(cache.k, cache.v):
+            put(k, rope_rolled(k[b].float()).to(k.dtype))
+            put(v, torch.roll(v[b], -discard, dims=1))
+        return
+    cls = type(cache)
+    for li in range(cfg.n_layers):
+        kf = cls.dequantize(*(getattr(cache, f)[li][b] for f in cls.K_FIELDS),
+                            dtype=torch.float32)
+        for f, new in zip(cls.K_FIELDS, cls.quantize(rope_rolled(kf))):
+            buf = getattr(cache, f)[li]
+            put(buf, new.to(buf.dtype))
+        for f in cls.V_FIELDS:
+            buf = getattr(cache, f)[li]
+            put(buf, torch.roll(buf[b], -discard, dims=1))
+
+
 def ffn_swiglu(layer: Params, x: torch.Tensor) -> torch.Tensor:
     if "ffn_gateup" in layer:
         gate, up = matmul(layer["ffn_gateup"], x).chunk(2, dim=-1)

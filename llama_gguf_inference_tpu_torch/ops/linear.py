@@ -61,7 +61,15 @@ class DenseLinear:
                            out_features=o, in_features=i)
 
     def matmul(self, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
-        y = torch.matmul(x.float(), self.w.float().t())
+        """x @ W.T, summed in f32 (XLA's dot with ``preferred_element_type``
+        f32): on the card a bf16 weight takes a bf16 product that
+        accumulates and returns f32; otherwise the f32 product of the same
+        values."""
+        if x.device.type == "cuda" and x.dtype == self.w.dtype == torch.bfloat16:
+            y = torch.mm(x.reshape(-1, self.in_features), self.w.t(),
+                         out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        else:
+            y = torch.matmul(x.float(), self.w.float().t())
         return y.to(out_dtype or x.dtype)
 
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
@@ -202,6 +210,47 @@ class QuantLinear:
 
 
 @dataclasses.dataclass
+class LoraLinear:
+    """A low-rank adapter riding a base weight (llama-server ``--lora``):
+
+        y = base(x) + scale * (x @ A.T) @ B.T
+
+    with A (r, in) and B (out, r) from a GGUF adapter file and ``scale =
+    user_scale * alpha / r`` (llama.cpp's convention; ``runtime.lora``).
+    The base stays quantized-resident and runs its kernels; the rank-r
+    products are plain ``torch.matmul`` (the JAX package computes them in
+    XLA, outside any Pallas kernel). :func:`fuse_linears` refuses wrapped
+    weights, so adapted projections stay unfused."""
+
+    base: DenseLinear | QuantLinear
+    a: torch.Tensor                   # (r, in) bf16
+    b: torch.Tensor                   # (out, r) bf16
+    scale: float = 1.0
+
+    @property
+    def out_features(self) -> int:
+        return self.base.out_features
+
+    @property
+    def in_features(self) -> int:
+        return self.base.in_features
+
+    def matmul(self, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+        # the base output stays f32 until the delta is added: where base and
+        # delta nearly cancel, rounding the base to bf16 first leaves an
+        # error of one ulp of |base|, which dwarfs the sum (ggml's mul_mat
+        # writes f32, so llama.cpp has the same property)
+        y = self.base.matmul(x, out_dtype=torch.float32)
+        delta = torch.matmul(torch.matmul(x.float(), self.a.float().t()), self.b.float().t())
+        return (y + delta * self.scale).to(out_dtype or x.dtype)
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """The merged weight W + scale * B @ A, (out, in)."""
+        w = self.base.dequantize().float()
+        return (w + self.scale * (self.b.float() @ self.a.float())).to(dtype)
+
+
+@dataclasses.dataclass
 class QuantEmbedding:
     """Quantized-resident token embedding table.
 
@@ -243,7 +292,7 @@ def embed_lookup(tok_embd, token_ids: torch.Tensor) -> torch.Tensor:
         *token_ids.shape, tok_embd.shape[-1])
 
 
-LinearWeight = DenseLinear | QuantLinear
+LinearWeight = DenseLinear | QuantLinear | LoraLinear
 
 
 def matmul(w: LinearWeight, x: torch.Tensor) -> torch.Tensor:

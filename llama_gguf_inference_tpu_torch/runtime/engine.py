@@ -35,16 +35,28 @@
   share a pool of ``max_slots * ctx`` tokens; a request reserves the pages
   for its prompt and ``max_tokens`` at admission and waits at the head of
   the line while the pool is short)
+- context shift (``ctx_shift``, llama-server ``--ctx-shift``, contiguous
+  caches): a slot that cannot hold the next dispatch keeps its first
+  positions, drops half the rest and re-ropes the moved K
+  (``models.llama.shift_cache_slot``) instead of finishing at its capacity
+- slot save/restore/erase (``slot_op``, llama-server ``POST
+  /slots/{id}?action=...``, contiguous caches): a free slot's kept prompt
+  and its KV rows to an ``.npz`` file in the JAX engine's format and back,
+  run on the scheduler thread with no dispatch in flight
+- weights quantized-resident or dense (``mode``), with a GGUF LoRA adapter
+  (``lora_path``, ``lora_scale``)
 
-Not yet here (the JAX engine has them): speculation, slot save/restore,
-context shift and a decode step captured as a CUDA graph.
+Not yet here (the JAX engine has them): speculation and a decode step
+captured as a CUDA graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
+import time
 import traceback
 import uuid
 from typing import Iterator
@@ -53,7 +65,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.llama import KVCache, forward
+from ..models.llama import KVCache, forward, shift_cache_slot
 from .kv_cache import QuantKV, QuantKV4, QuantKV41
 from .loader import load_model
 from .paged_kv import PageAllocator, PagedKV, PagedQuantKV
@@ -85,6 +97,19 @@ class EngineConfig:
     # and prefills only the suffix. Contiguous layout only: a paged slot
     # returns its pages to the pool
     prefix_cache: bool = True
+    # weight residency: "quant" (quantized-resident, the kernels) or "dense"
+    # (every weight dequantized to bf16, the correctness baseline)
+    mode: str = "quant"
+    # context shift (llama-server --ctx-shift): when a slot's KV region
+    # fills mid-generation, keep its first positions (the prompt, at most
+    # half the region), discard half the rest, roll the remainder left and
+    # re-rope the cached K, and generate on instead of finishing "length".
+    # Contiguous KV only; off by default, as in llama-server
+    ctx_shift: bool = False
+    # GGUF LoRA adapter (llama-server --lora / --lora-scaled; runtime.lora),
+    # wrapped around the loaded weights (the quantized base stays resident)
+    lora_path: str = ""
+    lora_scale: float = 1.0
 
 
 def make_kv_cache(cfg, ecfg: EngineConfig, device):
@@ -130,6 +155,7 @@ class _Slot:
     matcher: object = None             # grammar.GrammarMatcher (constrained)
     static_bias: np.ndarray | None = None   # (V,) logit_bias row under a grammar
     mask_dirty: bool = False           # matcher advanced; the card's row is stale
+    shift_keep: int | None = None      # positions every context shift kept
 
 
 def _utf8_split(buf: bytes, flush: bool = False) -> tuple[str, bytes]:
@@ -167,7 +193,19 @@ class InferenceEngine:
                              "KV (4-bit paged pools are not built)")
         if ecfg.multi_step < 1:
             raise ValueError(f"multi_step must be >= 1, got {ecfg.multi_step}")
-        cfg, params, reader = load_model(model_path, self.device, fuse=True)
+        if ecfg.ctx_shift and ecfg.kv_layout != "contig":
+            raise ValueError("ctx_shift requires the contiguous KV layout "
+                             "(cached K is re-roped in place)")
+        if ecfg.ctx_shift and ecfg.ctx < 4 * (ecfg.multi_step + 1):
+            # a shift then keeps up to ctx // 2 positions and may discard a
+            # whole margin of multi_step + 1 below them: the next tokens
+            # would overwrite kept prompt rows
+            raise ValueError(f"ctx_shift needs ctx >= 4 * (multi_step + 1) = "
+                             f"{4 * (ecfg.multi_step + 1)}, got {ecfg.ctx}")
+        cfg, params, reader = load_model(model_path, self.device, fuse=True, mode=ecfg.mode,
+                                         lora_path=ecfg.lora_path,
+                                         lora_scale=ecfg.lora_scale)
+        self.model_path = str(model_path)
         self.cfg = cfg
         self.params = params
         self.metadata = dict(reader.metadata)
@@ -181,7 +219,13 @@ class InferenceEngine:
         self.dispatches = 0               # decode dispatches issued
         self.continuations = 0            # ... of them issued before the previous one was read
         self.total_generated = 0
+        self.total_prompt_tokens = 0
         self.total_prefix_reused = 0      # prompt tokens skipped by slot reuse
+        self.total_ctx_shifts = 0         # context shifts (ctx_shift)
+        self._last_decode_s = 0.0         # EWMA of a decode step's wall time
+        # slot save/restore/erase, run on the scheduler thread between
+        # dispatches: (op, slot, path, reply queue)
+        self._slot_ops: "queue.Queue[tuple[str, int, str, queue.Queue]]" = queue.Queue()
         self._token_trie = None           # grammar.TokenTrie, built on first use
         self._grammar_cache: dict = {}    # GBNF text -> parsed Grammar
         self._queue: "queue.Queue[tuple[str, list[int], SamplingParams, queue.Queue]]" = queue.Queue()
@@ -238,6 +282,12 @@ class InferenceEngine:
             self._thread.join(timeout=30)
             self._thread = None
         self._pending = None
+        while True:   # slot operations that will never run
+            try:
+                *_, reply = self._slot_ops.get_nowait()
+            except queue.Empty:
+                break
+            reply.put(("error", "engine stopped before the slot operation ran"))
 
     def _loop(self) -> None:
         while not self._stop_evt.is_set():
@@ -281,19 +331,168 @@ class InferenceEngine:
     def n_active(self) -> int:
         return sum(s.state != "free" for s in self.slots)
 
+    def queue_depth(self) -> int:
+        return self._queue.qsize() + len(self._waiting)
+
+    def slots_info(self) -> list[dict]:
+        """Per-slot scheduler state (llama-server ``GET /slots``: ``state`` 0
+        = idle, 1 = processing)."""
+        return [{"id": i, "state": 0 if s.state == "free" else 1,
+                 "n_ctx": self.ecfg.ctx, "n_past": s.offset,
+                 "n_prompt": len(s.prompt_ids), "n_generated": len(s.generated),
+                 "request_id": s.request_id if s.state != "free" else "",
+                 "prefix_cached_tokens": len(s.cached_ids)}
+                for i, s in enumerate(self.slots)]
+
     def stats(self) -> dict:
-        return {"model": self.model_name, "slots_total": self.ecfg.max_slots,
-                "slots_active": self.n_active(), "multi_step": self.ecfg.multi_step,
-                "total_generated": self.total_generated,
-                "prefix_tokens_reused": self.total_prefix_reused,
-                "dispatches": self.dispatches, "continuations": self.continuations}
+        """The JAX engine's keys where the port has the feature, and the
+        dispatch counters."""
+        return {
+            "model": self.model_name, "slots_total": self.ecfg.max_slots,
+            "slots_active": self.n_active(), "queue_depth": self.queue_depth(),
+            "ctx": self.ecfg.ctx, "total_generated": self.total_generated,
+            "total_prompt_tokens": self.total_prompt_tokens,
+            "prefix_tokens_reused": self.total_prefix_reused,
+            **({"ctx_shifts": self.total_ctx_shifts} if self.ecfg.ctx_shift else {}),
+            "decode_step_ewma_ms": round(self._last_decode_s * 1000, 3),
+            **({"kv_pages_free": self.alloc.free_pages,
+                "kv_pages_total": self.alloc.table.shape[1],
+                "kv_page_size": self.ecfg.kv_page_size}
+               if self.alloc is not None else {}),
+            "multi_step": self.ecfg.multi_step,
+            "dispatches": self.dispatches, "continuations": self.continuations}
 
     def step(self) -> bool:
         """One scheduler iteration. Returns True if any work was done."""
         self._reap_cancelled()
+        ops = self._run_slot_ops()
         admitted = self._admit()
         decoded = self._decode()
-        return admitted or decoded
+        return ops or admitted or decoded
+
+    # -- slot save/restore (llama-server --slot-save-path) --------------------
+    def slot_op(self, op: str, b: int, path: str = "") -> dict:
+        """Save, restore or erase slot b's kept prompt (llama-server ``POST
+        /slots/{id}?action=...``). Thread-safe: with the scheduler running
+        the operation runs on its thread between dispatches. ValueError on
+        a refused operation."""
+        if not 0 <= b < self.ecfg.max_slots:
+            raise ValueError(f"no such slot {b}")
+        if op != "erase" and self.alloc is not None:
+            raise ValueError("slot save/restore requires the contiguous KV layout "
+                             "(paged slots have no private region)")
+        if self._thread is None or not self._thread.is_alive():
+            return self._exec_slot_op(op, b, path)
+        reply: "queue.Queue" = queue.Queue()
+        self._slot_ops.put((op, b, path, reply))
+        self._wake.set()
+        try:
+            status, payload = reply.get(timeout=600)
+        except queue.Empty:
+            raise ValueError("engine stopped before the slot operation ran") from None
+        if status == "error":
+            raise ValueError(payload)
+        return payload
+
+    def _run_slot_ops(self) -> bool:
+        ran = False
+        while True:
+            try:
+                op, b, path, reply = self._slot_ops.get_nowait()
+            except queue.Empty:
+                return ran
+            ran = True
+            try:
+                reply.put(("ok", self._exec_slot_op(op, b, path)))
+            except FileNotFoundError:
+                reply.put(("error", "no such slot file"))
+            except Exception as e:  # noqa: BLE001 — the caller's 400
+                reply.put(("error", str(e)))
+
+    def _cache_fields(self) -> list[str]:
+        return [f.name for f in dataclasses.fields(self.cache)]
+
+    @torch.inference_mode()
+    def _exec_slot_op(self, op: str, b: int, path: str) -> dict:
+        """One slot operation, in the JAX engine's file format: an ``.npz``
+        of ``ids`` (int32), ``kind`` (the cache class), ``model`` and one
+        stacked (L, KVH, n, ...) array per cache field, bf16 stored as its
+        uint16 bit pattern. A dispatch in flight is drained first, so no
+        free row's parked write lands in the rows read or written."""
+        if self._pending is not None:
+            pend, self._pending = self._pending, None
+            self._drain(pend)
+        slot = self.slots[b]
+        if slot.state != "free":
+            raise ValueError(f"slot {b} is busy")
+        if op == "erase":
+            n = len(slot.cached_ids)
+            slot.cached_ids = []
+            return {"id_slot": b, "n_erased": n}
+        if op == "save":
+            return self._save_slot(b, path)
+        if op == "restore":
+            return self._restore_slot(b, path)
+        raise ValueError(f"unknown slot action {op!r}")
+
+    def _save_slot(self, b: int, path: str) -> dict:
+        slot = self.slots[b]
+        n = len(slot.cached_ids)
+        if n == 0:
+            raise ValueError(f"slot {b} has no cached prompt to save")
+        t0 = time.monotonic()
+        payload = {"ids": np.asarray(slot.cached_ids, np.int32),
+                   "kind": type(self.cache).__name__, "model": self.model_name}
+        for f in self._cache_fields():
+            arr = torch.stack([t[b, :, :n] for t in getattr(self.cache, f)]).cpu()
+            # numpy has no bf16: the raw bit pattern, as the JAX engine stores it
+            payload[f] = (arr.view(torch.int16).numpy().view(np.uint16)
+                          if arr.dtype == torch.bfloat16 else arr.numpy())
+        # a file object keeps the exact name (np.savez on a str appends .npz)
+        with open(path, "wb") as fh:
+            np.savez(fh, **payload)
+        return {"id_slot": b, "filename": os.path.basename(path), "n_saved": n,
+                "t_save_ms": round((time.monotonic() - t0) * 1e3, 1)}
+
+    def _restore_slot(self, b: int, path: str) -> dict:
+        """Write a saved prompt's rows into slot b (in place: the cache
+        tensors carry sink rows) and make it the slot's claim, capped as
+        ``_release`` caps one, so the free row parked at the claim's end
+        stays inside the slot."""
+        t0 = time.monotonic()
+        kind = type(self.cache).__name__
+        with np.load(path) as data:
+            if str(data["kind"]) != kind:
+                raise ValueError(f"cache kind mismatch: file has {data['kind']}, "
+                                 f"engine runs {kind}")
+            if str(data["model"]) != self.model_name:
+                raise ValueError(f"slot file was saved from a different model "
+                                 f"({data['model']})")
+            ids = [int(t) for t in data["ids"]]
+            n = len(ids)
+            if n > self._slot_cap(b):
+                raise ValueError(f"saved prompt ({n} tokens) exceeds the slot "
+                                 f"capacity {self._slot_cap(b)}")
+            rows = {}
+            for f in self._cache_fields():
+                layers = getattr(self.cache, f)
+                arr = data[f]
+                if layers[0].dtype == torch.bfloat16 and arr.dtype == np.uint16:
+                    t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                else:
+                    t = torch.from_numpy(arr)
+                want = (len(layers), *layers[0][b, :, :n].shape)
+                if t.dtype != layers[0].dtype or tuple(t.shape) != want:
+                    raise ValueError(f"slot file field {f}: {tuple(t.shape)} "
+                                     f"{t.dtype}, expected {want} {layers[0].dtype}")
+                rows[f] = t
+        for f, t in rows.items():
+            for layer, new in zip(getattr(self.cache, f), t):
+                layer[b, :, :n].copy_(new)
+        self.slots[b].cached_ids = ids[:self._claim_cap()]
+        return {"id_slot": b, "filename": os.path.basename(path),
+                "n_restored": len(self.slots[b].cached_ids),
+                "t_restore_ms": round((time.monotonic() - t0) * 1e3, 1)}
 
     def _reap_cancelled(self) -> None:
         if not self._cancelled:
@@ -338,6 +537,11 @@ class InferenceEngine:
         stream order: a dispatch in flight keeps the table it was issued
         with)."""
         self.cache.page_table.copy_(to_device(self.alloc.table, self.device))
+
+    def _claim_cap(self) -> int:
+        """The longest claim a free slot may keep: its parked decode row, at
+        the claim's end, stays inside the slot."""
+        return max(0, self.ecfg.ctx - self._max_advance() - 1)
 
     def _max_advance(self) -> int:
         """Worst-case per-dispatch offset advance: a slot's reservation keeps
@@ -413,6 +617,7 @@ class InferenceEngine:
                     break
                 self._push_table()
             slot.state = "active"
+            self.total_prompt_tokens += len(ids)
             slot.request_id = rid
             slot.prompt_ids = ids
             slot.generated = []
@@ -423,6 +628,7 @@ class InferenceEngine:
             slot.matcher = matcher
             slot.static_bias = None
             slot.mask_dirty = False
+            slot.shift_keep = None
             # the counts start from the prompt, so the repeat, frequency and
             # presence penalties see every token of the sequence so far; a
             # grammar's mask is in the bias row already, so the first token,
@@ -626,13 +832,17 @@ class InferenceEngine:
         return {"host": host, "event": event, "next_tok": tok, "next_off": off,
                 "advance": advance, "offsets": offsets_np, "n_steps": n_steps,
                 "want_lp": want_lp, "active": active,
-                "gen": {b: self.slots[b].request_id for b in active}}
+                "gen": {b: self.slots[b].request_id for b in active},
+                "t0": time.monotonic()}
 
     def _drain(self, pend: dict) -> None:
         """Wait for a dispatch's tokens (its event: the one point where the
         host waits for the card) and emit them."""
         if pend["event"] is not None:
             pend["event"].synchronize()
+        dt = (time.monotonic() - pend["t0"]) / pend["n_steps"]
+        self._last_decode_s = 0.9 * self._last_decode_s + 0.1 * dt \
+            if self._last_decode_s else dt
         host = [h.numpy() for h in pend["host"]]
         toks = host[0]
         lps, tv, ti = host[1:] if pend["want_lp"] else (None, None, None)
@@ -668,6 +878,7 @@ class InferenceEngine:
         active = [b for b, s in enumerate(self.slots) if s.state == "active"]
         if not active:
             return False
+        self._maybe_shift(active)
         n_steps = self._multi_steps_viable(active)
         want_lp = any(self.slots[b].params.n_probs > 0 for b in active)
         self._flush_grammar_masks(active)
@@ -680,6 +891,32 @@ class InferenceEngine:
         else:
             self._drain(pend)
         return True
+
+    # -- context shift ---------------------------------------------------------
+    @torch.inference_mode()
+    def _maybe_shift(self, active: list[int]) -> None:
+        """llama-server --ctx-shift: a slot whose region cannot hold the next
+        dispatch keeps its first ``keep`` positions (the prompt, at most half
+        the region), discards half the rest, and goes on. Runs only with no
+        dispatch in flight: ``_pipeline_ok`` refuses a continuation that
+        would pass a slot's capacity, so a shift never waits behind one (a
+        row past the region would land in the sink rows, and its KV would be
+        lost without an error)."""
+        if not self.ecfg.ctx_shift or self._pending is not None:
+            return
+        margin = self.ecfg.multi_step + 1
+        for b in active:
+            slot = self.slots[b]
+            cap = self._slot_cap(b)
+            if slot.offset + margin < cap:
+                continue
+            keep = min(len(slot.prompt_ids), cap // 2)
+            discard = max(margin, (slot.offset - keep) // 2)
+            shift_cache_slot(self.cache, self.cfg, b, keep, discard)
+            slot.offset -= discard
+            slot.cached_ids = []   # positions no longer match the prompt
+            slot.shift_keep = keep if slot.shift_keep is None else min(slot.shift_keep, keep)
+            self.total_ctx_shifts += 1
 
     # -- emission / termination ---------------------------------------------
     def _emit_token(self, b: int, token_id: int, logprob: float | None = None,
@@ -694,7 +931,9 @@ class InferenceEngine:
             finish = "stop"
         elif n_gen >= slot.params.max_tokens:
             finish = "length"
-        elif slot.offset + 1 >= self._slot_cap(b):
+        elif slot.offset + 1 >= self._slot_cap(b) and not self.ecfg.ctx_shift:
+            # under ctx_shift the scheduler shifts the slot's window before
+            # the next dispatch instead
             finish = "length"
 
         if slot.matcher is not None and finish is None:
@@ -771,10 +1010,14 @@ class InferenceEngine:
         # every generated token that was fed back (the last one's KV is
         # never written; a dispatch's tail past a finish lies beyond the
         # claim). Capped so the free row's parked writes (_decode_inputs)
-        # stay inside the slot
-        claim_cap = max(0, self.ecfg.ctx - self._max_advance() - 1)
-        slot.cached_ids = ((slot.prompt_ids + slot.generated[:-1])[:claim_cap]
-                           if self.ecfg.prefix_cache and self.alloc is None else [])
+        # stay inside the slot; after a context shift only the positions
+        # every shift kept still hold those tokens (the JAX engine keeps the
+        # whole sequence as the claim there)
+        claim = (slot.prompt_ids + slot.generated[:-1])[:self._claim_cap()]
+        if slot.shift_keep is not None:
+            claim = claim[:slot.shift_keep]
+        slot.cached_ids = claim if self.ecfg.prefix_cache and self.alloc is None else []
+        slot.shift_keep = None
         if self.alloc is not None:
             self.alloc.release(b)
             self._push_table()

@@ -3,12 +3,22 @@
 Endpoints:
 
 - ``POST /v1/chat/completions`` — chat templating + generation, JSON or SSE
-- ``POST /v1/completions``       — legacy completions, JSON or SSE
+- ``POST /v1/completions``       — legacy completions, JSON or SSE (also
+  ``POST /completion``)
 - ``GET  /v1/models``            — the single loaded model
 - ``GET  /health``               — public liveness
+- llama-server's own paths, which the reference's clients reach through its
+  passthrough: ``/props`` (the engine's stats), ``POST /tokenize``
+  (``add_special``, ``with_pieces``), ``POST /detokenize``, ``POST
+  /apply-template`` (the chat template, nothing generated), ``GET /slots``,
+  ``POST /slots/{id}?action=save|restore|erase`` (files under
+  ``SLOT_SAVE_PATH``, llama-server's ``--slot-save-path``; a 400 without
+  it) and ``POST /infill`` (fill-in-the-middle in PSM order from the
+  model's FIM tokens; a 501 without them)
 
-``/v1/*`` requires the bearer key when one is configured. Request fields
-follow the JAX package's server:
+Every path but ``/health`` requires the bearer key when one is configured.
+Status codes, error codes and JSON keys are the JAX package's server's.
+Request fields follow it too:
 
 - sampling: temperature, top_p, top_k, min_p, typical_p, the
   presence/frequency/repeat penalties, mirostat with
@@ -40,6 +50,7 @@ import os
 import time
 import uuid
 from typing import Any
+from urllib.parse import parse_qs, urlparse
 
 from ..grammar import JSON_GBNF, json_schema_to_gbnf, parse_gbnf
 from ..runtime.sampler import SamplingParams
@@ -198,6 +209,7 @@ class OpenAIServer:
         self.engine = engine
         self.cfg = config or BackendConfig.from_env()
         self._server: asyncio.AbstractServer | None = None
+        self.started = time.monotonic()
 
     def _authorized(self, headers: dict[str, str]) -> bool:
         if not self.cfg.api_key:
@@ -228,12 +240,26 @@ class OpenAIServer:
                 await send_error(writer, 401, "Invalid API key",
                                  "invalid_request_error", "invalid_api_key")
                 return
-            if path == "/v1/models" and req.method == "GET":
+            if path == "/props":
+                await self.handle_props(writer)
+            elif path == "/v1/models" and req.method == "GET":
                 await self.handle_models(writer)
             elif path == "/v1/chat/completions" and req.method == "POST":
                 await self.handle_generate(req, writer, chat=True)
-            elif path == "/v1/completions" and req.method == "POST":
+            elif path in ("/v1/completions", "/completion") and req.method == "POST":
                 await self.handle_generate(req, writer, chat=False)
+            elif path == "/tokenize" and req.method == "POST":
+                await self.handle_tokenize(req, writer)
+            elif path == "/detokenize" and req.method == "POST":
+                await self.handle_detokenize(req, writer)
+            elif path == "/apply-template" and req.method == "POST":
+                await self.handle_apply_template(req, writer)
+            elif path == "/slots" and req.method == "GET":
+                await send_response(writer, 200, json.dumps(self.engine.slots_info()).encode())
+            elif path.startswith("/slots/") and req.method == "POST":
+                await self.handle_slot_action(req, writer, path)
+            elif path == "/infill" and req.method == "POST":
+                await self.handle_infill(req, writer)
             else:
                 await send_error(writer, 404, f"Unknown endpoint {path}",
                                  "invalid_request_error", "not_found")
@@ -241,6 +267,12 @@ class OpenAIServer:
             pass
         finally:
             writer.close()
+
+    async def handle_props(self, writer) -> None:
+        await send_response(writer, 200, json.dumps({
+            "model": self.engine.model_name,
+            "uptime_seconds": round(time.monotonic() - self.started, 3),
+            **self.engine.stats()}).encode())
 
     async def handle_models(self, writer) -> None:
         await send_response(writer, 200, json.dumps({
@@ -258,13 +290,135 @@ class OpenAIServer:
                            self.engine.metadata.get("tokenizer.chat_template"),
                            bos, eos)
 
-    async def handle_generate(self, req, writer, chat: bool) -> None:
+    @staticmethod
+    def _parse_json(req) -> dict | None:
         try:
             body = json.loads(req.body.decode("utf-8"))
         except (json.JSONDecodeError, UnicodeDecodeError):
-            body = None
+            return None
+        return body if isinstance(body, dict) else None
+
+    # -- llama-server's utility paths -----------------------------------------
+    async def handle_tokenize(self, req, writer) -> None:
+        body = self._parse_json(req)
+        if body is None or "content" not in body:
+            await send_error(writer, 400, "content is required",
+                             "invalid_request_error", "bad_request")
+            return
+        tok = self.engine.tokenizer
+        ids = tok.encode(str(body["content"]), add_bos=bool(body.get("add_special", False)))
+        tokens = [{"id": i, "piece": tok.piece(i)} for i in ids] \
+            if body.get("with_pieces") else ids
+        await send_response(writer, 200, json.dumps({"tokens": tokens}).encode())
+
+    async def handle_detokenize(self, req, writer) -> None:
+        body = self._parse_json(req)
+        if body is None or not isinstance(body.get("tokens"), list):
+            await send_error(writer, 400, "tokens is required",
+                             "invalid_request_error", "bad_request")
+            return
+        tok = self.engine.tokenizer
+        try:
+            ids = [int(t) for t in body["tokens"]]
+        except (TypeError, ValueError):
+            await send_error(writer, 400, "tokens must be integers",
+                             "invalid_request_error", "bad_request")
+            return
+        if any(not 0 <= t < tok.vocab_size for t in ids):
+            await send_error(writer, 400, "token id out of range",
+                             "invalid_request_error", "bad_request")
+            return
+        await send_response(writer, 200, json.dumps({"content": tok.decode(ids)}).encode())
+
+    async def handle_apply_template(self, req, writer) -> None:
+        body = self._parse_json(req)
+        if body is None or not isinstance(body.get("messages"), list):
+            await send_error(writer, 400, "messages is required",
+                             "invalid_request_error", "bad_request")
+            return
+        await send_response(writer, 200, json.dumps(
+            {"prompt": self._render_prompt(body["messages"])}).encode())
+
+    async def handle_slot_action(self, req, writer, path: str) -> None:
+        """``POST /slots/{id}?action=save|restore|erase``: save and restore
+        write and read ``SLOT_SAVE_PATH/<basename of filename>`` (without
+        ``SLOT_SAVE_PATH`` they are refused); erase drops the slot's kept
+        prompt."""
+        sid = path[len("/slots/"):]
+        if not sid.isdigit():
+            await send_error(writer, 400, "slot id must be an integer",
+                             "invalid_request_error", "bad_request")
+            return
+        action = (parse_qs(urlparse(req.path).query).get("action") or [""])[0]
+        if action not in ("save", "restore", "erase"):
+            await send_error(writer, 400, "action must be save, restore or erase",
+                             "invalid_request_error", "bad_request")
+            return
+        full = ""
+        if action != "erase":
+            base = os.environ.get("SLOT_SAVE_PATH", "")
+            if not base:
+                await send_error(writer, 400, "slot save/restore requires "
+                                 "SLOT_SAVE_PATH (llama-server --slot-save-path)",
+                                 "invalid_request_error", "bad_request")
+                return
+            body = self._parse_json(req) or {}
+            fname = os.path.basename(str(body.get("filename") or ""))
+            if not fname:
+                await send_error(writer, 400, "filename is required",
+                                 "invalid_request_error", "bad_request")
+                return
+            full = os.path.join(base, fname)
+        loop = asyncio.get_running_loop()
+        try:
+            out = await loop.run_in_executor(
+                None, lambda: self.engine.slot_op(action, int(sid), full))
+        except ValueError as e:
+            await send_error(writer, 400, str(e), "invalid_request_error", "bad_request")
+            return
+        except FileNotFoundError:
+            await send_error(writer, 400, "no such slot file",
+                             "invalid_request_error", "bad_request")
+            return
+        await send_response(writer, 200, json.dumps(out).encode())
+
+    async def handle_infill(self, req, writer) -> None:
+        """Fill-in-the-middle (llama.cpp ``/infill``), PSM order: ``[BOS]
+        <fim_pre> prefix <fim_suf> suffix <fim_mid>`` with the model's FIM
+        token ids from its GGUF metadata."""
+        body = self._parse_json(req)
+        if body is None or "input_prefix" not in body:
+            await send_error(writer, 400, "input_prefix is required",
+                             "invalid_request_error", "bad_request")
+            return
+        tok = self.engine.tokenizer
+        sp = tok.special
+        if min(sp.fim_pre_id, sp.fim_suf_id, sp.fim_mid_id) < 0:
+            await send_error(writer, 501, "model has no fill-in-the-middle tokens",
+                             "invalid_request_error", "not_supported")
+            return
+        ids = [sp.bos_id] if sp.bos_id >= 0 and sp.add_bos else []
+        ids += [sp.fim_pre_id, *tok.encode(str(body.get("input_prefix", "")), add_bos=False),
+                sp.fim_suf_id, *tok.encode(str(body.get("input_suffix", "")), add_bos=False),
+                sp.fim_mid_id]
+        try:
+            params = _params_from_request(body)
+        except ValueError as e:
+            await send_error(writer, 400, str(e), "invalid_request_error", "bad_request")
+            return
+        pres = [self.engine.submit(ids, params)]
+        rid = "infill-" + uuid.uuid4().hex[:24]
+        if body.get("stream"):
+            include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
+            await self._stream(writer, rid, "text_completion", pres, False,
+                               include_usage, params)
+        else:
+            await self._complete(writer, rid, "text_completion", pres, False, params)
+
+    async def handle_generate(self, req, writer, chat: bool) -> None:
+        body = self._parse_json(req)
         field = "messages" if chat else "prompt"
-        if not isinstance(body, dict) or field not in body \
+        if body is None or field not in body \
                 or (chat and not isinstance(body["messages"], list)):
             await send_error(writer, 400, f"{field} is required",
                              "invalid_request_error", "bad_request")
@@ -556,8 +710,12 @@ def build_engine_from_env(device: str = "cuda"):
     ``CTX`` (total, split over slots) or ``CTX_PER_SLOT``, and the KV cache:
     ``KV_CACHE_TYPE`` (bf16, q8_0, q4_0, q4_1; q5_0/q5_1 run as q8_0),
     ``KV_LAYOUT`` (contig or paged) and ``KV_PAGE_SIZE`` (tokens per page),
-    ``MULTI_STEP``, the decode steps fused in one dispatch (1 = off), and
-    ``PREFIX_CACHE`` (slot prompt caching, on unless 0, false or no)."""
+    ``MULTI_STEP``, the decode steps fused in one dispatch (1 = off),
+    ``PREFIX_CACHE`` (slot prompt caching, on unless 0, false or no),
+    ``CTX_SHIFT`` (llama-server ``--ctx-shift``: on for 1, true or yes),
+    ``LORA_PATH`` and ``LORA_SCALE`` (a GGUF LoRA adapter, llama-server
+    ``--lora`` / ``--lora-scaled``). The slot actions read
+    ``SLOT_SAVE_PATH`` per request."""
     from ..runtime.engine import EngineConfig, InferenceEngine
 
     model_path = os.environ.get("MODEL_PATH", "")
@@ -580,7 +738,10 @@ def build_engine_from_env(device: str = "cuda"):
         kv_page_size=int(os.environ.get("KV_PAGE_SIZE", 1024)),
         multi_step=int(os.environ.get("MULTI_STEP", 1)),
         prefix_cache=os.environ.get("PREFIX_CACHE", "true").lower()
-        not in ("0", "false", "no")), device=device)
+        not in ("0", "false", "no"),
+        ctx_shift=os.environ.get("CTX_SHIFT", "").lower() in ("1", "true", "yes"),
+        lora_path=os.environ.get("LORA_PATH", ""),
+        lora_scale=float(os.environ.get("LORA_SCALE", 1.0))), device=device)
 
 
 def main() -> None:

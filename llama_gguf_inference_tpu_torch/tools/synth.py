@@ -12,9 +12,15 @@ quantizing the tiled floats.
 
 The output is byte-identical to the JAX package's ``bench.py``
 ``bench_model_path`` for the same shape and quant (whose ``general.name``
-reads ``bench-llama3-<shape>-q4km`` whatever the quant).
+reads ``bench-llama3-<shape>-q4km`` whatever the quant). Two options leave
+every tensor of the layers they keep as it was: ``n_layers`` cuts the depth
+(full widths, fewer layers: the tensors of the kept layers, the embedding
+and the head are the same bytes), and ``fim`` makes the last three filler
+pieces the control tokens ``<|fim_prefix|>``, ``<|fim_suffix|>`` and
+``<|fim_middle|>`` and writes their ids to the FIM metadata keys (llama.cpp's
+``/infill``). ``synth_lora`` writes a GGUF LoRA adapter for such a model.
 
-    python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b [--quant q2_k|q5_k] --out model.gguf
+    python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b [--quant q2_k|q5_k] [--layers N] [--fim] --out model.gguf
 """
 
 from __future__ import annotations
@@ -73,13 +79,22 @@ def make_tiny_vocab() -> tuple[list[str], list[float], list[int]]:
 QUANTS = ("q4_k", "q2_k", "q5_k")
 
 
-def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k") -> str:
+FIM_PIECES = ("<|fim_prefix|>", "<|fim_suffix|>", "<|fim_middle|>")
+
+
+def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k",
+                n_layers: int | None = None, fim: bool = False) -> str:
     """Write the ``shape`` model with ``quant`` weights to ``path``; returns
-    ``path``."""
+    ``path``. ``n_layers`` keeps the first layers only; ``fim`` adds the
+    three FIM tokens (the module's docstring)."""
     if quant not in QUANTS:
         raise ValueError(f"quant {quant!r} is not one of {QUANTS}")
     wq = GGMLType[quant.upper()]
-    d = SHAPES[shape]
+    d = dict(SHAPES[shape])
+    if n_layers is not None:
+        if not 1 <= n_layers <= d["n_layers"]:
+            raise ValueError(f"n_layers {n_layers} is not in [1, {d['n_layers']}]")
+        d["n_layers"] = n_layers
     rng = np.random.default_rng(seed)
     head_dim = d["dim"] // d["n_heads"]
     vocab = d["vocab"]
@@ -87,6 +102,10 @@ def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k"
     tokens += [f"<extra_{i}>" for i in range(len(tokens), vocab)]
     scores += [-1e6] * (vocab - len(scores))
     types += [int(TokenType.UNUSED)] * (vocab - len(types))
+    fim_ids = range(vocab - len(FIM_PIECES), vocab)
+    if fim:
+        for i, piece in zip(fim_ids, FIM_PIECES):
+            tokens[i], scores[i], types[i] = piece, 0.0, int(TokenType.CONTROL)
 
     w = GGUFWriter(path)
     w.add(Keys.ARCHITECTURE, "llama")
@@ -107,6 +126,10 @@ def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k"
     w.add(Keys.TOKENIZER_BOS, 1)
     w.add(Keys.TOKENIZER_EOS, 2)
     w.add(Keys.TOKENIZER_UNK, 0)
+    if fim:
+        for key, i in zip((Keys.TOKENIZER_FIM_PRE, Keys.TOKENIZER_FIM_SUF,
+                           Keys.TOKENIZER_FIM_MID), fim_ids):
+            w.add(key, i)
 
     pool = (rng.standard_normal(1 << 20) * 0.02).astype(np.float32)
     qpool: dict[GGMLType, np.ndarray] = {}
@@ -139,21 +162,54 @@ def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k"
     return path
 
 
+def synth_lora(path: str, shape: str = "8b", seed: int = 0, rank: int = 16,
+               alpha: float = 32.0, n_layers: int | None = None) -> str:
+    """Write a GGUF LoRA adapter for the ``shape`` model (its first
+    ``n_layers`` layers): ``general.type=adapter``, ``adapter.type=lora``,
+    ``adapter.lora.alpha`` and, for all seven projections of every layer and
+    the head, F32 ``.lora_a`` (rank, in) and ``.lora_b`` (out, rank) pairs
+    drawn from ``seed`` times 0.02."""
+    d = SHAPES[shape]
+    layers = d["n_layers"] if n_layers is None else n_layers
+    kv = d["n_kv_heads"] * (d["dim"] // d["n_heads"])
+    dims = {"attn_q": (d["dim"], d["dim"]), "attn_k": (kv, d["dim"]),
+            "attn_v": (kv, d["dim"]), "attn_output": (d["dim"], d["dim"]),
+            "ffn_gate": (d["ffn_dim"], d["dim"]), "ffn_up": (d["ffn_dim"], d["dim"]),
+            "ffn_down": (d["dim"], d["ffn_dim"])}
+    shapes = {f"blk.{i}.{t}.weight": dt for i in range(layers) for t, dt in dims.items()}
+    shapes["output.weight"] = (d["vocab"], d["dim"])
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter(path)
+    w.add("general.type", "adapter")
+    w.add(Keys.ARCHITECTURE, "llama")
+    w.add("adapter.type", "lora")
+    w.add("adapter.lora.alpha", np.float32(alpha))
+    for name, (out, inn) in shapes.items():
+        w.add_tensor(name + ".lora_a",
+                     (rng.standard_normal((rank, inn)) * 0.02).astype(np.float32), GGMLType.F32)
+        w.add_tensor(name + ".lora_b",
+                     (rng.standard_normal((out, rank)) * 0.02).astype(np.float32), GGMLType.F32)
+    w.write()
+    return path
+
+
 def cached_model(shape: str = "8b", seed: int = 0, directory: str | None = None,
-                 quant: str = "q4_k") -> str:
+                 quant: str = "q4_k", n_layers: int | None = None, fim: bool = False) -> str:
     """The ``shape`` model with ``quant`` weights from ``seed`` under
     ``directory`` (the temp dir by default), written on first use and reused
     after. The file name holds a hash of the code that writes it, the shape,
-    the seed and the quant, so a file left by another version of the
-    synthesizer is never taken for this one's."""
-    h = hashlib.sha256(repr((SHAPES[shape], seed, quant)).encode())
+    the seed, the quant and the options, so a file left by another version of
+    the synthesizer is never taken for this one's."""
+    opts = () if n_layers is None and not fim else (n_layers, fim)
+    h = hashlib.sha256(repr((SHAPES[shape], seed, quant, *opts)).encode())
     for src in (__file__, inspect.getsourcefile(GGUFWriter), inspect.getsourcefile(quantize)):
         with open(src, "rb") as f:
             h.update(f.read())
     path = os.path.join(directory or tempfile.gettempdir(),
                         f"llama_gguf_port_{shape}_{quant}_{h.hexdigest()[:12]}.gguf")
     if not os.path.exists(path):
-        synth_model(path + ".part", shape, seed, quant=quant)
+        extra = {} if not opts else {"n_layers": n_layers, "fim": fim}
+        synth_model(path + ".part", shape, seed, quant=quant, **extra)
         os.replace(path + ".part", path)
     return path
 
@@ -164,9 +220,11 @@ def main() -> None:
     ap.add_argument("--out", required=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quant", default="q4_k", choices=QUANTS)
+    ap.add_argument("--layers", type=int, default=None, help="keep the first N layers")
+    ap.add_argument("--fim", action="store_true", help="add the three FIM tokens")
     a = ap.parse_args()
     t0 = time.time()
-    synth_model(a.out, a.shape, a.seed, quant=a.quant)
+    synth_model(a.out, a.shape, a.seed, quant=a.quant, n_layers=a.layers, fim=a.fim)
     print(f"wrote {a.out} ({os.path.getsize(a.out) / 1e9:.2f} GB) in "
           f"{time.time() - t0:.1f} s")
 
