@@ -69,10 +69,35 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               or gathered cache), and the least time the card could take
               (bytes over 3.35 TB/s or bf16 operations over 989 TFLOP/s,
               whichever is larger) and its share of the kernel's time
-4. forward  — synthesize the 8B Q4_K_M GGUF (``tools.synth.cached_model``:
+4. load     — synthesize the 8B Q4_K_M GGUF (``tools.synth.cached_model``:
               under the temp dir, reused when present; with its three FIM
-              tokens, which leave every tensor as it was), load it on the card,
-              run a prefill and 16 greedy decode steps through the kernels,
+              tokens, which leave every tensor as it was) and load it cold on
+              the card into a fresh layout cache (``LGT_LAYOUT_CACHE_DIR``, a
+              new directory each run, each model's cache removed once its
+              phases end): the split of ``load_stats`` (native and numpy
+              repack, cache write, staging, copy, carve) and the native
+              repacks, which must equal the file's Q4_K and Q6_K tensors
+   warm-load — the same file loaded again from its cache in this process:
+              every resident tensor equal to the engine's bit for bit, layer
+              0's projections, the embedding and the head equal to the
+              per-tensor path's (``LGT_UPLOAD=tensor``), the bytes it asks
+              of the allocator equal to its tensors'; then the same load in
+              a fresh process: the bytes it adds to
+              ``torch.cuda.memory_allocated()`` within 1% of its tensors'
+              (in this process the allocator's rounding of blocks depends on
+              what earlier phases left cached); ``load_s`` and GB/s
+   cold-start — ``python -m llama_gguf_inference_tpu_torch.serving.
+              openai_server`` as a fresh process over the warm cache, with
+              ``ENGINE_WARMUP=1`` and then 0: seconds to listening, the
+              warm-up's seconds from its log line (``warm-up failed`` fails
+              the run), the first chat's time to its first token, an exit 0
+              on SIGTERM; then the mock backend without ``MODEL_PATH``
+              (``/v1/models`` and one completion)
+   embeddings — ``/v1/embeddings`` for two inputs through the server, each
+              within LOGITS_TOL of the same pooling over a forward on the
+              plain versions; a rerank of three documents ranks the one
+              equal to the query first
+   forward  — run a prefill and 16 greedy decode steps through the kernels,
               then again through the plain versions on the card, fed the
               kernel run's tokens; compare the logits of every step; then one
               512-token prefill chunk (qkv, o and gate_up through the 4-bit
@@ -196,7 +221,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
-(the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
+(the embeddings phase's served requests, the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
 run and engine run, the serve phase, the decode-dispatch phase's two served
 runs, the structured phase's two served runs, each variant's
 kernel run and serve, each ctx-shift run (its shadowed calls' plain
@@ -229,6 +254,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -1105,7 +1131,31 @@ def plain_versions():
         fa.flash_attention = saved_fa
 
 
+def _tensor_types(path) -> dict[str, int]:
+    """The GGUF's tensors counted by their GGML type's name."""
+    from llama_gguf_inference_tpu_torch.gguf.reader import GGUFReader
+    r = GGUFReader(path)
+    try:
+        out: dict[str, int] = {}
+        for info in r.tensors.values():
+            out[info.ggml_type.name] = out.get(info.ggml_type.name, 0) + 1
+        return out
+    finally:
+        r.close()
+
+
+def _drop_cache(engine) -> None:
+    """Remove the layout cache a load wrote (each run measures cold loads)."""
+    d = engine.load_stats.get("layout_cache")
+    if d:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def phase_engine(torch):
+    """The cold load: the 8B Q4_K_M GGUF repacked (Q4_K and Q6_K by the
+    native library: every such tensor must have been), written to a fresh
+    layout cache and shipped by the bulk upload."""
+    from llama_gguf_inference_tpu_torch import native
     from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
     from llama_gguf_inference_tpu_torch.tools.synth import cached_model
     t0 = time.time()
@@ -1113,15 +1163,321 @@ def phase_engine(torch):
     # (the slots phase's /infill); every tensor is the same bytes
     path = cached_model("8b", seed=0, fim=True)
     t1 = time.time()
+    native.reset_repacks()
     engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024, prefix_cache=False),
                              device="cuda")
     torch.cuda.synchronize()
+    load_s = time.time() - t1
+    types = _tensor_types(path)
+    want = types.get("Q4_K", 0) + types.get("Q6_K", 0)
+    got = sum(native.REPACKS.values())
+    stats = engine.load_stats
+    if got != want or stats["repacked_native"] != want or stats["cache_hits"]:
+        raise AssertionError(f"cold load: {got} native repacks of {want} Q4_K/Q6_K tensors, "
+                             f"load_stats {stats}")
     emit({"phase": "load", "ok": True, "synth_s": round(t1 - t0, 3),
-          "load_s": round(time.time() - t1, 3), "gguf_gb": os.path.getsize(path) / 1e9,
+          "load_s": round(load_s, 3), "gguf_gb": os.path.getsize(path) / 1e9,
           "device_gb": torch.cuda.memory_allocated() / 1e9,
-          "layers": engine.cfg.n_layers, "dim": engine.cfg.dim,
+          "native_repacks": dict(native.REPACKS), "q4k_q6k_tensors": want,
+          "load_stats": stats, "layers": engine.cfg.n_layers, "dim": engine.cfg.dim,
           "vocab": engine.cfg.vocab_size})
     return engine
+
+
+def _tensors_of(torch, node, out):
+    """The tensors of a parameter tree in a fixed order."""
+    if isinstance(node, torch.Tensor):
+        out.append(node)
+    elif isinstance(node, dict):
+        for k in sorted(node):
+            _tensors_of(torch, node[k], out)
+    elif isinstance(node, list | tuple):
+        for v in node:
+            _tensors_of(torch, v, out)
+    elif hasattr(node, "__dataclass_fields__"):
+        for f in node.__dataclass_fields__:
+            _tensors_of(torch, getattr(node, f), out)
+    return out
+
+
+def _same(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _fresh_load_memory(path: str) -> None:
+    """Run in a fresh process: load ``path`` from its layout cache and print
+    ``MEM {...}``: the bytes the load adds to ``memory_allocated()`` and to
+    the allocator's requested bytes, and its tensors' bytes."""
+    import torch
+    from llama_gguf_inference_tpu_torch.runtime import loader
+    torch.zeros(1, device="cuda")
+    a0 = torch.cuda.memory_allocated()
+    r0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    _, params, reader = loader.load_model(path, "cuda", fuse=True)
+    reader.close()
+    torch.cuda.synchronize()
+    print("MEM " + json.dumps({
+        "added": torch.cuda.memory_allocated() - a0,
+        "requested": torch.cuda.memory_stats()["requested_bytes.all.current"] - r0,
+        "resident": _resident_of(torch, params)}), flush=True)
+
+
+def _resident_of(torch, params) -> int:
+    """Bytes of a parameter tree's tensors, each storage once."""
+    mine = _tensors_of(torch, params, [])
+    return sum(t.numel() * t.element_size() for t in {t.data_ptr(): t for t in mine}.values())
+
+
+def phase_warm_load(torch, engine):
+    """The same file loaded again from its layout cache, in this process:
+    every resident tensor equal to the engine's (the cold load's) bit for
+    bit; layer 0's projections (fused as the engine fuses them), the
+    embedding and the head equal to the per-tensor path's
+    (``LGT_UPLOAD=tensor``); the bytes the load asks of the allocator equal
+    to its tensors' (no carved view keeps a chunk alive). Then the same load
+    in a fresh process, whose allocator starts empty: the bytes it adds to
+    ``memory_allocated()`` within 1% of its tensors' (the rest is the
+    allocator's rounding of blocks, which in this process depends on what
+    earlier phases left in its cache)."""
+    from llama_gguf_inference_tpu_torch.runtime import loader
+    from llama_gguf_inference_tpu_torch.runtime.layout_cache import LayoutCache
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    t0 = time.time()
+    stats: dict = {}
+    _, params, reader = loader.load_model(engine.model_path, "cuda", fuse=True, stats=stats)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    added = torch.cuda.memory_allocated() - before
+    # the bytes asked for, without the allocator's rounding of blocks
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"] - requested
+    try:
+        if not stats["cache_hits"] or stats["repacked_native"] + stats["repacked_numpy"]:
+            raise AssertionError(f"warm load repacked: {stats}")
+        mine = _tensors_of(torch, params, [])
+        theirs = _tensors_of(torch, engine.params, [])
+        if len(mine) != len(theirs) or not all(_same(torch, a, b)
+                                               for a, b in zip(mine, theirs)):
+            raise AssertionError("warm tensors differ from the cold load's")
+        resident = _resident_of(torch, params)
+        if abs(requested - resident) > 0.01 * resident:
+            raise AssertionError(f"warm load asked for {requested} B for {resident} B "
+                                 "of tensors")
+        cache = LayoutCache.open(engine.model_path)
+        os.environ["LGT_UPLOAD"] = "tensor"
+        try:
+            def per_tensor(name):
+                return loader._load_linear(reader, name, torch.device("cuda"), "quant", cache)
+            layer = {n: per_tensor(f"blk.0.{n}.weight")
+                     for n in ("attn_q", "attn_k", "attn_v", "attn_output",
+                               "ffn_gate", "ffn_up", "ffn_down")}
+            loader._fuse_layer(layer)
+            pairs = [(layer[k], params["layers"][0][k]) for k in layer]
+            pairs += [(per_tensor("token_embd.weight"), params["tok_embd"].table),
+                      (per_tensor("output.weight"), params["output"])]
+        finally:
+            os.environ.pop("LGT_UPLOAD", None)
+        for want, got in pairs:
+            a, b = _tensors_of(torch, want, []), _tensors_of(torch, got, [])
+            if len(a) != len(b) or not all(_same(torch, x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"bulk and per-tensor {got.fmt} weights differ")
+        probe = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke._fresh_load_memory(sys.argv[1])", engine.model_path],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        line = [ln for ln in probe.stdout.splitlines() if ln.startswith("MEM ")]
+        if probe.returncode != 0 or not line:
+            raise AssertionError(f"fresh-process load: {probe.returncode}\n"
+                                 f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
+        fresh = json.loads(line[0][4:])
+        if abs(fresh["added"] - fresh["resident"]) > 0.01 * fresh["resident"] \
+                or abs(fresh["requested"] - fresh["resident"]) > 0.001 * fresh["resident"]:
+            raise AssertionError(f"fresh-process warm load: {fresh}")
+        emit({"phase": "warm-load", "ok": True, "load_s": round(load_s, 3),
+              "bulk_gb": stats["bulk_bytes"] / 1e9,
+              "gb_per_s": round(stats["bulk_bytes"] / load_s / 1e9, 3),
+              "upload_gb_per_s": round(stats["bulk_bytes"] / max(stats["upload_s"], 1e-9) / 1e9,
+                                       3),
+              "added_gb": added / 1e9, "requested_gb": requested / 1e9,
+              "resident_gb": resident / 1e9, "fresh_process": fresh,
+              "fresh_over": round(fresh["added"] / fresh["resident"] - 1, 6),
+              "tensors_equal": len(mine), "per_tensor_equal": len(pairs),
+              "load_stats": stats})
+    finally:
+        reader.close()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Server:
+    """``python -m llama_gguf_inference_tpu_torch.serving.openai_server`` as
+    a fresh process with ``env``; its output lines stamped as they come."""
+
+    def __init__(self, env: dict):
+        self.port = _free_port()
+        self.key = secrets.token_hex(16)
+        env = {**env, "PORT_BACKEND": str(self.port), "BACKEND_API_KEY": self.key}
+        self.lines: list[tuple[float, str]] = []
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "llama_gguf_inference_tpu_torch.serving.openai_server"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.time(), line.rstrip()))
+
+    def wait_for(self, pattern: str, timeout: float, fail: str | None = None):
+        """(seconds since start, match) of the first line matching
+        ``pattern``; raises on ``fail``, on exit or after ``timeout``."""
+        end = time.time() + timeout
+        while time.time() < end:
+            for t, line in list(self.lines):
+                if fail and fail in line:
+                    raise AssertionError(f"server: {line}\n{self.tail()}")
+                m = re.search(pattern, line)
+                if m:
+                    return t - self.t0, m
+            if self.proc.poll() is not None:
+                raise AssertionError(f"server exited {self.proc.returncode}\n{self.tail()}")
+            time.sleep(0.05)
+        raise AssertionError(f"server: no {pattern!r} in {timeout} s\n{self.tail()}")
+
+    def tail(self, n: int = 40) -> str:
+        return "\n".join(line for _, line in self.lines[-n:])
+
+    def stop(self) -> int:
+        """SIGTERM; the exit code (the process is killed after 60 s)."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(15)
+            try:
+                self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        self.reader.join(10)
+        return self.proc.returncode
+
+
+def _first_chat(srv: _Server) -> float:
+    """Seconds to the first content chunk of a streamed greedy chat."""
+    msgs = [{"role": "user", "content": "hello world, the quick brown fox"}]
+    t0 = time.time()
+    t_first, _, usage, _ = _stream(srv.port, "/v1/chat/completions",
+                                   {"messages": msgs, "max_tokens": 8, "temperature": 0},
+                                   srv.key)
+    if usage["completion_tokens"] < 1:
+        raise AssertionError(f"first chat: {usage}")
+    return t_first - t0
+
+
+def phase_cold_start(torch, engine):
+    """The server as a fresh process over the warm layout cache, with the
+    warm-up and without it: seconds to listening, the warm-up's seconds from
+    its log line, the first chat's time to its first token, a clean exit on
+    SIGTERM; then the mock backend without MODEL_PATH."""
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("MODEL_PATH", "MOCK_BACKEND", "ENGINE_WARMUP")}
+    model = {**base, "MODEL_PATH": engine.model_path, "MAX_SLOTS": "4", "CTX": "4096",
+             "PREFIX_CACHE": "0"}
+    out = {}
+    for warm in ("1", "0"):
+        srv = _Server({**model, "ENGINE_WARMUP": warm})
+        try:
+            listen_s, _ = srv.wait_for(r"\[backend\] .* on 127\.0\.0\.1:", 600)
+            _, m = srv.wait_for(r"\[loader\] load_stats (\{.*\})", 1)
+            stats = json.loads(m.group(1))
+            if not stats["cache_hits"] or stats["repacked_native"] + stats["repacked_numpy"]:
+                raise AssertionError(f"the server's load was not warm: {stats}")
+            row = {"listen_s": round(listen_s, 3), "load_s": stats["total_s"]}
+            if warm == "1":
+                done_s, m = srv.wait_for(r"\[backend\] warm-up done in ([0-9.]+) s", 600,
+                                         fail="warm-up failed")
+                row["warmup_s"] = float(m.group(1))
+                row["warmup_done_s"] = round(done_s, 3)
+            row["first_ttft_s"] = round(_first_chat(srv), 4)
+            row["second_ttft_s"] = round(_first_chat(srv), 4)
+            if warm == "0" and any("warm-up" in line for _, line in srv.lines):
+                raise AssertionError("ENGINE_WARMUP=0 ran a warm-up")
+        finally:
+            rc = srv.stop()
+        if rc != 0 or not any("[backend] stopped" in line for _, line in srv.lines):
+            raise AssertionError(f"SIGTERM: exit {rc}\n{srv.tail()}")
+        row["sigterm_exit"] = rc
+        out["warmup" if warm == "1" else "no_warmup"] = row
+    srv = _Server(base)
+    try:
+        listen_s, _ = srv.wait_for(r"\[backend\] mock-model on 127\.0\.0\.1:", 120)
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        conn.request("GET", "/v1/models", headers={"Authorization": f"Bearer {srv.key}"})
+        r = conn.getresponse()
+        models = json.loads(r.read())
+        conn.close()
+        if r.status != 200 or models["data"][0]["id"] != "mock-model":
+            raise AssertionError(f"mock /v1/models: {r.status} {models}")
+        body = _json_post(srv.port, "/v1/completions", {"prompt": "a b c", "max_tokens": 3},
+                          srv.key)
+        if body["choices"][0]["text"] != "mock-token-0 mock-token-1 mock-token-2":
+            raise AssertionError(f"mock completion: {body}")
+    finally:
+        rc = srv.stop()
+    if rc != 0:
+        raise AssertionError(f"mock SIGTERM: exit {rc}\n{srv.tail()}")
+    out["mock"] = {"listen_s": round(listen_s, 3), "sigterm_exit": rc}
+    emit({"phase": "cold-start", "ok": True, **out})
+
+
+def phase_embeddings(torch, engine):
+    """``/v1/embeddings`` for two inputs through the server, each vector
+    against the same pooling over a forward on the kernels' plain versions
+    (within LOGITS_TOL of its scale); a rerank of three documents, one the
+    query itself, which must rank first."""
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    texts = [PROMPT, " ".join([PROMPT] * 12)]
+    launches: dict[str, int] = {}
+    with serving(torch, engine, launches) as (port, key):
+        t0 = time.time()
+        emb = _json_post(port, "/v1/embeddings", {"input": texts}, key)
+        embed_s = time.time() - t0
+        docs = ["hello world, a story of two cities", PROMPT, "a lazy dog sleeps all day"]
+        t0 = time.time()
+        rr = _json_post(port, "/v1/rerank", {"query": PROMPT, "documents": docs}, key)
+        rerank_s = time.time() - t0
+    _check_launches("embeddings", launches, (qm.NAME_4BIT_TC, fa.NAME_TC))
+    if [r["index"] for r in rr["results"]][0] != 1:
+        raise AssertionError(f"rerank: the query's own text is not first: {rr['results']}")
+    with plain_versions():
+        refs = [engine.embed(t) for t in texts]
+    errs = []
+    for got, (want, n) in zip(emb["data"], refs):
+        g = torch.tensor(got["embedding"], dtype=torch.float64)
+        w = torch.tensor(want, dtype=torch.float64)
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"embedding {got['index']}: shape {tuple(g.shape)}")
+        errs.append((g - w).abs().max().item() / w.abs().max().item())
+    if max(errs) > LOGITS_TOL:
+        raise AssertionError(f"embeddings against the plain versions: {errs}")
+    emit({"phase": "embeddings", "ok": True, "dim": len(emb["data"][0]["embedding"]),
+          "tokens": [n for _, n in refs], "usage": emb["usage"], "rel_err": errs,
+          "embed_s": round(embed_s, 4), "rerank_s": round(rerank_s, 4),
+          "rerank": rr["results"], "launches": launches})
+    return launches
 
 
 def _greedy_run(torch, engine, ids, steps, cache=None, feed=None):
@@ -2086,10 +2442,11 @@ def shared_weights(loaded):
     from llama_gguf_inference_tpu_torch.runtime import engine as eng_mod
     real, path = eng_mod.load_model, loaded.model_path
 
-    def load(model_path, device, fuse=True, mode="quant", lora_path="", lora_scale=1.0):
+    def load(model_path, device, fuse=True, mode="quant", lora_path="", lora_scale=1.0,
+             stats=None):
         if model_path != path or mode != "quant" or lora_path or not fuse:
             return real(model_path, device, fuse=fuse, mode=mode, lora_path=lora_path,
-                        lora_scale=lora_scale)
+                        lora_scale=lora_scale, stats=stats)
         return loaded.cfg, loaded.params, GGUFReader(model_path)
 
     with _patched(eng_mod, "load_model", load):
@@ -3084,6 +3441,15 @@ def main() -> int:
         seconds[phase] = round(seconds.get(phase, 0.0) + now - t_last, 1)
         phase, t_last = name, now
 
+    # a fresh layout cache per run, emptied once each model's phases end, so
+    # every run measures the same cold and warm loads
+    cache_root = tempfile.mkdtemp(prefix="lgt-smoke-lcache-")
+    os.environ["LGT_LAYOUT_CACHE_DIR"] = cache_root
+
+    def drop_caches():
+        for d in os.listdir(cache_root):
+            shutil.rmtree(os.path.join(cache_root, d), ignore_errors=True)
+
     try:
         card = phase_device(torch)
         enter("build")
@@ -3096,10 +3462,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         enter("load")
         engine = phase_engine(torch)
+        enter("warm-load")
+        phase_warm_load(torch, engine)
+        enter("cold-start")
+        phase_cold_start(torch, engine)
+        drop_caches()
+        enter("embeddings")
+        paths = [phase_embeddings(torch, engine)]
         enter("forward")
         bf16_prefill = phase_forward(torch, engine)
         enter("q4k-prefill")
-        paths = phase_q4k_prefill(torch, engine)
+        paths += phase_q4k_prefill(torch, engine)
         torch.cuda.empty_cache()
         enter("kv-forward")
         paths.append(phase_kv_forward(torch, engine, bf16_prefill))
@@ -3125,14 +3498,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         enter("q2k")
         paths += phase_q2k(torch)
+        drop_caches()
         gc.collect()
         torch.cuda.empty_cache()
         enter("q5k")
         paths += phase_q5k(torch)
+        drop_caches()
         gc.collect()
         torch.cuda.empty_cache()
         enter("lora")
         paths += phase_lora(torch)
+        drop_caches()
         emit({"phase": "memory", "max_allocated_gb":
               torch.cuda.max_memory_allocated() / 1e9})
         for counts in paths:
@@ -3148,6 +3524,7 @@ def main() -> int:
     finally:
         if engine is not None:
             engine.stop()
+        shutil.rmtree(cache_root, ignore_errors=True)
     emit(line)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,6 +17,9 @@ values); Q3_K's 3-bit codes ride the 4-bit planes with code bias 4, Q4_0's
 with bias 8. Formats: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K,
 Q5_K, Q6_K, Q8_K, IQ4_NL, IQ4_XS.
 
+Q8_0, Q4_K and Q6_K are repacked by the C++ library of ``native`` where it
+builds (the same bytes), the others by numpy.
+
 Which device scale layout a hierarchical weight gets (``flat``, ``compact``
 or ``mixed``) is chosen per weight by :func:`device_scale_layout` from
 ``LGT_SCALE_LAYOUT``; all three decode to the same values.
@@ -158,6 +161,13 @@ def repack(raw: bytes | np.ndarray, ggml_type: GGMLType,
     blk, nbytes = type_block_info(t)
     if in_features % blk != 0:
         raise ValueError(f"in_features {in_features} not divisible by block {blk}")
+    if t in (GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q6_K):
+        # the hot formats go through the multi-threaded C++ repacker when it
+        # builds (``native``), with the same output bytes
+        from ..native import native_repack
+        rp = native_repack(buf.reshape(-1), t.name.lower(), out_features, in_features)
+        if rp is not None:
+            return rp
     bpr = in_features // blk                       # blocks per row
     blocks = buf[: out_features * bpr * nbytes].reshape(out_features * bpr, nbytes)
     O, I = out_features, in_features

@@ -44,7 +44,14 @@
   and its KV rows to an ``.npz`` file in the JAX engine's format and back,
   run on the scheduler thread with no dispatch in flight
 - weights quantized-resident or dense (``mode``), with a GGUF LoRA adapter
-  (``lora_path``, ``lora_scale``)
+  (``lora_path``, ``lora_scale``); the split of the load's seconds is
+  ``load_stats`` (``runtime.loader.load_model``'s ``stats``)
+- ``embed``: a mean-pooled embedding of a prompt (``/v1/embeddings``,
+  ``/rerank``), one forward on a scratch cache of its own, outside the
+  scheduler
+- ``warmup_async``: builds the CUDA kernels, then pushes synthetic requests
+  through the real path (the server runs it at start unless
+  ``ENGINE_WARMUP=0``)
 
 Not yet here (the JAX engine has them): speculation and a decode step
 captured as a CUDA graph.
@@ -77,6 +84,10 @@ from .tokenizer import Tokenizer, from_gguf_metadata
 # prefill chunk lengths: a prompt runs in chunks of at most the largest,
 # each padded to the smallest bucket that holds it
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512)
+# the JAX engine's prefill buckets: the embedding forward pads a prompt to
+# one of them (truncating at the largest), and the warm-up sends a prompt of
+# each length
+JAX_BUCKETS = (*PREFILL_BUCKETS, 1024)
 CONTIG_CACHES = {"bf16": KVCache, "q8_0": QuantKV, "q4_0": QuantKV4, "q4_1": QuantKV41}
 
 
@@ -202,9 +213,10 @@ class InferenceEngine:
             # would overwrite kept prompt rows
             raise ValueError(f"ctx_shift needs ctx >= 4 * (multi_step + 1) = "
                              f"{4 * (ecfg.multi_step + 1)}, got {ecfg.ctx}")
+        self.load_stats: dict = {}
         cfg, params, reader = load_model(model_path, self.device, fuse=True, mode=ecfg.mode,
                                          lora_path=ecfg.lora_path,
-                                         lora_scale=ecfg.lora_scale)
+                                         lora_scale=ecfg.lora_scale, stats=self.load_stats)
         self.model_path = str(model_path)
         self.cfg = cfg
         self.params = params
@@ -268,6 +280,30 @@ class InferenceEngine:
         self._cancelled.add(request_id)
         return True
 
+    @torch.inference_mode()
+    def embed(self, prompt: str | list[int]) -> tuple[list[float], int]:
+        """Mean-pooled final-hidden-state embedding; returns (vector,
+        n_tokens).
+
+        The prompt is cut at the JAX engine's largest prefill bucket (1024
+        tokens) and padded to the smallest of :data:`JAX_BUCKETS` that holds
+        it; one forward runs on a scratch bf16 cache of its own, outside the
+        scheduler (no slot is touched), and the hidden states of the valid
+        positions are averaged in f32."""
+        ids = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
+        ids = ids[: JAX_BUCKETS[-1]]
+        n = len(ids)
+        T = next(t for t in JAX_BUCKETS if n <= t)
+        tok = np.zeros((1, T), np.int32)
+        tok[0, :n] = ids
+        cache = KVCache.zeros(self.cfg, 1, T, self.device)
+        meta = to_device(np.array([0, max(n - 1, 0)], np.int32), self.device)
+        _, hidden = forward(self.params, self.cfg, to_device(tok, self.device), meta[:1],
+                            cache, logits_at=meta[1:], return_hidden=True)
+        mask = (torch.arange(T, device=self.device) < n)[None, :, None]
+        pooled = torch.where(mask, hidden.float(), 0.0).sum(dim=1) / max(n, 1)
+        return pooled[0].tolist(), n
+
     # ------------------------------------------------------------ scheduler
     def start(self) -> None:
         if self._thread is None:
@@ -275,6 +311,54 @@ class InferenceEngine:
             self._thread = threading.Thread(target=self._loop, daemon=True,
                                             name="engine-loop")
             self._thread.start()
+
+    def warmup_async(self) -> threading.Thread:
+        """Warm the serving path in a daemon thread: on the card, build every
+        CUDA kernel first (``ops._build.build_all``); then push the JAX
+        engine's synthetic requests through the real path: one prompt
+        length per bucket of :data:`JAX_BUCKETS` (at most half a slot), one
+        longer than the largest when a slot holds it (its first chunks run
+        without the draw), and ``3 * multi_step + 2`` tokens on the last, so
+        multi-step dispatches and their continuations run too. Readiness is
+        not held back: real requests queue behind the warm-up's. A failure
+        prints its traceback and ``[backend] warm-up failed``; success
+        prints ``[backend] warm-up done in X s``."""
+        def run():
+            t0 = time.time()
+            try:
+                if self.device.type == "cuda":
+                    from ..ops import _build
+                    _build.build_all()
+                big = JAX_BUCKETS[-1]
+                cap = self._slot_cap_max()
+                lengths = [max(2, min(T, cap // 2)) for T in JAX_BUCKETS]
+                if cap > big + 64:
+                    lengths.append(big + 16)
+                uniq = list(dict.fromkeys(lengths))
+                for i, n in enumerate(uniq):
+                    prompt = [7 + i] + [3 + (j % 50) for j in range(n - 1)]
+                    last = i == len(uniq) - 1
+                    mt = max(2, 3 * self.ecfg.multi_step + 2) if last else 2
+                    for ev in self.generate(prompt, SamplingParams(temperature=0.0,
+                                                                   max_tokens=mt)):
+                        if ev.finish_reason == "error":
+                            raise RuntimeError(f"warm-up request of {n} tokens failed: "
+                                               f"{ev.text or 'engine error'}")
+            except Exception:  # noqa: BLE001 — printed, never swallowed
+                traceback.print_exc()
+                print("[backend] warm-up failed", flush=True)
+                return
+            print(f"[backend] warm-up done in {time.time() - t0:.3f} s", flush=True)
+
+        t = threading.Thread(target=run, daemon=True, name="engine-warmup")
+        t.start()
+        return t
+
+    def _slot_cap_max(self) -> int:
+        """Largest per-slot token capacity any request could get."""
+        if self.alloc is not None:
+            return self.cache.max_seq
+        return self.ecfg.ctx
 
     def stop(self) -> None:
         self._stop_evt.set()

@@ -6,6 +6,10 @@ Endpoints:
 - ``POST /v1/completions``       — legacy completions, JSON or SSE (also
   ``POST /completion``)
 - ``GET  /v1/models``            — the single loaded model
+- ``POST /v1/embeddings``        — mean-pooled embeddings (``engine.embed``)
+- ``POST /v1/rerank``            — documents ranked by the cosine of their
+  embeddings with the query's (also ``/rerank`` and ``/v1/reranking``;
+  ``top_n``; a 501 on an engine without ``embed``)
 - ``GET  /health``               — public liveness
 - llama-server's own paths, which the reference's clients reach through its
   passthrough: ``/props`` (the engine's stats), ``POST /tokenize``
@@ -37,7 +41,12 @@ Request fields follow it too:
   together in the batch; choice i samples with seed + i.
 
 Run: ``MODEL_PATH=model.gguf python -m
-llama_gguf_inference_tpu_torch.serving.openai_server`` (on the card).
+llama_gguf_inference_tpu_torch.serving.openai_server`` (on the card). It
+warms the engine up in the background at start (``ENGINE_WARMUP=0`` skips
+that). Without ``MODEL_PATH``, or with ``MOCK_BACKEND=true``, it serves the
+mock engine (``runtime.mock``: no weights, no card; ``MODEL_NAME``,
+``MOCK_DELAY_S``); handlers that need an engine feature the mock lacks
+answer as the JAX server's do.
 """
 
 from __future__ import annotations
@@ -46,7 +55,9 @@ import asyncio
 import dataclasses
 import hmac
 import json
+import math
 import os
+import signal
 import time
 import uuid
 from typing import Any
@@ -248,6 +259,8 @@ class OpenAIServer:
                 await self.handle_generate(req, writer, chat=True)
             elif path in ("/v1/completions", "/completion") and req.method == "POST":
                 await self.handle_generate(req, writer, chat=False)
+            elif path == "/v1/embeddings" and req.method == "POST":
+                await self.handle_embeddings(req, writer)
             elif path == "/tokenize" and req.method == "POST":
                 await self.handle_tokenize(req, writer)
             elif path == "/detokenize" and req.method == "POST":
@@ -255,11 +268,15 @@ class OpenAIServer:
             elif path == "/apply-template" and req.method == "POST":
                 await self.handle_apply_template(req, writer)
             elif path == "/slots" and req.method == "GET":
-                await send_response(writer, 200, json.dumps(self.engine.slots_info()).encode())
+                info = getattr(self.engine, "slots_info", None)
+                await send_response(writer, 200, json.dumps(
+                    info() if callable(info) else []).encode())
             elif path.startswith("/slots/") and req.method == "POST":
                 await self.handle_slot_action(req, writer, path)
             elif path == "/infill" and req.method == "POST":
                 await self.handle_infill(req, writer)
+            elif path in ("/v1/rerank", "/rerank", "/v1/reranking") and req.method == "POST":
+                await self.handle_rerank(req, writer)
             else:
                 await send_error(writer, 404, f"Unknown endpoint {path}",
                                  "invalid_request_error", "not_found")
@@ -282,12 +299,14 @@ class OpenAIServer:
         }).encode())
 
     def _render_prompt(self, messages: list) -> str:
-        """Chat-template rendering (GGUF jinja template, chatml fallback)."""
+        """Chat-template rendering (GGUF jinja template, chatml fallback;
+        the mock engine has neither metadata nor token texts)."""
         tok = self.engine.tokenizer
-        bos = tok.tokens[tok.special.bos_id] if tok.special.bos_id >= 0 else "<s>"
-        eos = tok.tokens[tok.special.eos_id] if tok.special.eos_id >= 0 else "</s>"
-        return render_chat(normalize_messages(messages),
-                           self.engine.metadata.get("tokenizer.chat_template"),
+        tokens = getattr(tok, "tokens", None)
+        bos = tokens[tok.special.bos_id] if tokens and tok.special.bos_id >= 0 else "<s>"
+        eos = tokens[tok.special.eos_id] if tokens and tok.special.eos_id >= 0 else "</s>"
+        md = getattr(self.engine, "metadata", None) or {}
+        return render_chat(normalize_messages(messages), md.get("tokenizer.chat_template"),
                            bos, eos)
 
     @staticmethod
@@ -324,7 +343,8 @@ class OpenAIServer:
             await send_error(writer, 400, "tokens must be integers",
                              "invalid_request_error", "bad_request")
             return
-        if any(not 0 <= t < tok.vocab_size for t in ids):
+        vocab = getattr(tok, "vocab_size", None)
+        if vocab is not None and any(not 0 <= t < vocab for t in ids):
             await send_error(writer, 400, "token id out of range",
                              "invalid_request_error", "bad_request")
             return
@@ -354,6 +374,11 @@ class OpenAIServer:
             await send_error(writer, 400, "action must be save, restore or erase",
                              "invalid_request_error", "bad_request")
             return
+        op_fn = getattr(self.engine, "slot_op", None)
+        if not callable(op_fn):
+            await send_error(writer, 501, "slot persistence is not supported by this backend",
+                             "server_error", "not_implemented")
+            return
         full = ""
         if action != "erase":
             base = os.environ.get("SLOT_SAVE_PATH", "")
@@ -372,7 +397,7 @@ class OpenAIServer:
         loop = asyncio.get_running_loop()
         try:
             out = await loop.run_in_executor(
-                None, lambda: self.engine.slot_op(action, int(sid), full))
+                None, lambda: op_fn(action, int(sid), full))
         except ValueError as e:
             await send_error(writer, 400, str(e), "invalid_request_error", "bad_request")
             return
@@ -393,7 +418,8 @@ class OpenAIServer:
             return
         tok = self.engine.tokenizer
         sp = tok.special
-        if min(sp.fim_pre_id, sp.fim_suf_id, sp.fim_mid_id) < 0:
+        if min(getattr(sp, "fim_pre_id", -1), getattr(sp, "fim_suf_id", -1),
+               getattr(sp, "fim_mid_id", -1)) < 0:
             await send_error(writer, 501, "model has no fill-in-the-middle tokens",
                              "invalid_request_error", "not_supported")
             return
@@ -473,8 +499,9 @@ class OpenAIServer:
     def _cancel(self, pres: list) -> None:
         """Cancel submitted choices that will never be read (an early error
         return or a client gone), so their slots free at once."""
-        for rid, _ in pres:
-            self.engine.cancel(rid)
+        if hasattr(self.engine, "cancel"):    # the mock engine has none
+            for rid, _ in pres:
+                self.engine.cancel(rid)
 
     async def _collect(self, pre):
         """Drain a submitted request's event queue without blocking the
@@ -488,7 +515,7 @@ class OpenAIServer:
                 finished = ev.finished
                 yield ev
         finally:
-            if not finished:
+            if not finished and hasattr(self.engine, "cancel"):
                 self.engine.cancel(rid)
 
     def _lp_entry(self, ev) -> dict:
@@ -681,6 +708,65 @@ class OpenAIServer:
         writer.write(sse_event("[DONE]"))
         await writer.drain()
 
+    # -- embeddings and rerank --------------------------------------------------
+    async def handle_embeddings(self, req, writer) -> None:
+        body = self._parse_json(req)
+        if body is None or "input" not in body:
+            await send_error(writer, 400, "input is required",
+                             "invalid_request_error", "bad_request")
+            return
+        inputs = body["input"]
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        loop = asyncio.get_running_loop()
+        data = []
+        total = 0
+        for i, text in enumerate(inputs):
+            vec, n_tok = await loop.run_in_executor(None, self.engine.embed, str(text))
+            total += n_tok
+            data.append({"object": "embedding", "embedding": vec, "index": i})
+        await send_response(writer, 200, json.dumps({
+            "object": "list", "data": data, "model": self.engine.model_name,
+            "usage": {"prompt_tokens": total, "total_tokens": total}}).encode())
+
+    async def handle_rerank(self, req, writer) -> None:
+        """llama-server ``/v1/rerank``. With no cross-encoder rank head, a
+        document's score is the cosine of its mean-pooled embedding with the
+        query's (the JAX server's pooling path); an engine without
+        ``embed`` answers 501."""
+        body = self._parse_json(req)
+        if body is None or "query" not in body:
+            await send_error(writer, 400, "query is required",
+                             "invalid_request_error", "bad_request")
+            return
+        docs = body.get("documents", body.get("texts"))
+        if not isinstance(docs, list) or not docs:
+            await send_error(writer, 400, "documents must be a non-empty array",
+                             "invalid_request_error", "bad_request")
+            return
+        if not hasattr(self.engine, "embed"):
+            await send_error(writer, 501, "this model cannot rerank (no embedding path)",
+                             "server_error", "not_supported")
+            return
+        loop = asyncio.get_running_loop()
+        qv, total = await loop.run_in_executor(None, self.engine.embed, str(body["query"]))
+        qn = math.sqrt(sum(x * x for x in qv)) or 1.0
+        results = []
+        for i, doc in enumerate(docs):
+            dv, n_tok = await loop.run_in_executor(None, self.engine.embed, str(doc))
+            total += n_tok
+            dn = math.sqrt(sum(x * x for x in dv)) or 1.0
+            results.append({"index": i,
+                            "relevance_score": sum(a * b for a, b in zip(qv, dv)) / (qn * dn)})
+        results.sort(key=lambda r: -r["relevance_score"])
+        top_n = body.get("top_n")
+        if isinstance(top_n, int) and top_n > 0:
+            results = results[:top_n]
+        await send_response(writer, 200, json.dumps({
+            "model": self.engine.model_name, "object": "list",
+            "usage": {"prompt_tokens": total, "total_tokens": total},
+            "results": results}).encode())
+
     # -- lifecycle -----------------------------------------------------------
     async def start(self) -> None:
         self._server = await asyncio.start_server(
@@ -706,7 +792,10 @@ class OpenAIServer:
 
 
 def build_engine_from_env(device: str = "cuda"):
-    """The engine the environment names: ``MODEL_PATH``, ``MAX_SLOTS``,
+    """The engine the environment names. Without ``MODEL_PATH``, or with
+    ``MOCK_BACKEND`` (1, true or yes), the mock engine (``runtime.mock``;
+    ``MODEL_NAME``, ``MOCK_DELAY_S`` its per-token delay), as the JAX
+    server does. Otherwise the model at ``MODEL_PATH`` with ``MAX_SLOTS``,
     ``CTX`` (total, split over slots) or ``CTX_PER_SLOT``, and the KV cache:
     ``KV_CACHE_TYPE`` (bf16, q8_0, q4_0, q4_1; q5_0/q5_1 run as q8_0),
     ``KV_LAYOUT`` (contig or paged) and ``KV_PAGE_SIZE`` (tokens per page),
@@ -716,11 +805,13 @@ def build_engine_from_env(device: str = "cuda"):
     ``LORA_PATH`` and ``LORA_SCALE`` (a GGUF LoRA adapter, llama-server
     ``--lora`` / ``--lora-scaled``). The slot actions read
     ``SLOT_SAVE_PATH`` per request."""
+    model_path = os.environ.get("MODEL_PATH", "")
+    if _mock_requested() or not model_path:
+        from ..runtime.mock import MockEngine
+        return MockEngine(model_name=os.environ.get("MODEL_NAME", "mock-model"),
+                          delay_s=float(os.environ.get("MOCK_DELAY_S", "0") or 0))
     from ..runtime.engine import EngineConfig, InferenceEngine
 
-    model_path = os.environ.get("MODEL_PATH", "")
-    if not model_path:
-        raise ValueError("MODEL_PATH is required")
     kv = os.environ.get("KV_CACHE_TYPE", "bf16").lower()
     if kv in ("q5_0", "q5_1"):
         # llama-server accepts 5-bit cache types; honour them at the next
@@ -744,16 +835,38 @@ def build_engine_from_env(device: str = "cuda"):
         lora_scale=float(os.environ.get("LORA_SCALE", 1.0))), device=device)
 
 
+def _mock_requested() -> bool:
+    return os.environ.get("MOCK_BACKEND", "").lower() in ("1", "true", "yes")
+
+
 def main() -> None:
     engine = build_engine_from_env()
     engine.start()
+    # warm the serving path in the background (the kernels' build first), so
+    # the first real request pays neither; never on the mock
+    if not _mock_requested() and hasattr(engine, "warmup_async") and \
+            os.environ.get("ENGINE_WARMUP", "1").lower() not in ("0", "false", "no"):
+        engine.warmup_async()
     srv = OpenAIServer(engine)
-    print(f"[backend] {engine.model_name} on {srv.cfg.host}:{srv.cfg.port} "
-          f"(auth={'on' if srv.cfg.api_key else 'off'})", flush=True)
     try:
-        asyncio.run(srv.serve_forever())
+        asyncio.run(_serve_until_signal(srv, engine))
     finally:
         engine.stop()
+    print("[backend] stopped", flush=True)
+
+
+async def _serve_until_signal(srv: OpenAIServer, engine) -> None:
+    """Serve until SIGTERM or SIGINT, then close the listener (the caller
+    stops the engine and the process exits 0)."""
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, stop.set)
+    await srv.start()
+    print(f"[backend] {engine.model_name} on {srv.cfg.host}:{srv.port} "
+          f"(auth={'on' if srv.cfg.api_key else 'off'})", flush=True)
+    await stop.wait()
+    await srv.close()
 
 
 if __name__ == "__main__":
