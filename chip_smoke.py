@@ -93,10 +93,35 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               the run), the first chat's time to its first token, an exit 0
               on SIGTERM; then the mock backend without ``MODEL_PATH``
               (``/v1/models`` and one completion)
+   launch   — ``python -m llama_gguf_inference_tpu_torch serve``
+              (``launch/start.py``: the port's backend, health sidecar and
+              gateway) over the same GGUF, warm from its layout cache, with
+              an API key file: the health port answers; through the gateway
+              a request without the key gets 401, a streamed greedy chat of
+              32 tokens with every EOG token banned arrives chunk by chunk,
+              ``/metrics`` counts the requests and the ported benchmark
+              client runs a few (its summary printed); the chat's text equal
+              to the same chat served in this process (the backend's launch
+              counts are its own process's); SIGTERM: the supervisor and its
+              three children exit 0, the backend key file is shredded
    embeddings — ``/v1/embeddings`` for two inputs through the server, each
               within LOGITS_TOL of the same pooling over a forward on the
               plain versions; a rerank of three documents ranks the one
               equal to the query first
+   encoder  — a bge-large-en-v1.5-shaped BERT (24 layers of 1024, Q8_0
+              projections; ``tools.synth.cached_bert``) built by
+              ``build_engine_from_env`` from ``MODEL_PATH`` and served:
+              ``/v1/embeddings`` of a short input and one of 500 tokens (the
+              64 and 512 buckets, each twice, timed), a rerank (the query's
+              own text first), ``/v1/completions`` (the JAX server's 500,
+              ``engine_error``: the engine is embedding-only); each vector within LOGITS_TOL of the plain versions';
+              q, k, v, o and ffn_up (in 1024: 32 sub-blocks, short of the
+              tensor-core kernel's step of 64) through the 8-bit decode
+              kernel, ffn_down through the tensor-core one, both launched;
+              layer 0's q and ffn_up at 512 rows through the decode kernel
+              and its ffn_down at 64 and 512 through the tensor-core one,
+              each held to the plain version and timed beside its bound and
+              ``torch.matmul`` (the kernels line's tensor-core 8-bit row)
    forward  — run a prefill and 16 greedy decode steps through the kernels,
               then again through the plain versions on the card, fed the
               kernel run's tokens; compare the logits of every step; then one
@@ -221,7 +246,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
-(the embeddings phase's served requests, the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
+(the embeddings and encoder phases' served requests, the Q4_K_M 512-token chunk and long-prompt serve, each kv-forward kernel
 run and engine run, the serve phase, the decode-dispatch phase's two served
 runs, the structured phase's two served runs, each variant's
 kernel run and serve, each ctx-shift run (its shadowed calls' plain
@@ -1322,17 +1347,25 @@ def _free_port() -> int:
 
 
 class _Server:
-    """``python -m llama_gguf_inference_tpu_torch.serving.openai_server`` as
-    a fresh process with ``env``; its output lines stamped as they come."""
+    """``python -m llama_gguf_inference_tpu_torch.serving.openai_server`` on a
+    free port with a key of its own, or with ``stack`` the three-process
+    ``python -m llama_gguf_inference_tpu_torch serve`` (``launch/start.py``:
+    the backend, the health sidecar and the gateway; ports and keys from
+    ``env``), as a fresh process with ``env``; its output lines stamped as
+    they come."""
 
-    def __init__(self, env: dict):
-        self.port = _free_port()
-        self.key = secrets.token_hex(16)
-        env = {**env, "PORT_BACKEND": str(self.port), "BACKEND_API_KEY": self.key}
+    def __init__(self, env: dict, stack: bool = False):
+        self.port = self.key = None
+        argv = ["llama_gguf_inference_tpu_torch", "serve"]
+        if not stack:
+            argv = ["llama_gguf_inference_tpu_torch.serving.openai_server"]
+            self.port = _free_port()
+            self.key = secrets.token_hex(16)
+            env = {**env, "PORT_BACKEND": str(self.port), "BACKEND_API_KEY": self.key}
         self.lines: list[tuple[float, str]] = []
         self.t0 = time.time()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "llama_gguf_inference_tpu_torch.serving.openai_server"],
+            [sys.executable, "-m", *argv],
             cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self.reader = threading.Thread(target=self._read, daemon=True)
@@ -1478,6 +1511,249 @@ def phase_embeddings(torch, engine):
           "embed_s": round(embed_s, 4), "rerank_s": round(rerank_s, 4),
           "rerank": rr["results"], "launches": launches})
     return launches
+
+
+ENCODER_SHORT = "what is the capital of france"
+
+
+def _encoder_long(tokenizer, n: int = 500) -> str:
+    """Words of the synthesized WordPiece vocab, one token each, to ``n``
+    tokens with [CLS] and [SEP]."""
+    from llama_gguf_inference_tpu_torch.tools.synth import BERT_WORDS
+    words = [BERT_WORDS[i % len(BERT_WORDS)] for i in range(n - 2)]
+    text = " ".join(words)
+    if len(tokenizer.encode(text)) != n:
+        raise AssertionError(f"long input: {len(tokenizer.encode(text))} tokens, not {n}")
+    return text
+
+
+def _encoder_8bit_rows(torch, engine, timer) -> list[dict]:
+    """Layer 0's projections at the shapes the encoder gives the 8-bit
+    kernels: one 512-row q (in 1024, out 1024) and ffn_up (in 1024, out 4096)
+    through the decode kernel, which takes them at every row count (nsub 32
+    misses the tensor-core kernel's step of 64), and ffn_down (in 4096, out
+    1024) at 64 and 512 rows (the two buckets) through the tensor-core
+    kernel; each against the plain version (MATMUL_TOL of its scale), its
+    bound and ``torch.matmul`` on a bf16 copy of the weight."""
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for name, B, kname, kernel in (
+            ("attn_q", 512, qm.NAME_8BIT, qm.quant_matmul_8bit_decode),
+            ("ffn_up", 512, qm.NAME_8BIT, qm.quant_matmul_8bit_decode),
+            ("ffn_down", 64, qm.NAME_8BIT_TC, qm.quant_matmul_8bit_tc),
+            ("ffn_down", 512, qm.NAME_8BIT_TC, qm.quant_matmul_8bit_tc)):
+        w = engine.params["layers"][0][name]
+        if qm.tc_takes(w.in_features, w.sub_size) != (kname == qm.NAME_8BIT_TC):
+            raise AssertionError(f"{name}: tc_takes(in={w.in_features}) does not pick {kname}")
+        x = torch.randn(B, w.in_features, generator=g, device="cuda").to(torch.bfloat16)
+        args = (x, w.codes, w.d, w.sc, w.sub_size, w.code_bias, w.dmin, w.mn)
+        err, rel = _err(kernel(*args), qm.quant_matmul_8bit_plain(*args), MATMUL_TOL)
+        wb = w.dequantize_bm(torch.bfloat16)
+        ms = timer(lambda: kernel(*args))
+        plain_ms = timer(lambda: qm.quant_matmul_8bit_plain(*args))
+        lib_ms = timer(lambda: torch.matmul(x, wb.t()))
+        nbytes = x.numel() * 2 + _wbytes(w) + B * w.out_features * 4
+        b_ms, by = bound(nbytes, 2.0 * B * w.in_features * w.out_features)
+        rows.append({"kernel": kname, "shape": f"encoder Q8_0 {name} {w.out_features}x"
+                     f"{w.in_features} B={B}", "max_abs_err": err, "max_rel_err": rel,
+                     "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                     "bound_ms": round(b_ms, 4), "bound_by": by,
+                     "bytes_bound_ms": round(nbytes / HBM_BYTES_PER_S * 1e3, 4),
+                     "share": round(b_ms / ms, 4), "library_ms": round(lib_ms, 4)})
+        del wb
+    return rows
+
+
+def phase_encoder(torch):
+    """The bge-large-shaped Q8_0 encoder (``tools.synth.cached_bert``) built by
+    ``build_engine_from_env`` from ``MODEL_PATH`` and served by
+    ``OpenAIServer``: ``/v1/embeddings`` of a short input and one of 500
+    tokens (the 64 and 512 buckets), a rerank of three documents (the query's
+    own text must rank first) and ``/v1/completions`` (the JAX server's
+    500 with ``engine_error``). One launch window; each vector held against the same engine
+    under the plain versions to LOGITS_TOL of its scale; the 8-bit decode
+    and tensor-core kernels each launched. Then layer 0's projections through
+    both kernels at their encoder shapes (``_encoder_8bit_rows``), checked
+    and timed. Returns the launch window's counts and those rows (the
+    kernels line takes the tensor-core kernel's from them)."""
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.runtime.encoder_engine import EncoderEngine
+    from llama_gguf_inference_tpu_torch.serving.openai_server import build_engine_from_env
+    from llama_gguf_inference_tpu_torch.tools.synth import cached_bert
+    t0 = time.time()
+    path = cached_bert()
+    synth_s = time.time() - t0
+    saved = {k: os.environ.get(k) for k in ("MODEL_PATH", "MOCK_BACKEND")}
+    os.environ["MODEL_PATH"] = path
+    os.environ.pop("MOCK_BACKEND", None)
+    try:
+        t0 = time.time()
+        engine = build_engine_from_env()
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+    if not isinstance(engine, EncoderEngine) or engine.cfg.dim != 1024 \
+            or engine.cfg.n_layers != 24 or engine.cfg.pooling != "cls":
+        raise AssertionError(f"encoder: {type(engine).__name__} {engine.cfg}")
+    texts = [ENCODER_SHORT, _encoder_long(engine.tokenizer)]
+    docs = ["a lazy dog sleeps all day", ENCODER_SHORT, "hello world, a story of two cities"]
+    launches: dict[str, int] = {}
+    with serving(torch, engine, launches) as (port, key):
+        embed_s = {}
+        out = []
+        for text in texts:
+            times = []
+            for _ in range(2):
+                t0 = time.time()
+                emb = _json_post(port, "/v1/embeddings", {"input": text}, key)
+                times.append(round(time.time() - t0, 4))
+            out.append(emb)
+            embed_s[str(engine._bucket(emb["usage"]["prompt_tokens"]))] = times
+        rr = _json_post(port, "/v1/rerank", {"query": ENCODER_SHORT, "documents": docs}, key)
+        conn, r = _post(port, "/v1/completions", {"prompt": "hello", "max_tokens": 4}, key)
+        completion = (r.status, json.loads(r.read()))
+        conn.close()
+    _check_launches("encoder", launches, (qm.NAME_8BIT, qm.NAME_8BIT_TC))
+    if completion[0] != 500 or completion[1]["error"]["code"] != "engine_error":
+        raise AssertionError(f"encoder completion: {completion}")
+    if [x["index"] for x in rr["results"]][0] != 1:
+        raise AssertionError(f"rerank: the query's own text is not first: {rr['results']}")
+    with plain_versions():
+        refs = [engine.embed(t) for t in texts]
+    errs = []
+    for got, (want, n) in zip(out, refs):
+        g = torch.tensor(got["data"][0]["embedding"], dtype=torch.float64)
+        w = torch.tensor(want, dtype=torch.float64)
+        if g.shape != (1024,) or not torch.isfinite(g).all() \
+                or abs(g.norm().item() - 1) > 1e-3 or got["usage"]["prompt_tokens"] != n:
+            raise AssertionError(f"embedding: shape {tuple(g.shape)}, norm {g.norm()}, "
+                                 f"usage {got['usage']} against {n}")
+        errs.append((g - w).abs().max().item() / w.abs().max().item())
+    if max(errs) > LOGITS_TOL:
+        raise AssertionError(f"encoder embeddings against the plain versions: {errs}")
+    with torch.inference_mode():
+        rows = _encoder_8bit_rows(torch, engine, Timer(torch))
+    resident = _resident_bytes(torch, engine.params)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "encoder", "ok": True, "synth_s": round(synth_s, 3),
+          "load_s": round(load_s, 3), "resident_gb": resident / 1e9,
+          "tokens": [n for _, n in refs], "rel_err": errs, "embed_s": embed_s,
+          "rerank": rr["results"], "completion_status": completion[0],
+          "launches": launches, "kernel_rows": rows})
+    return launches, rows
+    return launches
+
+
+def _get_status(port, path, key=None) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path, headers={"Authorization": f"Bearer {key}"} if key else {})
+    r = conn.getresponse()
+    body = r.read()
+    conn.close()
+    return r.status, body
+
+
+def phase_launch(torch, engine):
+    """The three-process stack of ``python -m llama_gguf_inference_tpu_torch
+    serve`` over the 8B Q4_K_M GGUF, warm from its layout cache, with an API
+    key file: the health port answers; through the gateway a request without
+    the key gets 401, a streamed greedy chat of 32 tokens with every EOG
+    token banned arrives chunk by chunk, ``/metrics`` counts the requests,
+    and the ported benchmark client runs a few requests (its summary printed
+    for information). The backend's launch counts live in its own process,
+    which shows none: its tokens are held to the same chat served in this
+    process over the same weights (on the card every wrapper launches its
+    kernel or raises). SIGTERM to the supervisor: it and its three children
+    exit 0 and the backend's key file is shredded."""
+    from llama_gguf_inference_tpu_torch.serving import key_mgmt
+    tmp = tempfile.mkdtemp(prefix="lgt-smoke-stack-")
+    keys = os.path.join(tmp, "api_keys.txt")
+    with contextlib.redirect_stdout(None):
+        if key_mgmt.main(["--keys-file", keys, "generate", "--key-id", "smoke", "--quiet"]):
+            raise AssertionError("key_mgmt generate failed")
+    api_key = open(keys).read().strip().split(":")[1]
+    gw, health, backend = _free_port(), _free_port(), _free_port()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("MODEL_PATH", "MOCK_BACKEND", "MODEL_NAME")}
+    env = {**base, "MODEL_PATH": engine.model_path, "DATA_DIR": tmp, "BACKEND_KEY_DIR": tmp,
+           "AUTH_KEYS_FILE": keys, "GATEWAY_HOST": "127.0.0.1", "GATEWAY_PORT": str(gw),
+           "PORT_HEALTH": str(health), "PORT_BACKEND": str(backend), "MAX_SLOTS": "4",
+           "CTX": "4096", "PREFIX_CACHE": "0", "ENGINE_WARMUP": "0"}
+    eog = sorted(engine.tokenizer.eog_ids)
+    chat = {"messages": [{"role": "user", "content": PROMPT}], "max_tokens": 32,
+            "temperature": 0, "logit_bias": {str(t): False for t in eog}}
+    stack = _Server(env, stack=True)
+    out: dict = {}
+    try:
+        up_s, _ = stack.wait_for(r"\[gateway\] listening", 300, fail="FATAL")
+        out["up_s"] = round(up_s, 3)
+        _, m = stack.wait_for(r"\[loader\] load_stats (\{.*\})", 1)
+        stats = json.loads(m.group(1))
+        if not stats["cache_hits"] or stats["repacked_native"] + stats["repacked_numpy"]:
+            raise AssertionError(f"the backend's load was not warm: {stats}")
+        out["backend_load_s"] = stats["total_s"]
+        end = time.time() + 30
+        while True:
+            try:
+                if _get_status(health, "/")[0] == 200 and _get_status(health, "/any")[0] == 200:
+                    break
+            except OSError:
+                if time.time() > end:
+                    raise
+            time.sleep(0.1)
+        status, _ = _get_status(gw, "/v1/models")
+        if status != 401:
+            raise AssertionError(f"gateway without the key: {status}")
+        t0 = time.time()
+        chunks = _sse_chunks(gw, "/v1/chat/completions", chat, api_key)
+        out["stream_s"] = round(time.time() - t0, 4)
+        text = "".join(c["choices"][0]["delta"].get("content") or ""
+                       for c in chunks if c["choices"])
+        finish = [c["choices"][0]["finish_reason"] for c in chunks
+                  if c["choices"] and c["choices"][0]["finish_reason"]]
+        if len(chunks) < 8 or finish != ["length"]:
+            raise AssertionError(f"gateway stream: {len(chunks)} chunks, finish {finish}")
+        out["stream_chunks"] = len(chunks)
+        status, body = _get_status(gw, "/metrics")
+        metrics = json.loads(body)["gateway"]
+        if status != 200 or metrics["requests_total"] < 2 \
+                or metrics["requests_unauthorized"] < 1 or metrics["requests_success"] < 1:
+            raise AssertionError(f"gateway /metrics: {status} {metrics}")
+        out["metrics"] = metrics
+        t0 = time.time()
+        bench = subprocess.run(
+            [sys.executable, "-m", "llama_gguf_inference_tpu_torch", "benchmark",
+             "--url", f"http://127.0.0.1:{gw}", "--api-key", api_key, "--suite", "all",
+             "--requests", "4", "--concurrency", "2", "--max-tokens", "16", "--json"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=base,
+            capture_output=True, text=True, timeout=300)
+        if bench.returncode != 0:
+            raise AssertionError(f"benchmark client: {bench.returncode}\n{bench.stderr[-2000:]}")
+        out["benchmark_s"] = round(time.time() - t0, 3)
+        out["benchmark"] = json.loads(bench.stdout)
+    finally:
+        rc = stack.stop()
+    exits = dict(re.findall(r"\[start\] (backend|health|gateway) exited (-?\d+)",
+                            "\n".join(line for _, line in stack.lines)))
+    left = os.listdir(os.path.join(tmp, "llama-keys"))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if rc != 0 or exits != {"backend": "0", "health": "0", "gateway": "0"} or left:
+        raise AssertionError(f"SIGTERM: supervisor {rc}, children {exits}, key files {left}"
+                             f"\n{stack.tail()}")
+    launches: dict[str, int] = {}
+    with serving(torch, engine, launches) as (port, key):
+        local = _sse_chunks(port, "/v1/chat/completions", chat, key)
+    local_text = "".join(c["choices"][0]["delta"].get("content") or ""
+                         for c in local if c["choices"])
+    if local_text != text:
+        raise AssertionError(f"served through the gateway {text!r}, in process {local_text!r}")
+    emit({"phase": "launch", "ok": True, **out, "sigterm_exit": rc, "children_exit": exits,
+          "tokens_equal_in_process": True, "in_process_launches": launches})
 
 
 def _greedy_run(torch, engine, ids, steps, cache=None, feed=None):
@@ -3348,9 +3624,9 @@ SOURCES = {
     "quant_matmul_lowbit_base_tc": (_QM_LTC_CU, _QM_JAX + ":172"),
     "quant_matmul_8bit": (_QM_CU, _QM_JAX + ":123"),           # _make_kernel, 8-bit branch
     "quant_matmul_8bit_min": (_QM_CU, _QM_JAX + ":185"),       # the same, with its min term
-    # the same with its min term, prefill rows, tensor cores (the instance
-    # without a min side runs on no main path here: no model of the smoke
-    # has such a weight at prefill; its rows are in the kernels phase)
+    # the same two at prefill rows, tensor cores (without a min side: the
+    # encoder's Q8_0 ffn_down; the decoders' Q6_K head never reaches it)
+    "quant_matmul_8bit_tc": (_QM_TC_CU, _QM_JAX + ":123"),
     "quant_matmul_8bit_min_tc": (_QM_TC_CU, _QM_JAX + ":185"),
     "flash_attention": (_FA_CU, _FA_JAX + ":129"),
     "flash_attention_q8": (_FA_CU, _FA_JAX + ":189"),
@@ -3369,7 +3645,9 @@ SOURCES = {
 # the kernels line reports each kernel at its decode shape (4 slots; the
 # paged ones with their idle fifth, B=5; the 2-bit one in the layout the q2k
 # phase serves), the tensor-core matmuls at a 512-row prefill chunk's
-# gate_up, the tensor-core flash kernels at a 512-token chunk at offset 0
+# gate_up (the 8-bit one without a min side at the encoder's ffn_down, its
+# only main-path use), the tensor-core
+# flash kernels at a 512-token chunk at offset 0
 LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_4bit": "gate_up 28672x4096 B=4",
               "quant_matmul_2bit_tc": "q2_k mixed tc gate_up 28672x4096 B=512",
@@ -3384,6 +3662,7 @@ LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_lowbit_base_tc": "q2_k flat base tc gate_up 28672x4096 B=512",
               "quant_matmul_8bit": "head 128256x4096 B=4",
               "quant_matmul_8bit_min": "q5_k compact 8bit gate_up 28672x4096 B=4",
+              "quant_matmul_8bit_tc": "encoder Q8_0 ffn_down 1024x4096 B=512",
               "quant_matmul_8bit_min_tc": "q5_k compact 8bit gate_up 28672x4096 B=512",
               **{name: "prefill" if name.endswith("_tc") else
                  "decode B=5" if "paged" in name else "decode B=4"
@@ -3466,9 +3745,15 @@ def main() -> int:
         phase_warm_load(torch, engine)
         enter("cold-start")
         phase_cold_start(torch, engine)
+        enter("launch")
+        phase_launch(torch, engine)
         drop_caches()
         enter("embeddings")
         paths = [phase_embeddings(torch, engine)]
+        enter("encoder")
+        enc_launches, enc_rows = phase_encoder(torch)
+        paths.append(enc_launches)
+        rows += enc_rows
         enter("forward")
         bf16_prefill = phase_forward(torch, engine)
         enter("q4k-prefill")

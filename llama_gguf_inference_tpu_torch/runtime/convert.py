@@ -10,8 +10,10 @@ caller converted every array to numpy:
   ``in_features``;
 - a dense linear is ``{"w": ...}``;
 - a quantized embedding is ``{"table": <quantized linear dict>}``;
-- norms and dense embedding tables are plain arrays;
-- lists (``layers``) and other dicts recurse.
+- norms, biases (the encoder's ``*_bias`` leaves) and dense embedding
+  tables are plain arrays;
+- lists (``layers``) and other dicts recurse, so the JAX encoder's tree
+  (``runtime.loader.load_encoder``'s keys) carries over as the decoder's.
 
 bf16 arrays (numpy's ``bfloat16`` extension dtype) keep their bits exactly.
 

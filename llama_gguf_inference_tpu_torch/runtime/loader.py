@@ -1,4 +1,5 @@
-"""GGUF -> device parameters for the llama architecture.
+"""GGUF -> device parameters for the llama architecture (``load_model``) and
+the BERT-family encoders (``load_encoder``).
 
 Two residency modes, as the JAX package's loader:
 
@@ -22,8 +23,8 @@ for the rest) and appended, and every cached tensor becomes a placeholder
 (:class:`_Pending`) that one bulk upload (``runtime.device_upload``) ships at
 the end of the load, before the LoRA adapter and the fusion.
 ``LGT_UPLOAD=tensor`` copies each tensor on its own instead. Every load
-prints the split of its seconds (``[loader] load_stats {...}``) and fills
-the ``stats`` dict a caller passes with it.
+prints the split of its seconds (``[loader] load_stats {...}``);
+``load_model`` also fills the ``stats`` dict a caller passes with it.
 """
 
 from __future__ import annotations
@@ -166,24 +167,43 @@ def load_model(path: str | Path, device: str | torch.device = "cuda",
     t_start = time.perf_counter()
     reader = GGUFReader(path)
     cfg = ModelConfig.from_gguf_metadata(reader.metadata)
-    cache = None
-    if mode == "quant":
-        from .layout_cache import LayoutCache
-        cache = LayoutCache.open(path)
+    cache = _open_cache(path, mode)
     st = _new_stats()
     params = _load_params(reader, cfg, dev, mode, cache, st)
-    if cache is not None:
-        # resolve before finalize: a cold boot's blob is still its tmp file
-        params = _resolve_pending(params, cache, dev, st)
-        t0 = time.perf_counter()
-        cache.finalize()
-        st["cache_write_s"] += time.perf_counter() - t0
+    params = _ship_cached(params, cache, dev, st)
     if lora_path:
         from .lora import apply_lora
         apply_lora(params, lora_path, lora_scale, arch=cfg.arch, device=dev)
     if fuse:
         for layer in params["layers"]:
             _fuse_layer(layer)
+    _report(st, cache, dev, t_start, stats)
+    return cfg, params, reader
+
+
+def _open_cache(path, mode: str):
+    """The layout cache of ``path`` in ``quant`` mode, else None."""
+    if mode != "quant":
+        return None
+    from .layout_cache import LayoutCache
+    return LayoutCache.open(path)
+
+
+def _ship_cached(params: dict, cache, dev: torch.device, stats: dict) -> dict:
+    """Resolve the cached placeholders in one bulk upload, then finalize the
+    cache (resolve first: a cold boot's blob is still its tmp file)."""
+    if cache is None:
+        return params
+    params = _resolve_pending(params, cache, dev, stats)
+    t0 = time.perf_counter()
+    cache.finalize()
+    stats["cache_write_s"] += time.perf_counter() - t0
+    return params
+
+
+def _report(st: dict, cache, dev: torch.device, t_start: float, stats: dict | None) -> None:
+    """Print the load's split (``[loader] load_stats {...}``) and copy it
+    into ``stats``."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     st["total_s"] = time.perf_counter() - t_start
@@ -192,6 +212,52 @@ def load_model(path: str | Path, device: str | torch.device = "cuda",
     print(f"[loader] load_stats {json.dumps(st)}", flush=True)
     if stats is not None:
         stats.update(st)
+
+
+def load_encoder(path: str | Path, device: str | torch.device = "cuda", mode: str = "quant"):
+    """BERT-family encoder GGUF -> (EncoderConfig, params, reader).
+
+    Tensor names follow llama.cpp's ``convert_hf_to_gguf.py::BertModel``:
+    token_embd / token_types / position_embd + token_embd_norm, and per
+    block attn_q/k/v(+bias), attn_output(+bias), attn_output_norm,
+    ffn_up/ffn_down(+bias), layer_output_norm. Projections load as the
+    decoder's do (``mode``, the layout cache and the bulk upload in
+    ``quant`` mode); norms and biases stay f32, the three embedding tables
+    bf16. The load's split is printed as :func:`load_model`'s.
+    """
+    from ..models.encoder import EncoderConfig
+
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r} (expected one of {MODES})")
+    dev = resolve_device(device)
+    t_start = time.perf_counter()
+    reader = GGUFReader(path)
+    cfg = EncoderConfig.from_gguf_metadata(reader.metadata)
+    t = reader.tensors
+    cache = _open_cache(path, mode)
+    st = _new_stats()
+    params: dict[str, Any] = {
+        "tok_embd": _load_array(reader, "token_embd.weight", dev, torch.bfloat16),
+        "type_embd": _load_array(reader, "token_types.weight", dev, torch.bfloat16),
+        "pos_embd": _load_array(reader, "position_embd.weight", dev, torch.bfloat16),
+        "embd_norm": _load_array(reader, "token_embd_norm.weight", dev),
+        "embd_norm_bias": _load_array(reader, "token_embd_norm.bias", dev),
+    }
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"blk.{i}."
+        layer: dict[str, Any] = {}
+        for n in ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_up", "ffn_down"):
+            layer[n] = _load_linear(reader, p + n + ".weight", dev, mode, cache, st)
+            if p + n + ".bias" in t:
+                layer[n + "_bias"] = _load_array(reader, p + n + ".bias", dev)
+        for n in ("attn_output_norm", "layer_output_norm"):
+            layer[n] = _load_array(reader, p + n + ".weight", dev)
+            layer[n + "_bias"] = _load_array(reader, p + n + ".bias", dev)
+        layers.append(layer)
+    params["layers"] = layers
+    params = _ship_cached(params, cache, dev, st)
+    _report(st, cache, dev, t_start, None)
     return cfg, params, reader
 
 

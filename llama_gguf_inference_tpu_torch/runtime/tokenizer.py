@@ -1,14 +1,16 @@
 """Tokenizers driven entirely by GGUF metadata.
 
 The reference delegates tokenization to llama.cpp inside ``llama-server``
-(SURVEY.md §2.9); here we implement the two vocab families GGUF carries:
+(SURVEY.md §2.9); here we implement the three vocab families GGUF carries:
 
 - ``tokenizer.ggml.model == "llama"``: SentencePiece-style vocab — greedy
   highest-score bigram merging with ``<0xNN>`` byte fallback
 - ``tokenizer.ggml.model == "gpt2"``:  byte-level BPE with explicit merges
+- ``tokenizer.ggml.model == "bert"``: WordPiece, the encoder family's vocab
+  (uncased basic normalization, greedy longest-prefix pieces with ``##``
+  continuations, [CLS] ... [SEP] framing)
 
-Both are pure Python on the host. The encoder family's WordPiece vocab is
-not carried here: this package serves decoder models only.
+All three are pure Python on the host.
 """
 
 from __future__ import annotations
@@ -192,6 +194,114 @@ class SPMTokenizer(Tokenizer):
         return text
 
 
+class WordPieceTokenizer(Tokenizer):
+    """BERT WordPiece (tokenizer.ggml.model == "bert"): the encoder-model
+    tokenizer (llama.cpp ``llm_tokenizer_wpm``).
+
+    Basic normalization matches HF's uncased BasicTokenizer: lowercase,
+    NFD accent-strip, punctuation split, CJK chars isolated.  Per word,
+    greedy longest-prefix matching over the vocab with ``##``
+    continuations; words with no match become [UNK].  ``bos``/``eos`` in
+    :class:`SpecialTokens` carry [CLS]/[SEP] (llama.cpp maps them the same
+    way), so ``_wrap`` produces the [CLS] ... [SEP] frame.
+    """
+
+    MAX_WORD_CHARS = 100
+
+    def __init__(self, tokens, token_types, special):
+        super().__init__(tokens, token_types, special)
+
+    @staticmethod
+    def _is_punct(ch: str) -> bool:
+        cp = ord(ch)
+        if (33 <= cp <= 47) or (58 <= cp <= 64) \
+                or (91 <= cp <= 96) or (123 <= cp <= 126):
+            return True
+        return unicodedata.category(ch).startswith("P")
+
+    @staticmethod
+    def _is_cjk(ch: str) -> bool:
+        cp = ord(ch)
+        return (0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+                or 0x20000 <= cp <= 0x2A6DF or 0xF900 <= cp <= 0xFAFF)
+
+    def _basic_tokens(self, text: str) -> list[str]:
+        text = unicodedata.normalize("NFD", text.lower())
+        out: list[str] = []
+        word: list[str] = []
+
+        def flush():
+            if word:
+                out.append("".join(word))
+                word.clear()
+
+        for ch in text:
+            cat = unicodedata.category(ch)
+            if cat == "Mn":          # strip accents (uncased BERT)
+                continue
+            if ch.isspace():
+                flush()
+            elif self._is_punct(ch) or self._is_cjk(ch):
+                flush()
+                out.append(ch)
+            elif cat.startswith("C"):   # control chars
+                continue
+            else:
+                word.append(ch)
+        flush()
+        return out
+
+    def encode(self, text: str, add_bos: bool | None = None,
+               add_eos: bool | None = None) -> list[int]:
+        ids: list[int] = []
+        unk = self.special.unk_id
+        for word in self._basic_tokens(text):
+            if len(word) > self.MAX_WORD_CHARS:
+                if unk >= 0:
+                    ids.append(unk)
+                continue
+            start, pieces = 0, []
+            while start < len(word):
+                end = len(word)
+                cur = None
+                while start < end:
+                    sub = word[start:end]
+                    if start > 0:
+                        sub = "##" + sub
+                    if sub in self._index:
+                        cur = self._index[sub]
+                        break
+                    end -= 1
+                if cur is None:
+                    pieces = None
+                    break
+                pieces.append(cur)
+                start = end
+            if pieces is not None:
+                ids.extend(pieces)
+            elif unk >= 0:
+                # guard like _wrap: a bert GGUF missing unknown_token_id
+                # must not emit id -1 (would wrap in the embedding gather)
+                ids.append(unk)
+        return self._wrap(ids, add_bos, add_eos)
+
+    def decode(self, ids, _strip_prefix: bool = True) -> str:
+        parts: list[str] = []
+        for i in ids:
+            if not 0 <= i < self.vocab_size:
+                continue
+            if self.token_types[i] == TokenType.CONTROL:
+                continue
+            t = self.tokens[i]
+            if t.startswith("##"):
+                parts.append(t[2:])
+            else:
+                if parts:
+                    parts.append(" ")
+                parts.append(t)
+        return "".join(parts)
+
+
 def _bytes_to_unicode() -> dict[int, str]:
     """GPT-2's reversible byte<->unicode table (public algorithm)."""
     bs = (list(range(ord("!"), ord("~") + 1))
@@ -360,4 +470,16 @@ def from_gguf_metadata(md: Mapping[str, Any]) -> Tokenizer:
     if model == "gpt2":
         merges = list(md.get(Keys.TOKENIZER_MERGES, []))
         return BPETokenizer(tokens, token_types, merges, special)
+    if model == "bert":
+        # encoder models frame sequences as [CLS] ... [SEP]; llama.cpp
+        # stores the ids under cls/seperator keys (their spelling) and
+        # treats them as bos/eos
+        cls_id = int(md.get("tokenizer.ggml.cls_token_id",
+                            special.bos_id))
+        sep_id = int(md.get("tokenizer.ggml.seperator_token_id",
+                            special.eos_id))
+        special.bos_id, special.eos_id = cls_id, sep_id
+        special.add_bos = bool(md.get(Keys.TOKENIZER_ADD_BOS, True))
+        special.add_eos = bool(md.get(Keys.TOKENIZER_ADD_EOS, True))
+        return WordPieceTokenizer(tokens, token_types, special)
     raise NotImplementedError(f"tokenizer model {model!r}")

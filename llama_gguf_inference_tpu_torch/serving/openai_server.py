@@ -6,7 +6,9 @@ Endpoints:
 - ``POST /v1/completions``       — legacy completions, JSON or SSE (also
   ``POST /completion``)
 - ``GET  /v1/models``            — the single loaded model
-- ``POST /v1/embeddings``        — mean-pooled embeddings (``engine.embed``)
+- ``POST /v1/embeddings``        — pooled embeddings (``engine.embed``: the
+  decoder's mean pool, or a ``bert`` GGUF's encoder, whose engine answers
+  text generation with an error, as llama-server ``--embedding`` does)
 - ``POST /v1/rerank``            — documents ranked by the cosine of their
   embeddings with the query's (also ``/rerank`` and ``/v1/reranking``;
   ``top_n``; a 501 on an engine without ``embed``)
@@ -791,11 +793,27 @@ class OpenAIServer:
         return self.cfg.port
 
 
+# GGUF architectures served by the encoder (embedding-only) engine:
+# llama-server's --embedding mode
+ENCODER_ARCHES = ("bert",)
+
+
+def _gguf_arch(model_path: str) -> str:
+    from ..gguf.reader import GGUFReader
+    reader = GGUFReader(model_path)
+    try:
+        return str(reader.metadata.get("general.architecture", "llama"))
+    finally:
+        reader.close()
+
+
 def build_engine_from_env(device: str = "cuda"):
     """The engine the environment names. Without ``MODEL_PATH``, or with
     ``MOCK_BACKEND`` (1, true or yes), the mock engine (``runtime.mock``;
     ``MODEL_NAME``, ``MOCK_DELAY_S`` its per-token delay), as the JAX
-    server does. Otherwise the model at ``MODEL_PATH`` with ``MAX_SLOTS``,
+    server does. A GGUF of an :data:`ENCODER_ARCHES` architecture gets the
+    embedding-only ``runtime.encoder_engine.EncoderEngine`` (buckets 64 and
+    512). Otherwise the model at ``MODEL_PATH`` with ``MAX_SLOTS``,
     ``CTX`` (total, split over slots) or ``CTX_PER_SLOT``, and the KV cache:
     ``KV_CACHE_TYPE`` (bf16, q8_0, q4_0, q4_1; q5_0/q5_1 run as q8_0),
     ``KV_LAYOUT`` (contig or paged) and ``KV_PAGE_SIZE`` (tokens per page),
@@ -810,6 +828,11 @@ def build_engine_from_env(device: str = "cuda"):
         from ..runtime.mock import MockEngine
         return MockEngine(model_name=os.environ.get("MODEL_NAME", "mock-model"),
                           delay_s=float(os.environ.get("MOCK_DELAY_S", "0") or 0))
+    if _gguf_arch(model_path) in ENCODER_ARCHES:
+        from ..runtime.encoder_engine import EncoderEngine
+        print("[backend] encoder architecture: embedding-only mode "
+              "(llama-server --embedding equivalent)", flush=True)
+        return EncoderEngine(model_path, device=device)
     from ..runtime.engine import EngineConfig, InferenceEngine
 
     kv = os.environ.get("KV_CACHE_TYPE", "bf16").lower()

@@ -110,3 +110,36 @@ def test_grammar_and_tool_modules_are_scanned():
         assert f"{port.__name__}.{mod}" in names
         assert mod.replace(".", os.sep) + (".py" if "." in mod else os.sep + "__init__.py") \
             in files
+
+
+def test_encoder_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from llama_gguf_inference_tpu_torch.runtime.encoder_engine import EncoderEngine
+    from llama_gguf_inference_tpu_torch.runtime.loader import load_encoder
+    from llama_gguf_inference_tpu_torch.serving import openai_server
+    from llama_gguf_inference_tpu_torch.tools.synth import synth_bert
+
+    path = synth_bert(str(tmp_path / "e.gguf"), shape="tiny")
+    monkeypatch.setenv("MODEL_PATH", path)
+    for call in (lambda: load_encoder(path), lambda: EncoderEngine(path),
+                 lambda: openai_server.build_engine_from_env()):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert EncoderEngine(path, device="cpu").cfg.dim == 256
+
+
+def test_shell_and_encoder_modules_are_scanned():
+    """The serving shell (``utils/``, ``launch/``, the CLI, the gateway and
+    its helpers) and the encoder modules are among the files and modules
+    checked above."""
+    names = set(_module_names())
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    for mod in ("utils.logging", "launch.start", "__main__", "serving.gateway",
+                "serving.health_server", "serving.auth", "serving.key_mgmt",
+                "serving.benchmark", "models.encoder", "runtime.encoder_engine"):
+        assert f"{port.__name__}.{mod}" in names, mod
+        assert mod.replace(".", os.sep) + ".py" in files, mod
+    for pkg in ("utils", "launch"):
+        assert f"{port.__name__}.{pkg}" in names
+        assert os.path.join(pkg, "__init__.py") in files
