@@ -242,7 +242,26 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               every 2/4-bit and 8-bit call shadowed by its plain version, the
               logits within LOGITS_TOL of the oracle's; each projection's
               base and adapted call timed at 4 and 512 rows
-16. the ``{"kernels": [...]}`` line, the card line, and the final
+16. gemma3  — that engine freed, the Gemma-3-12B shape at full width and
+              depth (``cached_model("gemma3-12b")``: 48 layers of 3840, 16
+              heads over 8 of 256, ffn 15360, vocab 262208, a window of 1024
+              on five layers of six, Q4_K projections, the head tied to the
+              Q6_K embedding) loaded cold, served from 4 slots of 4096: a
+              prompt of about 2000 tokens prefilled in chunks of 512 and 32
+              greedy steps, the split flash kernel launched on the 8 global
+              layers only (the sliding ones through ``masked_attention``),
+              the first and last chunk's and 4 steps' logits against the
+              plain versions; a chat, EOG banned, through the server;
+              gate+up at 4 and 512 rows, the head at 4, flash at head_dim
+              256 (decode, and a 512-token chunk from offset 1024), each
+              timed beside its plain version, its bound and the library
+17. iq      — each grid-codebook format's 8B ffn_gate repacked from
+              synthesized bytes (IQ2_XXS and IQ3_S also packed4), held
+              against the plain versions at 4 and 512 rows and timed; then
+              the 8b widths at 2 layers with IQ2_XXS projections
+              (``cached_model(quant="iq2_xxs", n_layers=2)``), 17 greedy
+              steps against the plain path, every 8-bit call shadowed
+18. the ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
@@ -254,8 +273,9 @@ launches taken back out), the slots phase, the serve-paged phase, the q2k
 phase's kernel run,
 serve, 512-token chunk, flat base run and base chunk, the base, xsum, split
 and int8 variants' chunks, the q5k phase's kernel run, serve, 512-token
-chunk and long-prompt serve, the lora phase's chunk and decode steps) and
-read just after; comparison runs fall outside those windows.
+chunk and long-prompt serve, the lora phase's chunk and decode steps, the
+gemma3 phase's kernel run and chat, the iq phase's 17 steps) and read just
+after; comparison runs fall outside those windows.
 
 Every engine but the structured phase's second and the slots phase's is
 built with the slot prefix cache off, so a phase that sends one prompt twice times and counts
@@ -1299,7 +1319,7 @@ def phase_warm_load(torch, engine):
             layer = {n: per_tensor(f"blk.0.{n}.weight")
                      for n in ("attn_q", "attn_k", "attn_v", "attn_output",
                                "ffn_gate", "ffn_up", "ffn_down")}
-            loader._fuse_layer(layer)
+            loader._fuse_layer(layer, engine.cfg)
             pairs = [(layer[k], params["layers"][0][k]) for k in layer]
             pairs += [(per_tensor("token_embd.weight"), params["tok_embd"].table),
                       (per_tensor("output.weight"), params["output"])]
@@ -2815,16 +2835,10 @@ def phase_serve_paged(torch, loaded):
 
 
 def _resident_bytes(torch, node) -> int:
-    """Bytes of every tensor in a parameter tree (weights as stored)."""
-    if isinstance(node, torch.Tensor):
-        return node.numel() * node.element_size()
-    if isinstance(node, dict):
-        return sum(_resident_bytes(torch, v) for v in node.values())
-    if isinstance(node, list | tuple):
-        return sum(_resident_bytes(torch, v) for v in node)
-    if hasattr(node, "__dataclass_fields__"):
-        return sum(_resident_bytes(torch, getattr(node, f)) for f in node.__dataclass_fields__)
-    return 0
+    """Bytes of every tensor in a parameter tree (weights as stored), each
+    tensor once (a tied head shares the embedding's)."""
+    return sum(t.numel() * t.element_size()
+               for t in {id(t): t for t in _tensors_of(torch, node, [])}.values())
 
 
 def phase_q2k(torch):
@@ -3592,6 +3606,341 @@ def phase_lora(torch):
     return [chunk_launches, dec_launches]
 
 
+GEMMA_SHAPE = "gemma3-12b"
+GEMMA_CTX = 4096               # each of the gemma3 engine's 4 slots
+GEMMA_PROMPT = 2000            # tokens of its long prompt: past the 1024 window
+GEMMA_STEPS = 32               # greedy decode steps after it
+GEMMA_CHUNK = 512              # prefill rows a forward (the engine's largest bucket)
+
+
+def _gemma_run(torch, engine, ids, steps, feed=None):
+    """``ids`` prefilled into a one-sequence cache of GEMMA_CTX positions in
+    chunks of GEMMA_CHUNK (each chunk's last row's logits kept), then
+    ``steps`` decode steps, each fed the argmax of the logits before it or
+    ``feed``'s tokens. Returns (chunk logits, step logits, tokens fed)."""
+    from llama_gguf_inference_tpu_torch.models.llama import KVCache, forward
+    dev = engine.device
+    cache = KVCache.zeros(engine.cfg, 1, GEMMA_CTX, dev)
+
+    def step(tok, off, at):
+        return forward(engine.params, engine.cfg,
+                       torch.tensor([tok], dtype=torch.int32, device=dev),
+                       torch.tensor([off], dtype=torch.int32, device=dev), cache,
+                       logits_at=torch.tensor([at], device=dev))[0, 0]
+
+    chunk_logits, step_logits, toks = [], [], []
+    with torch.inference_mode():
+        for s in range(0, len(ids), GEMMA_CHUNK):
+            part = ids[s:s + GEMMA_CHUNK]
+            chunk_logits.append(step(part, s, len(part) - 1))
+        lg = chunk_logits[-1]
+        for i in range(steps):
+            toks.append(int(lg.argmax()) if feed is None else feed[i])
+            lg = step([toks[-1]], len(ids) + i, 0)
+            step_logits.append(lg)
+    torch.cuda.synchronize()
+    return chunk_logits, step_logits, toks
+
+
+def _qm_row(torch, qm, timer, w, B, label, g):
+    """One timed row of the QuantLinear ``w`` at ``B`` rows through the
+    dispatcher (``ops.quant_matmul.quant_matmul``, the model's path): the
+    kernel it launched, its error against the plain versions on the same
+    inputs (MATMUL_TOL), its time, the plain path's, ``torch.matmul`` on the
+    weights dequantized to bf16 ahead of time, and the bound (the stored
+    weight arrays, the activations and the f32 output; 2 B in out bf16
+    operations)."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    x = torch.randn(B, w.in_features, generator=g, device="cuda").bfloat16()
+    before = dict(_build.LAUNCHES)
+    got = qm.quant_matmul(w, x, torch.float32)
+    ran = [n for n, c in _build.LAUNCHES.items() if c != before.get(n, 0)]
+    with plain_versions():
+        want = qm.quant_matmul(w, x, torch.float32)
+    err, rel = _err(got, want, MATMUL_TOL)
+    w_lib = w.dequantize_bm(torch.bfloat16)
+    xp = w.permute_activations(x)
+    nbytes = _wbytes(w) + B * w.in_features * 2 + B * w.out_features * 4
+    b_ms, b_by = bound(nbytes, 2.0 * B * w.in_features * w.out_features)
+    ms = timer(lambda: qm.quant_matmul(w, x, torch.float32))
+    with plain_versions():
+        plain_ms = timer(lambda: qm.quant_matmul(w, x, torch.float32), 5)
+    row = {"kernel": ran[0] if len(ran) == 1 else ran,
+           "shape": f"{label} {w.out_features}x{w.in_features} B={B}", "B": B,
+           "max_abs_err": err, "max_rel_err": rel,
+           "bits_per_weight": 8 * _wbytes(w) / (w.out_features * w.in_features),
+           "ms": ms, "plain_ms": plain_ms,
+           "library_ms": timer(lambda: torch.matmul(xp, w_lib.t())),
+           "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms}
+    del w_lib
+    emit({"phase": "kernels", **row})
+    return row
+
+
+def _gemma_rows(torch, engine, timer):
+    """Gemma-3-12B's shapes timed: the Q4_K gate+up (30720 x 3840) at 4 and
+    512 rows (in 3840 is 120 sub-blocks of 32, short of the tensor-core
+    kernels' step of 64, so both run the 4-bit decode kernel); the tied Q6_K
+    head (262208 x 3840) at 4 rows through the 8-bit decode kernel, beside
+    the dequantize path the JAX package's gate sends it to (262208 rows
+    divide no out-tile); flash at head_dim 256, decode (B=4) and a 512-token
+    prefill chunk from offset 1024 over 4096 slots (the split kernel, in
+    pieces), each beside its plain version, SDPA and its bound."""
+    import torch.nn.functional as F
+
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    w = engine.params["layers"][0]["ffn_gateup"]
+    for B in (4, 512):
+        rows.append(_qm_row(torch, qm, timer, w, B, "gemma3 q4_k gate_up", g))
+    head = engine.params["output"]
+    x = torch.randn(4, head.in_features, generator=g, device="cuda").bfloat16()
+    x2 = head.permute_activations(x).contiguous()
+    args = (x2, head.codes, head.d, head.sc, head.sub_size, head.code_bias, head.dmin, head.mn)
+    err, rel = _err(qm.quant_matmul_8bit(*args), qm.quant_matmul_8bit_plain(*args), MATMUL_TOL)
+    nbytes = _wbytes(head) + x.numel() * 2 + 4 * head.out_features * 4
+    b_ms, b_by = bound(nbytes, 2.0 * 4 * head.in_features * head.out_features)
+    w_lib = head.dequantize_bm(torch.bfloat16)
+    ms = timer(lambda: qm.quant_matmul_8bit(*args))
+    rows.append({"kernel": _8bit_name(qm, 4, head.in_features, head.sub_size, False),
+                 "shape": f"gemma3 head {head.out_features}x{head.in_features} B=4", "B": 4,
+                 "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                 "plain_ms": timer(lambda: qm.quant_matmul_8bit_plain(*args), 5),
+                 "library_ms": timer(lambda: torch.matmul(x2, w_lib.t())),
+                 "dispatched": qm.select_kernel(head, 4),
+                 "dispatched_ms": timer(lambda: qm.quant_matmul(head, x, torch.float32)),
+                 "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
+    emit({"phase": "kernels", **rows[-1]})
+    del w_lib
+    cfg = engine.cfg
+    H, KVH, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, GEMMA_CTX
+    for B, T, offs in ((4, 1, [2000, 1500, 1000, 37]), (1, GEMMA_CHUNK, [1024])):
+        q = torch.randn(B, T, H, D, generator=g, device="cuda").bfloat16()
+        k = torch.randn(B, KVH, S, D, generator=g, device="cuda").bfloat16()
+        v = torch.randn(B, KVH, S, D, generator=g, device="cuda").bfloat16()
+        off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        args = (q, k, v, off)
+        before = _build.LAUNCHES.get(fa.NAME, 0)
+        got = fa.flash_attention(*args)
+        launches = _build.LAUNCHES.get(fa.NAME, 0) - before
+        err, rel = _err(got, fa.flash_attention_plain(*args), FLASH_TOL)
+        live = sum(o + T for o in offs)
+        pairs = sum(o * T + T * (T + 1) // 2 for o in offs)
+        b_ms, b_by = bound(live * KVH * 2 * D * 2 + 2 * q.numel() * 2 + B * 4,
+                           4.0 * H * D * pairs)
+        pos = off.long()[:, None] + torch.arange(T, device="cuda")[None]
+        mask = (torch.arange(S, device="cuda")[None, None] <= pos[:, :, None])[:, None]
+        qt = q.transpose(1, 2)
+        ms = timer(lambda: fa.flash_attention(*args))
+        rows.append({"kernel": fa.NAME,
+                     "shape": f"gemma3 {'decode' if T == 1 else 'prefill'} B={B} T={T} "
+                              f"H={H} KVH={KVH} D={D} S={S} offsets={offs}",
+                     "B": B, "launches_a_call": launches,
+                     "scratch_bytes": fa.split_scratch_bytes(
+                         B, fa.split_rows(B, T, H // KVH, KVH, S, D), H // KVH, KVH, S, D),
+                     "scratch_cap": fa.FLASH_SPLIT_SCRATCH,
+                     "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                     "plain_ms": timer(lambda: fa.flash_attention_plain(*args), 5),
+                     "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                         qt, k, v, attn_mask=mask, enable_gqa=True)),
+                     "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms})
+        emit({"phase": "kernels", **rows[-1]})
+        del q, k, v
+    return rows
+
+
+def phase_gemma3(torch):
+    """The Gemma-3-12B shape at full width and depth (``tools.synth``
+    ``gemma3-12b``: Q4_K projections, a tied Q6_K embedding, 48 layers of
+    3840, 8 of them global) loaded cold and served from 4 slots of
+    GEMMA_CTX. A prompt of about GEMMA_PROMPT tokens, past the 1024-key
+    window, prefilled in chunks of 512 and GEMMA_STEPS greedy steps through
+    the kernels: the split flash kernel launches on the 8 global layers
+    only (its pieces a chunk and one a step), the 40 sliding layers take
+    ``masked_attention``; the first and last chunk's and 4 steps' logits
+    held to LOGITS_TOL of the plain versions fed the same tokens. Then a
+    chat served with every EOG token banned (TTFT, tokens a second), and
+    Gemma's shapes timed (:func:`_gemma_rows`)."""
+    from llama_gguf_inference_tpu_torch.models import llama as tllama
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import flash_attention as fa
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
+    from llama_gguf_inference_tpu_torch.tools.synth import SHAPES, cached_model
+    t0 = time.time()
+    path = cached_model(GEMMA_SHAPE, seed=0)
+    t1 = time.time()
+    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=GEMMA_CTX, prefix_cache=False),
+                             device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.time() - t1
+    try:
+        cfg, p = engine.cfg, engine.params
+        d = SHAPES[GEMMA_SHAPE]
+        glob = [i for i in range(cfg.n_layers) if not cfg.is_sliding(i)]
+        w, head = p["layers"][0]["ffn_gateup"], p["output"]
+        if (cfg.arch, cfg.dim, cfg.n_layers, cfg.head_dim, cfg.vocab_size) != \
+                ("gemma3", d["dim"], d["n_layers"], d["head_dim"], d["vocab"]) \
+                or len(glob) != cfg.n_layers // 6 or (w.fmt, w.bits) != ("q4_k", 4) \
+                or head is not p["tok_embd"].table or head.fmt != "q6_k":
+            raise AssertionError(f"gemma3 loaded as {cfg}, gate+up {w.fmt}, head {head.fmt}")
+        emit({"phase": "gemma3-load", "ok": True, "synth_s": round(t1 - t0, 3),
+              "load_s": round(load_s, 3), "gguf_gb": os.path.getsize(path) / 1e9,
+              "resident_weights_gb": _resident_bytes(torch, p) / 1e9,
+              "resident_block_weights_gb": _resident_bytes(torch, p["layers"]) / 1e9,
+              "resident_embedding_head_gb": _resident_bytes(torch, p["tok_embd"]) / 1e9,
+              "device_gb": torch.cuda.memory_allocated() / 1e9,
+              "load_stats": engine.load_stats, "global_layers": glob,
+              "window": cfg.sliding_window, "rope": [cfg.rope_base, cfg.rope_scaling_type,
+                                                     cfg.rope_scaling_factor,
+                                                     cfg.rope_local_base]})
+        _, ids = _words(engine, GEMMA_PROMPT)
+        masked = {"calls": 0}
+        real = tllama.masked_attention
+
+        def counted(*a, **k):
+            masked["calls"] += 1
+            return real(*a, **k)
+
+        _build.reset_launches()
+        t0 = time.time()
+        with _patched(tllama, "masked_attention", counted):
+            k_chunks, k_steps, k_toks = _gemma_run(torch, engine, ids, GEMMA_STEPS)
+        wall = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+        group, KVH = cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads
+        pieces = [-(-n // fa.split_rows(1, n, group, KVH, GEMMA_CTX, cfg.head_dim))
+                  for n in [min(GEMMA_CHUNK, len(ids) - s)
+                            for s in range(0, len(ids), GEMMA_CHUNK)]]
+        forwards = len(pieces) + GEMMA_STEPS
+        want_flash = len(glob) * (sum(pieces) + GEMMA_STEPS)
+        flash = {n: c for n, c in launches.items() if n.startswith("flash")}
+        if flash != {fa.NAME: want_flash} \
+                or masked["calls"] != (cfg.n_layers - len(glob)) * forwards \
+                or launches.get(qm.NAME_4BIT, 0) <= 0 \
+                or any(n.endswith(".plain") for n in launches):
+            raise AssertionError(f"gemma3 kernel run: launches {launches}, masked "
+                                 f"{masked['calls']}, want flash {want_flash}")
+        scratch = [{"rows": n, "whole_bytes": fa.split_scratch_bytes(
+                        1, n, group, KVH, GEMMA_CTX, cfg.head_dim),
+                    "piece_rows": fa.split_rows(1, n, group, KVH, GEMMA_CTX, cfg.head_dim),
+                    "piece_bytes": fa.split_scratch_bytes(
+                        1, fa.split_rows(1, n, group, KVH, GEMMA_CTX, cfg.head_dim), group,
+                        KVH, GEMMA_CTX, cfg.head_dim)}
+                   for n in sorted({min(GEMMA_CHUNK, len(ids) - s)
+                                    for s in range(0, len(ids), GEMMA_CHUNK)} | {1})]
+        if any(s["piece_bytes"] > fa.FLASH_SPLIT_SCRATCH for s in scratch):
+            raise AssertionError(f"gemma3 split scratch over the cap: {scratch}")
+        with plain_versions():
+            p_chunks, p_steps, _ = _gemma_run(torch, engine, ids, 4, feed=k_toks[:4])
+        k_rows = [k_chunks[0], k_chunks[-1], *k_steps[:4]]
+        _check_logits(torch, engine, k_chunks + k_steps)
+        errs, agree = _compare(k_rows, [p_chunks[0], p_chunks[-1], *p_steps])
+        emit({"phase": "gemma3-forward", "ok": True, "prompt_tokens": len(ids),
+              "chunks": len(pieces), "steps": GEMMA_STEPS, "kernel_path_s": round(wall, 3),
+              "logits_rel_err": errs, "logits_tol": LOGITS_TOL, "argmax_agree": agree,
+              "flash_launches": want_flash, "flash_pieces_a_chunk": pieces,
+              "masked_attention_calls": masked["calls"], "split_scratch": scratch,
+              "split_scratch_cap": fa.FLASH_SPLIT_SCRATCH, "launches": launches})
+
+        served: dict[str, int] = {}
+        with serving(torch, engine, served) as (port, key):
+            ban = {str(t): False for t in sorted(engine.tokenizer.eog_ids)}
+            msgs = [{"role": "user", "content": "hello world, the quick brown fox"}]
+            t0 = time.time()
+            t_first, t_last, usage, _ = _stream(
+                port, "/v1/chat/completions",
+                {"messages": msgs, "max_tokens": 64, "temperature": 0, "logit_bias": ban}, key)
+        n_gen = usage["completion_tokens"]
+        if n_gen != 64 or served.get(fa.NAME, 0) <= 0 \
+                or any(n.endswith(".plain") for n in served):
+            raise AssertionError(f"gemma3 serve: {n_gen} tokens, launches {served}")
+        emit({"phase": "gemma3-serve", "ok": True, "ttft_s": round(t_first - t0, 4),
+              "completion_tokens": n_gen,
+              "decode_tok_s_b1": round((n_gen - 1) / (t_last - t_first), 2),
+              "launches": served})
+        timer = Timer(torch)
+        with torch.inference_mode():
+            rows = _gemma_rows(torch, engine, timer)
+        del timer
+    finally:
+        engine.stop()
+    return [launches, served], rows
+
+
+IQ_FORMATS = ("iq1_s", "iq1_m", "iq2_xxs", "iq2_xs", "iq2_s", "iq3_xxs", "iq3_s")
+IQ_PACKED4 = ("iq2_xxs", "iq3_s")
+IQ_SHAPE = (14336, 4096)       # the 8B ffn_gate
+IQ_LAYERS = 2                  # the IQ2_XXS model's depth (numpy repack)
+
+
+def phase_iq(torch):
+    """The grid-codebook formats: each one's 8B ffn_gate (14336 x 4096)
+    repacked from synthesized wire bytes (``tools.synth.tiled_weight``) in
+    its default layout (IQ2/IQ3: int8 values with the compact d x sub-scale,
+    the 8-bit kernels; IQ1: 2-bit trit codes, code bias 1, the 2-bit
+    kernels), and IQ2_XXS and IQ3_S also as packed4 codes (the 4-bit kernels'
+    value maps), held to MATMUL_TOL of the plain versions at 4 and 512 rows
+    and timed. Then the 8b widths at IQ_LAYERS layers with IQ2_XXS
+    projections (a Q4_K embedding, the Q6_K head): a prefill and 16 greedy
+    steps through the kernels, every 8-bit call shadowed by its plain
+    version, the logits held to LOGITS_TOL of the plain path's."""
+    from llama_gguf_inference_tpu_torch.gguf.constants import GGMLType
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.quant.repack import repack, to_quant_linear
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
+    from llama_gguf_inference_tpu_torch.tools.synth import cached_model, tiled_weight
+    out_f, in_f = IQ_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(4)
+    timer = Timer(torch)
+    rows = []
+    try:
+        for fmt, mode in [(f, "int8") for f in IQ_FORMATS] + [(f, "packed4") for f in IQ_PACKED4]:
+            t = GGMLType[fmt.upper()]
+            raw = tiled_weight(t, out_f, in_f)
+            os.environ["LGT_IQ_CODES"] = mode
+            t0 = time.time()
+            rp = repack(raw, t, out_f, in_f)
+            repack_s = time.time() - t0
+            w = to_quant_linear(rp, "cuda")
+            del rp
+            with torch.inference_mode():
+                for B in (4, 512):
+                    row = _qm_row(torch, qm, timer, w, B,
+                                 f"{fmt} {'packed4' if mode == 'packed4' else 'default'} gate", g)
+                    row["repack_s"] = round(repack_s, 3)
+                    rows.append(row)
+            del w
+    finally:
+        os.environ.pop("LGT_IQ_CODES", None)
+        del timer
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    path = cached_model("8b", seed=0, quant="iq2_xxs", n_layers=IQ_LAYERS)
+    t1 = time.time()
+    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024, prefix_cache=False),
+                             device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.time()
+    try:
+        w = engine.params["layers"][0]["ffn_gateup"]
+        if (w.fmt, w.bits, w.sub_size) != ("iq2_xxs", 8, 32):
+            raise AssertionError(f"iq2_xxs gate+up loaded as {w.fmt}, {w.bits} bits")
+        launches, out = _variant_forward(torch, engine, "iq2_xxs", (qm.NAME_8BIT,),
+                                         (qm.NAME_DEQUANT,), shadow=qm.NAME_8BIT)
+        emit({"phase": "iq-forward", "ok": True, "layers": IQ_LAYERS,
+              "synth_s": round(t1 - t0, 3), "load_s": round(t2 - t1, 3),
+              "load_stats": engine.load_stats,
+              "resident_block_weights_gb": _resident_bytes(torch, engine.params["layers"]) / 1e9,
+              **out, "launches": launches})
+    finally:
+        engine.stop()
+    return [launches], rows
+
+
 _FA_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention.cu"
 _FA_TC_CU = "llama_gguf_inference_tpu_torch/csrc/flash_attention_tc.cu"
 _FA_JAX = "llama_gguf_inference_tpu/ops/flash_attention.py"
@@ -3793,6 +4142,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         enter("lora")
         paths += phase_lora(torch)
+        drop_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("gemma3")
+        g_paths, g_rows = phase_gemma3(torch)
+        paths += g_paths
+        rows += g_rows
+        drop_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("iq")
+        i_paths, i_rows = phase_iq(torch)
+        paths += i_paths
+        rows += i_rows
         drop_caches()
         emit({"phase": "memory", "max_allocated_gb":
               torch.cuda.max_memory_allocated() / 1e9})

@@ -31,8 +31,10 @@ the decode kernel of ``csrc/flash_attention.cu`` (``*_decode`` wrappers,
 launches counted under the wrapper's own name), which splits each
 sequence's keys across blocks of :data:`FLASH_SPLIT_KEYS` and merges the
 splits in the same launch, through a scratch of partials allocated per call
-and arrival counters kept per device (:func:`_arrivals`); the host never
-reads ``offsets``, so a launch's grid follows from shapes alone. On CPU
+(at most :data:`FLASH_SPLIT_SCRATCH` bytes: a longer call launches over
+pieces of its query positions) and arrival counters kept per device
+(:func:`_arrivals`); the host never reads ``offsets``, so a launch's grid
+follows from shapes alone. On CPU
 tensors every wrapper takes its ``*_plain`` version, the plain version of
 both kernels: the cache dequantized in f32 (codes × scales, + minimums; no
 bf16 rounding) and gathered through the table, then one masked f32 softmax.
@@ -70,6 +72,10 @@ FLASH_TC_MIN_ROWS = 16
 # refuses a launch sized for another)
 FLASH_SPLIT_KEYS = 256
 _ROW_GROUP = 4                 # query rows a decode block (kWarps)
+# bytes a decode launch's partials may take: at head_dim 256 a 512-position
+# prefill chunk over 8192 keys at 8 kv heads and group 2 would ask for about
+# 270 MB at once, so such calls launch over pieces of the query positions
+FLASH_SPLIT_SCRATCH = 64 << 20
 _ARRIVALS: dict[torch.device, torch.Tensor] = {}
 
 
@@ -132,15 +138,36 @@ def _arrivals(dev: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _split_work(q: torch.Tensor, KVH: int, S: int) -> list[torch.Tensor]:
-    """The decode kernel's partials' scratch (per (b, kv head, row group,
-    split) and row: acc over D, then m and l; f32) and arrival counters (per
-    (b, kv head, row group)), sized from shapes alone."""
-    B, T, H, D = q.shape
-    groups = B * KVH * -(-(H // KVH * T) // _ROW_GROUP)
-    part = torch.empty(groups * -(-S // FLASH_SPLIT_KEYS) * _ROW_GROUP * (D + 2),
+def split_scratch_bytes(B: int, T: int, group: int, KVH: int, S: int, D: int) -> int:
+    """Bytes of the decode kernel's partials for a launch of T query
+    positions: per (b, kv head, row group of :data:`_ROW_GROUP` of the
+    group * T rows, split of :data:`FLASH_SPLIT_KEYS` keys) and row, acc
+    over D, then m and l, f32."""
+    groups = B * KVH * -(-(group * T) // _ROW_GROUP)
+    return groups * -(-S // FLASH_SPLIT_KEYS) * _ROW_GROUP * (D + 2) * 4
+
+
+def split_rows(B: int, T: int, group: int, KVH: int, S: int, D: int) -> int:
+    """Query positions a decode launch takes: all T where their partials fit
+    :data:`FLASH_SPLIT_SCRATCH`, else the fewest even pieces that do (at
+    least one row group's worth, whatever its bytes), from shapes alone."""
+    one = split_scratch_bytes(B, _ROW_GROUP, 1, KVH, S, D)   # a row group each
+    rows = max(1, FLASH_SPLIT_SCRATCH // one * _ROW_GROUP // group)
+    if rows >= T:
+        return T
+    pieces = -(-T // rows)
+    return -(-T // pieces)
+
+
+def _split_work(q: torch.Tensor, rows: int, KVH: int, S: int) -> list[torch.Tensor]:
+    """The decode kernel's partials' scratch and arrival counters (per (b,
+    kv head, row group)) for launches of ``rows`` query positions, sized
+    from shapes alone, before any launch."""
+    B, _, H, D = q.shape
+    group = H // KVH
+    part = torch.empty(split_scratch_bytes(B, rows, group, KVH, S, D) // 4,
                        dtype=torch.float32, device=q.device)
-    return [part, _arrivals(q.device, groups)]
+    return [part, _arrivals(q.device, B * KVH * -(-(group * rows) // _ROW_GROUP))]
 
 
 def _launch(name: str, tensors: list, ints: list, tc: bool = False) -> torch.Tensor:
@@ -149,20 +176,45 @@ def _launch(name: str, tensors: list, ints: list, tc: bool = False) -> torch.Ten
     ``tensors`` (q first, offsets and table in their places), out (the
     decode kernel then its scratch and counters), ``ints`` (B, T, H, KVH, S
     or NP and page_s, D; the decode kernel then :data:`FLASH_SPLIT_KEYS`),
-    the softmax scale and the stream; count the launch."""
+    the softmax scale and the stream; count each launch.
+
+    The decode kernel runs over pieces of :func:`split_rows` query
+    positions when its partials for all T would pass
+    :data:`FLASH_SPLIT_SCRATCH` (head_dim 256 prefill over long caches):
+    piece t0 is the same call on q's rows t0.. with offsets + t0, through
+    one scratch, each piece a launch."""
     tensors = [t.contiguous() for t in tensors]   # copies only offsets or a table
     q = tensors[0]
-    out = torch.empty_like(q)
-    work = []
-    if not tc:
-        work = _split_work(q, ints[3], ints[4] if len(ints) == 6 else ints[4] * ints[5])
-        ints = [*ints, FLASH_SPLIT_KEYS]
     lib = _build.library("flash_attention_tc" if tc else "flash_attention")
     fn = getattr(lib, "lgt_" + name)
-    _build.check(fn(*[t.data_ptr() for t in [*tensors, out, *work]], *ints,
-                    1.0 / q.shape[-1] ** 0.5,
-                    torch.cuda.current_stream(q.device).cuda_stream), name)
-    _build.count(name)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def call(parts: list, o: torch.Tensor, work: list, args: list) -> None:
+        _build.check(fn(*[t.data_ptr() for t in [*parts, o, *work]], *args,
+                        1.0 / q.shape[-1] ** 0.5, stream), name)
+        _build.count(name)
+
+    out = torch.empty_like(q)
+    if tc:
+        call(tensors, out, [], ints)
+        return out
+    paged = len(ints) == 7
+    B, T, H, KVH = ints[:4]
+    S = ints[4] * ints[5] if paged else ints[4]
+    rows = split_rows(B, T, H // KVH, KVH, S, ints[-1])
+    work = _split_work(q, rows, KVH, S)
+    if rows == T:
+        call(tensors, out, work, [*ints, FLASH_SPLIT_KEYS])
+        return out
+    oi = len(tensors) - 1 - paged                 # offsets, before a page table
+    for t0 in range(0, T, rows):
+        n = min(rows, T - t0)
+        parts = list(tensors)
+        parts[0] = q[:, t0:t0 + n].contiguous()
+        parts[oi] = tensors[oi] + t0
+        o = torch.empty_like(parts[0])
+        call(parts, o, work, [B, n, *ints[2:], FLASH_SPLIT_KEYS])
+        out[:, t0:t0 + n] = o
     return out
 
 

@@ -2,12 +2,12 @@
 
 Bit-exact decoders for F32, F16, the 32-element formats Q4_0, Q4_1, Q5_0,
 Q5_1, Q8_0 and Q8_1, the K-quants Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and Q8_K, and
-the non-linear IQ4_NL and IQ4_XS; spec-conformant encoders for all of them
-but Q8_1 (an activation format: nothing stores weights in it). These cover
-the Q4_K_M, Q5_K_M and Q2_K Llama GGUFs (llama.cpp's mixes of K-quant
-projections and embedding, Q6_K heads, F32 norms) and the legacy and IQ4
-files. The grid-codebook formats (IQ1/IQ2/IQ3) raise
-``NotImplementedError`` naming them.
+the non-linear IQ4_NL and IQ4_XS, and the grid-codebook formats IQ1_S, IQ1_M,
+IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS and IQ3_S (``quant.iq_ref``);
+spec-conformant encoders for all of them but Q8_1 (an activation format:
+nothing stores weights in it). These cover the Q4_K_M, Q5_K_M and Q2_K
+GGUFs (llama.cpp's mixes of K-quant projections and embedding, Q6_K heads,
+F32 norms) and the legacy and IQ files.
 
 All functions are vectorized over blocks: ``dequantize(raw_bytes, ggml_type,
 n_elements) -> float32[n_elements]``.
@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..gguf.constants import GGMLType, type_block_info
+from .iq_ref import IQ_DEQUANT, IQ_QUANT
 
 __all__ = ["dequantize", "quantize", "SUPPORTED_TYPES"]
 
@@ -295,6 +296,7 @@ _DEQUANT = {
     GGMLType.Q8_K: _dequant_q8_k,
     GGMLType.IQ4_NL: _dequant_iq4_nl,
     GGMLType.IQ4_XS: _dequant_iq4_xs,
+    **IQ_DEQUANT,
 }
 
 SUPPORTED_TYPES = frozenset(_DEQUANT) | {GGMLType.F32, GGMLType.F16}
@@ -637,6 +639,7 @@ _QUANT = {
     GGMLType.Q8_K: _quant_q8_k,
     GGMLType.IQ4_NL: _quant_iq4_nl,
     GGMLType.IQ4_XS: _quant_iq4_xs,
+    **IQ_QUANT,
 }
 
 

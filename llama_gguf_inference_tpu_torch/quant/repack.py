@@ -14,8 +14,9 @@ arrays equals ``quant.numpy_ref.dequantize()`` over the wire bytes
 bit-for-bit. 5- and 6-bit codes (Q5_0, Q5_1, Q5_K, Q6_K) are widened to
 int8, and the IQ4 codebook is applied here (IQ4_NL, IQ4_XS store int8
 values); Q3_K's 3-bit codes ride the 4-bit planes with code bias 4, Q4_0's
-with bias 8. Formats: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K,
-Q5_K, Q6_K, Q8_K, IQ4_NL, IQ4_XS.
+with bias 8; the grid-codebook formats are laid out by :func:`_repack_iq`.
+Formats: Q4_0, Q4_1, Q5_0, Q5_1, Q8_0, Q8_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K,
+Q8_K, IQ4_NL, IQ4_XS, IQ1_S, IQ1_M, IQ2_XXS, IQ2_XS, IQ2_S, IQ3_XXS, IQ3_S.
 
 Q8_0, Q4_K and Q6_K are repacked by the C++ library of ``native`` where it
 builds (the same bytes), the others by numpy.
@@ -35,6 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..gguf.constants import GGMLType, type_block_info
+from .iq_ref import IQ_PACKED
 from .numpy_ref import KVALUES_IQ4NL, _f16, _k4_scale_min, _q3k_q6k_scales, _q5_high_bits
 
 
@@ -350,6 +352,9 @@ def repack(raw: bytes | np.ndarray, ggml_type: GGMLType,
         codes = KVALUES_IQ4NL[idx].astype(np.int8).reshape(O, I)
         return rw(codes, d, bits=8, sub=32, dsz=32)
 
+    if t in _IQ_GRID:
+        return _repack_iq(t, blocks, O, I, rw)
+
     # IQ4_XS
     d = _f16(blocks[:, 0:2])
     scales_h = blocks[:, 2:4].copy().view("<u2").astype(np.uint32)
@@ -370,10 +375,40 @@ def repack(raw: bytes | np.ndarray, ggml_type: GGMLType,
     return rw(codes, d, sc=ls, bits=8, sub=32, dsz=256)
 
 
+_IQ_GRID = frozenset((GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S,
+                      GGMLType.IQ3_XXS, GGMLType.IQ3_S, GGMLType.IQ1_S, GGMLType.IQ1_M))
 _REPACKED = frozenset((
     GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0,
     GGMLType.Q8_1, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K,
-    GGMLType.Q6_K, GGMLType.Q8_K, GGMLType.IQ4_NL, GGMLType.IQ4_XS))
+    GGMLType.Q6_K, GGMLType.Q8_K, GGMLType.IQ4_NL, GGMLType.IQ4_XS)) | _IQ_GRID
+
+
+def _repack_iq(t: GGMLType, blocks: np.ndarray, O: int, I: int, rw) -> RepackedWeight:
+    """The grid-codebook formats, as the JAX package lays them out:
+
+    - IQ1_S and IQ1_M: 2-bit trit codes with code bias 1, the scale ``d``
+      per 256 times a sub-block multiplier and the min side ``d·delta``
+      times its signed multiplier (the 2/4-bit kernels read them);
+    - IQ2 and IQ3: int8 element values with the compact ``d`` × sub-scale
+      hierarchy (sub-blocks of 32, or 16 for IQ2_XS and IQ2_S), which the
+      8-bit kernels read; ``LGT_IQ_CODES=packed4`` stores the 4-bit mapped
+      codes of ``ops.linear.code_values`` instead, with IQ2's ``d`` halved
+      (its map decodes doubled values; exact, a power of two).
+
+    Every split of the wire scale is a power-of-two factorization, so the
+    dequantized values equal ``quant.iq_ref``'s in every mode."""
+    iq1 = t in (GGMLType.IQ1_S, GGMLType.IQ1_M)
+    packed4 = os.environ.get("LGT_IQ_CODES", "int8").lower() == "packed4"
+    values, codes, d, sc, dmin, mn, sub = IQ_PACKED[t](blocks, with_packed=iq1 or packed4)
+    if not (iq1 or packed4):
+        return rw(values.reshape(O, I), d.reshape(O, I // 256), sc=sc.reshape(O, I // sub),
+                  bits=8, sub=sub, dsz=256)
+    if t in (GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S):
+        d = d * 0.5
+    return rw(codes.reshape(O, I), d.reshape(O, I // 256), sc=sc.reshape(O, I // sub),
+              dmin=None if dmin is None else dmin.reshape(O, I // 256),
+              mn=None if mn is None else mn.reshape(O, I // sub),
+              bits=2 if iq1 else 4, sub=sub, dsz=256, bias=1 if iq1 else 0)
 
 
 def flatten_repacked(rp: RepackedWeight) -> RepackedWeight:

@@ -38,7 +38,8 @@
 - context shift (``ctx_shift``, llama-server ``--ctx-shift``, contiguous
   caches): a slot that cannot hold the next dispatch keeps its first
   positions, drops half the rest and re-ropes the moved K
-  (``models.llama.shift_cache_slot``) instead of finishing at its capacity
+  (``models.llama.shift_cache_slot``) instead of finishing at its capacity;
+  refused, as in the JAX engine, for sliding-window and longrope models
 - slot save/restore/erase (``slot_op``, llama-server ``POST
   /slots/{id}?action=...``, contiguous caches): a free slot's kept prompt
   and its KV rows to an ``.npz`` file in the JAX engine's format and back,
@@ -217,6 +218,12 @@ class InferenceEngine:
         cfg, params, reader = load_model(model_path, self.device, fuse=True, mode=ecfg.mode,
                                          lora_path=ecfg.lora_path,
                                          lora_scale=ecfg.lora_scale, stats=self.load_stats)
+        if ecfg.ctx_shift and (cfg.sliding_window > 0 or cfg.rope_scaling_type == "longrope"):
+            # the shift re-ropes every layer with the global base and no
+            # frequency factors: wrong for sliding layers' own base and for
+            # longrope's per-dim factors
+            raise ValueError("ctx_shift supports full-attention rope models "
+                             "only (no sliding-window / longrope)")
         self.model_path = str(model_path)
         self.cfg = cfg
         self.params = params

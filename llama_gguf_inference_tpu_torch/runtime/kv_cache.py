@@ -17,7 +17,9 @@ the flash kernels' (B, KVH, S, ...) layout, written in place like
 
 ``1 / s`` is ``where(s > 0, 1 / where(s == 0, 1, s), 0)`` and rounding is half
 to even. The attention kernels read the codes directly; ``dequantize`` is
-the codec's inverse, to bf16 unless asked otherwise.
+the codec's inverse, to bf16 unless asked otherwise; ``view`` gives a
+layer's whole K and V, for the layers that attend without a kernel
+(``models.llama.masked_attention``).
 """
 
 from __future__ import annotations
@@ -77,6 +79,13 @@ class _QuantCache:
         for names, x in ((self.K_FIELDS, k), (self.V_FIELDS, v)):
             for name, part in zip(names, self.quantize(x)):
                 _write_kv(getattr(self, name)[layer], part, idx)
+
+    def view(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``layer``'s K and V dequantized to (B, KVH, S, D) bf16, for
+        ``models.llama.masked_attention`` (the JAX package's ``k_full`` and
+        ``v_full``)."""
+        return tuple(self.dequantize(*(getattr(self, f)[layer] for f in names))
+                     for names in (self.K_FIELDS, self.V_FIELDS))
 
 
 def _lists(L: int, make) -> list:

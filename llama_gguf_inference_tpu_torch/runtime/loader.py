@@ -1,5 +1,6 @@
-"""GGUF -> device parameters for the llama architecture (``load_model``) and
-the BERT-family encoders (``load_encoder``).
+"""GGUF -> device parameters for the dense llama-family architectures of
+``models.config`` (``load_model``) and the BERT-family encoders
+(``load_encoder``).
 
 Two residency modes, as the JAX package's loader:
 
@@ -11,7 +12,11 @@ Two residency modes, as the JAX package's loader:
   (``DenseLinear``, a dense table), the correctness baseline; the
   dequantization runs on the device and gives the numpy codec's values.
 
-Norms are f32; float tensors load as bf16 ``DenseLinear`` in either mode. A
+Norms, biases and rope factors are f32; float tensors load as bf16
+``DenseLinear`` in either mode. Which per-layer tensors a layer holds
+follows the file, as in the JAX package's loader: a pre-fused ``attn_qkv``
+and a double-height ``ffn_up`` (phi3), biases, q/k norms and post-norms;
+a file without ``output.weight`` ties the head to the embedding. A
 GGUF LoRA adapter (``lora_path``, ``runtime.lora``) wraps its weights before
 the fusion. Tensor names follow the llama.cpp GGUF export convention
 (``blk.N.attn_q`` ...).
@@ -176,7 +181,7 @@ def load_model(path: str | Path, device: str | torch.device = "cuda",
         apply_lora(params, lora_path, lora_scale, arch=cfg.arch, device=dev)
     if fuse:
         for layer in params["layers"]:
-            _fuse_layer(layer)
+            _fuse_layer(layer, cfg)
     _report(st, cache, dev, t_start, stats)
     return cfg, params, reader
 
@@ -277,6 +282,10 @@ def _load_params(reader: GGUFReader, cfg: ModelConfig, dev: torch.device, mode: 
         "tok_embd": tok_embd,
         "output_norm": _load_array(reader, "output_norm.weight", dev),
     }
+    # starcoder2's LayerNorm bias; phi3's longrope per-dim frequency factors
+    for n in ("output_norm.bias", "rope_factors_long.weight", "rope_factors_short.weight"):
+        if n in t:
+            params[n.replace(".weight", "").replace(".", "_")] = _load_array(reader, n, dev)
     if "output.weight" in t:
         params["output"] = _load_linear(reader, "output.weight", dev, mode, cache, stats)
     elif isinstance(tok_embd, _Pending):
@@ -287,21 +296,55 @@ def _load_params(reader: GGUFReader, cfg: ModelConfig, dev: torch.device, mode: 
     else:
         params["output"] = DenseLinear(w=tok_embd, out_features=tok_embd.shape[0],
                                        in_features=tok_embd.shape[1])
+
+    def linear(name: str):
+        return _load_linear(reader, name, dev, mode, cache, stats)
+
     layers = []
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
         layer: dict[str, Any] = {}
+        # pre-norms: olmo2 has post-norms only, command-r no ffn_norm (one
+        # pre-norm feeds both parallel branches); every other architecture
+        # needs both, so a truncated GGUF fails here instead of running
+        # without a norm
         for n in ("attn_norm", "ffn_norm"):
-            if p + n + ".weight" not in t:
-                # a truncated GGUF must fail here, not run without the norm
-                raise KeyError(f"{p}{n}.weight missing from GGUF")
-            layer[n] = _load_array(reader, p + n + ".weight", dev)
-        for n in ("attn_q", "attn_k", "attn_v", "attn_output",
-                  "ffn_gate", "ffn_up", "ffn_down"):
-            layer[n] = _load_linear(reader, p + n + ".weight", dev, mode, cache, stats)
+            if p + n + ".weight" in t:
+                layer[n] = _load_array(reader, p + n + ".weight", dev)
+            elif not (cfg.arch == "olmo2" or (cfg.arch == "command-r" and n == "ffn_norm")):
+                raise KeyError(f"{p}{n}.weight missing from GGUF "
+                               f"(required for arch {cfg.arch!r})")
+        if p + "attn_qkv.weight" in t:                 # phi3 ships QKV fused
+            layer["attn_qkv"] = linear(p + "attn_qkv.weight")
+        else:
+            for n in ("attn_q", "attn_k", "attn_v"):
+                layer[n] = linear(p + n + ".weight")
+        layer["attn_output"] = linear(p + "attn_output.weight")
+        # optional tensors: Q/K/V biases (qwen2), Q/K norms (qwen3, gemma3
+        # per head; olmo2 flat), post-norms (gemma2/3, olmo2), LayerNorm and
+        # projection biases (starcoder2); the graph reads what is present
+        for n in _OPTIONAL:
+            if p + n in t:
+                layer[n.replace(".weight", "").replace(".", "_")] = \
+                    _load_array(reader, p + n, dev)
+        if not cfg.ffn_gated:                          # starcoder2: up -> act -> down
+            names = ("ffn_up", "ffn_down")
+        elif p + "ffn_gate.weight" not in t:           # phi3: gate+up as one ffn_up
+            layer["ffn_gateup"] = linear(p + "ffn_up.weight")
+            names = ("ffn_down",)
+        else:
+            names = ("ffn_gate", "ffn_up", "ffn_down")
+        for n in names:
+            layer[n] = linear(p + n + ".weight")
         layers.append(layer)
     params["layers"] = layers
     return params
+
+
+_OPTIONAL = ("attn_q.bias", "attn_k.bias", "attn_v.bias", "attn_q_norm.weight",
+             "attn_k_norm.weight", "attn_post_norm.weight", "ffn_post_norm.weight",
+             "attn_output.bias", "attn_norm.bias", "ffn_norm.bias", "ffn_up.bias",
+             "ffn_down.bias")
 
 
 def _resolve_pending(params: dict, cache, dev: torch.device, stats: dict) -> dict:
@@ -331,13 +374,24 @@ def _resolve_pending(params: dict, cache, dev: torch.device, stats: dict) -> dic
     return walk(params, sub)
 
 
-def _fuse_layer(layer: dict) -> None:
-    """Row-concatenate QKV and gate+up projections in place (exact)."""
+def _fuse_layer(layer: dict, cfg: ModelConfig) -> None:
+    """Row-concatenate QKV (and the qwen2 Q/K/V biases) and gate+up
+    projections in place (exact). Skipped where the file fused them already
+    (phi3) and for olmo2's flat q/k norms, which apply to q and k apart."""
+    if "attn_q" not in layer:
+        return
+    if "attn_q_norm" in layer and layer["attn_q_norm"].shape[-1] != cfg.head_dim:
+        return
     qkv = fuse_linears([layer["attn_q"], layer["attn_k"], layer["attn_v"]])
     if qkv is not None:
         layer["attn_qkv"] = qkv
         del layer["attn_q"], layer["attn_k"], layer["attn_v"]
-    gu = fuse_linears([layer["ffn_gate"], layer["ffn_up"]])
-    if gu is not None:
-        layer["ffn_gateup"] = gu
-        del layer["ffn_gate"], layer["ffn_up"]
+        if "attn_q_bias" in layer:
+            layer["attn_qkv_bias"] = torch.cat([layer.pop("attn_q_bias"),
+                                                layer.pop("attn_k_bias"),
+                                                layer.pop("attn_v_bias")])
+    if "ffn_gate" in layer:
+        gu = fuse_linears([layer["ffn_gate"], layer["ffn_up"]])
+        if gu is not None:
+            layer["ffn_gateup"] = gu
+            del layer["ffn_gate"], layer["ffn_up"]

@@ -12,7 +12,8 @@ sequences on demand; this is the same idea, as in the JAX package's
   page (-1 = unassigned);
 - the engine reserves a request's pages at admission (:class:`PageAllocator`,
   a host-side free list), so decode never allocates mid-flight;
-- the attention kernels read the pools through the table.
+- the attention kernels read the pools through the table; ``view`` gathers
+  a layer's logical K and V for the layers that attend without a kernel.
 
 Writes go through the table too. A position whose table entry is -1 (an
 idle slot, or a padded chunk row past the slot's reservation) is dropped,
@@ -108,6 +109,12 @@ class PagedKV(_Paged):
         return fa.flash_attention_paged(q, self.k[layer], self.v[layer], offsets,
                                         self.page_table)
 
+    def view(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``layer``'s logical (B, KVH, NP * page_s, D) bf16 K and V
+        through the table, for ``models.llama.masked_attention``."""
+        return (fa.gather_pages(self.k[layer], self.page_table),
+                fa.gather_pages(self.v[layer], self.page_table))
+
 
 @dataclasses.dataclass
 class PagedQuantKV(_Paged):
@@ -143,6 +150,13 @@ class PagedQuantKV(_Paged):
         return fa.flash_attention_paged_q8(q, self.k_q[layer], self.k_s[layer],
                                            self.v_q[layer], self.v_s[layer],
                                            offsets, self.page_table)
+
+    def view(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``layer``'s logical K and V through the table, dequantized
+        to bf16, for ``models.llama.masked_attention``."""
+        return tuple(QuantKV.dequantize(fa.gather_pages(q[layer], self.page_table),
+                                        fa.gather_pages(s[layer], self.page_table))
+                     for q, s in ((self.k_q, self.k_s), (self.v_q, self.v_s)))
 
 
 class PageAllocator:

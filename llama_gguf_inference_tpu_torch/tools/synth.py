@@ -1,11 +1,16 @@
-"""Synthesize a quantized llama GGUF with random weights from a seed.
+"""Synthesize a quantized llama or gemma3 GGUF with random weights from a
+seed.
 
-Q4_K (``quant="q4_k"``, the default), Q2_K (``quant="q2_k"``) or Q5_K
-(``quant="q5_k"``) projections and embedding, a Q6_K output head, F32 norms,
-and a small
+Q4_K (``quant="q4_k"``, the default), Q2_K (``quant="q2_k"``), Q5_K
+(``quant="q5_k"``) or a grid-codebook format (``quant="iq2_xxs"`` and the
+other IQ1/IQ2/IQ3 names; the embedding then Q4_K) projections and
+embedding, a Q6_K output head, F32 norms, and a small
 SentencePiece-style vocab padded with filler pieces to the shape's vocab
-size. Decode cost depends on the weights' shapes, not their values, so the
-file stands in for a real checkpoint of the same shape. A small random pool
+size. The ``gemma3-12b`` shape (``gemma3-tiny`` at CPU size) is written as
+llama.cpp writes a gemma3 GGUF: its keys, per-head q/k norms, post-norms, a
+Q6_K embedding and a head tied to it. Decode cost depends on the weights'
+shapes, not their values, so the file stands in for a real checkpoint of
+the same shape. A small random pool
 is quantized once per format and its wire bytes are tiled over every
 tensor; the pool length is a multiple of every block size, so this equals
 quantizing the tiled floats.
@@ -28,7 +33,8 @@ and biases, F16 embedding tables and a WordPiece vocab of 30522 pieces with
 BERT's special ids; ``cached_bert`` keeps it as ``cached_model`` keeps a
 llama.
 
-    python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b [--quant q2_k|q5_k] [--layers N] [--fim] --out model.gguf
+    python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b [--quant q2_k|q5_k|iq2_xxs|...] [--layers N] [--fim] --out model.gguf
+    python -m llama_gguf_inference_tpu_torch.tools.synth --shape gemma3-12b [--layers N] --out gemma3.gguf
     python -m llama_gguf_inference_tpu_torch.tools.synth --bert [--shape bge-large] [--quant q8_0|q4_k] [--layers N] --out encoder.gguf
 """
 
@@ -54,6 +60,22 @@ SHAPES = {
     # small shape for CPU runs
     "160m": dict(dim=512, n_layers=8, n_heads=8, n_kv_heads=4,
                  ffn_dim=1536, vocab=32000, rope_base=10000.0),
+    # google/gemma-3-12b-it, its config.json text_config: hidden 3840, 48
+    # layers, 16 heads over 8 kv heads of 256, intermediate 15360, vocab
+    # 262208, sliding window 1024 on five layers of six, rope_theta 1e6 with
+    # linear scaling x8 on the global layers, rope_local_base_freq 1e4,
+    # query_pre_attn_scalar 256 (= head_dim), rms_norm_eps 1e-6, tied
+    # embeddings, 131072 positions
+    "gemma3-12b": dict(arch="gemma3", dim=3840, n_layers=48, n_heads=16, n_kv_heads=8,
+                       head_dim=256, ffn_dim=15360, vocab=262208, rope_base=1e6,
+                       rope_local_base=1e4, rope_linear=8.0, window=1024, rms_eps=1e-6,
+                       context=131072),
+    # the same at CPU size: 6 layers of 256 (one global), head_dim 64, a
+    # window of 16
+    "gemma3-tiny": dict(arch="gemma3", dim=256, n_layers=6, n_heads=4, n_kv_heads=2,
+                        head_dim=64, ffn_dim=512, vocab=1024, rope_base=1e6,
+                        rope_local_base=1e4, rope_linear=8.0, window=16, rms_eps=1e-6,
+                        context=4096),
 }
 
 
@@ -85,7 +107,8 @@ def make_tiny_vocab() -> tuple[list[str], list[float], list[int]]:
     return tokens, scores, [int(t) for t in types]
 
 
-QUANTS = ("q4_k", "q2_k", "q5_k")
+QUANTS = ("q4_k", "q2_k", "q5_k", "iq1_s", "iq1_m", "iq2_xxs", "iq2_xs", "iq2_s",
+          "iq3_xxs", "iq3_s")
 
 
 FIM_PIECES = ("<|fim_prefix|>", "<|fim_suffix|>", "<|fim_middle|>")
@@ -117,6 +140,9 @@ def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k"
             tokens[i], scores[i], types[i] = piece, 0.0, int(TokenType.CONTROL)
 
     w = GGUFWriter(path)
+    if d.get("arch") == "gemma3":
+        _synth_gemma3(w, d, shape, rng, tokens, scores, types, wq)
+        return path
     w.add(Keys.ARCHITECTURE, "llama")
     w.add(Keys.NAME, f"bench-llama3-{shape}-q4km")
     w.add("llama.context_length", 8192)
@@ -140,20 +166,9 @@ def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k"
                            Keys.TOKENIZER_FIM_MID), fim_ids):
             w.add(key, i)
 
-    pool = (rng.standard_normal(1 << 20) * 0.02).astype(np.float32)
-    qpool: dict[GGMLType, np.ndarray] = {}
-
-    def add_q(name, rows, cols, t):
-        if t not in qpool:
-            qpool[t] = np.frombuffer(quantize(pool.reshape(1, -1), t), np.uint8)
-        qp = qpool[t]
-        blk, bpb = type_block_info(t)
-        nbytes = rows * cols // blk * bpb
-        raw = np.tile(qp, -(-nbytes // qp.size))[:nbytes].tobytes()
-        w.add_raw_tensor(name, (cols, rows), t, raw)
-
+    add_q = _tiler(w, rng)
     ones = np.ones(d["dim"], np.float32)
-    add_q("token_embd.weight", vocab, d["dim"], wq)
+    add_q("token_embd.weight", vocab, d["dim"], _embd_type(wq))
     for i in range(d["n_layers"]):
         p = f"blk.{i}."
         w.add_tensor(p + "attn_norm.weight", ones, GGMLType.F32)
@@ -169,6 +184,98 @@ def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k"
     add_q("output.weight", vocab, d["dim"], GGMLType.Q6_K)
     w.write()
     return path
+
+
+def _tiler(w: GGUFWriter | None, rng: np.random.Generator):
+    """``add_q(name, rows, cols, t)``: the wire bytes of a (rows, cols)
+    tensor of type ``t`` that tile one quantized random pool of 2^20 values
+    (std 0.02) drawn from ``rng``, written to ``w`` under ``name`` (and
+    returned)."""
+    pool = (rng.standard_normal(1 << 20) * 0.02).astype(np.float32)
+    qpool: dict[GGMLType, np.ndarray] = {}
+
+    def add_q(name, rows, cols, t):
+        if t not in qpool:
+            qpool[t] = np.frombuffer(quantize(pool.reshape(1, -1), t), np.uint8)
+        qp = qpool[t]
+        blk, bpb = type_block_info(t)
+        nbytes = rows * cols // blk * bpb
+        raw = np.tile(qp, -(-nbytes // qp.size))[:nbytes].tobytes()
+        if w is not None:
+            w.add_raw_tensor(name, (cols, rows), t, raw)
+        return raw
+
+    return add_q
+
+
+def tiled_weight(t: GGMLType, rows: int, cols: int, seed: int = 0) -> bytes:
+    """The wire bytes of one (rows, cols) weight of type ``t`` as
+    :func:`synth_model` writes its tensors (a quantized pool from ``seed``,
+    tiled)."""
+    return _tiler(None, np.random.default_rng(seed))("", rows, cols, GGMLType(t))
+
+
+def _embd_type(wq: GGMLType) -> GGMLType:
+    """The embedding's type: the projections', but Q4_K beside grid-codebook
+    projections (their repack is numpy only, the 128256-row table's would
+    take most of a load)."""
+    return GGMLType.Q4_K if wq.name.startswith("IQ") else wq
+
+
+def _synth_gemma3(w: GGUFWriter, d: dict, shape: str, rng: np.random.Generator,
+                  tokens, scores, types, wq: GGMLType) -> None:
+    """A gemma3 GGUF as llama.cpp's converter writes one: the ``gemma3.*``
+    keys (the sliding window, the local rope base, the linear rope scaling
+    of the global layers), per layer ``attn_q_norm``/``attn_k_norm`` over a
+    head, ``attn_post_norm`` and ``ffn_post_norm`` beside the pre-norms,
+    ``wq`` projections, a Q6_K ``token_embd`` and no ``output.weight`` (the
+    head is tied)."""
+    dim, hd = d["dim"], d["head_dim"]
+    w.add(Keys.ARCHITECTURE, "gemma3")
+    w.add(Keys.NAME, f"synth-{shape}-{wq.name.lower()}")
+    w.add("gemma3.context_length", d["context"])
+    w.add("gemma3.embedding_length", dim)
+    w.add("gemma3.block_count", d["n_layers"])
+    w.add("gemma3.feed_forward_length", d["ffn_dim"])
+    w.add("gemma3.attention.head_count", d["n_heads"])
+    w.add("gemma3.attention.head_count_kv", d["n_kv_heads"])
+    w.add("gemma3.attention.key_length", hd)
+    w.add("gemma3.attention.value_length", hd)
+    w.add("gemma3.attention.layer_norm_rms_epsilon", d["rms_eps"])
+    w.add("gemma3.attention.sliding_window", d["window"])
+    w.add("gemma3.rope.freq_base", d["rope_base"])
+    w.add("gemma3.rope.local_freq_base", d["rope_local_base"])
+    w.add("gemma3.rope.scaling.type", "linear")
+    w.add("gemma3.rope.scaling.factor", d["rope_linear"])
+    w.add(Keys.TOKENIZER_MODEL, "llama")
+    w.add(Keys.TOKENIZER_TOKENS, tokens)
+    w.add(Keys.TOKENIZER_SCORES, np.asarray(scores, np.float32))
+    w.add(Keys.TOKENIZER_TOKEN_TYPE, np.asarray(types, np.int32))
+    w.add(Keys.TOKENIZER_BOS, 1)
+    w.add(Keys.TOKENIZER_EOS, 2)
+    w.add(Keys.TOKENIZER_UNK, 0)
+    w.add(Keys.TOKENIZER_ADD_BOS, True)
+    add_q = _tiler(w, rng)
+    ones = np.ones(dim, np.float32)
+    add_q("token_embd.weight", d["vocab"], dim, GGMLType.Q6_K)
+    q_out, kv_out = d["n_heads"] * hd, d["n_kv_heads"] * hd
+    for i in range(d["n_layers"]):
+        p = f"blk.{i}."
+        w.add_tensor(p + "attn_norm.weight", ones, GGMLType.F32)
+        add_q(p + "attn_q.weight", q_out, dim, wq)
+        add_q(p + "attn_k.weight", kv_out, dim, wq)
+        add_q(p + "attn_v.weight", kv_out, dim, wq)
+        w.add_tensor(p + "attn_q_norm.weight", np.ones(hd, np.float32), GGMLType.F32)
+        w.add_tensor(p + "attn_k_norm.weight", np.ones(hd, np.float32), GGMLType.F32)
+        add_q(p + "attn_output.weight", dim, q_out, wq)
+        w.add_tensor(p + "attn_post_norm.weight", ones, GGMLType.F32)
+        w.add_tensor(p + "ffn_norm.weight", ones, GGMLType.F32)
+        add_q(p + "ffn_gate.weight", d["ffn_dim"], dim, wq)
+        add_q(p + "ffn_up.weight", d["ffn_dim"], dim, wq)
+        add_q(p + "ffn_down.weight", dim, d["ffn_dim"], wq)
+        w.add_tensor(p + "ffn_post_norm.weight", ones, GGMLType.F32)
+    w.add_tensor("output_norm.weight", ones, GGMLType.F32)
+    w.write()
 
 
 def synth_lora(path: str, shape: str = "8b", seed: int = 0, rank: int = 16,

@@ -224,3 +224,51 @@ def test_flash_decode_reads_no_offsets_on_the_host(emu, kind, monkeypatch):
     assert launches[name] == before + 1
     _close(got, plain(*args))
 
+
+
+def test_split_scratch_bound_at_head_dim_256():
+    """The scratch of a head_dim-256 prefill chunk (T 512 over 8192 keys, 8
+    kv heads, group 2: Gemma-3-12B's global layers) would take about 270 MB
+    in one launch; pieces of ``split_rows`` positions keep it under
+    ``FLASH_SPLIT_SCRATCH``, in as few even pieces as fit, and a decode
+    step (T = 1) stays one launch."""
+    B, T, group, KVH, S, D = 1, 512, 2, 8, 8192, 256
+    whole = fa.split_scratch_bytes(B, T, group, KVH, S, D)
+    assert whole == B * KVH * -(-(group * T) // 4) * (S // KC) * 4 * (D + 2) * 4
+    assert whole > 250e6
+    rows = fa.split_rows(B, T, group, KVH, S, D)
+    assert rows < T
+    assert fa.split_scratch_bytes(B, rows, group, KVH, S, D) <= fa.FLASH_SPLIT_SCRATCH
+    pieces = -(-T // rows)
+    # one piece fewer would not fit
+    fewer = -(-T // (pieces - 1))
+    assert fa.split_scratch_bytes(B, fewer, group, KVH, S, D) > fa.FLASH_SPLIT_SCRATCH
+    assert fa.split_rows(4, 1, group, KVH, 4096, D) == 1
+    assert fa.split_rows(1, 512, 4, 8, 1024, 128) == 512    # the 8B prefill: whole
+
+
+@pytest.mark.parametrize("kind", ["bf16", "q8", "paged"])
+def test_flash_decode_pieces_match_plain(emu, kind):
+    """With the scratch cap cut to two row groups, a head_dim-256 call of 24
+    positions launches in pieces (each a counted launch, through one scratch
+    of at most the cap) and matches the plain version; the counters are 0
+    after."""
+    mod, launches = emu
+    kernel, plain, name = _wrappers(mod, kind)
+    args = case_args(kind, 24, 256, seed=11)
+    B, T, H, D = args[0].shape
+    KVH = 2
+    S = S_CONTIG if not kind.startswith("paged") else NP * PAGE_S
+    saved = mod.FLASH_SPLIT_SCRATCH
+    mod.FLASH_SPLIT_SCRATCH = 2 * mod.split_scratch_bytes(B, 4, 1, KVH, S, D)
+    try:
+        rows = mod.split_rows(B, T, H // KVH, KVH, S, D)
+        assert rows == 2 and mod.split_scratch_bytes(B, rows, H // KVH, KVH, S, D) \
+            <= mod.FLASH_SPLIT_SCRATCH
+        before = launches.get(name, 0)
+        got = kernel(*args)
+    finally:
+        mod.FLASH_SPLIT_SCRATCH = saved
+    assert launches[name] == before + T // rows
+    _close(got, plain(*args))
+    assert not mod._ARRIVALS[torch.device("cpu")].any()

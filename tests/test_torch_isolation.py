@@ -62,6 +62,17 @@ def test_no_forbidden_imports(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+def test_scan_covers_the_numpy_only_copies():
+    """The modules copied whole from the JAX package (numpy only, so an
+    import of the JAX package would be the only way they could reach it)
+    are among the scanned and imported ones."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()}
+    mods = set(_module_names())
+    for rel in ("quant/iq_ref.py", "quant/iq_grids.py", "quant/numpy_ref.py"):
+        assert rel in files
+        assert port.__name__ + "." + rel[:-3].replace("/", ".") in mods
+
+
 def test_fresh_interpreter_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {_module_names()!r}: importlib.import_module(m)\n"

@@ -14,7 +14,7 @@ import torch
 from llama_gguf_inference_tpu.ops import linear as jlinear
 from llama_gguf_inference_tpu.quant import numpy_ref as jref
 from llama_gguf_inference_tpu.quant import repack as jrepack
-from llama_gguf_inference_tpu_torch.gguf.constants import GGMLType
+from llama_gguf_inference_tpu_torch.gguf.constants import GGMLType, tensor_nbytes
 from llama_gguf_inference_tpu_torch.ops import linear as tlinear
 from llama_gguf_inference_tpu_torch.quant import numpy_ref as tref
 from llama_gguf_inference_tpu_torch.quant import repack as trepack
@@ -126,14 +126,51 @@ def test_fuse_linears_rejects_mismatch():
     assert tlinear.fuse_linears([a, dataclasses.replace(a, min_size=256)]) is None
 
 
+def _repack_both(gtype, out_f=4, in_f=256):
+    """The JAX and the port's repack of the same random wire bytes of
+    ``gtype``; the exception type where one raises."""
+    try:
+        nbytes = tensor_nbytes(out_f * in_f, gtype)
+    except NotImplementedError:                    # a type with no block size
+        nbytes = out_f * in_f * 8
+    raw = np.random.default_rng(int(gtype)).integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+    out = []
+    for fn in (jrepack.repack, trepack.repack):
+        try:
+            out.append(fn(raw, gtype, out_f, in_f))
+        except (NotImplementedError, ValueError, KeyError) as e:
+            out.append(type(e))
+    return out
+
+
+def _same_repack(j, t) -> bool:
+    if isinstance(j, type) or isinstance(t, type):
+        return j is t
+    return all((getattr(j, f) is None) == (getattr(t, f) is None)
+               and (getattr(j, f) is None
+                    or np.asarray(getattr(j, f)).tobytes() == getattr(t, f).tobytes())
+               for f in ("codes", "d", "sc", "dmin", "mn")) and \
+        (j.fmt, j.bits, j.sub_size, j.d_size, j.code_bias) == \
+        (t.fmt, t.bits, t.sub_size, t.d_size, t.code_bias)
+
+
 def test_unported_formats_raise():
-    """The grid-codebook formats (IQ1/IQ2/IQ3) are not ported yet."""
-    raw = _raw(GGMLType.Q8_0, 4, 256)
-    with pytest.raises(NotImplementedError, match="IQ2_XXS"):
-        trepack.repack(raw, GGMLType.IQ2_XXS, 4, 256)
-    with pytest.raises(NotImplementedError, match="IQ2_XXS"):
-        tref.dequantize(raw, GGMLType.IQ2_XXS, 256)
-    with pytest.raises(NotImplementedError, match="IQ1_S"):
-        trepack.repack(raw, GGMLType.IQ1_S, 4, 256)
-    with pytest.raises(NotImplementedError, match="IQ1_S"):
-        tref.quantize(np.zeros(256, np.float32), GGMLType.IQ1_S)
+    """Every GGML type the JAX package's repack takes, the port's takes, to
+    the same arrays; every one the JAX package refuses, the port refuses
+    with the same exception. The grid-codebook formats are among the
+    taken."""
+    taken = []
+    for gtype in GGMLType:
+        j, t = _repack_both(gtype)
+        assert _same_repack(j, t), gtype.name
+        if not isinstance(j, type):
+            taken.append(gtype)
+    assert {GGMLType.IQ1_S, GGMLType.IQ1_M, GGMLType.IQ2_XXS, GGMLType.IQ2_XS,
+            GGMLType.IQ2_S, GGMLType.IQ3_XXS, GGMLType.IQ3_S} <= set(taken)
+
+
+@pytest.mark.parametrize("gtype", list(GGMLType), ids=lambda t: t.name)
+def test_repack_takes_what_jax_takes(gtype):
+    """:func:`test_unported_formats_raise`'s check as one case a type."""
+    j, t = _repack_both(gtype)
+    assert _same_repack(j, t)

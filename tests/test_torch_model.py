@@ -228,6 +228,13 @@ def test_rope_scaling_matches_jax():
 
 
 def test_config_rejects_other_architectures():
+    """The MoE and latent-attention files still raise, naming what they ask
+    for: qwen2moe and deepseek2 by architecture, a llama file with experts
+    (mixtral) by its expert count."""
     from llama_gguf_inference_tpu_torch.models.config import ModelConfig
-    with pytest.raises(ValueError, match="qwen2"):
-        ModelConfig.from_gguf_metadata({"general.architecture": "qwen2"})
+    for arch in ("qwen2moe", "deepseek2"):
+        with pytest.raises(ValueError, match=arch):
+            ModelConfig.from_gguf_metadata({"general.architecture": arch})
+    with pytest.raises(ValueError, match="MoE"):
+        ModelConfig.from_gguf_metadata({"general.architecture": "llama",
+                                        "llama.expert_count": 8})
