@@ -208,7 +208,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               the prompts' chunks through the paged q8_0 tensor-core flash
               kernel (the long prompt's time to its first token printed)
 13. q2k     — both engines freed, the 8B Q2_K GGUF (Q2_K embedding and
-              projections, Q6_K head; ``cached_model(quant="q2_k")``) loaded
+              projections, Q6_K head; ``cached_model(quant="q2_k")``, its
+              depth cut to LOWBIT_LAYERS, 16, for time) loaded
               under ``LGT_SCALE_LAYOUT=mixed``, its resident weight bytes
               printed; a prefill and 16 greedy steps through the kernels
               held against the plain versions fed the same tokens, then the
@@ -220,7 +221,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               the weights relaid flat through the base body's 2-bit kernel,
               then one 512-token chunk through its tensor-core kernel
 14. q5k     — that engine freed, the 8B Q5_K GGUF (Q5_K embedding and
-              projections, Q6_K head; ``cached_model(quant="q5_k")``) under
+              projections, Q6_K head; ``cached_model(quant="q5_k")``,
+              LOWBIT_LAYERS deep) under
               the default layout (compact), its resident bytes printed, the
               17 steps of a longer prompt against the plain versions (its
               prefill through the tensor-core kernel), then served; then one
@@ -261,7 +263,21 @@ Phases, each printing one JSON line; the first failure exits non-zero:
               the 8b widths at 2 layers with IQ2_XXS projections
               (``cached_model(quant="iq2_xxs", n_layers=2)``), 17 greedy
               steps against the plain path, every 8-bit call shadowed
-18. the ``{"kernels": [...]}`` line, the card line, and the final
+18. deepseek2 — the DeepSeek-V2-Lite shape at full width and depth
+              (``cached_model("deepseek-v2-lite")``: 27 layers of 2048,
+              latent attention over a latent cache of 64 + 512 a position,
+              a leading dense layer, 64 routed experts of 1408, 6 a token,
+              and 2 shared, yarn; Q4_K, Q8_0 at the ffn_down widths 1408 and
+              10944, the Q6_K head) loaded cold, 4 slots of 4096: a prompt
+              of about 2000 tokens prefilled in chunks of 512 (the capacity
+              path) and three short ones, 32 greedy steps at B = 4, each
+              layer's routed experts through one expert-indexed launch of
+              the 4-bit and 8-bit decode kernels a role; the first and last
+              chunk's and 4 steps' logits against the plain versions; a
+              chat, EOG banned; the experts' gate and down at 24 routed
+              pairs and at 96 capacity rows, each beside its plain version,
+              its bound and the library
+19. the ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, "device": {...}}`` line
 
 Launch counters are set to 0 just before each path that drives the kernels
@@ -274,7 +290,8 @@ phase's kernel run,
 serve, 512-token chunk, flat base run and base chunk, the base, xsum, split
 and int8 variants' chunks, the q5k phase's kernel run, serve, 512-token
 chunk and long-prompt serve, the lora phase's chunk and decode steps, the
-gemma3 phase's kernel run and chat, the iq phase's 17 steps) and read just
+gemma3 phase's kernel run and chat, the iq phase's 17 steps, the deepseek2
+phase's kernel run and chat) and read just
 after; comparison runs fall outside those windows.
 
 Every engine but the structured phase's second and the slots phase's is
@@ -1155,7 +1172,8 @@ def _attention_rows(torch, F, fa, rand, g, timer):
 
 MATMUL_WRAPPERS = ("quant_matmul_2bit", "quant_matmul_4bit", "quant_matmul_4bit_xsum",
                    "quant_matmul_4bit_split", "quant_matmul_4bit_int8",
-                   "quant_matmul_4bit_base", "quant_matmul_lowbit_base", "quant_matmul_8bit")
+                   "quant_matmul_4bit_base", "quant_matmul_lowbit_base", "quant_matmul_8bit",
+                   "quant_matmul_lowbit_moe", "quant_matmul_8bit_moe")
 
 
 @contextlib.contextmanager
@@ -2841,18 +2859,24 @@ def _resident_bytes(torch, node) -> int:
                for t in {id(t): t for t in _tensors_of(torch, node, [])}.values())
 
 
+# the depth of the Q2_K and Q5_K models (the 8b widths): 32 until the
+# deepseek2 phase's 85 s would have taken the smoke past 750 s, since then 16
+LOWBIT_LAYERS = 16
+
+
 def phase_q2k(torch):
-    """The 8B Q2_K model under the mixed scale layout: load, a prefill and
-    16 greedy steps through the kernels against the plain versions fed the
-    same tokens (launches counted over the kernel run), then served, then
-    one 512-token prefill chunk through the 2-bit tensor-core kernel."""
+    """The 8B Q2_K model (LOWBIT_LAYERS deep) under the mixed scale layout:
+    load, a prefill and 16 greedy steps through the kernels against the
+    plain versions fed the same tokens (launches counted over the kernel
+    run), then served, then one 512-token prefill chunk through the 2-bit
+    tensor-core kernel."""
     from llama_gguf_inference_tpu_torch.ops import _build
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
     from llama_gguf_inference_tpu_torch.tools.synth import cached_model
     os.environ["LGT_SCALE_LAYOUT"] = "mixed"
     t0 = time.time()
-    path = cached_model("8b", seed=0, quant="q2_k")
+    path = cached_model("8b", seed=0, quant="q2_k", n_layers=LOWBIT_LAYERS)
     t1 = time.time()
     engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024, prefix_cache=False),
                              device="cuda")
@@ -2941,15 +2965,15 @@ def _q2k_base(torch, engine):
 
 
 def phase_q5k(torch):
-    """The 8B Q5_K model under the default layout (compact: u8 sc and mn per
-    32): load, resident bytes, a prefill and 16 greedy steps through the
-    kernels (the 8-bit one with its min term) against the plain versions fed
-    the same tokens, then served."""
+    """The 8B Q5_K model (LOWBIT_LAYERS deep) under the default layout
+    (compact: u8 sc and mn per 32): load, resident bytes, a prefill and 16
+    greedy steps through the kernels (the 8-bit one with its min term)
+    against the plain versions fed the same tokens, then served."""
     from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
     from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
     from llama_gguf_inference_tpu_torch.tools.synth import cached_model
     t0 = time.time()
-    path = cached_model("8b", seed=0, quant="q5_k")
+    path = cached_model("8b", seed=0, quant="q5_k", n_layers=LOWBIT_LAYERS)
     t1 = time.time()
     engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=1024, prefix_cache=False),
                              device="cuda")
@@ -3871,6 +3895,217 @@ def phase_gemma3(torch):
     return [launches, served], rows
 
 
+DS_SHAPE = "deepseek-v2-lite"
+DS_CTX = 4096                  # each of the deepseek2 engine's 4 slots
+DS_PROMPT = 2000               # tokens of its long prompt (slot 0)
+DS_STEPS = 32                  # greedy decode steps at B = 4 after the prompts
+DS_CHUNK = 512                 # prefill rows a forward (the capacity path)
+DS_SHORT = ("hello world, the quick brown fox", "over the lazy dog and the fox",
+            "the lazy dog jumps over the quick brown fox and the dog")
+
+
+def _ds_fmt(in_f: int) -> str:
+    """The format ``tools.synth`` gives a deepseek2 projection of ``in_f``
+    inputs: Q4_K on multiples of 256, else Q8_0 (1408 and 10944)."""
+    return "q4_k" if in_f % 256 == 0 else "q8_0"
+
+
+def _ds_run(torch, engine, prompts, steps, feed=None):
+    """Four sequences in one cache of DS_CTX positions: each prompt
+    prefilled into its slot in chunks of DS_CHUNK (each chunk's last row's
+    logits kept), then ``steps`` decode steps at B = 4, each fed the argmax
+    of the logits before it or ``feed``'s tokens. Returns (chunk logits,
+    (4, V) step logits, (4,) tokens fed per step)."""
+    from llama_gguf_inference_tpu_torch.models.llama import KVCache, forward
+    dev = engine.device
+    cache = KVCache.zeros(engine.cfg, len(prompts), DS_CTX, dev)
+
+    def fwd(tok, off, c, at=None):
+        return forward(engine.params, engine.cfg, torch.tensor(tok, dtype=torch.int32, device=dev),
+                       torch.tensor(off, dtype=torch.int32, device=dev), c,
+                       logits_at=None if at is None else torch.tensor(at, device=dev))
+
+    chunk_logits, step_logits, toks = [], [], []
+    with torch.inference_mode():
+        last = []
+        for b, ids in enumerate(prompts):
+            for s in range(0, len(ids), DS_CHUNK):
+                part = ids[s:s + DS_CHUNK]
+                chunk_logits.append(fwd([part], [s], cache.slot(b), [len(part) - 1])[0, 0])
+            last.append(chunk_logits[-1])
+        lg = torch.stack(last)
+        offs = [len(ids) for ids in prompts]
+        for i in range(steps):
+            toks.append(lg.argmax(-1).tolist() if feed is None else feed[i])
+            lg = fwd([[t] for t in toks[-1]], [o + i for o in offs], cache)[:, 0]
+            step_logits.append(lg)
+    torch.cuda.synchronize()
+    return chunk_logits, step_logits, toks
+
+
+def _moe_rows(torch, engine, timer):
+    """The routed experts' shapes timed (the MoE layer 1's stacked weights):
+    the expert-indexed launch (``quant_matmul_4bit_moe`` at gate, 1408 x
+    2048 Q4_K; ``quant_matmul_8bit_moe`` at down, 2048 x 1408 Q8_0) over 4
+    tokens' 6 routed experts each (24 pairs, the routing drawn from a seeded
+    generator), beside its plain version, ``torch.bmm`` over a bf16 copy of
+    each pair's expert and the bound (the distinct routed experts' stored
+    bytes, the pairs' activations and f32 outputs; 2 P in out operations);
+    then one expert's gate and down at the capacity rows C = 96 of a
+    512-token chunk through the dispatcher (:func:`_qm_row`)."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    cfg = engine.cfg
+    g = torch.Generator(device="cuda").manual_seed(5)
+    st = engine.params["layers"][cfg.n_dense_layers]["experts_st"]
+    k = cfg.n_experts_used
+    pick = torch.stack([torch.randperm(cfg.n_experts, generator=g, device="cuda")[:k]
+                        for _ in range(4)]).reshape(-1)
+    eid = torch.sort(pick.int(), stable=True).values.contiguous()
+    experts = sorted(set(eid.tolist()))
+    rows = []
+    for role, label in (("ffn_gate", "gate"), ("ffn_down", "down")):
+        w = st[role]
+        x = torch.randn(len(eid), w.in_features, generator=g, device="cuda").bfloat16()
+        before = dict(_build.LAUNCHES)
+        got = qm.expert_matmul(w, x, eid, torch.float32)
+        ran = [n for n, c in _build.LAUNCHES.items() if c != before.get(n, 0)]
+        with plain_versions():
+            want = qm.expert_matmul(w, x, eid, torch.float32)
+        err, rel = _err(got, want, MATMUL_TOL)
+        lib = torch.stack([qm.expert_view(w, e).dequantize(torch.bfloat16)
+                           for e in eid.tolist()])                  # (P, out, in) bf16
+        one = _wbytes(qm.expert_view(w, 0))
+        nbytes = one * len(experts) + x.numel() * 2 + len(eid) * w.out_features * 4
+        b_ms, b_by = bound(nbytes, 2.0 * len(eid) * w.in_features * w.out_features)
+        ms = timer(lambda: qm.expert_matmul(w, x, eid, torch.float32))
+        with plain_versions():
+            plain_ms = timer(lambda: qm.expert_matmul(w, x, eid, torch.float32), 5)
+        row = {"kernel": ran[0] if len(ran) == 1 else ran,
+               "shape": f"deepseek2 moe {label} {w.out_features}x{w.in_features} "
+                        f"pairs={len(eid)}",
+               "B": len(eid), "experts": len(experts), "max_abs_err": err, "max_rel_err": rel,
+               "ms": ms, "plain_ms": plain_ms,
+               "library_ms": timer(lambda: torch.bmm(lib, x[:, :, None])),
+               "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms}
+        del lib
+        emit({"phase": "kernels", **row})
+        rows.append(row)
+    for role, label in (("ffn_gate", "moe capacity gate"), ("ffn_down", "moe capacity down")):
+        rows.append(_qm_row(torch, qm, timer, qm.expert_view(st[role], 0), 96,
+                            f"deepseek2 {label}", g))
+    return rows
+
+
+def phase_deepseek2(torch):
+    """The DeepSeek-V2-Lite shape at full width and depth (``tools.synth``
+    ``deepseek-v2-lite``: 27 layers of 2048, latent attention with a direct
+    q, a leading dense layer, 64 routed experts of 1408 (6 a token) and 2
+    shared, yarn; Q4_K projections, Q8_0 ffn_down where in is no multiple of
+    256, the Q6_K head) loaded cold and run on 4 slots of DS_CTX (bf16, the
+    latent cache): a prompt of about DS_PROMPT tokens prefilled in chunks of
+    512 (the capacity path: per expert its top 96 tokens through the
+    dispatcher's kernels), three short ones, then DS_STEPS greedy steps at
+    B = 4 (the expert-indexed launch, one a role a layer: 52 of
+    ``quant_matmul_4bit_moe`` and 26 of ``quant_matmul_8bit_moe`` a step);
+    the first and last chunk's and 4 steps' logits held to LOGITS_TOL of the
+    plain versions fed the same tokens. Then a chat served with every EOG
+    token banned (TTFT, tokens a second), and the experts' shapes timed
+    (:func:`_moe_rows`)."""
+    from llama_gguf_inference_tpu_torch.ops import _build
+    from llama_gguf_inference_tpu_torch.ops import quant_matmul as qm
+    from llama_gguf_inference_tpu_torch.runtime.engine import EngineConfig, InferenceEngine
+    from llama_gguf_inference_tpu_torch.tools.synth import SHAPES, cached_model
+    t0 = time.time()
+    path = cached_model(DS_SHAPE, seed=0)
+    t1 = time.time()
+    engine = InferenceEngine(path, EngineConfig(max_slots=4, ctx=DS_CTX, prefix_cache=False),
+                             device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.time() - t1
+    try:
+        cfg, p = engine.cfg, engine.params
+        d = SHAPES[DS_SHAPE]
+        moe = p["layers"][d["n_dense"]]
+        st = moe.get("experts_st", {})
+        gate, down = st.get("ffn_gate"), st.get("ffn_down")
+        dense_down = p["layers"][0]["ffn_down"]
+        if (cfg.arch, cfg.dim, cfg.n_layers, cfg.kv_lora_rank, cfg.n_experts,
+                cfg.n_experts_used, cfg.n_shared_experts, cfg.n_dense_layers, cfg.vocab_size) != \
+                ("deepseek2", d["dim"], d["n_layers"], d["kv_lora"], d["n_experts"], d["n_used"],
+                 d["n_shared"], d["n_dense"], d["vocab"]) \
+                or cfg.kv_cache_dims != (d["qk_rope"], d["kv_lora"]) or gate is None \
+                or (gate.fmt, tuple(gate.codes.shape[:2])) != ("q4_k", (d["n_experts"], d["expert_ffn"])) \
+                or (down.fmt, down.in_features) != (_ds_fmt(d["expert_ffn"]), d["expert_ffn"]) \
+                or (dense_down.fmt, dense_down.in_features) != (_ds_fmt(d["ffn_dim"]), d["ffn_dim"]) \
+                or p["output"].fmt != "q6_k" or "ffn_gateup" in p["layers"][0] \
+                or cfg.attn_scale <= 0.0:
+            raise AssertionError(f"deepseek2 loaded as {cfg}, experts {st and gate.fmt}")
+        emit({"phase": "deepseek2-load", "ok": True, "synth_s": round(t1 - t0, 3),
+              "load_s": round(load_s, 3), "gguf_gb": os.path.getsize(path) / 1e9,
+              "resident_weights_gb": _resident_bytes(torch, p) / 1e9,
+              "resident_expert_weights_gb": sum(_resident_bytes(torch, ly.get("experts_st", {}))
+                                                for ly in p["layers"]) / 1e9,
+              "kv_cache_gb": _resident_bytes(torch, [engine.cache.k, engine.cache.v]) / 1e9,
+              "device_gb": torch.cuda.memory_allocated() / 1e9,
+              "load_stats": engine.load_stats, "attn_scale": cfg.attn_scale,
+              "formats": {"gate_up_experts": gate.fmt, "down_experts": down.fmt,
+                          "dense_down": dense_down.fmt, "head": p["output"].fmt}})
+        prompts = [_words(engine, DS_PROMPT)[1]] + [engine.tokenizer.encode(t) for t in DS_SHORT]
+        _build.reset_launches()
+        t0 = time.time()
+        k_chunks, k_steps, k_toks = _ds_run(torch, engine, prompts, DS_STEPS)
+        wall = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        sizes = [min(DS_CHUNK, len(ids) - s) for ids in prompts
+                 for s in range(0, len(ids), DS_CHUNK)]
+        chunks = len(sizes)
+        # forwards of at most 16 rows (the steps, and short prompts) take the
+        # expert-indexed launch; the rest the capacity path
+        small = DS_STEPS + sum(n <= 16 for n in sizes)
+        want = {qm.NAME_4BIT_MOE: 2 * n_moe * small, qm.NAME_8BIT_MOE: n_moe * small} \
+            if down.bits == 8 else {qm.NAME_4BIT_MOE: 3 * n_moe * small}
+        if any(launches.get(n, 0) != c for n, c in want.items()) \
+                or launches.get(qm.NAME_4BIT_TC, 0) < 2 * cfg.n_experts * n_moe * 4 \
+                or any(n.startswith("flash") or n.endswith(".plain") for n in launches):
+            raise AssertionError(f"deepseek2 kernel run: launches {launches}, want {want}")
+        with plain_versions():
+            p_chunks, p_steps, _ = _ds_run(torch, engine, prompts, 4, feed=k_toks[:4])
+        n_long = -(-len(prompts[0]) // DS_CHUNK)
+        k_rows = [k_chunks[0], k_chunks[n_long - 1], *k_steps[:4]]
+        _check_logits(torch, engine, k_chunks + [r for s in k_steps for r in s])
+        errs, agree = _compare(k_rows, [p_chunks[0], p_chunks[n_long - 1], *p_steps])
+        emit({"phase": "deepseek2-forward", "ok": True, "prompt_tokens": [len(i) for i in prompts],
+              "chunks": chunks, "steps": DS_STEPS, "kernel_path_s": round(wall, 3),
+              "logits_rel_err": errs, "logits_tol": LOGITS_TOL, "argmax_agree": agree,
+              "launches": launches})
+
+        served: dict[str, int] = {}
+        with serving(torch, engine, served) as (port, key):
+            ban = {str(t): False for t in sorted(engine.tokenizer.eog_ids)}
+            msgs = [{"role": "user", "content": "hello world, the quick brown fox"}]
+            t0 = time.time()
+            t_first, t_last, usage, _ = _stream(
+                port, "/v1/chat/completions",
+                {"messages": msgs, "max_tokens": 64, "temperature": 0, "logit_bias": ban}, key)
+        n_gen = usage["completion_tokens"]
+        if n_gen != 64 or served.get(qm.NAME_4BIT_MOE, 0) <= 0 \
+                or any(n.endswith(".plain") for n in served):
+            raise AssertionError(f"deepseek2 serve: {n_gen} tokens, launches {served}")
+        emit({"phase": "deepseek2-serve", "ok": True, "ttft_s": round(t_first - t0, 4),
+              "completion_tokens": n_gen,
+              "decode_tok_s_b1": round((n_gen - 1) / (t_last - t_first), 2),
+              "launches": served})
+        timer = Timer(torch)
+        with torch.inference_mode():
+            rows = _moe_rows(torch, engine, timer)
+        del timer
+    finally:
+        engine.stop()
+    return [launches, served], rows
+
+
 IQ_FORMATS = ("iq1_s", "iq1_m", "iq2_xxs", "iq2_xs", "iq2_s", "iq3_xxs", "iq3_s")
 IQ_PACKED4 = ("iq2_xxs", "iq3_s")
 IQ_SHAPE = (14336, 4096)       # the 8B ffn_gate
@@ -3973,6 +4208,10 @@ SOURCES = {
     "quant_matmul_lowbit_base_tc": (_QM_LTC_CU, _QM_JAX + ":172"),
     "quant_matmul_8bit": (_QM_CU, _QM_JAX + ":123"),           # _make_kernel, 8-bit branch
     "quant_matmul_8bit_min": (_QM_CU, _QM_JAX + ":185"),       # the same, with its min term
+    # the decode kernels' expert-indexed launch (MoE decode: the JAX package
+    # runs the same bodies once per routed expert under lax.cond)
+    "quant_matmul_4bit_moe": (_QM_CU, _QM_JAX + ":421"),
+    "quant_matmul_8bit_moe": (_QM_CU, _QM_JAX + ":123"),
     # the same two at prefill rows, tensor cores (without a min side: the
     # encoder's Q8_0 ffn_down; the decoders' Q6_K head never reaches it)
     "quant_matmul_8bit_tc": (_QM_TC_CU, _QM_JAX + ":123"),
@@ -4013,6 +4252,8 @@ LINE_SHAPE = {"quant_matmul_2bit": "mixed gate_up 28672x4096 B=4",
               "quant_matmul_8bit_min": "q5_k compact 8bit gate_up 28672x4096 B=4",
               "quant_matmul_8bit_tc": "encoder Q8_0 ffn_down 1024x4096 B=512",
               "quant_matmul_8bit_min_tc": "q5_k compact 8bit gate_up 28672x4096 B=512",
+              "quant_matmul_4bit_moe": "deepseek2 moe gate 1408x2048 pairs=24",
+              "quant_matmul_8bit_moe": "deepseek2 moe down 2048x1408 pairs=24",
               **{name: "prefill" if name.endswith("_tc") else
                  "decode B=5" if "paged" in name else "decode B=4"
                  for name in SOURCES if name.startswith("flash")}}
@@ -4156,6 +4397,13 @@ def main() -> int:
         i_paths, i_rows = phase_iq(torch)
         paths += i_paths
         rows += i_rows
+        drop_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        enter("deepseek2")
+        d_paths, d_rows = phase_deepseek2(torch)
+        paths += d_paths
+        rows += d_rows
         drop_caches()
         emit({"phase": "memory", "max_allocated_gb":
               torch.cuda.max_memory_allocated() / 1e9})

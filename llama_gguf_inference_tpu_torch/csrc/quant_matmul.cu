@@ -26,6 +26,22 @@
 //                            i8 sc per sub-block; Q5_K: u8 sc and mn) or flat
 //                            ones (Q8_0, Q5_0, Q5_1, Q8_1, Q8_K, IQ4_NL), with
 //                            the min term of the asymmetric ones (Q5_K, Q5_1)
+//   lgt_quant_matmul_lowbit_moe, lgt_quant_matmul_8bit_moe: the 2/4-bit and
+//                            8-bit decode kernels' expert-indexed launch, for
+//                            the routed experts of an MoE decode step (the
+//                            JAX package runs the same bodies once per
+//                            routed expert under lax.cond, _moe_cond in
+//                            models/llama.py): the activation rows are the
+//                            step's routed (token, slot) pairs sorted by
+//                            expert, eid[b] the expert of row b, and every
+//                            weight array holds the E experts' (out, ...)
+//                            arrays one after another, so one launch serves
+//                            every routed pair of a layer's role (bound, as
+//                            a decode launch, by the routed experts' bytes;
+//                            grid y runs over the pairs and only the first
+//                            row of each run of up to 8 of one expert's
+//                            pairs works, so a block decodes its expert's
+//                            rows once for the run: simple, not yet fast)
 //
 // All read the arrays the JAX kernels read, in the same block-minor element
 // order (quant/repack.py block_minor_perm): stored position j of a row holds
@@ -206,6 +222,7 @@ struct Args8 {
   const uint8_t* mn;       // (out, nsub) or null
   float* y;                // (B, out)
   int B, in_f, out_f, nd, nsub, bias;
+  const int* eid = nullptr;  // (B,) experts of an expert-indexed launch, or null
 };
 
 constexpr int k8Rows = 8;       // output rows a block: mma's n
@@ -251,6 +268,25 @@ inline Plan8 plan8(int B, int in_f, int out_f, int nsub, int sms) {
   const int per = (p.items + k8MaxWarps - 1) / k8MaxWarps;   // items a warp
   p.warps = (p.items + per - 1) / per;
   return p;
+}
+
+// An expert-indexed launch (eid set): the B activation rows are routed
+// (token, slot) pairs sorted by expert, eid[b] the expert of row b, and the
+// weights hold E experts' (out, ...) arrays one after another. Grid y runs
+// over the rows: block y takes rows y .. y+n-1 where y starts a run of up
+// to `acts` rows of one expert (each expert's rows cut into runs from its
+// first), its weights those of expert e; any other y has no work (false).
+__device__ __forceinline__ bool expert_run(const int* eid, int B, int by, int acts, int& b0,
+                                           int& nb, int& e) {
+  e = eid[by];
+  int first = by;
+  while (first > 0 && eid[first - 1] == e) --first;
+  if ((by - first) % acts) return false;
+  int end = by + 1;
+  while (end < B && end - by < acts && eid[end] == e) ++end;
+  b0 = by;
+  nb = end - by;
+  return true;
 }
 
 // Byte q of u, minus magic, as an exact f32: 0x4B0000zz is 2^23 + zz. With
@@ -332,10 +368,12 @@ quant_matmul_8bit_kernel(const Args8 a, const Plan8 p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = p.warps;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * k8Rows, b0 = blockIdx.y * k8Acts;
-  const int nb = min(k8Acts, a.B - b0);
-  // a row past out repeats the last row's loads; its sums are not stored
-  const size_t o = (size_t)min(r0 + g, a.out_f - 1);
+  const int r0 = blockIdx.x * k8Rows;
+  int b0 = blockIdx.y * k8Acts, nb = min(k8Acts, a.B - b0), e = 0;
+  if (a.eid && !expert_run(a.eid, a.B, blockIdx.y, k8Acts, b0, nb, e)) return;
+  // a row past out repeats the last row's loads; its sums are not stored;
+  // expert e's rows follow the e experts before it
+  const size_t o = (size_t)e * a.out_f + min(r0 + g, a.out_f - 1);
   const int8_t* crow = a.codes + o * a.in_f;
   const float* drow = a.d + o * a.nd;
   const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + o * a.nsub;
@@ -444,7 +482,7 @@ int launch_8bit(const Args8& a, cudaStream_t st) {
   Plan8 p;
   const int rc = prepare_8bit<kS, kM>(a.B, a.in_f, a.out_f, a.nsub, p);
   if (rc != 0) return rc;
-  const dim3 grid((a.out_f + k8Rows - 1) / k8Rows, (a.B + k8Acts - 1) / k8Acts);
+  const dim3 grid((a.out_f + k8Rows - 1) / k8Rows, a.eid ? a.B : (a.B + k8Acts - 1) / k8Acts);
   const int smem = p.warps * k8WarpSmem<kM>;
   quant_matmul_8bit_kernel<kS, kM><<<grid, p.warps * 32, smem, st>>>(a, p);
   return (int)cudaGetLastError();
@@ -995,6 +1033,7 @@ struct LowbitArgs {
   const uint8_t* mn;       // (out, nsub) or null
   float* y;                // (B, out)
   int B, in_f, out_f, nsub, nd, ndm, bias;
+  const int* eid = nullptr;  // (B,) experts of an expert-indexed launch, or null
 };
 
 constexpr int kLbRows = 8;         // output rows a row group: mma's n, the weights as B
@@ -1229,8 +1268,10 @@ quant_matmul_lowbit_kernel(const LowbitArgs a, const PlanLb p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nthr = p.warps * 32;
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp / p.splits, b0 = blockIdx.y * p.acts;
-  const int nb = min(p.acts, a.B - b0), nbs = p.nbs;
+  const int rg = warp / p.splits, nbs = p.nbs;
+  int b0 = blockIdx.y * p.acts, nb = min(p.acts, a.B - b0), e = 0;
+  if (a.eid && !expert_run(a.eid, a.B, blockIdx.y, p.acts, b0, nb, e)) return;
+  const size_t ex = (size_t)e * a.out_f;   // expert e's first row
   const int qn = a.in_f / kPlanes, np = qn / a.nsub * p.G;
   const int kV = 16 * p.G, kQ = 4 * p.G, grp = t & (p.G - 1);
   const bool min_live = kMinTerm && (kHasMin || a.bias != 0);
@@ -1253,7 +1294,7 @@ quant_matmul_lowbit_kernel(const LowbitArgs a, const PlanLb p) {
   auto load_step = [&](int j) {
     unsigned char* sb = ring + (j % kLbRing) * p.slot;
     const int s0 = (st0 + j % n) * kV, k0 = s0 + kQ * t;
-    const size_t o = min((tile_of(j) * p.groups + rg) * kLbRows + g, a.out_f - 1);
+    const size_t o = ex + min((tile_of(j) * p.groups + rg) * kLbRows + g, a.out_f - 1);
     const uint8_t* crow = a.codes + o * qn;
 #pragma unroll
     for (int i = 0; i < kLbPieces; ++i) {
@@ -1439,11 +1480,12 @@ quant_matmul_lowbit_generic(const LowbitArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kLbRows, b0 = blockIdx.y * kLbActs;
-  const int nb = min(kLbActs, a.B - b0);
+  const int r0 = blockIdx.x * kLbRows;
+  int b0 = blockIdx.y * kLbActs, nb = min(kLbActs, a.B - b0), e = 0;
+  if (a.eid && !expert_run(a.eid, a.B, blockIdx.y, kLbActs, b0, nb, e)) return;
   const int qn = a.in_f / kPlanes, words = qn / 4;
   // a row past out repeats the last row's loads; its sums are not stored
-  const size_t o = (size_t)min(r0 + g, a.out_f - 1);
+  const size_t o = (size_t)e * a.out_f + min(r0 + g, a.out_f - 1);
   const uint8_t* crow = a.codes + o * qn;
   const float* drow = a.d + o * a.nd;
   const uint8_t* scrow = kS == kFlat ? nullptr : a.sc + o * a.nsub;
@@ -1529,7 +1571,8 @@ int lb_plan_info(K kernel, dim3 grid, int threads, int smem, int inst, int* info
 // activation row and a warp's region takes the generic instance.
 template <int kBits, int kVar, int kMap, int kS, int kM>
 int launch_one(const LowbitArgs& a, cudaStream_t st, int* info) {
-  const dim3 gen_grid((a.out_f + kLbRows - 1) / kLbRows, (a.B + kLbActs - 1) / kLbActs);
+  const dim3 gen_grid((a.out_f + kLbRows - 1) / kLbRows,
+                      a.eid ? a.B : (a.B + kLbActs - 1) / kLbActs);
   const int gen_smem = kLbGenWarps * 2 * kLbActs * kLbRows * 4;
   PlanLb p;
   int smem = 0;
@@ -1550,7 +1593,7 @@ int launch_one(const LowbitArgs& a, cudaStream_t st, int* info) {
     quant_matmul_lowbit_generic<kBits, kVar, kMap, kS, kM><<<gen_grid, kLbGenWarps * 32, gen_smem, st>>>(a);
     return (int)cudaGetLastError();
   }
-  const dim3 grid(p.grid, (a.B + p.acts - 1) / p.acts);
+  const dim3 grid(p.grid, a.eid ? a.B : (a.B + p.acts - 1) / p.acts);
   if (info)
     return lb_plan_info(quant_matmul_lowbit_kernel<kBits, kVar, kMap, kS, kM>, grid,
                         p.warps * 32, smem, p.G - 1, info);
@@ -1647,6 +1690,24 @@ int lgt_quant_matmul_lowbit(const void* x, const void* xsum, const void* codes,
   return lowbit_dispatch(a, s_side, m_side, bits, var, vmap, (cudaStream_t)stream, nullptr);
 }
 
+// lgt_quant_matmul_lowbit's expert-indexed launch: x (B, in) the routed
+// pairs' activation rows sorted by expert (xsum their block sums), eid (B,)
+// int32 their experts, and codes, d, sc, dmin, mn each E experts' arrays of
+// the shapes above one after another -> y (B, out), row b against expert
+// eid[b].
+int lgt_quant_matmul_lowbit_moe(const void* x, const void* xsum, const void* eid,
+                                const void* codes, const void* d, const void* sc,
+                                const void* dmin, const void* mn, void* y, int B, int in_f,
+                                int out_f, int nsub, int nd, int ndm, int bias, int s_side,
+                                int m_side, int bits, int var, int vmap, void* stream) {
+  if (B == 0 || out_f == 0) return 0;
+  LowbitArgs a{(const __nv_bfloat16*)x, (const float*)xsum, (const uint8_t*)codes,
+               (const float*)d, (const uint8_t*)sc, (const float*)dmin,
+               (const uint8_t*)mn, (float*)y, B, in_f, out_f, nsub, nd, ndm, bias};
+  a.eid = (const int*)eid;
+  return lowbit_dispatch(a, s_side, m_side, bits, var, vmap, (cudaStream_t)stream, nullptr);
+}
+
 // The launch lgt_quant_matmul_lowbit makes for these arguments, into
 // info[8]: grid x, grid y, threads a block, dynamic shared bytes, registers
 // a thread, local (spill) bytes a thread, resident blocks an SM, and the
@@ -1720,6 +1781,30 @@ int lgt_quant_matmul_8bit(const void* x, const void* codes, const void* d,
   const Args8 a{(const __nv_bfloat16*)x, (const int8_t*)codes, (const float*)d,
                 (const uint8_t*)sc, (const float*)dmin, (const uint8_t*)mn, (float*)y,
                 B, in_f, out_f, nd, nsub, bias};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define LGT_CASE(S, M) \
+  if (s_side == S && m_side == M) return launch_8bit<S, M>(a, st);
+  LGT_CASE(kFlat, kNone) LGT_CASE(kFlat, kFlat)
+  LGT_CASE(kHierU8, kNone) LGT_CASE(kHierU8, kHierU8)
+  LGT_CASE(kHierI8, kNone) LGT_CASE(kHierI8, kHierU8)
+#undef LGT_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// lgt_quant_matmul_8bit's expert-indexed launch (as
+// lgt_quant_matmul_lowbit_moe): x (B, in) sorted by expert, eid (B,) int32,
+// the arrays E experts' one after another -> y (B, out).
+int lgt_quant_matmul_8bit_moe(const void* x, const void* eid, const void* codes,
+                              const void* d, const void* sc, const void* dmin, const void* mn,
+                              void* y, int B, int in_f, int out_f, int nd, int nsub, int bias,
+                              int s_side, int m_side, void* stream) {
+  if (in_f % 16 || nsub <= 0 || nd <= 0 || in_f % nsub || nsub % nd)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || out_f == 0) return 0;
+  Args8 a{(const __nv_bfloat16*)x, (const int8_t*)codes, (const float*)d,
+          (const uint8_t*)sc, (const float*)dmin, (const uint8_t*)mn, (float*)y,
+          B, in_f, out_f, nd, nsub, bias};
+  a.eid = (const int*)eid;
   const cudaStream_t st = (cudaStream_t)stream;
 #define LGT_CASE(S, M) \
   if (s_side == S && m_side == M) return launch_8bit<S, M>(a, st);

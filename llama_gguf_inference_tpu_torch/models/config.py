@@ -1,12 +1,13 @@
 """Model hyper-parameters derived from GGUF metadata.
 
-The dense architectures whose graph ``models.llama`` builds: llama (Llama
-2/3, Mistral, TinyLlama), qwen2, qwen3, gemma, gemma2, gemma3, phi3,
-starcoder2, granite, command-r and olmo2, from the keys llama.cpp's
-converters write, as the JAX package's ``models/config.py`` reads them. MoE
-files (any ``expert_count`` > 0) and the other architectures (deepseek2's
-latent attention among them) raise a ``ValueError`` naming what the file
-asked for, so a load never runs a graph this package does not build.
+The architectures whose graph ``models.llama`` builds: llama (Llama 2/3,
+Mistral, TinyLlama, and Mixtral: arch ``llama`` with expert keys), qwen2,
+qwen3, qwen2moe, qwen3moe, gemma, gemma2, gemma3, phi3, starcoder2,
+deepseek2 (latent attention and DeepSeekMoE), granite, command-r and olmo2,
+from the keys llama.cpp's converters write, as the JAX package's
+``models/config.py`` reads them. Any other architecture raises a
+``ValueError`` naming what the file asked for, so a load never runs a graph
+this package does not build.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from typing import Any, Mapping
 
 from ..gguf.constants import Keys
 
-SUPPORTED_ARCHES = ("llama", "qwen2", "qwen3", "gemma", "gemma2", "gemma3", "phi3",
-                    "starcoder2", "granite", "command-r", "olmo2")
+SUPPORTED_ARCHES = ("llama", "mixtral", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "gemma",
+                    "gemma2", "gemma3", "phi3", "starcoder2", "deepseek2", "granite",
+                    "command-r", "olmo2")
 ROPE_SCALINGS = ("none", "linear", "llama3", "yarn", "longrope")
 # GGUF rope style per architecture (llama.cpp ``llama_rope_type``): "norm" =
 # interleaved pairs (the converters permute Q/K for these; command-r's layout
@@ -42,6 +44,8 @@ class ModelConfig:
     rope_dim: int = 128              # rotary dims per head
     rope_interleaved: bool = True    # GGUF "norm" rope style; False: neox halves
     context_length: int = 4096
+    n_experts: int = 0               # MoE: routed experts
+    n_experts_used: int = 0          # top-k routed experts a token
     # rope scaling (long-context): "none" | "linear" | "llama3" | "yarn" |
     # "longrope" (phi3: per-dim factor tensors)
     rope_scaling_type: str = "none"
@@ -64,6 +68,40 @@ class ModelConfig:
     residual_scale: float = 1.0      # granite: on each residual add
     logit_multiplier: float = 1.0    # command-r: logit_scale; granite: 1/logit_scale
     parallel_residual: bool = False  # command-r: x + attn(n) + ffn(n)
+    # -- deepseek2 latent attention (MLA) and DeepSeekMoE -----------------
+    q_lora_rank: int = 0             # 0: a direct q projection (V2-Lite)
+    kv_lora_rank: int = 0            # > 0 selects the MLA attention
+    qk_nope_head_dim: int = 0        # per-head un-roped query/key dims
+    qk_rope_head_dim: int = 0        # per-head roped (decoupled) dims
+    v_head_dim: int = 0              # per-head value dims
+    n_shared_experts: int = 0        # always-on experts beside the routed ones
+    n_dense_layers: int = 0          # leading layers with a dense FFN
+    routed_scale: float = 1.0        # on the routed experts' weights
+    moe_renorm: bool = True          # renormalise the top-k router weights
+    n_expert_groups: int = 1         # group-limited routing: expert groups
+    topk_groups: int = 1             # groups a token may pick from
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def kv_cache_dims(self) -> tuple[int, int]:
+        """(k, v) widths of a cache head: MLA caches the latent (one shared
+        head: k the roped decoupled dims, v the normed c_kv;
+        ``models.llama.attention_mla``), every other model head_dim."""
+        if self.is_mla:
+            return (self.qk_rope_head_dim, self.kv_lora_rank)
+        return (self.head_dim, self.head_dim)
+
+    @property
+    def cache_kv_heads(self) -> int:
+        """Heads in the cache: MLA's latent is shared by every query head."""
+        return 1 if self.is_mla else self.n_kv_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     def is_sliding(self, layer_idx: int) -> bool:
         """Whether layer ``layer_idx`` attends over a sliding window: every
@@ -82,9 +120,6 @@ class ModelConfig:
             raise ValueError(
                 f"unsupported GGUF architecture {arch!r} "
                 f"(supported: {', '.join(SUPPORTED_ARCHES)})")
-        if int(md.get(f"{arch}.expert_count", 0)):
-            raise ValueError(f"GGUF architecture {arch!r} with experts (MoE) "
-                             "is not supported")
 
         def k(template: str):
             return template.format(arch=arch)
@@ -148,6 +183,33 @@ class ModelConfig:
             v.update(norm_type="layernorm", parallel_residual=True,
                      logit_multiplier=float(md.get("command-r.logit_scale", 1.0)))
 
+        if arch in ("qwen2moe", "qwen3moe"):
+            # llama.cpp's qwen2moe keeps the raw softmax weights, qwen3moe
+            # renormalises the top-k; an expert_weights_norm key overrides
+            v["moe_renorm"] = bool(md.get(f"{arch}.expert_weights_norm", arch == "qwen3moe"))
+        if arch == "deepseek2":
+            rope_dim = int(md.get(k(Keys.ROPE_DIMENSION_COUNT), head_dim))
+            v.update(q_lora_rank=int(md.get("deepseek2.attention.q_lora_rank", 0)),
+                     kv_lora_rank=int(md.get("deepseek2.attention.kv_lora_rank", 512)),
+                     qk_rope_head_dim=rope_dim, qk_nope_head_dim=head_dim - rope_dim,
+                     v_head_dim=int(md.get("deepseek2.attention.value_length",
+                                           head_dim - rope_dim)),
+                     n_shared_experts=int(md.get("deepseek2.expert_shared_count", 0)),
+                     n_dense_layers=int(md.get("deepseek2.leading_dense_block_count", 0)),
+                     routed_scale=float(md.get("deepseek2.expert_weights_scale", 1.0)),
+                     moe_renorm=bool(md.get("deepseek2.expert_weights_norm", False)),
+                     n_expert_groups=int(md.get("deepseek2.expert_group_count", 1)),
+                     topk_groups=int(md.get("deepseek2.expert_group_used_count", 1)))
+            # yarn's magnitude correction: the released checkpoints have
+            # mscale == mscale_all_dim, so cos/sin stay unscaled and it all
+            # folds into the score scale, llama.cpp's mscale^2 / sqrt(dk)
+            # with mscale = 1 + yarn_log_multiplier * ln(factor)
+            log_mul = float(md.get("deepseek2.rope.scaling.yarn_log_multiplier", 0.0))
+            factor = float(md.get(k(Keys.ROPE_SCALING_FACTOR), 1.0))
+            if scaling == "yarn" and factor > 1.0 and log_mul:
+                ms = 1.0 + log_mul * math.log(factor)
+                v["attn_scale"] = ms * ms / math.sqrt(head_dim)
+
         # longrope's magnitude: its key, else HF's sqrt(1 + ln(ctx / orig) /
         # ln(orig)) where the file extends the context
         orig_ctx = int(md.get(f"{arch}.rope.scaling.original_context_length", 0))
@@ -173,6 +235,8 @@ class ModelConfig:
             rope_dim=int(md.get(k(Keys.ROPE_DIMENSION_COUNT), head_dim)),
             rope_interleaved=arch in _ROPE_NORM_ARCHES,
             context_length=ctx_len,
+            n_experts=int(md.get(k(Keys.EXPERT_COUNT), 0)),
+            n_experts_used=int(md.get(k(Keys.EXPERT_USED_COUNT), 0)),
             rope_scaling_type=scaling,
             rope_scaling_factor=float(md.get(k(Keys.ROPE_SCALING_FACTOR), 1.0)),
             rope_low_freq_factor=float(

@@ -1,6 +1,6 @@
-"""Llama-family forward graph in PyTorch: llama and the dense qwen2, qwen3,
-gemma, gemma2, gemma3, phi3, starcoder2, granite, command-r and olmo2
-variations.
+"""Llama-family forward graph in PyTorch: llama (and Mixtral's routed
+experts), qwen2, qwen3, qwen2moe, qwen3moe, gemma, gemma2, gemma3, phi3,
+starcoder2, deepseek2, granite, command-r and olmo2.
 
 One function handles prefill (T = chunk) and decode (T = 1). Weights are
 ``LinearWeight`` containers (dense or quantized-resident), norms are f32
@@ -16,7 +16,18 @@ covers the family.
 Attention runs the cache's flash kernel, except on layers that slide or
 softcap (gemma2, gemma3's local layers, phi3's window): those take
 :func:`masked_attention`, a masked softmax over the cache's bf16 view, as
-the JAX package sends them to its XLA path on every cache kind.
+the JAX package sends them to its XLA path on every cache kind. deepseek2's
+latent attention (:func:`attention_mla`) caches the latent itself, one
+shared head whose k and v widths differ, and runs a masked softmax in f32.
+
+A layer with routed experts (:func:`ffn_moe`) picks each token's top-k
+experts on the card (:func:`moe_route`). A decode step (at most 16 rows)
+runs them through one expert-indexed launch of the decode kernel a role
+(:func:`_moe_cond`, ``ops.quant_matmul.expert_matmul``), so no expert is
+chosen on the host; a prefill chunk gathers each expert's top-C tokens
+(:func:`_moe_capacity`). ``LGT_MOE_DENSE=1`` runs every expert on every
+token (:func:`_moe_dense`, the parity oracle) and ``LGT_MOE_CAPACITY``
+(2.0) sets the capacity factor, as in the JAX package.
 
 Layouts, rounding points and masking follow the JAX package's
 ``models/llama.py``; where the port departs from it, the docstring says so.
@@ -26,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any
 
 import torch
@@ -33,6 +45,7 @@ import torch.nn.functional as F
 
 from ..ops import flash_attention as fa
 from ..ops.linear import embed_lookup, matmul
+from ..ops.quant_matmul import expert_matmul, expert_view
 from .config import ModelConfig
 
 Params = dict[str, Any]  # layer i under params["layers"][i]
@@ -41,7 +54,8 @@ Params = dict[str, Any]  # layer i under params["layers"][i]
 @dataclasses.dataclass
 class KVCache:
     """Per-layer buffers: k, v are L-lists of (B, KVH, S_max, head_dim),
-    the flash kernel's layout. Written in place.
+    the flash kernel's layout (MLA: one head, k and v of
+    ``cfg.kv_cache_dims``). Written in place.
 
     Every cache kind (this one, ``runtime.kv_cache``'s quantized ones and
     ``runtime.paged_kv``'s paged ones) offers the same four methods:
@@ -55,10 +69,11 @@ class KVCache:
     @staticmethod
     def zeros(cfg: ModelConfig, batch: int, max_seq: int,
               device: str | torch.device, dtype=torch.bfloat16) -> "KVCache":
-        shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+        dk, dv = cfg.kv_cache_dims
+        kvh = cfg.cache_kv_heads
         return KVCache(
-            k=[sink_zeros(shape, dtype, device) for _ in range(cfg.n_layers)],
-            v=[sink_zeros(shape, dtype, device) for _ in range(cfg.n_layers)])
+            k=[sink_zeros((batch, kvh, max_seq, dk), dtype, device) for _ in range(cfg.n_layers)],
+            v=[sink_zeros((batch, kvh, max_seq, dv), dtype, device) for _ in range(cfg.n_layers)])
 
     @property
     def max_seq(self) -> int:
@@ -340,6 +355,55 @@ def attention(layer: Params, cfg: ModelConfig, x: torch.Tensor,
     return _biased(out, layer, "attn_output_bias")
 
 
+def attention_mla(layer: Params, cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor, cache, layer_idx: int, offsets: torch.Tensor,
+                  write_idx) -> torch.Tensor:
+    """deepseek2's multi-head latent attention over a latent-resident cache,
+    as the JAX package's ``attention_mla``: ``kv_a`` emits [c_kv; k_pe], the
+    cache holds the roped k_pe (k, ``qk_rope_head_dim`` wide) and the normed
+    c_kv (v, ``kv_lora_rank`` wide) of one shared head, and the queries
+    absorb ``kv_b``'s k half (``attn_kv_b_k``, (H, dn, C)):
+
+        score_h(s) = (W_uk[h]ᵀ q_nope_h) · c_s + q_pe_h · k_pe_s
+        out_h      = W_uv[h] · Σ_s p_h(s) c_s
+
+    q_lat, the scores, the softmax and the latent context in f32, the causal
+    mask at -1e30, W_uv (``attn_kv_b_v``, (H, dv, C)) expanding the context
+    back; a direct q projection (V2-Lite) or the query LoRA
+    (``attn_q_a``, its norm, ``attn_q_b``). The rope is the interleaved
+    pairs' (HF's de-interleave before a half rotation). The port's forward
+    takes no chunk lengths, so a padded query row sees its causal keys where
+    the JAX package masks it whole; nothing reads its output, but it is
+    routed (and competes for capacity) with other hidden states there."""
+    B, T, _ = x.shape
+    H, dn, dr, C = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    if "attn_q_a" in layer:
+        q = matmul(layer["attn_q_b"], rms_norm(matmul(layer["attn_q_a"], x),
+                                               layer["attn_q_a_norm"], cfg.rms_eps))
+    else:
+        q = matmul(layer["attn_q"], x)
+    q = q.reshape(B, T, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_pe = apply_rope(q[..., dn:], cos, sin, cfg.rope_interleaved)
+    kv = matmul(layer["attn_kv_a_mqa"], x)
+    c_kv = rms_norm(kv[..., :C], layer["attn_kv_a_norm"], cfg.rms_eps)
+    k_pe = apply_rope(kv[..., C:].reshape(B, T, 1, dr), cos, sin, cfg.rope_interleaved)
+    q_lat = torch.einsum("bthd,hdc->bthc", q_nope.float(), layer["attn_kv_b_k"].float())
+    cache.write(layer_idx, k_pe, c_kv.reshape(B, T, 1, C), write_idx)
+    k_all, v_all = cache.view(layer_idx)
+    lat, kpe = v_all[:, 0].float(), k_all[:, 0].float()
+    scale = cfg.attn_scale if cfg.attn_scale > 0.0 else 1.0 / math.sqrt(float(dn + dr))
+    scores = (torch.einsum("bthc,bsc->bhts", q_lat, lat)
+              + torch.einsum("bthd,bsd->bhts", q_pe.float(), kpe)) * scale
+    S = lat.shape[1]
+    pos = offsets.long()[:, None] + torch.arange(T, device=x.device)[None, :]
+    mask = torch.arange(S, device=x.device)[None, None, :] <= pos[:, :, None]
+    scores = torch.where(mask[:, None], scores, torch.full_like(scores, -1e30))
+    ctx_lat = torch.einsum("bhts,bsc->bthc", torch.softmax(scores, dim=-1), lat)
+    ctx = torch.einsum("bthc,hvc->bthv", ctx_lat, layer["attn_kv_b_v"].float())
+    return matmul(layer["attn_output"], ctx.reshape(B, T, H * cfg.v_head_dim).to(x.dtype))
+
+
 def shift_cache_slot(cache, cfg: ModelConfig, b: int, keep: int, discard: int) -> None:
     """Context shift (llama-server ``--ctx-shift``): roll slot ``b``'s KV
     left by ``discard`` positions beyond ``keep`` and re-rope the moved K by
@@ -413,6 +477,144 @@ def ffn_swiglu(layer: Params, x: torch.Tensor, act: str = "silu") -> torch.Tenso
     return matmul(layer["ffn_down"], g.to(x.dtype) * up)
 
 
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, ties to the lower index, as
+    ``lax.top_k`` breaks them (``torch.topk`` does not promise an order, and
+    the router's bf16 logits tie often): a stable descending sort."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def moe_route(layer: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each token's routed experts: (B, T, k) weights and expert ids, as the
+    JAX package's ``moe_router`` picks them. The router's softmax in f32;
+    with expert groups only the best ``topk_groups`` groups (by their best
+    expert) stay; the top-k renormalised where ``moe_renorm``, times
+    ``routed_scale``."""
+    n_exp, k = cfg.n_experts, cfg.n_experts_used
+    probs = torch.softmax(matmul(layer["ffn_gate_inp"], x).float(), dim=-1)
+    if cfg.n_expert_groups > 1:
+        g = cfg.n_expert_groups
+        gsize = n_exp // g
+        topg = _top_k(probs.reshape(*probs.shape[:-1], g, gsize).amax(-1), cfg.topk_groups)[1]
+        # the kept groups as a 0/1 mask (a scatter: one_hot checks its
+        # indices on the host)
+        gmask = torch.zeros(*probs.shape[:-1], g, device=x.device).scatter(-1, topg, 1.0)
+        probs = probs * gmask.repeat_interleave(gsize, dim=-1)
+    topv, topi = _top_k(probs, k)
+    if cfg.moe_renorm:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    if cfg.routed_scale != 1.0:
+        topv = topv * cfg.routed_scale
+    return topv, topi
+
+
+def route_weights(cfg: ModelConfig, topv: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """The routed weights scattered to per-expert columns (B, T, E), zero
+    for the experts a token was not routed to."""
+    return torch.zeros(*topv.shape[:-1], cfg.n_experts, dtype=topv.dtype,
+                       device=topv.device).scatter(-1, topi, topv)
+
+
+def moe_router(layer: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``moe_router``: (B, T, E) routed weights."""
+    return route_weights(cfg, *moe_route(layer, cfg, x))
+
+
+def _expert_views(st: Params, n_experts: int) -> list[Params]:
+    """Per-expert weight dicts of the stacked (E, ...)-leading arrays
+    (views of the same storage)."""
+    return [{role: expert_view(w, e) for role, w in st.items()} for e in range(n_experts)]
+
+
+def _moe_dense(experts: list[Params], cfg: ModelConfig, x: torch.Tensor,
+               w_exp: torch.Tensor) -> torch.Tensor:
+    """The parity oracle: every expert on every token, each output in f32
+    times its weight and summed in ascending expert order."""
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.n_experts):
+        out = out + ffn_swiglu(experts[e], x).float() * w_exp[..., e:e + 1]
+    return out.to(x.dtype)
+
+
+def _moe_cond(st: Params, cfg: ModelConfig, x: torch.Tensor, topv: torch.Tensor,
+              topi: torch.Tensor) -> torch.Tensor:
+    """The decode path: the routed (token, slot) pairs sorted by expert
+    (stably), their activation rows gathered, and one expert-indexed launch a
+    role (``ops.quant_matmul.expert_matmul``) over the stacked experts
+    ``st``; then each token's outputs in f32 times their weights, summed in
+    ascending expert order. The JAX package's ``_moe_cond`` runs each routed
+    expert under ``lax.cond`` and adds its rows in the same order (an
+    unrouted expert adds zeros), so the two agree bit for bit wherever the
+    matmuls do. Nothing is read back to the host."""
+    B, T, D = x.shape
+    N, k = B * T, cfg.n_experts_used
+    eid = topi.reshape(N * k).to(torch.int32)
+    order = torch.argsort(eid, stable=True)
+    eid_s = eid[order].contiguous()
+    xp = x.reshape(N, D).index_select(0, order // k)
+    gate = expert_matmul(st["ffn_gate"], xp, eid_s)
+    up = expert_matmul(st["ffn_up"], xp, eid_s)
+    y = expert_matmul(st["ffn_down"], F.silu(gate.float()).to(x.dtype) * up, eid_s)
+    yk = torch.empty_like(y).index_copy_(0, order, y).reshape(N, k, D)
+    topv, topi = topv.reshape(N, k), topi.reshape(N, k)
+    rows = torch.arange(N, device=x.device)
+    out = torch.zeros(N, D, dtype=torch.float32, device=x.device)
+    for slot in torch.argsort(topi, dim=-1).unbind(-1):
+        out = out + yk[rows, slot].float() * topv[rows, slot][:, None]
+    return out.reshape(B, T, D).to(x.dtype)
+
+
+def _moe_capacity(experts: list[Params], cfg: ModelConfig, x: torch.Tensor,
+                  w_exp: torch.Tensor, cf: float) -> torch.Tensor:
+    """The prefill path, the JAX package's ``_moe_capacity``: each expert
+    takes its top C = min(N, max(8, ceil(N·k·cf / E))) tokens by weight
+    (a stable sort, so ties and the dropped overflow are the JAX package's),
+    runs them through its FFN (the dispatcher's kernels, one launch a role)
+    and adds their weighted f32 outputs back (``index_add_``)."""
+    B, T, D = x.shape
+    N, E, k = B * T, cfg.n_experts, cfg.n_experts_used
+    C = min(N, max(8, math.ceil(N * k * cf / E)))
+    xf, wf = x.reshape(N, D), w_exp.reshape(N, E)
+    out = torch.zeros(N, D, dtype=torch.float32, device=x.device)
+    for e in range(E):
+        we = wf[:, e]
+        order = torch.argsort(-we, stable=True)[:C]
+        ye = ffn_swiglu(experts[e], xf.index_select(0, order)).float()
+        out.index_add_(0, order, ye * we.index_select(0, order)[:, None])
+    return out.reshape(B, T, D).to(x.dtype)
+
+
+def ffn_moe(layer: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Routed experts, then the shared ones: deepseek2 adds them as they
+    are, qwen2moe times a per-token sigmoid gate. At most 16 rows take the
+    expert-indexed decode path over the stacked experts, more the capacity
+    path; ``LGT_MOE_DENSE`` takes the dense oracle, and so do at most 16 rows
+    over an unstacked per-expert list (an unfused load), where its sum is
+    ``_moe_cond``'s exactly."""
+    topv, topi = moe_route(layer, cfg, x)
+    st = layer.get("experts_st")
+    B, T, _ = x.shape
+    dense = bool(os.environ.get("LGT_MOE_DENSE"))
+    if B * T <= 16 and st is not None and not dense:
+        out = _moe_cond(st, cfg, x, topv, topi)
+    else:
+        experts = layer["experts"] if st is None else _expert_views(st, cfg.n_experts)
+        w_exp = route_weights(cfg, topv, topi)
+        if dense or B * T <= 16:
+            out = _moe_dense(experts, cfg, x, w_exp)
+        else:
+            out = _moe_capacity(experts, cfg, x, w_exp,
+                                float(os.environ.get("LGT_MOE_CAPACITY", "2.0")))
+    if "shared_experts" in layer:
+        sh = ffn_swiglu(layer["shared_experts"], x, cfg.act)
+        if "shared_gate" in layer:
+            sh = sh * torch.sigmoid(matmul(layer["shared_gate"], x).float()).to(sh.dtype)
+        out = out + sh
+    return out
+
+
 def forward(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
             offsets: torch.Tensor, cache,
             logits_at: torch.Tensor | None = None,
@@ -459,7 +661,10 @@ def forward(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
         c, s = local if sliding and local is not None else (cos, sin)
         # olmo2 has post-norms only: its branches read the raw residual
         h = _norm(x, layer, "attn_norm", cfg) if "attn_norm" in layer else x
-        attn = attention(layer, cfg, h, c, s, cache, i, offsets, write_idx, sliding)
+        if cfg.is_mla:
+            attn = attention_mla(layer, cfg, h, c, s, cache, i, offsets, write_idx)
+        else:
+            attn = attention(layer, cfg, h, c, s, cache, i, offsets, write_idx, sliding)
         if "attn_post_norm" in layer:
             attn = rms_norm(attn, layer["attn_post_norm"], cfg.rms_eps)
         if cfg.parallel_residual:
@@ -471,8 +676,12 @@ def forward(params: Params, cfg: ModelConfig, token_ids: torch.Tensor,
                 attn = attn * torch.tensor(cfg.residual_scale, dtype=x.dtype).item()
             x = x + attn
             ffn_in = _norm(x, layer, "ffn_norm", cfg) if "ffn_norm" in layer else x
-        ffn = ffn_swiglu(layer, ffn_in, cfg.act) if cfg.ffn_gated \
-            else ffn_mlp(layer, ffn_in, cfg.act)
+        if "experts_st" in layer or "experts" in layer:
+            ffn = ffn_moe(layer, cfg, ffn_in)
+        elif cfg.ffn_gated:
+            ffn = ffn_swiglu(layer, ffn_in, cfg.act)
+        else:
+            ffn = ffn_mlp(layer, ffn_in, cfg.act)
         if "ffn_post_norm" in layer:
             ffn = rms_norm(ffn, layer["ffn_post_norm"], cfg.rms_eps)
         if cfg.parallel_residual:

@@ -132,9 +132,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # launches' plans: B, in, out, nsub, the sides, an int[7] (int8:
         # int[8]) to fill; the lowbit one's: B, in, out, nsub, the sides,
         # the bits, the element rule, the code map, an int[8].
+        # The expert-indexed launches take the experts' ids (int32) after
+        # xsum (lowbit) or x (8-bit).
         for fn, n_ptr, n_int in (("lgt_quant_matmul_lowbit", 8, 12),
+                                 ("lgt_quant_matmul_lowbit_moe", 9, 12),
                                  ("lgt_quant_matmul_int8", 9, 8),
-                                 ("lgt_quant_matmul_8bit", 7, 8)):
+                                 ("lgt_quant_matmul_8bit", 7, 8),
+                                 ("lgt_quant_matmul_8bit_moe", 8, 8)):
             getattr(lib, fn).argtypes = [p] * n_ptr + [i] * n_int + [p]
             getattr(lib, fn).restype = i
         for fn in ("lgt_quant_matmul_8bit_plan", "lgt_quant_matmul_int8_plan"):

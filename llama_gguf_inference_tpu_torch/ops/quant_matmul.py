@@ -58,6 +58,14 @@ counterpart of one TPU body and branch:
   counted as :data:`NAME_8BIT_TC` and :data:`NAME_8BIT_MIN_TC`) wherever
   that kernel takes the geometry; fewer rows take the decode kernel.
 
+The routed experts of an MoE decode step go through :func:`expert_matmul`:
+one expert-indexed launch of the decode kernel a role serves every routed
+(token, slot) pair, the pairs' activation rows sorted by expert and each
+weight array stacked over the experts (:func:`quant_matmul_lowbit_moe`,
+:func:`quant_matmul_8bit_moe`, launches :data:`NAME_4BIT_MOE`,
+:data:`NAME_LOWBIT_MOE` and :data:`NAME_8BIT_MOE`); the JAX package runs
+each routed expert's matmul under ``lax.cond``, the same bodies.
+
 A mixed-layout weight under ``base`` or ``int8`` takes :func:`dequant_matmul`
 too, as the JAX package sends it to ``matmul_xla`` outside any Pallas
 kernel. That path dequantizes to bf16 and multiplies in PyTorch (a bf16
@@ -83,6 +91,7 @@ activation dtype.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -109,6 +118,11 @@ NAME_8BIT_MIN = "quant_matmul_8bit_min"
 NAME_8BIT_TC = "quant_matmul_8bit_tc"
 NAME_8BIT_MIN_TC = "quant_matmul_8bit_min_tc"
 NAME_DEQUANT = "quant_matmul_dequant"
+# the expert-indexed launches of the decode kernels: the 4-bit fsplit rule,
+# every other 2/4-bit rule, and the 8-bit one
+NAME_4BIT_MOE = "quant_matmul_4bit_moe"
+NAME_LOWBIT_MOE = "quant_matmul_lowbit_moe"
+NAME_8BIT_MOE = "quant_matmul_8bit_moe"
 
 # activation rows from which quant_matmul_8bit takes the tensor-core (wgmma)
 # kernel: on an H100 the decode kernel wins a layer's four Q5_K 8B
@@ -873,6 +887,190 @@ def quant_matmul_8bit_plain(x, codes, d, sc, sub_size, code_bias, dmin=None,
     if dmin is not None:
         w = w - _sub_side(dmin, mn, nsub).repeat(1, sub_size)
     return x.float() @ w.to(torch.bfloat16).float().t()
+
+
+# -- the expert-indexed launches ------------------------------------------------
+
+_VARS = {"fsplit": VAR_FSPLIT, "qsplit": VAR_FSPLIT, "xsum": VAR_XSUM, "split": VAR_SPLIT}
+_PLAIN_LOWBIT = {VAR_FSPLIT: "fsplit", VAR_XSUM: "xsum", VAR_SPLIT: "split"}
+
+
+def _check_experts(eid: torch.Tensor, B: int, dev, arrays: dict) -> int:
+    """Checks of an expert-indexed launch: ``eid`` (B,) int32 on ``dev`` and
+    each stacked array (E, ...) contiguous with one leading E; returns E."""
+    _check(eid, "eid", torch.int32, (B,), dev)
+    lead = {a.shape[0] for a in arrays.values() if a is not None}
+    if len(lead) != 1:
+        raise ValueError(f"stacked arrays with different expert counts {sorted(lead)}")
+    for name, a in arrays.items():
+        if a is not None:
+            _check(a, name, a.dtype, a.shape, dev)
+    return lead.pop()
+
+
+def _per_expert(plain, eid: torch.Tensor, n_exp: int, *stacked) -> torch.Tensor:
+    """A plain version run once per expert over every row, each row kept
+    from its own expert's run (``torch.where`` on ``eid``: no read back)."""
+    y = None
+    for e in range(n_exp):
+        ye = plain(*[None if a is None else a[e] for a in stacked])
+        y = ye if y is None else torch.where((eid == e)[:, None], ye, y)
+    return y
+
+
+def quant_matmul_lowbit_moe(x: torch.Tensor, xsum: torch.Tensor | None, eid: torch.Tensor,
+                            codes: torch.Tensor, d: torch.Tensor, sc, dmin, mn,
+                            code_bias: int = 0, bits: int = 4, var: int = VAR_FSPLIT,
+                            fmt: str = "") -> torch.Tensor:
+    """The 2/4-bit decode kernel's expert-indexed launch: x (B, in) bf16
+    block-minor, the routed pairs' rows sorted by expert, xsum (B, nsub)
+    their block sums (None for the base rules), eid (B,) int32 their
+    experts, and codes, d, sc, dmin, mn the experts' arrays of
+    :func:`quant_matmul_4bit` stacked (E, out, ...) -> (B, out) f32, row b
+    against expert eid[b] under rule ``var``. Launches count under
+    :data:`NAME_4BIT_MOE` (4-bit fsplit) or :data:`NAME_LOWBIT_MOE`; the
+    plain version is :func:`quant_matmul_lowbit_moe_plain`."""
+    B, in_f = x.shape
+    base = var in (VAR_BASE, VAR_BASE_F32)
+    dev = x.device
+    n_exp = _check_experts(eid, B, dev, {"codes": codes, "d": d, "sc": sc, "dmin": dmin,
+                                         "mn": mn})
+    out_f, nsub, nd, ndm = _check_sides(
+        x, codes[0], d[0], None if sc is None else sc[0], None if dmin is None else dmin[0],
+        None if mn is None else mn[0], bits, code_bias, with_mixed=not base)
+    _check(x, "x", torch.bfloat16, (B, in_f), dev)
+    if not base:
+        _check(xsum, "xsum", torch.float32, (B, nsub), dev)
+    vmap = _MAP.get(fmt, 0)
+    if vmap and (dmin is not None or var not in (VAR_FSPLIT, VAR_BASE_F32) or bits != 4):
+        raise ValueError(f"the {fmt} code map takes 4-bit fsplit or base codes and no min")
+    name = NAME_4BIT_MOE if bits == 4 and var == VAR_FSPLIT else NAME_LOWBIT_MOE
+    if dev.type != "cuda":
+        return quant_matmul_lowbit_moe_plain(x, xsum, eid, codes, d, sc, dmin, mn, code_bias,
+                                             bits, var, fmt, n_exp)
+    y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
+    rc = _build.library("quant_matmul").lgt_quant_matmul_lowbit_moe(
+        x.data_ptr(), _ptr(xsum), eid.data_ptr(), codes.data_ptr(), d.data_ptr(), _ptr(sc),
+        _ptr(dmin), _ptr(mn), y.data_ptr(), B, in_f, out_f, nsub, nd, ndm, code_bias,
+        _side(d, sc), _side(dmin, mn), bits, var, vmap,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, name)
+    _build.count(name)
+    return y
+
+
+def quant_matmul_lowbit_moe_plain(x, xsum, eid, codes, d, sc, dmin, mn, code_bias=0, bits=4,
+                                  var=VAR_FSPLIT, fmt="", n_exp=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quant_matmul_lowbit_moe`: the plain
+    version of rule ``var`` once per expert over every row, each row kept
+    from its own expert's (a loop over the experts' views, as the JAX
+    package's ``_expert_views`` feeds ``_moe_cond``)."""
+    _build.count((NAME_4BIT_MOE if bits == 4 and var == VAR_FSPLIT else NAME_LOWBIT_MOE)
+                 + ".plain")
+    if var == VAR_BASE:
+        def plain(c, dd, s, dm, m):
+            return quant_matmul_4bit_base_plain(x, c, dd, s, dm, m, code_bias)
+    elif var == VAR_BASE_F32:
+        def plain(c, dd, s, dm, m):
+            return quant_matmul_lowbit_base_plain(x, c, dd, s, dm, m, code_bias, bits, fmt)
+    else:
+        def plain(c, dd, s, dm, m):
+            return _plain_lowbit(bits, x, xsum, c, dd, s, dm, m, code_bias, fmt,
+                                 _PLAIN_LOWBIT[var])
+    return _per_expert(plain, eid, n_exp or codes.shape[0], codes, d, sc, dmin, mn)
+
+
+def quant_matmul_8bit_moe(x: torch.Tensor, eid: torch.Tensor, codes: torch.Tensor,
+                          d: torch.Tensor, sc: torch.Tensor | None, sub_size: int,
+                          code_bias: int, dmin: torch.Tensor | None = None,
+                          mn: torch.Tensor | None = None) -> torch.Tensor:
+    """The 8-bit decode kernel's expert-indexed launch: x (B, in) bf16
+    block-minor sorted by expert, eid (B,) int32, and the arrays of
+    :func:`quant_matmul_8bit` stacked (E, out, ...) -> (B, out) f32, row b
+    against expert eid[b]. Launches count under :data:`NAME_8BIT_MOE` (with
+    or without a min side); the plain version is
+    :func:`quant_matmul_8bit_moe_plain`."""
+    dev = x.device
+    n_exp = _check_experts(eid, x.shape[0], dev, {"codes": codes, "d": d, "sc": sc,
+                                                  "dmin": dmin, "mn": mn})
+    B, in_f, out_f, nd, nsub = _check_8bit(x, codes[0], d[0], None if sc is None else sc[0],
+                                           sub_size, None if dmin is None else dmin[0],
+                                           None if mn is None else mn[0])
+    if dev.type != "cuda":
+        return quant_matmul_8bit_moe_plain(x, eid, codes, d, sc, sub_size, code_bias, dmin, mn,
+                                           n_exp)
+    y = torch.empty(B, out_f, dtype=torch.float32, device=dev)
+    lib = _build.library("quant_matmul")
+    _build.check(lib.lgt_quant_matmul_8bit_moe(
+        x.data_ptr(), eid.data_ptr(), codes.data_ptr(), d.data_ptr(), _ptr(sc), _ptr(dmin),
+        _ptr(mn), y.data_ptr(), B, in_f, out_f, nd, nsub, code_bias, _side(d, sc),
+        _side(dmin, mn), torch.cuda.current_stream(dev).cuda_stream), NAME_8BIT_MOE)
+    _build.count(NAME_8BIT_MOE)
+    return y
+
+
+def quant_matmul_8bit_moe_plain(x, eid, codes, d, sc, sub_size, code_bias, dmin=None, mn=None,
+                                n_exp=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quant_matmul_8bit_moe`:
+    :func:`quant_matmul_8bit_plain`'s rule once per expert, each row kept
+    from its own expert's."""
+    _build.count(NAME_8BIT_MOE + ".plain")
+
+    def plain(c, dd, s, dm, m):
+        nsub = c.shape[1] // sub_size
+        w = (c.to(torch.int32) - code_bias).float() * _sub_side(dd, s, nsub).repeat(1, sub_size)
+        if dm is not None:
+            w = w - _sub_side(dm, m, nsub).repeat(1, sub_size)
+        return x.float() @ w.to(torch.bfloat16).float().t()
+
+    return _per_expert(plain, eid, n_exp or codes.shape[0], codes, d, sc, dmin, mn)
+
+
+def expert_view(w, e: int):
+    """Expert ``e``'s weight of a stacked one (each array's leading E axis
+    indexed: views of the same storage)."""
+    if hasattr(w, "codes"):
+        return dataclasses.replace(w, codes=w.codes[e], d=w.d[e],
+                                   sc=None if w.sc is None else w.sc[e],
+                                   dmin=None if w.dmin is None else w.dmin[e],
+                                   mn=None if w.mn is None else w.mn[e])
+    return dataclasses.replace(w, w=w.w[e])
+
+
+def expert_matmul(w, x: torch.Tensor, eid: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """x (P, in) routed pairs' rows sorted by expert, eid (P,) int32 their
+    experts, against the stacked weight ``w`` (a QuantLinear or DenseLinear
+    whose arrays lead with the expert axis) -> (P, out), each row against
+    its own expert, with no read back to the host. The body is the one the
+    JAX package's gate (:func:`select_kernel`) picks for one expert's
+    matmul on P rows: the 2/4-bit rules and the 8-bit one take their
+    decode kernel's expert-indexed launch; the int8 body and the dequantize
+    path (and a dense weight) run each expert over every row and keep each
+    row's own, as the plain versions do."""
+    P = x.shape[0]
+    n_exp = (w.codes if hasattr(w, "codes") else w.w).shape[0]
+    kern = select_kernel(w, P) if hasattr(w, "codes") else "dense"
+    if kern in ("int8", "dequant", "dense"):
+        y = None
+        for e in range(n_exp):
+            ye = expert_view(w, e).matmul(x, torch.float32)
+            y = ye if y is None else torch.where((eid == e)[:, None], ye, y)
+        return y.to(out_dtype or x.dtype)
+    x2 = w.permute_activations(x).reshape(-1, w.in_features).to(torch.bfloat16).contiguous()
+    args = (w.codes, w.d, w.sc, w.dmin, w.mn)
+    if kern == "base" and w.bits == 8:
+        out = quant_matmul_8bit_moe(x2, eid, w.codes, w.d, w.sc, w.sub_size, w.code_bias,
+                                    w.dmin, w.mn)
+    elif kern == "base":
+        var = VAR_BASE if w.bits == 4 and w.fmt not in MAPPED_FMTS else VAR_BASE_F32
+        out = quant_matmul_lowbit_moe(x2, None, eid, *args, w.code_bias, w.bits, var, w.fmt)
+    else:
+        xsum = _block_sums(x2, w.sub_size)
+        if w.min_size:
+            xsum = _mixed_xsum(xsum, w)
+        out = quant_matmul_lowbit_moe(x2, xsum, eid, *args, w.code_bias, w.bits, _VARS[kern],
+                                      w.fmt)
+    return out.to(out_dtype or x.dtype)
 
 
 def dequant_matmul(w: QuantLinear, x: torch.Tensor, out_dtype=None) -> torch.Tensor:

@@ -34,12 +34,15 @@
   (each slot owns ``ctx`` tokens) or paged (``kv_layout="paged"``: slots
   share a pool of ``max_slots * ctx`` tokens; a request reserves the pages
   for its prompt and ``max_tokens`` at admission and waits at the head of
-  the line while the pool is short)
+  the line while the pool is short); deepseek2's latent cache (one shared
+  head, k and v of different widths) is contiguous bf16 only, as in the
+  JAX engine
 - context shift (``ctx_shift``, llama-server ``--ctx-shift``, contiguous
   caches): a slot that cannot hold the next dispatch keeps its first
   positions, drops half the rest and re-ropes the moved K
   (``models.llama.shift_cache_slot``) instead of finishing at its capacity;
-  refused, as in the JAX engine, for sliding-window and longrope models
+  refused, as in the JAX engine, for MLA, sliding-window and longrope
+  models
 - slot save/restore/erase (``slot_op``, llama-server ``POST
   /slots/{id}?action=...``, contiguous caches): a free slot's kept prompt
   and its KV rows to an ``.npz`` file in the JAX engine's format and back,
@@ -218,12 +221,17 @@ class InferenceEngine:
         cfg, params, reader = load_model(model_path, self.device, fuse=True, mode=ecfg.mode,
                                          lora_path=ecfg.lora_path,
                                          lora_scale=ecfg.lora_scale, stats=self.load_stats)
-        if ecfg.ctx_shift and (cfg.sliding_window > 0 or cfg.rope_scaling_type == "longrope"):
-            # the shift re-ropes every layer with the global base and no
-            # frequency factors: wrong for sliding layers' own base and for
-            # longrope's per-dim factors
+        if cfg.is_mla and (ecfg.kv_layout != "contig" or ecfg.kv_dtype != "bf16"):
+            raise ValueError("deepseek2 (MLA) supports the contiguous bf16 "
+                             "KV layout only (k/v head dims differ)")
+        if ecfg.ctx_shift and (cfg.is_mla or cfg.sliding_window > 0
+                               or cfg.rope_scaling_type == "longrope"):
+            # the shift re-ropes every layer's whole K with the global base
+            # and no frequency factors: wrong for sliding layers' own base,
+            # for longrope's per-dim factors and for MLA's cache, whose K is
+            # only the decoupled rope dims
             raise ValueError("ctx_shift supports full-attention rope models "
-                             "only (no sliding-window / longrope)")
+                             "only (no MLA / sliding-window / longrope)")
         self.model_path = str(model_path)
         self.cfg = cfg
         self.params = params

@@ -1,4 +1,4 @@
-"""GGUF -> device parameters for the dense llama-family architectures of
+"""GGUF -> device parameters for the llama-family architectures of
 ``models.config`` (``load_model``) and the BERT-family encoders
 (``load_encoder``).
 
@@ -16,7 +16,16 @@ Norms, biases and rope factors are f32; float tensors load as bf16
 ``DenseLinear`` in either mode. Which per-layer tensors a layer holds
 follows the file, as in the JAX package's loader: a pre-fused ``attn_qkv``
 and a double-height ``ffn_up`` (phi3), biases, q/k norms and post-norms;
-a file without ``output.weight`` ties the head to the embedding. A
+a file without ``output.weight`` ties the head to the embedding.
+deepseek2's latent attention loads ``attn_q`` (or the query LoRA
+``attn_q_a``, its norm and ``attn_q_b``), ``attn_kv_a_mqa``, its norm and
+``attn_kv_b``, whose k and v halves are dequantized to dense bf16
+absorption matrices at the end (:func:`_absorb_mla`). A layer with a router
+(``ffn_gate_inp``) loads its routed experts, from the stacked
+``ffn_*_exps`` tensors (each expert cut out and cached under ``name#e``) or
+the legacy ``ffn_*.{e}`` ones, the shared experts and qwen2moe's shared
+gate; a fused load stacks each role's experts into (E, ...)-leading arrays
+(:func:`_stack_layer_experts`) and fuses no gate+up in an MoE model. A
 GGUF LoRA adapter (``lora_path``, ``runtime.lora``) wraps its weights before
 the fusion. Tensor names follow the llama.cpp GGUF export convention
 (``blk.N.attn_q`` ...).
@@ -47,7 +56,7 @@ from ..device import resolve_device
 from ..gguf.constants import GGMLType
 from ..gguf.reader import GGUFReader
 from ..models.config import ModelConfig
-from ..ops.linear import DenseLinear, LinearWeight, QuantEmbedding, fuse_linears
+from ..ops.linear import DenseLinear, LinearWeight, QuantEmbedding, QuantLinear, fuse_linears
 from ..quant.repack import repack, to_quant_linear
 
 _FLOAT_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
@@ -71,16 +80,21 @@ class _Pending:
         self.kind = kind
 
 
-def _repack(reader: GGUFReader, name: str, stats: dict):
-    """``quant.repack.repack`` of tensor ``name``, its seconds booked to the
+def _repack(reader: GGUFReader, name: str, stats: dict, expert: int | None = None):
+    """``quant.repack.repack`` of tensor ``name`` (of expert ``expert``'s
+    rows of a stacked ``ffn_*_exps`` tensor), its seconds booked to the
     native or the numpy path."""
     from .. import native
 
     info = reader.tensors[name]
-    out_f, in_f = info.shape
+    raw = reader.tensor_bytes(name)
+    out_f, in_f = info.shape[-2:]
+    if expert is not None:
+        per = info.nbytes // info.shape[0]
+        raw = raw[expert * per:(expert + 1) * per]
     before = sum(native.REPACKS.values())
     t0 = time.perf_counter()
-    rp = repack(reader.tensor_bytes(name), info.ggml_type, out_f, in_f)
+    rp = repack(raw, info.ggml_type, out_f, in_f)
     key = "native" if sum(native.REPACKS.values()) > before else "numpy"
     stats[f"repack_{key}_s"] += time.perf_counter() - t0
     stats[f"repacked_{key}"] += 1
@@ -182,6 +196,10 @@ def load_model(path: str | Path, device: str | torch.device = "cuda",
     if fuse:
         for layer in params["layers"]:
             _fuse_layer(layer, cfg)
+            _stack_layer_experts(layer)
+    if cfg.is_mla:
+        for layer in params["layers"]:
+            _absorb_mla(layer, cfg)
     _report(st, cache, dev, t_start, stats)
     return cfg, params, reader
 
@@ -314,7 +332,15 @@ def _load_params(reader: GGUFReader, cfg: ModelConfig, dev: torch.device, mode: 
             elif not (cfg.arch == "olmo2" or (cfg.arch == "command-r" and n == "ffn_norm")):
                 raise KeyError(f"{p}{n}.weight missing from GGUF "
                                f"(required for arch {cfg.arch!r})")
-        if p + "attn_qkv.weight" in t:                 # phi3 ships QKV fused
+        if p + "attn_kv_a_mqa.weight" in t:            # deepseek2's latent attention
+            names = ["attn_kv_a_mqa", "attn_kv_b"]
+            names += ["attn_q_a", "attn_q_b"] if p + "attn_q_a.weight" in t else ["attn_q"]
+            for n in names:
+                layer[n] = linear(p + n + ".weight")
+            for n in ("attn_kv_a_norm", "attn_q_a_norm"):
+                if p + n + ".weight" in t:
+                    layer[n] = _load_array(reader, p + n + ".weight", dev)
+        elif p + "attn_qkv.weight" in t:               # phi3 ships QKV fused
             layer["attn_qkv"] = linear(p + "attn_qkv.weight")
         else:
             for n in ("attn_q", "attn_k", "attn_v"):
@@ -327,7 +353,17 @@ def _load_params(reader: GGUFReader, cfg: ModelConfig, dev: torch.device, mode: 
             if p + n in t:
                 layer[n.replace(".weight", "").replace(".", "_")] = \
                     _load_array(reader, p + n, dev)
-        if not cfg.ffn_gated:                          # starcoder2: up -> act -> down
+        if cfg.is_moe and p + "ffn_gate_inp.weight" in t:
+            # routed experts (deepseek2's leading layers are dense: no router)
+            layer["ffn_gate_inp"] = linear(p + "ffn_gate_inp.weight")
+            layer["experts"] = _load_experts(reader, p, cfg, dev, mode, cache, stats)
+            if p + "ffn_gate_shexp.weight" in t:       # deepseek2, qwen2moe
+                layer["shared_experts"] = {n: linear(f"{p}{n}_shexp.weight")
+                                           for n in ("ffn_gate", "ffn_up", "ffn_down")}
+            if p + "ffn_gate_inp_shexp.weight" in t:   # qwen2moe's sigmoid gate
+                layer["shared_gate"] = linear(p + "ffn_gate_inp_shexp.weight")
+            names = ()
+        elif not cfg.ffn_gated:                        # starcoder2: up -> act -> down
             names = ("ffn_up", "ffn_down")
         elif p + "ffn_gate.weight" not in t:           # phi3: gate+up as one ffn_up
             layer["ffn_gateup"] = linear(p + "ffn_up.weight")
@@ -339,6 +375,115 @@ def _load_params(reader: GGUFReader, cfg: ModelConfig, dev: torch.device, mode: 
         layers.append(layer)
     params["layers"] = layers
     return params
+
+
+def _load_experts(reader: GGUFReader, prefix: str, cfg: ModelConfig, dev: torch.device,
+                  mode: str, cache, stats: dict) -> list[dict[str, Any]]:
+    """A layer's routed experts, a dict of ffn_gate/ffn_up/ffn_down each:
+    from the stacked ``ffn_*_exps`` tensors (each expert's rows repacked on
+    their own and cached under ``name#e``, so they ride the bulk upload),
+    or from the legacy per-expert ``ffn_*.{e}`` tensors."""
+    t = reader.tensors
+    roles = ("ffn_gate", "ffn_up", "ffn_down")
+    if prefix + "ffn_gate_exps.weight" not in t:
+        return [{n: _load_linear(reader, f"{prefix}{n}.{e}.weight", dev, mode, cache, stats)
+                 for n in roles} for e in range(cfg.n_experts)]
+    experts: list[dict[str, Any]] = [{} for _ in range(cfg.n_experts)]
+    for n in roles:
+        name = f"{prefix}{n}_exps.weight"
+        info = t[name]
+        n_exp, out_f, in_f = info.shape
+        if info.ggml_type in _FLOAT_TYPES:
+            full = reader.tensor_f32(name)
+            for e in range(n_exp):
+                experts[e][n] = DenseLinear.from_f32(full[e], dev)
+            continue
+        if mode == "dense" or cache is None:
+            for e in range(n_exp):
+                ql = to_quant_linear(_repack(reader, name, stats, e), dev)
+                experts[e][n] = ql if mode == "quant" else DenseLinear(
+                    w=ql.dequantize(torch.bfloat16), out_features=out_f, in_features=in_f)
+            continue
+        for e in range(n_exp):
+            key = f"{name}#{e}"
+            rp = None
+            if key not in cache.tensors:
+                rp = _repack(reader, name, stats, e)
+                t0 = time.perf_counter()
+                cache.put(key, rp)
+                stats["cache_write_s"] += time.perf_counter() - t0
+            else:
+                stats["cache_hits"] += 1
+            if key in cache.tensors and _bulk_enabled():
+                experts[e][n] = _Pending(key)
+                continue
+            if rp is None:
+                rp = cache.get(key)
+                rp = None if rp is None else _owned(rp)
+            experts[e][n] = to_quant_linear(rp if rp is not None
+                                            else _repack(reader, name, stats, e), dev)
+    return experts
+
+
+def stack_experts(experts: list[dict[str, Any]], role: str):
+    """One role of every expert stacked: each array gains a leading (E,)
+    axis (the JAX package's ``parallel.partition.stack_experts``; this
+    package has no ``parallel`` module yet). The experts share their
+    geometry."""
+    ws = [ex[role] for ex in experts]
+    w0 = ws[0]
+    if isinstance(w0, DenseLinear):
+        return DenseLinear(w=torch.stack([w.w for w in ws]), out_features=w0.out_features,
+                           in_features=w0.in_features)
+
+    def cat(field):
+        vals = [getattr(w, field) for w in ws]
+        return None if vals[0] is None else torch.stack(vals)
+
+    return dataclasses.replace(w0, codes=cat("codes"), d=cat("d"), sc=cat("sc"),
+                               dmin=cat("dmin"), mn=cat("mn"))
+
+
+def _stack_layer_experts(layer: dict) -> None:
+    """A layer's per-expert list as stacked (E, ...)-leading weights per
+    role (``experts_st``), the form the expert-indexed decode launch reads;
+    a list whose experts differ in geometry (or wear a LoRA) stays."""
+    if "experts" not in layer:
+        return
+
+    def geom(w):
+        if isinstance(w, DenseLinear):
+            return ("dense", tuple(w.w.shape), w.w.dtype)
+        if isinstance(w, QuantLinear):
+            return (w.fmt, w.bits, w.sub_size, w.d_size, w.code_bias, w.min_size,
+                    w.out_features, w.in_features, w.sc is None, w.dmin is None, w.mn is None)
+        return None
+
+    experts = layer["experts"]
+    for role in ("ffn_gate", "ffn_up", "ffn_down"):
+        gs = {geom(ex[role]) for ex in experts}
+        if len(gs) != 1 or None in gs:
+            return
+    st = {}
+    for role in ("ffn_gate", "ffn_up", "ffn_down"):
+        st[role] = stack_experts(experts, role)
+        for ex in experts:          # each expert's own arrays go as soon as stacked
+            del ex[role]
+    del layer["experts"]
+    layer["experts_st"] = st
+
+
+def _absorb_mla(layer: dict, cfg: ModelConfig) -> None:
+    """``attn_kv_b`` split into the dense bf16 absorption matrices of
+    ``models.llama.attention_mla``: its k half (H, dn, C) folds into the
+    queries, its v half (H, dv, C) expands the attended latent. kv_b is
+    small (C x H·(dn + dv)), so the expanded per-head K/V never reach the
+    cache."""
+    w = layer.pop("attn_kv_b").dequantize(torch.bfloat16)
+    H, dn = cfg.n_heads, cfg.qk_nope_head_dim
+    w3 = w.reshape(H, dn + cfg.v_head_dim, cfg.kv_lora_rank)
+    layer["attn_kv_b_k"] = w3[:, :dn].contiguous()
+    layer["attn_kv_b_v"] = w3[:, dn:].contiguous()
 
 
 _OPTIONAL = ("attn_q.bias", "attn_k.bias", "attn_v.bias", "attn_q_norm.weight",
@@ -377,8 +522,10 @@ def _resolve_pending(params: dict, cache, dev: torch.device, stats: dict) -> dic
 def _fuse_layer(layer: dict, cfg: ModelConfig) -> None:
     """Row-concatenate QKV (and the qwen2 Q/K/V biases) and gate+up
     projections in place (exact). Skipped where the file fused them already
-    (phi3) and for olmo2's flat q/k norms, which apply to q and k apart."""
-    if "attn_q" not in layer:
+    (phi3), for deepseek2's latent attention (no K/V projections), for
+    olmo2's flat q/k norms, which apply to q and k apart, and for gate+up in
+    an MoE model (the JAX package's rule, its dense layers included)."""
+    if "attn_q" not in layer or "attn_k" not in layer:
         return
     if "attn_q_norm" in layer and layer["attn_q_norm"].shape[-1] != cfg.head_dim:
         return
@@ -390,7 +537,7 @@ def _fuse_layer(layer: dict, cfg: ModelConfig) -> None:
             layer["attn_qkv_bias"] = torch.cat([layer.pop("attn_q_bias"),
                                                 layer.pop("attn_k_bias"),
                                                 layer.pop("attn_v_bias")])
-    if "ffn_gate" in layer:
+    if not cfg.is_moe and "ffn_gate" in layer:
         gu = fuse_linears([layer["ffn_gate"], layer["ffn_up"]])
         if gu is not None:
             layer["ffn_gateup"] = gu

@@ -8,7 +8,10 @@ embedding, a Q6_K output head, F32 norms, and a small
 SentencePiece-style vocab padded with filler pieces to the shape's vocab
 size. The ``gemma3-12b`` shape (``gemma3-tiny`` at CPU size) is written as
 llama.cpp writes a gemma3 GGUF: its keys, per-head q/k norms, post-norms, a
-Q6_K embedding and a head tied to it. Decode cost depends on the weights'
+Q6_K embedding and a head tied to it. The ``deepseek-v2-lite`` shape
+(``deepseek2-tiny`` at CPU size) is a deepseek2 GGUF: latent attention, a
+leading dense layer, stacked routed experts, shared experts, yarn
+(``_synth_deepseek2``; its quantization is fixed). Decode cost depends on the weights'
 shapes, not their values, so the file stands in for a real checkpoint of
 the same shape. A small random pool
 is quantized once per format and its wire bytes are tiled over every
@@ -35,6 +38,7 @@ llama.
 
     python -m llama_gguf_inference_tpu_torch.tools.synth --shape 8b [--quant q2_k|q5_k|iq2_xxs|...] [--layers N] [--fim] --out model.gguf
     python -m llama_gguf_inference_tpu_torch.tools.synth --shape gemma3-12b [--layers N] --out gemma3.gguf
+    python -m llama_gguf_inference_tpu_torch.tools.synth --shape deepseek-v2-lite [--layers N] --out dsv2.gguf
     python -m llama_gguf_inference_tpu_torch.tools.synth --bert [--shape bge-large] [--quant q8_0|q4_k] [--layers N] --out encoder.gguf
 """
 
@@ -76,6 +80,29 @@ SHAPES = {
                         head_dim=64, ffn_dim=512, vocab=1024, rope_base=1e6,
                         rope_local_base=1e4, rope_linear=8.0, window=16, rms_eps=1e-6,
                         context=4096),
+    # deepseek-ai/DeepSeek-V2-Lite, its config.json: hidden 2048, 27 layers,
+    # 16 heads, vocab 102400, q_lora_rank null, kv_lora_rank 512,
+    # qk_nope_head_dim 128, qk_rope_head_dim 64, v_head_dim 128, 64 routed
+    # experts of 1408 (6 a token) and 2 shared, first_k_dense_replace 1 with
+    # intermediate 10944, n_group 1, topk_group 1, norm_topk_prob false,
+    # routed_scaling_factor 1.0, rope_theta 1e4 with yarn factor 40 over
+    # 4096 (mscale_all_dim 0.707: yarn_log_multiplier 0.0707, as the JAX
+    # package's convert_hf writes it), rms_norm_eps 1e-6, head not tied,
+    # 163840 positions
+    "deepseek-v2-lite": dict(arch="deepseek2", dim=2048, n_layers=27, n_heads=16,
+                             vocab=102400, q_lora=0, kv_lora=512, qk_nope=128, qk_rope=64,
+                             v_head=128, n_experts=64, n_used=6, n_shared=2, n_dense=1,
+                             ffn_dim=10944, expert_ffn=1408, groups=(1, 1), renorm=False,
+                             routed_scale=1.0, rope_base=1e4, yarn=(40.0, 4096, 0.0707),
+                             rms_eps=1e-6, context=163840),
+    # the same layout at CPU size: 3 layers of 256 (one dense), 8 experts of
+    # 256 (2 a token, 2 shared), yarn past 64 positions
+    "deepseek2-tiny": dict(arch="deepseek2", dim=256, n_layers=3, n_heads=4, vocab=1024,
+                           q_lora=0, kv_lora=256, qk_nope=32, qk_rope=16, v_head=32,
+                           n_experts=8, n_used=2, n_shared=2, n_dense=1, ffn_dim=320,
+                           expert_ffn=256, groups=(1, 1), renorm=False, routed_scale=1.0,
+                           rope_base=1e4, yarn=(40.0, 64, 0.0707), rms_eps=1e-6,
+                           context=4096),
 }
 
 
@@ -143,6 +170,9 @@ def synth_model(path: str, shape: str = "8b", seed: int = 0, quant: str = "q4_k"
     if d.get("arch") == "gemma3":
         _synth_gemma3(w, d, shape, rng, tokens, scores, types, wq)
         return path
+    if d.get("arch") == "deepseek2":
+        _synth_deepseek2(w, d, shape, rng, tokens, scores, types)
+        return path
     w.add(Keys.ARCHITECTURE, "llama")
     w.add(Keys.NAME, f"bench-llama3-{shape}-q4km")
     w.add("llama.context_length", 8192)
@@ -201,7 +231,7 @@ def _tiler(w: GGUFWriter | None, rng: np.random.Generator):
         blk, bpb = type_block_info(t)
         nbytes = rows * cols // blk * bpb
         raw = np.tile(qp, -(-nbytes // qp.size))[:nbytes].tobytes()
-        if w is not None:
+        if w is not None and name is not None:
             w.add_raw_tensor(name, (cols, rows), t, raw)
         return raw
 
@@ -275,6 +305,96 @@ def _synth_gemma3(w: GGUFWriter, d: dict, shape: str, rng: np.random.Generator,
         add_q(p + "ffn_down.weight", dim, d["ffn_dim"], wq)
         w.add_tensor(p + "ffn_post_norm.weight", ones, GGMLType.F32)
     w.add_tensor("output_norm.weight", ones, GGMLType.F32)
+    w.write()
+
+
+def _synth_deepseek2(w: GGUFWriter, d: dict, shape: str, rng: np.random.Generator,
+                     tokens, scores, types) -> None:
+    """A deepseek2 GGUF as llama.cpp's converter writes one: the
+    ``deepseek2.*`` keys (the latent ranks and head dims, the routed,
+    shared and leading dense counts, the routing, yarn), per layer the latent
+    attention (``attn_q``, ``attn_kv_a_mqa`` and its norm, ``attn_kv_b``),
+    then a dense FFN (the leading layers) or a router, the routed experts as
+    stacked ``ffn_*_exps`` tensors and the shared ones (``ffn_*_shexp``, the
+    two as one of twice the width). Q4_K on every projection whose input is a
+    multiple of 256, else Q8_0 (the experts' and the dense layer's
+    ffn_down: llama.cpp falls back from Q4_K to Q5_0 there, from Q6_K to
+    Q8_0), a Q4_K embedding, a Q6_K head, F32 norms and routers (the routers
+    random from the seed, std 0.02)."""
+    dim, H = d["dim"], d["n_heads"]
+    dk = d["qk_nope"] + d["qk_rope"]
+    factor, orig, log_mul = d["yarn"]
+    a = "deepseek2"
+    w.add(Keys.ARCHITECTURE, a)
+    w.add(Keys.NAME, f"synth-{shape}-q4_k")
+    for key, val in (("context_length", d["context"]), ("embedding_length", dim),
+                     ("block_count", d["n_layers"]), ("feed_forward_length", d["ffn_dim"]),
+                     ("attention.head_count", H), ("attention.head_count_kv", H),
+                     ("attention.layer_norm_rms_epsilon", d["rms_eps"]),
+                     ("attention.key_length", dk), ("attention.value_length", d["v_head"]),
+                     ("attention.kv_lora_rank", d["kv_lora"]),
+                     ("rope.dimension_count", d["qk_rope"]), ("rope.freq_base", d["rope_base"]),
+                     ("rope.scaling.type", "yarn"), ("rope.scaling.factor", factor),
+                     ("rope.scaling.original_context_length", orig),
+                     ("rope.scaling.yarn_log_multiplier", log_mul),
+                     ("expert_count", d["n_experts"]), ("expert_used_count", d["n_used"]),
+                     ("expert_shared_count", d["n_shared"]),
+                     ("expert_feed_forward_length", d["expert_ffn"]),
+                     ("leading_dense_block_count", d["n_dense"]),
+                     ("expert_weights_scale", d["routed_scale"]),
+                     ("expert_weights_norm", d["renorm"]),
+                     ("expert_group_count", d["groups"][0]),
+                     ("expert_group_used_count", d["groups"][1])):
+        w.add(f"{a}.{key}", val)
+    if d["q_lora"]:
+        w.add(f"{a}.attention.q_lora_rank", d["q_lora"])
+    w.add(Keys.TOKENIZER_MODEL, "llama")
+    w.add(Keys.TOKENIZER_TOKENS, tokens)
+    w.add(Keys.TOKENIZER_SCORES, np.asarray(scores, np.float32))
+    w.add(Keys.TOKENIZER_TOKEN_TYPE, np.asarray(types, np.int32))
+    w.add(Keys.TOKENIZER_BOS, 1)
+    w.add(Keys.TOKENIZER_EOS, 2)
+    w.add(Keys.TOKENIZER_UNK, 0)
+    w.add(Keys.TOKENIZER_ADD_BOS, True)
+    add_q = _tiler(w, rng)
+
+    def proj(name, rows, cols, n_exp=0):
+        t = GGMLType.Q4_K if cols % 256 == 0 else GGMLType.Q8_0
+        if not n_exp:
+            add_q(name, rows, cols, t)
+            return
+        raw = add_q(None, n_exp * rows, cols, t)
+        w.add_raw_tensor(name, (cols, rows, n_exp), t, raw)
+
+    ones = np.ones(dim, np.float32)
+    E, F = d["n_experts"], d["expert_ffn"]
+    add_q("token_embd.weight", d["vocab"], dim, GGMLType.Q4_K)
+    for i in range(d["n_layers"]):
+        p = f"blk.{i}."
+        w.add_tensor(p + "attn_norm.weight", ones, GGMLType.F32)
+        proj(p + "attn_q.weight", H * dk, dim)
+        proj(p + "attn_kv_a_mqa.weight", d["kv_lora"] + d["qk_rope"], dim)
+        w.add_tensor(p + "attn_kv_a_norm.weight", np.ones(d["kv_lora"], np.float32),
+                     GGMLType.F32)
+        proj(p + "attn_kv_b.weight", H * (d["qk_nope"] + d["v_head"]), d["kv_lora"])
+        proj(p + "attn_output.weight", dim, H * d["v_head"])
+        w.add_tensor(p + "ffn_norm.weight", ones, GGMLType.F32)
+        if i < d["n_dense"]:
+            proj(p + "ffn_gate.weight", d["ffn_dim"], dim)
+            proj(p + "ffn_up.weight", d["ffn_dim"], dim)
+            proj(p + "ffn_down.weight", dim, d["ffn_dim"])
+            continue
+        w.add_tensor(p + "ffn_gate_inp.weight",
+                     (rng.standard_normal((E, dim)) * 0.02).astype(np.float32), GGMLType.F32)
+        proj(p + "ffn_gate_exps.weight", F, dim, E)
+        proj(p + "ffn_up_exps.weight", F, dim, E)
+        proj(p + "ffn_down_exps.weight", dim, F, E)
+        sh = d["n_shared"] * F
+        proj(p + "ffn_gate_shexp.weight", sh, dim)
+        proj(p + "ffn_up_shexp.weight", sh, dim)
+        proj(p + "ffn_down_shexp.weight", dim, sh)
+    w.add_tensor("output_norm.weight", ones, GGMLType.F32)
+    add_q("output.weight", d["vocab"], dim, GGMLType.Q6_K)
     w.write()
 
 

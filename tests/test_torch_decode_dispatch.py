@@ -21,9 +21,11 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from llama_gguf_inference_tpu.gguf import GGMLType as JGGMLType
 from llama_gguf_inference_tpu.ops import matmul_kernels as jmk
 from llama_gguf_inference_tpu.runtime import engine as jengine
 from llama_gguf_inference_tpu.runtime.sampler import SamplingParams as JParams
+from llama_gguf_inference_tpu.utils.testing import write_tiny_llama
 from llama_gguf_inference_tpu_torch.models import llama as tllama
 from llama_gguf_inference_tpu_torch.runtime import engine as tengine
 from llama_gguf_inference_tpu_torch.runtime.sampler import SamplingParams
@@ -199,12 +201,22 @@ SYNCS = [("nonzero", torch), ("nonzero", torch.Tensor), ("item", torch.Tensor),
          ("__bool__", torch.Tensor), ("__int__", torch.Tensor), ("__float__", torch.Tensor)]
 
 
-@pytest.mark.parametrize("kind", ["bf16", "q8_0", "q4_0", "q4_1", "paged-bf16", "paged-q8_0"])
-def test_forward_and_dispatch_read_nothing_back(kind, tiny_path, monkeypatch):
+@pytest.mark.parametrize("kind", ["bf16", "q8_0", "q4_0", "q4_1", "paged-bf16", "paged-q8_0",
+                                  "qwen3moe", "deepseek2"])
+def test_forward_and_dispatch_read_nothing_back(kind, tiny_path, tmp_path, monkeypatch):
     """A spy on every call that reads a tensor back to the host: a prefill
     chunk's and a decode step's forward over each cache kind, and the
     engine's decode dispatches (multi_step 4, continuations included), call
-    none of them."""
+    none of them. ``qwen3moe`` and ``deepseek2`` run the JAX package's tiny
+    MoE files (4 experts, 2 a token; deepseek2's latent attention) on the
+    bf16 cache: the routing, the expert-indexed decode path and the
+    capacity path read nothing back either."""
+    if kind in ("qwen3moe", "deepseek2"):
+        tiny_path = str(write_tiny_llama(
+            tmp_path / f"{kind}.gguf", dim=64, n_layers=2, n_heads=4,
+            n_kv_heads=4 if kind == "deepseek2" else 2, ffn_dim=128, n_experts=4,
+            n_experts_used=2, quant=JGGMLType.Q8_0, arch=kind))
+        kind = "bf16"
     paged = kind.startswith("paged")
     kv_dtype = kind.split("-")[-1]
     eng = tengine.InferenceEngine(tiny_path, tengine.EngineConfig(
@@ -235,9 +247,11 @@ def test_forward_and_dispatch_read_nothing_back(kind, tiny_path, monkeypatch):
     if paged:
         eng.cache.page_table[0, 0] = 1
     with torch.inference_mode():
-        armed_call(tllama.forward)(eng.params, eng.cfg, torch.ones((1, 16), dtype=torch.int32),
-                                   torch.zeros(1, dtype=torch.int32), eng.cache.slot(0),
-                                   logits_at=torch.tensor([5]))
+        for T in (16, 17):      # the expert-indexed and the capacity path
+            armed_call(tllama.forward)(eng.params, eng.cfg,
+                                       torch.ones((1, T), dtype=torch.int32),
+                                       torch.zeros(1, dtype=torch.int32), eng.cache.slot(0),
+                                       logits_at=torch.tensor([5]))
         armed_call(tllama.forward)(eng.params, eng.cfg, torch.ones((2, 1), dtype=torch.int32),
                                    torch.tensor([16, 0], dtype=torch.int32), eng.cache)
     assert calls == []

@@ -228,13 +228,18 @@ def test_rope_scaling_matches_jax():
 
 
 def test_config_rejects_other_architectures():
-    """The MoE and latent-attention files still raise, naming what they ask
-    for: qwen2moe and deepseek2 by architecture, a llama file with experts
-    (mixtral) by its expert count."""
+    """An architecture the graph does not build raises, naming it (mamba,
+    rwkv6); the MoE and latent-attention files, refused until the port built
+    them, are taken: qwen2moe, deepseek2 and a llama file with experts
+    (mixtral)."""
     from llama_gguf_inference_tpu_torch.models.config import ModelConfig
-    for arch in ("qwen2moe", "deepseek2"):
+    for arch in ("mamba", "rwkv6"):
         with pytest.raises(ValueError, match=arch):
             ModelConfig.from_gguf_metadata({"general.architecture": arch})
-    with pytest.raises(ValueError, match="MoE"):
-        ModelConfig.from_gguf_metadata({"general.architecture": "llama",
-                                        "llama.expert_count": 8})
+    for arch in ("qwen2moe", "deepseek2", "llama"):
+        md = {"general.architecture": arch, f"{arch}.embedding_length": 64,
+              f"{arch}.attention.head_count": 4, f"{arch}.block_count": 2,
+              f"{arch}.feed_forward_length": 128, f"{arch}.vocab_size": 256,
+              f"{arch}.expert_count": 8, f"{arch}.expert_used_count": 2}
+        cfg = ModelConfig.from_gguf_metadata(md)
+        assert cfg.is_moe and cfg.is_mla == (arch == "deepseek2")

@@ -202,3 +202,28 @@ def test_restored_claim_is_capped(tiny_path, tmp_path):
     with pytest.raises(ValueError, match="exceeds the slot capacity"):
         np.savez(tmp_path / "too_long.npz", **{**fields, "ids": np.zeros(CTX + 1, np.int32)})
         fresh.slot_op("restore", 0, str(tmp_path / "too_long.npz"))
+
+
+def test_deepseek2_slot_and_prefix_round_trip(tmp_path):
+    """deepseek2's latent cache (one shared head, k 8 wide and v 32): a
+    greedy run, the same prompt again from the slot's kept prefix, and the
+    slot saved and restored into a fresh engine give the same tokens; the
+    file holds each field at its own width."""
+    from llama_gguf_inference_tpu.gguf import GGMLType as JGGMLType
+    from llama_gguf_inference_tpu.utils.testing import write_tiny_llama
+    path = str(write_tiny_llama(tmp_path / "ds2.gguf", dim=64, n_layers=2, n_heads=4,
+                                n_kv_heads=4, ffn_dim=128, n_experts=4, n_experts_used=2,
+                                quant=JGGMLType.Q8_0, arch="deepseek2"))
+    a = _port(path)
+    first = _run(a)
+    again = _run(a)
+    assert a.total_prefix_reused == len(a.tokenizer.encode(PROMPT)) - 1
+    b = _slot_of(a)
+    n = len(a.slots[b].cached_ids)
+    a.slot_op("save", b, str(tmp_path / "ds2.npz"))
+    with np.load(tmp_path / "ds2.npz") as f:
+        assert f["k"].shape == (2, 1, n, 8) and f["v"].shape == (2, 1, n, 32)
+    fresh = _port(path)
+    assert fresh.slot_op("restore", 1, str(tmp_path / "ds2.npz"))["n_restored"] == n
+    got = _run(fresh)
+    assert got == again == first
